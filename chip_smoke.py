@@ -1,0 +1,491 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA Hopper GPU (sm_90a).
+
+    python3 chip_smoke.py                      # every phase, as a CI gate
+    python3 chip_smoke.py --profile --json smoke_report.json
+
+Phases, in order; any failure raises, so the script exits non-zero and
+prints no ``ok`` line:
+  1. environment: Python/torch/CUDA versions, device capability 9.0, the
+     card's name and power limit (nvidia-smi);
+  2. build of the hand-written kernels (sonicdiffusionbayeslab_torch/ops/csrc);
+  3. each kernel against its plain PyTorch version, in bf16 and fp32 (TF32
+     off), at every shape either main-path run gives it (found by running
+     the SD-1.5 UNet and VAE decoder on the meta device), within stated
+     tolerances, plus strided q/k/v views;
+  4. bf16 device times at the whole-batch run's shapes (CUDA graphs timed
+     with CUDA events): the kernel, its plain version and one PyTorch
+     library call as a yardstick, beside the bound from the work's bytes
+     and operations;
+  5. the main path: SD-1.5 text-to-image at full width on random bf16
+     weights, 512x512, 20-step DPM-Solver++ (order 2), CFG 7.5, batch 2,
+     through StableDiffusionModel, once whole and once with
+     unet_microbatch=2, with each kernel's launches counted per run (and a
+     tiny fp32 run on the card held against the same run on the CPU first);
+     with --profile, a torch.profiler breakdown of the denoising loop;
+  6. the card line, then one JSON ``kernels`` line;
+  7. the last line: {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+BATCH, STEPS, GUIDANCE, SIZE = 2, 20, 7.5, 512
+PROMPTS = ["a photograph of an astronaut riding a horse",
+           "a lighthouse on a cliff at sunset, oil painting"]
+# |kernel - plain| <= atol + rtol * |plain|, elementwise.  fp32: both sides
+# compute in fp32 and differ in summation order and the kernel's fast exp;
+# bf16: outputs round to bf16 (relative spacing 2^-8), and attention rounds
+# P to bf16 before P.V at another point than the plain version (unnormalised
+# in the kernel, normalised in the plain version).
+TOL = {
+    ("attention", torch.float32): (2e-5, 1e-4),
+    ("attention", torch.bfloat16): (1e-2, 2e-2),
+    ("group_norm", torch.float32): (1e-4, 1e-4),
+    ("group_norm", torch.bfloat16): (2e-3, 1e-2),
+}
+KERNELS = {
+    "attention": dict(name="flash_attention", route="cuda",
+                      source="sonicdiffusionbayeslab_torch/ops/csrc/flash_attention.cu",
+                      replaces="sonicdiffusionbayeslab_tpu/ops/flash_attention.py:52"),
+    "group_norm": dict(name="group_norm_silu", route="cuda",
+                       source="sonicdiffusionbayeslab_torch/ops/csrc/groupnorm.cu",
+                       replaces="sonicdiffusionbayeslab_tpu/ops/groupnorm.py:27"),
+}
+
+
+def phase(name):
+    print(f"== {name}", flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[torch.cuda.current_device()] if out else ""
+
+
+def cuda_ms(fn, reps=20) -> float:
+    """Device milliseconds of one ``fn()``: ``reps`` calls captured in one
+    CUDA graph, replayed between two CUDA events, median of 5 replays over
+    ``reps``.  The graph takes the host's launch cost out, so a small
+    kernel's time is its device time; inputs stay in L2 where they fit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as graphs need
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def compare(kind, dtype, got, want, what):
+    atol, rtol = TOL[(kind, dtype)]
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    err = (g - w).abs()
+    excess = (err - (atol + rtol * w.abs())).max().item()
+    max_abs = err.max().item()
+    if excess > 0:
+        raise AssertionError(f"{what}: max abs err {max_abs:.3e} exceeds atol {atol} + rtol {rtol}")
+    return max_abs
+
+
+# ------------------------------------------------------------------ census
+def census(unet_batch):
+    """{(kind, shape): launches} of one main-path run whose UNet calls see
+    ``unet_batch`` rows, and the launches per UNet forward and per VAE
+    decode, from the SD-1.5 UNet and VAE decoder run on the meta device
+    with the two kernel entry points replaced by shape recorders."""
+    from sonicdiffusionbayeslab_torch.models import layers
+    from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
+    from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
+    from sonicdiffusionbayeslab_torch.ops.attention import uses_kernel
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import resolve_groups
+
+    unet_calls, vae_calls = collections.Counter(), collections.Counter()
+    calls = unet_calls
+
+    def gn(x, weight, bias, groups=32, eps=1e-5, silu=True):
+        B, C = x.shape[0], x.shape[-1]
+        calls[("group_norm", (B, x.numel() // (B * C), C, resolve_groups(C, groups), eps, silu))] += 1
+        return torch.empty_like(x)
+
+    def attn(q, k, v, mask=None):
+        if uses_kernel(q, mask):
+            B, N, H, D = q.shape
+            calls[("attention", (B, N, k.shape[1], H, D))] += 1
+        return torch.empty_like(q)
+
+    saved = layers.group_norm_silu, layers.dot_product_attention
+    layers.group_norm_silu, layers.dot_product_attention = gn, attn
+    try:
+        lat = SIZE // 8
+        with torch.device("meta"):
+            UNet2DCondition(UNetConfig.sd15())(torch.empty(unet_batch, lat, lat, 4),
+                                               torch.empty(unet_batch),
+                                               torch.empty(unet_batch, 77, 768))
+            calls = vae_calls
+            AutoencoderKL(VAEConfig.sd15()).decode(torch.empty(BATCH, lat, lat, 4))
+    finally:
+        layers.group_norm_silu, layers.dot_product_attention = saved
+    run = collections.Counter({k: STEPS * n for k, n in unet_calls.items()})
+    run.update(vae_calls)
+    per_unet = collections.Counter()
+    for (kind, _), n in unet_calls.items():
+        per_unet[kind] += n
+    per_vae = collections.Counter()
+    for (kind, _), n in vae_calls.items():
+        per_vae[kind] += n
+    return run, per_unet, per_vae
+
+
+# ------------------------------------------------------------ inputs, work
+def attn_inputs(shape, dtype, gen):
+    B, N, M, H, D = shape
+    mk = lambda L: torch.randn(B, L, H, D, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    return mk(N), mk(M), mk(M)
+
+
+def gn_inputs(shape, dtype, gen):
+    B, N, C = shape[:3]
+    x = (torch.randn(B, N, C, generator=gen, device="cuda") * 3 + 1).to(dtype)
+    w = (torch.randn(C, generator=gen, device="cuda") * 0.5 + 1).to(dtype)
+    b = (torch.randn(C, generator=gen, device="cuda") * 0.5).to(dtype)
+    return x, w, b
+
+
+def bound(kind, shape, dtype):
+    """(least ms, "operations" | "bytes") for the work at ``shape``: each
+    input read once, each output written once, at HBM rate; operations at
+    the peak rate for their type (tensor-core bf16 for attention's two
+    products, plain fp32 for GroupNorm's ~10 operations per element)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    if kind == "attention":
+        B, N, M, H, D = shape
+        ops, peak = 4 * B * H * N * M * D, PEAK_FLOPS[dtype]
+        nbytes = (2 * B * N * H * D + 2 * B * M * H * D) * size
+    else:
+        B, N, C, _, _, silu = shape
+        ops, peak = (10 if silu else 6) * B * N * C, PEAK_FLOPS[torch.float32]
+        nbytes = (2 * B * N * C + 2 * C) * size
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def run_kernel(kind, shape, inputs):
+    from sonicdiffusionbayeslab_torch.ops.attention import plain_attention
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import group_norm_silu, plain_group_norm
+
+    if kind == "attention":
+        q, k, v = inputs
+        return (lambda: flash_attention(q, k, v)), (lambda: plain_attention(q, k, v))
+    _, _, _, G, eps, silu = shape
+    x, w, b = inputs
+    return (lambda: group_norm_silu(x, w, b, G, eps, silu),
+            lambda: plain_group_norm(x, w, b, G, eps, silu))
+
+
+def library_call(kind, shape, inputs):
+    """One PyTorch call computing the same function (yardstick only)."""
+    import torch.nn.functional as F
+
+    if kind == "attention":
+        q, k, v = (t.transpose(1, 2) for t in inputs)
+        return lambda: F.scaled_dot_product_attention(q, k, v)
+    B, N, C, G, eps, silu = shape
+    x, w, b = inputs
+    xn = x.reshape(B, N, 1, C).permute(0, 3, 1, 2)  # NCHW view, channels_last strides
+    if silu:
+        return lambda: F.silu(F.group_norm(xn, G, w, b, eps))
+    return lambda: F.group_norm(xn, G, w, b, eps)
+
+
+def check_kernels(shapes, report):
+    from sonicdiffusionbayeslab_torch.ops.attention import plain_attention
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for kind, shape in shapes:
+            inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
+            kern, plain = run_kernel(kind, shape, inputs)
+            got = kern()
+            torch.cuda.synchronize()
+            err = compare(kind, dtype, got, plain(), f"{kind} {shape} {dtype}")
+            report[kind]["errs"][dtype].append(err)
+            print(f"{kind} {str(dtype)[6:]} {shape}: max abs err {err:.3e}")
+            del inputs, got
+        # Non-contiguous views of one fused [B, N, 3, H, D] projection with a
+        # ragged N = M: the same bits as contiguous inputs.
+        qkv = torch.randn(2, 1000, 3, 8, 40, generator=gen, device="cuda").to(dtype)
+        q, k, v = qkv.unbind(2)
+        got = flash_attention(q, k, v)
+        if not torch.equal(got, flash_attention(q.contiguous(), k.contiguous(), v.contiguous())):
+            raise AssertionError("attention: strided views differ from contiguous inputs")
+        err = compare("attention", dtype, got, plain_attention(q, k, v), "strided attention")
+        print(f"attention {str(dtype)[6:]} strided q/k/v views, N=M=1000: max abs err {err:.3e}")
+
+
+def time_kernels(shapes, run_counts, report):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dtype = torch.bfloat16
+    rows = []
+    for kind, shape in shapes:
+        inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
+        kern, plain = run_kernel(kind, shape, inputs)
+        b_ms, b_by = bound(kind, shape, dtype)
+        row = dict(kernel=kind, shape=list(shape), launches_per_run=run_counts[(kind, shape)],
+                   ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                   library_ms=cuda_ms(library_call(kind, shape, inputs)),
+                   bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        print("timing " + json.dumps(row), flush=True)
+        del inputs
+    for r in rows:  # totals over one main-path run: per-shape time x launches
+        agg = report[r["kernel"]]
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            agg[key] += r[key] * r["launches_per_run"]
+        agg["bound_by_ms"][r["bound_by"]] += r["bound_ms"] * r["launches_per_run"]
+    return rows
+
+
+# --------------------------------------------------------------- main path
+def tiny_card_vs_cpu():
+    """The tiny fp32 pipeline on the card (kernels) against the same weights
+    and seed on the CPU (plain versions)."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+
+    cpu = StableDiffusionModel(tiny=True, dtype="float32", seed=0, device="cpu")
+    card = StableDiffusionModel(tiny=True, dtype="float32", seed=0, device="cuda")
+    card.engine.load_state_dicts({k: m.state_dict() for k, m in
+                                  zip(("unet", "vae", "text"), cpu.engine.modules())})
+    kw = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, seed=29)
+    a = cpu(["a lighthouse at dusk", "a red boat"], **kw)[0]
+    b = card(["a lighthouse at dusk", "a red boat"], **kw)[0]
+    err = float(np.abs(a - b).max())
+    # fp32 both sides with TF32 off; 20 CFG-amplified steps of summation-order
+    # differences (cuDNN vs oneDNN convs, kernels vs plain versions).
+    print(f"tiny fp32 pipeline, card vs CPU: max abs image err {err:.3e} (tolerance 1e-3)")
+    if not err <= 1e-3:
+        raise AssertionError("the tiny pipeline on the card disagrees with the CPU")
+
+
+def run_main_path(report, per_unet, per_vae, card, profile):
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import group_norm_silu
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tiny_card_vs_cpu()
+    torch.backends.cudnn.allow_tf32 = True  # bf16 main path: TF32 is not used anyway
+
+    t0 = time.perf_counter()
+    model = StableDiffusionModel(image_size=SIZE, tiny=False, dtype="bfloat16", seed=0,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    report["e2e"]["init_s"] = time.perf_counter() - t0
+    print(f"SD-1.5 random bf16 init on the card: {report['e2e']['init_s']:.2f} s")
+    kw = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, seed=29)
+    model(PROMPTS, num_inference_steps=2, guidance_scale=GUIDANCE, seed=29)  # warm-up
+
+    images = {}
+    for mb in (None, 2):
+        flash_attention.launches = 0
+        group_norm_silu.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        imgs, exec_time, _ = model(PROMPTS, unet_microbatch=mb, **kw)
+        wall = time.perf_counter() - t0
+        counts = {"attention": flash_attention.launches, "group_norm": group_norm_silu.launches}
+        images[mb] = imgs
+        if imgs.shape != (BATCH, SIZE, SIZE, 3) or not np.isfinite(imgs).all():
+            raise AssertionError(f"bad images: shape {imgs.shape}")
+        if imgs.min() < 0 or imgs.max() > 1:
+            raise AssertionError("images outside [0, 1]")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"main path unet_microbatch={mb}: execution_time {exec_time:.4f} s "
+              f"({exec_time / BATCH:.4f} s/image, {3600 * BATCH / exec_time:.1f} images/hour, "
+              f"denoising loop only); whole call {wall:.4f} s; peak memory {peak_gb:.2f} GB; "
+              f"{card}; launches {counts}")
+        # Each UNet forward and VAE decode launches what the census counted.
+        want = {k: STEPS * (mb or 1) * per_unet[k] + per_vae[k] for k in KERNELS}
+        if counts != want or min(counts.values()) <= 0:
+            raise AssertionError(f"launches {counts}, expected {want}")
+        e2e = dict(execution_time_s=exec_time, sec_per_image=exec_time / BATCH,
+                   images_per_hour=3600 * BATCH / exec_time, call_s=wall, peak_gb=peak_gb,
+                   launches=counts)
+        report["e2e"]["microbatch_2" if mb else "whole_batch"] = e2e
+        if mb is None:
+            for kind, n in counts.items():
+                report[kind]["launches"] = n
+    diff = float(np.abs(images[None] - images[2]).max())
+    # Chunking changes the batch of every conv and matmul, so cuDNN/cuBLAS
+    # may pick other algorithms; bf16 over 20 steps differs by a few 1/255.
+    print(f"unet_microbatch=2 vs whole batch: max abs image diff {diff:.3e} (tolerance 5e-2)")
+    if not diff <= 5e-2:
+        raise AssertionError("unet_microbatch=2 changed the images")
+    report["e2e"]["microbatch_max_abs_diff"] = diff
+    if profile:
+        report["profile"] = profile_loop(model)
+
+
+def profile_loop(model):
+    """Device time by kernel group over one 20-step denoising loop (UNet
+    forwards at the model batch, CFG combine, scheduler rows; no decode),
+    from torch.profiler, per step, beside the loop's wall clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = model.engine
+    plan = model.build_plan(STEPS)
+    emb = eng.encode_prompts(model.tokenizer(PROMPTS))
+    neg = eng.encode_prompts(model.tokenizer([""] * BATCH))
+    kw = dict(guidance_scale=GUIDANCE, latent_hw=(SIZE // 8, SIZE // 8), decode=False)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loop_s = eng.sample(plan, emb, neg, **kw).execution_time
+    by_name = collections.Counter()
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if dev_us and e.key and not e.key.startswith(("aten::", "cuda", "Profiler")):
+            by_name[e.key] += dev_us / 1e3 / STEPS
+    groups = collections.Counter()
+    for k, v in by_name.items():
+        low = k.lower()
+        if "flash_fwd_kernel" in k:
+            groups["flash_attention (ours)"] += v
+        elif "gn_stats_kernel" in k or "gn_apply_kernel" in k:
+            groups["group_norm_silu (ours)"] += v
+        elif "fprop" in low or "conv" in low:
+            groups["convolutions (cuDNN)"] += v
+        elif any(w in low for w in ("gemm", "nvjet", "cutlass", "cublas")):
+            groups["matmuls (cuBLAS)"] += v
+        elif "layer_norm" in low:
+            groups["layer_norm"] += v
+        else:
+            groups["elementwise and copies"] += v
+    device_ms = sum(by_name.values())
+    step_ms = loop_s * 1e3 / STEPS  # profiler on: the loop runs slower than unprofiled
+    out = dict(step_wall_ms=step_ms, step_device_ms=device_ms,
+               device_idle_share=max(0.0, 1 - device_ms / step_ms) if device_ms else None,
+               groups_ms_per_step=dict(groups.most_common()),
+               top_kernels_ms_per_step={k[:120]: v for k, v in by_name.most_common(12)})
+    print("profile " + json.dumps(out))
+    if not device_ms:
+        print("profile: torch.profiler reported no device time (not measured)")
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile the denoising loop with torch.profiler")
+    ap.add_argument("--json", default=None, help="write the full report to this path")
+    args = ap.parse_args()
+
+    phase("1. environment")
+    if not torch.cuda.is_available():
+        print("no CUDA device: this script needs a GPU", file=sys.stderr)
+        sys.exit(1)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
+    cap = torch.cuda.get_device_capability(0)
+    print(f"device {torch.cuda.get_device_name(0)}, capability {cap}")
+    if cap != (9, 0):
+        raise AssertionError(f"the kernels are built for sm_90a; device capability is {cap}")
+    card = card_line()
+    print(card)
+
+    phase("2. kernel build")
+    from sonicdiffusionbayeslab_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.kernels()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+
+    # The whole-batch run's UNet sees the CFG-doubled batch; the
+    # unet_microbatch=2 run sees chunks of BATCH rows.
+    run_counts, per_unet, per_vae = census(2 * BATCH)
+    chunk_counts = census(BATCH)[0]
+    order = lambda ks: (ks[0], [str(v) for v in ks[1]])  # noqa: E731
+    shapes = sorted(run_counts, key=order)
+    check_shapes = sorted(set(run_counts) | set(chunk_counts), key=order)
+    print(f"main path per UNet forward: {dict(per_unet)}; per VAE decode: {dict(per_vae)}; "
+          f"{len(check_shapes)} distinct kernel shapes over both runs")
+    report = {k: {"errs": {torch.bfloat16: [], torch.float32: []}, "launches": None,
+                  "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                  "bound_by_ms": collections.Counter()} for k in KERNELS}
+    report["e2e"] = {}
+
+    phase("3. kernels against their plain versions, at the main path's shapes")
+    check_kernels(check_shapes, report)
+
+    phase("4. timings (bf16; CUDA graph of 20 calls between CUDA events, median of 5)")
+    rows = time_kernels(shapes, run_counts, report)
+
+    phase(f"5. main path: SD-1.5 {SIZE}x{SIZE}, {STEPS}-step DPM-Solver++ (order 2), "
+          f"CFG {GUIDANCE}, batch {BATCH}")
+    run_main_path(report, per_unet, per_vae, card, args.profile)
+
+    phase("6. kernels")
+    kernels = []
+    for kind, meta in KERNELS.items():
+        r = report[kind]
+        kernels.append({
+            **meta,
+            "launches": r["launches"],
+            "max_abs_err": max(r["errs"][torch.bfloat16]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": max(r["bound_by_ms"], key=r["bound_by_ms"].get),
+            "library_ms": r["library_ms"],
+            "max_abs_err_fp32": max(r["errs"][torch.float32]),
+            "totals_over": "one main-path run: per-shape median x launches at that shape",
+        })
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(
+            {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+             "kernels": kernels, "timings": rows, "e2e": report["e2e"],
+             "profile": report.get("profile")}, indent=1))
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,240 @@
+"""Building blocks of the SD model stack in PyTorch.
+
+Counterparts of ``sonicdiffusionbayeslab_tpu/models/layers.py`` (the main
+path's blocks).  Conventions:
+
+* Activations are channels-last at every block boundary, [B, H, W, C] maps
+  and [B, N, C] tokens, as in the JAX package.  A conv sees the map through
+  ``permute(0, 3, 1, 2)``, an NCHW view with channels_last strides, so
+  cuDNN runs it in NHWC and its output permutes back without a copy.
+* Parameters carry diffusers state-dict names and torch layouts (OIHW
+  convs, [out, in] linears); SD-1.5's transformer ``proj_in``/``proj_out``
+  are 1x1 convs applied to the token matrix as linears.
+* Each module computes in its parameters' dtype; GroupNorm statistics and
+  the softmax run in fp32.
+* GroupNorm goes through ``ops.groupnorm.group_norm_silu`` and attention
+  through ``ops.attention.dot_product_attention``: the hand-written CUDA
+  kernels on a CUDA tensor, their plain versions on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sonicdiffusionbayeslab_torch.ops.attention import dot_product_attention
+from sonicdiffusionbayeslab_torch.ops.groupnorm import group_norm_silu
+
+
+def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """Apply an NCHW ``nn.Conv2d`` to a channels-last [B, H, W, C] map."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding, [B] -> [B, dim] fp32, cos before sin."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=timesteps.device) / half)
+    args = timesteps.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedMLP(nn.Module):
+    """time_embedding: Linear -> SiLU -> Linear (diffusers TimestepEmbedding)."""
+
+    def __init__(self, in_dim: int, dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, dim)
+        self.linear_2 = nn.Linear(dim, dim)
+
+    def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(t_emb)))
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over the last (channel) axis with fp32 statistics and an
+    optional fused SiLU; ``gcd(C, groups)`` groups when C does not divide."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5, silu: bool = False):
+        super().__init__()
+        self.num_groups, self.eps, self.silu = num_groups, eps, silu
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm_silu(x, self.weight, self.bias, self.num_groups, self.eps, self.silu)
+
+
+class ResnetBlock(nn.Module):
+    """GN+SiLU -> conv3x3 -> (+time) -> GN+SiLU -> conv3x3, plus the skip.
+    ``temb_dim=None`` drops the time projection (the VAE's resnets)."""
+
+    def __init__(self, in_channels: int, out_channels: int, temb_dim: Optional[int] = None,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.norm1 = GroupNorm(in_channels, eps=eps, silu=True)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = nn.Linear(temb_dim, out_channels) if temb_dim is not None else None
+        self.norm2 = GroupNorm(out_channels, eps=eps, silu=True)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor, t_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = conv_nhwc(self.conv1, self.norm1(x))
+        if t_emb is not None:
+            h = h + self.time_emb_proj(F.silu(t_emb))[:, None, None, :]
+        h = conv_nhwc(self.conv2, self.norm2(h))
+        if self.conv_shortcut is not None:
+            x = conv_nhwc(self.conv_shortcut, x)
+        return x + h
+
+
+class Attention(nn.Module):
+    """Multi-head attention over [B, N, C] with an optional cross context;
+    bias-free q/k/v projections, biased output projection."""
+
+    def __init__(self, query_dim: int, num_heads: int, head_dim: int,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        inner = num_heads * head_dim
+        self.num_heads, self.head_dim = num_heads, head_dim
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = x if context is None else context
+        B, N, _ = x.shape
+        M = ctx.shape[1]
+        q = self.to_q(x).view(B, N, self.num_heads, self.head_dim)
+        k = self.to_k(ctx).view(B, M, self.num_heads, self.head_dim)
+        v = self.to_v(ctx).view(B, M, self.num_heads, self.head_dim)
+        o = dot_product_attention(q, k, v, mask=mask)
+        return self.to_out[0](o.reshape(B, N, -1))
+
+
+class _GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)  # exact erf GELU, as diffusers' GEGLU
+
+
+class GEGLUFeedForward(nn.Module):
+    """GEGLU feed-forward with 4x widening (diffusers ``ff.net.{0,2}``)."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.ModuleList([_GEGLU(dim, dim * mult), nn.Identity(),
+                                  nn.Linear(dim * mult, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.net:
+            x = layer(x)
+        return x
+
+
+class TransformerBlock(nn.Module):
+    """LN -> self-attn -> LN -> cross-attn -> LN -> GEGLU FF, pre-norm residuals."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, num_heads, head_dim)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn2 = Attention(dim, num_heads, head_dim, context_dim=context_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = GEGLUFeedForward(dim)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context=context)
+        return x + self.ff(self.norm3(x))
+
+
+class SpatialTransformer(nn.Module):
+    """Transformer2D over a [B, H, W, C] map: GN -> proj_in -> blocks ->
+    proj_out, plus the residual.  proj_in/out are 1x1 convs (SD-1.5)."""
+
+    def __init__(self, channels: int, num_heads: int, head_dim: int, context_dim: int,
+                 depth: int = 1):
+        super().__init__()
+        self.norm = GroupNorm(channels, eps=1e-6)  # diffusers Transformer2DModel eps
+        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.transformer_blocks = nn.ModuleList(
+            [TransformerBlock(channels, num_heads, head_dim, context_dim) for _ in range(depth)])
+        self.proj_out = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        h = self.norm(x).reshape(B, H * W, C)
+        h = F.linear(h, self.proj_in.weight.flatten(1), self.proj_in.bias)
+        for block in self.transformer_blocks:
+            h = block(h, context)
+        h = F.linear(h, self.proj_out.weight.flatten(1), self.proj_out.bias)
+        return h.reshape(B, H, W, C) + x
+
+
+class Level(nn.Module):
+    """One diffusers down/up/mid block: ``resnets``, ``attentions`` and a
+    resampler list, each present only where the geometry has it."""
+
+    def __init__(self, resnets, attentions=(), resamplers=(), resampler_name=None):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        if attentions:
+            self.attentions = nn.ModuleList(attentions)
+        if resamplers:
+            setattr(self, resampler_name, nn.ModuleList(resamplers))
+
+
+class Downsample(nn.Module):
+    """Strided 3x3 conv with symmetric padding 1 (the UNet's downsamplers)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_nhwc(self.conv, x)
+
+
+class Upsample(nn.Module):
+    """Nearest 2x resize + 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        x = x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(B, 2 * H, 2 * W, C)
+        return conv_nhwc(self.conv, x)
+
+
+class AttnBlock2D(Attention):
+    """Single-head spatial self-attention of the VAE mid block (diffusers
+    names: ``group_norm``, ``to_q``/``to_k``/``to_v``, ``to_out.0``)."""
+
+    def __init__(self, channels: int, num_heads: int = 1):
+        super().__init__(channels, num_heads, channels // num_heads)
+        self.group_norm = GroupNorm(channels, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        h = super().forward(self.group_norm(x).reshape(B, H * W, C))
+        return x + h.reshape(B, H, W, C)

@@ -1,0 +1,215 @@
+"""The sampling engine: text encode, the denoising loop around the UNet,
+and the VAE decode.
+
+Counterpart of ``sonicdiffusionbayeslab_tpu/models/sampler.py::
+StableDiffusionEngine`` on the text-to-image path.  The JAX engine scans a
+jitted body over the plan's rows; here the loop is plain Python over the
+same rows, each step one UNet call (chunked when ``microbatch`` > 1), the
+CFG combine and one ``apply_row`` in fp32.  ``execution_time`` is the wall
+clock of the denoising loop alone, with the device synchronised on both
+sides (the reference's timing contract).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+from sonicdiffusionbayeslab_torch.models.layers import GroupNorm
+from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
+from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
+from sonicdiffusionbayeslab_torch.schedulers.plan import SamplePlan
+from sonicdiffusionbayeslab_torch.schedulers.runtime import apply_row, init_carry, plan_rows, row
+from sonicdiffusionbayeslab_torch.utils.device import resolve_device, synchronize
+from sonicdiffusionbayeslab_torch.utils.rng import per_sample_latents
+
+# Probability mass of a standard normal inside [-2, 2], as the bounds of
+# the uniform draw that inverse-CDF sampling turns into a truncated normal.
+_TRUNC_LO = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0
+_TRUNC_HI = (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
+# Flax's lecun_normal draws from N(0, 1) truncated to [-2, 2] and divides
+# by this constant, the standard deviation of that truncated normal.
+_TRUNC_STD = 0.87962566103423978
+
+
+@dataclasses.dataclass
+class SampleOutput:
+    images: Optional[torch.Tensor]  # [B, H, W, 3] in [0, 1], fp32
+    execution_time: float  # denoising-loop seconds
+    x0_images: Optional[torch.Tensor]  # [S, n, H, W, 3]: per-step x0 decodes
+    latents: torch.Tensor  # final latents [B, h, w, 4], fp32
+    nfe: int
+
+
+def _lecun_truncated_(p: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """Flax's ``lecun_normal``: N(0, 1/fan_in) truncated at two standard
+    deviations (of the untruncated normal it is rescaled from)."""
+    u = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    u.uniform_(2 * _TRUNC_LO - 1, 2 * _TRUNC_HI - 1, generator=gen)
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    p.copy_(u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std))
+
+
+def _normal_(p: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    u = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    p.copy_(u.normal_(0.0, std, generator=gen))
+
+
+@torch.no_grad()
+def init_module(module: nn.Module, gen: torch.Generator) -> None:
+    """Random init with the JAX package's initializer families: linear and
+    conv kernels lecun-normal, biases zero, norm scales one, token
+    embeddings N(0, 1/features), CLIP position embeddings N(0, 0.01^2)."""
+    for name, m in module.named_modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            _lecun_truncated_(m.weight, m.weight[0].numel(), gen)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (GroupNorm, nn.LayerNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            std = 0.01 if name.endswith("position_embedding") else m.embedding_dim ** -0.5
+            _normal_(m.weight, std, gen)
+
+
+class StableDiffusionEngine:
+    """Owns the three modules on one device; parameters are initialised
+    with :meth:`init_params` or loaded with :meth:`load_state_dicts`."""
+
+    def __init__(
+        self,
+        unet_config: UNetConfig = None,
+        vae_config: VAEConfig = None,
+        text_config: CLIPTextConfig = None,
+        dtype: torch.dtype = torch.bfloat16,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.unet_config = unet_config or UNetConfig.sd15()
+        self.vae_config = vae_config or VAEConfig.sd15()
+        self.text_config = text_config or CLIPTextConfig.sd15()
+        with torch.device(self.device):
+            self.unet = UNet2DCondition(self.unet_config)
+            self.vae = AutoencoderKL(self.vae_config)
+            self.text = CLIPTextModel(self.text_config)
+        for m in self.modules():
+            m.requires_grad_(False).eval()
+            # Conv weights in channels_last, matching the NHWC activations.
+            m.to(dtype=dtype, memory_format=torch.channels_last)
+
+    def modules(self) -> Tuple[nn.Module, nn.Module, nn.Module]:
+        return self.unet, self.vae, self.text
+
+    # ------------------------------------------------------------- params
+    def init_params(self, seed: int = 0) -> "StableDiffusionEngine":
+        """Deterministic random init on the engine's device."""
+        for i, m in enumerate(self.modules()):
+            state = np.random.SeedSequence([int(seed), i]).generate_state(1, np.uint64)[0]
+            gen = torch.Generator(device=self.device).manual_seed(int(state) & (2**63 - 1))
+            init_module(m, gen)
+        return self
+
+    def load_state_dicts(self, sds: dict) -> "StableDiffusionEngine":
+        """``{"unet", "vae", "text"}`` state dicts (e.g. from
+        ``weights.state_dicts_from_jax``), loaded strictly."""
+        for key, m in zip(("unet", "vae", "text"), self.modules()):
+            m.load_state_dict(sds[key], strict=True)
+        return self
+
+    # ------------------------------------------------------ encode / decode
+    @torch.inference_mode()
+    def encode_prompts(self, input_ids: np.ndarray) -> torch.Tensor:
+        """[B, 77] token ids -> [B, 77, C] fp32 hidden states."""
+        ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long, device=self.device)
+        return self.text(ids)
+
+    @torch.inference_mode()
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """Scaled latents [B, h, w, 4] -> images [B, 8h, 8w, 3] in [0, 1]."""
+        img = self.vae.decode(latents.to(self.device))
+        return (img / 2 + 0.5).clamp(0.0, 1.0)
+
+    # ------------------------------------------------------------- sample
+    def _unet_chunks(self, lat_in, tb, embeds, microbatch: int) -> torch.Tensor:
+        """The model batch as ``microbatch`` sequential chunks (or whole)."""
+        if microbatch <= 1:
+            return self.unet(lat_in, tb, embeds)
+        if lat_in.shape[0] % microbatch:
+            raise ValueError(f"unet_microbatch {microbatch} must divide the model batch "
+                             f"{lat_in.shape[0]}")
+        parts = zip(lat_in.chunk(microbatch), tb.chunk(microbatch), embeds.chunk(microbatch))
+        return torch.cat([self.unet(a, t, e) for a, t, e in parts])
+
+    @torch.inference_mode()
+    def sample(
+        self,
+        plan: SamplePlan,
+        prompt_embeds: torch.Tensor,  # [B, T, C]
+        negative_embeds: Optional[torch.Tensor],  # [B, T, C] or None
+        seed: int = 0,
+        sample_indices: Optional[Sequence[int]] = None,
+        guidance_scale: float = 7.5,
+        latent_hw: Tuple[int, int] = (64, 64),
+        collect_x0: bool = False,
+        x0_samples: Optional[int] = None,  # None = the whole batch
+        decode: bool = True,
+        init_latents: Optional[torch.Tensor] = None,
+        microbatch: Optional[int] = None,
+    ) -> SampleOutput:
+        """One batch: CFG-doubled UNet calls over the plan's rows, then the
+        decode.  Sample ``i``'s initial latents depend only on (seed, i)
+        unless ``init_latents`` is given."""
+        dev = self.device
+        B = int(prompt_embeds.shape[0])
+        do_cfg = guidance_scale > 1.0 and negative_embeds is not None
+        embeds = torch.cat([negative_embeds, prompt_embeds]) if do_cfg else prompt_embeds
+        embeds = embeds.to(dev)
+        lat_shape = (latent_hw[0], latent_hw[1], self.unet_config.in_channels)
+        if init_latents is not None:
+            latents0 = torch.as_tensor(init_latents, dtype=torch.float32).to(dev)
+            if tuple(latents0.shape) != (B,) + lat_shape:
+                raise ValueError(f"init_latents {tuple(latents0.shape)} != {(B,) + lat_shape}")
+        else:
+            idx = range(B) if sample_indices is None else sample_indices
+            latents0 = per_sample_latents(seed, idx, lat_shape, device=dev)
+        if plan.needs_noise:
+            raise NotImplementedError(f"plan {plan.name} injects noise; not supported yet")
+        microbatch = int(microbatch or 0)
+        x0_count = B if x0_samples is None else max(1, min(int(x0_samples), B))
+
+        xs = plan_rows(plan, dev)
+        carry = init_carry(plan, latents0)
+        x0s = []
+        synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(plan.num_steps):
+            r = row(xs, i)
+            lat = carry.latents * r["in_scale"]
+            lat_in = (torch.cat([lat, lat]) if do_cfg else lat).to(self.dtype)
+            tb = r["timestep"].expand(lat_in.shape[0])
+            noise_pred = self._unet_chunks(lat_in, tb, embeds, microbatch).float()
+            if do_cfg:
+                eps_u, eps_t = noise_pred.chunk(2)
+                eps = eps_u + guidance_scale * (eps_t - eps_u)
+            else:
+                eps = noise_pred
+            carry, x0 = apply_row(carry, eps, r)
+            if collect_x0:
+                x0s.append(x0[:x0_count])
+        synchronize(dev)
+        execution_time = time.perf_counter() - t0
+
+        latents = carry.latents
+        images = self.decode(latents) if decode else None
+        x0_images = torch.stack([self.decode(x) for x in x0s]) if collect_x0 else None
+        return SampleOutput(images=images, execution_time=execution_time,
+                            x0_images=x0_images, latents=latents, nfe=plan.nfe)

@@ -1,0 +1,230 @@
+"""JAX parameter trees -> the port's state dicts.
+
+The port's own copies of the name maps in
+``sonicdiffusionbayeslab_tpu/models/weights.py`` (``unet_name_map``,
+``vae_name_map``, ``clip_text_name_map``) and of ``invert``: for every JAX
+parameter path, the diffusers / transformers tensor name and the layout
+change (HWIO conv -> OIHW, [in, out] dense -> [out, in], dense ->
+[out, in, 1, 1] for SD-1.5's 1x1-conv transformer projections).  The
+port's modules carry exactly those names, so a local diffusers snapshot
+needs no map at all.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
+
+Transform = Callable[[np.ndarray], np.ndarray]
+NameMap = Dict[str, Tuple[str, Transform]]  # jax path -> (torch name, jax -> torch)
+
+
+def _conv(w):  # HWIO -> OIHW
+    return np.transpose(w, (3, 2, 0, 1))
+
+
+def _lin(w):  # [in, out] -> [out, in]
+    return np.transpose(w)
+
+
+def _dense_to_conv1x1(w):  # [in, out] -> [out, in, 1, 1]
+    return np.transpose(w)[:, :, None, None]
+
+
+def _id(w):
+    return np.asarray(w)
+
+
+class MapEntries(dict):
+    """Collects ``{jax path: (torch name, transform)}`` entries block by
+    block; ``dst`` is the JAX module path, ``src`` the torch module name.
+    Entries for parameters a tree lacks (``conv_shortcut`` where channels
+    do not change, ``time_emb_proj`` in the VAE) are simply never read."""
+
+    def conv(self, dst, src):
+        self[f"{dst}/kernel"] = (f"{src}.weight", _conv)
+        self[f"{dst}/bias"] = (f"{src}.bias", _id)
+
+    def dense(self, dst, src, bias=True):
+        self[f"{dst}/kernel"] = (f"{src}.weight", _lin)
+        if bias:
+            self[f"{dst}/bias"] = (f"{src}.bias", _id)
+
+    def norm(self, dst, src):  # GroupNorm and LayerNorm: scale/bias -> weight/bias
+        self[f"{dst}/scale"] = (f"{src}.weight", _id)
+        self[f"{dst}/bias"] = (f"{src}.bias", _id)
+
+    def resnet(self, dst, src):
+        self.norm(f"{dst}/norm1", f"{src}.norm1")
+        self.conv(f"{dst}/conv1", f"{src}.conv1")
+        self.dense(f"{dst}/time_emb_proj", f"{src}.time_emb_proj")
+        self.norm(f"{dst}/norm2", f"{src}.norm2")
+        self.conv(f"{dst}/conv2", f"{src}.conv2")
+        self.conv(f"{dst}/conv_shortcut", f"{src}.conv_shortcut")
+
+    def attention(self, dst, src):
+        for p in ("to_q", "to_k", "to_v"):
+            self.dense(f"{dst}/{p}", f"{src}.{p}", bias=False)
+        self.dense(f"{dst}/to_out", f"{src}.to_out.0")
+
+    def transformer_block(self, dst, src):
+        self.attention(f"{dst}/attn1", f"{src}.attn1")
+        self.attention(f"{dst}/attn2", f"{src}.attn2")
+        self.dense(f"{dst}/ff/proj_in", f"{src}.ff.net.0.proj")
+        self.dense(f"{dst}/ff/proj_out", f"{src}.ff.net.2")
+        for i in (1, 2, 3):
+            self.norm(f"{dst}/norm{i}", f"{src}.norm{i}")
+
+    def spatial_transformer(self, dst, src, depth):
+        self.norm(f"{dst}/norm", f"{src}.norm")
+        for p in ("proj_in", "proj_out"):  # SD-1.5: 1x1 convs
+            self[f"{dst}/{p}/kernel"] = (f"{src}.{p}.weight", _dense_to_conv1x1)
+            self[f"{dst}/{p}/bias"] = (f"{src}.{p}.bias", _id)
+        for d in range(depth):
+            self.transformer_block(f"{dst}/block_{d}", f"{src}.transformer_blocks.{d}")
+
+    def attn_block2d(self, dst, src):
+        self.norm(f"{dst}/norm", f"{src}.group_norm")
+        self.attention(f"{dst}/attn", src)
+
+
+def unet_name_map(cfg: UNetConfig) -> NameMap:
+    m = MapEntries()
+    depth = cfg.transformer_depth
+    m.conv("conv_in", "conv_in")
+    m.dense("time_embedding/fc1", "time_embedding.linear_1")
+    m.dense("time_embedding/fc2", "time_embedding.linear_2")
+    n = len(cfg.block_out_channels)
+    for lvl in range(n):
+        for j in range(cfg.layers_per_block):
+            m.resnet(f"down_{lvl}_res_{j}", f"down_blocks.{lvl}.resnets.{j}")
+            if cfg.cross_attention[lvl]:
+                m.spatial_transformer(f"down_{lvl}_attn_{j}",
+                                      f"down_blocks.{lvl}.attentions.{j}", depth)
+        if lvl < n - 1:
+            m.conv(f"down_{lvl}_downsample/conv", f"down_blocks.{lvl}.downsamplers.0.conv")
+    m.resnet("mid_res_0", "mid_block.resnets.0")
+    m.resnet("mid_res_1", "mid_block.resnets.1")
+    m.spatial_transformer("mid_attn", "mid_block.attentions.0", depth)
+    for lvl in range(n):
+        k = n - 1 - lvl  # diffusers up_blocks index
+        for j in range(cfg.layers_per_block + 1):
+            m.resnet(f"up_{lvl}_res_{j}", f"up_blocks.{k}.resnets.{j}")
+            if cfg.cross_attention[lvl]:
+                m.spatial_transformer(f"up_{lvl}_attn_{j}", f"up_blocks.{k}.attentions.{j}", depth)
+        if lvl > 0:
+            m.conv(f"up_{lvl}_upsample/conv", f"up_blocks.{k}.upsamplers.0.conv")
+    m.norm("conv_norm_out", "conv_norm_out")
+    m.conv("conv_out", "conv_out")
+    return dict(m)
+
+
+def vae_name_map(n_levels: int, layers_per_block: int) -> NameMap:
+    """Encoder entries included, so the whole JAX VAE tree inverts; the
+    port's ``AutoencoderKL`` keeps only the decoder side."""
+    m = MapEntries()
+    m.conv("decoder/conv_in", "decoder.conv_in")
+    m.resnet("decoder/mid_res_0", "decoder.mid_block.resnets.0")
+    m.resnet("decoder/mid_res_1", "decoder.mid_block.resnets.1")
+    m.attn_block2d("decoder/mid_attn", "decoder.mid_block.attentions.0")
+    for i in range(n_levels):
+        for j in range(layers_per_block + 1):
+            m.resnet(f"decoder/up_{i}_res_{j}", f"decoder.up_blocks.{i}.resnets.{j}")
+        if i < n_levels - 1:
+            m.conv(f"decoder/up_{i}_upsample/conv", f"decoder.up_blocks.{i}.upsamplers.0.conv")
+    m.norm("decoder/norm_out", "decoder.conv_norm_out")
+    m.conv("decoder/conv_out", "decoder.conv_out")
+    m.conv("encoder/conv_in", "encoder.conv_in")
+    for i in range(n_levels):
+        for j in range(layers_per_block):
+            m.resnet(f"encoder/down_{i}_res_{j}", f"encoder.down_blocks.{i}.resnets.{j}")
+        if i < n_levels - 1:
+            m.conv(f"encoder/down_{i}_downsample/conv",
+                   f"encoder.down_blocks.{i}.downsamplers.0.conv")
+    m.resnet("encoder/mid_res_0", "encoder.mid_block.resnets.0")
+    m.resnet("encoder/mid_res_1", "encoder.mid_block.resnets.1")
+    m.attn_block2d("encoder/mid_attn", "encoder.mid_block.attentions.0")
+    m.norm("encoder/norm_out", "encoder.conv_norm_out")
+    m.conv("encoder/conv_out", "encoder.conv_out")
+    m.conv("post_quant_conv", "post_quant_conv")
+    m.conv("quant_conv", "quant_conv")
+    return dict(m)
+
+
+def clip_text_name_map(num_layers: int, src_prefix: str = "text_model") -> NameMap:
+    m = MapEntries()
+    p = src_prefix
+    m["token_embedding/embedding"] = (f"{p}.embeddings.token_embedding.weight", _id)
+    m["position_embedding"] = (f"{p}.embeddings.position_embedding.weight", _id)
+    for i in range(num_layers):
+        src, dst = f"{p}.encoder.layers.{i}", f"layer_{i}"
+        for a in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            m.dense(f"{dst}/attn/{a}", f"{src}.self_attn.{a}")
+        m.norm(f"{dst}/ln1", f"{src}.layer_norm1")
+        m.norm(f"{dst}/ln2", f"{src}.layer_norm2")
+        m.dense(f"{dst}/fc1", f"{src}.mlp.fc1")
+        m.dense(f"{dst}/fc2", f"{src}.mlp.fc2")
+    m.norm("final_ln", f"{p}.final_layer_norm")
+    return dict(m)
+
+
+def flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def invert(tree: dict, name_map: NameMap) -> Dict[str, np.ndarray]:
+    """JAX tree -> torch-layout state dict of fp32 numpy arrays."""
+    out = {}
+    for path, v in flatten(tree).items():
+        name, fwd = name_map[path]
+        out[name] = fwd(np.asarray(v, np.float32))
+    return out
+
+
+def _count(tree: dict, fmt: str) -> int:
+    n = 0
+    while fmt.format(n) in tree:
+        n += 1
+    return n
+
+
+def unet_geometry(tree: dict) -> UNetConfig:
+    """The name-map-relevant geometry of a JAX UNet tree (levels, widths,
+    layers per block, which levels attend, transformer depth)."""
+    n = _count(tree, "down_{}_res_0")
+    return UNetConfig(
+        block_out_channels=tuple(tree[f"down_{i}_res_0"]["conv1"]["kernel"].shape[-1]
+                                 for i in range(n)),
+        layers_per_block=_count(tree, "down_0_res_{}"),
+        cross_attention=tuple(f"down_{i}_attn_0" in tree for i in range(n)),
+        transformer_depth=_count(tree["mid_attn"], "block_{}"),
+    )
+
+
+def state_dicts_from_jax(params_np: dict) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX engine's ``{"unet", "vae", "text"}`` tree (numpy leaves) ->
+    ``{"unet", "vae", "text"}`` state dicts of fp32 tensors that the port's
+    modules load with ``strict=True``.  The VAE keeps its decoder side."""
+    dec = params_np["vae"]["decoder"]
+    vae = invert(params_np["vae"], vae_name_map(_count(dec, "up_{}_res_0"),
+                                                _count(dec, "up_0_res_{}") - 1))
+    vae = {k: v for k, v in vae.items() if not k.startswith(("encoder.", "quant_conv."))}
+    sds = {
+        "unet": invert(params_np["unet"], unet_name_map(unet_geometry(params_np["unet"]))),
+        "vae": vae,
+        "text": invert(params_np["text"],
+                       clip_text_name_map(_count(params_np["text"], "layer_{}"))),
+    }
+    return {k: {n: torch.from_numpy(np.ascontiguousarray(a)) for n, a in sd.items()}
+            for k, sd in sds.items()}

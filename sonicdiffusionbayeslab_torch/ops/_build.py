@@ -1,0 +1,100 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``ops/csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc -c`` per source, all started together), and the objects are linked
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The build happens at first use, from the repository's sources only, into
+``build/torch_kernels/`` at the repository root; the library's file name
+carries a hash of the sources and flags, so an edited source rebuilds.
+A failed build raises with nvcc's stderr.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC",
+]
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _run_all(cmds):
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failures = []
+    for cmd, p in zip(cmds, procs):
+        out, err = p.communicate()
+        if p.returncode != 0:
+            failures.append(f"$ {' '.join(cmd)}\n{out}{err}")
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+
+
+def _build() -> Path:
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    digest = h.hexdigest()[:16]
+    lib_path = BUILD_DIR / f"libsdbl_torch_kernels_{digest}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{digest}_{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}_{tag}.o" for s in sources]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)] for s, o in zip(sources, objs)])
+    tmp = BUILD_DIR / f"lib_{tag}.so.tmp"
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]])
+    os.replace(tmp, lib_path)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    return lib_path
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    lib.sdbl_flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i] + [i64] * 12 + [f, i, p]
+    lib.sdbl_flash_attention_fwd.restype = i
+    lib.sdbl_groupnorm_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
+    lib.sdbl_groupnorm_fwd.restype = i
+
+
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            _declare(lib)
+            _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: launch failed with cudaError_t {err}")

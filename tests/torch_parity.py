@@ -1,0 +1,88 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+The same inputs go through the JAX package and the port: numpy arrays made
+from a seed, and the same weights, a JAX tree turned into torch state
+dicts by the port's name maps.  Everything runs in fp32 on the CPU, one
+torch thread (the tests run beside other workers).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from sonicdiffusionbayeslab_torch.models.weights import MapEntries, invert
+
+torch.set_num_threads(1)
+
+
+def randn(shape, seed, scale=1.0) -> np.ndarray:
+    return (scale * np.random.default_rng(seed).standard_normal(shape)).astype(np.float32)
+
+
+def random_params(shapes, seed: int):
+    """Numpy params for a tree of ``jax.ShapeDtypeStruct``: kernels
+    N(0, 1/fan_in), norm scales 1 + N(0, 0.05^2), biases and embeddings
+    N(0, 0.05^2).  Random biases and scales (not Flax's zeros and ones)
+    make a mis-mapped one show."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = str(path[-1].key)
+        v = rng.standard_normal(s.shape).astype(np.float32)
+        if name == "kernel":
+            return v / np.sqrt(np.prod(s.shape[:-1]))
+        return 0.05 * v + (1.0 if name == "scale" else 0.0)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def flax_init(module, seed, *args):
+    """Random params for ``module(*args)``; the shapes come from
+    ``jax.eval_shape`` (Flax's eager init would dominate a small test)."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *map(jnp.asarray, args))
+    return random_params(shapes["params"], seed)
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_engines():
+    """(JAX tiny engine, its random numpy params, the port's tiny engine on
+    the CPU loaded with the same weights), all fp32."""
+    from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig
+    from sonicdiffusionbayeslab_torch.models.sampler import StableDiffusionEngine
+    from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
+    from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
+    from sonicdiffusionbayeslab_torch.models.weights import state_dicts_from_jax
+    from sonicdiffusionbayeslab_tpu import models as jm
+
+    jeng = jm.StableDiffusionEngine(jm.UNetConfig.tiny(), jm.VAEConfig.tiny(),
+                                    jm.CLIPTextConfig.tiny(), dtype=jnp.float32,
+                                    param_dtype=jnp.float32)
+    params = random_params(jax.eval_shape(lambda: jeng.init_params(seed=0, latent_hw=8)), 0)
+    teng = StableDiffusionEngine(UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny(),
+                                 dtype=torch.float32, device="cpu")
+    teng.load_state_dicts(state_dicts_from_jax(params))
+    return jeng, params, teng
+
+
+def load_block(torch_module, flax_params, fill) -> torch.nn.Module:
+    """Load one block's Flax params into its torch twin (strict), with the
+    entries ``fill(MapEntries, "b", "b")`` writes for it."""
+    m = MapEntries()
+    fill(m, "b", "b")
+    sd = invert({"b": flax_params}, dict(m))
+    torch_module.load_state_dict({k[2:]: t(v) for k, v in sd.items()}, strict=True)
+    return torch_module.eval()
+
+
+def t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def assert_close(got, want, atol, rtol=0.0):
+    got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=rtol)
