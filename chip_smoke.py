@@ -7,20 +7,32 @@ Phases, in order; any failure raises, so the script exits non-zero and
 prints no ``ok`` line:
   1. environment: Python/torch/CUDA versions, device capability 9.0, the
      card's name and power limit (nvidia-smi);
-  2. build of the hand-written kernels (sonicdiffusionbayeslab_torch/ops/csrc);
+  2. build of the hand-written kernels (sonicdiffusionbayeslab_torch/ops/csrc),
+     and the counts of tensor-core (HGMMA, HMMA) and TMA-load (UTMALDG)
+     instructions in the bf16 attention kernel's SASS (cuobjdump);
   3. each kernel against its plain PyTorch version, in bf16 and fp32 (TF32
      off), at every shape either main-path run gives it (found by running
      the SD-1.5 UNet and VAE decoder on the meta device), within stated
-     tolerances, plus strided q/k/v views;
-  4. bf16 device times at the whole-batch run's shapes (CUDA graphs timed
-     with CUDA events): the kernel, its plain version and one PyTorch
-     library call as a yardstick, beside the bound from the work's bytes
-     and operations;
+     tolerances, plus strided q/k/v views (bf16 goes to the wgmma/TMA
+     attention kernel, fp32 to the FMA one); queries are scaled by 3 so
+     that the softmax's running max moves across K/V tiles;
+  4. device times at the whole-batch run's shapes (CUDA graphs timed with
+     CUDA events), bf16 for every kernel and fp32 for attention (the FMA
+     kernel): the kernel, its plain version and one PyTorch library call
+     as a yardstick, beside the bound from the work's bytes, products and
+     exponentials;
   5. the main path: SD-1.5 text-to-image at full width on random bf16
      weights, 512x512, 20-step DPM-Solver++ (order 2), CFG 7.5, batch 2,
-     through StableDiffusionModel, once whole and once with
-     unet_microbatch=2, with each kernel's launches counted per run (and a
-     tiny fp32 run on the card held against the same run on the CPU first);
+     through StableDiffusionModel, whole and with unet_microbatch=2, the
+     UNet replayed from a CUDA graph as on every GPU (a tiny fp32 run on
+     the card is held against the same run on the CPU first).  Each is run
+     three times: first with the wrappers' launch counts set to 0 (they
+     count the graph's warm-up and capture and the eager VAE decode, as a
+     replay runs no wrapper), then timed, then under torch.profiler, whose
+     trace counts every execution of each kernel on the card against the
+     census.  One eager
+     UNet call is held bit-equal to the graphed one, its wrapper counts
+     and trace held to the census of one forward, and both are timed;
      with --profile, a torch.profiler breakdown of the denoising loop;
   6. the card line, then one JSON ``kernels`` line;
   7. the last line: {"ok": true, "device": {...}}.
@@ -31,6 +43,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -41,6 +54,18 @@ import torch
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# Each kernel's symbol in a profiler trace; GroupNorm launches both of its
+# kernels once a call.
+SYMBOLS = {"attention": ("flash_fwd_sm90_kernel",),
+           "group_norm": ("gn_stats_kernel", "gn_apply_kernel")}
+FMA_SYMBOL = "flash_fwd_kernel"  # the fp32 attention kernel
+# bf16 attention is also held to max |err| <= ATTN_RMS_GATE * rms(plain)
+# per shape: bf16 rounding of outputs up to ~4 stays near half of it, while
+# a lost rescale of O or a P.V on the wrong K/V tile is many times the rms.
+ATTN_RMS_GATE = 0.1
+# Special-function unit rate for exp2: 16 per SM per clock (Hopper tuning
+# guide's throughput table) x 132 SMs x ~1.83 GHz boost = ~3.9e12 a second.
+PEAK_EXP = 3.9e12
 BATCH, STEPS, GUIDANCE, SIZE = 2, 20, 7.5, 512
 PROMPTS = ["a photograph of an astronaut riding a horse",
            "a lighthouse on a cliff at sunset, oil painting"]
@@ -56,9 +81,10 @@ TOL = {
     ("group_norm", torch.bfloat16): (2e-3, 1e-2),
 }
 KERNELS = {
-    "attention": dict(name="flash_attention", route="cuda",
-                      source="sonicdiffusionbayeslab_torch/ops/csrc/flash_attention.cu",
-                      replaces="sonicdiffusionbayeslab_tpu/ops/flash_attention.py:52"),
+    "attention": dict(name="flash_attention_sm90", route="cuda",
+                      source="sonicdiffusionbayeslab_torch/ops/csrc/flash_attention_sm90.cu",
+                      replaces="sonicdiffusionbayeslab_tpu/ops/flash_attention.py:52",
+                      fp32_source="sonicdiffusionbayeslab_torch/ops/csrc/flash_attention.cu"),
     "group_norm": dict(name="group_norm_silu", route="cuda",
                        source="sonicdiffusionbayeslab_torch/ops/csrc/groupnorm.cu",
                        replaces="sonicdiffusionbayeslab_tpu/ops/groupnorm.py:27"),
@@ -115,7 +141,32 @@ def compare(kind, dtype, got, want, what):
     max_abs = err.max().item()
     if excess > 0:
         raise AssertionError(f"{what}: max abs err {max_abs:.3e} exceeds atol {atol} + rtol {rtol}")
+    if kind == "attention" and dtype == torch.bfloat16:
+        rms = w.pow(2).mean().sqrt().item()
+        if max_abs > ATTN_RMS_GATE * rms:
+            raise AssertionError(f"{what}: max abs err {max_abs:.3e} exceeds "
+                                 f"{ATTN_RMS_GATE} x rms {rms:.3e}")
     return max_abs
+
+
+def sass_counts(build):
+    """Counts of tensor-core and TMA-load instructions in the SASS of the
+    bf16 attention kernel (every instantiation), from cuobjdump; raises if
+    it has no tensor-core instruction."""
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.build_library())],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = collections.Counter()
+    for fn in sass.split("Function : ")[1:]:
+        if "flash_fwd_sm90_kernel" in fn.split("\n", 1)[0]:
+            counts["functions"] += 1
+            for op in ("HGMMA", "HMMA", "UTMALDG"):
+                counts[op] += len(re.findall(rf"\b{op}\.", fn))
+    print(f"flash_attention_sm90 SASS over {counts['functions']} instantiations: "
+          f"HGMMA {counts['HGMMA']}, HMMA {counts['HMMA']}, UTMALDG {counts['UTMALDG']}")
+    if not counts["functions"] or counts["HGMMA"] + counts["HMMA"] == 0:
+        raise AssertionError("the bf16 attention kernel has no tensor-core instruction")
+    return dict(counts)
 
 
 # ------------------------------------------------------------------ census
@@ -169,9 +220,10 @@ def census(unet_batch):
 
 # ------------------------------------------------------------ inputs, work
 def attn_inputs(shape, dtype, gen):
+    """q, k, v with logits of standard deviation 3 (q scaled by 3)."""
     B, N, M, H, D = shape
-    mk = lambda L: torch.randn(B, L, H, D, generator=gen, device="cuda").to(dtype)  # noqa: E731
-    return mk(N), mk(M), mk(M)
+    mk = lambda L, s=1: (torch.randn(B, L, H, D, generator=gen, device="cuda") * s).to(dtype)  # noqa: E731
+    return mk(N, 3), mk(M), mk(M)
 
 
 def gn_inputs(shape, dtype, gen):
@@ -186,17 +238,19 @@ def bound(kind, shape, dtype):
     """(least ms, "operations" | "bytes") for the work at ``shape``: each
     input read once, each output written once, at HBM rate; operations at
     the peak rate for their type (tensor-core bf16 for attention's two
-    products, plain fp32 for GroupNorm's ~10 operations per element)."""
+    products and the special-function units for its B*H*N*M exponentials,
+    whichever takes longer; plain fp32 for GroupNorm's ~10 operations per
+    element)."""
     size = torch.tensor([], dtype=dtype).element_size()
     if kind == "attention":
         B, N, M, H, D = shape
-        ops, peak = 4 * B * H * N * M * D, PEAK_FLOPS[dtype]
+        t_ops = max(4 * B * H * N * M * D / PEAK_FLOPS[dtype], B * H * N * M / PEAK_EXP) * 1e3
         nbytes = (2 * B * N * H * D + 2 * B * M * H * D) * size
     else:
         B, N, C, _, _, silu = shape
-        ops, peak = (10 if silu else 6) * B * N * C, PEAK_FLOPS[torch.float32]
+        t_ops = (10 if silu else 6) * B * N * C / PEAK_FLOPS[torch.float32] * 1e3
         nbytes = (2 * B * N * C + 2 * C) * size
-    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -250,6 +304,7 @@ def check_kernels(shapes, report):
         # ragged N = M: the same bits as contiguous inputs.
         qkv = torch.randn(2, 1000, 3, 8, 40, generator=gen, device="cuda").to(dtype)
         q, k, v = qkv.unbind(2)
+        q.mul_(3)
         got = flash_attention(q, k, v)
         if not torch.equal(got, flash_attention(q.contiguous(), k.contiguous(), v.contiguous())):
             raise AssertionError("attention: strided views differ from contiguous inputs")
@@ -258,22 +313,27 @@ def check_kernels(shapes, report):
 
 
 def time_kernels(shapes, run_counts, report):
+    """Per-shape timing rows, and totals over one main-path run (per-shape
+    time x launches at that shape) into ``report[kind]`` for bf16 and
+    ``report["attention_fp32"]`` for the fp32 attention kernel."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    dtype = torch.bfloat16
     rows = []
     for kind, shape in shapes:
-        inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
-        kern, plain = run_kernel(kind, shape, inputs)
-        b_ms, b_by = bound(kind, shape, dtype)
-        row = dict(kernel=kind, shape=list(shape), launches_per_run=run_counts[(kind, shape)],
-                   ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                   library_ms=cuda_ms(library_call(kind, shape, inputs)),
-                   bound_ms=b_ms, bound_by=b_by)
-        rows.append(row)
-        print("timing " + json.dumps(row), flush=True)
-        del inputs
-    for r in rows:  # totals over one main-path run: per-shape time x launches
-        agg = report[r["kernel"]]
+        dtypes = (torch.bfloat16, torch.float32) if kind == "attention" else (torch.bfloat16,)
+        for dtype in dtypes:
+            inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
+            kern, plain = run_kernel(kind, shape, inputs)
+            b_ms, b_by = bound(kind, shape, dtype)
+            row = dict(kernel=kind, dtype=str(dtype)[6:], shape=list(shape),
+                       launches_per_run=run_counts[(kind, shape)],
+                       ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                       library_ms=cuda_ms(library_call(kind, shape, inputs)),
+                       bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            print("timing " + json.dumps(row), flush=True)
+            del inputs
+    for r in rows:
+        agg = report[r["kernel"] if r["dtype"] == "bfloat16" else f"{r['kernel']}_fp32"]
         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
             agg[key] += r[key] * r["launches_per_run"]
         agg["bound_by_ms"][r["bound_by"]] += r["bound_ms"] * r["launches_per_run"]
@@ -303,12 +363,58 @@ def tiny_card_vs_cpu():
         raise AssertionError("the tiny pipeline on the card disagrees with the CPU")
 
 
+def traced_launches(run):
+    """``run()``'s result and the executions on the card of each kernel of
+    ours, by symbol, from a torch.profiler (CUPTI) trace of it: graph
+    replays included, set-up excluded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_symbol = {sym: sum(sym in n for n in names)
+                 for sym in (*[s for ss in SYMBOLS.values() for s in ss], FMA_SYMBOL)}
+    if by_symbol[FMA_SYMBOL]:
+        raise AssertionError(f"the bf16 main path ran the fp32 attention kernel "
+                             f"{by_symbol[FMA_SYMBOL]} times")
+    counts = {}
+    for kind, syms in SYMBOLS.items():
+        if len({by_symbol[sym] for sym in syms}) != 1:
+            raise AssertionError(f"{kind}: its kernels ran unequal times: {by_symbol}")
+        counts[kind] = by_symbol[syms[0]]
+    return out, counts
+
+
+def wrapper_counts(reset=False):
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import (flash_attention_fma,
+                                                                   flash_attention_sm90)
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import group_norm_silu
+
+    if reset:
+        flash_attention_sm90.launches = flash_attention_fma.launches = 0
+        group_norm_silu.launches = 0
+    if flash_attention_fma.launches:
+        raise AssertionError(f"the bf16 main path launched the fp32 attention kernel "
+                             f"{flash_attention_fma.launches} times")
+    return {"attention": flash_attention_sm90.launches, "group_norm": group_norm_silu.launches}
+
+
+def check_images(imgs):
+    import numpy as np
+
+    if imgs.shape != (BATCH, SIZE, SIZE, 3) or not np.isfinite(imgs).all():
+        raise AssertionError(f"bad images: shape {imgs.shape}")
+    if imgs.min() < 0 or imgs.max() > 1:
+        raise AssertionError("images outside [0, 1]")
+
+
 def run_main_path(report, per_unet, per_vae, card, profile):
     import numpy as np
 
     from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
-    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention
-    from sonicdiffusionbayeslab_torch.ops.groupnorm import group_norm_silu
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -322,47 +428,105 @@ def run_main_path(report, per_unet, per_vae, card, profile):
     report["e2e"]["init_s"] = time.perf_counter() - t0
     print(f"SD-1.5 random bf16 init on the card: {report['e2e']['init_s']:.2f} s")
     kw = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, seed=29)
-    model(PROMPTS, num_inference_steps=2, guidance_scale=GUIDANCE, seed=29)  # warm-up
 
     images = {}
-    for mb in (None, 2):
-        flash_attention.launches = 0
-        group_norm_silu.launches = 0
+    for name, mb in (("whole_batch", None), ("microbatch_2", 2)):
+        # The first run at this batch captures its UNet graph: the wrappers
+        # launch each kernel in the two eager warm-up forwards and in the
+        # captured one, then the replays run no wrapper; the VAE decodes
+        # eagerly.  The run is also the warm-up of cuDNN/cuBLAS.
+        wrapper_counts(reset=True)
+        model(PROMPTS, unet_microbatch=mb, **kw)
+        counts = wrapper_counts()
+        want = {k: (GraphedCall.WARMUP + 1) * per_unet[k] + per_vae[k] for k in KERNELS}
+        if counts != want or min(counts.values()) <= 0:
+            raise AssertionError(f"{name}: wrapper launches {counts}, expected {want}")
+        # The timed run.
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         imgs, exec_time, _ = model(PROMPTS, unet_microbatch=mb, **kw)
         wall = time.perf_counter() - t0
-        counts = {"attention": flash_attention.launches, "group_norm": group_norm_silu.launches}
-        images[mb] = imgs
-        if imgs.shape != (BATCH, SIZE, SIZE, 3) or not np.isfinite(imgs).all():
-            raise AssertionError(f"bad images: shape {imgs.shape}")
-        if imgs.min() < 0 or imgs.max() > 1:
-            raise AssertionError("images outside [0, 1]")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        print(f"main path unet_microbatch={mb}: execution_time {exec_time:.4f} s "
+        reserved_gb = torch.cuda.memory_reserved() / 1e9  # graph pools included
+        check_images(imgs)
+        images[name] = imgs
+        # The same run again, traced: every kernel execution on the card is
+        # the census of each UNet forward and of the decode.
+        wrapper_counts(reset=True)
+        (imgs_traced, _, _), traced = traced_launches(lambda: model(PROMPTS, unet_microbatch=mb, **kw))
+        decode_counts = wrapper_counts()
+        print(f"main path {name} (unet_microbatch={mb}): execution_time {exec_time:.4f} s "
               f"({exec_time / BATCH:.4f} s/image, {3600 * BATCH / exec_time:.1f} images/hour, "
-              f"denoising loop only); whole call {wall:.4f} s; peak memory {peak_gb:.2f} GB; "
-              f"{card}; launches {counts}")
-        # Each UNet forward and VAE decode launches what the census counted.
+              f"denoising loop only); whole call {wall:.4f} s; peak memory {peak_gb:.2f} GB "
+              f"allocated, {reserved_gb:.2f} GB reserved; "
+              f"{card}; launches: first run's wrappers {counts}, traced run's kernel "
+              f"executions {traced} and wrappers {decode_counts}")
         want = {k: STEPS * (mb or 1) * per_unet[k] + per_vae[k] for k in KERNELS}
-        if counts != want or min(counts.values()) <= 0:
-            raise AssertionError(f"launches {counts}, expected {want}")
-        e2e = dict(execution_time_s=exec_time, sec_per_image=exec_time / BATCH,
-                   images_per_hour=3600 * BATCH / exec_time, call_s=wall, peak_gb=peak_gb,
-                   launches=counts)
-        report["e2e"]["microbatch_2" if mb else "whole_batch"] = e2e
-        if mb is None:
-            for kind, n in counts.items():
-                report[kind]["launches"] = n
-    diff = float(np.abs(images[None] - images[2]).max())
+        if traced != want:
+            raise AssertionError(f"{name}: traced kernel executions {traced}, expected {want}")
+        if decode_counts != {k: per_vae[k] for k in KERNELS}:
+            raise AssertionError(f"{name}: a warm run's wrappers launched {decode_counts}, "
+                                 f"expected the decode's {dict(per_vae)}")
+        if not np.array_equal(imgs_traced, imgs):
+            raise AssertionError(f"{name}: a second identical run gave other images")
+        report["e2e"][name] = dict(execution_time_s=exec_time, sec_per_image=exec_time / BATCH,
+                                   images_per_hour=3600 * BATCH / exec_time, call_s=wall,
+                                   peak_gb=peak_gb, reserved_gb=reserved_gb,
+                                   first_run_wrapper_launches=counts,
+                                   traced_launches=traced)
+        if name == "whole_batch":
+            for kind in KERNELS:
+                report[kind]["launches"] = traced[kind]
+                report[kind]["wrapper_launches"] = counts[kind]
     # Chunking changes the batch of every conv and matmul, so cuDNN/cuBLAS
     # may pick other algorithms; bf16 over 20 steps differs by a few 1/255.
-    print(f"unet_microbatch=2 vs whole batch: max abs image diff {diff:.3e} (tolerance 5e-2)")
+    diff = float(np.abs(images["whole_batch"] - images["microbatch_2"]).max())
+    print(f"microbatch_2 vs whole_batch: max abs image diff {diff:.3e} (tolerance 5e-2)")
     if not diff <= 5e-2:
-        raise AssertionError("unet_microbatch=2 changed the images")
-    report["e2e"]["microbatch_max_abs_diff"] = diff
+        raise AssertionError("microbatch_2 changed the images")
+    report["e2e"]["microbatch_2_max_abs_diff"] = diff
+    report["e2e"]["unet_forward"] = eager_vs_graphed_unet(model, per_unet)
     if profile:
         report["profile"] = profile_loop(model)
+
+
+def eager_vs_graphed_unet(model, per_unet, reps=5):
+    """One UNet forward at the whole batch's shapes, eager (``engine.unet``)
+    and replayed (``engine.graphed_unet``): bit-equal outputs, the eager
+    call's wrapper counts and trace equal to the census of one forward, and
+    the wall clock of each (device synchronised), which shows the host cost
+    the graph takes away."""
+    eng = model.engine
+    emb = eng.encode_prompts(model.tokenizer(PROMPTS))
+    neg = eng.encode_prompts(model.tokenizer([""] * BATCH))
+    embeds = torch.cat([neg, emb])  # as the sampler builds them
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lat = torch.randn(2 * BATCH, SIZE // 8, SIZE // 8, 4, generator=gen, device="cuda").to(eng.dtype)
+    tb = torch.full((2 * BATCH,), 499.0, device="cuda")
+    want = {k: per_unet[k] for k in KERNELS}
+    with torch.inference_mode():
+        wrapper_counts(reset=True)
+        eager, traced = traced_launches(lambda: eng.unet(lat, tb, embeds))
+        counts = wrapper_counts()
+        if counts != want or traced != want:
+            raise AssertionError(f"one eager UNet forward: wrapper launches {counts}, traced "
+                                 f"{traced}, expected {want}")
+        graphed = eng.graphed_unet(lat, tb, embeds)
+        if not torch.equal(eager, graphed):
+            raise AssertionError("the graphed UNet call differs from the eager one")
+        out = {}
+        for name, call in (("eager_ms", eng.unet), ("graphed_ms", eng.graphed_unet)):
+            call(lat, tb, embeds)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call(lat, tb, embeds)
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    print(f"one UNet forward at batch {2 * BATCH}: eager {out['eager_ms']:.2f} ms, graphed "
+          f"{out['graphed_ms']:.2f} ms (wall clock, mean of {reps}); bit-equal; eager launches "
+          f"{counts} (the census of one forward)")
+    return out
 
 
 def profile_loop(model):
@@ -386,9 +550,9 @@ def profile_loop(model):
     groups = collections.Counter()
     for k, v in by_name.items():
         low = k.lower()
-        if "flash_fwd_kernel" in k:
+        if FMA_SYMBOL in k or SYMBOLS["attention"][0] in k:
             groups["flash_attention (ours)"] += v
-        elif "gn_stats_kernel" in k or "gn_apply_kernel" in k:
+        elif any(sym in k for sym in SYMBOLS["group_norm"]):
             groups["group_norm_silu (ours)"] += v
         elif "fprop" in low or "conv" in low:
             groups["convolutions (cuDNN)"] += v
@@ -435,6 +599,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.kernels()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    report_sass = sass_counts(_build)
 
     # The whole-batch run's UNet sees the CFG-doubled batch; the
     # unet_microbatch=2 run sees chunks of BATCH rows.
@@ -446,15 +611,20 @@ def main() -> None:
     print(f"main path per UNet forward: {dict(per_unet)}; per VAE decode: {dict(per_vae)}; "
           f"{len(check_shapes)} distinct kernel shapes over both runs")
     report = {k: {"errs": {torch.bfloat16: [], torch.float32: []}, "launches": None,
+                  "wrapper_launches": None,
                   "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                  "bound_by_ms": collections.Counter()} for k in KERNELS}
+                  "bound_by_ms": collections.Counter()} for k in (*KERNELS, "attention_fp32")}
     report["e2e"] = {}
 
     phase("3. kernels against their plain versions, at the main path's shapes")
     check_kernels(check_shapes, report)
 
-    phase("4. timings (bf16; CUDA graph of 20 calls between CUDA events, median of 5)")
+    phase("4. timings (bf16, and fp32 attention; CUDA graph of 20 calls between CUDA events, "
+          "median of 5)")
     rows = time_kernels(shapes, run_counts, report)
+    fp32 = report["attention_fp32"]
+    print("attention fp32 (flash_attention_fma) totals over one run: "
+          + json.dumps({k: fp32[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}))
 
     phase(f"5. main path: SD-1.5 {SIZE}x{SIZE}, {STEPS}-step DPM-Solver++ (order 2), "
           f"CFG {GUIDANCE}, batch {BATCH}")
@@ -467,11 +637,17 @@ def main() -> None:
         kernels.append({
             **meta,
             "launches": r["launches"],
+            "launches_from": "torch.profiler trace of a warm whole-batch run (graph "
+                             "replays run no wrapper)",
+            "wrapper_launches": r["wrapper_launches"],
+            "wrapper_launches_from": "the wrappers' counts over the first whole-batch run "
+                                     "(graph warm-up and capture, eager VAE decode)",
             "max_abs_err": max(r["errs"][torch.bfloat16]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_by_ms"], key=r["bound_by_ms"].get),
             "library_ms": r["library_ms"],
             "max_abs_err_fp32": max(r["errs"][torch.float32]),
+            **({"sass": report_sass} if kind == "attention" else {}),
             "totals_over": "one main-path run: per-shape median x launches at that shape",
         })
     if args.json:
@@ -479,6 +655,8 @@ def main() -> None:
         Path(args.json).write_text(json.dumps(
             {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
              "kernels": kernels, "timings": rows, "e2e": report["e2e"],
+             "attention_fp32_totals": {k: report["attention_fp32"][k]
+                                       for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
              "profile": report.get("profile")}, indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))

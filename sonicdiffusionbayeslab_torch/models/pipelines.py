@@ -25,7 +25,9 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 class StableDiffusionModel:
     """Single-scheduler text-to-image pipeline.  ``device`` defaults to
-    CUDA; without a GPU it raises unless ``device="cpu"`` is given."""
+    CUDA; without a GPU it raises unless ``device="cpu"`` is given.  On a
+    GPU the first call at a new batch or size captures the UNet's CUDA
+    graph for it, in place of the previous one."""
 
     def __init__(self, image_size: int = 512, tiny: bool = False, dtype: str = "bfloat16",
                  seed: int = 0, device=None):

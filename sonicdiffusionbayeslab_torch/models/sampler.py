@@ -5,9 +5,12 @@ Counterpart of ``sonicdiffusionbayeslab_tpu/models/sampler.py::
 StableDiffusionEngine`` on the text-to-image path.  The JAX engine scans a
 jitted body over the plan's rows; here the loop is plain Python over the
 same rows, each step one UNet call (chunked when ``microbatch`` > 1), the
-CFG combine and one ``apply_row`` in fp32.  ``execution_time`` is the wall
-clock of the denoising loop alone, with the device synchronised on both
-sides (the reference's timing contract).
+CFG combine and one ``apply_row`` in fp32.  On a GPU the UNet call is
+replayed from a CUDA graph (``utils/cuda_graph.py``), because eager
+PyTorch's host time per UNet forward exceeds its device time; on the CPU
+it runs eagerly.  ``execution_time`` is the wall clock of the
+denoising loop alone, with the device synchronised on both sides (the
+reference's timing contract).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
 from sonicdiffusionbayeslab_torch.schedulers.plan import SamplePlan
 from sonicdiffusionbayeslab_torch.schedulers.runtime import apply_row, init_carry, plan_rows, row
+from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
 from sonicdiffusionbayeslab_torch.utils.device import resolve_device, synchronize
 from sonicdiffusionbayeslab_torch.utils.rng import per_sample_latents
 
@@ -82,7 +86,9 @@ def init_module(module: nn.Module, gen: torch.Generator) -> None:
 
 class StableDiffusionEngine:
     """Owns the three modules on one device; parameters are initialised
-    with :meth:`init_params` or loaded with :meth:`load_state_dicts`."""
+    with :meth:`init_params` or loaded with :meth:`load_state_dicts`.
+    On a GPU, ``graphed_unet`` replays the UNet call from a CUDA graph of
+    the last input shape."""
 
     def __init__(
         self,
@@ -105,6 +111,7 @@ class StableDiffusionEngine:
             m.requires_grad_(False).eval()
             # Conv weights in channels_last, matching the NHWC activations.
             m.to(dtype=dtype, memory_format=torch.channels_last)
+        self.graphed_unet = GraphedCall(self.unet)
 
     def modules(self) -> Tuple[nn.Module, nn.Module, nn.Module]:
         return self.unet, self.vae, self.text
@@ -116,6 +123,7 @@ class StableDiffusionEngine:
             state = np.random.SeedSequence([int(seed), i]).generate_state(1, np.uint64)[0]
             gen = torch.Generator(device=self.device).manual_seed(int(state) & (2**63 - 1))
             init_module(m, gen)
+        self.graphed_unet.clear()
         return self
 
     def load_state_dicts(self, sds: dict) -> "StableDiffusionEngine":
@@ -123,6 +131,7 @@ class StableDiffusionEngine:
         ``weights.state_dicts_from_jax``), loaded strictly."""
         for key, m in zip(("unet", "vae", "text"), self.modules()):
             m.load_state_dict(sds[key], strict=True)
+        self.graphed_unet.clear()
         return self
 
     # ------------------------------------------------------ encode / decode
@@ -141,13 +150,14 @@ class StableDiffusionEngine:
     # ------------------------------------------------------------- sample
     def _unet_chunks(self, lat_in, tb, embeds, microbatch: int) -> torch.Tensor:
         """The model batch as ``microbatch`` sequential chunks (or whole)."""
+        unet = self.graphed_unet if self.device.type == "cuda" else self.unet
         if microbatch <= 1:
-            return self.unet(lat_in, tb, embeds)
+            return unet(lat_in, tb, embeds)
         if lat_in.shape[0] % microbatch:
             raise ValueError(f"unet_microbatch {microbatch} must divide the model batch "
                              f"{lat_in.shape[0]}")
         parts = zip(lat_in.chunk(microbatch), tb.chunk(microbatch), embeds.chunk(microbatch))
-        return torch.cat([self.unet(a, t, e) for a, t, e in parts])
+        return torch.cat([unet(a, t, e) for a, t, e in parts])
 
     @torch.inference_mode()
     def sample(

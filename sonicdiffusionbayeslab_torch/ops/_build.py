@@ -5,7 +5,8 @@ Every ``ops/csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
 into one shared library with a plain C interface, loaded with ``ctypes``.
 The build happens at first use, from the repository's sources only, into
 ``build/torch_kernels/`` at the repository root; the library's file name
-carries a hash of the sources and flags, so an edited source rebuilds.
+carries a hash of the sources, the headers they include (``*.cuh``) and
+the compile and link flags, so an edited source, header or flag rebuilds.
 A failed build raises with nvcc's stderr.
 """
 
@@ -25,6 +26,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 ]
+LINK_FLAGS = ["-ldl"]  # dlopen/dlsym of the driver's cuTensorMapEncodeTiled
 
 _lib = None
 _lock = threading.Lock()
@@ -52,23 +54,29 @@ def _run_all(cmds):
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
 
 
-def _build() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+def digest(csrc: Path = CSRC) -> str:
+    """Hash of every source and header under ``csrc`` and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ["|"] + LINK_FLAGS).encode())
+    for s in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    digest = h.hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libsdbl_torch_kernels_{digest}.so"
+    return h.hexdigest()[:16]
+
+
+def build_library() -> Path:
+    """Path of the kernel library, built first if it is not there yet."""
+    sources = sorted(CSRC.glob("*.cu"))
+    key = digest()
+    lib_path = BUILD_DIR / f"libsdbl_torch_kernels_{key}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    tag = f"{digest}_{os.getpid()}"
+    tag = f"{key}_{os.getpid()}"
     objs = [BUILD_DIR / f"{s.stem}_{tag}.o" for s in sources]
     _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)] for s, o in zip(sources, objs)])
     tmp = BUILD_DIR / f"lib_{tag}.so.tmp"
-    _run_all([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]])
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), *LINK_FLAGS, "-o", str(tmp)]])
     os.replace(tmp, lib_path)
     for o in objs:
         o.unlink(missing_ok=True)
@@ -77,8 +85,10 @@ def _build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    lib.sdbl_flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i] + [i64] * 12 + [f, i, p]
+    lib.sdbl_flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i] + [i64] * 12 + [f, p]
     lib.sdbl_flash_attention_fwd.restype = i
+    lib.sdbl_flash_attention_sm90.argtypes = [p, p, p, p, i, i, i, i, i] + [i64] * 12 + [f, i, p]
+    lib.sdbl_flash_attention_sm90.restype = i
     lib.sdbl_groupnorm_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
     lib.sdbl_groupnorm_fwd.restype = i
 
@@ -88,13 +98,16 @@ def kernels() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
+            lib = ctypes.CDLL(str(build_library()))
             _declare(lib)
             _lib = lib
     return _lib
 
 
 def check(err: int, what: str) -> None:
-    """Raise if a kernel entry point returned a CUDA error."""
+    """Raise if a kernel entry point returned an error: a cudaError_t, or
+    minus a CUresult where a TMA tensor map could not be encoded."""
+    if err < 0:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed with CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"{what}: launch failed with cudaError_t {err}")

@@ -1,11 +1,15 @@
 """Attention dispatch for the port: [B, N, H, D] queries over [B, M, H, D]
 keys and values.
 
-The rule is static.  An unmasked call whose head_dim the CUDA kernel takes
+The rule is static.  An unmasked call whose head_dim the CUDA kernels take
 (a multiple of 8, at most 160) goes to ``flash_attention``; that covers
-every self- and cross-attention of the UNet.  A masked call (CLIP's causal
-mask) and the VAE's single-head D=512 mid-block attention take the plain
-path, as the JAX reference sends them to XLA.
+every self- and cross-attention of the UNet.  There the dtype alone picks
+the kernel: bfloat16 goes to the wgmma/TMA kernel
+(``csrc/flash_attention_sm90.cu``, instantiated for every such head_dim),
+float32 to the FMA kernel (``csrc/flash_attention.cu``); no call falls back
+from one to the other.  A masked call (CLIP's causal mask) and the VAE's
+single-head D=512 mid-block attention take the plain path, as the JAX
+reference sends them to XLA.
 """
 
 from __future__ import annotations

@@ -1,34 +1,30 @@
-// Softmax attention forward for Hopper (sm_90a), [B, N, H, D] in and out.
+// fp32 softmax attention forward for Hopper (sm_90a), [B, N, H, D] in and
+// out.  bf16 inputs go to flash_attention_sm90.cu instead.
 //
 // Replaces the TPU kernel sonicdiffusionbayeslab_tpu/ops/flash_attention.py
 // ::_attn_kernel (launched by _flash_bh) and its all-heads twin
-// _attn_kernel_native (launched by _flash_native).  The TPU kernel holds all
-// of K/V for one (batch*head, 256-row query block) in VMEM and does a single
-// softmax pass.  On an H100 a block has at most 227 KB of shared memory,
+// _attn_kernel_native (launched by _flash_native), in fp32.  The TPU kernel
+// holds all of K/V for one (batch*head, 256-row query block) in VMEM and
+// does a single softmax pass.  On an H100 a block has at most 227 KB of shared memory,
 // while K+V at N=4096, D=40 are 640 KB in bf16, so this kernel is an
 // online-softmax (flash) loop over 64-row K/V tiles instead.
 //
-// What bounds it: the work is 4*B*H*N*M*D flops against (q+k+v+o) bytes, so
-// at the UNet's shapes it is far above the H100's ridge point (~295 flops
-// per byte in bf16) and the tensor cores set the bound (989 TFLOP/s bf16).
-// This first version does its products with plain fp32 FMA on register
-// micro-tiles (each of 256 threads owns a 4x4 block of the 64x64 score tile
-// and a 4 x ceil(D/16) block of the output), so it runs far below that
-// bound; mma.sync / wgmma with TMA staging is later work.  What the simple
-// design does get right:
+// What bounds it: the work is 4*B*H*N*M*D flops against (q+k+v+o) bytes,
+// far above the H100's ridge point at the UNet's shapes.  The products run
+// as plain fp32 FMA on register micro-tiles (each of 256 threads owns a 4x4
+// block of the 64x64 score tile and a 4 x ceil(D/16) block of the output),
+// at most 67 TFLOP/s: the fp32 checks' tolerances would not survive TF32
+// tensor cores.  What the design gets right:
 //   * q, k, v are read in place through their strides (no transposed or
-//     padded copy in device memory); head_dim is padded only in shared memory
-//     (D=40 and D=80 are not multiples of the 16-wide mma depth anyway);
+//     padded copy in device memory); head_dim is padded only in shared memory;
 //   * each input element is read from device memory once per query tile and
 //     the fp32 score tile never leaves the SM;
 //   * ragged N is masked on load/store and ragged M (77-token context) by
 //     -inf logits on the last K/V tile.
 // Numerics follow the reference: fp32 logits scaled after the dot product,
-// fp32 softmax statistics, probabilities rounded to the input type before
-// the P.V product, fp32 accumulation, output stored in the input type.
+// fp32 softmax statistics, fp32 accumulation.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -38,23 +34,11 @@ constexpr int BK = 64;         // key/value rows per tile
 constexpr int NT = 256;        // threads per block: 16 x 16
 constexpr int LDT = BQ + 4;    // row stride of the transposed Q/K/P tiles
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // DC = output columns per thread = ceil(D / 16).
-template <typename T, int DC>
+template <int DC>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int N, int M, int D,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, int N, int M, int D,
     int64_t qsb, int64_t qsn, int64_t qsh, int64_t ksb, int64_t ksn, int64_t ksh,
     int64_t vsb, int64_t vsn, int64_t vsh, int64_t osb, int64_t osn, int64_t osh,
     float scale) {
@@ -67,14 +51,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + h * ksh;
-  const T* vb = v + b * vsb + h * vsh;
-  T* ob = o + b * osb + h * osh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + h * ksh;
+  const float* vb = v + b * vsb + h * vsh;
+  float* ob = o + b * osb + h * osh;
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, d = i - r * D, n = q0 + r;
-    Qs[d * LDT + r] = n < N ? to_f(qb[n * qsn + d]) : 0.f;
+    Qs[d * LDT + r] = n < N ? qb[n * qsn + d] : 0.f;
   }
 
   float m_i[4], l_i[4], acc[4][DC];
@@ -90,11 +74,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     __syncthreads();  // the previous tile's K/V/P are no longer read
     for (int i = tid; i < BK * D; i += NT) {
       const int r = i / D, d = i - r * D, n = k0 + r;
-      Ks[d * LDT + r] = n < M ? to_f(kb[n * ksn + d]) : 0.f;
+      Ks[d * LDT + r] = n < M ? kb[n * ksn + d] : 0.f;
     }
     for (int i = tid; i < BK * DV; i += NT) {
       const int r = i / DV, d = i - r * DV, n = k0 + r;
-      Vs[i] = (n < M && d < D) ? to_f(vb[n * vsn + d]) : 0.f;
+      Vs[i] = (n < M && d < D) ? vb[n * vsn + d] : 0.f;
     }
     __syncthreads();
 
@@ -137,7 +121,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       for (int j = 0; j < 4; ++j) {
         const float p = __expf(s[i][j] - m_new);
         rs += p;
-        s[i][j] = to_f(from_f<T>(p));  // P rounded to the input type
+        s[i][j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -176,7 +160,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = tx + 16 * c;
-      if (col < D) ob[n * osn + col] = from_f<T>(acc[i][c] * inv);
+      if (col < D) ob[n * osn + col] = acc[i][c] * inv;
     }
   }
 }
@@ -190,11 +174,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int DC>
+template <int DC>
 cudaError_t launch(const Args& a) {
   constexpr int DV = DC * 16;
   const size_t smem = sizeof(float) * (2 * a.D * LDT + BK * DV + BK * LDT);
-  auto kern = flash_fwd_kernel<T, DC>;
+  auto kern = flash_fwd_kernel<DC>;
   // Raise the dynamic shared memory limit once per instantiation in this
   // process (one device), to what its largest head_dim (DV) needs, so that
   // later launches, and CUDA graph captures, are kernel launches only.
@@ -208,46 +192,43 @@ cudaError_t launch(const Args& a) {
   }
   const dim3 grid((a.N + BQ - 1) / BQ, a.H, a.B);
   kern<<<grid, NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), a.N, a.M, a.D,
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.N, a.M, a.D,
       a.qs[0], a.qs[1], a.qs[2], a.ks[0], a.ks[1], a.ks[2],
       a.vs[0], a.vs[1], a.vs[2], a.os[0], a.os[1], a.os[2], a.scale);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const Args& a) {
   switch ((a.D + 15) / 16) {
-    case 1: return launch<T, 1>(a);
-    case 2: return launch<T, 2>(a);
-    case 3: return launch<T, 3>(a);
-    case 4: return launch<T, 4>(a);
-    case 5: return launch<T, 5>(a);
-    case 6: return launch<T, 6>(a);
-    case 7: return launch<T, 7>(a);
-    case 8: return launch<T, 8>(a);
-    case 9: return launch<T, 9>(a);
-    case 10: return launch<T, 10>(a);
+    case 1: return launch<1>(a);
+    case 2: return launch<2>(a);
+    case 3: return launch<3>(a);
+    case 4: return launch<4>(a);
+    case 5: return launch<5>(a);
+    case 6: return launch<6>(a);
+    case 7: return launch<7>(a);
+    case 8: return launch<8>(a);
+    case 9: return launch<9>(a);
+    case 10: return launch<10>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
-// batch, sequence and head axes; the head_dim axis must be contiguous.
+// float32 only.  Strides are in elements, for the batch, sequence and head
+// axes; the head_dim axis must be contiguous.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int sdbl_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     int B, int N, int M, int H, int D,
     int64_t qsb, int64_t qsn, int64_t qsh, int64_t ksb, int64_t ksn, int64_t ksh,
     int64_t vsb, int64_t vsn, int64_t vsh, int64_t osb, int64_t osn, int64_t osh,
-    float scale, int dtype, void* stream) {
+    float scale, void* stream) {
   if (D <= 0 || D > 160 || D % 8 != 0 || N <= 0 || M <= 0) return cudaErrorInvalidValue;
   Args a{q, k, v, o, B, N, M, H, D,
          {qsb, qsn, qsh}, {ksb, ksn, ksh}, {vsb, vsn, vsh}, {osb, osn, osh},
          scale, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch<float>(a);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a);
-  return cudaErrorInvalidValue;
+  return dispatch(a);
 }

@@ -6,13 +6,20 @@ Imports torch and the port only, so it also runs on a GPU machine without
 JAX:  python -m pytest tests/test_torch_kernels.py -q --noconftest
 """
 
+import importlib.util
+import shutil
+import weakref
+
 import numpy as np
 import pytest
 import torch
 
+from sonicdiffusionbayeslab_torch.ops import _build
 from sonicdiffusionbayeslab_torch.ops import attention as attn_ops
+from sonicdiffusionbayeslab_torch.ops import flash_attention as fa
 from sonicdiffusionbayeslab_torch.ops import groupnorm as gn_ops
 from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention
+from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
 
 
 def randn(shape, seed):
@@ -30,6 +37,19 @@ def cuda():
     return torch.device("cuda")
 
 
+def traced_kernel_counts(run, symbols):
+    """Executions on the card of the kernels whose names hold each symbol,
+    during ``run()``, from a torch.profiler trace (graph replays included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [sum(sym in n for n in names) for sym in symbols]
+
+
 def test_attention_dispatch_rule():
     q = torch.zeros(1, 4, 8, 40)
     assert attn_ops.uses_kernel(q)
@@ -40,11 +60,14 @@ def test_attention_dispatch_rule():
 
 def test_kernel_wrappers_take_plain_path_on_cpu_and_count_nothing():
     q = randn((1, 16, 2, 8), 6)
-    a0, g0 = flash_attention.launches, gn_ops.group_norm_silu.launches
+    counters = (fa.flash_attention_sm90, fa.flash_attention_fma, gn_ops.group_norm_silu)
+    before = [f.launches for f in counters]
     assert torch.equal(flash_attention(q, q, q), attn_ops.plain_attention(q, q, q))
+    qb = q.to(torch.bfloat16)
+    assert torch.equal(flash_attention(qb, qb, qb), attn_ops.plain_attention(qb, qb, qb))
     x, w, b = randn((1, 4, 4, 32), 7), torch.ones(32), torch.zeros(32)
     assert torch.equal(gn_ops.group_norm_silu(x, w, b), gn_ops.plain_group_norm(x, w, b, 32, 1e-5, True))
-    assert (flash_attention.launches, gn_ops.group_norm_silu.launches) == (a0, g0)
+    assert [f.launches for f in counters] == before
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -54,6 +77,97 @@ def test_kernel_wrappers_refuse_other_devices():
     x = torch.zeros(1, 4, 4, 32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         gn_ops.group_norm_silu(x, torch.ones(32, device="meta"), torch.zeros(32, device="meta"))
+
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "sm90"), (torch.float32, "fma")])
+def test_attention_kernel_dispatch_by_dtype(dtype, kernel):
+    # The rule is the dtype alone: the bf16 kernel is instantiated for every
+    # head_dim the wrapper takes (a multiple of 8, at most 160).
+    assert fa.kernel_for(dtype) == kernel
+    for d in range(8, fa.MAX_HEAD_DIM + 1, 8):
+        assert attn_ops.uses_kernel(torch.zeros(1, 4, 2, d, dtype=dtype))
+    assert not attn_ops.uses_kernel(torch.zeros(1, 4, 2, fa.MAX_HEAD_DIM + 8, dtype=dtype))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.kernel_for(torch.float16)
+
+
+# (B, H, N) of every main-path attention (batch 4 whole, 2 per microbatch)
+# and some ragged ones.
+@pytest.mark.parametrize("B,H,N", [(4, 8, 4096), (4, 8, 1024), (4, 8, 256), (4, 8, 64),
+                                   (2, 8, 4096), (2, 8, 1024), (2, 8, 256), (2, 8, 64),
+                                   (2, 2, 1000), (1, 1, 33), (2, 8, 300)])
+def test_query_tile_plan_covers_rows_and_fills_sms(B, H, N):
+    rows = fa.query_tile_rows(B, H, N)
+    assert rows in (64, 128)
+    blocks = B * H * -(-N // rows)
+    assert blocks * rows >= N * B * H and -(-N // rows) * rows - N < rows  # every row, no empty tile
+    if B * H * -(-N // 64) >= fa.SM_COUNT:
+        assert blocks >= fa.SM_COUNT  # the grid fills the card where it can
+    if rows == 64:
+        assert B * H * -(-N // 128) < fa.SM_COUNT  # 128 rows only where that would not fill it
+
+
+def test_tma_layout_check():
+    bf = torch.bfloat16
+    qkv = torch.zeros(2, 100, 3, 8, 40, dtype=bf)
+    assert all(fa.tma_layout_error(t) is None for t in qkv.unbind(2))  # fused-projection views
+    assert fa.tma_layout_error(torch.zeros(1, 77, 1, 40, dtype=bf)) is None
+    wide = torch.zeros(2, 64, 8, 48, dtype=bf)
+    assert "aligned" in fa.tma_layout_error(wide[..., 1:41])  # 2-byte offset
+    odd = torch.zeros(2, 64, 8, 44, dtype=bf)[..., :40]  # head stride 88 bytes
+    assert "multiples of 16 bytes" in fa.tma_layout_error(odd)
+    # A size-1 axis is never stepped along: its stride does not matter.
+    one = torch.zeros(1, 64, 8, 44, dtype=bf)[:, :, :1, :40]
+    assert fa.tma_layout_error(one) is None
+    assert fa._tma_strides(one) == (64 * 40, 352, 40)
+
+
+def test_build_digest_tracks_headers_and_flags(tmp_path, monkeypatch):
+    for src in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")]:
+        shutil.copy(src, tmp_path / src.name)
+    first = _build.digest(tmp_path)
+    assert first == _build.digest(_build.CSRC)
+    header = tmp_path / "wgmma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = _build.digest(tmp_path)
+    assert edited != first
+    monkeypatch.setattr(_build, "LINK_FLAGS", _build.LINK_FLAGS + ["-lm"])
+    assert _build.digest(tmp_path) != edited
+
+
+def test_wgmma_header_matches_its_generator():
+    spec = importlib.util.spec_from_file_location("gen_wgmma", _build.CSRC / "gen_wgmma.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    assert (_build.CSRC / "wgmma.cuh").read_text() == gen.render()
+
+
+def test_graphed_call_keeps_only_the_last_signature(monkeypatch):
+    # The capture itself needs a GPU; its bookkeeping does not.
+    graphs = []
+
+    class Graph:
+        def replay(self):
+            pass
+
+    def capture(self, args):
+        graphs.append(Graph())
+        static_in = [a.clone() for a in args]
+        return graphs[-1], static_in, self.fn(*static_in)
+
+    monkeypatch.setattr(GraphedCall, "_capture", capture)
+    call = GraphedCall(lambda x: x * 2)
+    a, b = torch.ones(2), torch.ones(3)
+    assert torch.equal(call(a), a * 2) and torch.equal(call(a), a * 2)
+    first = weakref.ref(graphs.pop())
+    assert first() is not None and not graphs  # one capture for one signature
+    assert torch.equal(call(b), b * 2)
+    assert first() is None  # the first graph (and with it its pool) is gone
+    second = weakref.ref(graphs.pop())
+    call(a)
+    assert second() is None and len(graphs) == 1
+    call.clear()
+    assert call.graph is None
 
 
 @pytest.mark.parametrize("n_rows,batch", [(64, 2), (4096, 2), (262144, 2), (77, 1), (1, 4)])
@@ -81,6 +195,52 @@ def test_attention_kernel_matches_plain(cuda, dtype, atol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,N,M,H,D", [
+    (2, 256, 256, 4, 40), (2, 256, 256, 4, 64), (2, 256, 256, 4, 80), (2, 256, 256, 4, 160),
+    (2, 1000, 1000, 2, 40), (2, 300, 77, 8, 40), (1, 33, 45, 2, 80), (2, 64, 64, 8, 160),
+    (2, 64, 77, 8, 160), (4, 1024, 77, 8, 80), (1, 200, 130, 3, 24), (4, 4096, 4096, 8, 40),
+])
+def test_bf16_attention_kernel_matches_plain(cuda, B, N, M, H, D):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    # q scaled by 3: logits of standard deviation 3, so the running max
+    # moves from K/V tile to K/V tile and O's rescale matters.
+    q, k, v = (torch.randn(B, L, H, D, generator=gen, device=cuda).mul(s).to(torch.bfloat16)
+               for L, s in ((N, 3), (M, 1), (M, 1)))
+    n0 = fa.flash_attention_sm90.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_sm90.launches == n0 + 1
+    want = attn_ops.plain_attention(q, k, v).float()
+    err = (got.float() - want).abs()
+    assert (err <= 1e-2 + 2e-2 * want.abs()).all(), f"max abs err {err.max().item():.3e}"
+    rms = want.pow(2).mean().sqrt().item()
+    assert err.max().item() <= 0.1 * rms, f"max abs err {err.max().item():.3e}, rms {rms:.3e}"
+
+
+@pytest.mark.cuda
+def test_bf16_attention_strided_views_bit_equal(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for N, H, D in [(1000, 8, 40), (256, 4, 80), (64, 2, 160)]:
+        qkv = torch.randn(2, N, 3, H, D, generator=gen, device=cuda).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        assert torch.equal(fa.flash_attention_sm90(q, k, v),
+                           fa.flash_attention_sm90(q.contiguous(), k.contiguous(), v.contiguous()))
+
+
+@pytest.mark.cuda
+def test_bf16_attention_refuses_unaligned_views(cuda):
+    wide = torch.zeros(2, 64, 4, 48, dtype=torch.bfloat16, device=cuda)
+    q = wide[..., 8:48]
+    assert fa.tma_layout_error(q) is None
+    n0 = fa.flash_attention_sm90.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(wide[..., 1:41], q, q)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        flash_attention(q, torch.zeros(2, 64, 4, 44, dtype=torch.bfloat16, device=cuda)[..., :40], q)
+    assert fa.flash_attention_sm90.launches == n0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 def test_group_norm_kernel_matches_plain(cuda, dtype, atol):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -93,3 +253,59 @@ def test_group_norm_kernel_matches_plain(cuda, dtype, atol):
             want = gn_ops.plain_group_norm(x, w, b, gn_ops.resolve_groups(C, 32), 1e-5, silu)
             torch.cuda.synchronize()
             assert_close(got, want, atol, 1e-2)
+
+
+@pytest.mark.cuda
+def test_graphed_unet_matches_eager_and_replays_its_kernels(cuda):
+    from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig
+    from sonicdiffusionbayeslab_torch.models.sampler import StableDiffusionEngine
+    from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
+    from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
+
+    eng = StableDiffusionEngine(UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny(),
+                                dtype=torch.bfloat16, device=cuda).init_params(0)
+    x = randn((2, 8, 8, 4), 1).to(cuda, torch.bfloat16)
+    t = torch.tensor([500.0, 20.0], device=cuda)
+    e = randn((2, 77, 32), 2).to(cuda, torch.bfloat16)
+    counters = (fa.flash_attention_sm90, gn_ops.group_norm_silu)
+    symbols = ("flash_fwd_sm90_kernel", "gn_stats_kernel", "gn_apply_kernel")
+    with torch.inference_mode():
+        before = [f.launches for f in counters]
+        traced = traced_kernel_counts(lambda: eng.unet(x, t, e), symbols)
+        per_call = [f.launches - b for f, b in zip(counters, before)]
+        assert min(per_call) > 0
+        assert traced == [per_call[0], per_call[1], per_call[1]]  # the trace counts what ran
+        want = [eng.unet(x * s, t, e) for s in (1, 2)]
+        eng.graphed_unet(x, t, e)  # two eager warm-ups, then the capture and one replay
+        before = [f.launches for f in counters]
+        got = []
+        traced = traced_kernel_counts(lambda: got.extend(eng.graphed_unet(x * s, t, e)
+                                                         for s in (1, 2)), symbols)
+        assert [f.launches for f in counters] == before  # a replay runs no wrapper
+        assert traced == [2 * per_call[0], 2 * per_call[1], 2 * per_call[1]]
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_graphed_call_releases_the_previous_graphs_memory(cuda):
+    w = torch.randn(2048, 2048, device=cuda)
+    call = GraphedCall(lambda x: (x @ w).relu() @ w)  # activations in the graph's pool
+    big = torch.randn(16384, 2048, device=cuda)  # 128 MiB, as each activation
+    call(big)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    call(big[:64].clone())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= held - 256 * 2**20
+
+
+@pytest.mark.cuda
+def test_attention_kernels_take_only_their_dtype(cuda):
+    q = torch.zeros(1, 64, 2, 40, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention_sm90(q, q, q)
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        fa.flash_attention_fma(qb, qb, qb)
