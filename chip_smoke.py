@@ -8,8 +8,10 @@ prints no ``ok`` line:
   1. environment: Python/torch/CUDA versions, device capability 9.0, the
      card's name and power limit (nvidia-smi);
   2. build of the hand-written kernels (sonicdiffusionbayeslab_torch/ops/csrc),
-     and the counts of tensor-core (HGMMA, HMMA) and TMA-load (UTMALDG)
-     instructions in the bf16 attention kernel's SASS (cuobjdump);
+     the counts of tensor-core (HGMMA, HMMA) and TMA-load (UTMALDG)
+     instructions in the bf16 attention kernel's SASS (cuobjdump), and the
+     GroupNorm kernel's launch plan at each main-path shape (channel range,
+     cluster size, blocks, shared memory, clusters the card holds at once);
   3. each kernel against its plain PyTorch version, in bf16 and fp32 (TF32
      off), at every shape either main-path run gives it (found by running
      the SD-1.5 UNet and VAE decoder on the meta device), within stated
@@ -54,10 +56,9 @@ import torch
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-# Each kernel's symbol in a profiler trace; GroupNorm launches both of its
-# kernels once a call.
+# Each kernel's symbol in a profiler trace: one kernel a call each.
 SYMBOLS = {"attention": ("flash_fwd_sm90_kernel",),
-           "group_norm": ("gn_stats_kernel", "gn_apply_kernel")}
+           "group_norm": ("gn_cluster_kernel",)}
 FMA_SYMBOL = "flash_fwd_kernel"  # the fp32 attention kernel
 # bf16 attention is also held to max |err| <= ATTN_RMS_GATE * rms(plain)
 # per shape: bf16 rounding of outputs up to ~4 stays near half of it, while
@@ -147,6 +148,29 @@ def compare(kind, dtype, got, want, what):
             raise AssertionError(f"{what}: max abs err {max_abs:.3e} exceeds "
                                  f"{ATTN_RMS_GATE} x rms {rms:.3e}")
     return max_abs
+
+
+def print_gn_plans(shapes):
+    """The GroupNorm launch plan of each main-path shape (bf16 and fp32), as
+    the wrapper picks it on this card, with how many of its clusters the
+    card holds at once (cudaOccupancyMaxActiveClusters); raises if a plan's
+    cluster cannot be scheduled at all."""
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import card_active_clusters, card_plan
+
+    for kind, shape in shapes:
+        if kind != "group_norm":
+            continue
+        B, N, C, G = shape[:4]
+        for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+            p = card_plan(B, N, C, G, code, True)
+            active = card_active_clusters(code, p.vec, p.cluster, p.threads, p.smem)
+            print(f"group_norm plan {str(dtype)[6:]} {B},{N},{C}: range {p.channels} channels "
+                  f"({p.range_groups} groups), cluster {p.cluster}, {p.ctas} CTAs of "
+                  f"{p.threads} threads ({p.row_lanes} row lanes x {p.channels // p.vec} "
+                  f"slots of {p.vec}), {p.smem} B shared memory, rows "
+                  f"{'cached' if p.cache else 're-read'}; {active} clusters active at once")
+            if active < 1:
+                raise AssertionError(f"group_norm {shape}: the plan's cluster cannot be scheduled")
 
 
 def sass_counts(build):
@@ -610,6 +634,7 @@ def main() -> None:
     check_shapes = sorted(set(run_counts) | set(chunk_counts), key=order)
     print(f"main path per UNet forward: {dict(per_unet)}; per VAE decode: {dict(per_vae)}; "
           f"{len(check_shapes)} distinct kernel shapes over both runs")
+    print_gn_plans(shapes)
     report = {k: {"errs": {torch.bfloat16: [], torch.float32: []}, "launches": None,
                   "wrapper_launches": None,
                   "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,

@@ -89,8 +89,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sdbl_flash_attention_fwd.restype = i
     lib.sdbl_flash_attention_sm90.argtypes = [p, p, p, p, i, i, i, i, i] + [i64] * 12 + [f, i, p]
     lib.sdbl_flash_attention_sm90.restype = i
-    lib.sdbl_groupnorm_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
+    lib.sdbl_groupnorm_fwd.argtypes = [p, p, p, p] + [i] * 10 + [f, i, i, p]
     lib.sdbl_groupnorm_fwd.restype = i
+    lib.sdbl_groupnorm_active_clusters.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+    lib.sdbl_groupnorm_active_clusters.restype = i
 
 
 def kernels() -> ctypes.CDLL:

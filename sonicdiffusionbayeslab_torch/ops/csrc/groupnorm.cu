@@ -1,36 +1,67 @@
 // GroupNorm (+ optional SiLU) forward for Hopper (sm_90a) on channels-last
-// [B, N, C] activations.
+// [B, N, C] activations, in one launch per call.
 //
 // Replaces the TPU kernel sonicdiffusionbayeslab_tpu/ops/groupnorm.py
 // ::_kernel (launched by _gn_pallas_impl).  That kernel carries per-group
 // sums in scratch memory from one step of the TPU's sequential grid to the
-// next.  Hopper blocks run in parallel and in no order, so the sequential
-// axis becomes a split reduction in two launches:
-//   1. gn_stats: grid (S chunks of rows, B).  Each block reads its chunk
-//      of rows (all C channels, coalesced along C) twice: once for the
-//      per-channel mean, once for the per-channel sum of squared deviations
-//      (the second read mostly hits L2).  It folds channels into groups with
-//      Chan's formula and writes (mean, M2) per (b, chunk, group).
-//   2. gn_apply: grid (S, B).  Each block merges the S partial statistics of
-//      its groups (Chan's formula again, in a fixed order, so the result is
-//      deterministic), then writes (x - mean) * rstd * gamma + beta, with
-//      y * sigmoid(y) on top when SiLU is asked for.
-// The variance is thus a two-pass variance per chunk merged exactly, as the
-// reference's default GroupNorm computes it (mean of squared deviations),
-// not E[x^2] - mean^2.  Statistics are fp32; the output is in x's type.
+// next.  Hopper blocks run in parallel and in no order, so the statistics of
+// a group are merged across blocks inside one thread-block cluster:
+//
+//   * A cluster owns one batch item and a range of whole groups (a multiple
+//     of the 16-byte vector in channels), and all N rows of that slab; its K
+//     blocks (K <= 16; above 8 only where the card holds such a cluster)
+//     split the rows.  The plan (ops/groupnorm.py::plan) picks the range and
+//     K so that ~128 blocks are in flight where the shape has the work for
+//     it, and only layouts whose clusters the card holds all at once
+//     (cudaOccupancyMaxActiveClusters): a second wave doubles the time.  At
+//     the UNet's 8x8 and 16x16 levels K is 1: no cluster barrier, nothing
+//     merged across blocks.
+//   * Each thread reads 16 bytes a row (8 bf16 or 4 fp32 channels;
+//     neighbouring threads read neighbouring channels of one row), two rows
+//     in flight, and keeps a Welford (mean, M2) per channel over the rows it
+//     walks.  The block merges its threads' partials with Chan's formula in
+//     a fixed tree over row lanes, then folds channels into groups (equal
+//     counts: the group mean is the mean of channel means, M2 adds
+//     n * (mean_c - mean_g)^2).  gamma and beta are read into shared memory
+//     while the rows load.
+//   * cluster.sync(); every block reads the per-group partials of all K
+//     blocks through distributed shared memory (map_shared_rank) and merges
+//     them in rank order, so every block of a cluster gets the same bits,
+//     and two runs give the same bits.  It then arrives on the cluster
+//     barrier, applies (x - mean) * rsqrt(var + eps) * gamma + beta (and
+//     y * sigmoid(y), through tanh.approx in bf16) to its rows, and waits on
+//     the barrier before it exits, so its shared memory lives until every
+//     peer has read it.
+// The variance is the mean of squared deviations, as the reference's
+// default GroupNorm computes it, never E[x^2] - mean^2.  Statistics are
+// fp32; the output is in x's type.  No workspace in device memory.
 //
 // What bounds it: bytes.  It must read x once and write y once (plus gamma
 // and beta), a few flops per element, far below the ridge point; the bound
-// is 2 * x.nbytes / 3.35 TB/s.  The design reads x about twice from device
-// memory (stats pass 1 and the apply pass), so its floor is ~1.5x that bound.
-// Splitting rows into chunks fills the 132 SMs even where B * G is small
-// (the VAE's C=128 level at 512x512 has B*G = 64 groups in all).
+// is 2 * x.nbytes / 3.35 TB/s.  Where a block's rows fit 96 KB of shared
+// memory (ops/groupnorm.py::CACHE_BYTES: every UNet call but 4x4096x640 and
+// 4x4096x960, and the VAE's 2x4096x512), the statistics pass keeps them
+// there and x is read from device memory once.  Elsewhere the apply pass
+// reads the rows again: from L2 for those two UNet calls (21-31.5 MB), from
+// device memory for the VAE's 33-268 MB calls.  What holds it back on the
+// card (PERF.md): a channel range is only 64-240 bytes of each row, so every
+// warp access spans several rows and cache lines; the special-function
+// units (the SiLU); and a fixed ~5 us chain of load, merges and barriers
+// that the small calls cannot hide.
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr int kMaxThreads = 512;
+constexpr int kBatch = 2;  // rows a thread has in flight: all loads first, then the math
+constexpr int kMaxCluster = 16;  // 8 is portable; 16 needs the non-portable attribute
+constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may have
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -44,172 +75,344 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// Threads are laid out as RL row lanes x C channels ("lanes" = RL * C):
-// lane e reads channel e % C of rows e / C, e / C + RL, ...  Consecutive
-// lanes read consecutive channels of one row, so every warp load is
-// coalesced, and a lane's channel (and group) stays fixed.
+// One access of V elements: a 16-byte uint4 for the vector path, T itself
+// for the scalar one.
+template <typename T, int V> struct Raw { using type = T; };
+template <> struct Raw<float, 4> { using type = uint4; };
+template <> struct Raw<__nv_bfloat16, 8> { using type = uint4; };
 
-template <typename T>
-__global__ void gn_stats_kernel(const T* __restrict__ x, float* __restrict__ ws,
-                                int N, int C, int G, int R, int RL) {
-  extern __shared__ float sm[];
-  float* part = sm;               // [RL * C]
-  float* mean_c = part + RL * C;  // [C]
-  float* m2_c = mean_c + C;       // [C]
-  const int s = blockIdx.x, b = blockIdx.y, S = gridDim.x;
-  const int r0 = s * R, rows = min(R, N - r0);
-  const T* xb = x + (static_cast<int64_t>(b) * N + r0) * C;
-  const int lanes = RL * C;
+__device__ __forceinline__ uint4 ldg(const uint4* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ __nv_bfloat16 ldg(const __nv_bfloat16* p) { return __ldg(p); }
 
-  for (int e = threadIdx.x; e < lanes; e += blockDim.x) {
-    const int rl = e / C, c = e - rl * C;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int r = rl; r < rows; r += RL) acc += to_f(xb[static_cast<int64_t>(r) * C + c]);
-    part[e] = acc;
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float t = 0.f;
-    for (int rl = 0; rl < RL; ++rl) t += part[rl * C + c];
-    mean_c[c] = t / rows;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < lanes; e += blockDim.x) {
-    const int rl = e / C, c = e - rl * C;
-    const float mu = mean_c[c];
-    float acc = 0.f;
-#pragma unroll 4
-    for (int r = rl; r < rows; r += RL) {
-      const float d = to_f(xb[static_cast<int64_t>(r) * C + c]) - mu;
-      acc = fmaf(d, d, acc);
-    }
-    part[e] = acc;
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float t = 0.f;
-    for (int rl = 0; rl < RL; ++rl) t += part[rl * C + c];
-    m2_c[c] = t;
-  }
-  __syncthreads();
-  const int gs = C / G;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    float mu = 0.f;
-    for (int c = g * gs; c < (g + 1) * gs; ++c) mu += mean_c[c];
-    mu /= gs;
-    float m2 = 0.f;
-    for (int c = g * gs; c < (g + 1) * gs; ++c) {
-      const float d = mean_c[c] - mu;
-      m2 += m2_c[c] + rows * d * d;
-    }
-    float* w = ws + ((static_cast<int64_t>(b) * S + s) * G + g) * 2;
-    w[0] = mu;
-    w[1] = m2;
-  }
+template <typename T, int V>
+__device__ __forceinline__ void unpack(const typename Raw<T, V>::type& r, float (&f)[V]) {
+  const T* e = reinterpret_cast<const T*>(&r);
+#pragma unroll
+  for (int j = 0; j < V; ++j) f[j] = to_f(e[j]);
 }
 
-template <typename T>
-__global__ void gn_apply_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                                const T* __restrict__ beta, const float* __restrict__ ws,
-                                T* __restrict__ y, int N, int C, int G, int R, int RL,
-                                float eps, int silu) {
-  extern __shared__ float sm[];
-  float* mean_g = sm;      // [G]
-  float* rstd_g = sm + G;  // [G]
-  const int s = blockIdx.x, b = blockIdx.y, S = gridDim.x;
-  const int gs = C / G;
-  // One warp per group: each lane merges every 32nd chunk, then the lanes
-  // merge pairwise across the warp (fixed order, so deterministic).
-  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  for (int g = threadIdx.x >> 5; g < G; g += nwarps) {
-    float n = 0.f, mu = 0.f, m2 = 0.f;
-    for (int t = lane; t < S; t += 32) {
-      const float nb = static_cast<float>(min(R, N - t * R)) * gs;
-      const float* w = ws + ((static_cast<int64_t>(b) * S + t) * G + g) * 2;
-      const float d = w[0] - mu, nn = n + nb;
-      mu += d * (nb / nn);
-      m2 += w[1] + d * d * (n * nb / nn);
-      n = nn;
-    }
+template <typename T, int V>
+__device__ __forceinline__ typename Raw<T, V>::type pack(const float (&f)[V]) {
+  typename Raw<T, V>::type r;
+  if constexpr (V == 8) {  // bf16: two elements a conversion
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&r);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float nb = __shfl_xor_sync(0xffffffffu, n, off);
-      const float mb = __shfl_xor_sync(0xffffffffu, mu, off);
-      const float qb = __shfl_xor_sync(0xffffffffu, m2, off);
-      const float nn = n + nb;
-      if (nn > 0.f) {
-        const float d = mb - mu;
-        mu += d * (nb / nn);
-        m2 += qb + d * d * (n * nb / nn);
-        n = nn;
+    for (int j = 0; j < V / 2; ++j) e[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+  } else {
+    T* e = reinterpret_cast<T*>(&r);
+#pragma unroll
+    for (int j = 0; j < V; ++j) e[j] = from_f<T>(f[j]);
+  }
+  return r;
+}
+
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// y * sigmoid(y).  bf16: sigmoid as 0.5 * tanh(y / 2) + 0.5, one
+// special-function op an element (their rate bounds the apply pass), with
+// an error well under bf16's spacing; fp32 keeps exp and a fast division.
+template <typename T>
+__device__ __forceinline__ float silu_f(float v) {
+  if constexpr (sizeof(T) == 2) return v * fmaf(0.5f, tanh_approx(0.5f * v), 0.5f);
+  return __fdividef(v, 1.f + __expf(-v));  // -> 0 where exp(-v) overflows
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;  // the same bits in every lane: each step adds the same two values
+}
+
+// Rows r < rows with r % 2^b == l.
+__device__ __forceinline__ float lane_rows(int rows, int l, int b) {
+  return l < rows ? static_cast<float>(((rows - l - 1) >> b) + 1) : 0.f;
+}
+
+// Chan's merge of (nb, mb, qb) into (na, ma, qa); q is M2, the sum of
+// squared deviations from the mean.  An empty side changes nothing.
+__device__ __forceinline__ void chan(float na, float& ma, float& qa, float nb, float mb,
+                                     float qb) {
+  if (nb == 0.f) return;
+  const float n = na + nb, d = mb - ma, rn = __frcp_rn(n);
+  ma = fmaf(d, nb * rn, ma);
+  qa += fmaf(d * d, na * nb * rn, qb);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Grid (ranges * K, B), clusters of (K, 1, 1).  A block's threads are
+// `lanes` row lanes (a power of two) by `slots` vectors of a row.  Shared
+// memory: the cached rows [rows_per][slots] of Raw (when cache), then
+// floats: mean and M2 [lanes][CR], gamma and beta [CR], part[gpr][2] (this
+// block's group mean, M2), stat[gpr][2] (the merged mean, rstd).
+template <typename T, int V>
+__global__ void __launch_bounds__(kMaxThreads, 2)  // <= 64 registers
+gn_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                  const T* __restrict__ beta, T* __restrict__ y, int N, int C, int gs,
+                  int gpr, int rows_per, int lanes, int cache, float eps, int silu) {
+  using R = typename Raw<T, V>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int range = blockIdx.x / K, b = blockIdx.y;
+  const int CR = gpr * gs, slots = CR / V, work = lanes * slots;
+  const int rows = max(0, min(rows_per, N - rank * rows_per));
+  const size_t cached = cache ? (static_cast<size_t>(rows_per) * CR * sizeof(T) + 15) / 16 * 16 : 0;
+  R* xs = reinterpret_cast<R*>(smem);
+  float* s_mean = reinterpret_cast<float*>(smem + cached);
+  float* s_m2 = s_mean + lanes * CR;
+  float* s_gamma = s_m2 + lanes * CR;
+  float* s_beta = s_gamma + CR;
+  float* part = s_beta + CR;
+  float* stat = part + 2 * gpr;
+  const int c0 = range * CR;
+  const int64_t base = (static_cast<int64_t>(b) * N + static_cast<int64_t>(rank) * rows_per) * C + c0;
+  const int64_t step = static_cast<int64_t>(lanes) * C / V;  // in accesses of V elements
+
+  for (int c = threadIdx.x; c < CR; c += blockDim.x) {  // read while the rows load
+    s_gamma[c] = to_f(gamma[c0 + c]);
+    s_beta[c] = to_f(beta[c0 + c]);
+  }
+
+  // 1. Per-channel Welford over this thread's rows (lane, lane + lanes, ...).
+  for (int e = threadIdx.x; e < work; e += blockDim.x) {
+    const int lane = e / slots, slot = e - lane * slots;
+    float mean[V], m2[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) mean[j] = m2[j] = 0.f;
+    const R* p = reinterpret_cast<const R*>(x + base + static_cast<int64_t>(lane) * C + slot * V);
+    int n = 0;
+    for (int r0 = lane; r0 < rows; r0 += kBatch * lanes, p += kBatch * step) {
+      R raw[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (r0 + u * lanes < rows) raw[u] = ldg(p + u * step);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (r0 + u * lanes >= rows) break;
+        if (cache) xs[(r0 + u * lanes) * slots + slot] = raw[u];
+        float f[V];
+        unpack<T, V>(raw[u], f);
+        const float rn = __fdividef(1.f, static_cast<float>(++n));
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float d = f[j] - mean[j];
+          mean[j] = fmaf(d, rn, mean[j]);
+          m2[j] = fmaf(d, f[j] - mean[j], m2[j]);
+        }
       }
     }
-    if (lane == 0) {
-      mean_g[g] = mu;
-      rstd_g[g] = rsqrtf(m2 / n + eps);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      s_mean[lane * CR + slot * V + j] = mean[j];
+      s_m2[lane * CR + slot * V + j] = m2[j];
     }
   }
   __syncthreads();
 
-  const int r0 = s * R, rows = min(R, N - r0);
-  const int64_t base = (static_cast<int64_t>(b) * N + r0) * C;
-  const T* xb = x + base;
-  T* yb = y + base;
-  const int lanes = RL * C;
-  for (int e = threadIdx.x; e < lanes; e += blockDim.x) {
-    const int rl = e / C, c = e - rl * C, g = c / gs;
-    const float mu = mean_g[g], rs = rstd_g[g];
-    const float ga = to_f(gamma[c]), be = to_f(beta[c]);
-#pragma unroll 4
-    for (int r = rl; r < rows; r += RL) {
-      const int64_t i = static_cast<int64_t>(r) * C + c;
-      float v = (to_f(xb[i]) - mu) * rs;
-      v = v * ga + be;
-      if (silu) v = v / (1.f + __expf(-v));
-      yb[i] = from_f<T>(v);
+  // 2. Merge row lanes per channel: a fixed tree, lane l takes lane l + s.
+  for (int b = __ffs(lanes) - 2; b >= 0; --b) {
+    const int s = 1 << b;
+    for (int e = threadIdx.x; e < s * CR; e += blockDim.x) {
+      float ma = s_mean[e], qa = s_m2[e];
+      chan(lane_rows(rows, e / CR, b + 1), ma, qa, lane_rows(rows, e / CR + s, b + 1),
+           s_mean[e + s * CR], s_m2[e + s * CR]);
+      s_mean[e] = ma;
+      s_m2[e] = qa;
+    }
+    __syncthreads();
+  }
+
+  // 3. Channels into groups, one warp a group: every channel counts `rows`.
+  const int wid = threadIdx.x >> 5, lid = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int g = wid; g < gpr; g += nwarps) {
+    float sum = 0.f;
+    for (int c = g * gs + lid; c < (g + 1) * gs; c += 32) sum += s_mean[c];
+    const float mu = warp_sum(sum) / gs;
+    float q = 0.f;
+    for (int c = g * gs + lid; c < (g + 1) * gs; c += 32) {
+      const float d = s_mean[c] - mu;
+      q += fmaf(static_cast<float>(rows) * d, d, s_m2[c]);
+    }
+    q = warp_sum(q);
+    if (lid == 0) {
+      part[2 * g] = mu;
+      part[2 * g + 1] = q;
     }
   }
+  if (K > 1) cluster.sync(); else __syncthreads();
+
+  // 4. Every block merges all K blocks' partials, in rank order.
+  for (int g = threadIdx.x; g < gpr; g += blockDim.x) {
+    float n = 0.f, mu = 0.f, q = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float* pk = cluster.map_shared_rank(part, k);
+      const float nk = static_cast<float>(max(0, min(rows_per, N - k * rows_per))) * gs;
+      chan(n, mu, q, nk, pk[2 * g], pk[2 * g + 1]);
+      n += nk;
+    }
+    stat[2 * g] = mu;
+    stat[2 * g + 1] = rsqrtf(q / n + eps);
+  }
+  if (K > 1) cluster_arrive();  // done reading the peers; wait for them before exiting
+  __syncthreads();
+
+  // 5. Normalise, affine, SiLU: per-channel constants once, outside the rows.
+  for (int e = threadIdx.x; e < work; e += blockDim.x) {
+    const int lane = e / slots, slot = e - lane * slots;
+    float mu[V], sc[V], sh[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int c = slot * V + j, g = c / gs;
+      mu[j] = stat[2 * g];
+      sc[j] = stat[2 * g + 1] * s_gamma[c];
+      sh[j] = s_beta[c];
+    }
+    const int64_t off = base + static_cast<int64_t>(lane) * C + slot * V;
+    const R* p = reinterpret_cast<const R*>(x + off);
+    R* q = reinterpret_cast<R*>(y + off);
+    for (int r0 = lane; r0 < rows; r0 += kBatch * lanes, p += kBatch * step, q += kBatch * step) {
+      R raw[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (r0 + u * lanes < rows)
+          raw[u] = cache ? xs[(r0 + u * lanes) * slots + slot] : ldg(p + u * step);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (r0 + u * lanes >= rows) break;
+        float f[V];
+        unpack<T, V>(raw[u], f);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          float v = fmaf(f[j] - mu[j], sc[j], sh[j]);
+          if (silu) v = silu_f<T>(v);
+          f[j] = v;
+        }
+        q[u * step] = pack<T, V>(f);
+      }
+    }
+  }
+  if (K > 1) cluster_wait();  // peers may still be reading this block's `part`
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* gamma, const void* beta, void* y, float* ws,
-                   int B, int N, int C, int G, int S, int R, float eps, int silu,
-                   cudaStream_t stream) {
-  const int RL = C < 256 ? 256 / C : 1;
-  const int lanes = RL * C;
-  int threads = lanes;
-  while (threads > 1024) threads = (threads + 1) / 2;
-  threads = (threads + 31) / 32 * 32;  // whole warps: the merge shuffles across lanes
-  const dim3 grid(S, B);
-  const size_t smem_stats = sizeof(float) * (lanes + 2 * C);
-  gn_stats_kernel<T><<<grid, threads, smem_stats, stream>>>(
-      static_cast<const T*>(x), ws, N, C, G, R, RL);
-  cudaError_t err = cudaGetLastError();
+size_t smem_bytes(int rows_per, int CR, int lanes, int gpr, int cache, size_t elem) {
+  const size_t cached = cache ? (static_cast<size_t>(rows_per) * CR * elem + 15) / 16 * 16 : 0;
+  return cached + sizeof(float) * (2 * static_cast<size_t>(lanes) * CR + 2 * CR + 4 * gpr);
+}
+
+template <typename T, int V>
+cudaError_t allow_smem() {  // once per process and instantiation
+  static const cudaError_t err = [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gn_cluster_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(gn_cluster_kernel<T, V>,
+                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
+  return err;
+}
+
+cudaLaunchConfig_t config(int ranges, int B, int K, int threads, size_t smem,
+                          cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranges * K, B, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = K;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T, int V>
+cudaError_t launch(const void* x, const void* gamma, const void* beta, void* y, int B, int N,
+                   int C, int G, int gpr, int K, int threads, int lanes, int cache, float eps,
+                   int silu, cudaStream_t stream) {
+  cudaError_t err = allow_smem<T, V>();
   if (err != cudaSuccess) return err;
-  gn_apply_kernel<T><<<grid, threads, sizeof(float) * 2 * G, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-      ws, static_cast<T*>(y), N, C, G, R, RL, eps, silu);
+  const int gs = C / G, rows_per = (N + K - 1) / K;
+  const size_t smem = smem_bytes(rows_per, gpr * gs, lanes, gpr, cache, sizeof(T));
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(G / gpr, B, K, threads, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, gn_cluster_kernel<T, V>, static_cast<const T*>(x),
+                           static_cast<const T*>(gamma), static_cast<const T*>(beta),
+                           static_cast<T*>(y), N, C, gs, gpr, rows_per, lanes, cache, eps, silu);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <typename T, int V>
+cudaError_t active_clusters(int K, int threads, int smem, int* out) {
+  cudaError_t err = allow_smem<T, V>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(1, 1, K, threads, smem, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(out, gn_cluster_kernel<T, V>, &cfg);
+}
+
+bool valid(int B, int N, int C, int G, int vec, int gpr, int K, int threads, int lanes,
+           size_t elem, const void* x) {
+  if (B <= 0 || B > 65535 || N <= 0 || C <= 0 || G <= 0 || C % G || gpr <= 0 || G % gpr)
+    return false;
+  if (vec != 1 && (vec * elem != 16 || C % vec || (gpr * (C / G)) % vec ||
+                   reinterpret_cast<uintptr_t>(x) % 16))
+    return false;
+  const int slots = gpr * (C / G) / vec;
+  if (K < 1 || K > kMaxCluster || threads < 32 || threads > kMaxThreads || threads % 32) return false;
+  if (lanes < 1 || (lanes & (lanes - 1)) || (lanes > 1 && lanes * slots > threads)) return false;
+  return static_cast<int64_t>(G / gpr) * K <= 0x7fffffff;
 }
 
 }  // namespace
 
-// x, y: contiguous [B, N, C]; gamma, beta: [C] of x's type; ws: float32
-// workspace of B * S * G * 2 elements, where the N rows are cut into S
-// chunks of R rows (the last may be shorter, none empty).  C <= 4096 keeps
-// the stats kernel's shared memory under 48 KB.  dtype: 0 = float32,
-// 1 = bfloat16.  Returns the cudaError_t of the launches (0 on success).
-extern "C" int sdbl_groupnorm_fwd(const void* x, const void* gamma, const void* beta,
-                                  void* y, void* ws, int B, int N, int C, int G, int S,
-                                  int R, float eps, int silu, int dtype, void* stream) {
-  if (C <= 0 || C > 4096 || G <= 0 || C % G != 0 || S <= 0 || R <= 0 ||
-      (S - 1) * R >= N || S * R < N)
-    return cudaErrorInvalidValue;
-  float* w = static_cast<float*>(ws);
+// x, y: contiguous [B, N, C]; gamma, beta: [C] of x's type.  G groups, cut
+// into ranges of gpr groups; K blocks a cluster split the N rows; each
+// block runs `threads` threads as `lanes` row lanes (a power of two) by
+// gpr * (C / G) / vec slots of vec elements (vec: 1, or 16 bytes' worth
+// with x 16-byte aligned).  cache: keep a block's rows in shared memory.
+// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+extern "C" int sdbl_groupnorm_fwd(const void* x, const void* gamma, const void* beta, void* y,
+                                  int B, int N, int C, int G, int vec, int gpr, int K,
+                                  int threads, int lanes, int cache, float eps, int silu,
+                                  int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, gamma, beta, y, w, B, N, C, G, S, R, eps, silu, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, gamma, beta, y, w, B, N, C, G, S, R, eps, silu, st);
+  const size_t elem = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  if ((dtype != 0 && dtype != 1) || !valid(B, N, C, G, vec, gpr, K, threads, lanes, elem, x))
+    return cudaErrorInvalidValue;
+  if (dtype == 0 && vec == 4)
+    return launch<float, 4>(x, gamma, beta, y, B, N, C, G, gpr, K, threads, lanes, cache, eps, silu, st);
+  if (dtype == 0)
+    return launch<float, 1>(x, gamma, beta, y, B, N, C, G, gpr, K, threads, lanes, cache, eps, silu, st);
+  if (vec == 8)
+    return launch<__nv_bfloat16, 8>(x, gamma, beta, y, B, N, C, G, gpr, K, threads, lanes, cache,
+                                    eps, silu, st);
+  return launch<__nv_bfloat16, 1>(x, gamma, beta, y, B, N, C, G, gpr, K, threads, lanes, cache,
+                                  eps, silu, st);
+}
+
+// How many clusters of K blocks of `threads` threads and `smem` bytes of
+// dynamic shared memory the card can hold at once (cudaOccupancyMaxActiveClusters).
+extern "C" int sdbl_groupnorm_active_clusters(int dtype, int vec, int K, int threads, int smem,
+                                              int* out) {
+  if (dtype == 0 && vec == 4) return active_clusters<float, 4>(K, threads, smem, out);
+  if (dtype == 0 && vec == 1) return active_clusters<float, 1>(K, threads, smem, out);
+  if (dtype == 1 && vec == 8) return active_clusters<__nv_bfloat16, 8>(K, threads, smem, out);
+  if (dtype == 1 && vec == 1) return active_clusters<__nv_bfloat16, 1>(K, threads, smem, out);
   return cudaErrorInvalidValue;
 }

@@ -6,6 +6,7 @@ Imports torch and the port only, so it also runs on a GPU machine without
 JAX:  python -m pytest tests/test_torch_kernels.py -q --noconftest
 """
 
+import collections
 import importlib.util
 import shutil
 import weakref
@@ -170,11 +171,160 @@ def test_graphed_call_keeps_only_the_last_signature(monkeypatch):
     assert call.graph is None
 
 
-@pytest.mark.parametrize("n_rows,batch", [(64, 2), (4096, 2), (262144, 2), (77, 1), (1, 4)])
-def test_groupnorm_chunking_covers_rows(n_rows, batch):
-    S, R = gn_ops.chunking(n_rows, batch)
-    assert S >= 1 and R >= 1
-    assert (S - 1) * R < n_rows <= S * R  # every chunk non-empty, all rows covered
+# (B, N, C, eps, silu) of every GroupNorm of the main path's whole-batch
+# run (UNet at batch 4, VAE decode at batch 2; G = 32), then the tiny
+# configs' widths (C = 16 takes gcd(16, 32) = 16 groups of one channel).
+GN_MAIN_PATH = [
+    (2, 4096, 512, 1e-6, False), (2, 4096, 512, 1e-6, True), (2, 16384, 512, 1e-6, True),
+    (2, 65536, 256, 1e-6, True), (2, 65536, 512, 1e-6, True), (2, 262144, 128, 1e-6, True),
+    (2, 262144, 256, 1e-6, True), (4, 64, 1280, 1e-6, False), (4, 64, 1280, 1e-5, True),
+    (4, 64, 2560, 1e-5, True), (4, 256, 640, 1e-5, True), (4, 256, 1280, 1e-6, False),
+    (4, 256, 1280, 1e-5, True), (4, 256, 1920, 1e-5, True), (4, 256, 2560, 1e-5, True),
+    (4, 1024, 320, 1e-5, True), (4, 1024, 640, 1e-6, False), (4, 1024, 640, 1e-5, True),
+    (4, 1024, 960, 1e-5, True), (4, 1024, 1280, 1e-5, True), (4, 1024, 1920, 1e-5, True),
+    (4, 4096, 320, 1e-6, False), (4, 4096, 320, 1e-5, True), (4, 4096, 640, 1e-5, True),
+    (4, 4096, 960, 1e-5, True),
+]
+GN_TINY = [(2, 64, 16, 1e-5, True), (2, 64, 32, 1e-5, True), (2, 256, 64, 1e-6, False)]
+
+
+def check_plan(p, B, N, C, G, elem):
+    """Every (batch, group) in exactly one cluster, every row in exactly one
+    block of it, and a layout the kernel's entry point accepts."""
+    gs = C // G
+    assert p.channels == p.range_groups * gs and p.ranges * p.range_groups == G
+    owners = collections.Counter()
+    for b in range(B):
+        for r in range(p.ranges):
+            for g in range(r * p.range_groups, (r + 1) * p.range_groups):
+                owners[(b, g)] += 1
+    assert len(owners) == B * G and set(owners.values()) == {1}
+    spans = [(k * p.rows, min(N, (k + 1) * p.rows)) for k in range(p.cluster)]
+    assert spans[0][0] == 0 and spans[-1][1] == N
+    assert all(lo < hi for lo, hi in spans)  # no block without rows
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))  # no row twice or missed
+    assert 1 <= p.cluster <= gn_ops.MAX_CLUSTER <= 16  # 8 portable, 16 where the card holds it
+    assert p.cluster & (p.cluster - 1) == 0
+    assert p.ctas == B * p.ranges * p.cluster
+    assert p.channels % p.vec == 0 and (p.vec == 1 or p.vec * elem == 16)
+    slots = p.channels // p.vec
+    assert p.row_lanes & (p.row_lanes - 1) == 0
+    assert p.threads % 32 == 0 and 32 <= p.threads <= gn_ops.MAX_THREADS
+    assert p.row_lanes * slots <= p.threads or p.row_lanes == 1
+    assert p.smem == gn_ops._smem(p.row_lanes, p.channels, p.range_groups, p.rows, elem, p.cache)
+    assert p.smem <= gn_ops.MAX_SMEM <= 227 * 1024
+    assert p.cache == (p.rows * p.channels * elem <= gn_ops.CACHE_BYTES)
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("B,N,C,eps,silu", GN_MAIN_PATH + GN_TINY)
+def test_groupnorm_plan_covers_groups_and_rows(B, N, C, eps, silu, elem):
+    G = gn_ops.resolve_groups(C, 32)
+    p = gn_ops.plan(B, N, C, G, elem)
+    check_plan(p, B, N, C, G, elem)
+    # Every SD-1.5 level has an even C / G: 16-byte vectors throughout.
+    assert p.vec == 16 // elem
+    assert p.channels * elem >= min(gn_ops.MIN_ROW_BYTES, C * elem)  # wide rows where C allows
+    if B * N * C * elem >= gn_ops.TARGET_CTAS * gn_ops.MIN_CTA_BYTES:
+        assert p.ctas >= 128  # the shape has the work to fill the card: it does
+    if (B, N) == (4, 64):
+        assert p.cluster == 1 or elem == 4  # the 8x8 level: one block a (b, group range)
+    unaligned = gn_ops.plan(B, N, C, G, elem, aligned=False)
+    check_plan(unaligned, B, N, C, G, elem)
+    assert unaligned.vec == 1
+
+
+@pytest.mark.parametrize("C,G", [(20, 4), (48, 16), (640, 32), (gn_ops.MAX_CHANNELS, 1),
+                                 (gn_ops.MAX_CHANNELS - 1, 1), (gn_ops.MAX_CHANNELS, gn_ops.MAX_CHANNELS)])
+@pytest.mark.parametrize("N", [1, 7, 4096])
+def test_groupnorm_plan_fits_shared_memory_up_to_max_channels(C, G, N):
+    # MAX_CHANNELS is what the kernel's shared memory allows: a plan exists
+    # for a single group that wide, scalar or vector, in both dtypes.
+    for elem in (2, 4):
+        for aligned in (True, False):
+            check_plan(gn_ops.plan(2, N, C, G, elem, aligned), 2, N, C, G, elem)
+    if G == 1:
+        assert gn_ops._smem(1, 2 * gn_ops.MAX_CHANNELS, 1, 1, 4, False) > gn_ops.MAX_SMEM
+
+
+def emulate_kernel_statistics(x, G, p):
+    """The kernel's statistics, step by step in float32: per-thread Welford
+    over each row lane, the block's tree over lanes, channels folded into
+    groups, then Chan merges of the blocks' partials in rank order.
+    Returns mean, var [B, G]."""
+    B, N, C = x.shape
+    gs = C // G
+
+    def chan(a, b):  # (n, mean, M2) pairs; counts as tensors
+        (na, ma, qa), (nb, mb, qb) = a, b
+        n = na + nb
+        safe = torch.where(n > 0, n, torch.ones_like(n))
+        d = mb - ma
+        m = torch.where(nb > 0, ma + d * (nb / safe), ma)
+        q = torch.where(nb > 0, qa + qb + d * d * (na * nb / safe), qa)
+        return n, m, q
+
+    def lane_rows(rows, lanes, m):  # rows r < rows with r % m == l, for l < lanes
+        l = torch.arange(lanes, dtype=torch.float32)
+        return torch.where(l < rows, torch.floor((rows - l + m - 1) / m), torch.zeros(()))
+
+    mean = torch.empty(B, G)
+    var = torch.empty(B, G)
+    L = p.row_lanes
+    for b in range(B):
+        for r in range(p.ranges):
+            cols = slice(r * p.channels, (r + 1) * p.channels)
+            total = (torch.zeros(p.range_groups),) * 3
+            for k in range(p.cluster):
+                rows = x[b, k * p.rows:min(N, (k + 1) * p.rows), cols]
+                n_rows = rows.shape[0]
+                m = torch.zeros(L, p.channels)
+                q = torch.zeros(L, p.channels)
+                for i in range(-(-n_rows // L)):
+                    v = rows[i * L:(i + 1) * L]
+                    j = v.shape[0]
+                    d = v - m[:j]
+                    m[:j] = m[:j] + d * torch.tensor(1.0 / (i + 1), dtype=torch.float32)
+                    q[:j] = q[:j] + d * (v - m[:j])
+                s = L // 2  # lane l takes lane l + s, s = L / 2, ..., 1
+                while s:
+                    cnt = lane_rows(n_rows, 2 * s, 2 * s)[:, None]
+                    _, m[:s], q[:s] = chan((cnt[:s], m[:s], q[:s]),
+                                           (cnt[s:], m[s:2 * s], q[s:2 * s]))
+                    s //= 2
+                cm = m[0].reshape(p.range_groups, gs)
+                mu = cm.sum(1) / gs
+                qg = (q[0].reshape(p.range_groups, gs) + n_rows * (cm - mu[:, None]) ** 2).sum(1)
+                total = chan(total, (torch.full((p.range_groups,), float(n_rows * gs)), mu, qg))
+            g = slice(r * p.range_groups, (r + 1) * p.range_groups)
+            mean[b, g] = total[1]
+            var[b, g] = total[2] / total[0]
+    return mean, var
+
+
+@pytest.mark.parametrize("B,N,C,G,cluster", [
+    (2, 64, 64, 32, 1), (2, 300, 64, 32, 4), (1, 1000, 320, 32, 8), (2, 37, 20, 4, 2),
+    (1, 4096, 128, 32, 8),
+])
+def test_groupnorm_plan_merge_order_matches_two_pass(B, N, C, G, cluster):
+    x = (randn((B, N, C), 11) * 3 + 1) * torch.linspace(0.5, 2.0, C)
+    for p in {gn_ops.plan(B, N, C, G, 4),
+              gn_ops._layout(B, N, C, G, 4, 4 if C % 4 == 0 and (C // G) % 2 == 0 else 1,
+                             G // 2 if G > 1 else 1, cluster)}:
+        check_plan(p, B, N, C, G, 4)
+        mean, var = emulate_kernel_statistics(x, G, p)
+        xd = x.double().reshape(B, N, G, C // G)
+        want_mean = xd.mean(dim=(1, 3))
+        want_var = ((xd - want_mean[:, None, :, None]) ** 2).mean(dim=(1, 3))
+        torch.testing.assert_close(mean.double(), want_mean, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(var.double(), want_var, atol=0, rtol=1e-5)
+        # y from these statistics is plain_group_norm's y.
+        w, b = randn((C,), 12) * 0.5 + 1, randn((C,), 13) * 0.5
+        xg = x.reshape(B, N, G, C // G)
+        y = ((xg - mean[:, None, :, None]) * torch.rsqrt(var[:, None, :, None] + 1e-5))
+        y = y.reshape(B, N, C) * w + b
+        assert_close(y * torch.sigmoid(y), gn_ops.plain_group_norm(x, w, b, G, 1e-5, True),
+                     2e-5, 1e-5)
 
 
 @pytest.mark.cuda
@@ -244,7 +394,12 @@ def test_bf16_attention_refuses_unaligned_views(cuda):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 def test_group_norm_kernel_matches_plain(cuda, dtype, atol):
     gen = torch.Generator(device=cuda).manual_seed(0)
-    for B, H, W, C in [(2, 64, 64, 320), (2, 8, 8, 1280), (1, 128, 128, 128), (2, 8, 8, 16)]:
+    # One shape of each plan class: clusters of several blocks with rows
+    # kept in shared memory (64x64x320) or read again (the VAE's 512x512x128,
+    # 64x64x960), a cluster of one (8x8x1280, the UNet's 8x8 level), the
+    # tiny configs' 16 groups of one channel, and the scalar path (C = 20).
+    for B, H, W, C in [(2, 64, 64, 320), (2, 8, 8, 1280), (1, 128, 128, 128), (2, 8, 8, 16),
+                       (4, 8, 8, 1280), (2, 512, 512, 128), (4, 64, 64, 960), (2, 7, 5, 20)]:
         x = (torch.randn(B, H, W, C, generator=gen, device=cuda) * 3 + 1).to(dtype)
         w = torch.randn(C, generator=gen, device=cuda).to(dtype)
         b = torch.randn(C, generator=gen, device=cuda).to(dtype)
@@ -253,6 +408,48 @@ def test_group_norm_kernel_matches_plain(cuda, dtype, atol):
             want = gn_ops.plain_group_norm(x, w, b, gn_ops.resolve_groups(C, 32), 1e-5, silu)
             torch.cuda.synchronize()
             assert_close(got, want, atol, 1e-2)
+        del x, got, want
+
+
+@pytest.mark.cuda
+def test_group_norm_unaligned_view_takes_scalar_path(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    flat = torch.randn(2 * 64 * 320 + 1, generator=gen, device=cuda).to(torch.bfloat16)
+    x = flat[1:].view(2, 64, 320)  # 2 bytes past a 16-byte boundary
+    assert x.data_ptr() % 16 and gn_ops.plan(2, 64, 320, 32, 2, aligned=False).vec == 1
+    w, b = torch.ones(320, device=cuda, dtype=torch.bfloat16), torch.zeros(320, device=cuda,
+                                                                            dtype=torch.bfloat16)
+    got = gn_ops.group_norm_silu(x, w, b)
+    torch.cuda.synchronize()
+    assert_close(got, gn_ops.plain_group_norm(x, w, b, 32, 1e-5, True), 3e-2, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 64, 1280), (4, 4096, 320), (2, 262144, 128)])
+def test_group_norm_one_launch_deterministic_and_graph_capturable(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    C = shape[-1]
+    x = (torch.randn(*shape, generator=gen, device=cuda) * 3 + 1).to(torch.bfloat16)
+    w = torch.randn(C, generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn(C, generator=gen, device=cuda).to(torch.bfloat16)
+    call = lambda: gn_ops.group_norm_silu(x, w, b)  # noqa: E731
+    first = call()
+    n0 = gn_ops.group_norm_silu.launches
+    out = []
+    traced = traced_kernel_counts(lambda: out.append(call()), ("gn_cluster_kernel",))
+    assert traced == [1] and gn_ops.group_norm_silu.launches == n0 + 1  # one kernel a call
+    assert torch.equal(out[0], first)  # two calls, the same bits
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)  # the graphed launch gives the eager bits
 
 
 @pytest.mark.cuda
@@ -268,13 +465,13 @@ def test_graphed_unet_matches_eager_and_replays_its_kernels(cuda):
     t = torch.tensor([500.0, 20.0], device=cuda)
     e = randn((2, 77, 32), 2).to(cuda, torch.bfloat16)
     counters = (fa.flash_attention_sm90, gn_ops.group_norm_silu)
-    symbols = ("flash_fwd_sm90_kernel", "gn_stats_kernel", "gn_apply_kernel")
+    symbols = ("flash_fwd_sm90_kernel", "gn_cluster_kernel")
     with torch.inference_mode():
         before = [f.launches for f in counters]
         traced = traced_kernel_counts(lambda: eng.unet(x, t, e), symbols)
         per_call = [f.launches - b for f, b in zip(counters, before)]
         assert min(per_call) > 0
-        assert traced == [per_call[0], per_call[1], per_call[1]]  # the trace counts what ran
+        assert traced == per_call  # the trace counts what ran: one GroupNorm kernel a call
         want = [eng.unet(x * s, t, e) for s in (1, 2)]
         eng.graphed_unet(x, t, e)  # two eager warm-ups, then the capture and one replay
         before = [f.launches for f in counters]
@@ -282,7 +479,7 @@ def test_graphed_unet_matches_eager_and_replays_its_kernels(cuda):
         traced = traced_kernel_counts(lambda: got.extend(eng.graphed_unet(x * s, t, e)
                                                          for s in (1, 2)), symbols)
         assert [f.launches for f in counters] == before  # a replay runs no wrapper
-        assert traced == [2 * per_call[0], 2 * per_call[1], 2 * per_call[1]]
+        assert traced == [2 * per_call[0], 2 * per_call[1]]
         assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
