@@ -9,25 +9,29 @@ prints no ``ok`` line:
      card's name and power limit (nvidia-smi);
   2. build of the hand-written kernels (sonicdiffusionbayeslab_torch/ops/csrc),
      the counts of tensor-core (HGMMA, HMMA) and TMA-load (UTMALDG)
-     instructions in the bf16 attention kernel's SASS (cuobjdump), and the
+     instructions in the SASS of the bf16 and of the fp32 attention kernel
+     (cuobjdump; each must have tensor-core instructions), and the
      GroupNorm kernel's launch plan at each main-path shape (channel range,
      cluster size, blocks, shared memory, clusters the card holds at once);
   3. each kernel against its plain PyTorch version, in bf16 and fp32 (TF32
      off), at every shape either main-path run gives it (found by running
      the SD-1.5 UNet and VAE decoder on the meta device), within stated
      tolerances, plus strided q/k/v views (bf16 goes to the wgmma/TMA
-     attention kernel, fp32 to the FMA one); queries are scaled by 3 so
+     attention kernel, fp32 to the split-TF32 mma.sync one); queries are
+     scaled by 3 so
      that the softmax's running max moves across K/V tiles;
   4. device times at the whole-batch run's shapes (CUDA graphs timed with
-     CUDA events), bf16 for every kernel and fp32 for attention (the FMA
-     kernel): the kernel, its plain version and one PyTorch library call
-     as a yardstick, beside the bound from the work's bytes, products and
-     exponentials;
+     CUDA events), bf16 for every kernel and fp32 for attention (the
+     split-TF32 kernel): the kernel, its plain version and one PyTorch
+     library call as a yardstick, beside the bound from the work's bytes,
+     products and exponentials (fp32 attention's products at the split-TF32
+     rate, with the plain-fp32 FMA-rate figure beside it);
   5. the main path: SD-1.5 text-to-image at full width on random bf16
      weights, 512x512, 20-step DPM-Solver++ (order 2), CFG 7.5, batch 2,
      through StableDiffusionModel, whole and with unet_microbatch=2, the
      UNet replayed from a CUDA graph as on every GPU (a tiny fp32 run on
-     the card is held against the same run on the CPU first).  Each is run
+     the card is held against the same run on the CPU first: the path of
+     the fp32 attention kernel, whose launches it counts).  Each is run
      three times: first with the wrappers' launch counts set to 0 (they
      count the graph's warm-up and capture and the eager VAE decode, as a
      replay runs no wrapper), then timed, then under torch.profiler, whose
@@ -55,11 +59,14 @@ from pathlib import Path
 import torch
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
+# fp32 attention runs its products as split TF32: three TF32 tensor-core
+# products (495 TFLOP/s dense) for each fp32-accurate one.
+PEAK_TF32X3 = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # Each kernel's symbol in a profiler trace: one kernel a call each.
 SYMBOLS = {"attention": ("flash_fwd_sm90_kernel",),
            "group_norm": ("gn_cluster_kernel",)}
-FMA_SYMBOL = "flash_fwd_kernel"  # the fp32 attention kernel
+FP32_SYMBOL = "flash_fwd_tf32x3_kernel"  # the fp32 attention kernel
 # bf16 attention is also held to max |err| <= ATTN_RMS_GATE * rms(plain)
 # per shape: bf16 rounding of outputs up to ~4 stays near half of it, while
 # a lost rescale of O or a P.V on the wrong K/V tile is many times the rms.
@@ -84,12 +91,17 @@ TOL = {
 KERNELS = {
     "attention": dict(name="flash_attention_sm90", route="cuda",
                       source="sonicdiffusionbayeslab_torch/ops/csrc/flash_attention_sm90.cu",
-                      replaces="sonicdiffusionbayeslab_tpu/ops/flash_attention.py:52",
-                      fp32_source="sonicdiffusionbayeslab_torch/ops/csrc/flash_attention.cu"),
+                      replaces="sonicdiffusionbayeslab_tpu/ops/flash_attention.py:52"),
     "group_norm": dict(name="group_norm_silu", route="cuda",
                        source="sonicdiffusionbayeslab_torch/ops/csrc/groupnorm.cu",
                        replaces="sonicdiffusionbayeslab_tpu/ops/groupnorm.py:27"),
 }
+# Not on the bf16 main path: the fp32 path (StableDiffusionModel(dtype=
+# "float32"), driven by the tiny card-vs-CPU run) and every fp32 check.
+FP32_KERNEL = dict(name="flash_attention_tf32x3", route="cuda",
+                   source="sonicdiffusionbayeslab_torch/ops/csrc/flash_attention.cu",
+                   replaces="sonicdiffusionbayeslab_tpu/ops/flash_attention.py:52")
+FP32_TOTALS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fma_ms")
 
 
 def phase(name):
@@ -174,23 +186,29 @@ def print_gn_plans(shapes):
 
 
 def sass_counts(build):
-    """Counts of tensor-core and TMA-load instructions in the SASS of the
-    bf16 attention kernel (every instantiation), from cuobjdump; raises if
-    it has no tensor-core instruction."""
+    """Counts of tensor-core and TMA-load instructions in the SASS of each
+    attention kernel (every instantiation), from cuobjdump; raises if either
+    has no tensor-core instruction."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(build.build_library())],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    counts = collections.Counter()
-    for fn in sass.split("Function : ")[1:]:
-        if "flash_fwd_sm90_kernel" in fn.split("\n", 1)[0]:
-            counts["functions"] += 1
-            for op in ("HGMMA", "HMMA", "UTMALDG"):
-                counts[op] += len(re.findall(rf"\b{op}\.", fn))
-    print(f"flash_attention_sm90 SASS over {counts['functions']} instantiations: "
-          f"HGMMA {counts['HGMMA']}, HMMA {counts['HMMA']}, UTMALDG {counts['UTMALDG']}")
-    if not counts["functions"] or counts["HGMMA"] + counts["HMMA"] == 0:
-        raise AssertionError("the bf16 attention kernel has no tensor-core instruction")
-    return dict(counts)
+    out = {}
+    for name, symbol in (("flash_attention_sm90", SYMBOLS["attention"][0]),
+                         ("flash_attention_tf32x3", FP32_SYMBOL)):
+        counts = collections.Counter()
+        for fn in sass.split("Function : ")[1:]:
+            if symbol in fn.split("\n", 1)[0]:
+                counts["functions"] += 1
+                for op in ("HGMMA", "HMMA", "UTMALDG"):
+                    counts[op] += len(re.findall(rf"\b{op}\.", fn))
+        print(f"{name} SASS over {counts['functions']} instantiations: HGMMA {counts['HGMMA']}, "
+              f"HMMA {counts['HMMA']}, UTMALDG {counts['UTMALDG']}")
+        if not counts["functions"] or counts["HGMMA"] + counts["HMMA"] == 0:
+            raise AssertionError(f"{name}: the kernel has no tensor-core instruction")
+        out[name] = dict(counts)
+    if not out["flash_attention_tf32x3"]["HMMA"]:
+        raise AssertionError("the fp32 attention kernel has no HMMA (mma.sync) instruction")
+    return out
 
 
 # ------------------------------------------------------------------ census
@@ -258,17 +276,19 @@ def gn_inputs(shape, dtype, gen):
     return x, w, b
 
 
-def bound(kind, shape, dtype):
+def bound(kind, shape, dtype, flops_rate=None):
     """(least ms, "operations" | "bytes") for the work at ``shape``: each
     input read once, each output written once, at HBM rate; operations at
-    the peak rate for their type (tensor-core bf16 for attention's two
-    products and the special-function units for its B*H*N*M exponentials,
-    whichever takes longer; plain fp32 for GroupNorm's ~10 operations per
-    element)."""
+    the peak rate for their type (attention's two products on the tensor
+    cores, bf16 or split TF32 for fp32, and the special-function units for
+    its B*H*N*M exponentials, whichever takes longer; plain fp32 for
+    GroupNorm's ~10 operations per element).  ``flops_rate`` replaces the
+    products' rate (fp32 attention's FMA-rate figure)."""
     size = torch.tensor([], dtype=dtype).element_size()
     if kind == "attention":
         B, N, M, H, D = shape
-        t_ops = max(4 * B * H * N * M * D / PEAK_FLOPS[dtype], B * H * N * M / PEAK_EXP) * 1e3
+        rate = flops_rate or (PEAK_TF32X3 if dtype == torch.float32 else PEAK_FLOPS[dtype])
+        t_ops = max(4 * B * H * N * M * D / rate, B * H * N * M / PEAK_EXP) * 1e3
         nbytes = (2 * B * N * H * D + 2 * B * M * H * D) * size
     else:
         B, N, C, _, _, silu = shape
@@ -353,13 +373,15 @@ def time_kernels(shapes, run_counts, report):
                        ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
                        library_ms=cuda_ms(library_call(kind, shape, inputs)),
                        bound_ms=b_ms, bound_by=b_by)
+            if kind == "attention" and dtype == torch.float32:
+                row["bound_fma_ms"] = bound(kind, shape, dtype, PEAK_FLOPS[torch.float32])[0]
             rows.append(row)
             print("timing " + json.dumps(row), flush=True)
             del inputs
     for r in rows:
         agg = report[r["kernel"] if r["dtype"] == "bfloat16" else f"{r['kernel']}_fp32"]
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            agg[key] += r[key] * r["launches_per_run"]
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fma_ms"):
+            agg[key] += r.get(key, 0.0) * r["launches_per_run"]
         agg["bound_by_ms"][r["bound_by"]] += r["bound_ms"] * r["launches_per_run"]
     return rows
 
@@ -367,10 +389,13 @@ def time_kernels(shapes, run_counts, report):
 # --------------------------------------------------------------- main path
 def tiny_card_vs_cpu():
     """The tiny fp32 pipeline on the card (kernels) against the same weights
-    and seed on the CPU (plain versions)."""
+    and seed on the CPU (plain versions); returns the fp32 attention
+    kernel's launches in the card's run (graph warm-up and capture, eager
+    decode), which must be more than 0."""
     import numpy as np
 
     from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention_tf32x3
 
     cpu = StableDiffusionModel(tiny=True, dtype="float32", seed=0, device="cpu")
     card = StableDiffusionModel(tiny=True, dtype="float32", seed=0, device="cuda")
@@ -378,13 +403,19 @@ def tiny_card_vs_cpu():
                                   zip(("unet", "vae", "text"), cpu.engine.modules())})
     kw = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, seed=29)
     a = cpu(["a lighthouse at dusk", "a red boat"], **kw)[0]
+    flash_attention_tf32x3.launches = 0
     b = card(["a lighthouse at dusk", "a red boat"], **kw)[0]
+    launches = flash_attention_tf32x3.launches
     err = float(np.abs(a - b).max())
     # fp32 both sides with TF32 off; 20 CFG-amplified steps of summation-order
     # differences (cuDNN vs oneDNN convs, kernels vs plain versions).
-    print(f"tiny fp32 pipeline, card vs CPU: max abs image err {err:.3e} (tolerance 1e-3)")
+    print(f"tiny fp32 pipeline, card vs CPU: max abs image err {err:.3e} (tolerance 1e-3); "
+          f"flash_attention_tf32x3 launches {launches}")
     if not err <= 1e-3:
         raise AssertionError("the tiny pipeline on the card disagrees with the CPU")
+    if launches <= 0:
+        raise AssertionError("the tiny fp32 pipeline did not launch the fp32 attention kernel")
+    return launches
 
 
 def traced_launches(run):
@@ -399,10 +430,10 @@ def traced_launches(run):
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_symbol = {sym: sum(sym in n for n in names)
-                 for sym in (*[s for ss in SYMBOLS.values() for s in ss], FMA_SYMBOL)}
-    if by_symbol[FMA_SYMBOL]:
+                 for sym in (*[s for ss in SYMBOLS.values() for s in ss], FP32_SYMBOL)}
+    if by_symbol[FP32_SYMBOL]:
         raise AssertionError(f"the bf16 main path ran the fp32 attention kernel "
-                             f"{by_symbol[FMA_SYMBOL]} times")
+                             f"{by_symbol[FP32_SYMBOL]} times")
     counts = {}
     for kind, syms in SYMBOLS.items():
         if len({by_symbol[sym] for sym in syms}) != 1:
@@ -412,16 +443,16 @@ def traced_launches(run):
 
 
 def wrapper_counts(reset=False):
-    from sonicdiffusionbayeslab_torch.ops.flash_attention import (flash_attention_fma,
-                                                                   flash_attention_sm90)
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import (flash_attention_sm90,
+                                                                   flash_attention_tf32x3)
     from sonicdiffusionbayeslab_torch.ops.groupnorm import group_norm_silu
 
     if reset:
-        flash_attention_sm90.launches = flash_attention_fma.launches = 0
+        flash_attention_sm90.launches = flash_attention_tf32x3.launches = 0
         group_norm_silu.launches = 0
-    if flash_attention_fma.launches:
+    if flash_attention_tf32x3.launches:
         raise AssertionError(f"the bf16 main path launched the fp32 attention kernel "
-                             f"{flash_attention_fma.launches} times")
+                             f"{flash_attention_tf32x3.launches} times")
     return {"attention": flash_attention_sm90.launches, "group_norm": group_norm_silu.launches}
 
 
@@ -442,7 +473,7 @@ def run_main_path(report, per_unet, per_vae, card, profile):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tiny_card_vs_cpu()
+    report["attention_fp32"]["launches"] = tiny_card_vs_cpu()
     torch.backends.cudnn.allow_tf32 = True  # bf16 main path: TF32 is not used anyway
 
     t0 = time.perf_counter()
@@ -574,7 +605,7 @@ def profile_loop(model):
     groups = collections.Counter()
     for k, v in by_name.items():
         low = k.lower()
-        if FMA_SYMBOL in k or SYMBOLS["attention"][0] in k:
+        if FP32_SYMBOL in k or SYMBOLS["attention"][0] in k:
             groups["flash_attention (ours)"] += v
         elif any(sym in k for sym in SYMBOLS["group_norm"]):
             groups["group_norm_silu (ours)"] += v
@@ -638,6 +669,7 @@ def main() -> None:
     report = {k: {"errs": {torch.bfloat16: [], torch.float32: []}, "launches": None,
                   "wrapper_launches": None,
                   "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                  "bound_fma_ms": 0.0,
                   "bound_by_ms": collections.Counter()} for k in (*KERNELS, "attention_fp32")}
     report["e2e"] = {}
 
@@ -648,8 +680,8 @@ def main() -> None:
           "median of 5)")
     rows = time_kernels(shapes, run_counts, report)
     fp32 = report["attention_fp32"]
-    print("attention fp32 (flash_attention_fma) totals over one run: "
-          + json.dumps({k: fp32[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}))
+    print("attention fp32 (flash_attention_tf32x3) totals over one run: "
+          + json.dumps({k: fp32[k] for k in FP32_TOTALS}))
 
     phase(f"5. main path: SD-1.5 {SIZE}x{SIZE}, {STEPS}-step DPM-Solver++ (order 2), "
           f"CFG {GUIDANCE}, batch {BATCH}")
@@ -671,17 +703,30 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_by_ms"], key=r["bound_by_ms"].get),
             "library_ms": r["library_ms"],
-            "max_abs_err_fp32": max(r["errs"][torch.float32]),
-            **({"sass": report_sass} if kind == "attention" else {}),
+            **({"sass": report_sass[meta["name"]]} if kind == "attention" else {}),
             "totals_over": "one main-path run: per-shape median x launches at that shape",
         })
+    r = report["attention_fp32"]
+    kernels.append({
+        **FP32_KERNEL,
+        "launches": r["launches"],
+        "launches_from": "the wrapper's count over the tiny fp32 pipeline run on the card "
+                         "(graph warm-up and capture, eager VAE decode); the bf16 main path "
+                         "launches it 0 times (wrappers and trace checked)",
+        "max_abs_err": max(report["attention"]["errs"][torch.float32]),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": max(r["bound_by_ms"], key=r["bound_by_ms"].get),
+        "library_ms": r["library_ms"], "bound_fma_ms": r["bound_fma_ms"],
+        "sass": report_sass[FP32_KERNEL["name"]],
+        "totals_over": "the main path's attention shapes in fp32: per-shape median x "
+                       "launches at that shape in one run",
+    })
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
              "kernels": kernels, "timings": rows, "e2e": report["e2e"],
-             "attention_fp32_totals": {k: report["attention_fp32"][k]
-                                       for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+             "attention_fp32_totals": {k: report["attention_fp32"][k] for k in FP32_TOTALS},
              "profile": report.get("profile")}, indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,8 @@ The rule is static.  An unmasked call whose head_dim the CUDA kernels take
 every self- and cross-attention of the UNet.  There the dtype alone picks
 the kernel: bfloat16 goes to the wgmma/TMA kernel
 (``csrc/flash_attention_sm90.cu``, instantiated for every such head_dim),
-float32 to the FMA kernel (``csrc/flash_attention.cu``); no call falls back
+float32 to the split-TF32 mma.sync kernel (``csrc/flash_attention.cu``,
+one instantiation per such head_dim); no call falls back
 from one to the other.  A masked call (CLIP's causal mask) and the VAE's
 single-head D=512 mid-block attention take the plain path, as the JAX
 reference sends them to XLA.

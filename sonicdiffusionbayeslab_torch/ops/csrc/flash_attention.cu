@@ -1,216 +1,345 @@
 // fp32 softmax attention forward for Hopper (sm_90a), [B, N, H, D] in and
-// out.  bf16 inputs go to flash_attention_sm90.cu instead.
+// out, with both products on the tensor cores as split TF32 (3xTF32).
+// bf16 inputs go to flash_attention_sm90.cu instead.
 //
 // Replaces the TPU kernel sonicdiffusionbayeslab_tpu/ops/flash_attention.py
 // ::_attn_kernel (launched by _flash_bh) and its all-heads twin
 // _attn_kernel_native (launched by _flash_native), in fp32.  The TPU kernel
 // holds all of K/V for one (batch*head, 256-row query block) in VMEM and
-// does a single softmax pass.  On an H100 a block has at most 227 KB of shared memory,
-// while K+V at N=4096, D=40 are 640 KB in bf16, so this kernel is an
-// online-softmax (flash) loop over 64-row K/V tiles instead.
+// does a single softmax pass.  A block here has at most 227 KB of shared
+// memory, so this kernel is an online-softmax (flash) loop over 64-key K/V
+// tiles instead.
 //
-// What bounds it: the work is 4*B*H*N*M*D flops against (q+k+v+o) bytes,
-// far above the H100's ridge point at the UNet's shapes.  The products run
-// as plain fp32 FMA on register micro-tiles (each of 256 threads owns a 4x4
-// block of the 64x64 score tile and a 4 x ceil(D/16) block of the output),
-// at most 67 TFLOP/s: the fp32 checks' tolerances would not survive TF32
-// tensor cores.  What the design gets right:
-//   * q, k, v are read in place through their strides (no transposed or
-//     padded copy in device memory); head_dim is padded only in shared memory;
-//   * each input element is read from device memory once per query tile and
-//     the fp32 score tile never leaves the SM;
-//   * ragged N is masked on load/store and ragged M (77-token context) by
-//     -inf logits on the last K/V tile.
-// Numerics follow the reference: fp32 logits scaled after the dot product,
-// fp32 softmax statistics, fp32 accumulation.
+// What bounds it: the products.  4*B*H*N*M*D flops against (q+k+v+o)
+// bytes is far above the card's ridge point at the UNet's shapes.  Plain
+// fp32 FMA peaks at 67 TFLOP/s; TF32 on the tensor cores at 495, but a TF32
+// operand keeps 10 mantissa bits (relative error ~4.9e-4), which fails the
+// fp32 checks' 2e-5 + 1e-4|ref|.  Split TF32 rounds x to hi = tf32(x) and
+// lo = tf32(x - hi) and takes a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (the
+// two small terms first, as CUTLASS's 3xTF32 does), dropping only a_lo.b_lo,
+// ~2^-22 relative: near fp32, at up to 495/3 = 165 TFLOP/s.  At D=40 each
+// score feeds only 80 flops of products, so the per-score softmax (scale,
+// max, exp2, sum, split of P) weighs more here than in bf16.
+//
+// Why mma.sync and not wgmma: wgmma takes TF32 operands from shared memory
+// only K-major.  In O += P.V the B operand is V, which arrives [keys, D]
+// with D contiguous (MN-major), so every V tile would need a transpose in
+// shared memory (TMA cannot make the key axis innermost), and each of K and
+// V its hi and lo copies in wgmma's swizzled layout.  Warp-level
+// mma.sync.m16n8k8 takes its fragments from registers, loaded from shared
+// memory in any layout and split into hi/lo in registers.
+//
+// Design.  One block per (64 query rows, head, batch): four warps, each
+// owning 16 query rows (one m16 tile).  K/V tiles of 64 keys go through a
+// two-stage cp.async ring (16-byte copies, zero-filled past N and M), the
+// next tile's copy in flight during this tile's products; Q is copied once.
+// Shared-memory rows are padded so that each warp's fragment loads hit 32
+// different banks.  Per tile and warp:
+//   * S = Q.K^T: 8 n-tiles of 8 keys x D/8 k-steps x 3 mma.  Q's hi/lo
+//     fragments stay in registers for D <= 80 and are split again from
+//     shared memory each tile above that.  Column n of n-tile j is key
+//     8j + n/2 + 4(n%2), so a thread's accumulator holds keys 8j + t and
+//     8j + t + 4 of its two rows: exactly its A fragment of P for P.V,
+//     which therefore needs no shuffle and no staging in shared memory.
+//   * online softmax in base 2 (log2(e) D^-1/2 folded into one multiply),
+//     row max across the four threads of a quad; each thread keeps its own
+//     partial row sum, reduced once at the end;
+//   * O = O corr + P.V: D/8 n-tiles x 8 k-steps x 3 mma, V's B fragments
+//     read straight from the [keys, D] tile.  The tensor cores' fp32 sums
+//     round toward zero, so each tile's P.V is summed in a fresh fragment
+//     and added to O in ordinary fp32 arithmetic: no chain of more than
+//     3 * max(8, D/8) mma into one accumulator.
+// The epilogue divides by the row sum and stores 8 bytes a thread, masked
+// to N.  q, k and v are read through their strides (16-byte aligned rows,
+// strides multiples of 4 elements; the wrapper checks).  No atomics: the
+// same inputs give the same bits, strided or contiguous.
+// Numerics follow the reference: logits scaled after the dot product, fp32
+// softmax statistics, fp32 accumulation.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // key/value rows per tile
-constexpr int NT = 256;        // threads per block: 16 x 16
-constexpr int LDT = BQ + 4;    // row stride of the transposed Q/K/P tiles
+constexpr int BQ = 64;          // query rows a block
+constexpr int BK = 64;          // keys a K/V tile
+constexpr int NT = 128;         // four warps of 16 query rows
+constexpr float LOG2E = 1.4426950408889634f;
 
-// DC = output columns per thread = ceil(D / 16).
-template <int DC>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
+// Row strides in shared memory, in floats.  Q and K fragments read 8 rows
+// x 4 columns a warp, so their stride is 4 x an odd number; V fragments
+// read 4 rows x 8 columns, so its stride is 8 modulo 16.  Both keep rows
+// 16-byte aligned for cp.async.
+__host__ __device__ constexpr int ldk(int D) { return D + 4; }
+__host__ __device__ constexpr int ldv(int D) { return D % 16 == 8 ? D : D + 8; }
+__host__ __device__ constexpr size_t smem_bytes(int D) {
+  return sizeof(float) * (size_t(BQ) * ldk(D) + 2 * size_t(BK) * (ldk(D) + ldv(D)));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows r0 .. r0+63 of a [L, D] matrix with row stride sn (elements) into
+// shared memory with row stride ld; rows at or past L are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, int64_t sn,
+                                          int r0, int L) {
+  constexpr int C = D / 4;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < 64 * C; i += NT) {
+    const int r = i / C, c = i - r * C, n = r0 + r;
+    const bool ok = n < L;
+    cp_async16(dst + r * ld + c * 4, src + (ok ? n : 0) * sn + c * 4, ok);
+  }
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b as split TF32: the two small cross terms, then hi.hi.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(c, al, bh0, bh1);
+  mma(c, ah, bl0, bl1);
+  mma(c, ah, bh0, bh1);
+}
+
+// The A fragment (16 rows x 8 columns) at column k0 of a row-major tile,
+// split: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4).
+__device__ __forceinline__ void load_a(const float* tile, int ld, int k0, int g, int t,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float* p = tile + g * ld + k0 + t;
+  split(p[0], hi[0], lo[0]);
+  split(p[8 * ld], hi[1], lo[1]);
+  split(p[4], hi[2], lo[2]);
+  split(p[8 * ld + 4], hi[3], lo[3]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT) flash_fwd_tf32x3_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int N, int M, int D,
+    float* __restrict__ o, int N, int M,
     int64_t qsb, int64_t qsn, int64_t qsh, int64_t ksb, int64_t ksn, int64_t ksh,
     int64_t vsb, int64_t vsn, int64_t vsh, int64_t osb, int64_t osn, int64_t osh,
-    float scale) {
-  constexpr int DV = DC * 16;  // padded V row
+    float scale_log2) {
+  constexpr int KD = D / 8;  // k-steps of Q.K^T; n-tiles of P.V
+  constexpr int LDK = ldk(D), LDV = ldv(D);
+  constexpr bool Q_IN_REGS = D <= 80;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;             // [D][LDT]  Q tile, transposed
-  float* Ks = Qs + D * LDT;     // [D][LDT]  K tile, transposed
-  float* Vs = Ks + D * LDT;     // [BK][DV]  V tile
-  float* Ps = Vs + BK * DV;     // [BK][LDT] probabilities, transposed
+  float* Qs = smem;                // [BQ][LDK]
+  float* Ks = Qs + BQ * LDK;       // [2][BK][LDK]
+  float* Vs = Ks + 2 * BK * LDK;   // [2][BK][LDV]
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row group, thread in group
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const float* qb = q + b * qsb + h * qsh;
   const float* kb = k + b * ksb + h * ksh;
   const float* vb = v + b * vsb + h * vsh;
+  const float* Qw = Qs + warp * 16 * LDK;  // this warp's 16 query rows
+  const int tiles = (M + BK - 1) / BK;
+
+  load_rows<D>(Qs, LDK, qb, qsn, q0, N);
+  load_rows<D>(Ks, LDK, kb, ksn, 0, M);
+  load_rows<D>(Vs, LDV, vb, vsn, 0, M);
+  cp_async_commit();
+
+  uint32_t qh[Q_IN_REGS ? KD : 1][4], ql[Q_IN_REGS ? KD : 1][4];
+  float acc[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY};  // running max of rows g, g+8 (base 2)
+  float l_r[2] = {0.f, 0.f};              // this thread's part of their sums
+  const int krow = (g >> 1) + 4 * (g & 1);  // key of S column g in an n-tile
+
+  for (int j = 0; j < tiles; ++j) {
+    if (j + 1 < tiles) {  // tile j+1 into the stage that tile j-1 left
+      const int st = (j + 1) & 1;
+      load_rows<D>(Ks + st * BK * LDK, LDK, kb, ksn, (j + 1) * BK, M);
+      load_rows<D>(Vs + st * BK * LDV, LDV, vb, vsn, (j + 1) * BK, M);
+    }
+    cp_async_commit();  // possibly empty: one group an iteration
+    cp_async_wait_all_but_one();  // tile j (and Q) have landed
+    __syncthreads();
+    const float* Kt = Ks + (j & 1) * BK * LDK;
+    const float* Vt = Vs + (j & 1) * BK * LDV;
+    if constexpr (Q_IN_REGS) {
+      if (j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) load_a(Qw, LDK, kk * 8, g, t, qh[kk], ql[kk]);
+      }
+    }
+
+    // S = Q.K^T on this warp's 16 rows x 64 keys.
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ah[4], al[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ah[e] = qh[kk][e], al[e] = ql[kk][e];
+      } else {
+        load_a(Qw, LDK, kk * 8, g, t, ah, al);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float* kr = Kt + (nt * 8 + krow) * LDK + kk * 8 + t;
+        mma3(s[nt], ah, al, kr[0], kr[4]);
+      }
+    }
+
+    // Online softmax.  s[nt][e] is row g (e < 2) or g+8, key
+    // j*BK + 8nt + t + 4(e&1).  Every tile starts at a valid key (j*BK < M),
+    // and each row holds that key, so each row's max is finite.
+    const bool ragged = (j + 1) * BK > M;
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * scale_log2;
+        if (ragged && j * BK + nt * 8 + t + 4 * (e & 1) >= M) x = -INFINITY;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f(m_r[r] - mx[r]);  // 0 on the first tile
+      m_r[r] = mx[r];
+      l_r[r] *= corr[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[nt][e] - m_r[e >> 1]);
+        l_r[e >> 1] += p;
+        s[nt][e] = p;
+      }
+
+    // O = O corr + P.V: k-step nt takes keys 8nt .. 8nt+7 of the tile, whose
+    // P fragment is S's n-tile nt as it lies in the accumulator.  The tensor
+    // cores round their fp32 sums toward zero, so a chain of mma into one
+    // accumulator drifts with its length (1536 into O at M = 4096, D = 40,
+    // 8e-5 off); each tile's product is summed in a fresh fragment (24 mma)
+    // and added to O in ordinary fp32 arithmetic.
+    uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      split(s[nt][0], ph[nt][0], pl[nt][0]);  // row g,   key t
+      split(s[nt][2], ph[nt][1], pl[nt][1]);  // row g+8, key t
+      split(s[nt][1], ph[nt][2], pl[nt][2]);  // row g,   key t+4
+      split(s[nt][3], ph[nt][3], pl[nt][3]);  // row g+8, key t+4
+    }
+    const float* vr = Vt + t * LDV + g;
+#pragma unroll
+    for (int n = 0; n < KD; ++n) {
+      float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        mma3(pv, ph[nt], pl[nt], vr[nt * 8 * LDV + n * 8], vr[(nt * 8 + 4) * LDV + n * 8]);
+      acc[n][0] = fmaf(acc[n][0], corr[0], pv[0]);
+      acc[n][1] = fmaf(acc[n][1], corr[0], pv[1]);
+      acc[n][2] = fmaf(acc[n][2], corr[1], pv[2]);
+      acc[n][3] = fmaf(acc[n][3], corr[1], pv[3]);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
   float* ob = o + b * osb + h * osh;
-
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, d = i - r * D, n = q0 + r;
-    Qs[d * LDT + r] = n < N ? qb[n * qsn + d] : 0.f;
-  }
-
-  float m_i[4], l_i[4], acc[4][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < M; k0 += BK) {
-    __syncthreads();  // the previous tile's K/V/P are no longer read
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, d = i - r * D, n = k0 + r;
-      Ks[d * LDT + r] = n < M ? kb[n * ksn + d] : 0.f;
-    }
-    for (int i = tid; i < BK * DV; i += NT) {
-      const int r = i / DV, d = i - r * DV, n = k0 + r;
-      Vs[i] = (n < M && d < D) ? vb[n * vsn + d] : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T on this thread's 4 rows x 4 columns.
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qs[d * LDT + ty * 4]);
-      const float4 c = *reinterpret_cast<const float4*>(&Ks[d * LDT + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
-
-    // Online softmax.  Every tile starts at a valid key (k0 < M), so each
-    // row's max over the tile is finite.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
-        s[i][j] = col < M ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float corr = __expf(m_i[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = __expf(s[i][j] - m_new);
-        rs += p;
-        s[i][j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = l_i[i] * corr + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&Ps[(tx * 4 + j) * LDT + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-    // O += P V on this thread's 4 rows x DC columns (tx, tx+16, ...).
-    const int kv = min(BK, M - k0);
-    for (int r = 0; r < kv; ++r) {
-      const float4 p = *reinterpret_cast<const float4*>(&Ps[r * LDT + ty * 4]);
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = Vs[r * DV + tx + 16 * c];
-        acc[0][c] = fmaf(p.x, vv, acc[0][c]);
-        acc[1][c] = fmaf(p.y, vv, acc[1][c]);
-        acc[2][c] = fmaf(p.z, vv, acc[2][c]);
-        acc[3][c] = fmaf(p.w, vv, acc[3][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = q0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / l;
+    const int n = q0 + warp * 16 + g + 8 * r;
     if (n >= N) continue;
-    const float inv = 1.f / l_i[i];
+    float* orow = ob + n * osn + 2 * t;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) ob[n * osn + col] = acc[i][c] * inv;
-    }
+    for (int c = 0; c < KD; ++c)
+      *reinterpret_cast<float2*>(orow + c * 8) =
+          make_float2(acc[c][2 * r] * inv, acc[c][2 * r + 1] * inv);
   }
 }
 
 struct Args {
-  const void *q, *k, *v;
-  void* o;
-  int B, N, M, H, D;
+  const float *q, *k, *v;
+  float* o;
+  int B, N, M, H;
   int64_t qs[3], ks[3], vs[3], os[3];
-  float scale;
+  float scale_log2;
   cudaStream_t stream;
 };
 
-template <int DC>
+template <int D>
 cudaError_t launch(const Args& a) {
-  constexpr int DV = DC * 16;
-  const size_t smem = sizeof(float) * (2 * a.D * LDT + BK * DV + BK * LDT);
-  auto kern = flash_fwd_kernel<DC>;
+  constexpr size_t smem = smem_bytes(D);
+  auto kern = flash_fwd_tf32x3_kernel<D>;
   // Raise the dynamic shared memory limit once per instantiation in this
-  // process (one device), to what its largest head_dim (DV) needs, so that
-  // later launches, and CUDA graph captures, are kernel launches only.
+  // process (one device), so that later launches, and CUDA graph captures,
+  // are kernel launches only.
   static bool configured = false;
   if (!configured) {
-    const size_t smem_max = sizeof(float) * (2 * DV * LDT + BK * DV + BK * LDT);
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_max));
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((a.N + BQ - 1) / BQ, a.H, a.B);
-  kern<<<grid, NT, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.N, a.M, a.D,
-      a.qs[0], a.qs[1], a.qs[2], a.ks[0], a.ks[1], a.ks[2],
-      a.vs[0], a.vs[1], a.vs[2], a.os[0], a.os[1], a.os[2], a.scale);
+  kern<<<grid, NT, smem, a.stream>>>(a.q, a.k, a.v, a.o, a.N, a.M,
+                                     a.qs[0], a.qs[1], a.qs[2], a.ks[0], a.ks[1], a.ks[2],
+                                     a.vs[0], a.vs[1], a.vs[2], a.os[0], a.os[1], a.os[2],
+                                     a.scale_log2);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const Args& a) {
-  switch ((a.D + 15) / 16) {
-    case 1: return launch<1>(a);
-    case 2: return launch<2>(a);
-    case 3: return launch<3>(a);
-    case 4: return launch<4>(a);
-    case 5: return launch<5>(a);
-    case 6: return launch<6>(a);
-    case 7: return launch<7>(a);
-    case 8: return launch<8>(a);
-    case 9: return launch<9>(a);
-    case 10: return launch<10>(a);
+static_assert(smem_bytes(160) <= 232448, "D=160 must fit one block's shared memory");
+
+cudaError_t dispatch(const Args& a, int D) {
+  switch (D / 8) {
+#define SDBL_CASE(n) case n: return launch<8 * n>(a);
+    SDBL_CASE(1) SDBL_CASE(2) SDBL_CASE(3) SDBL_CASE(4) SDBL_CASE(5)
+    SDBL_CASE(6) SDBL_CASE(7) SDBL_CASE(8) SDBL_CASE(9) SDBL_CASE(10)
+    SDBL_CASE(11) SDBL_CASE(12) SDBL_CASE(13) SDBL_CASE(14) SDBL_CASE(15)
+    SDBL_CASE(16) SDBL_CASE(17) SDBL_CASE(18) SDBL_CASE(19) SDBL_CASE(20)
+#undef SDBL_CASE
     default: return cudaErrorInvalidValue;
   }
 }
@@ -218,8 +347,9 @@ cudaError_t dispatch(const Args& a) {
 }  // namespace
 
 // float32 only.  Strides are in elements, for the batch, sequence and head
-// axes; the head_dim axis must be contiguous.
-// Returns the cudaError_t of the launch (0 on success).
+// axes; the head_dim axis must be contiguous, pointers 16-byte aligned and
+// strides multiples of 4 elements.  Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int sdbl_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     int B, int N, int M, int H, int D,
@@ -227,8 +357,9 @@ extern "C" int sdbl_flash_attention_fwd(
     int64_t vsb, int64_t vsn, int64_t vsh, int64_t osb, int64_t osn, int64_t osh,
     float scale, void* stream) {
   if (D <= 0 || D > 160 || D % 8 != 0 || N <= 0 || M <= 0) return cudaErrorInvalidValue;
-  Args a{q, k, v, o, B, N, M, H, D,
+  Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+         static_cast<const float*>(v), static_cast<float*>(o), B, N, M, H,
          {qsb, qsn, qsh}, {ksb, ksn, ksh}, {vsb, vsn, vsh}, {osb, osn, osh},
-         scale, static_cast<cudaStream_t>(stream)};
-  return dispatch(a);
+         scale * LOG2E, static_cast<cudaStream_t>(stream)};
+  return dispatch(a, D);
 }

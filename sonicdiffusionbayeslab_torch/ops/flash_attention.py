@@ -7,21 +7,23 @@ chosen by dtype alone:
 * bfloat16 -> ``flash_attention_sm90`` (``csrc/flash_attention_sm90.cu``):
   wgmma tensor cores and TMA loads, every head_dim that is a multiple of 8
   up to 160 (one instantiation per ``ceil(D / 16)``);
-* float32 -> ``flash_attention_fma`` (``csrc/flash_attention.cu``): plain
-  fp32 FMA products, exact enough for the fp32 checks, which TF32 tensor
-  cores would not pass.
+* float32 -> ``flash_attention_tf32x3`` (``csrc/flash_attention.cu``):
+  mma.sync tensor cores on split TF32 (each operand as a TF32 high and low
+  part, three products), exact enough for the fp32 checks, which a single
+  TF32 product would not pass; one instantiation per head_dim.
 
 Each of the two takes only its own dtype.
 
 Both read q/k/v through their strides, so the non-contiguous [B, N, H, D]
 views of a fused projection go in without a copy; only the head_dim axis
-must be contiguous.  The bf16 kernel's TMA loads also need 16-byte aligned
-pointers and strides that are multiples of 8 elements
-(``tma_layout_error``); the wrapper raises on any other view.
+must be contiguous.  Both load rows with 16-byte copies (TMA for bf16,
+cp.async for fp32), so pointers must be 16-byte aligned and strides
+multiples of 16 bytes (``layout_error``); the wrappers raise on any other
+view.
 
 A CPU tensor takes the plain version (``ops.attention.plain_attention``);
 a CUDA tensor launches a kernel or raises.  ``flash_attention_sm90.launches``
-and ``flash_attention_fma.launches`` count the launches of each kernel.
+and ``flash_attention_tf32x3.launches`` count the launches of each kernel.
 """
 
 from __future__ import annotations
@@ -32,11 +34,11 @@ from sonicdiffusionbayeslab_torch.ops import _build
 
 MAX_HEAD_DIM = 160
 SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
-_DTYPES = {torch.bfloat16: "sm90", torch.float32: "fma"}
+_DTYPES = {torch.bfloat16: "sm90", torch.float32: "tf32x3"}
 
 
 def kernel_for(dtype: torch.dtype) -> str:
-    """The kernel a CUDA call of this dtype launches: "sm90" or "fma"."""
+    """The kernel a CUDA call of this dtype launches: "sm90" or "tf32x3"."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes float32 or bfloat16, not {dtype}")
     return _DTYPES[dtype]
@@ -48,7 +50,7 @@ def query_tile_rows(batch: int, heads: int, n: int) -> int:
     return 128 if batch * heads * -(-n // 128) >= SM_COUNT else 64
 
 
-def _tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
+def _copy_strides(t: torch.Tensor) -> tuple[int, int, int]:
     """(batch, sequence, head) strides in elements.  A size-1 axis is never
     stepped along, so it gets the stride a contiguous tensor would have."""
     B, L, H, D = t.shape
@@ -56,19 +58,20 @@ def _tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
     return tuple(s if n > 1 else c for s, n, c in zip(t.stride()[:3], (B, L, H), dense))
 
 
-def tma_layout_error(t: torch.Tensor) -> str | None:
-    """Why a [B, L, H, D] bf16 view cannot be a TMA source, or None: the
-    pointer must be 16-byte aligned and each stride a multiple of 16 bytes."""
+def layout_error(t: torch.Tensor) -> str | None:
+    """Why the kernels' 16-byte copies cannot load a [B, L, H, D] view, or
+    None: the pointer must be 16-byte aligned and each stride a multiple of
+    16 bytes."""
     if t.data_ptr() % 16:
         return f"data pointer {t.data_ptr():#x} is not 16-byte aligned"
     size = t.element_size()
-    bad = [s for s in _tma_strides(t) if (s * size) % 16]
+    bad = [s for s in _copy_strides(t) if (s * size) % 16]
     if bad:
         return f"strides {t.stride()} are not multiples of 16 bytes"
     return None
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, name: str, dtype: torch.dtype) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"expected [B, N, H, D] tensors, got {q.shape}, {k.shape}, {v.shape}")
     B, N, H, D = q.shape
@@ -85,6 +88,12 @@ def _check(q, k, v) -> None:
         raise ValueError("head_dim must be the contiguous axis of q, k and v")
     if any(t.device.type != "cuda" or t.device != q.device for t in (k, v)):
         raise ValueError("q, k and v must be on one CUDA device")
+    if q.dtype != dtype:
+        raise TypeError(f"{name} takes {str(dtype)[6:]}, not {q.dtype}")
+    for which, t in zip("qkv", (q, k, v)):
+        why = layout_error(t)
+        if why:
+            raise ValueError(f"{name}: {which} cannot be loaded by 16-byte copies: {why}")
 
 
 def _strides(*ts):
@@ -93,13 +102,7 @@ def _strides(*ts):
 
 def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The bf16 wgmma/TMA kernel on CUDA tensors."""
-    _check(q, k, v)
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention_sm90 takes bfloat16, not {q.dtype}")
-    for name, t in zip("qkv", (q, k, v)):
-        why = tma_layout_error(t)
-        if why:
-            raise ValueError(f"flash_attention_sm90: {name} cannot be loaded by TMA: {why}")
+    _check(q, k, v, "flash_attention_sm90", torch.bfloat16)
     B, N, H, D = q.shape
     M = k.shape[1]
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
@@ -107,7 +110,7 @@ def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     with torch.cuda.device(q.device):
         err = lib.sdbl_flash_attention_sm90(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, N, M, H, D,
-            *_tma_strides(q), *_tma_strides(k), *_tma_strides(v), *_strides(o),
+            *_copy_strides(q), *_copy_strides(k), *_copy_strides(v), *_strides(o),
             float(D) ** -0.5, query_tile_rows(B, H, N), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "flash_attention_sm90")
@@ -115,11 +118,9 @@ def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     return o
 
 
-def flash_attention_fma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The fp32-FMA kernel on CUDA tensors."""
-    _check(q, k, v)
-    if q.dtype != torch.float32:
-        raise TypeError(f"flash_attention_fma takes float32, not {q.dtype}")
+def flash_attention_tf32x3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The fp32 split-TF32 mma.sync kernel on CUDA tensors."""
+    _check(q, k, v, "flash_attention_tf32x3", torch.float32)
     B, N, H, D = q.shape
     M = k.shape[1]
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
@@ -127,16 +128,17 @@ def flash_attention_fma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     with torch.cuda.device(q.device):
         err = lib.sdbl_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, N, M, H, D,
-            *_strides(q, k, v, o), float(D) ** -0.5, torch.cuda.current_stream().cuda_stream,
+            *_copy_strides(q), *_copy_strides(k), *_copy_strides(v), *_strides(o),
+            float(D) ** -0.5, torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(err, "flash_attention_fma")
-    flash_attention_fma.launches += 1
+    _build.check(err, "flash_attention_tf32x3")
+    flash_attention_tf32x3.launches += 1
     return o
 
 
 flash_attention_sm90.launches = 0
-flash_attention_fma.launches = 0
-_KERNELS = {"sm90": flash_attention_sm90, "fma": flash_attention_fma}
+flash_attention_tf32x3.launches = 0
+_KERNELS = {"sm90": flash_attention_sm90, "tf32x3": flash_attention_tf32x3}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -61,7 +61,7 @@ def test_attention_dispatch_rule():
 
 def test_kernel_wrappers_take_plain_path_on_cpu_and_count_nothing():
     q = randn((1, 16, 2, 8), 6)
-    counters = (fa.flash_attention_sm90, fa.flash_attention_fma, gn_ops.group_norm_silu)
+    counters = (fa.flash_attention_sm90, fa.flash_attention_tf32x3, gn_ops.group_norm_silu)
     before = [f.launches for f in counters]
     assert torch.equal(flash_attention(q, q, q), attn_ops.plain_attention(q, q, q))
     qb = q.to(torch.bfloat16)
@@ -80,7 +80,7 @@ def test_kernel_wrappers_refuse_other_devices():
         gn_ops.group_norm_silu(x, torch.ones(32, device="meta"), torch.zeros(32, device="meta"))
 
 
-@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "sm90"), (torch.float32, "fma")])
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "sm90"), (torch.float32, "tf32x3")])
 def test_attention_kernel_dispatch_by_dtype(dtype, kernel):
     # The rule is the dtype alone: the bf16 kernel is instantiated for every
     # head_dim the wrapper takes (a multiple of 8, at most 160).
@@ -111,16 +111,29 @@ def test_query_tile_plan_covers_rows_and_fills_sms(B, H, N):
 def test_tma_layout_check():
     bf = torch.bfloat16
     qkv = torch.zeros(2, 100, 3, 8, 40, dtype=bf)
-    assert all(fa.tma_layout_error(t) is None for t in qkv.unbind(2))  # fused-projection views
-    assert fa.tma_layout_error(torch.zeros(1, 77, 1, 40, dtype=bf)) is None
+    assert all(fa.layout_error(t) is None for t in qkv.unbind(2))  # fused-projection views
+    assert fa.layout_error(torch.zeros(1, 77, 1, 40, dtype=bf)) is None
     wide = torch.zeros(2, 64, 8, 48, dtype=bf)
-    assert "aligned" in fa.tma_layout_error(wide[..., 1:41])  # 2-byte offset
+    assert "aligned" in fa.layout_error(wide[..., 1:41])  # 2-byte offset
     odd = torch.zeros(2, 64, 8, 44, dtype=bf)[..., :40]  # head stride 88 bytes
-    assert "multiples of 16 bytes" in fa.tma_layout_error(odd)
+    assert "multiples of 16 bytes" in fa.layout_error(odd)
     # A size-1 axis is never stepped along: its stride does not matter.
     one = torch.zeros(1, 64, 8, 44, dtype=bf)[:, :, :1, :40]
-    assert fa.tma_layout_error(one) is None
-    assert fa._tma_strides(one) == (64 * 40, 352, 40)
+    assert fa.layout_error(one) is None
+    assert fa._copy_strides(one) == (64 * 40, 352, 40)
+
+
+def test_fp32_layout_check():
+    # The fp32 kernel's cp.async copies need what TMA needs: 16-byte aligned
+    # rows, strides that are multiples of 16 bytes (4 elements).
+    qkv = torch.zeros(2, 100, 3, 8, 40)
+    assert all(fa.layout_error(t) is None for t in qkv.unbind(2))  # fused-projection views
+    assert fa.layout_error(torch.zeros(2, 64, 8, 8)) is None  # the tiny configs' D=8
+    wide = torch.zeros(2, 64, 8, 44)
+    assert "aligned" in fa.layout_error(wide[..., 1:41])  # 4-byte offset
+    assert fa.layout_error(wide[..., 4:44]) is None  # 16 bytes in, stride 44: aligned
+    odd = torch.zeros(2, 64, 8, 42)[..., :40]  # head stride 168 bytes
+    assert "multiples of 16 bytes" in fa.layout_error(odd)
 
 
 def test_build_digest_tracks_headers_and_flags(tmp_path, monkeypatch):
@@ -344,6 +357,75 @@ def test_attention_kernel_matches_plain(cuda, dtype, atol):
                        flash_attention(q.contiguous(), k.contiguous(), v.contiguous()))
 
 
+def fp32_attention_inputs(B, N, M, H, D, device, seed=0):
+    """q, k, v with q scaled by 3 (logits of standard deviation 3), so that
+    the running max moves from K/V tile to K/V tile."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(B, L, H, D, generator=gen, device=device) * s
+            for L, s in ((N, 3), (M, 1), (M, 1))]
+
+
+def assert_fp32_gate(got, want):
+    """The fp32 attention gate of chip_smoke.py: |err| <= 2e-5 + 1e-4 |ref|."""
+    err = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert (err <= 2e-5 + 1e-4 * want.abs()).all(), f"max abs err {err.max().item():.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,M,H,D", [
+    (2, 200, 200, 2, 8), (2, 200, 200, 2, 16), (2, 200, 200, 2, 24), (2, 256, 256, 4, 40),
+    (2, 256, 256, 4, 80), (2, 256, 256, 4, 160), (1, 33, 45, 2, 80), (2, 300, 77, 8, 40),
+    (2, 1000, 1000, 2, 40), (2, 64, 77, 8, 160), (4, 1024, 77, 8, 80), (4, 4096, 4096, 8, 40),
+])
+def test_tf32x3_attention_kernel_matches_plain(cuda, monkeypatch, B, N, M, H, D):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)  # the plain side in fp32
+    q, k, v = fp32_attention_inputs(B, N, M, H, D, cuda)
+    n0 = fa.flash_attention_tf32x3.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_tf32x3.launches == n0 + 1
+    assert_fp32_gate(got, attn_ops.plain_attention(q, k, v))
+
+
+@pytest.mark.cuda
+def test_tf32x3_attention_strided_repeatable_and_graph_capturable(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for N, H, D in [(1000, 8, 40), (256, 4, 80), (77, 2, 160)]:
+        qkv = torch.randn(2, N, 3, H, D, generator=gen, device=cuda)
+        q, k, v = qkv.unbind(2)  # non-contiguous views of one fused projection
+        q.mul_(3)
+        call = lambda: fa.flash_attention_tf32x3(q, k, v)  # noqa: E731
+        first = call()
+        assert torch.equal(first, fa.flash_attention_tf32x3(q.contiguous(), k.contiguous(),
+                                                            v.contiguous()))
+        assert torch.equal(call(), first)  # two calls, the same bits
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)  # the graphed launch gives the eager bits
+
+
+@pytest.mark.cuda
+def test_tf32x3_attention_refuses_unaligned_views(cuda):
+    wide = torch.zeros(2, 64, 4, 44, device=cuda)
+    q = wide[..., 4:44]
+    assert fa.layout_error(q) is None
+    n0 = fa.flash_attention_tf32x3.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(wide[..., 1:41], q, q)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        flash_attention(q, torch.zeros(2, 64, 4, 42, device=cuda)[..., :40], q)
+    assert fa.flash_attention_tf32x3.launches == n0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,M,H,D", [
     (2, 256, 256, 4, 40), (2, 256, 256, 4, 64), (2, 256, 256, 4, 80), (2, 256, 256, 4, 160),
@@ -381,7 +463,7 @@ def test_bf16_attention_strided_views_bit_equal(cuda):
 def test_bf16_attention_refuses_unaligned_views(cuda):
     wide = torch.zeros(2, 64, 4, 48, dtype=torch.bfloat16, device=cuda)
     q = wide[..., 8:48]
-    assert fa.tma_layout_error(q) is None
+    assert fa.layout_error(q) is None
     n0 = fa.flash_attention_sm90.launches
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention(wide[..., 1:41], q, q)
@@ -505,4 +587,4 @@ def test_attention_kernels_take_only_their_dtype(cuda):
         fa.flash_attention_sm90(q, q, q)
     qb = q.to(torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
-        fa.flash_attention_fma(qb, qb, qb)
+        fa.flash_attention_tf32x3(qb, qb, qb)
