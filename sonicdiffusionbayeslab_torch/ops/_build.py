@@ -22,9 +22,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+# --split-compile=0: each source's device code is optimised on all cores
+# (flash_attention.cu's 20 instantiations build in ~20 s instead of ~50).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "--split-compile=0",
 ]
 LINK_FLAGS = ["-ldl"]  # dlopen/dlsym of the driver's cuTensorMapEncodeTiled
 

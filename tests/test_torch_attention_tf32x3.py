@@ -2,13 +2,14 @@
 emulated step by step in plain PyTorch on the CPU.
 
 The kernel runs both products on the tensor cores as split TF32: every
-operand x becomes ``hi = tf32(x)`` and ``lo = tf32(x - hi)``
-(``cvt.rna.tf32.f32``: round to nearest, ties away from zero, to 10
-mantissa bits), and a product a.b is taken as a_lo.b_hi + a_hi.b_lo +
-a_hi.b_hi into one fp32 accumulator; only a_lo.b_lo, about 2^-22 of it, is
-dropped.  Around the products it is an online softmax over 64-key tiles in
-base 2 (log2(e) D^-1/2 folded into one multiply), the last tile's missing
-keys masked.
+operand x becomes ``hi = tf32(x)`` (what ``cvt.rna.tf32.f32`` gives: round
+to nearest, ties away from zero, to 10 mantissa bits) and ``lo = x - hi``,
+exact in fp32, whose low 13 bits the tensor core ignores (truncation to
+TF32).  A product a.b is taken as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi into
+one fp32 accumulator; only a_lo.b_lo, about 2^-22 of it, is dropped.
+Around the products it is an online softmax over 64-key tiles in base 2
+(log2(e) D^-1/2 folded into one multiply), the last tile's missing keys
+masked, each tile's P.V added to O in fp32.
 
 The emulation is held to float64 attention within the fp32 gate of the
 kernel checks on the card (|err| <= 2e-5 + 1e-4 |ref|, queries x3), a
@@ -36,9 +37,15 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def truncate_tf32(x: torch.Tensor) -> torch.Tensor:
+    """A TF32 operand as the tensor core reads it: its low 13 bits cleared."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
 def split(x):
+    """(hi, lo) as the products see them."""
     hi = tf32(x)
-    return hi, tf32(x - hi)
+    return hi, truncate_tf32(x - hi)
 
 
 def mm_tf32x3(a, b):
@@ -104,7 +111,7 @@ def test_tf32_rounds_to_nearest_ties_away():
     assert got.tolist() == [1.0, up, 1.0, -up, 0.0, -0.0]
     assert torch.signbit(got[-1])
     assert (got.view(torch.int32) & 0x1FFF == 0).all()  # 10 mantissa bits are left
-    # hi + lo keeps 21 bits: the split's own error is below 2^-21 relative.
+    # hi + lo keeps 21 bits: the split's own error is within 2^-21 relative.
     r = torch.from_numpy(np.random.default_rng(0).standard_normal(10000).astype(np.float32))
     hi, lo = split(r)
     assert ((hi.double() + lo.double() - r.double()).abs() <= 2.0 ** -21 * r.double().abs()).all()
