@@ -18,8 +18,7 @@ prints no ``ok`` line:
      the SD-1.5 UNet and VAE decoder on the meta device), within stated
      tolerances, plus strided q/k/v views (bf16 goes to the wgmma/TMA
      attention kernel, fp32 to the split-TF32 mma.sync one); queries are
-     scaled by 3 so
-     that the softmax's running max moves across K/V tiles;
+     scaled by 3 so that the softmax's running max moves across K/V tiles;
   4. device times at the whole-batch run's shapes (CUDA graphs timed with
      CUDA events), bf16 for every kernel and fp32 for attention (the
      split-TF32 kernel): the kernel, its plain version and one PyTorch

@@ -22,8 +22,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-# --split-compile=0: each source's device code is optimised on all cores
-# (flash_attention.cu's 20 instantiations build in ~20 s instead of ~50).
+# --split-compile=0: a source's device code is optimised on all cores, so
+# the template instantiations of one source (flash_attention.cu has 20) are
+# not compiled one after another.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--split-compile=0",

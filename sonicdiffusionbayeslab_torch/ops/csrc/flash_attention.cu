@@ -27,8 +27,8 @@
 // in fp32 and goes to the mma as it is: the tensor core ignores a TF32
 // operand's low 13 bits, so lo is truncated to TF32 there, within 2^-21 of
 // x.  Splitting is a large share of the instructions (every K and V element
-// once a warp, every P element once), so this is worth a fifth of the time
-// at D=40 against cvt.rna twice, at the same error.
+// once a warp, every P element once), and this ran faster than cvt.rna
+// twice on an H100, at the same error.
 //
 // Why mma.sync and not wgmma: wgmma takes TF32 operands from shared memory
 // only K-major.  In O += P.V the B operand is V, which arrives [keys, D]
@@ -58,9 +58,10 @@
 //   * O = O corr + P.V: 8 k-steps x D/8 n-tiles x 3 mma an m-tile, V's B
 //     fragments read straight from the [keys, D] tile.  The tensor cores
 //     round their fp32 sums toward zero, so a chain of mma into one
-//     accumulator drifts with its length (8e-5 off at M = 4096, D = 40 when
-//     all of O's 1536 ran into it); each tile's P.V is summed in fresh
-//     fragments (24 mma) and added to O in ordinary fp32 arithmetic.
+//     accumulator drifts with its length (on an H100, 8e-5 off at
+//     M = 4096, D = 40 when all of O's 1536 ran into it); each tile's P.V
+//     is summed in fresh fragments (24 mma) and added to O in ordinary
+//     fp32 arithmetic.
 // The epilogue divides by the row sum and stores 8 bytes a thread, masked
 // to N.  q, k and v are read through their strides (16-byte aligned rows,
 // strides multiples of 4 elements; the wrapper checks).  No atomics: the
