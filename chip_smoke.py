@@ -16,8 +16,9 @@ prints no ``ok`` line:
   3. each kernel against its plain PyTorch version, in bf16 and fp32 (TF32
      off), at every shape either main-path run gives it (found by running
      the SD-1.5 UNet and VAE decoder on the meta device), within stated
-     tolerances, plus strided q/k/v views (bf16 goes to the wgmma/TMA
-     attention kernel, fp32 to the split-TF32 mma.sync one); queries are
+     tolerances, and in fp32 also at the tiny fp32 pipeline's shapes (the
+     fp32 attention kernel's path), plus strided q/k/v views (bf16 goes to
+     the wgmma/TMA attention kernel, fp32 to the split-TF32 mma.sync one); queries are
      scaled by 3 so that the softmax's running max moves across K/V tiles;
   4. device times at the whole-batch run's shapes (CUDA graphs timed with
      CUDA events), bf16 for every kernel and fp32 for attention (the
@@ -63,9 +64,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
 PEAK_TF32X3 = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # Each kernel's symbol in a profiler trace: one kernel a call each.
-SYMBOLS = {"attention": ("flash_fwd_sm90_kernel",),
-           "group_norm": ("gn_cluster_kernel",)}
-FP32_SYMBOL = "flash_fwd_tf32x3_kernel"  # the fp32 attention kernel
+SYMBOLS = {"attention": "flash_fwd_sm90_kernel", "group_norm": "gn_cluster_kernel",
+           "attention_fp32": "flash_fwd_tf32x3_kernel"}
 # bf16 attention is also held to max |err| <= ATTN_RMS_GATE * rms(plain)
 # per shape: bf16 rounding of outputs up to ~4 stays near half of it, while
 # a lost rescale of O or a P.V on the wrong K/V tile is many times the rms.
@@ -87,24 +87,30 @@ TOL = {
     ("group_norm", torch.float32): (1e-4, 1e-4),
     ("group_norm", torch.bfloat16): (2e-3, 1e-2),
 }
+# Keyed by kind, with "_fp32" for the fp32 attention kernel, which the bf16
+# main path never launches: the fp32 path (StableDiffusionModel(dtype=
+# "float32"), driven by the tiny card-vs-CPU run) does.
 KERNELS = {
-    "attention": dict(name="flash_attention_sm90", route="cuda",
+    "attention": dict(name="flash_attention_sm90", route="cuda", dtype="bfloat16",
                       source="sonicdiffusionbayeslab_torch/ops/csrc/flash_attention_sm90.cu",
                       replaces="sonicdiffusionbayeslab_tpu/ops/flash_attention.py:52"),
-    "group_norm": dict(name="group_norm_silu", route="cuda",
+    "group_norm": dict(name="group_norm_silu", route="cuda", dtype="bfloat16",
                        source="sonicdiffusionbayeslab_torch/ops/csrc/groupnorm.cu",
                        replaces="sonicdiffusionbayeslab_tpu/ops/groupnorm.py:27"),
+    "attention_fp32": dict(name="flash_attention_tf32x3", route="cuda", dtype="float32",
+                           source="sonicdiffusionbayeslab_torch/ops/csrc/flash_attention.cu",
+                           replaces="sonicdiffusionbayeslab_tpu/ops/flash_attention.py:52"),
 }
-# Not on the bf16 main path: the fp32 path (StableDiffusionModel(dtype=
-# "float32"), driven by the tiny card-vs-CPU run) and every fp32 check.
-FP32_KERNEL = dict(name="flash_attention_tf32x3", route="cuda",
-                   source="sonicdiffusionbayeslab_torch/ops/csrc/flash_attention.cu",
-                   replaces="sonicdiffusionbayeslab_tpu/ops/flash_attention.py:52")
-FP32_TOTALS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fma_ms")
+MAIN = ("attention", "group_norm")  # the kernels of the bf16 main path
 
 
 def phase(name):
     print(f"== {name}", flush=True)
+
+
+def key(kind, dtype):
+    """The report's key of ``kind`` at ``dtype``: "attention_fp32" etc."""
+    return kind if dtype == torch.bfloat16 else f"{kind}_fp32"
 
 
 def card_line() -> str:
@@ -192,11 +198,11 @@ def sass_counts(build):
     sass = subprocess.run([str(cuobjdump), "-sass", str(build.build_library())],
                           capture_output=True, text=True, check=True, timeout=300).stdout
     out = {}
-    for name, symbol in (("flash_attention_sm90", SYMBOLS["attention"][0]),
-                         ("flash_attention_tf32x3", FP32_SYMBOL)):
+    for kind in ("attention", "attention_fp32"):
+        name = KERNELS[kind]["name"]
         counts = collections.Counter()
         for fn in sass.split("Function : ")[1:]:
-            if symbol in fn.split("\n", 1)[0]:
+            if SYMBOLS[kind] in fn.split("\n", 1)[0]:
                 counts["functions"] += 1
                 for op in ("HGMMA", "HMMA", "UTMALDG"):
                     counts[op] += len(re.findall(rf"\b{op}\.", fn))
@@ -204,18 +210,20 @@ def sass_counts(build):
               f"HMMA {counts['HMMA']}, UTMALDG {counts['UTMALDG']}")
         if not counts["functions"] or counts["HGMMA"] + counts["HMMA"] == 0:
             raise AssertionError(f"{name}: the kernel has no tensor-core instruction")
-        out[name] = dict(counts)
-    if not out["flash_attention_tf32x3"]["HMMA"]:
+        out[kind] = dict(counts)
+    if not out["attention_fp32"]["HMMA"]:
         raise AssertionError("the fp32 attention kernel has no HMMA (mma.sync) instruction")
     return out
 
 
 # ------------------------------------------------------------------ census
-def census(unet_batch):
+def census(unet_batch, tiny=False):
     """{(kind, shape): launches} of one main-path run whose UNet calls see
     ``unet_batch`` rows, and the launches per UNet forward and per VAE
-    decode, from the SD-1.5 UNet and VAE decoder run on the meta device
-    with the two kernel entry points replaced by shape recorders."""
+    decode, from the SD-1.5 UNet and VAE decoder (or, with ``tiny``, the
+    tiny configs at StableDiffusionModel(tiny=True)'s 8x8 latents) run on
+    the meta device with the two kernel entry points replaced by shape
+    recorders."""
     from sonicdiffusionbayeslab_torch.models import layers
     from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
     from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
@@ -238,14 +246,16 @@ def census(unet_batch):
 
     saved = layers.group_norm_silu, layers.dot_product_attention
     layers.group_norm_silu, layers.dot_product_attention = gn, attn
+    unet_cfg, vae_cfg = (UNetConfig.tiny(), VAEConfig.tiny()) if tiny else (UNetConfig.sd15(),
+                                                                            VAEConfig.sd15())
+    lat = 8 if tiny else SIZE // 8
     try:
-        lat = SIZE // 8
         with torch.device("meta"):
-            UNet2DCondition(UNetConfig.sd15())(torch.empty(unet_batch, lat, lat, 4),
-                                               torch.empty(unet_batch),
-                                               torch.empty(unet_batch, 77, 768))
+            UNet2DCondition(unet_cfg)(torch.empty(unet_batch, lat, lat, 4),
+                                      torch.empty(unet_batch),
+                                      torch.empty(unet_batch, 77, unet_cfg.cross_attention_dim))
             calls = vae_calls
-            AutoencoderKL(VAEConfig.sd15()).decode(torch.empty(BATCH, lat, lat, 4))
+            AutoencoderKL(vae_cfg).decode(torch.empty(BATCH, lat, lat, 4))
     finally:
         layers.group_norm_silu, layers.dot_product_attention = saved
     run = collections.Counter({k: STEPS * n for k, n in unet_calls.items()})
@@ -275,18 +285,17 @@ def gn_inputs(shape, dtype, gen):
     return x, w, b
 
 
-def bound(kind, shape, dtype, flops_rate=None):
+def bound(kind, shape, dtype):
     """(least ms, "operations" | "bytes") for the work at ``shape``: each
     input read once, each output written once, at HBM rate; operations at
     the peak rate for their type (attention's two products on the tensor
     cores, bf16 or split TF32 for fp32, and the special-function units for
     its B*H*N*M exponentials, whichever takes longer; plain fp32 for
-    GroupNorm's ~10 operations per element).  ``flops_rate`` replaces the
-    products' rate (fp32 attention's FMA-rate figure)."""
+    GroupNorm's ~10 operations per element)."""
     size = torch.tensor([], dtype=dtype).element_size()
     if kind == "attention":
         B, N, M, H, D = shape
-        rate = flops_rate or (PEAK_TF32X3 if dtype == torch.float32 else PEAK_FLOPS[dtype])
+        rate = PEAK_TF32X3 if dtype == torch.float32 else PEAK_FLOPS[dtype]
         t_ops = max(4 * B * H * N * M * D / rate, B * H * N * M / PEAK_EXP) * 1e3
         nbytes = (2 * B * N * H * D + 2 * B * M * H * D) * size
     else:
@@ -326,7 +335,10 @@ def library_call(kind, shape, inputs):
     return lambda: F.group_norm(xn, G, w, b, eps)
 
 
-def check_kernels(shapes, report):
+def check_kernels(shapes, tiny_shapes, report):
+    """Each kernel against its plain version at ``shapes`` in bf16 and fp32
+    and, in fp32, at ``tiny_shapes`` (the tiny fp32 pipeline's, which the
+    card-vs-CPU run of phase 5 launches); max errors into ``report["errs"]``."""
     from sonicdiffusionbayeslab_torch.ops.attention import plain_attention
     from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention
 
@@ -334,14 +346,15 @@ def check_kernels(shapes, report):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
-        for kind, shape in shapes:
+        tiny = tiny_shapes if dtype == torch.float32 else []
+        for (kind, shape), label in [(s, "") for s in shapes] + [(s, " (tiny)") for s in tiny]:
             inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
             kern, plain = run_kernel(kind, shape, inputs)
             got = kern()
             torch.cuda.synchronize()
-            err = compare(kind, dtype, got, plain(), f"{kind} {shape} {dtype}")
-            report[kind]["errs"][dtype].append(err)
-            print(f"{kind} {str(dtype)[6:]} {shape}: max abs err {err:.3e}")
+            err = compare(kind, dtype, got, plain(), f"{kind} {shape} {dtype}{label}")
+            report["errs"][key(kind, dtype)].append(err)
+            print(f"{kind} {str(dtype)[6:]} {shape}{label}: max abs err {err:.3e}")
             del inputs, got
         # Non-contiguous views of one fused [B, N, 3, H, D] projection with a
         # ragged N = M: the same bits as contiguous inputs.
@@ -357,8 +370,9 @@ def check_kernels(shapes, report):
 
 def time_kernels(shapes, run_counts, report):
     """Per-shape timing rows, and totals over one main-path run (per-shape
-    time x launches at that shape) into ``report[kind]`` for bf16 and
-    ``report["attention_fp32"]`` for the fp32 attention kernel."""
+    time x launches at that shape) into ``report[key(kind, dtype)]``; fp32
+    attention's rows also give its products' time at the plain fp32 FMA
+    rate (``bound_fma_ms``), the yardstick of the kernel it replaced."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for kind, shape in shapes:
@@ -373,12 +387,13 @@ def time_kernels(shapes, run_counts, report):
                        library_ms=cuda_ms(library_call(kind, shape, inputs)),
                        bound_ms=b_ms, bound_by=b_by)
             if kind == "attention" and dtype == torch.float32:
-                row["bound_fma_ms"] = bound(kind, shape, dtype, PEAK_FLOPS[torch.float32])[0]
+                B, N, M, H, D = shape
+                row["bound_fma_ms"] = 4 * B * H * N * M * D / PEAK_FLOPS[torch.float32] * 1e3
             rows.append(row)
             print("timing " + json.dumps(row), flush=True)
             del inputs
     for r in rows:
-        agg = report[r["kernel"] if r["dtype"] == "bfloat16" else f"{r['kernel']}_fp32"]
+        agg = report[key(r["kernel"], getattr(torch, r["dtype"]))]
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fma_ms"):
             agg[key] += r.get(key, 0.0) * r["launches_per_run"]
         agg["bound_by_ms"][r["bound_by"]] += r["bound_ms"] * r["launches_per_run"]
@@ -386,15 +401,16 @@ def time_kernels(shapes, run_counts, report):
 
 
 # --------------------------------------------------------------- main path
-def tiny_card_vs_cpu():
+def tiny_card_vs_cpu(per_unet, per_vae):
     """The tiny fp32 pipeline on the card (kernels) against the same weights
     and seed on the CPU (plain versions); returns the fp32 attention
     kernel's launches in the card's run (graph warm-up and capture, eager
-    decode), which must be more than 0."""
+    decode), which must be the tiny census's."""
     import numpy as np
 
     from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
     from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention_tf32x3
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
 
     cpu = StableDiffusionModel(tiny=True, dtype="float32", seed=0, device="cpu")
     card = StableDiffusionModel(tiny=True, dtype="float32", seed=0, device="cuda")
@@ -412,8 +428,10 @@ def tiny_card_vs_cpu():
           f"flash_attention_tf32x3 launches {launches}")
     if not err <= 1e-3:
         raise AssertionError("the tiny pipeline on the card disagrees with the CPU")
-    if launches <= 0:
-        raise AssertionError("the tiny fp32 pipeline did not launch the fp32 attention kernel")
+    want = (GraphedCall.WARMUP + 1) * per_unet["attention"] + per_vae["attention"]
+    if launches != want or launches <= 0:
+        raise AssertionError(f"the tiny fp32 pipeline launched the fp32 attention kernel "
+                             f"{launches} times, expected {want}")
     return launches
 
 
@@ -428,17 +446,11 @@ def traced_launches(run):
         out = run()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_symbol = {sym: sum(sym in n for n in names)
-                 for sym in (*[s for ss in SYMBOLS.values() for s in ss], FP32_SYMBOL)}
-    if by_symbol[FP32_SYMBOL]:
+    counts = {kind: sum(sym in n for n in names) for kind, sym in SYMBOLS.items()}
+    if counts["attention_fp32"]:
         raise AssertionError(f"the bf16 main path ran the fp32 attention kernel "
-                             f"{by_symbol[FP32_SYMBOL]} times")
-    counts = {}
-    for kind, syms in SYMBOLS.items():
-        if len({by_symbol[sym] for sym in syms}) != 1:
-            raise AssertionError(f"{kind}: its kernels ran unequal times: {by_symbol}")
-        counts[kind] = by_symbol[syms[0]]
-    return out, counts
+                             f"{counts['attention_fp32']} times")
+    return out, {kind: counts[kind] for kind in MAIN}
 
 
 def wrapper_counts(reset=False):
@@ -464,7 +476,7 @@ def check_images(imgs):
         raise AssertionError("images outside [0, 1]")
 
 
-def run_main_path(report, per_unet, per_vae, card, profile):
+def run_main_path(report, per_unet, per_vae, tiny_census, card, profile):
     import numpy as np
 
     from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
@@ -472,7 +484,11 @@ def run_main_path(report, per_unet, per_vae, card, profile):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report["attention_fp32"]["launches"] = tiny_card_vs_cpu()
+    fp32 = report["attention_fp32"]
+    fp32["launches"] = fp32["wrapper_launches"] = tiny_card_vs_cpu(*tiny_census)
+    fp32["launches_from"] = ("the wrapper's count over the tiny fp32 pipeline run on the card "
+                             "(graph warm-up and capture, eager VAE decode); the bf16 main path "
+                             "launches it 0 times (wrappers and trace checked)")
     torch.backends.cudnn.allow_tf32 = True  # bf16 main path: TF32 is not used anyway
 
     t0 = time.perf_counter()
@@ -492,7 +508,7 @@ def run_main_path(report, per_unet, per_vae, card, profile):
         wrapper_counts(reset=True)
         model(PROMPTS, unet_microbatch=mb, **kw)
         counts = wrapper_counts()
-        want = {k: (GraphedCall.WARMUP + 1) * per_unet[k] + per_vae[k] for k in KERNELS}
+        want = {k: (GraphedCall.WARMUP + 1) * per_unet[k] + per_vae[k] for k in MAIN}
         if counts != want or min(counts.values()) <= 0:
             raise AssertionError(f"{name}: wrapper launches {counts}, expected {want}")
         # The timed run.
@@ -515,10 +531,10 @@ def run_main_path(report, per_unet, per_vae, card, profile):
               f"allocated, {reserved_gb:.2f} GB reserved; "
               f"{card}; launches: first run's wrappers {counts}, traced run's kernel "
               f"executions {traced} and wrappers {decode_counts}")
-        want = {k: STEPS * (mb or 1) * per_unet[k] + per_vae[k] for k in KERNELS}
+        want = {k: STEPS * (mb or 1) * per_unet[k] + per_vae[k] for k in MAIN}
         if traced != want:
             raise AssertionError(f"{name}: traced kernel executions {traced}, expected {want}")
-        if decode_counts != {k: per_vae[k] for k in KERNELS}:
+        if decode_counts != {k: per_vae[k] for k in MAIN}:
             raise AssertionError(f"{name}: a warm run's wrappers launched {decode_counts}, "
                                  f"expected the decode's {dict(per_vae)}")
         if not np.array_equal(imgs_traced, imgs):
@@ -529,9 +545,13 @@ def run_main_path(report, per_unet, per_vae, card, profile):
                                    first_run_wrapper_launches=counts,
                                    traced_launches=traced)
         if name == "whole_batch":
-            for kind in KERNELS:
-                report[kind]["launches"] = traced[kind]
-                report[kind]["wrapper_launches"] = counts[kind]
+            for kind in MAIN:
+                report[kind].update(
+                    launches=traced[kind], wrapper_launches=counts[kind],
+                    launches_from="torch.profiler trace of a warm whole-batch run (graph "
+                                  "replays run no wrapper); wrapper_launches: the wrappers' "
+                                  "counts over the first whole-batch run (graph warm-up and "
+                                  "capture, eager VAE decode)")
     # Chunking changes the batch of every conv and matmul, so cuDNN/cuBLAS
     # may pick other algorithms; bf16 over 20 steps differs by a few 1/255.
     diff = float(np.abs(images["whole_batch"] - images["microbatch_2"]).max())
@@ -557,7 +577,7 @@ def eager_vs_graphed_unet(model, per_unet, reps=5):
     gen = torch.Generator(device="cuda").manual_seed(3)
     lat = torch.randn(2 * BATCH, SIZE // 8, SIZE // 8, 4, generator=gen, device="cuda").to(eng.dtype)
     tb = torch.full((2 * BATCH,), 499.0, device="cuda")
-    want = {k: per_unet[k] for k in KERNELS}
+    want = {k: per_unet[k] for k in MAIN}
     with torch.inference_mode():
         wrapper_counts(reset=True)
         eager, traced = traced_launches(lambda: eng.unet(lat, tb, embeds))
@@ -604,9 +624,9 @@ def profile_loop(model):
     groups = collections.Counter()
     for k, v in by_name.items():
         low = k.lower()
-        if FP32_SYMBOL in k or SYMBOLS["attention"][0] in k:
+        if SYMBOLS["attention_fp32"] in k or SYMBOLS["attention"] in k:
             groups["flash_attention (ours)"] += v
-        elif any(sym in k for sym in SYMBOLS["group_norm"]):
+        elif SYMBOLS["group_norm"] in k:
             groups["group_norm_silu (ours)"] += v
         elif "fprop" in low or "conv" in low:
             groups["convolutions (cuDNN)"] += v
@@ -659,32 +679,39 @@ def main() -> None:
     # unet_microbatch=2 run sees chunks of BATCH rows.
     run_counts, per_unet, per_vae = census(2 * BATCH)
     chunk_counts = census(BATCH)[0]
+    # The tiny fp32 pipeline of phase 5 runs BATCH (two) prompts with CFG.
+    tiny_counts, *tiny_census = census(2 * BATCH, tiny=True)
     order = lambda ks: (ks[0], [str(v) for v in ks[1]])  # noqa: E731
     shapes = sorted(run_counts, key=order)
     check_shapes = sorted(set(run_counts) | set(chunk_counts), key=order)
+    tiny_shapes = sorted(tiny_counts, key=order)
     print(f"main path per UNet forward: {dict(per_unet)}; per VAE decode: {dict(per_vae)}; "
-          f"{len(check_shapes)} distinct kernel shapes over both runs")
+          f"{len(check_shapes)} distinct kernel shapes over both runs; the tiny fp32 "
+          f"pipeline's: {dict(tiny_census[0])} and {dict(tiny_census[1])}, "
+          f"{len(tiny_shapes)} shapes")
     print_gn_plans(shapes)
-    report = {k: {"errs": {torch.bfloat16: [], torch.float32: []}, "launches": None,
-                  "wrapper_launches": None,
+    report = {k: {"launches": None, "wrapper_launches": None, "launches_from": None,
                   "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                  "bound_fma_ms": 0.0,
-                  "bound_by_ms": collections.Counter()} for k in (*KERNELS, "attention_fp32")}
+                  "bound_fma_ms": 0.0, "bound_by_ms": collections.Counter()} for k in KERNELS}
+    report["errs"] = collections.defaultdict(list)
     report["e2e"] = {}
 
-    phase("3. kernels against their plain versions, at the main path's shapes")
-    check_kernels(check_shapes, report)
+    phase("3. kernels against their plain versions, at the main path's shapes "
+          "(and the tiny fp32 pipeline's)")
+    check_kernels(check_shapes, tiny_shapes, report)
 
     phase("4. timings (bf16, and fp32 attention; CUDA graph of 20 calls between CUDA events, "
           "median of 5)")
     rows = time_kernels(shapes, run_counts, report)
     fp32 = report["attention_fp32"]
+    fp32_totals = {k: fp32[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                         "bound_fma_ms")}
     print("attention fp32 (flash_attention_tf32x3) totals over one run: "
-          + json.dumps({k: fp32[k] for k in FP32_TOTALS}))
+          + json.dumps(fp32_totals))
 
     phase(f"5. main path: SD-1.5 {SIZE}x{SIZE}, {STEPS}-step DPM-Solver++ (order 2), "
           f"CFG {GUIDANCE}, batch {BATCH}")
-    run_main_path(report, per_unet, per_vae, card, args.profile)
+    run_main_path(report, per_unet, per_vae, tiny_census, card, args.profile)
 
     phase("6. kernels")
     kernels = []
@@ -692,40 +719,22 @@ def main() -> None:
         r = report[kind]
         kernels.append({
             **meta,
-            "launches": r["launches"],
-            "launches_from": "torch.profiler trace of a warm whole-batch run (graph "
-                             "replays run no wrapper)",
-            "wrapper_launches": r["wrapper_launches"],
-            "wrapper_launches_from": "the wrappers' counts over the first whole-batch run "
-                                     "(graph warm-up and capture, eager VAE decode)",
-            "max_abs_err": max(r["errs"][torch.bfloat16]),
+            "launches": r["launches"], "wrapper_launches": r["wrapper_launches"],
+            "launches_from": r["launches_from"],
+            "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_by_ms"], key=r["bound_by_ms"].get),
             "library_ms": r["library_ms"],
-            **({"sass": report_sass[meta["name"]]} if kind == "attention" else {}),
-            "totals_over": "one main-path run: per-shape median x launches at that shape",
+            **({"sass": report_sass[kind]} if kind in report_sass else {}),
+            "totals_over": f"the main path's {kind.removesuffix('_fp32')} shapes in {meta['dtype']}: "
+                           "per-shape median x launches at that shape in one run",
         })
-    r = report["attention_fp32"]
-    kernels.append({
-        **FP32_KERNEL,
-        "launches": r["launches"],
-        "launches_from": "the wrapper's count over the tiny fp32 pipeline run on the card "
-                         "(graph warm-up and capture, eager VAE decode); the bf16 main path "
-                         "launches it 0 times (wrappers and trace checked)",
-        "max_abs_err": max(report["attention"]["errs"][torch.float32]),
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": max(r["bound_by_ms"], key=r["bound_by_ms"].get),
-        "library_ms": r["library_ms"], "bound_fma_ms": r["bound_fma_ms"],
-        "sass": report_sass[FP32_KERNEL["name"]],
-        "totals_over": "the main path's attention shapes in fp32: per-shape median x "
-                       "launches at that shape in one run",
-    })
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
              "kernels": kernels, "timings": rows, "e2e": report["e2e"],
-             "attention_fp32_totals": {k: report["attention_fp32"][k] for k in FP32_TOTALS},
+             "attention_fp32_totals": fp32_totals,
              "profile": report.get("profile")}, indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -9,12 +9,22 @@ TF32).  A product a.b is taken as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi into
 one fp32 accumulator; only a_lo.b_lo, about 2^-22 of it, is dropped.
 Around the products it is an online softmax over 64-key tiles in base 2
 (log2(e) D^-1/2 folded into one multiply), the last tile's missing keys
-masked, each tile's P.V added to O in fp32.
+masked, each tile's P.V summed in fresh fragments and added to O in fp32.
+
+The accumulation is modelled as the tensor core rounds it: each
+``mma.sync.m16n8k8`` adds its 8 products (exact in float64) to the fp32
+accumulator and rounds the sum toward zero, three mma a k-step, small terms
+first.  This is a model of the rounding, not of the hardware's exact
+alignment of the addends: it reproduces the error of one chain of mma over
+all of a 4096-key P.V (about 8e-5, which failed the gate on the card at
+4096 x 4096), the reason each tile's P.V starts from fresh fragments.
 
 The emulation is held to float64 attention within the fp32 gate of the
 kernel checks on the card (|err| <= 2e-5 + 1e-4 |ref|, queries x3), a
-single TF32 product is shown to fail that gate (why three products), and
-the emulation is held to the JAX package's Pallas kernel in interpret mode.
+single TF32 product is shown to fail that gate (why three products), the
+chained P.V is shown to lose far more than fresh fragments at 4096 keys,
+and the emulation is held to the JAX package's Pallas kernel in interpret
+mode.
 """
 
 import math
@@ -48,10 +58,30 @@ def split(x):
     return hi, truncate_tf32(x - hi)
 
 
-def mm_tf32x3(a, b):
-    """a @ b as the kernel's three mma.sync products, small terms first."""
+def round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 to float32, rounded toward zero."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def mm_tf32x3(a, b, acc=None):
+    """a @ b (plus ``acc``) as the kernel's chain of mma.sync.m16n8k8: for
+    each k-step of 8, three products, small terms first, each added to the
+    fp32 accumulator with the sum rounded toward zero."""
     (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
-    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+    K = a.shape[-1]
+
+    def steps(x, y):  # [..., n, K/8, m]: each k-step's 8 products, summed exactly
+        return torch.einsum("...njk,...jkm->...njm", x.double().unflatten(-1, (K // 8, 8)),
+                            y.double().unflatten(-2, (K // 8, 8)))
+
+    terms = steps(a_lo, b_hi), steps(a_hi, b_lo), steps(a_hi, b_hi)
+    if acc is None:
+        acc = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for j in range(K // 8):
+        for t in terms:
+            acc = round_toward_zero(acc.double() + t[..., j, :])
+    return acc
 
 
 def mm_tf32(a, b):
@@ -59,8 +89,9 @@ def mm_tf32(a, b):
     return tf32(a) @ tf32(b)
 
 
-def emulate(q, k, v, mm=mm_tf32x3):
-    """[B, N, H, D] float32 attention as the kernel computes it."""
+def emulate(q, k, v, mm=mm_tf32x3, chain=False):
+    """[B, N, H, D] float32 attention as the kernel computes it; with
+    ``chain``, P.V runs on in O's accumulator instead of fresh fragments."""
     q, k, v = (x.transpose(1, 2).float() for x in (q, k, v))  # [B, H, L, D]
     B, H, N, D = q.shape
     M = k.shape[2]
@@ -79,7 +110,7 @@ def emulate(q, k, v, mm=mm_tf32x3):
         corr = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
-        o = o * corr + mm(p, vt)
+        o = mm(p, vt, o * corr) if chain else o * corr + mm(p, vt)
         m = m_new
     return (o / l).transpose(1, 2)
 
@@ -130,6 +161,20 @@ def test_split_tf32_meets_the_fp32_gate_and_one_tf32_product_does_not(M, D):
     assert excess(one, want) > 0, "a single TF32 product would pass the fp32 gate"
     # And by far: its largest error is many times the split form's.
     assert (one.double() - want).abs().max() > 10 * (three.double() - want).abs().max()
+
+
+def test_fresh_pv_fragments_hold_the_gate_at_4096_keys_and_one_chain_does_not():
+    # 4096 keys: one chain over all of P.V is 512 k-steps x 3 mma into O.
+    q, k, v = inputs(1, 128, 4096, 1, 40, seed=7)
+    want = reference64(q, k, v)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    fresh = emulate(tq, tk, tv)
+    assert excess(fresh, want) <= 0, f"fresh fragments fail the fp32 gate by {excess(fresh, want):.2e}"
+    chained = emulate(tq, tk, tv, chain=True)
+    err_fresh = (fresh.double() - want).abs().max().item()
+    err_chained = (chained.double() - want).abs().max().item()
+    # Rounding toward zero 1536 times loses ~1e-4 of O (8.3e-5 on the card).
+    assert err_chained > 10 * err_fresh and err_chained > 5e-5, (err_chained, err_fresh)
 
 
 @pytest.mark.parametrize("D", [40, 80, 160])
