@@ -108,7 +108,7 @@ def phase(name):
     print(f"== {name}", flush=True)
 
 
-def key(kind, dtype):
+def report_key(kind, dtype):
     """The report's key of ``kind`` at ``dtype``: "attention_fp32" etc."""
     return kind if dtype == torch.bfloat16 else f"{kind}_fp32"
 
@@ -353,7 +353,7 @@ def check_kernels(shapes, tiny_shapes, report):
             got = kern()
             torch.cuda.synchronize()
             err = compare(kind, dtype, got, plain(), f"{kind} {shape} {dtype}{label}")
-            report["errs"][key(kind, dtype)].append(err)
+            report["errs"][report_key(kind, dtype)].append(err)
             print(f"{kind} {str(dtype)[6:]} {shape}{label}: max abs err {err:.3e}")
             del inputs, got
         # Non-contiguous views of one fused [B, N, 3, H, D] projection with a
@@ -370,7 +370,7 @@ def check_kernels(shapes, tiny_shapes, report):
 
 def time_kernels(shapes, run_counts, report):
     """Per-shape timing rows, and totals over one main-path run (per-shape
-    time x launches at that shape) into ``report[key(kind, dtype)]``; fp32
+    time x launches at that shape) into ``report[report_key(kind, dtype)]``; fp32
     attention's rows also give its products' time at the plain fp32 FMA
     rate (``bound_fma_ms``), the yardstick of the kernel it replaced."""
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -393,9 +393,9 @@ def time_kernels(shapes, run_counts, report):
             print("timing " + json.dumps(row), flush=True)
             del inputs
     for r in rows:
-        agg = report[key(r["kernel"], getattr(torch, r["dtype"]))]
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fma_ms"):
-            agg[key] += r.get(key, 0.0) * r["launches_per_run"]
+        agg = report[report_key(r["kernel"], getattr(torch, r["dtype"]))]
+        for field in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fma_ms"):
+            agg[field] += r.get(field, 0.0) * r["launches_per_run"]
         agg["bound_by_ms"][r["bound_by"]] += r["bound_ms"] * r["launches_per_run"]
     return rows
 
@@ -726,8 +726,9 @@ def main() -> None:
             "bound_by": max(r["bound_by_ms"], key=r["bound_by_ms"].get),
             "library_ms": r["library_ms"],
             **({"sass": report_sass[kind]} if kind in report_sass else {}),
-            "totals_over": f"the main path's {kind.removesuffix('_fp32')} shapes in {meta['dtype']}: "
-                           "per-shape median x launches at that shape in one run",
+            "totals_over": f"the main path's {kind.removesuffix('_fp32')} shapes in "
+                           f"{meta['dtype']}: per-shape median x launches at that shape in "
+                           "one run",
         })
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
