@@ -16,21 +16,24 @@ prints no ``ok`` line:
   3. each kernel against its plain PyTorch version, in bf16 and fp32 (TF32
      off), at every shape either main-path run gives it (found by running
      the SD-1.5 UNet and VAE decoder on the meta device), within stated
-     tolerances, and in fp32 also at the tiny fp32 pipeline's shapes (the
-     fp32 attention kernel's path), plus strided q/k/v views (bf16 goes to
-     the wgmma/TMA attention kernel, fp32 to the split-TF32 mma.sync one); queries are
+     tolerances, and in fp32 also at the tiny fp32 pipeline's shapes and at
+     the CLIP score's vision-tower attention shapes (ViT-B/16 and tiny at
+     the validate batch, found on the meta device too): the fp32 attention
+     kernel's paths; plus strided q/k/v views (bf16 goes to the wgmma/TMA
+     attention kernel, fp32 to the split-TF32 mma.sync one); queries are
      scaled by 3 so that the softmax's running max moves across K/V tiles;
   4. device times at the whole-batch run's shapes (CUDA graphs timed with
      CUDA events), bf16 for every kernel and fp32 for attention (the
-     split-TF32 kernel): the kernel, its plain version and one PyTorch
-     library call as a yardstick, beside the bound from the work's bytes,
-     products and exponentials (fp32 attention's products at the split-TF32
-     rate, with the plain-fp32 FMA-rate figure beside it);
+     split-TF32 kernel), and the fp32 kernel at the ViT-B/16 tower's shape:
+     the kernel, its plain version and one PyTorch library call as a
+     yardstick, beside the bound from the work's bytes, products and
+     exponentials (fp32 attention's products at the split-TF32 rate, with
+     the plain-fp32 FMA-rate figure beside it);
   5. the main path: SD-1.5 text-to-image at full width on random bf16
      weights, 512x512, 20-step DPM-Solver++ (order 2), CFG 7.5, batch 2,
      through StableDiffusionModel, whole and with unet_microbatch=2, the
      UNet replayed from a CUDA graph as on every GPU (a tiny fp32 run on
-     the card is held against the same run on the CPU first: the path of
+     the card is held against the same run on the CPU first: it launches
      the fp32 attention kernel, whose launches it counts).  Each is run
      three times: first with the wrappers' launch counts set to 0 (they
      count the graph's warm-up and capture and the eager VAE decode, as a
@@ -40,8 +43,16 @@ prints no ``ok`` line:
      UNet call is held bit-equal to the graphed one, its wrapper counts
      and trace held to the census of one forward, and both are timed;
      with --profile, a torch.profiler breakdown of the denoising loop;
-  6. the card line, then one JSON ``kernels`` line;
-  7. the last line: {"ok": true, "device": {...}}.
+  6. the experiment CLI (sonicdiffusionbayeslab_torch.cli) on
+     configs/smoke.yaml at SD-1.5 full width: bf16 512x512, one sweep point
+     of 20 DPM-Solver++ steps, CFG 7.5, a batch of 8 prompts, x0 decodes
+     of 2 samples, and the CLIP score on a random fp32 ViT-B/16 tower (its
+     attention is the fp32 kernel's); its table, PNGs and each kernel's
+     launches (wrappers over one run, a trace over a second) against the
+     census, its wall clock, sec/image and the tower's device time;
+  7. the card line, then one JSON ``kernels`` line (the fp32 attention
+     kernel's entry is its CLI-path work: the tower's 12 launches);
+  8. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -49,10 +60,12 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -88,8 +101,8 @@ TOL = {
     ("group_norm", torch.bfloat16): (2e-3, 1e-2),
 }
 # Keyed by kind, with "_fp32" for the fp32 attention kernel, which the bf16
-# main path never launches: the fp32 path (StableDiffusionModel(dtype=
-# "float32"), driven by the tiny card-vs-CPU run) does.
+# UNet and VAE never launch: the CLIP score's fp32 vision tower does (phase
+# 6), and so does the fp32 pipeline (the tiny card-vs-CPU run of phase 5).
 KERNELS = {
     "attention": dict(name="flash_attention_sm90", route="cuda", dtype="bfloat16",
                       source="sonicdiffusionbayeslab_torch/ops/csrc/flash_attention_sm90.cu",
@@ -102,6 +115,12 @@ KERNELS = {
                            replaces="sonicdiffusionbayeslab_tpu/ops/flash_attention.py:52"),
 }
 MAIN = ("attention", "group_norm")  # the kernels of the bf16 main path
+# The experiment CLI's run (phase 6): configs/smoke.yaml at full width.
+CLI_BATCH, CLI_X0 = 8, 2
+CLI_OVERRIDES = {"model.tiny": False, "model.image_size": SIZE, "dataset.image_size": SIZE,
+                 "experiment_params.num_inference_steps": [STEPS],
+                 "inference.batch_size": CLI_BATCH, "inference.batch_count": 1,
+                 "inference.x0_samples": CLI_X0}
 
 
 def phase(name):
@@ -269,6 +288,33 @@ def census(unet_batch, tiny=False):
     return run, per_unet, per_vae
 
 
+def clip_census(batch, tiny=False):
+    """{(kind, shape): launches} of the CLIP score's vision tower (ViT-B/16,
+    or the tiny tower) on one validate batch, from ``CLIPVisionModel`` run
+    on the meta device with the attention entry point replaced by a shape
+    recorder; only unmasked calls the kernel takes are counted."""
+    from sonicdiffusionbayeslab_torch.models import clip_text
+    from sonicdiffusionbayeslab_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionModel
+    from sonicdiffusionbayeslab_torch.ops.attention import uses_kernel
+
+    calls = collections.Counter()
+
+    def attn(q, k, v, mask=None):
+        if uses_kernel(q, mask):
+            B, N, H, D = q.shape
+            calls[("attention", (B, N, k.shape[1], H, D))] += 1
+        return torch.empty_like(q)
+
+    cfg = CLIPVisionConfig.tiny() if tiny else CLIPVisionConfig()
+    saved, clip_text.dot_product_attention = clip_text.dot_product_attention, attn
+    try:
+        with torch.device("meta"):
+            CLIPVisionModel(cfg)(torch.empty(batch, 3, cfg.image_size, cfg.image_size))
+    finally:
+        clip_text.dot_product_attention = saved
+    return calls
+
+
 # ------------------------------------------------------------ inputs, work
 def attn_inputs(shape, dtype, gen):
     """q, k, v with logits of standard deviation 3 (q scaled by 3)."""
@@ -335,10 +381,11 @@ def library_call(kind, shape, inputs):
     return lambda: F.group_norm(xn, G, w, b, eps)
 
 
-def check_kernels(shapes, tiny_shapes, report):
+def check_kernels(shapes, fp32_shapes, report):
     """Each kernel against its plain version at ``shapes`` in bf16 and fp32
-    and, in fp32, at ``tiny_shapes`` (the tiny fp32 pipeline's, which the
-    card-vs-CPU run of phase 5 launches); max errors into ``report["errs"]``."""
+    and, in fp32, at ``fp32_shapes`` ((kind, shape), label): the tiny fp32
+    pipeline's, which the card-vs-CPU run of phase 5 launches, and the CLIP
+    vision towers'; max errors into ``report["errs"]``."""
     from sonicdiffusionbayeslab_torch.ops.attention import plain_attention
     from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention
 
@@ -346,8 +393,8 @@ def check_kernels(shapes, tiny_shapes, report):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
-        tiny = tiny_shapes if dtype == torch.float32 else []
-        for (kind, shape), label in [(s, "") for s in shapes] + [(s, " (tiny)") for s in tiny]:
+        extra = fp32_shapes if dtype == torch.float32 else []
+        for (kind, shape), label in [(s, "") for s in shapes] + extra:
             inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
             kern, plain = run_kernel(kind, shape, inputs)
             got = kern()
@@ -368,32 +415,39 @@ def check_kernels(shapes, tiny_shapes, report):
         print(f"attention {str(dtype)[6:]} strided q/k/v views, N=M=1000: max abs err {err:.3e}")
 
 
-def time_kernels(shapes, run_counts, report):
-    """Per-shape timing rows, and totals over one main-path run (per-shape
-    time x launches at that shape) into ``report[report_key(kind, dtype)]``; fp32
-    attention's rows also give its products' time at the plain fp32 FMA
-    rate (``bound_fma_ms``), the yardstick of the kernel it replaced."""
+def time_kernels(shapes, run_counts, clip_counts, report):
+    """Per-shape timing rows at the main path's shapes (``run_counts``
+    launches a run) and, fp32 only, at the CLIP tower's (``clip_counts``
+    launches a validate batch), and totals (per-shape time x launches):
+    bf16 into ``report[kind]``, fp32 at the UNet's shapes into
+    ``report["attention_fp32_unet"]``, fp32 at the tower's into
+    ``report["attention_fp32"]`` (the CLI path's).  fp32 attention's rows
+    also give its products' time at the plain fp32 FMA rate
+    (``bound_fma_ms``), the yardstick of the kernel it replaced."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for kind, shape in shapes:
-        dtypes = (torch.bfloat16, torch.float32) if kind == "attention" else (torch.bfloat16,)
-        for dtype in dtypes:
-            inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
-            kern, plain = run_kernel(kind, shape, inputs)
-            b_ms, b_by = bound(kind, shape, dtype)
-            row = dict(kernel=kind, dtype=str(dtype)[6:], shape=list(shape),
-                       launches_per_run=run_counts[(kind, shape)],
-                       ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                       library_ms=cuda_ms(library_call(kind, shape, inputs)),
-                       bound_ms=b_ms, bound_by=b_by)
-            if kind == "attention" and dtype == torch.float32:
-                B, N, M, H, D = shape
-                row["bound_fma_ms"] = 4 * B * H * N * M * D / PEAK_FLOPS[torch.float32] * 1e3
-            rows.append(row)
-            print("timing " + json.dumps(row), flush=True)
-            del inputs
+    work = [(kind, shape, dtype, "unet", run_counts[(kind, shape)]) for kind, shape in shapes
+            for dtype in ((torch.bfloat16, torch.float32) if kind == "attention"
+                          else (torch.bfloat16,))]
+    work += [(kind, shape, torch.float32, "clip", n) for (kind, shape), n in clip_counts.items()]
+    for kind, shape, dtype, path, launches in work:
+        inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
+        kern, plain = run_kernel(kind, shape, inputs)
+        b_ms, b_by = bound(kind, shape, dtype)
+        row = dict(kernel=kind, dtype=str(dtype)[6:], shape=list(shape), path=path,
+                   launches_per_run=launches,
+                   ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                   library_ms=cuda_ms(library_call(kind, shape, inputs)),
+                   bound_ms=b_ms, bound_by=b_by)
+        if kind == "attention" and dtype == torch.float32:
+            B, N, M, H, D = shape
+            row["bound_fma_ms"] = 4 * B * H * N * M * D / PEAK_FLOPS[torch.float32] * 1e3
+        rows.append(row)
+        print("timing " + json.dumps(row), flush=True)
+        del inputs
     for r in rows:
-        agg = report[report_key(r["kernel"], getattr(torch, r["dtype"]))]
+        key = report_key(r["kernel"], getattr(torch, r["dtype"]))
+        agg = report[key + "_unet" if key == "attention_fp32" and r["path"] == "unet" else key]
         for field in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fma_ms"):
             agg[field] += r.get(field, 0.0) * r["launches_per_run"]
         agg["bound_by_ms"][r["bound_by"]] += r["bound_ms"] * r["launches_per_run"]
@@ -437,8 +491,8 @@ def tiny_card_vs_cpu(per_unet, per_vae):
 
 def traced_launches(run):
     """``run()``'s result and the executions on the card of each kernel of
-    ours, by symbol, from a torch.profiler (CUPTI) trace of it: graph
-    replays included, set-up excluded."""
+    ours (every key of SYMBOLS), by symbol, from a torch.profiler (CUPTI)
+    trace of it: graph replays included, set-up excluded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -453,25 +507,30 @@ def traced_launches(run):
         out = run()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    counts = {kind: sum(sym in n for n in names) for kind, sym in SYMBOLS.items()}
-    if counts["attention_fp32"]:
-        raise AssertionError(f"the bf16 main path ran the fp32 attention kernel "
-                             f"{counts['attention_fp32']} times")
-    return out, {kind: counts[kind] for kind in MAIN}
+    return out, {kind: sum(sym in n for n in names) for kind, sym in SYMBOLS.items()}
 
 
 def wrapper_counts(reset=False):
+    """Each kernel wrapper's launch count (every key of SYMBOLS)."""
     from sonicdiffusionbayeslab_torch.ops.flash_attention import (flash_attention_sm90,
                                                                    flash_attention_tf32x3)
     from sonicdiffusionbayeslab_torch.ops.groupnorm import group_norm_silu
 
+    wrappers = {"attention": flash_attention_sm90, "group_norm": group_norm_silu,
+                "attention_fp32": flash_attention_tf32x3}
     if reset:
-        flash_attention_sm90.launches = flash_attention_tf32x3.launches = 0
-        group_norm_silu.launches = 0
-    if flash_attention_tf32x3.launches:
-        raise AssertionError(f"the bf16 main path launched the fp32 attention kernel "
-                             f"{flash_attention_tf32x3.launches} times")
-    return {"attention": flash_attention_sm90.launches, "group_norm": group_norm_silu.launches}
+        for w in wrappers.values():
+            w.launches = 0
+    return {kind: w.launches for kind, w in wrappers.items()}
+
+
+def bf16_only(counts, what):
+    """The MAIN kernels' counts of a bf16 run, which must not have launched
+    the fp32 attention kernel."""
+    if counts["attention_fp32"]:
+        raise AssertionError(f"{what} launched the fp32 attention kernel "
+                             f"{counts['attention_fp32']} times")
+    return {kind: counts[kind] for kind in MAIN}
 
 
 def check_images(imgs):
@@ -491,11 +550,7 @@ def run_main_path(report, per_unet, per_vae, tiny_census, card, profile):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fp32 = report["attention_fp32"]
-    fp32["launches"] = fp32["wrapper_launches"] = tiny_card_vs_cpu(*tiny_census)
-    fp32["launches_from"] = ("the wrapper's count over the tiny fp32 pipeline run on the card "
-                             "(graph warm-up and capture, eager VAE decode); the bf16 main path "
-                             "launches it 0 times (wrappers and trace checked)")
+    report["e2e"]["tiny_fp32_attention_launches"] = tiny_card_vs_cpu(*tiny_census)
     torch.backends.cudnn.allow_tf32 = True  # bf16 main path: TF32 is not used anyway
 
     t0 = time.perf_counter()
@@ -514,7 +569,7 @@ def run_main_path(report, per_unet, per_vae, tiny_census, card, profile):
         # eagerly.  The run is also the warm-up of cuDNN/cuBLAS.
         wrapper_counts(reset=True)
         model(PROMPTS, unet_microbatch=mb, **kw)
-        counts = wrapper_counts()
+        counts = bf16_only(wrapper_counts(), name)
         want = {k: (GraphedCall.WARMUP + 1) * per_unet[k] + per_vae[k] for k in MAIN}
         if counts != want or min(counts.values()) <= 0:
             raise AssertionError(f"{name}: wrapper launches {counts}, expected {want}")
@@ -531,7 +586,8 @@ def run_main_path(report, per_unet, per_vae, tiny_census, card, profile):
         # the census of each UNet forward and of the decode.
         wrapper_counts(reset=True)
         (imgs_traced, _, _), traced = traced_launches(lambda: model(PROMPTS, unet_microbatch=mb, **kw))
-        decode_counts = wrapper_counts()
+        traced = bf16_only(traced, f"{name} (trace)")
+        decode_counts = bf16_only(wrapper_counts(), name)
         print(f"main path {name} (unet_microbatch={mb}): execution_time {exec_time:.4f} s "
               f"({exec_time / BATCH:.4f} s/image, {3600 * BATCH / exec_time:.1f} images/hour, "
               f"denoising loop only); whole call {wall:.4f} s; peak memory {peak_gb:.2f} GB "
@@ -588,7 +644,8 @@ def eager_vs_graphed_unet(model, per_unet, reps=5):
     with torch.inference_mode():
         wrapper_counts(reset=True)
         eager, traced = traced_launches(lambda: eng.unet(lat, tb, embeds))
-        counts = wrapper_counts()
+        traced = bf16_only(traced, "an eager UNet forward (trace)")
+        counts = bf16_only(wrapper_counts(), "an eager UNet forward")
         if counts != want or traced != want:
             raise AssertionError(f"one eager UNet forward: wrapper launches {counts}, traced "
                                  f"{traced}, expected {want}")
@@ -655,6 +712,136 @@ def profile_loop(model):
     return out
 
 
+def run_cli(report, per_unet, per_vae, clip_per_batch, card):
+    """Phase 6: ``cli.run`` of configs/smoke.yaml at full width (CLI_OVERRIDES),
+    in a temporary working directory, twice: first with the wrappers' counts
+    set to 0 just before it and read just after, then under torch.profiler.
+    Each run checks its table row, its PNGs and each kernel's launches
+    against the census: the UNet's graph warm-up and capture (wrappers) or
+    warm-up and replays (trace), one VAE decode of the batch and one x0
+    decode a step, and the CLIP tower's launches for the one validate
+    batch."""
+    import csv
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch import cli
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    repo = Path(__file__).resolve().parent
+    config = str(repo / "configs" / "smoke.yaml")
+    decodes = 1 + STEPS
+    want_wrappers = {k: (GraphedCall.WARMUP + 1) * per_unet[k] + decodes * per_vae[k] for k in MAIN}
+    want_traced = {k: (GraphedCall.WARMUP + STEPS) * per_unet[k] + decodes * per_vae[k]
+                   for k in MAIN}
+    want_wrappers["attention_fp32"] = want_traced["attention_fp32"] = clip_per_batch
+    label = f"steps_{STEPS}"
+    out = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="sdbl_cli_") as tmp:
+        os.chdir(tmp)
+        try:
+            for run in ("first", "traced"):
+                overrides = {**CLI_OVERRIDES, "logger.run_id": run,
+                             "dataset.prompts": str(repo / "data" / "dataset" / "prompts_sample.json")}
+                wrapper_counts(reset=True)
+                t0 = time.perf_counter()
+                if run == "first":
+                    metrics, traced = cli.run(config, overrides), None
+                else:
+                    metrics, traced = traced_launches(lambda: cli.run(config, overrides))
+                wall = time.perf_counter() - t0
+                counts = wrapper_counts()
+                with open(Path(tmp) / "outputs" / run / "tables" / "final.tsv") as f:
+                    rows = list(csv.DictReader(f, delimiter="\t"))
+                pngs = sorted((Path(tmp) / "outputs" / "smoke" / label).glob("*.png"))
+                sizes = {tuple(np.frombuffer(p.read_bytes()[16:24], ">u4")) for p in pngs}
+                sec_img, score = float(rows[0]["time"]), float(rows[0]["clip_score"])
+                print(f"experiment CLI {run} run (configs/smoke.yaml: SD-1.5 bf16 {SIZE}x{SIZE}, "
+                      f"{STEPS}-step DPM-Solver++ order 2, CFG {GUIDANCE}, batch {CLI_BATCH}, "
+                      f"x0 decodes of {CLI_X0}, CLIP score on a random fp32 ViT-B/16): whole CLI "
+                      f"{wall:.3f} s, sweep {sec_img:.5f} s/image (the denoising loop, graph "
+                      f"capture included), clip_score {score:.4f}; {card}; launches: wrappers "
+                      f"{counts}, trace {traced}", flush=True)
+                if len(rows) != 1 or rows[0]["exp"] != label or rows[0]["nfe"] != str(STEPS):
+                    raise AssertionError(f"CLI table rows {rows}, expected one {label} of nfe {STEPS}")
+                if metrics["exp"] != [label]:
+                    raise AssertionError(f"CLI returned {metrics}")
+                if not (np.isfinite(sec_img) and sec_img > 0):
+                    raise AssertionError(f"CLI time {sec_img} s/image")
+                if not (np.isfinite(score) and 0.0 <= score <= 100.0):
+                    raise AssertionError(f"CLI clip_score {score}")
+                if len(pngs) != CLI_BATCH or sizes != {(SIZE, SIZE)}:
+                    raise AssertionError(f"CLI wrote {len(pngs)} PNGs of sizes {sizes}, expected "
+                                         f"{CLI_BATCH} of {SIZE}x{SIZE}")
+                if counts != want_wrappers:
+                    raise AssertionError(f"CLI {run} run: wrapper launches {counts}, expected "
+                                         f"{want_wrappers}")
+                if traced is not None and traced != want_traced:
+                    raise AssertionError(f"CLI traced run: kernel executions {traced}, expected "
+                                         f"{want_traced}")
+                out[run] = dict(wall_s=wall, sec_per_image=sec_img, clip_score=score,
+                                wrapper_launches=counts, traced_launches=traced)
+                for p in pngs:
+                    p.unlink()
+        finally:
+            os.chdir(cwd)
+    fp32 = report["attention_fp32"]
+    fp32.update(launches=out["traced"]["traced_launches"]["attention_fp32"],
+                wrapper_launches=out["first"]["wrapper_launches"]["attention_fp32"],
+                launches_from="torch.profiler trace of the experiment CLI's run (one validate "
+                              "batch of the CLIP ViT-B/16 tower); wrapper_launches: the wrapper's "
+                              "count over the CLI's first run")
+
+    report["e2e"]["cli"] = out
+
+
+def clip_tower(card):
+    """The CLI's CLIP tower (the metric's cached backend) at the validate
+    batch: device ms of the image embedding (resize, 12 layers, projection)
+    and of the whole score with the text tower; and, in fp32 with TF32 off,
+    its image and text embeddings and raw cosines on the card (kernel)
+    against a CPU copy (plain attention) on two images."""
+    import copy
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.metrics.metrics import ClipScoreMetric
+
+    backend = ClipScoreMetric(device="cuda").backend
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.rand(CLI_BATCH, SIZE, SIZE, 3, generator=gen, device="cuda")
+    ids = torch.as_tensor(np.asarray(backend.tokenizer(PROMPTS * (CLI_BATCH // 2))),
+                          dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        out = {"clip_embed_image_ms": cuda_ms(lambda: backend.model.embed_image(x), reps=5),
+               "clip_score_ms": cuda_ms(lambda: backend.model(x, ids), reps=5)}
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            cpu = copy.deepcopy(backend.model).cpu()
+            got = [backend.model.embed_image(x[:2]), backend.model.embed_text(ids[:2])]
+            want = [cpu.embed_image(x[:2].cpu()), cpu.embed_text(ids[:2].cpu())]
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    errs = [float((g.cpu() - w).abs().max()) for g, w in zip(got, want)]
+    cos_err = float((100 * (got[0] * got[1]).sum(-1)).cpu().sub(
+        100 * (want[0] * want[1]).sum(-1)).abs().max())
+    out.update(card_vs_cpu_image_emb_err=errs[0], card_vs_cpu_text_emb_err=errs[1],
+               card_vs_cpu_cosine_x100_err=cos_err)
+    print(f"CLIP ViT-B/16 tower at the validate batch of {CLI_BATCH} (fp32, {SIZE}->224 resize, "
+          f"12 layers, projection): {out['clip_embed_image_ms']:.3f} ms device time; with the text "
+          f"tower, the whole score {out['clip_score_ms']:.3f} ms (CUDA graph between CUDA events, "
+          f"median of 5); {card}; card vs CPU (TF32 off, 2 images): max abs err image embedding "
+          f"{errs[0]:.3e}, text embedding {errs[1]:.3e} (tolerance 1e-4), 100 x cosine "
+          f"{cos_err:.3e} (tolerance 1e-2)", flush=True)
+    # Unit vectors in fp32 through 12 layers summed in another order (cuBLAS
+    # and the kernel against the CPU's plain path).
+    if not (max(errs) <= 1e-4 and cos_err <= 1e-2):
+        raise AssertionError("the CLIP tower on the card disagrees with the CPU")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -688,39 +875,55 @@ def main() -> None:
     chunk_counts = census(BATCH)[0]
     # The tiny fp32 pipeline of phase 5 runs BATCH (two) prompts with CFG.
     tiny_counts, *tiny_census = census(2 * BATCH, tiny=True)
+    # The CLI's CLIP score runs its vision tower once a validate batch.
+    clip_counts, clip_tiny_counts = clip_census(CLI_BATCH), clip_census(CLI_BATCH, tiny=True)
     order = lambda ks: (ks[0], [str(v) for v in ks[1]])  # noqa: E731
     shapes = sorted(run_counts, key=order)
     check_shapes = sorted(set(run_counts) | set(chunk_counts), key=order)
-    tiny_shapes = sorted(tiny_counts, key=order)
+    fp32_shapes = ([(k, " (tiny pipeline)") for k in sorted(tiny_counts, key=order)]
+                   + [(k, " (CLIP ViT-B/16)") for k in sorted(clip_counts, key=order)]
+                   + [(k, " (CLIP tiny)") for k in sorted(clip_tiny_counts, key=order)])
+    clip_per_batch = sum(clip_counts.values())
     print(f"main path per UNet forward: {dict(per_unet)}; per VAE decode: {dict(per_vae)}; "
           f"{len(check_shapes)} distinct kernel shapes over both runs; the tiny fp32 "
           f"pipeline's: {dict(tiny_census[0])} and {dict(tiny_census[1])}, "
-          f"{len(tiny_shapes)} shapes")
+          f"{len(tiny_counts)} shapes; the CLIP vision towers' attention a validate batch: "
+          f"{dict(clip_counts)}, tiny {dict(clip_tiny_counts)}")
+    if clip_per_batch != 12:
+        raise AssertionError(f"the ViT-B/16 census gives {dict(clip_counts)}, not 12 kernel "
+                             "launches (one a layer)")
     print_gn_plans(shapes)
     report = {k: {"launches": None, "wrapper_launches": None, "launches_from": None,
                   "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                  "bound_fma_ms": 0.0, "bound_by_ms": collections.Counter()} for k in KERNELS}
+                  "bound_fma_ms": 0.0, "bound_by_ms": collections.Counter()}
+              for k in (*KERNELS, "attention_fp32_unet")}
     report["errs"] = collections.defaultdict(list)
     report["e2e"] = {}
 
     phase("3. kernels against their plain versions, at the main path's shapes "
-          "(and the tiny fp32 pipeline's)")
-    check_kernels(check_shapes, tiny_shapes, report)
+          "(and the tiny fp32 pipeline's and the CLIP towers')")
+    check_kernels(check_shapes, fp32_shapes, report)
 
-    phase("4. timings (bf16, and fp32 attention; CUDA graph of 20 calls between CUDA events, "
-          "median of 5)")
-    rows = time_kernels(shapes, run_counts, report)
-    fp32 = report["attention_fp32"]
-    fp32_totals = {k: fp32[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                         "bound_fma_ms")}
-    print("attention fp32 (flash_attention_tf32x3) totals over one run: "
-          + json.dumps(fp32_totals))
+    phase("4. timings (bf16, and fp32 attention at the UNet's and the CLIP tower's shapes; CUDA "
+          "graph of 20 calls between CUDA events, median of 5)")
+    rows = time_kernels(shapes, run_counts, clip_counts, report)
+    fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fma_ms")
+    fp32_totals = {k: report["attention_fp32_unet"][k] for k in fields}
+    print("attention fp32 (flash_attention_tf32x3) totals over one run at the main path's UNet "
+          "shapes: " + json.dumps(fp32_totals))
+    print("attention fp32 (flash_attention_tf32x3) totals over one validate batch of the CLIP "
+          "ViT-B/16 tower: " + json.dumps({k: report["attention_fp32"][k] for k in fields}))
 
     phase(f"5. main path: SD-1.5 {SIZE}x{SIZE}, {STEPS}-step DPM-Solver++ (order 2), "
           f"CFG {GUIDANCE}, batch {BATCH}")
     run_main_path(report, per_unet, per_vae, tiny_census, card, args.profile)
 
-    phase("6. kernels")
+    phase(f"6. experiment CLI: configs/smoke.yaml at SD-1.5 {SIZE}x{SIZE}, {STEPS} steps, "
+          f"batch {CLI_BATCH}, CLIP score on ViT-B/16")
+    run_cli(report, per_unet, per_vae, clip_per_batch, card)
+    report["e2e"]["cli"].update(clip_tower(card))
+
+    phase("7. kernels")
     kernels = []
     for kind, meta in KERNELS.items():
         r = report[kind]
@@ -733,9 +936,10 @@ def main() -> None:
             "bound_by": max(r["bound_by_ms"], key=r["bound_by_ms"].get),
             "library_ms": r["library_ms"],
             **({"sass": report_sass[kind]} if kind in report_sass else {}),
-            "totals_over": f"the main path's {kind.removesuffix('_fp32')} shapes in "
-                           f"{meta['dtype']}: per-shape median x launches at that shape in "
-                           "one run",
+            "totals_over": (f"the main path's {kind} shapes in {meta['dtype']}: per-shape "
+                            "median x launches at that shape in one run" if kind in MAIN else
+                            "the CLIP ViT-B/16 tower's attention shape in float32: per-shape "
+                            "median x its launches in one validate batch of the CLI run"),
         })
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -2,9 +2,12 @@
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/clip_text.py``: pre-LN
 transformer with a causal mask and quick-GELU, then a final LayerNorm; SD
-conditions on the last hidden state [B, 77, 768].  Parameter names follow
-transformers' ``CLIPTextModel`` (``text_model.encoder.layers.{i}...``).
-The causal mask sends attention down the plain path.
+conditions on the last hidden state [B, 77, 768], and the CLIP score on the
+pooled output (the hidden state at each sequence's end-of-text token).
+Parameter names follow transformers' ``CLIPTextModel``
+(``text_model.encoder.layers.{i}...``).  The causal mask sends attention
+down the plain path.  ``CLIPLayer`` is built from widths, so that the
+vision tower (``clip_vision.py``) uses it too.
 """
 
 from __future__ import annotations
@@ -69,16 +72,30 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, dim: int, num_heads: int, intermediate_size: int,
+                 act: str = "quick_gelu"):
         super().__init__()
-        self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads)
-        self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act)
+        self.layer_norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.self_attn = CLIPAttention(dim, num_heads)
+        self.layer_norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = CLIPMLP(dim, intermediate_size, act)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
         x = x + self.self_attn(self.layer_norm1(x), mask)
         return x + self.mlp(self.layer_norm2(x))
+
+
+class CLIPEncoder(nn.Module):
+    def __init__(self, dim: int, num_layers: int, num_heads: int, intermediate_size: int,
+                 act: str = "quick_gelu"):
+        super().__init__()
+        self.layers = nn.ModuleList([CLIPLayer(dim, num_heads, intermediate_size, act)
+                                     for _ in range(num_layers)])
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x, mask)
+        return x
 
 
 class _Embeddings(nn.Module):
@@ -88,32 +105,38 @@ class _Embeddings(nn.Module):
         self.position_embedding = nn.Embedding(cfg.max_length, cfg.hidden_size)
 
 
-class _Encoder(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
-        super().__init__()
-        self.layers = nn.ModuleList([CLIPLayer(cfg) for _ in range(cfg.num_layers)])
+class CLIPTextTransformer(nn.Module):
+    """transformers' ``CLIPTextTransformer``: the ``text_model`` of a
+    ``CLIPTextModel`` or of a dual encoder."""
 
-
-class _TextTransformer(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.embeddings = _Embeddings(cfg)
-        self.encoder = _Encoder(cfg)
+        self.encoder = CLIPEncoder(cfg.hidden_size, cfg.num_layers, cfg.num_heads,
+                                   cfg.intermediate_size, cfg.hidden_act)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """input_ids [B, T] -> last_hidden_state [B, T, C] in fp32."""
+        T = input_ids.shape[1]
+        emb = self.embeddings
+        x = emb.token_embedding(input_ids) + emb.position_embedding.weight[:T]
+        causal = torch.ones(T, T, dtype=torch.bool, device=input_ids.device).tril()[None, None]
+        return self.final_layer_norm(self.encoder(x, causal)).float()
+
+
+def eot_pooled(hidden: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
+    """The hidden state at each sequence's end-of-text token, which has the
+    highest id of CLIP's vocabulary (the first such position)."""
+    return hidden[torch.arange(hidden.shape[0], device=hidden.device), input_ids.argmax(-1)]
 
 
 class CLIPTextModel(nn.Module):
     def __init__(self, config: CLIPTextConfig):
         super().__init__()
         self.config = config
-        self.text_model = _TextTransformer(config)
+        self.text_model = CLIPTextTransformer(config)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """input_ids [B, T] -> last_hidden_state [B, T, C] in fp32."""
-        tm = self.text_model
-        T = input_ids.shape[1]
-        x = tm.embeddings.token_embedding(input_ids) + tm.embeddings.position_embedding.weight[:T]
-        causal = torch.ones(T, T, dtype=torch.bool, device=input_ids.device).tril()[None, None]
-        for layer in tm.encoder.layers:
-            x = layer(x, causal)
-        return tm.final_layer_norm(x).float()
+        return self.text_model(input_ids)

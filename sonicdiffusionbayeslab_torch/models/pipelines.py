@@ -4,11 +4,15 @@ Counterpart of ``sonicdiffusionbayeslab_tpu/models/pipelines.py::
 StableDiffusionModel`` on the text-to-image path, with the same call
 contract: ``pipe(prompts, ...) -> (images, execution_time, x0_images)``,
 images [B, H, W, 3] in [0, 1], execution_time the denoising loop's wall
-clock.  Weights are a deterministic random init from ``seed``.
+clock.  It is registered as ``stable_diffusion_model``, the model the
+experiment builds.  Weights come from ``pretrained_model`` when it names a
+local diffusers snapshot directory, else from a deterministic random init
+from ``seed``.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
@@ -18,18 +22,24 @@ from sonicdiffusionbayeslab_torch.models.sampler import StableDiffusionEngine
 from sonicdiffusionbayeslab_torch.models.tokenizer import load_tokenizer
 from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
+from sonicdiffusionbayeslab_torch.models.weights import load_sd_checkpoint
+from sonicdiffusionbayeslab_torch.registry import models_registry
 from sonicdiffusionbayeslab_torch.schedulers import DPMSolverScheduler
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+@models_registry.add_to_registry("stable_diffusion_model")
 class StableDiffusionModel:
     """Single-scheduler text-to-image pipeline.  ``device`` defaults to
     CUDA; without a GPU it raises unless ``device="cpu"`` is given.  On a
     GPU the first call at a new batch or size captures the UNet's CUDA
-    graph for it, in place of the previous one."""
+    graph for it, in place of the previous one.  The experiment assigns
+    ``scheduler`` and may set ``unet_microbatch``; each call sets
+    ``num_timesteps`` to its plan's number of UNet evaluations."""
 
-    def __init__(self, image_size: int = 512, tiny: bool = False, dtype: str = "bfloat16",
+    def __init__(self, pretrained_model: str = "runwayml/stable-diffusion-v1-5",
+                 image_size: int = 512, tiny: bool = False, dtype: str = "bfloat16",
                  seed: int = 0, device=None):
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype!r}")
@@ -40,12 +50,19 @@ class StableDiffusionModel:
         else:
             configs = (UNetConfig.sd15(), VAEConfig.sd15(), CLIPTextConfig.sd15())
         self.engine = StableDiffusionEngine(*configs, dtype=DTYPES[dtype], device=device)
-        self.engine.init_params(seed)
+        snapshot = Path(pretrained_model)
+        if snapshot.exists():
+            load_sd_checkpoint(snapshot, self.engine)
+        else:  # a hub id with no local copy: deterministic random init
+            self.engine.init_params(seed)
         self.device = self.engine.device
         self.latent_hw = self.image_size // 8 if not tiny else 8
         tc = self.engine.text_config
-        self.tokenizer = load_tokenizer(None, tc.vocab_size, tc.max_length)
+        tok_dir = snapshot / "tokenizer" if snapshot.exists() else None
+        self.tokenizer = load_tokenizer(tok_dir and str(tok_dir), tc.vocab_size, tc.max_length)
         self.scheduler = DPMSolverScheduler(solver_order=2)
+        self.num_timesteps = 0  # NFE of the last call
+        self.unet_microbatch: Optional[int] = None  # the calls' default
 
     def build_plan(self, num_inference_steps: int):
         return self.scheduler.build_plan(num_inference_steps)
@@ -77,6 +94,7 @@ class StableDiffusionModel:
                 raise ValueError(f"height/width must be multiples of 8, got {h}x{w}")
             lat_hw = (h // 8, w // 8)
         plan = self.build_plan(num_inference_steps)
+        self.num_timesteps = plan.nfe
 
         embeds = self.engine.encode_prompts(self.tokenizer(list(prompt)))
         neg = None
@@ -87,7 +105,7 @@ class StableDiffusionModel:
             plan, embeds, neg, seed=seed, sample_indices=sample_indices,
             guidance_scale=guidance_scale, latent_hw=lat_hw, collect_x0=use_x0,
             x0_samples=x0_samples, decode=output_type != "latent",
-            microbatch=unet_microbatch,
+            microbatch=self.unet_microbatch if unet_microbatch is None else unet_microbatch,
         )
         images = out.images if out.images is not None else out.latents
         x0 = out.x0_images.cpu().numpy() if out.x0_images is not None else None

@@ -1,21 +1,25 @@
-"""JAX parameter trees -> the port's state dicts.
+"""JAX parameter trees and local checkpoints -> the port's modules.
 
 The port's own copies of the name maps in
 ``sonicdiffusionbayeslab_tpu/models/weights.py`` (``unet_name_map``,
-``vae_name_map``, ``clip_text_name_map``) and of ``invert``: for every JAX
-parameter path, the diffusers / transformers tensor name and the layout
-change (HWIO conv -> OIHW, [in, out] dense -> [out, in], dense ->
-[out, in, 1, 1] for SD-1.5's 1x1-conv transformer projections).  The
-port's modules carry exactly those names, so a local diffusers snapshot
-needs no map at all.
+``vae_name_map``, ``clip_text_name_map``, ``clip_dual_name_map``) and of
+``invert``: for every JAX parameter path, the diffusers / transformers
+tensor name and the layout change (HWIO conv -> OIHW, [in, out] dense ->
+[out, in], dense -> [out, in, 1, 1] for SD-1.5's 1x1-conv transformer
+projections).  The port's modules carry exactly those names, so a local
+diffusers snapshot or transformers CLIP checkpoint loads by name
+(``load_sd_checkpoint``, ``load_clip_checkpoint``), strictly, after
+dropping by name the few keys the port's modules do not have.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
 
@@ -91,6 +95,14 @@ class MapEntries(dict):
         self.norm(f"{dst}/norm", f"{src}.group_norm")
         self.attention(f"{dst}/attn", src)
 
+    def clip_layer(self, dst, src):  # one transformers CLIPEncoderLayer (text and vision)
+        for a in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            self.dense(f"{dst}/attn/{a}", f"{src}.self_attn.{a}")
+        self.norm(f"{dst}/ln1", f"{src}.layer_norm1")
+        self.norm(f"{dst}/ln2", f"{src}.layer_norm2")
+        self.dense(f"{dst}/fc1", f"{src}.mlp.fc1")
+        self.dense(f"{dst}/fc2", f"{src}.mlp.fc2")
+
 
 def unet_name_map(cfg: UNetConfig) -> NameMap:
     m = MapEntries()
@@ -155,20 +167,32 @@ def vae_name_map(n_levels: int, layers_per_block: int) -> NameMap:
     return dict(m)
 
 
-def clip_text_name_map(num_layers: int, src_prefix: str = "text_model") -> NameMap:
+def clip_text_name_map(num_layers: int, src_prefix: str = "text_model",
+                       dst_prefix: str = "") -> NameMap:
     m = MapEntries()
-    p = src_prefix
-    m["token_embedding/embedding"] = (f"{p}.embeddings.token_embedding.weight", _id)
-    m["position_embedding"] = (f"{p}.embeddings.position_embedding.weight", _id)
+    p, d = src_prefix, (dst_prefix + "/" if dst_prefix else "")
+    m[f"{d}token_embedding/embedding"] = (f"{p}.embeddings.token_embedding.weight", _id)
+    m[f"{d}position_embedding"] = (f"{p}.embeddings.position_embedding.weight", _id)
     for i in range(num_layers):
-        src, dst = f"{p}.encoder.layers.{i}", f"layer_{i}"
-        for a in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            m.dense(f"{dst}/attn/{a}", f"{src}.self_attn.{a}")
-        m.norm(f"{dst}/ln1", f"{src}.layer_norm1")
-        m.norm(f"{dst}/ln2", f"{src}.layer_norm2")
-        m.dense(f"{dst}/fc1", f"{src}.mlp.fc1")
-        m.dense(f"{dst}/fc2", f"{src}.mlp.fc2")
-    m.norm("final_ln", f"{p}.final_layer_norm")
+        m.clip_layer(f"{d}layer_{i}", f"{p}.encoder.layers.{i}")
+    m.norm(f"{d}final_ln", f"{p}.final_layer_norm")
+    return dict(m)
+
+
+def clip_dual_name_map(vision_layers: int, text_layers: int) -> NameMap:
+    """The JAX ``CLIPDualEncoder`` tree -> transformers ``CLIPModel`` names
+    (the CLIP score's dual encoder, ``models/clip_vision.py``)."""
+    m = MapEntries(clip_text_name_map(text_layers, "text_model", "text"))
+    p, d = "vision_model", "vision/"
+    m[f"{d}patch_embedding/kernel"] = (f"{p}.embeddings.patch_embedding.weight", _conv)
+    m[f"{d}class_embedding"] = (f"{p}.embeddings.class_embedding", _id)
+    m[f"{d}position_embedding"] = (f"{p}.embeddings.position_embedding.weight", _id)
+    m.norm(f"{d}pre_ln", f"{p}.pre_layrnorm")
+    for i in range(vision_layers):
+        m.clip_layer(f"{d}layer_{i}", f"{p}.encoder.layers.{i}")
+    m.norm(f"{d}post_ln", f"{p}.post_layernorm")
+    m.dense("visual_projection", "visual_projection", bias=False)
+    m.dense("text_projection", "text_projection", bias=False)
     return dict(m)
 
 
@@ -228,3 +252,68 @@ def state_dicts_from_jax(params_np: dict) -> Dict[str, Dict[str, torch.Tensor]]:
     }
     return {k: {n: torch.from_numpy(np.ascontiguousarray(a)) for n, a in sd.items()}
             for k, sd in sds.items()}
+
+
+# ------------------------------------------------------- local checkpoints
+# Keys a checkpoint may carry that the port's modules have no parameter
+# for: transformers' position-id buffers and CLIPModel's logit scale (the
+# score does not use it), and a full diffusers VAE's encoder side.
+_CLIP_EXTRA = ("text_model.embeddings.position_ids", "vision_model.embeddings.position_ids",
+               "logit_scale")
+_VAE_ENCODER = ("encoder.", "quant_conv.")
+
+
+def load_torch_state_dict(path: str | Path) -> Dict[str, torch.Tensor]:
+    """A ``.bin`` (torch pickle, loaded with ``weights_only=True``) or a
+    ``.safetensors`` file -> {name: CPU tensor}."""
+    path = Path(path)
+    if path.suffix == ".safetensors":
+        try:
+            from safetensors.torch import load_file
+        except ImportError as e:
+            raise RuntimeError("safetensors not installed; use a .bin checkpoint") from e
+        return dict(load_file(str(path)))
+    return dict(torch.load(str(path), map_location="cpu", weights_only=True))
+
+
+def _find_checkpoint(d: Path, names) -> Path:
+    for name in names:
+        if (d / name).exists():
+            return d / name
+    raise FileNotFoundError(f"no checkpoint under {d} (looked for {', '.join(names)})")
+
+
+def _load_strict(module: nn.Module, sd: Dict[str, torch.Tensor], drop, what: str) -> None:
+    """Load ``sd`` minus the keys ``drop(name)`` selects, strictly: any other
+    extra or missing key raises."""
+    sd = {k: v for k, v in sd.items() if not drop(k)}
+    try:
+        module.load_state_dict(sd, strict=True)
+    except RuntimeError as e:
+        raise RuntimeError(f"{what}: {e}") from None
+
+
+def load_clip_checkpoint(snapshot_dir: str | Path, model: nn.Module) -> nn.Module:
+    """A transformers ``CLIPModel`` snapshot dir (``pytorch_model.bin`` or
+    ``model.safetensors``) into the port's ``CLIPDualEncoder``."""
+    snapshot_dir = Path(snapshot_dir)
+    path = _find_checkpoint(snapshot_dir, ("pytorch_model.bin", "model.safetensors"))
+    _load_strict(model, load_torch_state_dict(path), lambda k: k in _CLIP_EXTRA, str(path))
+    return model
+
+
+def load_sd_checkpoint(snapshot_dir: str | Path, engine) -> None:
+    """A diffusers-layout SD snapshot dir (``unet/``, ``vae/``,
+    ``text_encoder/``) into ``engine``'s modules.  The VAE's encoder keys
+    and the text encoder's ``position_ids`` buffer are dropped by name; any
+    other extra or missing key raises."""
+    snapshot_dir = Path(snapshot_dir)
+    names = ("diffusion_pytorch_model.bin", "pytorch_model.bin",
+             "diffusion_pytorch_model.safetensors", "model.safetensors")
+    parts = (("unet", engine.unet, lambda k: False),
+             ("vae", engine.vae, lambda k: k.startswith(_VAE_ENCODER)),
+             ("text_encoder", engine.text, lambda k: k in _CLIP_EXTRA))
+    for sub, module, drop in parts:
+        path = _find_checkpoint(snapshot_dir / sub, names)
+        _load_strict(module, load_torch_state_dict(path), drop, str(path))
+    engine.graphed_unet.clear()

@@ -3,7 +3,9 @@
 ``DPMSolverScheduler(...).build_plan(n)`` reaches.
 
 A scheduler object holds schedule constants and solver options and emits a
-:class:`SamplePlan`; there is no per-run mutable state.
+:class:`SamplePlan`; there is no per-run mutable state.  ``DPMSolverScheduler``
+is registered as ``dpm_solver_scheduler`` in the port's
+``schedulers_registry``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Optional
 
 import numpy as np
 
+from sonicdiffusionbayeslab_torch.registry import schedulers_registry
 from sonicdiffusionbayeslab_torch.schedulers.dpm import dpm_rows, make_karras_ladder, make_ladder
 from sonicdiffusionbayeslab_torch.schedulers.plan import SamplePlan, StepRow, stack_rows
 from sonicdiffusionbayeslab_torch.schedulers.schedule import (
@@ -104,6 +107,7 @@ class _MultistepLadderScheduler(_PlanBuilder):
         )
 
 
+@schedulers_registry.add_to_registry("dpm_solver_scheduler")
 class DPMSolverScheduler(_MultistepLadderScheduler):
     NAME = "dpm_solver"
     PLAN_PREFIX = "dpm"

@@ -6,6 +6,10 @@ Each sample gets its own CPU ``torch.Generator``, seeded from a numpy
 ``SeedSequence`` of (seed, i); the latents are drawn on the CPU and then
 moved, so one seed gives the same latents on every device.  The bits differ
 from the JAX package's, so parity tests pass ``init_latents``.
+
+An experiment's grid point ``g`` draws from ``grid_seed(seed, g)`` where
+the JAX package folds ``g`` into its key: latents then depend only on
+(seed, grid point, sample index), as there.
 """
 
 from __future__ import annotations
@@ -28,3 +32,18 @@ def per_sample_latents(seed: int, sample_indices: Sequence[int], shape, device="
     rows = [torch.randn(tuple(shape), generator=sample_generator(seed, i), dtype=torch.float32)
             for i in sample_indices]
     return torch.stack(rows).to(device=device, dtype=dtype)
+
+
+def grid_seed(seed: int, grid_index: int) -> int:
+    """The pipeline seed of one sweep grid point (the JAX package's
+    ``grid_key``): an int derived from (seed, grid_index)."""
+    state = np.random.SeedSequence([int(seed), int(grid_index)]).generate_state(1, np.uint64)[0]
+    return int(state) & 0x7FFF_FFFF_FFFF_FFFF
+
+
+def setup_seed(seed: int) -> int:
+    """Seed numpy's and torch's global generators (the JAX package's
+    ``setup_seed``); returns the experiment seed."""
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return int(seed)

@@ -377,6 +377,7 @@ def assert_fp32_gate(got, want):
     (2, 200, 200, 2, 8), (2, 200, 200, 2, 16), (2, 200, 200, 2, 24), (2, 256, 256, 4, 40),
     (2, 256, 256, 4, 80), (2, 256, 256, 4, 160), (1, 33, 45, 2, 80), (2, 300, 77, 8, 40),
     (2, 1000, 1000, 2, 40), (2, 64, 77, 8, 160), (4, 1024, 77, 8, 80), (4, 4096, 4096, 8, 40),
+    (8, 197, 197, 12, 64), (2, 17, 17, 2, 16),  # the CLIP score's ViT-B/16 and tiny towers
 ])
 def test_tf32x3_attention_kernel_matches_plain(cuda, monkeypatch, B, N, M, H, D):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)  # the plain side in fp32
