@@ -14,14 +14,16 @@ prints no ``ok`` line:
      GroupNorm kernel's launch plan at each main-path shape (channel range,
      cluster size, blocks, shared memory, clusters the card holds at once);
   3. each kernel against its plain PyTorch version, in bf16 and fp32 (TF32
-     off), at every shape either main-path run gives it (found by running
-     the SD-1.5 UNet and VAE decoder on the meta device), within stated
+     off), at every shape the main path's runs and the CLI runs of phases 6
+     and 7 give it (found by running the SD-1.5 UNet, its DeepCache shallow
+     call and the VAE decoder on the meta device), within stated
      tolerances, and in fp32 also at the tiny fp32 pipeline's shapes and at
-     the CLIP score's vision-tower attention shapes (ViT-B/16 and tiny at
-     the validate batch, found on the meta device too): the fp32 attention
-     kernel's paths; plus strided q/k/v views (bf16 goes to the wgmma/TMA
-     attention kernel, fp32 to the split-TF32 mma.sync one); queries are
-     scaled by 3 so that the softmax's running max moves across K/V tiles;
+     the CLIP score's vision-tower attention shapes (ViT-B/16 at the
+     validate batches 8 and 4, and tiny, found on the meta device too): the
+     fp32 attention kernel's paths; plus strided q/k/v views (bf16 goes to
+     the wgmma/TMA attention kernel, fp32 to the split-TF32 mma.sync one);
+     queries are scaled by 3 so that the softmax's running max moves
+     across K/V tiles;
   4. device times at the whole-batch run's shapes (CUDA graphs timed with
      CUDA events), bf16 for every kernel and fp32 for attention (the
      split-TF32 kernel), and the fp32 kernel at the ViT-B/16 tower's shape:
@@ -50,15 +52,33 @@ prints no ``ok`` line:
      attention is the fp32 kernel's); its table, PNGs and each kernel's
      launches (wrappers over one run, a trace over a second) against the
      census, its wall clock, sec/image and the tower's device time;
-  7. the card line, then one JSON ``kernels`` line (the fp32 attention
-     kernel's entry is its CLI-path work: the tower's 12 launches);
-  8. the last line: {"ok": true, "device": {...}}.
+  7. the reference's scheduler experiments through the CLI at SD-1.5 full
+     width (bf16 512x512, batch 4, one sweep point each, CLIP score on the
+     random ViT-B/16 tower): configs default_stable_diffusion (PNDM),
+     ddim_config, deep_cache_config (interval 5, branch 0),
+     consistency_model_config (LCM, 4 steps, guidance 0, a random rank-64
+     kohya LoRA on every attention projection, written here and fused),
+     two_schedulers_config, interliving_schedulers_config and
+     skip_steps_config: each run's table row (label, nfe, time, clip_score),
+     its 4 PNGs, one CUDA graph capture per UNet call variant and the
+     kernels' launches against the census (the deep_cache run also by a
+     trace); before them, a tiny fp32 DeepCache run (interval 2,
+     unet_microbatch 2) and a tiny LCM run with given step noise on the card
+     against the CPU, and the warm execution_time of 20-step DDIM and
+     DeepCache (interval 5) at batch 2 at engine level, the memory their
+     graphs keep reserved, and one full and one shallow UNet call's device
+     time;
+  8. the card line, then one JSON ``kernels`` line (the fp32 attention
+     kernel's entry is its CLI-path work: the tower's 12 launches; each
+     entry also lists its launches in each phase-7 run);
+  9. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import json
 import os
 import re
@@ -121,10 +141,43 @@ CLI_OVERRIDES = {"model.tiny": False, "model.image_size": SIZE, "dataset.image_s
                  "experiment_params.num_inference_steps": [STEPS],
                  "inference.batch_size": CLI_BATCH, "inference.batch_count": 1,
                  "inference.x0_samples": CLI_X0}
+# Phase 7: the reference's scheduler experiments through the CLI at full
+# width, one sweep point each, batch METHOD_BATCH: (config, its point,
+# label, UNet evaluations, CFG factor of the UNet batch, x0 captured,
+# DeepCache full steps or None).
+METHOD_BATCH = 4
+METHOD_OVERRIDES = {"model.tiny": False, "model.image_size": SIZE, "dataset.image_size": SIZE,
+                    "inference.batch_size": METHOD_BATCH, "inference.batch_count": 1,
+                    "inference.x0_samples": 1,
+                    "quality_metrics": {"clip_score": {
+                        "model_name_or_path": "openai/clip-vit-base-patch16"}}}
+_P = "experiment_params."
+METHOD_RUNS = [
+    ("default_stable_diffusion", {_P + "num_inference_steps": [STEPS]}, "steps_20", 21, 2, True,
+     None),
+    ("ddim_config", {_P + "num_inference_steps": [STEPS]}, "steps_20", 20, 2, True, None),
+    ("deep_cache_config", {_P + "cache_interval": [5], _P + "cache_branch_id": 0,
+                           _P + "num_inference_steps": [STEPS]},
+     "interval_5_steps_20", 20, 2, False, 4),
+    ("consistency_model_config", {_P + "num_inference_steps": [4]}, "steps_4", 4, 1, False, None),
+    ("two_schedulers_config", {_P + "num_inference_steps_first": [10],
+                               _P + "num_inference_steps_second": [10],
+                               _P + "num_step_switch": [3]},
+     "first_10_second_10_switch_3", 11, 2, False, None),
+    ("interliving_schedulers_config", {_P + "num_inference_steps": [STEPS],
+                                       _P + "interliving_steps": [[2, 3]]},
+     "steps_20_inter_2-3", 18, 2, False, None),
+    ("skip_steps_config", {_P + "num_inference_steps": [STEPS], _P + "skip_steps": [[5]]},
+     "steps_20_skip_5", 19, 2, True, None),
+]
+
+
+_T0 = time.perf_counter()
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    """Opens a phase, with the script's wall clock so far."""
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def report_key(kind, dtype):
@@ -236,21 +289,28 @@ def sass_counts(build):
 
 
 # ------------------------------------------------------------------ census
-def census(unet_batch, tiny=False):
-    """{(kind, shape): launches} of one main-path run whose UNet calls see
-    ``unet_batch`` rows, and the launches per UNet forward and per VAE
-    decode, from the SD-1.5 UNet and VAE decoder (or, with ``tiny``, the
-    tiny configs at StableDiffusionModel(tiny=True)'s 8x8 latents) run on
-    the meta device with the two kernel entry points replaced by shape
-    recorders."""
+def _kinds(calls):
+    """{(kind, shape): n} -> {kind: n}."""
+    out = collections.Counter()
+    for (kind, _), n in calls.items():
+        out[kind] += n
+    return out
+
+
+def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False):
+    """{(kind, shape): launches} of one UNet call at ``unet_batch`` rows
+    (DeepCache's shallow call at branch 0 with ``shallow``, else the plain
+    or full call) and one VAE decode of ``vae_batch`` latents, from the
+    SD-1.5 UNet and VAE decoder (or, with ``tiny``, the tiny configs at
+    StableDiffusionModel(tiny=True)'s 8x8 latents) run on the meta device
+    with the two kernel entry points replaced by shape recorders."""
     from sonicdiffusionbayeslab_torch.models import layers
     from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
     from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
     from sonicdiffusionbayeslab_torch.ops.attention import uses_kernel
     from sonicdiffusionbayeslab_torch.ops.groupnorm import resolve_groups
 
-    unet_calls, vae_calls = collections.Counter(), collections.Counter()
-    calls = unet_calls
+    calls = collections.Counter()
 
     def gn(x, weight, bias, groups=32, eps=1e-5, silu=True):
         B, C = x.shape[0], x.shape[-1]
@@ -270,22 +330,32 @@ def census(unet_batch, tiny=False):
     lat = 8 if tiny else SIZE // 8
     try:
         with torch.device("meta"):
-            UNet2DCondition(unet_cfg)(torch.empty(unet_batch, lat, lat, 4),
-                                      torch.empty(unet_batch),
-                                      torch.empty(unet_batch, 77, unet_cfg.cross_attention_dim))
-            calls = vae_calls
-            AutoencoderKL(vae_cfg).decode(torch.empty(BATCH, lat, lat, 4))
+            if unet_batch:
+                unet = UNet2DCondition(unet_cfg)
+                b = unet_batch
+                args = (torch.empty(b, lat, lat, 4), torch.empty(b),
+                        torch.empty(b, 77, unet_cfg.cross_attention_dim))
+                if shallow:
+                    unet(*args, torch.empty((b,) + unet.cache_shape(lat, lat, 0)),
+                         cache_branch_id=0)
+                else:
+                    unet(*args)
+            if vae_batch:
+                AutoencoderKL(vae_cfg).decode(torch.empty(vae_batch, lat, lat, 4))
     finally:
         layers.group_norm_silu, layers.dot_product_attention = saved
+    return calls
+
+
+def census(unet_batch, tiny=False):
+    """{(kind, shape): launches} of one main-path run whose UNet calls see
+    ``unet_batch`` rows (STEPS UNet calls and one decode of BATCH latents),
+    and the launches per UNet forward and per VAE decode."""
+    unet_calls = module_census(unet_batch, tiny=tiny)
+    vae_calls = module_census(vae_batch=BATCH, tiny=tiny)
     run = collections.Counter({k: STEPS * n for k, n in unet_calls.items()})
     run.update(vae_calls)
-    per_unet = collections.Counter()
-    for (kind, _), n in unet_calls.items():
-        per_unet[kind] += n
-    per_vae = collections.Counter()
-    for (kind, _), n in vae_calls.items():
-        per_vae[kind] += n
-    return run, per_unet, per_vae
+    return run, _kinds(unet_calls), _kinds(vae_calls)
 
 
 def clip_census(batch, tiny=False):
@@ -842,6 +912,306 @@ def clip_tower(card):
     return out
 
 
+# ------------------------------------------------------- scheduler methods
+def _png_size(path):
+    import numpy as np
+
+    return tuple(int(v) for v in np.frombuffer(path.read_bytes()[16:24], ">u4"))
+
+
+def write_random_lora(path, rank=64, seed=0):
+    """A random kohya-layout LoRA (rank ``rank``, alpha = rank) on every
+    attention projection of the SD-1.5 UNet (to_q, to_k, to_v, to_out.0 of
+    attn1 and attn2 in its 16 transformers): the modules an LCM-LoRA
+    targets there; returns their names."""
+    from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
+
+    with torch.device("meta"):
+        shapes = {k[: -len(".weight")]: tuple(v.shape)
+                  for k, v in UNet2DCondition(UNetConfig.sd15()).state_dict().items()
+                  if re.search(r"\.attn[12]\.(to_[qkv]|to_out\.0)\.weight$", k)}
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, (out_c, in_c) in shapes.items():
+        p = "lora_unet_" + name.replace(".", "_")
+        sd[f"{p}.lora_down.weight"] = torch.randn(rank, in_c, generator=gen) / in_c ** 0.5
+        sd[f"{p}.lora_up.weight"] = torch.randn(out_c, rank, generator=gen) * 0.01
+        sd[f"{p}.alpha"] = torch.tensor(float(rank))
+    torch.save(sd, path)
+    return sorted(shapes)
+
+
+class _RecordingVariants:
+    """Collects the engine's ``GraphedVariants`` while a CLI run builds its
+    model, to read each variant's captures afterwards."""
+
+    def __enter__(self):
+        from sonicdiffusionbayeslab_torch.models import sampler
+        from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedVariants
+
+        self.made, self._saved, self._mod = [], sampler.GraphedVariants, sampler
+        made = self.made
+
+        class Recording(GraphedVariants):
+            def __init__(self, fn):
+                super().__init__(fn)
+                made.append(self)
+
+        sampler.GraphedVariants = Recording
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.GraphedVariants = self._saved
+
+    def captures(self):
+        """{variant: captures} of the run's one engine; drops the graphs."""
+        if len(self.made) != 1:
+            raise AssertionError(f"the CLI run built {len(self.made)} engines, expected 1")
+        caps = dict(self.made[0].captures)
+        self.made[0].clear()
+        self.made.clear()
+        return caps
+
+
+def run_methods(report, card):
+    """Phase 7: each of METHOD_RUNS through ``cli.run`` at SD-1.5 512^2
+    (METHOD_OVERRIDES), in a temporary working directory, with the
+    wrappers' counts set to 0 just before each run and read just after;
+    the deep_cache run under torch.profiler as well.  Each run checks its
+    table row, its PNGs, one capture per UNet call variant, and each
+    kernel's launches against the census: per variant the graph's warm-ups
+    and capture (wrappers) or warm-ups and replays (trace), the VAE decodes
+    (the batch's and one x0 decode of one sample a step where the method
+    captures x0) and the CLIP tower's attention a validate batch."""
+    import csv
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch import cli
+    from sonicdiffusionbayeslab_torch.config import load_config
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    repo = Path(__file__).resolve().parent
+    W = GraphedCall.WARMUP
+    clip_per_batch = sum(clip_census(METHOD_BATCH).values())
+    per_vae = {b: _kinds(module_census(vae_batch=b)) for b in (METHOD_BATCH, 1)}
+    out = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="sdbl_methods_") as tmp:
+        os.chdir(tmp)
+        try:
+            lora_modules = write_random_lora(Path(tmp) / "lora.bin")
+            for name, point, label, nfe, cfg_batch, x0, full_steps in METHOD_RUNS:
+                config = str(repo / "configs" / f"{name}.yaml")
+                overrides = {**METHOD_OVERRIDES, **point, "logger.run_id": name,
+                             "dataset.prompts": str(repo / "data" / "dataset" /
+                                                    "prompts_sample.json")}
+                if name == "consistency_model_config":
+                    overrides["model.lora"] = str(Path(tmp) / "lora.bin")
+                unet_batch = METHOD_BATCH * cfg_batch
+                variants = {"full": _kinds(module_census(unet_batch))}
+                if full_steps is not None:
+                    variants["shallow"] = _kinds(module_census(unet_batch, shallow=True))
+                decodes = {METHOD_BATCH: 1, 1: nfe if x0 else 0}
+                want = collections.Counter({"attention_fp32": clip_per_batch})
+                for k in MAIN:
+                    want[k] = sum((W + 1) * v[k] for v in variants.values()) + sum(
+                        n * per_vae[b][k] for b, n in decodes.items())
+                merged = []
+                fuse = None
+                if name == "consistency_model_config":
+                    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+
+                    fuse = StableDiffusionModel.fuse_lora
+
+                    def recording_fuse(self, scale=1.0):
+                        res = fuse(self, scale)
+                        merged.extend(self.lora_merged)
+                        return res
+
+                    StableDiffusionModel.fuse_lora = recording_fuse
+                wrapper_counts(reset=True)
+                t0 = time.perf_counter()
+                try:
+                    with _RecordingVariants() as rec:
+                        if full_steps is None:
+                            metrics, traced = cli.run(config, overrides), None
+                        else:
+                            metrics, traced = traced_launches(lambda: cli.run(config, overrides))
+                finally:
+                    if fuse is not None:
+                        StableDiffusionModel.fuse_lora = fuse
+                wall = time.perf_counter() - t0
+                counts = wrapper_counts()
+                caps = rec.captures()
+                with open(Path(tmp) / "outputs" / name / "tables" / "final.tsv") as f:
+                    rows = list(csv.DictReader(f, delimiter="\t"))
+                exp_name = load_config(config).get("experiment_name")
+                pngs = sorted((Path(tmp) / "outputs" / exp_name / label).glob("*.png"))
+                sizes = {_png_size(p) for p in pngs}
+                sec_img, score = float(rows[0]["time"]), float(rows[0]["clip_score"])
+                print(f"{name} ({label}: {nfe} UNet evaluations at batch {unet_batch}, "
+                      f"SD-1.5 bf16 {SIZE}x{SIZE}, batch {METHOD_BATCH}): whole CLI {wall:.3f} s, "
+                      f"sweep {sec_img:.5f} s/image (graph captures inside the loop), clip_score "
+                      f"{score:.4f}; {card}; graph captures {caps}; launches: wrappers "
+                      f"{dict(counts)}, trace {traced}", flush=True)
+                if len(rows) != 1 or rows[0]["exp"] != label or rows[0]["nfe"] != str(nfe):
+                    raise AssertionError(f"{name}: table rows {rows}, expected one {label} of "
+                                         f"nfe {nfe}")
+                if metrics["exp"] != [label]:
+                    raise AssertionError(f"{name}: CLI returned {metrics}")
+                if not (np.isfinite(sec_img) and sec_img > 0):
+                    raise AssertionError(f"{name}: time {sec_img} s/image")
+                if not (np.isfinite(score) and 0.0 <= score <= 100.0):
+                    raise AssertionError(f"{name}: clip_score {score}")
+                if len(pngs) != METHOD_BATCH or sizes != {(SIZE, SIZE)}:
+                    raise AssertionError(f"{name}: {len(pngs)} PNGs of sizes {sizes}, expected "
+                                         f"{METHOD_BATCH} of {SIZE}x{SIZE}")
+                if sorted(caps.values()) != [1] * len(variants):
+                    raise AssertionError(f"{name}: graph captures {caps}, expected one for each "
+                                         f"of {len(variants)} UNet call variants")
+                if counts != dict(want):
+                    raise AssertionError(f"{name}: wrapper launches {counts}, expected "
+                                         f"{dict(want)}")
+                if traced is not None:
+                    replays = {"full": full_steps, "shallow": nfe - full_steps}
+                    want_traced = {"attention_fp32": clip_per_batch}
+                    for k in MAIN:
+                        want_traced[k] = sum((W + replays[v]) * c[k]
+                                             for v, c in variants.items()) + sum(
+                            n * per_vae[b][k] for b, n in decodes.items())
+                    if traced != want_traced:
+                        raise AssertionError(f"{name}: traced kernel executions {traced}, "
+                                             f"expected {want_traced}")
+                if name == "consistency_model_config" and merged != lora_modules:
+                    raise AssertionError(f"fuse_lora merged {len(merged)} modules, the file "
+                                         f"names {len(lora_modules)}")
+                out[name] = dict(label=label, nfe=nfe, unet_batch=unet_batch, wall_s=wall,
+                                 sec_per_image=sec_img, clip_score=score, graph_captures=len(caps),
+                                 wrapper_launches=counts, traced_launches=traced)
+                if merged:
+                    out[name]["lora_modules_merged"] = len(merged)
+                for p in pngs:
+                    p.unlink()
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+    report["e2e"]["methods"] = out
+
+
+def methods_tiny_card_vs_cpu():
+    """A tiny fp32 DeepCache run (interval 2, unet_microbatch 2, CFG) and a
+    tiny LCM run (4 steps, guidance 0, given step noise) on the card
+    against the same runs on the CPU; returns the fp32 attention kernel's
+    launches in each card run, which must be the tiny census's."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.models.sampler import CachePlan
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention_tf32x3
+    from sonicdiffusionbayeslab_torch.schedulers import DDIMScheduler, LCMScheduler
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    W = GraphedCall.WARMUP
+    cpu = StableDiffusionModel(tiny=True, dtype="float32", seed=0, device="cpu")
+    card = StableDiffusionModel(tiny=True, dtype="float32", seed=0, device="cuda")
+    card.engine.load_state_dicts({k: m.state_dict() for k, m in
+                                  zip(("unet", "vae", "text"), cpu.engine.modules())})
+    prompts = ["a lighthouse at dusk", "a red boat"]
+    noise = torch.randn(4, 2, 8, 8, 4, generator=torch.Generator().manual_seed(5))
+    runs = {
+        "deep_cache": (DDIMScheduler().build_plan(STEPS), GUIDANCE,
+                       dict(cache_plan=CachePlan.every(STEPS, 2, 0), microbatch=2),
+                       ("full", "shallow")),
+        "lcm": (LCMScheduler().build_plan(4), 0.0, dict(step_noise=noise), ("full",)),
+    }
+    per_vae = _kinds(module_census(vae_batch=BATCH, tiny=True))["attention"]
+    out = {}
+    for name, (plan, guidance, kw, variants) in runs.items():
+        images = []
+        for model in (cpu, card):
+            eng = model.engine
+            emb = eng.encode_prompts(model.tokenizer(prompts))
+            neg = eng.encode_prompts(model.tokenizer([""] * 2)) if guidance > 1 else None
+            flash_attention_tf32x3.launches = 0
+            res = eng.sample(plan, emb, neg, seed=29, guidance_scale=guidance, latent_hw=(8, 8),
+                             **kw)
+            images.append(res.images.cpu().numpy())
+        launches = flash_attention_tf32x3.launches
+        # Both UNet batches are 2: microbatch 2 of the CFG batch 4, or LCM's 2.
+        want = sum((W + 1) * _kinds(module_census(2, tiny=True, shallow=v == "shallow"))[
+            "attention"] for v in variants) + per_vae
+        err = float(np.abs(images[0] - images[1]).max())
+        print(f"tiny fp32 {name} run, card vs CPU: max abs image err {err:.3e} (tolerance 1e-3); "
+              f"flash_attention_tf32x3 launches {launches}", flush=True)
+        if not err <= 1e-3:
+            raise AssertionError(f"the tiny {name} run on the card disagrees with the CPU")
+        if launches != want or launches <= 0:
+            raise AssertionError(f"the tiny {name} run launched the fp32 attention kernel "
+                                 f"{launches} times, expected {want}")
+        out[name] = dict(max_abs_image_err=err, fp32_attention_launches=launches)
+    return out
+
+
+def engine_timings(card, reps=3):
+    """Warm ``execution_time`` of 20-step DDIM and of DeepCache (interval
+    5, branch 0) at batch 2, CFG 7.5, engine level, in turns after a
+    capture run of each; the memory each capture run's graphs keep
+    reserved; and the device ms of one full and one shallow UNet call at
+    UNet batch 4 (CUDA graphs between CUDA events)."""
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.models.sampler import CachePlan
+    from sonicdiffusionbayeslab_torch.schedulers import DDIMScheduler
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = StableDiffusionModel(image_size=SIZE, tiny=False, dtype="bfloat16", seed=0,
+                                 device="cuda")
+    eng = model.engine
+    emb = eng.encode_prompts(model.tokenizer(PROMPTS))
+    neg = eng.encode_prompts(model.tokenizer([""] * BATCH))
+    plan = DDIMScheduler().build_plan(STEPS)
+    kw = dict(guidance_scale=GUIDANCE, latent_hw=(SIZE // 8, SIZE // 8), seed=29)
+    cache = CachePlan.every(STEPS, 5, 0)
+    runs = {"ddim": lambda: eng.sample(plan, emb, neg, **kw),
+            "deep_cache_5": lambda: eng.sample(plan, emb, neg, cache_plan=cache, **kw)}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = {"weights": torch.cuda.memory_reserved()}
+    for name, run in runs.items():  # the capture runs
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved[name] = torch.cuda.memory_reserved()
+    times = {name: [] for name in runs}
+    for i in range(reps):
+        for name in (runs if i % 2 == 0 else reversed(list(runs))):
+            times[name].append(runs[name]().execution_time)
+    graphs_gb = {"plain (ddim)": (reserved["ddim"] - reserved["weights"]) / 1e9,
+                 "full + shallow (deep_cache_5)": (reserved["deep_cache_5"] - reserved["ddim"]) / 1e9}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lat = torch.randn(2 * BATCH, SIZE // 8, SIZE // 8, 4, generator=gen, device="cuda").to(eng.dtype)
+    tb = torch.full((2 * BATCH,), 499.0, device="cuda")
+    ctx = torch.cat([neg, emb]).to(eng.dtype)
+    with torch.inference_mode():
+        feats = eng.unet(lat, tb, ctx, return_cache=True)[1]
+        full_ms = cuda_ms(lambda: eng.unet(lat, tb, ctx), reps=5)
+        shallow_ms = cuda_ms(lambda: eng.unet(lat, tb, ctx, feats), reps=5)
+    out = dict(execution_time_s={k: v for k, v in times.items()},
+               median_s={k: statistics.median(v) for k, v in times.items()},
+               graph_reserved_gb=graphs_gb, unet_full_ms=full_ms, unet_shallow_ms=shallow_ms)
+    print(f"engine level, SD-1.5 bf16 {SIZE}x{SIZE}, {STEPS} steps, batch {BATCH}, CFG {GUIDANCE} "
+          f"(warm, in turns, {reps} each): DDIM execution_time {times['ddim']} s, DeepCache "
+          f"(interval 5, branch 0) {times['deep_cache_5']} s; medians {out['median_s']}; graphs "
+          f"reserve {graphs_gb} GB; one UNet call at batch {2 * BATCH}: full {full_ms:.3f} ms, "
+          f"shallow {shallow_ms:.3f} ms device time; {card}", flush=True)
+    del model, eng, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -877,15 +1247,30 @@ def main() -> None:
     tiny_counts, *tiny_census = census(2 * BATCH, tiny=True)
     # The CLI's CLIP score runs its vision tower once a validate batch.
     clip_counts, clip_tiny_counts = clip_census(CLI_BATCH), clip_census(CLI_BATCH, tiny=True)
+    # The CLI runs of phases 6 and 7: UNet batch 16 (phase 6), 8 and 4 (CFG
+    # at batch 4, LCM's batch 4 without it) with DeepCache's shallow call at
+    # 8 and, in phase 7's engine timings, at 4; VAE decodes of 8, 4 and 1
+    # latents (x0 decodes of one sample); the tower at the validate batch 4.
+    cli_counts = collections.Counter()
+    for kw in (dict(unet_batch=2 * CLI_BATCH, vae_batch=CLI_BATCH),
+               dict(unet_batch=2 * METHOD_BATCH, vae_batch=METHOD_BATCH),
+               dict(unet_batch=2 * METHOD_BATCH, shallow=True),
+               dict(unet_batch=METHOD_BATCH, vae_batch=1),
+               dict(unet_batch=2 * BATCH, shallow=True)):
+        cli_counts.update(module_census(**kw))
+    clip_method_counts = clip_census(METHOD_BATCH)
     order = lambda ks: (ks[0], [str(v) for v in ks[1]])  # noqa: E731
     shapes = sorted(run_counts, key=order)
-    check_shapes = sorted(set(run_counts) | set(chunk_counts), key=order)
+    check_shapes = sorted(set(run_counts) | set(chunk_counts) | set(cli_counts), key=order)
     fp32_shapes = ([(k, " (tiny pipeline)") for k in sorted(tiny_counts, key=order)]
                    + [(k, " (CLIP ViT-B/16)") for k in sorted(clip_counts, key=order)]
+                   + [(k, " (CLIP ViT-B/16, batch 4)") for k in sorted(clip_method_counts,
+                                                                       key=order)]
                    + [(k, " (CLIP tiny)") for k in sorted(clip_tiny_counts, key=order)])
     clip_per_batch = sum(clip_counts.values())
     print(f"main path per UNet forward: {dict(per_unet)}; per VAE decode: {dict(per_vae)}; "
-          f"{len(check_shapes)} distinct kernel shapes over both runs; the tiny fp32 "
+          f"{len(check_shapes)} distinct kernel shapes over the main path's two runs and the "
+          f"CLI runs of phases 6 and 7; the tiny fp32 "
           f"pipeline's: {dict(tiny_census[0])} and {dict(tiny_census[1])}, "
           f"{len(tiny_counts)} shapes; the CLIP vision towers' attention a validate batch: "
           f"{dict(clip_counts)}, tiny {dict(clip_tiny_counts)}")
@@ -900,8 +1285,8 @@ def main() -> None:
     report["errs"] = collections.defaultdict(list)
     report["e2e"] = {}
 
-    phase("3. kernels against their plain versions, at the main path's shapes "
-          "(and the tiny fp32 pipeline's and the CLIP towers')")
+    phase("3. kernels against their plain versions, at the shapes of the main path and the CLI "
+          "runs (and the tiny fp32 pipeline's and the CLIP towers')")
     check_kernels(check_shapes, fp32_shapes, report)
 
     phase("4. timings (bf16, and fp32 attention at the UNet's and the CLIP tower's shapes; CUDA "
@@ -923,7 +1308,16 @@ def main() -> None:
     run_cli(report, per_unet, per_vae, clip_per_batch, card)
     report["e2e"]["cli"].update(clip_tower(card))
 
-    phase("7. kernels")
+    phase(f"7. scheduler methods through the CLI at SD-1.5 {SIZE}x{SIZE}, batch {METHOD_BATCH}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report["e2e"]["methods_tiny_card_vs_cpu"] = methods_tiny_card_vs_cpu()
+    torch.backends.cudnn.allow_tf32 = True
+    report["e2e"]["engine_timings"] = engine_timings(card)
+    run_methods(report, card)
+
+    phase("8. kernels")
+    print(f"phases 1-7 took {time.perf_counter() - _T0:.1f} s; {card}")
     kernels = []
     for kind, meta in KERNELS.items():
         r = report[kind]
@@ -931,6 +1325,8 @@ def main() -> None:
             **meta,
             "launches": r["launches"], "wrapper_launches": r["wrapper_launches"],
             "launches_from": r["launches_from"],
+            "phase7_wrapper_launches": {n: m["wrapper_launches"][kind]
+                                        for n, m in report["e2e"]["methods"].items()},
             "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_by_ms"], key=r["bound_by_ms"].get),

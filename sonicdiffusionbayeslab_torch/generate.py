@@ -4,7 +4,8 @@
     python -m sonicdiffusionbayeslab_torch.generate --prompt "..." --tiny --device cpu
 
 Runs SD-1.5 (bf16, random weights from seed 0) with 20-step DPM-Solver++
-by default and writes one PNG per prompt.
+by default (``--scheduler`` picks another ported scheduler by its registry
+name) and writes one PNG per prompt.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ def main(argv=None) -> None:
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--guidance_scale", type=float, default=7.5)
     p.add_argument("--scheduler", default="dpm_solver_scheduler",
-                   help="only dpm_solver_scheduler is ported so far")
+                   help="a ported schedulers_registry name")
     p.add_argument("--solver_order", type=int, default=2)
     p.add_argument("--scheduler_kwargs", default="{}",
                    help='JSON, e.g. \'{"use_karras_sigmas": true}\'')
@@ -34,17 +35,18 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    if args.scheduler != "dpm_solver_scheduler":
-        raise ValueError(f"scheduler {args.scheduler!r} is not ported; "
-                         "only dpm_solver_scheduler is available")
-
     from sonicdiffusionbayeslab_torch.data.imageio import write_png
     from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
-    from sonicdiffusionbayeslab_torch.schedulers import DPMSolverScheduler
+    from sonicdiffusionbayeslab_torch.registry import load_all_plugins, schedulers_registry
 
+    load_all_plugins()
+    if args.scheduler not in schedulers_registry:
+        raise ValueError(f"scheduler {args.scheduler!r} is not ported; ported: "
+                         f"{', '.join(sorted(schedulers_registry.keys()))}")
+    skw = {"solver_order": args.solver_order} if args.scheduler == "dpm_solver_scheduler" else {}
+    skw.update(json.loads(args.scheduler_kwargs))
     model = StableDiffusionModel(image_size=args.image_size, tiny=args.tiny, device=args.device)
-    model.scheduler = DPMSolverScheduler(solver_order=args.solver_order,
-                                         **json.loads(args.scheduler_kwargs))
+    model.scheduler = schedulers_registry[args.scheduler](**skw)
     images, exec_time, _ = model(
         args.prompt,
         num_inference_steps=args.steps,

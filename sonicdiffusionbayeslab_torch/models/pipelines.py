@@ -4,16 +4,20 @@ Counterpart of ``sonicdiffusionbayeslab_tpu/models/pipelines.py::
 StableDiffusionModel`` on the text-to-image path, with the same call
 contract: ``pipe(prompts, ...) -> (images, execution_time, x0_images)``,
 images [B, H, W, 3] in [0, 1], execution_time the denoising loop's wall
-clock.  It is registered as ``stable_diffusion_model``, the model the
-experiment builds.  Weights come from ``pretrained_model`` when it names a
-local diffusers snapshot directory, else from a deterministic random init
-from ``seed``.
+clock.  It is registered as ``stable_diffusion_model``; the two-scheduler,
+interleaved-scheduler and skip-steps variants, which differ only in how
+they compose the plan, as ``stable_diffusion_model_two_schedulers``,
+``..._interliving_schedulers`` and ``..._skip_timesteps``.  Weights come
+from ``pretrained_model`` when it names a local diffusers snapshot
+directory, else from a deterministic random init from ``seed``; a LoRA
+from a local file is fused into the UNet with ``load_lora_weights`` and
+``fuse_lora``.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -22,9 +26,14 @@ from sonicdiffusionbayeslab_torch.models.sampler import StableDiffusionEngine
 from sonicdiffusionbayeslab_torch.models.tokenizer import load_tokenizer
 from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
-from sonicdiffusionbayeslab_torch.models.weights import load_sd_checkpoint
+from sonicdiffusionbayeslab_torch.models.weights import (
+    load_sd_checkpoint,
+    load_torch_state_dict,
+    merge_lora,
+)
 from sonicdiffusionbayeslab_torch.registry import models_registry
 from sonicdiffusionbayeslab_torch.schedulers import DPMSolverScheduler
+from sonicdiffusionbayeslab_torch.schedulers import plans as plan_composers
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -33,16 +42,21 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class StableDiffusionModel:
     """Single-scheduler text-to-image pipeline.  ``device`` defaults to
     CUDA; without a GPU it raises unless ``device="cpu"`` is given.  On a
-    GPU the first call at a new batch or size captures the UNet's CUDA
-    graph for it, in place of the previous one.  The experiment assigns
-    ``scheduler`` and may set ``unet_microbatch``; each call sets
-    ``num_timesteps`` to its plan's number of UNet evaluations."""
+    GPU the first call at a new batch or size captures a CUDA graph of each
+    UNet call variant it runs, in place of that variant's previous one
+    (DeepCache runs two variants).  The experiment assigns
+    ``scheduler`` and may set ``unet_microbatch`` and ``cache_plan_fn``
+    (DeepCache: plan length -> ``CachePlan``); each call sets
+    ``num_timesteps`` to its plan's number of UNet evaluations.  ``lora``
+    is the config's LoRA path, which the ``consistency_model`` method
+    loads."""
 
     def __init__(self, pretrained_model: str = "runwayml/stable-diffusion-v1-5",
                  image_size: int = 512, tiny: bool = False, dtype: str = "bfloat16",
-                 seed: int = 0, device=None):
+                 seed: int = 0, lora: str = None, device=None):
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype!r}")
+        self.lora = lora
         self.image_size = int(image_size)
         self.tiny = bool(tiny)
         if tiny:
@@ -63,9 +77,37 @@ class StableDiffusionModel:
         self.scheduler = DPMSolverScheduler(solver_order=2)
         self.num_timesteps = 0  # NFE of the last call
         self.unet_microbatch: Optional[int] = None  # the calls' default
+        self.cache_plan_fn = None  # DeepCache hook (set by the deep_cache method)
+        self._pending_lora = None
+        self.lora_merged: List[str] = []  # modules the last fuse_lora changed
 
-    def build_plan(self, num_inference_steps: int):
+    def build_plan(self, num_inference_steps: int, **plan_kw):
+        if plan_kw:
+            raise TypeError(f"{type(self).__name__} takes no plan arguments, got {sorted(plan_kw)}")
         return self.scheduler.build_plan(num_inference_steps)
+
+    def load_lora_weights(self, path: str):
+        """Stage a LoRA state dict (kohya or peft layout) from a local file,
+        or from ``pytorch_lora_weights.bin`` / ``.safetensors`` in a local
+        directory.  A hub id with no local copy stages nothing, so the LoRA
+        method's sampling still runs on the base weights."""
+        p = Path(path)
+        candidates = [p] if p.is_file() else [
+            p / "pytorch_lora_weights.bin", p / "pytorch_lora_weights.safetensors"]
+        self._pending_lora = next(
+            (load_torch_state_dict(c) for c in candidates if c.exists()), None)
+        return self
+
+    def fuse_lora(self, scale: float = 1.0):
+        """Merge the staged LoRA into the UNet's weights (``lora_merged``
+        lists the modules changed) and drop the UNet's CUDA graphs."""
+        if self._pending_lora is not None:
+            unet = self.engine.unet
+            sd, self.lora_merged = merge_lora(unet.state_dict(), self._pending_lora, scale)
+            unet.load_state_dict(sd, strict=True)
+            self.engine.graphed_unet.clear()
+            self._pending_lora = None
+        return self
 
     def __call__(
         self,
@@ -81,10 +123,12 @@ class StableDiffusionModel:
         height: Optional[int] = None,
         width: Optional[int] = None,
         unet_microbatch: Optional[int] = None,
+        **plan_kw,
     ):
         """Returns (images [B, H, W, 3] in [0, 1] as numpy, or the final
         latents when ``output_type == "latent"``; execution_time;
-        x0_images [S, n, H, W, 3] or None)."""
+        x0_images [S, n, H, W, 3] or None).  ``plan_kw`` goes to
+        ``build_plan`` (the composing variants' arguments)."""
         if output_type not in ("np", "latent"):
             raise ValueError(f"output_type must be 'np' or 'latent', got {output_type!r}")
         lat_hw = (self.latent_hw, self.latent_hw)
@@ -93,7 +137,7 @@ class StableDiffusionModel:
             if h % 8 or w % 8:
                 raise ValueError(f"height/width must be multiples of 8, got {h}x{w}")
             lat_hw = (h // 8, w // 8)
-        plan = self.build_plan(num_inference_steps)
+        plan = self.build_plan(num_inference_steps, **plan_kw)
         self.num_timesteps = plan.nfe
 
         embeds = self.engine.encode_prompts(self.tokenizer(list(prompt)))
@@ -103,10 +147,68 @@ class StableDiffusionModel:
             neg = self.engine.encode_prompts(self.tokenizer(negs))
         out = self.engine.sample(
             plan, embeds, neg, seed=seed, sample_indices=sample_indices,
-            guidance_scale=guidance_scale, latent_hw=lat_hw, collect_x0=use_x0,
+            guidance_scale=guidance_scale,
+            cache_plan=self.cache_plan_fn(plan.num_steps) if self.cache_plan_fn else None,
+            latent_hw=lat_hw, collect_x0=use_x0,
             x0_samples=x0_samples, decode=output_type != "latent",
             microbatch=self.unet_microbatch if unet_microbatch is None else unet_microbatch,
         )
         images = out.images if out.images is not None else out.latents
         x0 = out.x0_images.cpu().numpy() if out.x0_images is not None else None
         return images.cpu().numpy(), out.execution_time, x0
+
+
+class _TwoSchedulersPlanMixin:
+    """Scheduler switching: ``scheduler_first`` for ``num_step_switch``
+    steps, then ``scheduler_second`` (``schedulers/plans.py``)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.scheduler_first = None
+        self.scheduler_second = None
+
+    def build_plan(self, num_inference_steps, num_inference_steps_second=None,
+                   num_step_switch=1, type_switch="closest"):
+        return plan_composers.two_scheduler_plan(
+            self.scheduler_first, self.scheduler_second, num_inference_steps,
+            num_inference_steps_second or num_inference_steps, num_step_switch, type_switch)
+
+
+class _InterlivingPlanMixin:
+    """Interleaved schedulers: ``scheduler_inter`` runs the first step of
+    each listed window of ``scheduler_main``'s schedule."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.scheduler_main = None
+        self.scheduler_inter = None
+
+    def build_plan(self, num_inference_steps, interliving_steps=(), interleave_mode="ladder"):
+        return plan_composers.interleave_plan(
+            self.scheduler_main, self.scheduler_inter, num_inference_steps,
+            interliving_steps, mode=interleave_mode)
+
+
+class _SkipTimestepsPlanMixin:
+    """Step skipping: the listed step indices of ``scheduler``'s run never
+    run."""
+
+    def build_plan(self, num_inference_steps, skip_timesteps=()):
+        if not skip_timesteps:
+            return self.scheduler.build_plan(num_inference_steps)
+        return plan_composers.skip_plan(self.scheduler, num_inference_steps, skip_timesteps)
+
+
+@models_registry.add_to_registry("stable_diffusion_model_two_schedulers")
+class StableDiffusionModelTwoSchedulers(_TwoSchedulersPlanMixin, StableDiffusionModel):
+    """Scheduler-switching pipeline."""
+
+
+@models_registry.add_to_registry("stable_diffusion_model_interliving_schedulers")
+class StableDiffusionModelInterlivingSchedulers(_InterlivingPlanMixin, StableDiffusionModel):
+    """Interleaved-scheduler pipeline."""
+
+
+@models_registry.add_to_registry("stable_diffusion_model_skip_timesteps")
+class StableDiffusionModelSkipTimesteps(_SkipTimestepsPlanMixin, StableDiffusionModel):
+    """Step-skipping pipeline."""

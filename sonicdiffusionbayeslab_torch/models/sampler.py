@@ -2,15 +2,16 @@
 and the VAE decode.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/sampler.py::
-StableDiffusionEngine`` on the text-to-image path.  The JAX engine scans a
-jitted body over the plan's rows; here the loop is plain Python over the
-same rows, each step one UNet call (chunked when ``microbatch`` > 1), the
-CFG combine and one ``apply_row`` in fp32.  On a GPU the UNet call is
-replayed from a CUDA graph (``utils/cuda_graph.py``), because eager
-PyTorch's host time per UNet forward exceeds its device time; on the CPU
-it runs eagerly.  ``execution_time`` is the wall clock of the
-denoising loop alone, with the device synchronised on both sides (the
-reference's timing contract).
+StableDiffusionEngine`` on the text-to-image path, with DeepCache
+(``CachePlan``) and noise-injecting plans.  The JAX engine scans a jitted
+body over the plan's rows; here the loop is plain Python over the same
+rows, each step one UNet call (chunked when ``microbatch`` > 1), the CFG
+combine and one ``apply_row`` in fp32.  On a GPU each UNet call variant
+(plain; DeepCache's full and shallow calls) is replayed from its own CUDA
+graph (``utils/cuda_graph.py``), because eager PyTorch's host time per UNet
+forward exceeds its device time; on the CPU it runs eagerly.
+``execution_time`` is the wall clock of the denoising loop alone, with the
+device synchronised on both sides (the reference's timing contract).
 """
 
 from __future__ import annotations
@@ -30,9 +31,9 @@ from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
 from sonicdiffusionbayeslab_torch.schedulers.plan import SamplePlan
 from sonicdiffusionbayeslab_torch.schedulers.runtime import apply_row, init_carry, plan_rows, row
-from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedVariants
 from sonicdiffusionbayeslab_torch.utils.device import resolve_device, synchronize
-from sonicdiffusionbayeslab_torch.utils.rng import per_sample_latents
+from sonicdiffusionbayeslab_torch.utils.rng import per_sample_latents, per_sample_step_noise
 
 # Probability mass of a standard normal inside [-2, 2], as the bounds of
 # the uniform draw that inverse-CDF sampling turns into a truncated normal.
@@ -41,6 +42,22 @@ _TRUNC_HI = (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
 # Flax's lecun_normal draws from N(0, 1) truncated to [-2, 2] and divides
 # by this constant, the standard deviation of that truncated normal.
 _TRUNC_STD = 0.87962566103423978
+
+
+@dataclasses.dataclass(frozen=True)
+class CachePlan:
+    """DeepCache schedule: step i runs the deep trunk iff ``full[i]``, and
+    replays the trunk's features of the last full step otherwise.
+    ``branch`` is the split level (``cache_branch_id``) between the
+    always-run shallow branch and the cached trunk."""
+
+    full: np.ndarray  # bool [L]
+    branch: int = 0
+
+    @classmethod
+    def every(cls, num_steps: int, cache_interval: int, branch: int = 0) -> "CachePlan":
+        idx = np.arange(num_steps)
+        return cls(full=(idx % int(cache_interval)) == 0, branch=int(branch))
 
 
 @dataclasses.dataclass
@@ -87,8 +104,8 @@ def init_module(module: nn.Module, gen: torch.Generator) -> None:
 class StableDiffusionEngine:
     """Owns the three modules on one device; parameters are initialised
     with :meth:`init_params` or loaded with :meth:`load_state_dicts`.
-    On a GPU, ``graphed_unet`` replays the UNet call from a CUDA graph of
-    the last input shape."""
+    On a GPU, ``graphed_unet`` replays each UNet call variant from a CUDA
+    graph of its last input shape."""
 
     def __init__(
         self,
@@ -111,7 +128,7 @@ class StableDiffusionEngine:
             m.requires_grad_(False).eval()
             # Conv weights in channels_last, matching the NHWC activations.
             m.to(dtype=dtype, memory_format=torch.channels_last)
-        self.graphed_unet = GraphedCall(self.unet)
+        self.graphed_unet = GraphedVariants(self.unet)
 
     def modules(self) -> Tuple[nn.Module, nn.Module, nn.Module]:
         return self.unet, self.vae, self.text
@@ -148,16 +165,20 @@ class StableDiffusionEngine:
         return (img / 2 + 0.5).clamp(0.0, 1.0)
 
     # ------------------------------------------------------------- sample
-    def _unet_chunks(self, lat_in, tb, embeds, microbatch: int) -> torch.Tensor:
-        """The model batch as ``microbatch`` sequential chunks (or whole)."""
+    def _unet_chunks(self, microbatch: int, *args: torch.Tensor, **static):
+        """The UNet on the model batch as ``microbatch`` sequential chunks
+        (or whole); every tensor argument is batch-leading and chunks alike,
+        and so do the outputs (one tensor, or DeepCache's pair)."""
         unet = self.graphed_unet if self.device.type == "cuda" else self.unet
         if microbatch <= 1:
-            return unet(lat_in, tb, embeds)
-        if lat_in.shape[0] % microbatch:
+            return unet(*args, **static)
+        if args[0].shape[0] % microbatch:
             raise ValueError(f"unet_microbatch {microbatch} must divide the model batch "
-                             f"{lat_in.shape[0]}")
-        parts = zip(lat_in.chunk(microbatch), tb.chunk(microbatch), embeds.chunk(microbatch))
-        return torch.cat([unet(a, t, e) for a, t, e in parts])
+                             f"{args[0].shape[0]}")
+        outs = [unet(*part, **static) for part in zip(*(a.chunk(microbatch) for a in args))]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o) for o in zip(*outs))
+        return torch.cat(outs)
 
     @torch.inference_mode()
     def sample(
@@ -168,36 +189,50 @@ class StableDiffusionEngine:
         seed: int = 0,
         sample_indices: Optional[Sequence[int]] = None,
         guidance_scale: float = 7.5,
+        cache_plan: Optional[CachePlan] = None,
         latent_hw: Tuple[int, int] = (64, 64),
         collect_x0: bool = False,
         x0_samples: Optional[int] = None,  # None = the whole batch
         decode: bool = True,
         init_latents: Optional[torch.Tensor] = None,
         microbatch: Optional[int] = None,
+        step_noise: Optional[torch.Tensor] = None,  # [L, B, h, w, C]
     ) -> SampleOutput:
         """One batch: CFG-doubled UNet calls over the plan's rows, then the
         decode.  Sample ``i``'s initial latents depend only on (seed, i)
-        unless ``init_latents`` is given."""
+        unless ``init_latents`` is given; a noise-injecting plan's noise at
+        step k depends only on (seed, i, k) unless ``step_noise`` is given.
+        With ``cache_plan`` the steps it marks not full run only the UNet's
+        shallow branch on the trunk features of the last full step."""
         dev = self.device
         B = int(prompt_embeds.shape[0])
         do_cfg = guidance_scale > 1.0 and negative_embeds is not None
         embeds = torch.cat([negative_embeds, prompt_embeds]) if do_cfg else prompt_embeds
         embeds = embeds.to(dev)
         lat_shape = (latent_hw[0], latent_hw[1], self.unet_config.in_channels)
+        idx = range(B) if sample_indices is None else [int(i) for i in sample_indices]
         if init_latents is not None:
             latents0 = torch.as_tensor(init_latents, dtype=torch.float32).to(dev)
             if tuple(latents0.shape) != (B,) + lat_shape:
                 raise ValueError(f"init_latents {tuple(latents0.shape)} != {(B,) + lat_shape}")
         else:
-            idx = range(B) if sample_indices is None else sample_indices
             latents0 = per_sample_latents(seed, idx, lat_shape, device=dev)
-        if plan.needs_noise:
-            raise NotImplementedError(f"plan {plan.name} injects noise; not supported yet")
+        if step_noise is not None:
+            step_noise = torch.as_tensor(step_noise, dtype=torch.float32).to(dev)
+            if tuple(step_noise.shape) != (plan.num_steps, B) + lat_shape:
+                raise ValueError(f"step_noise {tuple(step_noise.shape)} != "
+                                 f"{(plan.num_steps, B) + lat_shape}")
+        if cache_plan is not None:
+            if len(cache_plan.full) != plan.num_steps:
+                raise ValueError("cache plan length != plan length")
+            if not cache_plan.full[0]:
+                raise ValueError("first step must compute the deep trunk")
         microbatch = int(microbatch or 0)
         x0_count = B if x0_samples is None else max(1, min(int(x0_samples), B))
 
         xs = plan_rows(plan, dev)
         carry = init_carry(plan, latents0)
+        cache = None
         x0s = []
         synchronize(dev)
         t0 = time.perf_counter()
@@ -206,13 +241,26 @@ class StableDiffusionEngine:
             lat = carry.latents * r["in_scale"]
             lat_in = (torch.cat([lat, lat]) if do_cfg else lat).to(self.dtype)
             tb = r["timestep"].expand(lat_in.shape[0])
-            noise_pred = self._unet_chunks(lat_in, tb, embeds, microbatch).float()
+            if cache_plan is None:
+                noise_pred = self._unet_chunks(microbatch, lat_in, tb, embeds)
+            elif cache_plan.full[i]:
+                noise_pred, cache = self._unet_chunks(microbatch, lat_in, tb, embeds,
+                                                      return_cache=True,
+                                                      cache_branch_id=cache_plan.branch)
+            else:
+                noise_pred = self._unet_chunks(microbatch, lat_in, tb, embeds, cache,
+                                               cache_branch_id=cache_plan.branch)
+            noise_pred = noise_pred.float()
             if do_cfg:
                 eps_u, eps_t = noise_pred.chunk(2)
                 eps = eps_u + guidance_scale * (eps_t - eps_u)
             else:
                 eps = noise_pred
-            carry, x0 = apply_row(carry, eps, r)
+            noise = None
+            if plan.needs_noise:
+                noise = (step_noise[i] if step_noise is not None
+                         else per_sample_step_noise(seed, idx, i, lat_shape, device=dev))
+            carry, x0 = apply_row(carry, eps, r, noise)
             if collect_x0:
                 x0s.append(x0[:x0_count])
         synchronize(dev)

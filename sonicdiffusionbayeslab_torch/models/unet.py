@@ -1,8 +1,9 @@
 """UNet2DCondition (SD-1.5 geometry) in PyTorch.
 
-Counterpart of ``sonicdiffusionbayeslab_tpu/models/unet.py`` on the plain
-text-to-image path (no SDXL added conditioning, DeepCache, ControlNet,
-IP-Adapter, guidance embedding, CFG shared prefix or token merging).
+Counterpart of ``sonicdiffusionbayeslab_tpu/models/unet.py`` on the
+text-to-image path with its DeepCache split (no SDXL added conditioning,
+ControlNet, IP-Adapter, guidance embedding, CFG shared prefix or token
+merging).
 Parameter names follow diffusers' ``UNet2DConditionModel``; activations
 are [B, H, W, C] at the module's boundary, as in the JAX package.
 """
@@ -10,7 +11,7 @@ are [B, H, W, C] at the module's boundary, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -111,34 +112,64 @@ class UNet2DCondition(nn.Module):
         return self.conv_in.weight.dtype
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor, cache: Optional[torch.Tensor] = None,
+                return_cache: bool = False, cache_branch_id: int = 0):
         """sample [B, h, w, C_in], timesteps [B] or scalar, context [B, T, D]
-        -> [B, h, w, C_out] fp32."""
+        -> [B, h, w, C_out] fp32.
+
+        DeepCache: the shallow branch is down levels ``0..b`` and up levels
+        ``b..0`` (b = ``cache_branch_id``); the deeper levels and the mid
+        block are the trunk, whose output feeds up level b.  With
+        ``return_cache`` a full call also returns that output; given
+        ``cache`` (the trunk output of an earlier step, shaped
+        ``[B, *cache_shape(h, w, b)]``) only the shallow branch runs."""
         dt = self.dtype
+        cfg = self.config
+        n = len(cfg.block_out_channels)
+        branch = int(cache_branch_id)
+        if not 0 <= branch < n:
+            raise ValueError(f"cache_branch_id {branch} out of range [0, {n})")
+        deep = cache is None
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
-        t_emb = timestep_embedding(timesteps, self.config.block_out_channels[0])
+        t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
         t_emb = self.time_embedding(t_emb.to(dt))
         ctx = encoder_hidden_states.to(dt)
 
         h = conv_nhwc(self.conv_in, sample.to(dt))
         skips = [h]
-        for level in self.down_blocks:
+        for lvl, level in enumerate(self.down_blocks):
+            if lvl > branch and not deep:
+                break
             attns = getattr(level, "attentions", None)
             for j, res in enumerate(level.resnets):
                 h = res(h, t_emb)
                 if attns is not None:
                     h = attns[j](h, ctx)
                 skips.append(h)
-            for samp in getattr(level, "downsamplers", ()):
-                h = samp(h)
-                skips.append(h)
+            # Level b's downsample feeds only the trunk.
+            if deep or lvl < branch:
+                for samp in getattr(level, "downsamplers", ()):
+                    h = samp(h)
+                    skips.append(h)
 
-        h = self.mid_block.resnets[0](h, t_emb)
-        h = self.mid_block.attentions[0](h, ctx)
-        h = self.mid_block.resnets[1](h, t_emb)
+        if deep:
+            h = self.mid_block.resnets[0](h, t_emb)
+            h = self.mid_block.attentions[0](h, ctx)
+            h = self.mid_block.resnets[1](h, t_emb)
+            h = self._up(self.up_blocks[:n - 1 - branch], h, skips, t_emb, ctx)
+            deep_features = h
+        else:
+            deep_features = h = cache.to(dt)
+        h = self._up(self.up_blocks[n - 1 - branch:], h, skips, t_emb, ctx)
 
-        for level in self.up_blocks:
+        h = self.conv_norm_out(h)
+        out = conv_nhwc(self.conv_out, h).float()
+        return (out, deep_features) if return_cache else out
+
+    @staticmethod
+    def _up(levels, h, skips, t_emb, ctx):
+        for level in levels:
             attns = getattr(level, "attentions", None)
             for j, res in enumerate(level.resnets):
                 h = res(torch.cat([h, skips.pop()], dim=-1), t_emb)
@@ -146,6 +177,12 @@ class UNet2DCondition(nn.Module):
                     h = attns[j](h, ctx)
             for samp in getattr(level, "upsamplers", ()):
                 h = samp(h)
+        return h
 
-        h = self.conv_norm_out(h)
-        return conv_nhwc(self.conv_out, h).float()
+    def cache_shape(self, height: int, width: int, cache_branch_id: int = 0):
+        """Shape (without the batch) of the trunk output a ``[*, height,
+        width, *]`` sample gives: up level b's input, at height / 2^b with
+        up level b + 1's width (the mid block's when b is the deepest)."""
+        b = int(cache_branch_id)
+        chans = self.config.block_out_channels
+        return (height >> b, width >> b, chans[min(b + 1, len(chans) - 1)])

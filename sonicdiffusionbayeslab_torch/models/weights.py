@@ -15,7 +15,7 @@ dropping by name the few keys the port's modules do not have.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -317,3 +317,62 @@ def load_sd_checkpoint(snapshot_dir: str | Path, engine) -> None:
         path = _find_checkpoint(snapshot_dir / sub, names)
         _load_strict(module, load_torch_state_dict(path), drop, str(path))
     engine.graphed_unet.clear()
+
+
+# ------------------------------------------------------------------- LoRA
+def merge_lora(unet_sd: Dict[str, torch.Tensor], lora_sd: Dict[str, torch.Tensor],
+               scale: float = 1.0) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """Fuse a diffusers-format UNet LoRA into the port's UNet state dict.
+
+    The port's counterpart of ``sonicdiffusionbayeslab_tpu/models/weights.py::
+    merge_lora``.  Keys are kohya's ``lora_unet_<module>.lora_down.weight`` /
+    ``.lora_up.weight`` (with an optional ``.alpha``) or peft's
+    ``unet.<module>.lora_A.weight`` / ``.lora_B.weight``; each module's
+    weight gains ``up @ down * (alpha / rank) * scale`` (a conv LoRA's
+    ``[r, in, kh, kw]`` down and ``[out, r, 1, 1]`` up likewise), summed in
+    fp32 and cast back to the weight's dtype.  Kohya turns the module
+    name's dots into underscores; the names are recovered by matching
+    against the state dict's own.  Returns the merged state dict and the
+    merged modules' names; raises when nothing matched."""
+    demangle = {k[: -len(".weight")].replace(".", "_"): k[: -len(".weight")]
+                for k in unet_sd if k.endswith(".weight")}
+    pairs: Dict[str, dict] = {}
+    for k, v in lora_sd.items():
+        if k.startswith("lora_unet_"):
+            base = demangle.get(k[len("lora_unet_"):].split(".", 1)[0])
+            if base is None:
+                continue
+            slot = {"lora_down": "down", "lora_up": "up"}.get(k.rsplit(".", 2)[-2])
+        elif k.startswith("unet."):
+            stripped = k[len("unet."):]
+            if stripped.endswith(".alpha"):  # peft's alpha has no .lora_ marker
+                base = stripped[: -len(".alpha")]
+            else:
+                base = stripped.rsplit(".lora_", 1)[0]
+            slot = "down" if ".lora_A." in k else ("up" if ".lora_B." in k else None)
+        else:
+            continue
+        if k.endswith(".alpha"):
+            pairs.setdefault(base, {})["alpha"] = float(v)
+        elif slot:
+            pairs.setdefault(base, {})[slot] = torch.as_tensor(v).float()
+
+    merged = dict(unet_sd)
+    applied = []
+    for base, p in pairs.items():
+        name = f"{base}.weight"
+        if "down" not in p or "up" not in p or name not in unet_sd:
+            continue
+        down, up = p["down"], p["up"]
+        rank = down.shape[0]
+        if down.dim() == 4:  # conv LoRA
+            delta = torch.einsum("or,rikl->oikl", up[:, :, 0, 0], down)
+        else:
+            delta = up @ down
+        delta = delta * (p.get("alpha", float(rank)) / rank) * scale
+        w = unet_sd[name]
+        merged[name] = (w.float() + delta.reshape(w.shape).to(w.device)).to(w.dtype)
+        applied.append(base)
+    if not applied:
+        raise KeyError("no LoRA tensors matched the UNet's parameter names")
+    return merged, sorted(applied)

@@ -34,19 +34,15 @@ class PortRegistry(ClassRegistry):
 models_registry = PortRegistry("models_registry", (
     "stable_diffusion_3_model", "stable_diffusion_3_model_interliving_schedulers",
     "stable_diffusion_3_model_skip_timesteps", "stable_diffusion_3_model_two_schedulers",
-    "stable_diffusion_controlnet_model", "stable_diffusion_model_interliving_schedulers",
-    "stable_diffusion_model_skip_timesteps", "stable_diffusion_model_two_schedulers",
-    "stable_diffusion_xl_model",
+    "stable_diffusion_controlnet_model", "stable_diffusion_xl_model",
 ))
 methods_registry = PortRegistry("methods_registry", (
-    "consistency_model", "ddim", "deep_cache", "default", "deis", "flow_euler",
-    "interliving_schedulers", "skip_steps", "tome", "two_schedulers", "unipc",
+    "deis", "flow_euler", "tome", "unipc",
 ))
 metrics_registry = PortRegistry("metrics_registry", ("aesthetic_score", "fid", "image_reward"))
 schedulers_registry = PortRegistry("schedulers_registry", (
-    "ddim_scheduler", "deis_scheduler", "euler_ancestral_scheduler", "euler_scheduler",
-    "flow_match_euler_scheduler", "heun_scheduler", "lcm_scheduler", "pndm_scheduler",
-    "unipc_scheduler",
+    "deis_scheduler", "euler_ancestral_scheduler", "euler_scheduler",
+    "flow_match_euler_scheduler", "heun_scheduler", "unipc_scheduler",
 ))
 
 

@@ -1,11 +1,13 @@
 """Scheduler plans: the port's own copy of the part of
-``sonicdiffusionbayeslab_tpu/schedulers/__init__.py`` that
-``DPMSolverScheduler(...).build_plan(n)`` reaches.
+``sonicdiffusionbayeslab_tpu/schedulers/__init__.py`` that the ported
+methods reach.
 
 A scheduler object holds schedule constants and solver options and emits a
-:class:`SamplePlan`; there is no per-run mutable state.  ``DPMSolverScheduler``
-is registered as ``dpm_solver_scheduler`` in the port's
-``schedulers_registry``.
+:class:`SamplePlan`; there is no per-run mutable state.  The composers in
+``plans.py`` build plans from two schedulers (or one with skips) through
+the hooks ``transition_rows``, ``transition_rows_from_schedule``,
+``ladder_rows`` and ``skip_rows``.  Each builder is registered in the
+port's ``schedulers_registry`` under the JAX package's name.
 """
 
 from __future__ import annotations
@@ -16,19 +18,39 @@ from typing import Optional
 import numpy as np
 
 from sonicdiffusionbayeslab_torch.registry import schedulers_registry
-from sonicdiffusionbayeslab_torch.schedulers.dpm import dpm_rows, make_karras_ladder, make_ladder
+from sonicdiffusionbayeslab_torch.schedulers.ddim import ddim_rows, ddim_transition_row
+from sonicdiffusionbayeslab_torch.schedulers.dpm import (
+    dpm_rows,
+    make_karras_ladder,
+    make_ladder,
+    simulate_orders,
+)
+from sonicdiffusionbayeslab_torch.schedulers.lcm import lcm_rows
 from sonicdiffusionbayeslab_torch.schedulers.plan import SamplePlan, StepRow, stack_rows
+from sonicdiffusionbayeslab_torch.schedulers.plans import (
+    interleave_plan,
+    skip_plan,
+    two_scheduler_plan,
+)
+from sonicdiffusionbayeslab_torch.schedulers.pndm import pndm_rows
 from sonicdiffusionbayeslab_torch.schedulers.schedule import (
     NoiseSchedule,
     ScheduleConfig,
     space_timesteps,
 )
 
-__all__ = ["ScheduleConfig", "NoiseSchedule", "SamplePlan", "StepRow", "DPMSolverScheduler"]
+__all__ = [
+    "ScheduleConfig", "NoiseSchedule", "SamplePlan", "StepRow", "DDIMScheduler",
+    "DPMSolverScheduler", "LCMScheduler", "PNDMScheduler", "two_scheduler_plan",
+    "interleave_plan", "skip_plan",
+]
 
 
 class _PlanBuilder:
     NAME = "base"
+    # Sample space of the carried latent: the composers join only
+    # schedulers of one space.
+    SPACE = "vp"
 
     def __init__(self, schedule_config=None, prediction_type: Optional[str] = None):
         base = ScheduleConfig.from_dict(schedule_config or {})
@@ -46,10 +68,57 @@ class _PlanBuilder:
     def build_plan(self, num_steps: int) -> SamplePlan:
         raise NotImplementedError
 
+    # Composer hooks; overridden where supported.
+    def transition_rows(self, ts, num_steps, executed, tag=""):
+        raise NotImplementedError(f"{self.NAME} cannot be composed this way")
+
+    def transition_rows_from_schedule(self, ts, start, tag=""):
+        raise NotImplementedError(f"{self.NAME} cannot be composed this way")
+
+    def ladder_rows(self, ts_exec, positions, tag=""):
+        raise NotImplementedError(f"{self.NAME} cannot be interleaved")
+
+    def skip_rows(self, num_steps, executed, tag=""):
+        raise NotImplementedError(f"{self.NAME} does not support skip plans")
+
+
+@schedulers_registry.add_to_registry("ddim_scheduler")
+class DDIMScheduler(_PlanBuilder):
+    NAME = "ddim"
+
+    def __init__(self, schedule_config=None, prediction_type=None, eta: float = 0.0):
+        super().__init__(schedule_config, prediction_type)
+        self.eta = float(eta)
+
+    def _row(self, t, prev_t, tag):
+        return ddim_transition_row(self.schedule, int(t), int(prev_t), eta=self.eta,
+                                   prediction_type=self.config.prediction_type, tag=tag)
+
+    def build_plan(self, num_steps: int) -> SamplePlan:
+        rows = self.transition_rows(self.timesteps(num_steps), num_steps, executed=None)
+        return stack_rows(rows, name=f"ddim(n={num_steps})")
+
+    def transition_rows(self, ts, num_steps, executed, tag=""):
+        return ddim_rows(self.schedule, ts, num_steps, eta=self.eta,
+                         prediction_type=self.config.prediction_type, executed=executed,
+                         tag=tag)
+
+    def transition_rows_from_schedule(self, ts, start, tag=""):
+        # Seeded-schedule phase: transitions follow the given timestep list.
+        return self.ladder_rows(ts, range(start, len(ts)), tag)
+
+    def ladder_rows(self, ts_exec, positions, tag=""):
+        return [self._row(ts_exec[p], ts_exec[p + 1] if p + 1 < len(ts_exec) else -1, tag)
+                for p in positions]
+
+    def skip_rows(self, num_steps, executed, tag=""):
+        return self.transition_rows(self.timesteps(num_steps), num_steps, executed, tag)
+
 
 class _MultistepLadderScheduler(_PlanBuilder):
     """Ladder-based multistep exponential integrators: Karras or spaced
-    ladders and the order warm-up bookkeeping.  Subclasses set ``_rows``."""
+    ladders, the order warm-up bookkeeping and the composer hooks.
+    Subclasses set ``_rows``."""
 
     PLAN_PREFIX = "multistep"
 
@@ -106,6 +175,33 @@ class _MultistepLadderScheduler(_PlanBuilder):
             hist_depth=self.solver_order,
         )
 
+    def transition_rows(self, ts, num_steps, executed, tag=""):
+        ladder = make_ladder(self.schedule, ts, self.final_sigmas_type)
+        return self._rows(self.schedule, ladder, list(executed), tag=tag, **self._kw())
+
+    def transition_rows_from_schedule(self, ts, start, tag=""):
+        ladder = make_ladder(self.schedule, ts, self.final_sigmas_type)
+        return self._rows(self.schedule, ladder, range(start, len(ts)), tag=tag, **self._kw())
+
+    def ladder_rows(self, ts_exec, positions, tag=""):
+        ladder = make_ladder(self.schedule, ts_exec, self.final_sigmas_type)
+        # Every executed step pushes into the shared ring, so the k-th listed
+        # position has at least k entries; the warm-up caps the order there.
+        orders = simulate_orders(
+            positions, len(ts_exec), self.solver_order,
+            lower_order_final=self.lower_order_final, euler_at_final=self.euler_at_final,
+            final_sigmas_type=self.final_sigmas_type,
+        )
+        return self._rows(self.schedule, ladder, positions, orders=orders, tag=tag, **self._kw())
+
+    def skip_rows(self, num_steps, executed, tag=""):
+        ts = self.timesteps(num_steps)
+        ladder = make_ladder(self.schedule, ts, self.final_sigmas_type)
+        positions = [executed[0] + k for k in range(len(executed))]
+        unet_ts = [int(ts[i]) for i in executed]
+        return self._rows(self.schedule, ladder, positions, unet_timesteps=unet_ts, tag=tag,
+                          **self._kw())
+
 
 @schedulers_registry.add_to_registry("dpm_solver_scheduler")
 class DPMSolverScheduler(_MultistepLadderScheduler):
@@ -139,3 +235,56 @@ class DPMSolverScheduler(_MultistepLadderScheduler):
         kw = super()._kw()
         kw.update(algorithm_type=self.algorithm_type, solver_type=self.solver_type)
         return kw
+
+
+@schedulers_registry.add_to_registry("lcm_scheduler")
+class LCMScheduler(_PlanBuilder):
+    NAME = "lcm"
+
+    def __init__(
+        self,
+        schedule_config=None,
+        prediction_type=None,
+        original_inference_steps: int = 50,
+        timestep_scaling: float = 10.0,
+        sigma_data: float = 0.5,
+    ):
+        super().__init__(schedule_config, prediction_type)
+        self.original_inference_steps = int(original_inference_steps)
+        self.timestep_scaling = float(timestep_scaling)
+        self.sigma_data = float(sigma_data)
+
+    def build_plan(self, num_steps: int) -> SamplePlan:
+        rows = lcm_rows(
+            self.schedule,
+            num_steps,
+            original_inference_steps=self.original_inference_steps,
+            timestep_scaling=self.timestep_scaling,
+            sigma_data=self.sigma_data,
+            prediction_type=self.config.prediction_type,
+        )
+        return stack_rows(rows, name=f"lcm(n={num_steps})")
+
+
+@schedulers_registry.add_to_registry("pndm_scheduler")
+class PNDMScheduler(_PlanBuilder):
+    NAME = "pndm"
+
+    def __init__(self, schedule_config=None, prediction_type=None):
+        super().__init__(schedule_config, prediction_type)
+
+    def build_plan(self, num_steps: int) -> SamplePlan:
+        rows = pndm_rows(self.schedule, num_steps, prediction_type=self.config.prediction_type)
+        return stack_rows(rows, name=f"pndm(n={num_steps})", hist_depth=4)
+
+    def tail_plan(self, num_steps: int, start_index: int) -> SamplePlan:
+        if start_index:
+            raise NotImplementedError(
+                "img2img tails are not defined for PLMS's duplicated warm-up step"
+            )
+        return self.build_plan(num_steps)
+
+    def blend_schedule(self, num_steps: int, start_index: int = 0):
+        raise NotImplementedError(
+            "inpainting blend is not defined for PLMS's duplicated warm-up step"
+        )

@@ -1,7 +1,7 @@
 """SamplePlan: per-step scheduler coefficients (host-side numpy).
 
 The port's own copy of ``sonicdiffusionbayeslab_tpu/schedulers/plan.py``
-(the parts the DPM-Solver++ plan reaches).  Every supported update is
+(the parts the plan builders reach).  Every supported update is
 linear in (sample, model output, history entries, fresh noise), so a run is
 a stack of scalar coefficient rows, computed in float64 and stored as
 float32.  ``schedulers/runtime.py`` applies one row per denoising step:

@@ -1,7 +1,7 @@
 """Noise schedule and timestep spacing (float64 numpy, plan time only).
 
 The port's own copy of ``sonicdiffusionbayeslab_tpu/schedulers/schedule.py``
-(the parts the DPM-Solver++ plan reaches).
+(the parts the DPM-Solver++, DDIM, PNDM and LCM plans reach).
 """
 
 from __future__ import annotations
@@ -69,6 +69,18 @@ class NoiseSchedule:
             idx = r.astype(np.int64)
         return self.alphas_cumprod[idx]
 
+    def acp_or_final(self, t) -> np.ndarray:
+        """alphas_cumprod[t], with t < 0 mapping to the final (t=-1) value:
+        1.0 if ``set_alpha_to_one`` else alphas_cumprod[0]."""
+        t = np.asarray(t)
+        final = 1.0 if self.config.set_alpha_to_one else self.alphas_cumprod[0]
+        return np.where(t >= 0, self.alphas_cumprod[np.maximum(t, 0)], final)
+
+    def alpha_sigma(self, t):
+        """Data-space VP (alpha_t, sigma_t): alpha^2 + sigma^2 = 1."""
+        a2 = self.acp(t)
+        return np.sqrt(a2), np.sqrt(1.0 - a2)
+
     def kar_sigma(self, t) -> np.ndarray:
         """Karras-convention sigma = sigma_t / alpha_t."""
         a2 = self.acp(t)
@@ -110,3 +122,27 @@ def sigma_to_t(schedule: NoiseSchedule, sigma) -> np.ndarray:
     table = np.sqrt((1.0 - schedule.alphas_cumprod) / schedule.alphas_cumprod)
     return np.interp(np.log(np.asarray(sigma, np.float64)), np.log(table),
                      np.arange(len(table), dtype=np.float64))
+
+
+def x0_conversion_coeffs(schedule: NoiseSchedule, t: int, prediction_type: str):
+    """(c_sample, c_eps) such that x0 = c_sample * sample + c_eps * model_output."""
+    alpha, sigma = schedule.alpha_sigma(t)
+    if prediction_type == "epsilon":
+        return 1.0 / alpha, -sigma / alpha
+    if prediction_type == "v_prediction":
+        return alpha, -sigma
+    if prediction_type == "sample":
+        return 0.0, 1.0
+    raise ValueError(f"unknown prediction_type {prediction_type!r}")
+
+
+def eps_conversion_coeffs(schedule: NoiseSchedule, t: int, prediction_type: str):
+    """(c_sample, c_eps) such that epsilon = c_sample * sample + c_eps * model_output."""
+    alpha, sigma = schedule.alpha_sigma(t)
+    if prediction_type == "epsilon":
+        return 0.0, 1.0
+    if prediction_type == "v_prediction":
+        return sigma, alpha
+    if prediction_type == "sample":
+        return 1.0 / sigma, -alpha / sigma
+    raise ValueError(f"unknown prediction_type {prediction_type!r}")

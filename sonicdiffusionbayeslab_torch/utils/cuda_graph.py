@@ -1,29 +1,43 @@
-"""A CUDA graph around a module call, for the denoising loop.
+"""CUDA graphs around a module call, for the denoising loop.
 
 Eager PyTorch spends more host time on one SD-1.5 UNet forward at batch 4
 in bf16 than an NVIDIA H100 needs to run it, so an eager loop waits on the
 host.  ``GraphedCall`` captures the call for one input signature (shapes,
 dtypes, devices) and then replays it: the inputs are copied into the
-graph's static buffers, the graph is launched, and a copy of its output is
-returned (so that outputs of two replays never alias).  The first call of a
-signature runs it twice eagerly (cuDNN and cuBLAS pick their algorithms,
-the kernels set their attributes) and captures it; that is set-up, like a
-compile.
+graph's static buffers, the graph is launched, and a copy of its output
+(a tensor or a tuple of tensors) is returned, so that outputs of two
+replays never alias.  The first call of a signature runs it twice eagerly
+(cuDNN and cuBLAS pick their algorithms, the kernels set their attributes)
+and captures it; that is set-up, like a compile.
 
-Only the last signature's graph is kept: a call with another signature
-drops the graph before it captures the new one, so its private memory
-pool (the call's activations) goes back to the caching allocator.  A
-caller that alternates between shapes pays a capture at each change.
+A ``GraphedCall`` keeps only its last signature's graph: a call with
+another signature drops the graph before it captures the new one, so its
+private memory pool (the call's activations) goes back to the caching
+allocator.  A caller that alternates between shapes pays a capture at each
+change.
+
+``GraphedVariants`` keeps one ``GraphedCall`` per call variant, a variant
+being the keyword arguments that are not tensors.  The sampler's plain
+UNet call is one variant; a DeepCache run adds two more (the full call
+that returns the trunk's features and the shallow call that takes them),
+so a DeepCache run holds two graphs at once (three in an engine that
+also ran plain calls), each with its own pool of activations.  At SD-1.5 bf16 512x512, UNet batch 4, the plain graph keeps
+0.35 GB reserved and DeepCache's full and shallow graphs 0.58 GB together
+(NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py`` phase 7, PERF.md
+section 2).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 
 class GraphedCall:
-    """``fn(*tensors) -> tensor`` replayed from a CUDA graph of the last
-    input signature it was called with."""
+    """``fn(*tensors) -> tensor or tuple of tensors``, replayed from a CUDA
+    graph of the last input signature it was called with.  ``captures``
+    counts the captures."""
 
     WARMUP = 2
 
@@ -31,21 +45,25 @@ class GraphedCall:
         self.fn = fn
         self.key = None
         self.graph = None  # (CUDAGraph, static inputs, static output)
+        self.captures = 0
 
     def clear(self) -> None:
         """Drop the graph and its memory pool, e.g. after new weights."""
         self.key = self.graph = None
 
-    def __call__(self, *args: torch.Tensor) -> torch.Tensor:
+    def __call__(self, *args: torch.Tensor):
         key = tuple((a.shape, a.dtype, a.device) for a in args)
         if key != self.key:
             self.clear()
             self.graph = self._capture(args)
             self.key = key
+            self.captures += 1
         graph, static_in, static_out = self.graph
         for s, a in zip(static_in, args):
             s.copy_(a)
         graph.replay()
+        if isinstance(static_out, tuple):
+            return tuple(o.clone() for o in static_out)
         return static_out.clone()
 
     def _capture(self, args):
@@ -60,3 +78,29 @@ class GraphedCall:
         with torch.cuda.graph(graph):
             static_out = self.fn(*static_in)
         return graph, static_in, static_out
+
+
+class GraphedVariants:
+    """``fn(*tensors, **static)`` with one :class:`GraphedCall` per distinct
+    ``static`` (keyword arguments that are not tensors; pass tensors
+    positionally)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = {}
+
+    def clear(self) -> None:
+        """Drop every variant's graph and memory pool."""
+        self.calls.clear()
+
+    @property
+    def captures(self) -> dict:
+        """{variant: captures of its graph}."""
+        return {k: c.captures for k, c in self.calls.items()}
+
+    def __call__(self, *args: torch.Tensor, **static):
+        key = tuple(sorted(static.items()))
+        call = self.calls.get(key)
+        if call is None:
+            call = self.calls[key] = GraphedCall(functools.partial(self.fn, **static))
+        return call(*args)

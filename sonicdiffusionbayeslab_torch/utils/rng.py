@@ -7,6 +7,9 @@ Each sample gets its own CPU ``torch.Generator``, seeded from a numpy
 moved, so one seed gives the same latents on every device.  The bits differ
 from the JAX package's, so parity tests pass ``init_latents``.
 
+Noise-injecting plans (LCM) draw fresh noise at each denoising step the
+same way: sample ``i``'s noise at step ``k`` depends only on (seed, i, k).
+
 An experiment's grid point ``g`` draws from ``grid_seed(seed, g)`` where
 the JAX package folds ``g`` into its key: latents then depend only on
 (seed, grid point, sample index), as there.
@@ -20,8 +23,13 @@ import numpy as np
 import torch
 
 
-def sample_generator(seed: int, index: int) -> torch.Generator:
-    state = np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint64)[0]
+# Separates the step-noise streams from the initial latents' streams.
+STEP_NOISE_TAG = 0x5EED
+
+
+def sample_generator(seed: int, index: int, *stream: int) -> torch.Generator:
+    entropy = [int(seed), int(index), *map(int, stream)]
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device="cpu").manual_seed(int(state) & 0x7FFF_FFFF_FFFF_FFFF)
 
 
@@ -32,6 +40,15 @@ def per_sample_latents(seed: int, sample_indices: Sequence[int], shape, device="
     rows = [torch.randn(tuple(shape), generator=sample_generator(seed, i), dtype=torch.float32)
             for i in sample_indices]
     return torch.stack(rows).to(device=device, dtype=dtype)
+
+
+def per_sample_step_noise(seed: int, sample_indices: Sequence[int], step: int, shape,
+                          device="cpu") -> torch.Tensor:
+    """[B, *shape] fp32 standard normal noise of denoising step ``step``,
+    row b drawn from the generator of (seed, ``sample_indices[b]``, step)."""
+    rows = [torch.randn(tuple(shape), generator=sample_generator(seed, i, STEP_NOISE_TAG, step),
+                        dtype=torch.float32) for i in sample_indices]
+    return torch.stack(rows).to(device=device)
 
 
 def grid_seed(seed: int, grid_index: int) -> int:

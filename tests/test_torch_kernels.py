@@ -567,6 +567,32 @@ def test_graphed_unet_matches_eager_and_replays_its_kernels(cuda):
 
 
 @pytest.mark.cuda
+def test_graphed_deep_cache_variants_match_eager(cuda):
+    """DeepCache's full call (output and trunk features) and shallow call,
+    each replayed from its own graph, give the eager calls' bits; the two
+    graphs stay captured once each while the calls alternate."""
+    from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig
+    from sonicdiffusionbayeslab_torch.models.sampler import StableDiffusionEngine
+    from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
+    from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
+
+    eng = StableDiffusionEngine(UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny(),
+                                dtype=torch.bfloat16, device=cuda).init_params(0)
+    x = randn((2, 8, 8, 4), 1).to(cuda, torch.bfloat16)
+    t = torch.tensor([500.0, 20.0], device=cuda)
+    e = randn((2, 77, 32), 2).to(cuda, torch.bfloat16)
+    with torch.inference_mode():
+        out, feats = eng.unet(x, t, e, return_cache=True, cache_branch_id=0)
+        shallow = eng.unet(x * 2, t, e, feats, cache_branch_id=0)
+        for _ in range(2):
+            g_out, g_feats = eng.graphed_unet(x, t, e, return_cache=True, cache_branch_id=0)
+            g_shallow = eng.graphed_unet(x * 2, t, e, g_feats, cache_branch_id=0)
+            assert torch.equal(g_out, out) and torch.equal(g_feats, feats)
+            assert torch.equal(g_shallow, shallow)
+    assert sorted(eng.graphed_unet.captures.values()) == [1, 1]
+
+
+@pytest.mark.cuda
 def test_graphed_call_releases_the_previous_graphs_memory(cuda):
     w = torch.randn(2048, 2048, device=cuda)
     call = GraphedCall(lambda x: (x @ w).relu() @ w)  # activations in the graph's pool
