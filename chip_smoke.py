@@ -68,10 +68,25 @@ prints no ``ok`` line:
      DeepCache (interval 5) at batch 2 at engine level, the memory their
      graphs keep reserved, and one full and one shallow UNet call's device
      time;
-  8. the card line, then one JSON ``kernels`` line (the fp32 attention
+  8. the remaining samplers and Token Merging at SD-1.5 full width (bf16
+     512x512, random weights): configs unipc_config (20 steps, bh2,
+     corrector, order 2), tome_config (ratios 0.25 and 0.5 at 20 steps: two
+     sweep points, two graph variants) and deep_cache_config with
+     tome_ratio 0.5 (interval 5, branch 0) through the CLI at batch 4, each
+     traced, checked as in phase 7 against the census at the merged
+     attention shapes, with the memory the graphs keep reserved; through
+     the pipeline at batch 2, CFG 7.5 (execution_time, median of 3 in
+     turns): UniPC, DEIS, Euler and Euler-ancestral at 20 steps, Heun at 10 (19
+     UNet calls), DPM++ with guidance_rescale 0.7, DPM++ with ToMe at 0.5
+     and 0.25 beside plain DPM++, each run's wrapper launches against the
+     census (with --profile, a torch.profiler breakdown of the ToMe 0.5
+     loop); tiny fp32 ToMe (destinations given), Heun and Euler-ancestral
+     (step noise given) runs on the card against the CPU; and the bf16
+     attention kernel timed at ToMe's two 64x64 shapes;
+  9. the card line, then one JSON ``kernels`` line (the fp32 attention
      kernel's entry is its CLI-path work: the tower's 12 launches; each
-     entry also lists its launches in each phase-7 run);
-  9. the last line: {"ok": true, "device": {...}}.
+     entry also lists its launches in each phase-7 and phase-8 run);
+ 10. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -169,6 +184,19 @@ METHOD_RUNS = [
      "steps_20_inter_2-3", 18, 2, False, None),
     ("skip_steps_config", {_P + "num_inference_steps": [STEPS], _P + "skip_steps": [[5]]},
      "steps_20_skip_5", 19, 2, True, None),
+]
+# Phase 8 through the CLI: (config, its points, [(label, ToMe ratio or None)]
+# of the sweep, UNet evaluations a point, CFG factor, x0 captured,
+# DeepCache full steps or None).
+TOME_RATIOS = (0.25, 0.5)
+SAMPLER_RUNS = [
+    ("unipc_config", {_P + "num_inference_steps": [STEPS]}, [("steps_20", None)], 20, 2, True,
+     None),
+    ("tome_config", {_P + "tome_ratio": list(TOME_RATIOS), _P + "num_inference_steps": [STEPS]},
+     [(f"ratio_{r}_steps_20", r) for r in TOME_RATIOS], 20, 2, True, None),
+    ("deep_cache_config", {_P + "cache_interval": [5], _P + "cache_branch_id": 0,
+                           _P + "num_inference_steps": [STEPS], _P + "tome_ratio": 0.5},
+     [("interval_5_steps_20", 0.5)], 20, 2, False, 4),
 ]
 
 
@@ -297,18 +325,21 @@ def _kinds(calls):
     return out
 
 
-def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False):
+def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, tome=None):
     """{(kind, shape): launches} of one UNet call at ``unet_batch`` rows
     (DeepCache's shallow call at branch 0 with ``shallow``, else the plain
-    or full call) and one VAE decode of ``vae_batch`` latents, from the
-    SD-1.5 UNet and VAE decoder (or, with ``tiny``, the tiny configs at
-    StableDiffusionModel(tiny=True)'s 8x8 latents) run on the meta device
-    with the two kernel entry points replaced by shape recorders."""
+    or full call; with Token Merging at ratio ``tome``, whose merged
+    self-attentions run at N = M = tokens - r) and one VAE decode of
+    ``vae_batch`` latents, from the SD-1.5 UNet and VAE decoder (or, with
+    ``tiny``, the tiny configs at StableDiffusionModel(tiny=True)'s 8x8
+    latents) run on the meta device with the two kernel entry points
+    replaced by shape recorders."""
     from sonicdiffusionbayeslab_torch.models import layers
     from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
     from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
     from sonicdiffusionbayeslab_torch.ops.attention import uses_kernel
     from sonicdiffusionbayeslab_torch.ops.groupnorm import resolve_groups
+    from sonicdiffusionbayeslab_torch.ops.tome import TomeConfig
 
     calls = collections.Counter()
 
@@ -335,11 +366,16 @@ def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False):
                 b = unet_batch
                 args = (torch.empty(b, lat, lat, 4), torch.empty(b),
                         torch.empty(b, 77, unet_cfg.cross_attention_dim))
+                kw, dst = {}, None
+                if tome:
+                    kw["tome"] = cfg = TomeConfig(tome)
+                    slots = unet.tome_slots(lat, lat, cfg, 0 if shallow else None)
+                    dst = torch.zeros(len(slots), cfg.n_dst(lat, lat), dtype=torch.int64)
                 if shallow:
-                    unet(*args, torch.empty((b,) + unet.cache_shape(lat, lat, 0)),
-                         cache_branch_id=0)
+                    unet(*args, torch.empty((b,) + unet.cache_shape(lat, lat, 0)), dst,
+                         cache_branch_id=0, **kw)
                 else:
-                    unet(*args)
+                    unet(*args, None, dst, **kw)
             if vae_batch:
                 AutoencoderKL(vae_cfg).decode(torch.empty(vae_batch, lat, lat, 4))
     finally:
@@ -485,6 +521,24 @@ def check_kernels(shapes, fp32_shapes, report):
         print(f"attention {str(dtype)[6:]} strided q/k/v views, N=M=1000: max abs err {err:.3e}")
 
 
+def timing_row(kind, shape, dtype, path, launches, gen):
+    """One kernel's timing row at ``shape``: the kernel, its plain version
+    and the library call (``cuda_ms``), beside the bound; printed."""
+    inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
+    kern, plain = run_kernel(kind, shape, inputs)
+    b_ms, b_by = bound(kind, shape, dtype)
+    row = dict(kernel=kind, dtype=str(dtype)[6:], shape=list(shape), path=path,
+               launches_per_run=launches,
+               ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+               library_ms=cuda_ms(library_call(kind, shape, inputs)),
+               bound_ms=b_ms, bound_by=b_by)
+    if kind == "attention" and dtype == torch.float32:
+        B, N, M, H, D = shape
+        row["bound_fma_ms"] = 4 * B * H * N * M * D / PEAK_FLOPS[torch.float32] * 1e3
+    print("timing " + json.dumps(row), flush=True)
+    return row
+
+
 def time_kernels(shapes, run_counts, clip_counts, report):
     """Per-shape timing rows at the main path's shapes (``run_counts``
     launches a run) and, fp32 only, at the CLIP tower's (``clip_counts``
@@ -501,20 +555,7 @@ def time_kernels(shapes, run_counts, clip_counts, report):
                           else (torch.bfloat16,))]
     work += [(kind, shape, torch.float32, "clip", n) for (kind, shape), n in clip_counts.items()]
     for kind, shape, dtype, path, launches in work:
-        inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
-        kern, plain = run_kernel(kind, shape, inputs)
-        b_ms, b_by = bound(kind, shape, dtype)
-        row = dict(kernel=kind, dtype=str(dtype)[6:], shape=list(shape), path=path,
-                   launches_per_run=launches,
-                   ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                   library_ms=cuda_ms(library_call(kind, shape, inputs)),
-                   bound_ms=b_ms, bound_by=b_by)
-        if kind == "attention" and dtype == torch.float32:
-            B, N, M, H, D = shape
-            row["bound_fma_ms"] = 4 * B * H * N * M * D / PEAK_FLOPS[torch.float32] * 1e3
-        rows.append(row)
-        print("timing " + json.dumps(row), flush=True)
-        del inputs
+        rows.append(timing_row(kind, shape, dtype, path, launches, gen))
     for r in rows:
         key = report_key(r["kernel"], getattr(torch, r["dtype"]))
         agg = report[key + "_unet" if key == "attention_fp32" and r["path"] == "unet" else key]
@@ -737,17 +778,20 @@ def eager_vs_graphed_unet(model, per_unet, reps=5):
     return out
 
 
-def profile_loop(model):
+def profile_loop(model, tome=None):
     """Device time by kernel group over one 20-step denoising loop (UNet
-    forwards at the model batch, CFG combine, scheduler rows; no decode),
-    from torch.profiler, per step, beside the loop's wall clock."""
+    forwards at the model batch, CFG combine, scheduler rows; no decode;
+    with Token Merging at ratio ``tome``, whose sorts, gathers and scatters
+    are a group of their own), from torch.profiler, per step, beside the
+    loop's wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = model.engine
     plan = model.build_plan(STEPS)
     emb = eng.encode_prompts(model.tokenizer(PROMPTS))
     neg = eng.encode_prompts(model.tokenizer([""] * BATCH))
-    kw = dict(guidance_scale=GUIDANCE, latent_hw=(SIZE // 8, SIZE // 8), decode=False)
+    kw = dict(guidance_scale=GUIDANCE, latent_hw=(SIZE // 8, SIZE // 8), decode=False,
+              tome=tome)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         loop_s = eng.sample(plan, emb, neg, **kw).execution_time
     by_name = collections.Counter()
@@ -768,6 +812,9 @@ def profile_loop(model):
             groups["matmuls (cuBLAS)"] += v
         elif "layer_norm" in low:
             groups["layer_norm"] += v
+        elif tome and any(w in low for w in ("sort", "gather", "scatter", "indexselect",
+                                                "index_select")):
+            groups["tome sorts, gathers, scatters"] += v
         else:
             groups["elementwise and copies"] += v
     device_ms = sum(by_name.values())
@@ -776,7 +823,7 @@ def profile_loop(model):
                device_idle_share=max(0.0, 1 - device_ms / step_ms) if device_ms else None,
                groups_ms_per_step=dict(groups.most_common()),
                top_kernels_ms_per_step={k[:120]: v for k, v in by_name.most_common(12)})
-    print("profile " + json.dumps(out))
+    print(("profile" if tome is None else f"profile tome {tome}") + " " + json.dumps(out))
     if not device_ms:
         print("profile: torch.profiler reported no device time (not measured)")
     return out
@@ -964,25 +1011,36 @@ class _RecordingVariants:
         self._mod.GraphedVariants = self._saved
 
     def captures(self):
-        """{variant: captures} of the run's one engine; drops the graphs."""
+        """({variant: captures} of the run's one engine, the GB of device
+        memory its graphs kept reserved); drops the graphs."""
         if len(self.made) != 1:
             raise AssertionError(f"the CLI run built {len(self.made)} engines, expected 1")
         caps = dict(self.made[0].captures)
-        self.made[0].clear()
+        reserved = []
+        for drop in (False, True):
+            if drop:
+                self.made[0].clear()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved.append(torch.cuda.memory_reserved())
         self.made.clear()
-        return caps
+        return caps, (reserved[0] - reserved[1]) / 1e9
 
 
-def run_methods(report, card):
-    """Phase 7: each of METHOD_RUNS through ``cli.run`` at SD-1.5 512^2
+def run_methods(card, runs, trace_all=False):
+    """Each of ``runs`` (METHOD_RUNS' or SAMPLER_RUNS' form, see
+    :func:`_as_points`) through ``cli.run`` at SD-1.5 512^2
     (METHOD_OVERRIDES), in a temporary working directory, with the
     wrappers' counts set to 0 just before each run and read just after;
-    the deep_cache run under torch.profiler as well.  Each run checks its
-    table row, its PNGs, one capture per UNet call variant, and each
-    kernel's launches against the census: per variant the graph's warm-ups
-    and capture (wrappers) or warm-ups and replays (trace), the VAE decodes
-    (the batch's and one x0 decode of one sample a step where the method
-    captures x0) and the CLIP tower's attention a validate batch."""
+    the DeepCache runs (or, with ``trace_all``, every run) under
+    torch.profiler as well.  Each run checks its table rows, its PNGs, one
+    capture per UNet call variant (a ToMe ratio is a variant of its own),
+    and each kernel's launches against the census at the variant's shapes:
+    per variant the graph's warm-ups and capture (wrappers) or warm-ups and
+    replays (trace), the VAE decodes (each point's batch and one x0 decode
+    of one sample a step where the method captures x0) and the CLIP
+    tower's attention a validate batch; returns {run: results}."""
     import csv
 
     import numpy as np
@@ -1001,7 +1059,7 @@ def run_methods(report, card):
         os.chdir(tmp)
         try:
             lora_modules = write_random_lora(Path(tmp) / "lora.bin")
-            for name, point, label, nfe, cfg_batch, x0, full_steps in METHOD_RUNS:
+            for name, point, points, nfe, cfg_batch, x0, full_steps in map(_as_points, runs):
                 config = str(repo / "configs" / f"{name}.yaml")
                 overrides = {**METHOD_OVERRIDES, **point, "logger.run_id": name,
                              "dataset.prompts": str(repo / "data" / "dataset" /
@@ -1009,14 +1067,26 @@ def run_methods(report, card):
                 if name == "consistency_model_config":
                     overrides["model.lora"] = str(Path(tmp) / "lora.bin")
                 unet_batch = METHOD_BATCH * cfg_batch
-                variants = {"full": _kinds(module_census(unet_batch))}
+                replays = {"full": nfe if full_steps is None else full_steps}
                 if full_steps is not None:
-                    variants["shallow"] = _kinds(module_census(unet_batch, shallow=True))
-                decodes = {METHOD_BATCH: 1, 1: nfe if x0 else 0}
-                want = collections.Counter({"attention_fp32": clip_per_batch})
-                for k in MAIN:
-                    want[k] = sum((W + 1) * v[k] for v in variants.values()) + sum(
-                        n * per_vae[b][k] for b, n in decodes.items())
+                    replays["shallow"] = nfe - full_steps
+                # Per point: its variants' census; a variant is captured at
+                # its first point and replayed after.
+                want = collections.Counter({"attention_fp32": clip_per_batch * len(points)})
+                want_traced = collections.Counter(want)
+                seen = set()
+                for _, tome in points:
+                    for v, n in replays.items():
+                        c = _kinds(module_census(unet_batch, shallow=v == "shallow", tome=tome))
+                        first = (v, tome) not in seen
+                        seen.add((v, tome))
+                        for k in MAIN:
+                            want[k] += (W + 1) * c[k] * first
+                            want_traced[k] += (W * first + n) * c[k]
+                    for k in MAIN:
+                        d = per_vae[METHOD_BATCH][k] + (nfe * per_vae[1][k] if x0 else 0)
+                        want[k] += d
+                        want_traced[k] += d
                 merged = []
                 fuse = None
                 if name == "consistency_model_config":
@@ -1030,11 +1100,12 @@ def run_methods(report, card):
                         return res
 
                     StableDiffusionModel.fuse_lora = recording_fuse
+                trace = trace_all or full_steps is not None
                 wrapper_counts(reset=True)
                 t0 = time.perf_counter()
                 try:
                     with _RecordingVariants() as rec:
-                        if full_steps is None:
+                        if not trace:
                             metrics, traced = cli.run(config, overrides), None
                         else:
                             metrics, traced = traced_launches(lambda: cli.run(config, overrides))
@@ -1043,61 +1114,71 @@ def run_methods(report, card):
                         StableDiffusionModel.fuse_lora = fuse
                 wall = time.perf_counter() - t0
                 counts = wrapper_counts()
-                caps = rec.captures()
+                caps, graphs_gb = rec.captures()
+                labels = [label for label, _ in points]
                 with open(Path(tmp) / "outputs" / name / "tables" / "final.tsv") as f:
                     rows = list(csv.DictReader(f, delimiter="\t"))
                 exp_name = load_config(config).get("experiment_name")
-                pngs = sorted((Path(tmp) / "outputs" / exp_name / label).glob("*.png"))
-                sizes = {_png_size(p) for p in pngs}
-                sec_img, score = float(rows[0]["time"]), float(rows[0]["clip_score"])
-                print(f"{name} ({label}: {nfe} UNet evaluations at batch {unet_batch}, "
-                      f"SD-1.5 bf16 {SIZE}x{SIZE}, batch {METHOD_BATCH}): whole CLI {wall:.3f} s, "
-                      f"sweep {sec_img:.5f} s/image (graph captures inside the loop), clip_score "
-                      f"{score:.4f}; {card}; graph captures {caps}; launches: wrappers "
-                      f"{dict(counts)}, trace {traced}", flush=True)
-                if len(rows) != 1 or rows[0]["exp"] != label or rows[0]["nfe"] != str(nfe):
-                    raise AssertionError(f"{name}: table rows {rows}, expected one {label} of "
+                pngs = {lb: sorted((Path(tmp) / "outputs" / exp_name / lb).glob("*.png"))
+                        for lb in labels}
+                sizes = {_png_size(p) for ps in pngs.values() for p in ps}
+                sec_img = [float(r["time"]) for r in rows]
+                score = [float(r["clip_score"]) for r in rows]
+                print(f"{name} ({', '.join(labels)}: {nfe} UNet evaluations at batch "
+                      f"{unet_batch}, SD-1.5 bf16 {SIZE}x{SIZE}, batch {METHOD_BATCH}): whole CLI "
+                      f"{wall:.3f} s, sweep {sec_img} s/image (graph captures inside the loop), "
+                      f"clip_score {score}; {card}; graph captures {caps}, their pools keep "
+                      f"{graphs_gb:.3f} GB reserved; launches: wrappers {dict(counts)}, trace "
+                      f"{traced}", flush=True)
+                if [(r["exp"], r["nfe"]) for r in rows] != [(lb, str(nfe)) for lb in labels]:
+                    raise AssertionError(f"{name}: table rows {rows}, expected {labels} of "
                                          f"nfe {nfe}")
-                if metrics["exp"] != [label]:
+                if metrics["exp"] != labels:
                     raise AssertionError(f"{name}: CLI returned {metrics}")
-                if not (np.isfinite(sec_img) and sec_img > 0):
+                if not all(np.isfinite(v) and v > 0 for v in sec_img):
                     raise AssertionError(f"{name}: time {sec_img} s/image")
-                if not (np.isfinite(score) and 0.0 <= score <= 100.0):
+                if not all(np.isfinite(v) and 0.0 <= v <= 100.0 for v in score):
                     raise AssertionError(f"{name}: clip_score {score}")
-                if len(pngs) != METHOD_BATCH or sizes != {(SIZE, SIZE)}:
-                    raise AssertionError(f"{name}: {len(pngs)} PNGs of sizes {sizes}, expected "
-                                         f"{METHOD_BATCH} of {SIZE}x{SIZE}")
-                if sorted(caps.values()) != [1] * len(variants):
+                if [len(ps) for ps in pngs.values()] != [METHOD_BATCH] * len(labels) or \
+                        sizes != {(SIZE, SIZE)}:
+                    raise AssertionError(f"{name}: PNGs {[len(ps) for ps in pngs.values()]} of "
+                                         f"sizes {sizes}, expected {METHOD_BATCH} of "
+                                         f"{SIZE}x{SIZE} for each of {labels}")
+                if sorted(caps.values()) != [1] * len(seen):
                     raise AssertionError(f"{name}: graph captures {caps}, expected one for each "
-                                         f"of {len(variants)} UNet call variants")
+                                         f"of {len(seen)} UNet call variants")
                 if counts != dict(want):
                     raise AssertionError(f"{name}: wrapper launches {counts}, expected "
                                          f"{dict(want)}")
-                if traced is not None:
-                    replays = {"full": full_steps, "shallow": nfe - full_steps}
-                    want_traced = {"attention_fp32": clip_per_batch}
-                    for k in MAIN:
-                        want_traced[k] = sum((W + replays[v]) * c[k]
-                                             for v, c in variants.items()) + sum(
-                            n * per_vae[b][k] for b, n in decodes.items())
-                    if traced != want_traced:
-                        raise AssertionError(f"{name}: traced kernel executions {traced}, "
-                                             f"expected {want_traced}")
+                if traced is not None and traced != dict(want_traced):
+                    raise AssertionError(f"{name}: traced kernel executions {traced}, "
+                                         f"expected {dict(want_traced)}")
                 if name == "consistency_model_config" and merged != lora_modules:
                     raise AssertionError(f"fuse_lora merged {len(merged)} modules, the file "
                                          f"names {len(lora_modules)}")
-                out[name] = dict(label=label, nfe=nfe, unet_batch=unet_batch, wall_s=wall,
-                                 sec_per_image=sec_img, clip_score=score, graph_captures=len(caps),
-                                 wrapper_launches=counts, traced_launches=traced)
+                caps = {", ".join(f"{k}={v}" for k, v in key) or "plain": n
+                        for key, n in caps.items()}
+                out[name] = dict(labels=labels, nfe=nfe, unet_batch=unet_batch, wall_s=wall,
+                                sec_per_image=sec_img, clip_score=score, graph_captures=caps,
+                                graph_reserved_gb=graphs_gb, wrapper_launches=counts,
+                                traced_launches=traced)
                 if merged:
                     out[name]["lora_modules_merged"] = len(merged)
-                for p in pngs:
+                for p in (p for ps in pngs.values() for p in ps):
                     p.unlink()
                 gc.collect()
                 torch.cuda.empty_cache()
         finally:
             os.chdir(cwd)
-    report["e2e"]["methods"] = out
+    return out
+
+
+def _as_points(run):
+    """(config, overrides, [(label, ToMe ratio or None)], nfe, CFG factor,
+    x0, DeepCache full steps) of a METHOD_RUNS entry (one label) or a
+    SAMPLER_RUNS entry."""
+    name, point, labels, *rest = run
+    return (name, point, [(labels, None)] if isinstance(labels, str) else labels, *rest)
 
 
 def methods_tiny_card_vs_cpu():
@@ -1212,6 +1293,182 @@ def engine_timings(card, reps=3):
     return out
 
 
+# ----------------------------------------------- samplers, Token Merging
+def samplers_tiny_card_vs_cpu():
+    """Tiny fp32 runs on the card against the same runs on the CPU, at
+    batch 2 and CFG 7.5: 20-step DPM++ with ToMe at 0.5 (each step's
+    destinations drawn once and given to both), 10-step Heun (19 UNet
+    calls) and 20-step Euler-ancestral (step noise given); returns each
+    card run's image error and fp32 attention launches, which must be the
+    tiny census's (at the merged shapes for ToMe)."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention_tf32x3
+    from sonicdiffusionbayeslab_torch.ops.tome import TomeConfig
+    from sonicdiffusionbayeslab_torch.schedulers import (DPMSolverScheduler,
+                                                         EulerAncestralScheduler, HeunScheduler)
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+    from sonicdiffusionbayeslab_torch.utils.rng import tome_destinations
+
+    W = GraphedCall.WARMUP
+    cpu = StableDiffusionModel(tiny=True, dtype="float32", seed=0, device="cpu")
+    card = StableDiffusionModel(tiny=True, dtype="float32", seed=0, device="cuda")
+    card.engine.load_state_dicts({k: m.state_dict() for k, m in
+                                  zip(("unet", "vae", "text"), cpu.engine.modules())})
+    prompts = ["a lighthouse at dusk", "a red boat"]
+    tome = TomeConfig(0.5)
+    dpm = DPMSolverScheduler(solver_order=2).build_plan(STEPS)
+    slots = cpu.engine.unet.tome_slots(8, 8, tome)
+    dst = torch.stack([tome_destinations(int(ts), slots, tome) for ts in dpm.timesteps])
+    anc = EulerAncestralScheduler().build_plan(STEPS)
+    noise = torch.randn((anc.num_steps, 2, 8, 8, 4), generator=torch.Generator().manual_seed(6))
+    runs = {"tome_0.5": (dpm, dict(tome=tome, tome_dst=dst), 0.5),
+            "heun": (HeunScheduler().build_plan(10), {}, None),
+            "euler_ancestral": (anc, dict(step_noise=noise), None)}
+    per_vae = _kinds(module_census(vae_batch=BATCH, tiny=True))["attention"]
+    out, seen = {}, set()
+    for name, (plan, kw, ratio) in runs.items():
+        images = []
+        for model in (cpu, card):
+            eng = model.engine
+            emb = eng.encode_prompts(model.tokenizer(prompts))
+            neg = eng.encode_prompts(model.tokenizer([""] * 2))
+            flash_attention_tf32x3.launches = 0
+            res = eng.sample(plan, emb, neg, seed=29, guidance_scale=GUIDANCE, latent_hw=(8, 8),
+                             **kw)
+            images.append(res.images.cpu().numpy())
+        launches = flash_attention_tf32x3.launches
+        # A variant's first run captures its graph; Heun's plain graph
+        # serves Euler-ancestral's run (the same shapes) as replays.
+        census = _kinds(module_census(2 * BATCH, tiny=True, tome=ratio))["attention"]
+        want = (W + 1) * census * (ratio not in seen) + per_vae
+        seen.add(ratio)
+        err = float(np.abs(images[0] - images[1]).max())
+        print(f"tiny fp32 {name} run ({plan.nfe} UNet calls), card vs CPU: max abs image err "
+              f"{err:.3e} (tolerance 1e-3); flash_attention_tf32x3 launches {launches}",
+              flush=True)
+        # fp32 both sides, TF32 off: summation order over the run's CFG steps.
+        if not err <= 1e-3:
+            raise AssertionError(f"the tiny {name} run on the card disagrees with the CPU")
+        if launches != want or launches <= 0:
+            raise AssertionError(f"the tiny {name} run launched the fp32 attention kernel "
+                                 f"{launches} times, expected {want}")
+        out[name] = dict(max_abs_image_err=err, fp32_attention_launches=launches, nfe=plan.nfe)
+    return out
+
+
+def sampler_pipeline_runs(card, per_vae, profile, reps=3):
+    """The pipeline at SD-1.5 bf16 512^2, batch 2, CFG 7.5: DPM++, UniPC,
+    DEIS, Euler, Euler-ancestral (20 steps), Heun (10 steps, 19 UNet calls),
+    DPM++ with guidance_rescale 0.7 and DPM++ with ToMe at 0.5 and 0.25.
+    A first run of each with the wrappers' counts set to 0 just before and
+    read just after (a variant's first run captures its graph: its census
+    at the merged shapes, W + 1 times; later runs of that variant replay;
+    then the decode), the memory each ToMe variant's graph keeps reserved,
+    and the warm execution_time, ``reps`` runs each in turns, median."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.schedulers import (DEISScheduler, DPMSolverScheduler,
+                                                         EulerAncestralScheduler, EulerScheduler,
+                                                         HeunScheduler, UniPCScheduler)
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    W = GraphedCall.WARMUP
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = StableDiffusionModel(image_size=SIZE, tiny=False, dtype="bfloat16", seed=0,
+                                 device="cuda")
+    dpm = DPMSolverScheduler(solver_order=2)
+    runs = {  # name: (scheduler, steps, UNet calls, guidance_rescale, ToMe ratio)
+        "dpm_solver": (dpm, STEPS, STEPS, 0.0, None),
+        "unipc": (UniPCScheduler(), STEPS, STEPS, 0.0, None),
+        "deis": (DEISScheduler(), STEPS, STEPS, 0.0, None),
+        "euler": (EulerScheduler(), STEPS, STEPS, 0.0, None),
+        "euler_ancestral": (EulerAncestralScheduler(), STEPS, STEPS, 0.0, None),
+        "heun": (HeunScheduler(), 10, 19, 0.0, None),
+        "dpm_guidance_rescale_0.7": (dpm, STEPS, STEPS, 0.7, None),
+        "dpm_tome_0.5": (dpm, STEPS, STEPS, 0.0, 0.5),
+        "dpm_tome_0.25": (dpm, STEPS, STEPS, 0.0, 0.25),
+    }
+
+    def call(name):
+        sched, steps, _, rescale, tome = runs[name]
+        model.scheduler, model.guidance_rescale = sched, rescale
+        return model(PROMPTS, num_inference_steps=steps, guidance_scale=GUIDANCE, seed=29,
+                     tome_ratio=tome)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = {"weights": torch.cuda.memory_reserved()}
+    out = {"first_run_wrapper_launches": {}, "graph_reserved_gb": {}}
+    seen = set()
+    for name, (_, _, calls, _, tome) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        wrapper_counts(reset=True)
+        imgs = call(name)[0]
+        counts = bf16_only(wrapper_counts(), name)
+        check_images(imgs)
+        if model.num_timesteps != calls:
+            raise AssertionError(f"{name}: {model.num_timesteps} UNet calls, expected {calls}")
+        census = _kinds(module_census(2 * BATCH, tome=tome))
+        want = {k: (W + 1) * census[k] * (tome not in seen) + per_vae[k] for k in MAIN}
+        if counts != want:
+            raise AssertionError(f"{name}: first run's wrapper launches {counts}, expected {want}")
+        out["first_run_wrapper_launches"][name] = counts
+        if tome not in seen:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            out["graph_reserved_gb"]["plain" if tome is None else f"tome_{tome}"] = (
+                torch.cuda.memory_reserved() - (before if tome else reserved["weights"])) / 1e9
+        seen.add(tome)
+    times = {name: [] for name in runs}
+    for i in range(reps):
+        for name in (runs if i % 2 == 0 else reversed(list(runs))):
+            imgs, exec_time, _ = call(name)
+            times[name].append(exec_time)
+    out.update(execution_time_s=times,
+               median_s={k: statistics.median(v) for k, v in times.items()},
+               unet_calls={k: r[2] for k, r in runs.items()})
+    if not np.isfinite(imgs).all():
+        raise AssertionError("non-finite images")
+    if profile:
+        model.scheduler, model.guidance_rescale = dpm, 0.0
+        out["profile_tome_0.5"] = profile_loop(model, tome=0.5)
+    print(f"pipeline, SD-1.5 bf16 {SIZE}x{SIZE}, batch {BATCH}, CFG {GUIDANCE} (warm, in turns, "
+          f"{reps} each): execution_time medians {out['median_s']} s over UNet calls "
+          f"{out['unet_calls']}; graphs reserve {out['graph_reserved_gb']} GB; first runs' "
+          f"wrapper launches {out['first_run_wrapper_launches']}; {card}", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_samplers(report, card, per_vae, profile):
+    """Phase 8: the remaining samplers and Token Merging."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report["e2e"]["samplers_tiny_card_vs_cpu"] = samplers_tiny_card_vs_cpu()
+    torch.backends.cudnn.allow_tf32 = True
+    report["e2e"]["sampler_pipeline"] = sampler_pipeline_runs(card, per_vae, profile)
+    report["e2e"]["samplers_cli"] = run_methods(card, SAMPLER_RUNS, trace_all=True)
+    # The bf16 kernel at ToMe's merged 64x64 self-attention (UNet batch 8,
+    # the CLI runs'), with its launches in one 20-step tome_config point.
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for ratio in TOME_RATIOS:
+        calls = module_census(2 * METHOD_BATCH, tome=ratio)
+        n = 4096 - int(4096 * ratio)
+        shape = (2 * METHOD_BATCH, n, n, 8, 40)
+        rows.append(timing_row("attention", shape, torch.bfloat16, f"tome_{ratio}",
+                               STEPS * calls[("attention", shape)], gen))
+    report["tome_timings"] = rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1251,13 +1508,21 @@ def main() -> None:
     # at batch 4, LCM's batch 4 without it) with DeepCache's shallow call at
     # 8 and, in phase 7's engine timings, at 4; VAE decodes of 8, 4 and 1
     # latents (x0 decodes of one sample); the tower at the validate batch 4.
+    # Phase 8 adds ToMe's merged shapes: the CLI runs' at UNet batch 8
+    # (ratios 0.25 and 0.5, the DeepCache run's full and shallow calls at
+    # 0.5) and the pipeline runs' at 4.
     cli_counts = collections.Counter()
     for kw in (dict(unet_batch=2 * CLI_BATCH, vae_batch=CLI_BATCH),
                dict(unet_batch=2 * METHOD_BATCH, vae_batch=METHOD_BATCH),
                dict(unet_batch=2 * METHOD_BATCH, shallow=True),
                dict(unet_batch=METHOD_BATCH, vae_batch=1),
-               dict(unet_batch=2 * BATCH, shallow=True)):
+               dict(unet_batch=2 * BATCH, shallow=True),
+               *(dict(unet_batch=b, tome=r) for b in (2 * METHOD_BATCH, 2 * BATCH)
+                 for r in TOME_RATIOS),
+               dict(unet_batch=2 * METHOD_BATCH, shallow=True, tome=0.5)):
         cli_counts.update(module_census(**kw))
+    # The tiny fp32 ToMe run of phase 8.
+    tiny_counts.update(module_census(2 * BATCH, tiny=True, tome=0.5))
     clip_method_counts = clip_census(METHOD_BATCH)
     order = lambda ks: (ks[0], [str(v) for v in ks[1]])  # noqa: E731
     shapes = sorted(run_counts, key=order)
@@ -1314,10 +1579,13 @@ def main() -> None:
     report["e2e"]["methods_tiny_card_vs_cpu"] = methods_tiny_card_vs_cpu()
     torch.backends.cudnn.allow_tf32 = True
     report["e2e"]["engine_timings"] = engine_timings(card)
-    run_methods(report, card)
+    report["e2e"]["methods"] = run_methods(card, METHOD_RUNS)
 
-    phase("8. kernels")
-    print(f"phases 1-7 took {time.perf_counter() - _T0:.1f} s; {card}")
+    phase(f"8. the remaining samplers and Token Merging at SD-1.5 {SIZE}x{SIZE}")
+    run_samplers(report, card, per_vae, args.profile)
+
+    phase("9. kernels")
+    print(f"phases 1-8 took {time.perf_counter() - _T0:.1f} s; {card}")
     kernels = []
     for kind, meta in KERNELS.items():
         r = report[kind]
@@ -1327,6 +1595,14 @@ def main() -> None:
             "launches_from": r["launches_from"],
             "phase7_wrapper_launches": {n: m["wrapper_launches"][kind]
                                         for n, m in report["e2e"]["methods"].items()},
+            "phase8_wrapper_launches": {
+                **{n: m["wrapper_launches"][kind]
+                   for n, m in report["e2e"]["samplers_cli"].items()},
+                **{f"pipeline {n}": c.get(kind, 0) for n, c in
+                   report["e2e"]["sampler_pipeline"]["first_run_wrapper_launches"].items()},
+                **{f"tiny {n}": m["fp32_attention_launches"] for n, m in
+                   report["e2e"]["samplers_tiny_card_vs_cpu"].items()
+                   if kind == "attention_fp32"}},
             "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_by_ms"], key=r["bound_by_ms"].get),
@@ -1341,7 +1617,8 @@ def main() -> None:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-             "kernels": kernels, "timings": rows, "e2e": report["e2e"],
+             "kernels": kernels, "timings": rows, "tome_timings": report["tome_timings"],
+             "e2e": report["e2e"],
              "attention_fp32_totals": fp32_totals,
              "profile": report.get("profile")}, indent=1))
     print(card)

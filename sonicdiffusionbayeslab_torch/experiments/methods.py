@@ -1,9 +1,11 @@
 """Experiment methods of the port (``methods_registry``).
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/experiments/methods.py``: the
-reference's ``default`` (PNDM), ``ddim``, ``dpm_solver``, ``deep_cache``,
-``consistency_model`` (LCM), ``two_schedulers``, ``interliving_schedulers``
-and ``skip_steps``, with the JAX methods' grid labels and call arguments.
+reference's ``default`` (PNDM), ``ddim``, ``dpm_solver``, ``deep_cache``
+(with Token Merging's ``tome_ratio``), ``consistency_model`` (LCM),
+``two_schedulers``, ``interliving_schedulers`` and ``skip_steps``, and the
+JAX package's ``unipc``, ``deis`` and ``tome``, with the JAX methods' grid
+labels and call arguments.
 A method is a scheduler assignment and a grid definition; generation and
 validation live in ``BaseMethod``.
 """
@@ -82,22 +84,55 @@ class DPMSolverMethod(BaseMethod):
         return _steps_grid(self.params, [20])
 
 
+@methods_registry.add_to_registry("unipc")
+class UniPCMethod(BaseMethod):
+    """UniPC step sweep, the same sweep as dpm_solver's."""
+
+    def setup_scheduler(self) -> None:
+        self.model.scheduler = self.build_scheduler(
+            self.config.scheduler.get("scheduler_name", "unipc_scheduler"),
+            solver_order=int(self.params.get("solver_order", 2)),
+            variant=self.params.get("variant", "bh2"),
+            use_corrector=bool(self.params.get("use_corrector", True)),
+            use_karras_sigmas=bool(self.params.get("use_karras_sigmas", False)),
+        )
+
+    def grid(self) -> Iterable[dict]:
+        return _steps_grid(self.params, [20])
+
+
+@methods_registry.add_to_registry("deis")
+class DEISMethod(BaseMethod):
+    """DEIS-logrho step sweep, the same sweep as dpm_solver's."""
+
+    def setup_scheduler(self) -> None:
+        self.model.scheduler = self.build_scheduler(
+            self.config.scheduler.get("scheduler_name", "deis_scheduler"),
+            solver_order=int(self.params.get("solver_order", 2)),
+            final_sigmas_type=self.params.get("final_sigmas_type", "zero"),
+            use_karras_sigmas=bool(self.params.get("use_karras_sigmas", False)),
+        )
+
+    def grid(self) -> Iterable[dict]:
+        return _steps_grid(self.params, [20])
+
+
 @methods_registry.add_to_registry("deep_cache")
 class DeepCacheMethod(BaseMethod):
     """DeepCache sweep over (cache_interval x steps): each grid point's
     ``pre`` hook sets the pipeline's ``cache_plan_fn``, which the run
-    clears at its end."""
+    clears at its end.  An optional ``tome_ratio`` adds Token Merging to
+    every point."""
 
     def grid(self) -> Iterable[dict]:
-        if self.params.get("tome_ratio") is not None:
-            raise NotImplementedError("tome_ratio (Token Merging) is not ported yet to the "
-                                      "PyTorch package")
         branch = int(self.params.get("cache_branch_id", 0))
+        tome = self.params.get("tome_ratio")
+        extra = {"tome_ratio": float(tome)} if tome is not None else {}
         for interval in _sweep(self.params.get("cache_interval", [2])):
             for steps in _sweep(self.params.get("num_inference_steps", [50])):
                 yield {
                     "label": f"interval_{interval}_steps_{steps}",
-                    "call_kw": {"num_inference_steps": int(steps)},
+                    "call_kw": {"num_inference_steps": int(steps), **extra},
                     "pre": lambda interval=interval: self._enable(int(interval), branch),
                 }
 
@@ -243,3 +278,26 @@ class SkipStepsMethod(BaseMethod):
                     "use_x0": True,
                 },
             }
+
+
+@methods_registry.add_to_registry("tome")
+class TomeMethod(BaseMethod):
+    """Token Merging sweep over (tome_ratio x steps) on the config's
+    scheduler (DPM-Solver++ by default)."""
+
+    def setup_scheduler(self) -> None:
+        self.model.scheduler = self.build_scheduler(
+            self.config.scheduler.get("scheduler_name", "dpm_solver_scheduler")
+            if self.config.get("scheduler")
+            else "dpm_solver_scheduler",
+            solver_order=int(self.params.get("solver_order", 2)),
+        )
+
+    def grid(self) -> Iterable[dict]:
+        for ratio in _sweep(self.params.get("tome_ratio", [0.5])):
+            for steps in _sweep(self.params.get("num_inference_steps", [20])):
+                yield {
+                    "label": f"ratio_{ratio}_steps_{steps}",
+                    "call_kw": {"num_inference_steps": int(steps), "tome_ratio": float(ratio),
+                                "use_x0": True},
+                }

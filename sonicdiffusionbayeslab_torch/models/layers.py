@@ -28,6 +28,7 @@ from torch import nn
 
 from sonicdiffusionbayeslab_torch.ops.attention import dot_product_attention
 from sonicdiffusionbayeslab_torch.ops.groupnorm import group_norm_silu
+from sonicdiffusionbayeslab_torch.ops.tome import bipartite_soft_matching_2d
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -149,7 +150,15 @@ class GEGLUFeedForward(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """LN -> self-attn -> LN -> cross-attn -> LN -> GEGLU FF, pre-norm residuals."""
+    """LN -> self-attn -> LN -> cross-attn -> LN -> GEGLU FF, pre-norm residuals.
+
+    With ``tome`` (a ``TomeConfig``), Token Merging around the
+    self-attention: the block's input is the similarity metric, ``norm1(x)``
+    is merged, the attention runs on the merged tokens and its output is
+    unmerged.  ``tome_hw`` is the token map's (H, W), ``tome_dst`` its
+    destinations (None: each cell's top-left token).  ``tome_cache`` (one
+    dict per UNet call) shares one matching per (H, W, batch) among the
+    blocks when ``tome.share``."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int):
         super().__init__()
@@ -160,15 +169,37 @@ class TransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x: torch.Tensor, context: torch.Tensor, tome=None, tome_hw=None,
+                tome_dst: Optional[torch.Tensor] = None,
+                tome_cache: Optional[dict] = None) -> torch.Tensor:
+        if tome is None:
+            x = x + self.attn1(self.norm1(x))
+        else:
+            merge, unmerge = self._matching(x, tome, tome_hw, tome_dst, tome_cache)
+            x = x + unmerge(self.attn1(merge(self.norm1(x))))
         x = x + self.attn2(self.norm2(x), context=context)
         return x + self.ff(self.norm3(x))
+
+    @staticmethod
+    def _matching(x, tome, hw, dst, cache):
+        share = tome.share and cache is not None
+        if share:  # a matching of this map built at a batch that divides x's
+            for (h, w, b), mu in cache.items():
+                if (h, w) == tuple(hw) and x.shape[0] % b == 0:
+                    return mu
+        mu = bipartite_soft_matching_2d(x, hw[0], hw[1], tome, dst)
+        if share:
+            cache[(hw[0], hw[1], x.shape[0])] = mu
+        return mu
 
 
 class SpatialTransformer(nn.Module):
     """Transformer2D over a [B, H, W, C] map: GN -> proj_in -> blocks ->
-    proj_out, plus the residual.  proj_in/out are 1x1 convs (SD-1.5)."""
+    proj_out, plus the residual.  proj_in/out are 1x1 convs (SD-1.5).
+    ``tome``/``tome_dst``/``tome_cache``: Token Merging in each block
+    (``TransformerBlock``); ``tome_dst`` holds one row of destinations per
+    block.  A map that the cells do not tile (H % sy or W % sx) runs
+    without it."""
 
     def __init__(self, channels: int, num_heads: int, head_dim: int, context_dim: int,
                  depth: int = 1):
@@ -179,12 +210,20 @@ class SpatialTransformer(nn.Module):
             [TransformerBlock(channels, num_heads, head_dim, context_dim) for _ in range(depth)])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor, tome=None,
+                tome_dst: Optional[torch.Tensor] = None,
+                tome_cache: Optional[dict] = None) -> torch.Tensor:
         B, H, W, C = x.shape
+        if tome is not None and (H % tome.sy or W % tome.sx):
+            tome = None
         h = self.norm(x).reshape(B, H * W, C)
         h = F.linear(h, self.proj_in.weight.flatten(1), self.proj_in.bias)
-        for block in self.transformer_blocks:
-            h = block(h, context)
+        for i, block in enumerate(self.transformer_blocks):
+            if tome is None:
+                h = block(h, context)
+            else:
+                dst = None if tome_dst is None else tome_dst[i, :tome.n_dst(H, W)]
+                h = block(h, context, tome, (H, W), dst, tome_cache)
         h = F.linear(h, self.proj_out.weight.flatten(1), self.proj_out.bias)
         return h.reshape(B, H, W, C) + x
 

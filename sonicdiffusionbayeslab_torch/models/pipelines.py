@@ -46,10 +46,11 @@ class StableDiffusionModel:
     UNet call variant it runs, in place of that variant's previous one
     (DeepCache runs two variants).  The experiment assigns
     ``scheduler`` and may set ``unet_microbatch`` and ``cache_plan_fn``
-    (DeepCache: plan length -> ``CachePlan``); each call sets
-    ``num_timesteps`` to its plan's number of UNet evaluations.  ``lora``
-    is the config's LoRA path, which the ``consistency_model`` method
-    loads."""
+    (DeepCache: plan length -> ``CachePlan``), ``tome_ratio`` (Token
+    Merging; a call's ``tome_ratio`` overrides it) and ``guidance_rescale``
+    (rescaled CFG, 0 for off); each call sets ``num_timesteps`` to its
+    plan's number of UNet evaluations.  ``lora`` is the config's LoRA path,
+    which the ``consistency_model`` method loads."""
 
     def __init__(self, pretrained_model: str = "runwayml/stable-diffusion-v1-5",
                  image_size: int = 512, tiny: bool = False, dtype: str = "bfloat16",
@@ -78,6 +79,8 @@ class StableDiffusionModel:
         self.num_timesteps = 0  # NFE of the last call
         self.unet_microbatch: Optional[int] = None  # the calls' default
         self.cache_plan_fn = None  # DeepCache hook (set by the deep_cache method)
+        self.tome_ratio = None  # Token Merging: a ratio or a TomeConfig
+        self.guidance_rescale = 0.0
         self._pending_lora = None
         self.lora_merged: List[str] = []  # modules the last fuse_lora changed
 
@@ -123,6 +126,7 @@ class StableDiffusionModel:
         height: Optional[int] = None,
         width: Optional[int] = None,
         unet_microbatch: Optional[int] = None,
+        tome_ratio: Optional[float] = None,
         **plan_kw,
     ):
         """Returns (images [B, H, W, 3] in [0, 1] as numpy, or the final
@@ -152,6 +156,8 @@ class StableDiffusionModel:
             latent_hw=lat_hw, collect_x0=use_x0,
             x0_samples=x0_samples, decode=output_type != "latent",
             microbatch=self.unet_microbatch if unet_microbatch is None else unet_microbatch,
+            guidance_rescale=self.guidance_rescale,
+            tome=self.tome_ratio if tome_ratio is None else tome_ratio,
         )
         images = out.images if out.images is not None else out.latents
         x0 = out.x0_images.cpu().numpy() if out.x0_images is not None else None

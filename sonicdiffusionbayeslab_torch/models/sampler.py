@@ -3,12 +3,12 @@ and the VAE decode.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/sampler.py::
 StableDiffusionEngine`` on the text-to-image path, with DeepCache
-(``CachePlan``) and noise-injecting plans.  The JAX engine scans a jitted
+(``CachePlan``), Token Merging, noise-injecting plans and rescaled CFG.  The JAX engine scans a jitted
 body over the plan's rows; here the loop is plain Python over the same
 rows, each step one UNet call (chunked when ``microbatch`` > 1), the CFG
 combine and one ``apply_row`` in fp32.  On a GPU each UNet call variant
-(plain; DeepCache's full and shallow calls) is replayed from its own CUDA
-graph (``utils/cuda_graph.py``), because eager PyTorch's host time per UNet
+(plain; DeepCache's full and shallow calls; each with its ToMe config) is
+replayed from its own CUDA graph (``utils/cuda_graph.py``), because eager PyTorch's host time per UNet
 forward exceeds its device time; on the CPU it runs eagerly.
 ``execution_time`` is the wall clock of the denoising loop alone, with the
 device synchronised on both sides (the reference's timing contract).
@@ -29,11 +29,16 @@ from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig, CLIPTe
 from sonicdiffusionbayeslab_torch.models.layers import GroupNorm
 from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
+from sonicdiffusionbayeslab_torch.ops.tome import TomeConfig
 from sonicdiffusionbayeslab_torch.schedulers.plan import SamplePlan
 from sonicdiffusionbayeslab_torch.schedulers.runtime import apply_row, init_carry, plan_rows, row
 from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedVariants
 from sonicdiffusionbayeslab_torch.utils.device import resolve_device, synchronize
-from sonicdiffusionbayeslab_torch.utils.rng import per_sample_latents, per_sample_step_noise
+from sonicdiffusionbayeslab_torch.utils.rng import (
+    per_sample_latents,
+    per_sample_step_noise,
+    tome_destinations,
+)
 
 # Probability mass of a standard normal inside [-2, 2], as the bounds of
 # the uniform draw that inverse-CDF sampling turns into a truncated normal.
@@ -165,17 +170,27 @@ class StableDiffusionEngine:
         return (img / 2 + 0.5).clamp(0.0, 1.0)
 
     # ------------------------------------------------------------- sample
-    def _unet_chunks(self, microbatch: int, *args: torch.Tensor, **static):
+    def _unet_chunks(self, microbatch: int, args, tome_dst=None, **static):
         """The UNet on the model batch as ``microbatch`` sequential chunks
-        (or whole); every tensor argument is batch-leading and chunks alike,
-        and so do the outputs (one tensor, or DeepCache's pair)."""
+        (or whole).  ``args`` (latents, timesteps, context and DeepCache's
+        features or None) are batch-leading and chunk alike, and so do the
+        outputs (one tensor, or DeepCache's pair); ``tome_dst`` goes whole
+        to every chunk."""
         unet = self.graphed_unet if self.device.type == "cuda" else self.unet
+
+        def call(*part):
+            part = (*part, tome_dst)
+            while part[-1] is None:
+                part = part[:-1]
+            return unet(*part, **static)
+
         if microbatch <= 1:
-            return unet(*args, **static)
+            return call(*args)
         if args[0].shape[0] % microbatch:
             raise ValueError(f"unet_microbatch {microbatch} must divide the model batch "
                              f"{args[0].shape[0]}")
-        outs = [unet(*part, **static) for part in zip(*(a.chunk(microbatch) for a in args))]
+        chunks = [[None] * microbatch if a is None else a.chunk(microbatch) for a in args]
+        outs = [call(*part) for part in zip(*chunks)]
         if isinstance(outs[0], tuple):
             return tuple(torch.cat(o) for o in zip(*outs))
         return torch.cat(outs)
@@ -189,6 +204,7 @@ class StableDiffusionEngine:
         seed: int = 0,
         sample_indices: Optional[Sequence[int]] = None,
         guidance_scale: float = 7.5,
+        guidance_rescale: float = 0.0,
         cache_plan: Optional[CachePlan] = None,
         latent_hw: Tuple[int, int] = (64, 64),
         collect_x0: bool = False,
@@ -197,13 +213,22 @@ class StableDiffusionEngine:
         init_latents: Optional[torch.Tensor] = None,
         microbatch: Optional[int] = None,
         step_noise: Optional[torch.Tensor] = None,  # [L, B, h, w, C]
+        tome=None,  # a ratio in (0, 1) or a TomeConfig
+        tome_dst: Optional[torch.Tensor] = None,  # [L, slots, D]
     ) -> SampleOutput:
         """One batch: CFG-doubled UNet calls over the plan's rows, then the
         decode.  Sample ``i``'s initial latents depend only on (seed, i)
         unless ``init_latents`` is given; a noise-injecting plan's noise at
         step k depends only on (seed, i, k) unless ``step_noise`` is given.
         With ``cache_plan`` the steps it marks not full run only the UNet's
-        shallow branch on the trunk features of the last full step."""
+        shallow branch on the trunk features of the last full step.
+
+        ``guidance_rescale`` > 0 rescales the CFG combination toward the
+        conditional prediction's standard deviation (Lin et al. 2023).
+        ``tome`` merges tokens around the UNet's self-attentions
+        (``ops/tome.py``); with ``tome.rand`` step i's destinations are
+        drawn before the loop from (timestep, site, block) unless
+        ``tome_dst`` gives them (row i for every call of step i)."""
         dev = self.device
         B = int(prompt_embeds.shape[0])
         do_cfg = guidance_scale > 1.0 and negative_embeds is not None
@@ -229,6 +254,8 @@ class StableDiffusionEngine:
                 raise ValueError("first step must compute the deep trunk")
         microbatch = int(microbatch or 0)
         x0_count = B if x0_samples is None else max(1, min(int(x0_samples), B))
+        tome, dst = self._tome_destinations(plan, tome, tome_dst, cache_plan, latent_hw)
+        static = {} if tome is None else {"tome": tome}
 
         xs = plan_rows(plan, dev)
         carry = init_carry(plan, latents0)
@@ -242,18 +269,27 @@ class StableDiffusionEngine:
             lat_in = (torch.cat([lat, lat]) if do_cfg else lat).to(self.dtype)
             tb = r["timestep"].expand(lat_in.shape[0])
             if cache_plan is None:
-                noise_pred = self._unet_chunks(microbatch, lat_in, tb, embeds)
+                noise_pred = self._unet_chunks(microbatch, (lat_in, tb, embeds, None),
+                                               dst["full"][i] if dst else None, **static)
             elif cache_plan.full[i]:
-                noise_pred, cache = self._unet_chunks(microbatch, lat_in, tb, embeds,
+                noise_pred, cache = self._unet_chunks(microbatch, (lat_in, tb, embeds, None),
+                                                      dst["full"][i] if dst else None,
                                                       return_cache=True,
-                                                      cache_branch_id=cache_plan.branch)
+                                                      cache_branch_id=cache_plan.branch, **static)
             else:
-                noise_pred = self._unet_chunks(microbatch, lat_in, tb, embeds, cache,
-                                               cache_branch_id=cache_plan.branch)
+                noise_pred = self._unet_chunks(microbatch, (lat_in, tb, embeds, cache),
+                                               dst["shallow"][i] if dst else None,
+                                               cache_branch_id=cache_plan.branch, **static)
             noise_pred = noise_pred.float()
             if do_cfg:
                 eps_u, eps_t = noise_pred.chunk(2)
                 eps = eps_u + guidance_scale * (eps_t - eps_u)
+                if guidance_rescale > 0.0:
+                    axes = tuple(range(1, eps.dim()))
+                    std_t = eps_t.std(dim=axes, keepdim=True, correction=0)
+                    std_c = eps.std(dim=axes, keepdim=True, correction=0)
+                    eps = (guidance_rescale * (eps * std_t / std_c)
+                           + (1.0 - guidance_rescale) * eps)
             else:
                 eps = noise_pred
             noise = None
@@ -271,3 +307,29 @@ class StableDiffusionEngine:
         x0_images = torch.stack([self.decode(x) for x in x0s]) if collect_x0 else None
         return SampleOutput(images=images, execution_time=execution_time,
                             x0_images=x0_images, latents=latents, nfe=plan.nfe)
+
+    def _tome_destinations(self, plan, tome, tome_dst, cache_plan, latent_hw):
+        """(TomeConfig or None, {call variant: [L, slots, D] destinations on
+        the device} or None).  A ratio <= 0 turns ToMe off.  Without
+        ``tome_dst`` each variant's slots (a full call's, and DeepCache's
+        shallow call's) are drawn per step."""
+        if tome is not None and not isinstance(tome, TomeConfig):
+            tome = TomeConfig(ratio=float(tome)) if float(tome) > 0 else None
+        if tome is None or not tome.rand:
+            if tome_dst is not None:
+                raise ValueError("tome_dst needs a ToMe config with rand")
+            return tome, None
+        variants = {"full": None} if cache_plan is None else {"full": None,
+                                                               "shallow": cache_plan.branch}
+        if tome_dst is not None:
+            tome_dst = torch.as_tensor(tome_dst, dtype=torch.int64)
+            if tome_dst.dim() != 3 or tome_dst.shape[0] != plan.num_steps:
+                raise ValueError(f"tome_dst {tuple(tome_dst.shape)} is not [{plan.num_steps}, "
+                                 f"slots, D]")
+            return tome, {v: tome_dst.to(self.device) for v in variants}
+        out = {}
+        for v, branch in variants.items():
+            slots = self.unet.tome_slots(*latent_hw, tome, branch)
+            out[v] = torch.stack([tome_destinations(int(t), slots, tome)
+                                  for t in plan.timesteps]).to(self.device)
+        return tome, out

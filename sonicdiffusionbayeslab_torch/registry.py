@@ -36,14 +36,9 @@ models_registry = PortRegistry("models_registry", (
     "stable_diffusion_3_model_skip_timesteps", "stable_diffusion_3_model_two_schedulers",
     "stable_diffusion_controlnet_model", "stable_diffusion_xl_model",
 ))
-methods_registry = PortRegistry("methods_registry", (
-    "deis", "flow_euler", "tome", "unipc",
-))
+methods_registry = PortRegistry("methods_registry", ("flow_euler",))
 metrics_registry = PortRegistry("metrics_registry", ("aesthetic_score", "fid", "image_reward"))
-schedulers_registry = PortRegistry("schedulers_registry", (
-    "deis_scheduler", "euler_ancestral_scheduler", "euler_scheduler",
-    "flow_match_euler_scheduler", "heun_scheduler", "unipc_scheduler",
-))
+schedulers_registry = PortRegistry("schedulers_registry", ("flow_match_euler_scheduler",))
 
 
 def load_all_plugins() -> None:

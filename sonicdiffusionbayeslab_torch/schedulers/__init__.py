@@ -19,12 +19,14 @@ import numpy as np
 
 from sonicdiffusionbayeslab_torch.registry import schedulers_registry
 from sonicdiffusionbayeslab_torch.schedulers.ddim import ddim_rows, ddim_transition_row
+from sonicdiffusionbayeslab_torch.schedulers.deis import deis_rows
 from sonicdiffusionbayeslab_torch.schedulers.dpm import (
     dpm_rows,
     make_karras_ladder,
     make_ladder,
     simulate_orders,
 )
+from sonicdiffusionbayeslab_torch.schedulers.euler import euler_rows, euler_sigmas, heun_rows
 from sonicdiffusionbayeslab_torch.schedulers.lcm import lcm_rows
 from sonicdiffusionbayeslab_torch.schedulers.plan import SamplePlan, StepRow, stack_rows
 from sonicdiffusionbayeslab_torch.schedulers.plans import (
@@ -36,12 +38,16 @@ from sonicdiffusionbayeslab_torch.schedulers.pndm import pndm_rows
 from sonicdiffusionbayeslab_torch.schedulers.schedule import (
     NoiseSchedule,
     ScheduleConfig,
+    karras_sigmas,
+    sigma_to_t,
     space_timesteps,
 )
+from sonicdiffusionbayeslab_torch.schedulers.unipc import unipc_rows
 
 __all__ = [
     "ScheduleConfig", "NoiseSchedule", "SamplePlan", "StepRow", "DDIMScheduler",
-    "DPMSolverScheduler", "LCMScheduler", "PNDMScheduler", "two_scheduler_plan",
+    "DEISScheduler", "DPMSolverScheduler", "EulerAncestralScheduler", "EulerScheduler",
+    "HeunScheduler", "LCMScheduler", "PNDMScheduler", "UniPCScheduler", "two_scheduler_plan",
     "interleave_plan", "skip_plan",
 ]
 
@@ -237,6 +243,17 @@ class DPMSolverScheduler(_MultistepLadderScheduler):
         return kw
 
 
+@schedulers_registry.add_to_registry("deis_scheduler")
+class DEISScheduler(_MultistepLadderScheduler):
+    """DEIS logrho multistep (``deis.py``): the multistep ladder body with
+    DEIS's row expansion."""
+
+    NAME = "deis"
+    PLAN_PREFIX = "deis"
+
+    _rows = staticmethod(deis_rows)
+
+
 @schedulers_registry.add_to_registry("lcm_scheduler")
 class LCMScheduler(_PlanBuilder):
     NAME = "lcm"
@@ -264,6 +281,123 @@ class LCMScheduler(_PlanBuilder):
             prediction_type=self.config.prediction_type,
         )
         return stack_rows(rows, name=f"lcm(n={num_steps})")
+
+
+@schedulers_registry.add_to_registry("unipc_scheduler")
+class UniPCScheduler(_PlanBuilder):
+    """UniPC multistep predictor-corrector (``unipc.py``)."""
+
+    NAME = "unipc"
+
+    def __init__(
+        self,
+        schedule_config=None,
+        prediction_type=None,
+        solver_order: int = 2,
+        variant: str = "bh2",
+        use_corrector: bool = True,
+        lower_order_final: bool = True,
+        final_sigmas_type: str = "zero",
+        use_karras_sigmas: bool = False,
+    ):
+        super().__init__(schedule_config, prediction_type)
+        if solver_order < 1:
+            raise ValueError(f"solver_order must be >= 1, got {solver_order}")
+        self.solver_order = int(solver_order)
+        self.variant = variant
+        self.use_corrector = bool(use_corrector)
+        self.lower_order_final = bool(lower_order_final)
+        self.final_sigmas_type = final_sigmas_type
+        self.use_karras_sigmas = bool(use_karras_sigmas)
+
+    _ladder = _MultistepLadderScheduler._ladder
+
+    def build_plan(self, num_steps: int) -> SamplePlan:
+        return self.tail_plan(num_steps, 0)
+
+    def tail_plan(self, num_steps: int, start_index: int) -> SamplePlan:
+        """Steps ``start_index..`` of an ``num_steps`` run, the orders
+        ramping from 1 at the first executed step; the corrector reads one
+        history slot more than the predictor."""
+        rows = unipc_rows(
+            self.schedule, self._ladder(num_steps), range(start_index, num_steps),
+            solver_order=self.solver_order, variant=self.variant,
+            use_corrector=self.use_corrector, lower_order_final=self.lower_order_final,
+            prediction_type=self.config.prediction_type,
+        )
+        kar = "-karras" if self.use_karras_sigmas else ""
+        sfx = f"[{start_index}:]" if start_index else ""
+        return stack_rows(
+            rows, name=f"unipc{self.solver_order}-{self.variant}{kar}(n={num_steps}){sfx}",
+            hist_depth=self.solver_order + 1,
+        )
+
+
+@schedulers_registry.add_to_registry("euler_scheduler")
+class EulerScheduler(_PlanBuilder):
+    """Euler discrete in sigma space (``euler.py``): the composers refuse
+    to join it to a VP scheduler."""
+
+    NAME = "euler"
+    ANCESTRAL = False
+    SPACE = "sigma"
+
+    def __init__(self, schedule_config=None, prediction_type=None,
+                 use_karras_sigmas: bool = False):
+        super().__init__(schedule_config, prediction_type)
+        self.use_karras_sigmas = bool(use_karras_sigmas)
+
+    def _grid(self, num_steps: int):
+        """(timesteps, sigmas [num_steps + 1], init_noise_sigma) of the
+        whole schedule."""
+        if self.use_karras_sigmas:
+            table = np.sqrt((1.0 - self.schedule.alphas_cumprod) / self.schedule.alphas_cumprod)
+            sig = karras_sigmas(float(table[0]), float(table[-1]), num_steps)
+            ts = sigma_to_t(self.schedule, sig)
+            sigmas = np.concatenate([sig, [0.0]])
+        else:
+            ts = self.timesteps(num_steps)
+            sigmas = euler_sigmas(self.schedule, ts)
+        init = float(sigmas[0] if self.config.timestep_spacing in ("linspace", "trailing")
+                     else np.sqrt(sigmas[0] ** 2 + 1.0))
+        return ts, sigmas, init
+
+    def _rows(self, ts, sigmas):
+        return euler_rows(self.schedule, ts, ancestral=self.ANCESTRAL,
+                          prediction_type=self.config.prediction_type, sigmas=sigmas)
+
+    def build_plan(self, num_steps: int) -> SamplePlan:
+        return self.tail_plan(num_steps, 0)
+
+    def tail_plan(self, num_steps: int, start_index: int) -> SamplePlan:
+        """Rows of steps ``start_index..``; only a run from step 0 scales
+        its initial latents by ``init_noise_sigma``."""
+        ts, sigmas, init = self._grid(num_steps)
+        kar = "-karras" if self.use_karras_sigmas else ""
+        sfx = f"[{start_index}:]" if start_index else ""
+        return stack_rows(self._rows(ts[start_index:], sigmas[start_index:]),
+                          name=f"{self.NAME}{kar}(n={num_steps}){sfx}",
+                          init_scale=init if start_index == 0 else 1.0)
+
+
+@schedulers_registry.add_to_registry("euler_ancestral_scheduler")
+class EulerAncestralScheduler(EulerScheduler):
+    """Euler-ancestral: each row but the last injects fresh noise."""
+
+    NAME = "euler_ancestral"
+    ANCESTRAL = True
+
+
+@schedulers_registry.add_to_registry("heun_scheduler")
+class HeunScheduler(EulerScheduler):
+    """Heun's second-order method: two UNet evaluations per transition but
+    the last, so ``n`` steps are ``2n - 1`` rows."""
+
+    NAME = "heun"
+
+    def _rows(self, ts, sigmas):
+        return heun_rows(self.schedule, ts, prediction_type=self.config.prediction_type,
+                         sigmas=sigmas)
 
 
 @schedulers_registry.add_to_registry("pndm_scheduler")

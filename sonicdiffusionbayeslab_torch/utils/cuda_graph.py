@@ -36,8 +36,9 @@ import torch
 
 class GraphedCall:
     """``fn(*tensors) -> tensor or tuple of tensors``, replayed from a CUDA
-    graph of the last input signature it was called with.  ``captures``
-    counts the captures."""
+    graph of the last input signature it was called with (an argument may
+    be None, which is part of the signature).  ``captures`` counts the
+    captures."""
 
     WARMUP = 2
 
@@ -52,7 +53,7 @@ class GraphedCall:
         self.key = self.graph = None
 
     def __call__(self, *args: torch.Tensor):
-        key = tuple((a.shape, a.dtype, a.device) for a in args)
+        key = tuple(None if a is None else (a.shape, a.dtype, a.device) for a in args)
         if key != self.key:
             self.clear()
             self.graph = self._capture(args)
@@ -60,14 +61,15 @@ class GraphedCall:
             self.captures += 1
         graph, static_in, static_out = self.graph
         for s, a in zip(static_in, args):
-            s.copy_(a)
+            if a is not None:
+                s.copy_(a)
         graph.replay()
         if isinstance(static_out, tuple):
             return tuple(o.clone() for o in static_out)
         return static_out.clone()
 
     def _capture(self, args):
-        static_in = [a.clone() for a in args]
+        static_in = [None if a is None else a.clone() for a in args]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):

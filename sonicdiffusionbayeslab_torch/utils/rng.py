@@ -10,6 +10,11 @@ from the JAX package's, so parity tests pass ``init_latents``.
 Noise-injecting plans (LCM) draw fresh noise at each denoising step the
 same way: sample ``i``'s noise at step ``k`` depends only on (seed, i, k).
 
+Token Merging's random destinations (one per cell of each ToMe slot's
+token map) depend only on (timestep, site, block), with no seed, as the JAX
+package's ``fold_in`` chain from ``PRNGKey(0x703E)`` does; the draws are
+the port's own, so parity tests pass the JAX package's destinations.
+
 An experiment's grid point ``g`` draws from ``grid_seed(seed, g)`` where
 the JAX package folds ``g`` into its key: latents then depend only on
 (seed, grid point, sample index), as there.
@@ -22,9 +27,12 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from sonicdiffusionbayeslab_torch.ops.tome import dst_index_grid
 
 # Separates the step-noise streams from the initial latents' streams.
 STEP_NOISE_TAG = 0x5EED
+# The stream of Token Merging's destinations.
+TOME_TAG = 0x703E
 
 
 def sample_generator(seed: int, index: int, *stream: int) -> torch.Generator:
@@ -49,6 +57,19 @@ def per_sample_step_noise(seed: int, sample_indices: Sequence[int], step: int, s
     rows = [torch.randn(tuple(shape), generator=sample_generator(seed, i, STEP_NOISE_TAG, step),
                         dtype=torch.float32) for i in sample_indices]
     return torch.stack(rows).to(device=device)
+
+
+def tome_destinations(timestep: int, slots, tome) -> torch.Tensor:
+    """[len(slots), D] int64 on the CPU: row k holds ToMe slot k's
+    destinations (``slots`` from ``UNet2DCondition.tome_slots``: site,
+    block and token map of each), drawn from the generator of (timestep,
+    site, block), zero-padded to the widest map's D."""
+    rows = [dst_index_grid(h, w, tome.sy, tome.sx, sample_generator(
+        TOME_TAG, int(timestep), site, block)) for site, block, h, w in slots]
+    out = torch.zeros((len(rows), max((len(r) for r in rows), default=0)), dtype=torch.int64)
+    for k, r in enumerate(rows):
+        out[k, :len(r)] = r
+    return out
 
 
 def grid_seed(seed: int, grid_index: int) -> int:

@@ -1,7 +1,8 @@
-"""The reference's scheduler experiments through the port's CLI on the CPU
-(tiny models, one sweep point, batch 2, CLIP score only): each config's
-table row carries the JAX method's grid label and its plan's nfe; and the
-new registry entries' argument specs against the JAX package's."""
+"""The reference's scheduler experiments and the JAX package's UniPC and
+Token Merging experiments through the port's CLI on the CPU (tiny models,
+one sweep point, batch 2, CLIP score only): each config's table row
+carries the JAX method's grid label and its plan's nfe; and the new
+registry entries' argument specs against the JAX package's."""
 
 import csv
 import types
@@ -25,7 +26,8 @@ COMMON = {
     "inference.batch_size": 2, "inference.batch_count": 1,
     "quality_metrics": {"clip_score": {"model_name_or_path": "openai/clip-vit-base-patch16"}},
 }
-# One sweep point of each shipped config, at tiny step counts.
+# One sweep point of each shipped config, at tiny step counts
+# ("<config>:<variant>" runs a config with other sweep values).
 POINTS = {
     "default_stable_diffusion": {"experiment_params.num_inference_steps": [3]},
     "ddim_config": {"experiment_params.num_inference_steps": [3]},
@@ -39,6 +41,12 @@ POINTS = {
                                       "experiment_params.interliving_steps": [[1]]},
     "skip_steps_config": {"experiment_params.num_inference_steps": [5],
                           "experiment_params.skip_steps": [[2]]},
+    "unipc_config": {"experiment_params.num_inference_steps": [4]},
+    "tome_config": {"experiment_params.tome_ratio": [0.5],
+                    "experiment_params.num_inference_steps": [3]},
+    "deep_cache_config:tome": {"experiment_params.cache_interval": [2],
+                               "experiment_params.num_inference_steps": [4],
+                               "experiment_params.tome_ratio": 0.5},
 }
 # Call arguments that are not plan arguments.
 NOT_PLAN_KW = ("use_x0", "guidance_scale")
@@ -81,7 +89,7 @@ def _random_kohya_lora(path):
 
 @pytest.mark.parametrize("name", sorted(POINTS))
 def test_method_config_runs_through_the_cli(name, tmp_path, monkeypatch, capsys):
-    config = str(REPO / "configs" / f"{name}.yaml")
+    config = str(REPO / "configs" / f"{name.split(':')[0]}.yaml")
     overrides = {**COMMON, **POINTS[name], "logger.run_id": "run"}
     merged = []
     if name == "consistency_model_config":
@@ -118,9 +126,13 @@ def test_method_config_runs_through_the_cli(name, tmp_path, monkeypatch, capsys)
     ("methods_registry", "default"), ("methods_registry", "ddim"),
     ("methods_registry", "deep_cache"), ("methods_registry", "consistency_model"),
     ("methods_registry", "two_schedulers"), ("methods_registry", "interliving_schedulers"),
-    ("methods_registry", "skip_steps"),
+    ("methods_registry", "skip_steps"), ("methods_registry", "unipc"),
+    ("methods_registry", "deis"), ("methods_registry", "tome"),
     ("schedulers_registry", "ddim_scheduler"), ("schedulers_registry", "lcm_scheduler"),
-    ("schedulers_registry", "pndm_scheduler"),
+    ("schedulers_registry", "pndm_scheduler"), ("schedulers_registry", "deis_scheduler"),
+    ("schedulers_registry", "unipc_scheduler"), ("schedulers_registry", "euler_scheduler"),
+    ("schedulers_registry", "euler_ancestral_scheduler"),
+    ("schedulers_registry", "heun_scheduler"),
 ])
 def test_new_entries_arg_specs_match_jax(reg, name):
     """The same arguments and defaults (a pipeline keeps the JAX arguments

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_close, randn, t, tiny_engines
+from torch_parity import assert_close, jax_step_noise, randn, t, tiny_engines
 from sonicdiffusionbayeslab_torch import schedulers as S
 from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
 from sonicdiffusionbayeslab_torch.models.sampler import CachePlan
@@ -109,18 +109,6 @@ def test_cache_plan_is_checked(engines, prompts):
         teng.sample(plan, emb, None, cache_plan=CachePlan.every(3, 2), latent_hw=(8, 8))
 
 
-def _jax_step_noise(key, sample_indices, steps, shape):
-    """The JAX engine's per-step draws: ``fold_in(key, 0x5EED)`` split once
-    a step, sample ``i``'s noise ``normal(fold_in(sub, i))``."""
-    k = jax.random.fold_in(key, 0x5EED)
-    out = []
-    for _ in range(steps):
-        k, sub = jax.random.split(k)
-        out.append([np.asarray(jax.random.normal(jax.random.fold_in(sub, int(i)), shape,
-                                                 jnp.float32)) for i in sample_indices])
-    return np.asarray(out, np.float32)
-
-
 def test_lcm_engine_matches_jax_with_its_noise(engines, prompts):
     """LCM (4 steps, guidance 0: no CFG batch) with the JAX engine's own
     step noise passed as ``step_noise``."""
@@ -130,7 +118,7 @@ def test_lcm_engine_matches_jax_with_its_noise(engines, prompts):
     want = jeng.sample(params, JS.LCMScheduler().build_plan(4), jeng.encode_prompts(params, ids),
                        None, key, sample_indices=np.asarray(idx), guidance_scale=0.0,
                        latent_hw=(8, 8), init_latents=jnp.asarray(lat0))
-    noise = _jax_step_noise(key, idx, 4, (8, 8, 4))
+    noise = jax_step_noise(key, idx, 4, (8, 8, 4))
     got = teng.sample(S.LCMScheduler().build_plan(4), teng.encode_prompts(ids), None,
                       sample_indices=idx, guidance_scale=0.0, latent_hw=(8, 8),
                       init_latents=t(lat0), step_noise=t(noise))

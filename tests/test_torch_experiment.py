@@ -205,7 +205,7 @@ def test_cli_without_device_raises_without_gpu(tmp_path, monkeypatch):
     ({"inference.quant": "int8"}, "inference.quant"),
     ({"quality_metrics.fid.feature": 64}, "fid"),
     ({"dataset.img_dataset": str(REPO / "data" / "dataset")}, "image dataset"),
-    ({"experiment.method": "unipc"}, "not ported yet"),
+    ({"experiment.method": "flow_euler"}, "not ported yet"),
 ])
 def test_cli_names_what_is_not_ported(tmp_path, monkeypatch, overrides, match):
     monkeypatch.chdir(tmp_path)

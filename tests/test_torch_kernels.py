@@ -432,6 +432,8 @@ def test_tf32x3_attention_refuses_unaligned_views(cuda):
     (2, 256, 256, 4, 40), (2, 256, 256, 4, 64), (2, 256, 256, 4, 80), (2, 256, 256, 4, 160),
     (2, 1000, 1000, 2, 40), (2, 300, 77, 8, 40), (1, 33, 45, 2, 80), (2, 64, 64, 8, 160),
     (2, 64, 77, 8, 160), (4, 1024, 77, 8, 80), (1, 200, 130, 3, 24), (4, 4096, 4096, 8, 40),
+    # Token Merging's 64x64 self-attention at ratios 0.5 and 0.25 (UNet batch 8).
+    (8, 2048, 2048, 8, 40), (8, 3072, 3072, 8, 40),
 ])
 def test_bf16_attention_kernel_matches_plain(cuda, B, N, M, H, D):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -590,6 +592,49 @@ def test_graphed_deep_cache_variants_match_eager(cuda):
             assert torch.equal(g_out, out) and torch.equal(g_feats, feats)
             assert torch.equal(g_shallow, shallow)
     assert sorted(eng.graphed_unet.captures.values()) == [1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deep_cache,rand", [(False, True), (True, True), (False, False)])
+def test_graphed_tome_matches_eager(cuda, deep_cache, rand):
+    """A ToMe UNet call (ratio 0.5) replayed from its graph gives the eager
+    call's bits, with each call's random destinations taken as a graph
+    input (two steps' draws, alternating) or, without ``rand``, each cell's
+    top-left token made on the card; one capture per variant, also with
+    DeepCache's full and shallow calls."""
+    from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig
+    from sonicdiffusionbayeslab_torch.models.sampler import StableDiffusionEngine
+    from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
+    from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
+    from sonicdiffusionbayeslab_torch.ops.tome import TomeConfig
+    from sonicdiffusionbayeslab_torch.utils.rng import tome_destinations
+
+    eng = StableDiffusionEngine(UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny(),
+                                dtype=torch.bfloat16, device=cuda).init_params(0)
+    x = randn((2, 8, 8, 4), 1).to(cuda, torch.bfloat16)
+    t = torch.tensor([500.0, 500.0], device=cuda)
+    e = randn((2, 77, 32), 2).to(cuda, torch.bfloat16)
+    tome = TomeConfig(0.5, rand=rand)
+    slots = eng.unet.tome_slots(8, 8, tome)
+    dsts = [tome_destinations(ts, slots, tome).to(cuda) if rand else None for ts in (500, 480)]
+    assert not rand or not torch.equal(dsts[0], dsts[1])
+    kw = dict(return_cache=True, cache_branch_id=0) if deep_cache else {}
+    with torch.inference_mode():
+        want = [eng.unet(x, t, e, None, d, tome=tome, **kw) for d in dsts]
+        if deep_cache:
+            want_shallow = [eng.unet(x * 2, t, e, w[1], d, tome=tome, cache_branch_id=0)
+                            for w, d in zip(want, dsts)]
+        for _ in range(2):
+            for i, d in enumerate(dsts):
+                got = eng.graphed_unet(x, t, e, None, d, tome=tome, **kw)
+                if deep_cache:
+                    assert all(torch.equal(g, w) for g, w in zip(got, want[i]))
+                    shallow = eng.graphed_unet(x * 2, t, e, got[1], d, tome=tome,
+                                               cache_branch_id=0)
+                    assert torch.equal(shallow, want_shallow[i])
+                else:
+                    assert torch.equal(got, want[i])
+    assert sorted(eng.graphed_unet.captures.values()) == [1] * (2 if deep_cache else 1)
 
 
 @pytest.mark.cuda

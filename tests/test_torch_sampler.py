@@ -153,4 +153,5 @@ def test_generate_cli_writes_png(tmp_path, capsys):
     raw = zlib.decompress(data[41:41 + idat_len])
     assert len(raw) == h * (1 + 3 * w)
     with pytest.raises(ValueError, match="not ported"):
-        generate.main(["--prompt", "x", "--scheduler", "unipc_scheduler", "--device", "cpu"])
+        generate.main(["--prompt", "x", "--scheduler", "flow_match_euler_scheduler",
+                       "--device", "cpu"])

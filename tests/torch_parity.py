@@ -86,3 +86,31 @@ def t(a) -> torch.Tensor:
 def assert_close(got, want, atol, rtol=0.0):
     got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=rtol)
+
+
+def jax_step_noise(key, sample_indices, steps, shape) -> np.ndarray:
+    """The JAX engine's per-step draws of a noise-injecting plan:
+    ``fold_in(key, 0x5EED)`` split once a step, sample ``i``'s noise
+    ``normal(fold_in(sub, i))``; [steps, B, *shape]."""
+    k = jax.random.fold_in(key, 0x5EED)
+    out = []
+    for _ in range(steps):
+        k, sub = jax.random.split(k)
+        out.append([np.asarray(jax.random.normal(jax.random.fold_in(sub, int(i)), shape,
+                                                 jnp.float32)) for i in sample_indices])
+    return np.asarray(out, np.float32)
+
+
+def jax_tome_destinations(timesteps, slots, sy=2, sx=2) -> np.ndarray:
+    """The JAX UNet's ToMe destinations of each step and slot (``slots``
+    from the port's ``UNet2DCondition.tome_slots``): the in-cell draws of
+    ``fold_in(fold_in(fold_in(PRNGKey(0x703E), t), site), block)``;
+    [steps, slots, n_dst] (every slot's map the same size)."""
+    from sonicdiffusionbayeslab_tpu.ops.tome import _dst_index_grid
+
+    out = []
+    for ts in np.asarray(timesteps, np.float32):
+        k = jax.random.fold_in(jax.random.PRNGKey(0x703E), jnp.asarray(ts).astype(jnp.int32))
+        out.append([np.asarray(_dst_index_grid(h, w, sy, sx, jax.random.fold_in(
+            jax.random.fold_in(k, site), block))) for site, block, h, w in slots])
+    return np.asarray(out, np.int64)
