@@ -17,16 +17,18 @@ prints no ``ok`` line:
      off), at every shape the main path's runs and the CLI runs of phases 6
      and 7 give it (found by running the SD-1.5 UNet, its DeepCache shallow
      call and the VAE decoder on the meta device), within stated
-     tolerances, and in fp32 also at the tiny fp32 pipeline's shapes and at
+     tolerances, and in fp32 also at the tiny fp32 pipeline's shapes, at
      the CLIP score's vision-tower attention shapes (ViT-B/16 at the
-     validate batches 8 and 4, and tiny, found on the meta device too): the
-     fp32 attention kernel's paths; plus strided q/k/v views (bf16 goes to
+     validate batches 8 and 4, and tiny, found on the meta device too) and
+     at phase 9's metric towers' (BLIP ViT-L/16 8,197,197,16,64, its BERT
+     cross-attention 8,35,197,12,64, ViT-L/14 8,257,257,16,64, and the tiny
+     BLIP's): the fp32 attention kernel's paths; plus strided q/k/v views (bf16 goes to
      the wgmma/TMA attention kernel, fp32 to the split-TF32 mma.sync one);
      queries are scaled by 3 so that the softmax's running max moves
      across K/V tiles;
   4. device times at the whole-batch run's shapes (CUDA graphs timed with
      CUDA events), bf16 for every kernel and fp32 for attention (the
-     split-TF32 kernel), and the fp32 kernel at the ViT-B/16 tower's shape:
+     split-TF32 kernel), and the fp32 kernel at the metric towers' shapes:
      the kernel, its plain version and one PyTorch library call as a
      yardstick, beside the bound from the work's bytes, products and
      exponentials (fp32 attention's products at the split-TF32 rate, with
@@ -83,10 +85,28 @@ prints no ``ok`` line:
      loop); tiny fp32 ToMe (destinations given), Heun and Euler-ancestral
      (step noise given) runs on the card against the CPU; and the bf16
      attention kernel timed at ToMe's two 64x64 shapes;
-  9. the card line, then one JSON ``kernels`` line (the fp32 attention
-     kernel's entry is its CLI-path work: the tower's 12 launches; each
-     entry also lists its launches in each phase-7 and phase-8 run);
- 10. the last line: {"ok": true, "device": {...}}.
+  9. the reference's quality metrics: configs/ddim_config.yaml as shipped
+     (clip_score on ViT-B/16, fid at feature 64 on FID-Inception,
+     image_reward on BLIP) plus aesthetic_score (ViT-L/14 and the in-repo
+     LAION head) through the CLI at SD-1.5 full width (bf16 512x512, 20 DDIM
+     steps, batch 8), overriding only the image directory and its count, the
+     batch, the checkpoints' paths and the sweep's length: a directory of 8
+     real images (640x480 and 480x640 PNGs under the annotation file's .jpg
+     names, each read back through the port's reader; a JPEG decoded or
+     refused naming libjpeg), random full-width ImageReward (fp16) and
+     pytorch-fid-layout Inception checkpoints written first; the run traced,
+     its table (finite clip_score, fid, aesthetic_score; image_reward in
+     [0, 1]), PNGs and launches against the census (108 fp32 attention
+     launches a validate batch: 12 ViT-B/16, 2 x (24 BLIP ViT-L/16 + 12
+     BERT cross-attention), 24 ViT-L/14; the masked BERT and causal text
+     attentions take the plain path); FID at 2048 on the run's PNGs; the
+     tiny and full ImageReward scorers, the ViT-L/14 tower and Inception at
+     2048 card against CPU; each metric's device ms a validate batch;
+ 10. the card line, then one JSON ``kernels`` line (the fp32 attention
+     kernel's entry is phase 9's metric towers: 108 launches a validate
+     batch; each entry also lists its launches in each phase-7, phase-8
+     and phase-9 run);
+ 11. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -198,6 +218,19 @@ SAMPLER_RUNS = [
                            _P + "num_inference_steps": [STEPS], _P + "tome_ratio": 0.5},
      [("interval_5_steps_20", 0.5)], 20, 2, False, 4),
 ]
+
+# Phase 9: the reference's quality metrics through configs/ddim_config.yaml
+# as shipped (clip_score, image_reward, fid at feature 64) plus
+# aesthetic_score, with a real-image directory: SD-1.5 512^2, one sweep
+# point of 20 DDIM steps, batch METRIC_BATCH.
+METRIC_BATCH = 8
+# Card against CPU (fp32, TF32 off, two images), |card - cpu| <= atol + rtol
+# * |cpu|: unit-norm CLIP embeddings through 24 layers and Inception
+# features through 94 convolutions summed in another order (cuDNN and the
+# kernel against oneDNN and the plain path); ImageReward's z-scores, O(1)
+# after 36 layers and an unnormalised head.
+METRIC_TOL = {"clip_l14_embedding": (1e-4, 0.0), "inception_2048": (1e-4, 1e-4),
+              "image_reward": (1e-3, 1e-3), "image_reward_tiny": (1e-4, 1e-4)}
 
 
 _T0 = time.perf_counter()
@@ -539,13 +572,13 @@ def timing_row(kind, shape, dtype, path, launches, gen):
     return row
 
 
-def time_kernels(shapes, run_counts, clip_counts, report):
+def time_kernels(shapes, run_counts, metric_counts, report):
     """Per-shape timing rows at the main path's shapes (``run_counts``
-    launches a run) and, fp32 only, at the CLIP tower's (``clip_counts``
-    launches a validate batch), and totals (per-shape time x launches):
-    bf16 into ``report[kind]``, fp32 at the UNet's shapes into
-    ``report["attention_fp32_unet"]``, fp32 at the tower's into
-    ``report["attention_fp32"]`` (the CLI path's).  fp32 attention's rows
+    launches a run) and, fp32 only, at the metric towers' (``metric_counts``
+    launches a validate batch of phase 9), and totals (per-shape time x
+    launches): bf16 into ``report[kind]``, fp32 at the UNet's shapes into
+    ``report["attention_fp32_unet"]``, fp32 at the towers' into
+    ``report["attention_fp32"]`` (the metrics path's).  fp32 attention's rows
     also give its products' time at the plain fp32 FMA rate
     (``bound_fma_ms``), the yardstick of the kernel it replaced."""
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -553,7 +586,8 @@ def time_kernels(shapes, run_counts, clip_counts, report):
     work = [(kind, shape, dtype, "unet", run_counts[(kind, shape)]) for kind, shape in shapes
             for dtype in ((torch.bfloat16, torch.float32) if kind == "attention"
                           else (torch.bfloat16,))]
-    work += [(kind, shape, torch.float32, "clip", n) for (kind, shape), n in clip_counts.items()]
+    work += [(kind, shape, torch.float32, "metrics", n)
+             for (kind, shape), n in sorted(metric_counts.items())]
     for kind, shape, dtype, path, launches in work:
         rows.append(timing_row(kind, shape, dtype, path, launches, gen))
     for r in rows:
@@ -903,12 +937,8 @@ def run_cli(report, per_unet, per_vae, clip_per_batch, card):
                     p.unlink()
         finally:
             os.chdir(cwd)
-    fp32 = report["attention_fp32"]
-    fp32.update(launches=out["traced"]["traced_launches"]["attention_fp32"],
-                wrapper_launches=out["first"]["wrapper_launches"]["attention_fp32"],
-                launches_from="torch.profiler trace of the experiment CLI's run (one validate "
-                              "batch of the CLIP ViT-B/16 tower); wrapper_launches: the wrapper's "
-                              "count over the CLI's first run")
+    report["attention_fp32"]["phase6_launches"] = out["traced"]["traced_launches"][
+        "attention_fp32"]
 
     report["e2e"]["cli"] = out
 
@@ -1469,6 +1499,371 @@ def run_samplers(report, card, per_vae, profile):
     report["tome_timings"] = rows
 
 
+# ------------------------------------------------------- quality metrics
+def metric_census(batch, tiny=False):
+    """{(kind, shape): launches} of one validate batch of phase 9's metric
+    towers: the CLIP score's ViT-B/16 vision and text towers, ImageReward's
+    BLIP twice (the real and the generated images), the aesthetic score's
+    ViT-L/14 (``tiny``: the tiny towers); from the modules run on the meta
+    device with the attention entry points replaced by shape recorders.
+    Only unmasked calls the kernel takes are counted: BERT's masked
+    self-attention and the CLIP text towers' causal one take the plain
+    path."""
+    from sonicdiffusionbayeslab_torch.metrics import image_reward_model as irm
+    from sonicdiffusionbayeslab_torch.models import clip_text
+    from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig, CLIPTextTransformer
+    from sonicdiffusionbayeslab_torch.models.clip_vision import (CLIP_B16_TEXT, CLIPVisionConfig,
+                                                                  CLIPVisionModel)
+    from sonicdiffusionbayeslab_torch.ops.attention import uses_kernel
+
+    calls = collections.Counter()
+
+    def attn(q, k, v, mask=None):
+        if uses_kernel(q, mask):
+            B, N, H, D = q.shape
+            calls[("attention", (B, N, k.shape[1], H, D))] += 1
+        return torch.empty_like(q)
+
+    if tiny:
+        vision, text, blip = [CLIPVisionConfig.tiny()], CLIPTextConfig.tiny(), irm.BLIPConfig.tiny()
+    else:
+        vision = [CLIPVisionConfig(), CLIPVisionConfig.vit_l14()]
+        text, blip = CLIP_B16_TEXT, irm.BLIPConfig()
+    saved = clip_text.dot_product_attention, irm.dot_product_attention
+    clip_text.dot_product_attention = irm.dot_product_attention = attn
+    try:
+        with torch.device("meta"):
+            for cfg in vision:
+                CLIPVisionModel(cfg)(torch.empty(batch, 3, cfg.image_size, cfg.image_size))
+            CLIPTextTransformer(text)(torch.zeros(batch, 77, dtype=torch.long))
+            model = irm.ImageRewardModel(blip)
+            for _ in range(2):
+                model(torch.empty(batch, 3, blip.image_size, blip.image_size),
+                      torch.zeros(batch, blip.max_text_len, dtype=torch.long),
+                      torch.ones(batch, blip.max_text_len))
+    finally:
+        clip_text.dot_product_attention, irm.dot_product_attention = saved
+    return calls
+
+
+def write_real_images(root):
+    """METRIC_BATCH images at 640x480 and 480x640 named after the first keys
+    of data/dataset/img2annotations_test.json (.jpg names, PNG content: the
+    decoder goes by content), half by the port's writer and half by PIL
+    where it is installed; each read back through ``read_image``, whole
+    (bit-equal to its pixels) and at 512 (resize + center crop).  A JPEG
+    (PIL) is read too: decoded where the image IO library has libjpeg,
+    else the error must name libjpeg.  Returns the directory."""
+    import io
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.data import _dataio
+    from sonicdiffusionbayeslab_torch.data.imageio import encode_png_bytes, read_image
+
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    repo = Path(__file__).resolve().parent
+    names = sorted(json.loads((repo / "data" / "dataset" /
+                               "img2annotations_test.json").read_text()))[:METRIC_BATCH]
+    gen = np.random.default_rng(3)
+    img_dir = Path(root) / "images"
+    img_dir.mkdir()
+    writers = collections.Counter()
+    for i, name in enumerate(names):
+        h, w = (480, 640) if i % 2 == 0 else (640, 480)
+        ramp = np.linspace(0, 255, w)[None, :, None] * np.linspace(0.2, 1, h)[:, None, None]
+        px = np.clip(ramp * gen.uniform(0.3, 1, 3) + gen.normal(0, 30, (h, w, 3)), 0,
+                     255).astype(np.uint8)
+        if Image is not None and i % 2:
+            buf = io.BytesIO()
+            Image.fromarray(px).save(buf, format="PNG")
+            (img_dir / name).write_bytes(buf.getvalue())
+            writers["PIL"] += 1
+        else:
+            (img_dir / name).write_bytes(encode_png_bytes(px))
+            writers["port"] += 1
+        whole, cropped = read_image(img_dir / name), read_image(img_dir / name, SIZE)
+        if not np.array_equal(whole, px.astype(np.float32) / 255.0):
+            raise AssertionError(f"read_image({name}) differs from the pixels written")
+        if cropped.shape != (SIZE, SIZE, 3) or not np.isfinite(cropped).all():
+            raise AssertionError(f"read_image({name}, {SIZE}) gave {cropped.shape}")
+    has_jpeg = bool(_dataio.library().sdbl_has_jpeg())
+    jpeg = "not written (no PIL)"
+    if Image is not None:
+        Image.fromarray(px).save(Path(root) / "probe.jpg", format="JPEG", quality=95)
+        if has_jpeg:
+            got = read_image(Path(root) / "probe.jpg")
+            ref = np.asarray(Image.open(Path(root) / "probe.jpg").convert("RGB")) / 255.0
+            err = float(np.abs(got - ref).mean())
+            if got.shape != ref.shape or err > 2 / 255:
+                raise AssertionError(f"JPEG decode: shape {got.shape}, mean abs err {err:.4f}")
+            jpeg = f"decoded (mean abs diff from PIL's decode {err:.2e})"
+        else:
+            try:
+                read_image(Path(root) / "probe.jpg")
+            except RuntimeError as e:
+                if "libjpeg" not in str(e):
+                    raise
+                jpeg = "refused, naming libjpeg (built without it)"
+            else:
+                raise AssertionError("a JPEG decoded by a library built without libjpeg")
+    print(f"real images: {METRIC_BATCH} PNGs at 640x480 and 480x640 ({dict(writers)} writers), "
+          f"each read back bit-equal and at {SIZE}^2; image IO library with libjpeg: {has_jpeg}; "
+          f"a JPEG: {jpeg}", flush=True)
+    return img_dir
+
+
+def write_metric_checkpoints(root):
+    """Random full-width checkpoints in the published layouts: ImageReward
+    (BLIP ViT-L/16 + BERT + head, seeded, fp16 to halve the write) and
+    FID-Inception in pytorch-fid's layout (random BatchNorm statistics,
+    ``num_batches_tracked``, the 1008-way ``fc``).  Returns their paths."""
+    from sonicdiffusionbayeslab_torch.metrics.image_reward_model import (BLIPConfig,
+                                                                         ImageRewardModel)
+    from sonicdiffusionbayeslab_torch.metrics.inception import InceptionBlocks
+    from sonicdiffusionbayeslab_torch.models.sampler import init_module
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    with torch.device("cuda"):
+        reward, inception = ImageRewardModel(BLIPConfig()), InceptionBlocks(2048)
+    with torch.no_grad():
+        init_module(reward, gen)
+        init_module(inception, gen)
+        reward.blip.visual_encoder.pos_embed.normal_(0.0, 0.02, generator=gen)
+        sd = {k: v.half().cpu() for k, v in reward.state_dict().items()}
+        paths = {"image_reward": Path(root) / "ImageReward.pt",
+                 "inception": Path(root) / "pt_inception.pth"}
+        torch.save({"state_dict": sd}, paths["image_reward"])
+        sd = {}
+        for k, v in inception.state_dict().items():
+            if k.endswith("running_var"):
+                v = torch.rand(v.shape, generator=gen, device="cuda") + 0.5
+            elif k.endswith(("running_mean", "bn.bias")):
+                v = torch.randn(v.shape, generator=gen, device="cuda") * 0.1
+            sd[k] = v.cpu()
+            if k.endswith("running_var"):
+                sd[k.replace("running_var", "num_batches_tracked")] = torch.tensor(0)
+        sd["fc.weight"], sd["fc.bias"] = torch.randn(1008, 2048) * 0.02, torch.zeros(1008)
+        torch.save(sd, paths["inception"])
+    n = sum(p.numel() for p in reward.parameters())
+    print(f"checkpoints: ImageReward {n / 1e6:.1f} M parameters (fp16, "
+          f"{paths['image_reward'].stat().st_size / 1e9:.2f} GB), FID-Inception "
+          f"{paths['inception'].stat().st_size / 1e6:.1f} MB", flush=True)
+    del reward, inception
+    return paths
+
+
+def metrics_card_vs_cpu(backend_l14, ckpts, images):
+    """In fp32 with TF32 off, on two images: the tiny BLIP scorer (seeded
+    random weights), the full ImageReward scorer from its checkpoint, the
+    run's ViT-L/14 tower and FID-Inception at 2048 from its file, each on
+    the card (the fp32 attention kernel, cuDNN) against a CPU copy (plain
+    attention, oneDNN), within METRIC_TOL; returns the max errors."""
+    import copy
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.metrics.image_reward_model import ImageRewardScorer
+    from sonicdiffusionbayeslab_torch.metrics.inception import InceptionFeatures
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention_tf32x3
+
+    x = images[:2]
+    out, launches = {}, {}
+
+    def check(name, card_fn, cpu_fn):
+        n0 = flash_attention_tf32x3.launches
+        got = np.asarray(card_fn(), np.float64)
+        launches[name] = flash_attention_tf32x3.launches - n0
+        want = np.asarray(cpu_fn(), np.float64)
+        atol, rtol = METRIC_TOL[name]
+        out[name] = float(np.abs(got - want).max())
+        if not (np.abs(got - want) <= atol + rtol * np.abs(want)).all():
+            raise AssertionError(f"{name}: card vs CPU max abs err {out[name]:.3e} exceeds "
+                                 f"atol {atol} + rtol {rtol}")
+
+    for name, kw in (("image_reward_tiny", dict(tiny=True)),
+                     ("image_reward", dict(checkpoint=str(ckpts["image_reward"])))):
+        card = ImageRewardScorer(device="cuda", **kw)
+        cpu = copy.copy(card)
+        cpu.model, cpu.device = copy.deepcopy(card.model).cpu(), torch.device("cpu")
+        check(name, lambda: card(x, PROMPTS), lambda: cpu(x, PROMPTS))
+        del card, cpu
+    cpu_l14 = copy.deepcopy(backend_l14.model).cpu()
+    with torch.inference_mode():
+        check("clip_l14_embedding", lambda: backend_l14.image_features(x),
+              lambda: cpu_l14.embed_image(torch.as_tensor(x)).numpy())
+    del cpu_l14
+    card = InceptionFeatures(2048, str(ckpts["inception"]), device="cuda")
+    cpu = InceptionFeatures(2048, str(ckpts["inception"]), device="cpu")
+    check("inception_2048", lambda: card(x), lambda: cpu(x))
+    print(f"metric towers, card vs CPU (fp32, TF32 off, 2 images): max abs errors {out} "
+          f"(tolerances {METRIC_TOL}); fp32 attention launches on the card {launches}",
+          flush=True)
+    if not (launches["image_reward_tiny"] > 0 and launches["image_reward"] == 36
+            and launches["clip_l14_embedding"] == 24 and launches["inception_2048"] == 0):
+        raise AssertionError(f"card runs launched the fp32 attention kernel {launches} times")
+    return dict(max_abs_err=out, fp32_attention_launches=launches)
+
+
+def metric_timings(card, backends, scorer, inception, images):
+    """Device ms of each metric's work on one validate batch of METRIC_BATCH
+    512^2 images (CUDA graph between CUDA events, median of 5, fp32 with
+    TF32 off): the CLIP score (ViT-B/16 and its text tower), the aesthetic
+    score (ViT-L/14 image embedding and the head), ImageReward (its scorer
+    on the real and on the generated images: two calls) and FID (Inception
+    at tap 64 on both: two calls; and at 2048, one call)."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.clip_vision import clip_pixels
+
+    b16, l14, head = backends
+    x = torch.as_tensor(images, device="cuda")
+    ids = torch.as_tensor(np.asarray(b16.tokenizer(PROMPTS * (METRIC_BATCH // 2))),
+                          dtype=torch.long, device="cuda")
+    rids, rmask = (torch.as_tensor(a, device="cuda")
+                   for a in scorer.tokenizer(PROMPTS * (METRIC_BATCH // 2)))
+    rids = rids.long()
+    px = clip_pixels(x, scorer.cfg.image_size)
+
+    def aesthetic():
+        e = l14.model.embed_image(x)
+        return head.model(e / e.norm(dim=-1, keepdim=True))
+
+    with torch.inference_mode():
+        out = {"clip_score": cuda_ms(lambda: b16.model(x, ids), reps=5),
+               "aesthetic_score": cuda_ms(aesthetic, reps=5),
+               "image_reward": 2 * cuda_ms(lambda: scorer.model(px, rids, rmask), reps=5),
+               "fid_64": 2 * cuda_ms(lambda: inception[64].features(x), reps=5),
+               "fid_2048_one_call": cuda_ms(lambda: inception[2048].features(x), reps=5)}
+    print(f"metric device ms per validate batch of {METRIC_BATCH} (fp32, TF32 off; CUDA graph "
+          f"between CUDA events, median of 5): " + json.dumps(out) + f"; {card}", flush=True)
+    return out
+
+
+def run_metrics(report, card, metric_counts):
+    """Phase 9: ``cli.run`` of configs/ddim_config.yaml as shipped, at SD-1.5
+    512^2, with ``aesthetic_score`` added and only the image directory, its
+    count, the batch, the checkpoints' paths and the sweep's length
+    overridden, in a temporary working directory, traced: its table row
+    (finite clip_score, fid, aesthetic_score; image_reward in [0, 1]), its
+    PNGs, one graph capture, and each kernel's launches against the census
+    (the metric towers' fp32 attention, the UNet's and VAE's bf16 kernels,
+    by the wrappers and by the trace); then FID at 2048 on the run's PNGs
+    and the real images, the towers card against CPU, and each metric's
+    device time."""
+    import csv
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch import cli
+    from sonicdiffusionbayeslab_torch.data.imageio import read_image
+    from sonicdiffusionbayeslab_torch.metrics.inception import InceptionFeatures
+    from sonicdiffusionbayeslab_torch.metrics.metrics import FID, _clip_backend
+    from sonicdiffusionbayeslab_torch.metrics.aesthetic import AestheticScorer
+    from sonicdiffusionbayeslab_torch.metrics.image_reward_model import ImageRewardScorer
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    repo = Path(__file__).resolve().parent
+    config = str(repo / "configs" / "ddim_config.yaml")
+    nfe, label = STEPS, f"steps_{STEPS}"
+    per_unet = _kinds(module_census(2 * METRIC_BATCH))
+    per_vae = _kinds(module_census(vae_batch=METRIC_BATCH))
+    W = GraphedCall.WARMUP
+    fp32_per_batch = sum(metric_counts.values())
+    want = {k: (W + 1) * per_unet[k] + (1 + nfe) * per_vae[k] for k in MAIN}
+    want_traced = {k: (W + nfe) * per_unet[k] + (1 + nfe) * per_vae[k] for k in MAIN}
+    want["attention_fp32"] = want_traced["attention_fp32"] = fp32_per_batch
+    out = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="sdbl_metrics_") as tmp:
+        img_dir = write_real_images(tmp)
+        ckpts = write_metric_checkpoints(tmp)
+        aesthetic_ckpt = str(repo / "data" / "models" / "aethetic_score_model.pth")
+        overrides = {
+            "dataset.img_dataset": str(img_dir), "dataset.max_count": METRIC_BATCH,
+            "inference.batch_size": METRIC_BATCH,
+            "quality_metrics.image_reward.checkpoint": str(ckpts["image_reward"]),
+            "quality_metrics.fid.inception_checkpoint": str(ckpts["inception"]),
+            "quality_metrics.aesthetic_score.checkpoint": aesthetic_ckpt,
+            "experiment_params.num_inference_steps": [nfe], "logger.run_id": "metrics",
+            "dataset.prompts": str(repo / "data" / "dataset" / "img2annotations_test.json")}
+        os.chdir(tmp)
+        try:
+            wrapper_counts(reset=True)
+            t0 = time.perf_counter()
+            with _RecordingVariants() as rec:
+                metrics, traced = traced_launches(lambda: cli.run(config, overrides))
+            wall = time.perf_counter() - t0
+            counts = wrapper_counts()
+            caps, graphs_gb = rec.captures()
+            with open(Path(tmp) / "outputs" / "metrics" / "tables" / "final.tsv") as f:
+                rows = list(csv.DictReader(f, delimiter="	"))
+            # save_dir keeps the dataset's file names: PNG content under .jpg names.
+            pngs = sorted((Path(tmp) / "outputs" / "DDIM" / label).iterdir())
+            gen_imgs = np.stack([read_image(p) for p in pngs]) if pngs else None
+            real_imgs = np.stack([read_image(p, SIZE) for p in sorted(img_dir.iterdir())])
+        finally:
+            os.chdir(cwd)
+        row = rows[0] if rows else {}
+        vals = {k: float(row[k]) for k in ("clip_score", "fid", "image_reward", "aesthetic_score")
+                if k in row}
+        print(f"ddim_config as shipped with a real-image directory ({label}, SD-1.5 bf16 "
+              f"{SIZE}x{SIZE}, batch {METRIC_BATCH}, x0 of every sample; clip_score on ViT-B/16, "
+              f"fid at feature 64 on FID-Inception, image_reward on BLIP ViT-L/16 + BERT, "
+              f"aesthetic_score on ViT-L/14, random towers): whole CLI {wall:.3f} s, sweep "
+              f"{row.get('time')} s/image, {vals}; {card}; graph captures {dict(caps)}; "
+              f"launches: wrappers {counts}, trace {traced}", flush=True)
+        if list(row) != ["exp", "nfe", "time", "clip_score", "fid", "image_reward",
+                         "aesthetic_score"] or len(rows) != 1 or row["exp"] != label:
+            raise AssertionError(f"metrics run: table rows {rows}")
+        if metrics["exp"] != [label] or row["nfe"] != str(nfe):
+            raise AssertionError(f"metrics run: CLI returned {metrics}")
+        if not all(np.isfinite(v) for v in vals.values()) or not 0 <= vals["image_reward"] <= 1:
+            raise AssertionError(f"metrics run: values {vals}")
+        if len(pngs) != METRIC_BATCH or {_png_size(p) for p in pngs} != {(SIZE, SIZE)}:
+            raise AssertionError(f"metrics run: {len(pngs)} PNGs, expected {METRIC_BATCH} of "
+                                 f"{SIZE}x{SIZE}")
+        if sorted(caps.values()) != [1]:
+            raise AssertionError(f"metrics run: graph captures {caps}")
+        if counts != want or traced != want_traced:
+            raise AssertionError(f"metrics run: launches wrappers {counts}, trace {traced}; "
+                                 f"expected {want} and {want_traced}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        fid = FID(feature=2048, inception_checkpoint=str(ckpts["inception"]), device="cuda")
+        fid.update(real_imgs, real=True)
+        fid.update(gen_imgs, real=False)
+        fid_2048 = fid.compute()
+        print(f"FID at feature 2048 (the whole FID-Inception, random weights) on the run's "
+              f"{len(pngs)} PNGs against the {len(real_imgs)} real images: {fid_2048:.6g}",
+              flush=True)
+        if not np.isfinite(fid_2048):
+            raise AssertionError(f"FID at 2048: {fid_2048}")
+        l14 = _clip_backend(None, False, "cuda", "l14")
+        backends = (_clip_backend("openai/clip-vit-base-patch16", False, "cuda"), l14,
+                    AestheticScorer(aesthetic_ckpt, device="cuda"))
+        scorer = ImageRewardScorer(str(ckpts["image_reward"]), device="cuda")
+        inception = {64: InceptionFeatures(64, str(ckpts["inception"]), device="cuda"),
+                     2048: fid._inception}
+        out["card_vs_cpu"] = metrics_card_vs_cpu(l14, ckpts, real_imgs)
+        out["device_ms_per_batch"] = metric_timings(card, backends, scorer, inception, gen_imgs)
+        torch.backends.cudnn.allow_tf32 = True
+    fp32 = report["attention_fp32"]
+    fp32.update(launches=traced["attention_fp32"], wrapper_launches=counts["attention_fp32"],
+                launches_from="torch.profiler trace of phase 9's CLI run (one validate batch of "
+                              "the metric towers); wrapper_launches: the wrapper's count over "
+                              "the same run")
+    out.update(wall_s=wall, sec_per_image=float(row["time"]), values=vals, fid_2048=fid_2048,
+               graph_reserved_gb=graphs_gb, wrapper_launches=counts, traced_launches=traced)
+    report["e2e"]["metrics"] = out
+    del scorer, inception, fid
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1504,6 +1899,9 @@ def main() -> None:
     tiny_counts, *tiny_census = census(2 * BATCH, tiny=True)
     # The CLI's CLIP score runs its vision tower once a validate batch.
     clip_counts, clip_tiny_counts = clip_census(CLI_BATCH), clip_census(CLI_BATCH, tiny=True)
+    # Phase 9's metric towers a validate batch (ViT-B/16, BLIP twice,
+    # ViT-L/14), and the tiny BLIP of its card-vs-CPU check.
+    metric_counts, metric_tiny_counts = metric_census(METRIC_BATCH), metric_census(2, tiny=True)
     # The CLI runs of phases 6 and 7: UNet batch 16 (phase 6), 8 and 4 (CFG
     # at batch 4, LCM's batch 4 without it) with DeepCache's shallow call at
     # 8 and, in phase 7's engine timings, at 4; VAE decodes of 8, 4 and 1
@@ -1531,7 +1929,9 @@ def main() -> None:
                    + [(k, " (CLIP ViT-B/16)") for k in sorted(clip_counts, key=order)]
                    + [(k, " (CLIP ViT-B/16, batch 4)") for k in sorted(clip_method_counts,
                                                                        key=order)]
-                   + [(k, " (CLIP tiny)") for k in sorted(clip_tiny_counts, key=order)])
+                   + [(k, " (CLIP tiny)") for k in sorted(clip_tiny_counts, key=order)]
+                   + [(k, " (metric towers)") for k in sorted(metric_counts, key=order)]
+                   + [(k, " (metric towers, tiny)") for k in sorted(metric_tiny_counts, key=order)])
     clip_per_batch = sum(clip_counts.values())
     print(f"main path per UNet forward: {dict(per_unet)}; per VAE decode: {dict(per_vae)}; "
           f"{len(check_shapes)} distinct kernel shapes over the main path's two runs and the "
@@ -1542,6 +1942,11 @@ def main() -> None:
     if clip_per_batch != 12:
         raise AssertionError(f"the ViT-B/16 census gives {dict(clip_counts)}, not 12 kernel "
                              "launches (one a layer)")
+    # ViT-B/16 12 + BLIP (24 ViT-L/16 layers + 12 cross-attentions) x 2 + ViT-L/14 24.
+    print(f"metric towers' fp32 attention a validate batch of {METRIC_BATCH}: {dict(metric_counts)}")
+    if sum(metric_counts.values()) != 12 + 2 * (24 + 12) + 24:
+        raise AssertionError(f"the metric towers' census gives {dict(metric_counts)}, not 108 "
+                             "kernel launches")
     print_gn_plans(shapes)
     report = {k: {"launches": None, "wrapper_launches": None, "launches_from": None,
                   "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
@@ -1556,13 +1961,13 @@ def main() -> None:
 
     phase("4. timings (bf16, and fp32 attention at the UNet's and the CLIP tower's shapes; CUDA "
           "graph of 20 calls between CUDA events, median of 5)")
-    rows = time_kernels(shapes, run_counts, clip_counts, report)
+    rows = time_kernels(shapes, run_counts, metric_counts, report)
     fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fma_ms")
     fp32_totals = {k: report["attention_fp32_unet"][k] for k in fields}
     print("attention fp32 (flash_attention_tf32x3) totals over one run at the main path's UNet "
           "shapes: " + json.dumps(fp32_totals))
-    print("attention fp32 (flash_attention_tf32x3) totals over one validate batch of the CLIP "
-          "ViT-B/16 tower: " + json.dumps({k: report["attention_fp32"][k] for k in fields}))
+    print("attention fp32 (flash_attention_tf32x3) totals over one validate batch of phase 9's "
+          "metric towers: " + json.dumps({k: report["attention_fp32"][k] for k in fields}))
 
     phase(f"5. main path: SD-1.5 {SIZE}x{SIZE}, {STEPS}-step DPM-Solver++ (order 2), "
           f"CFG {GUIDANCE}, batch {BATCH}")
@@ -1584,8 +1989,12 @@ def main() -> None:
     phase(f"8. the remaining samplers and Token Merging at SD-1.5 {SIZE}x{SIZE}")
     run_samplers(report, card, per_vae, args.profile)
 
-    phase("9. kernels")
-    print(f"phases 1-8 took {time.perf_counter() - _T0:.1f} s; {card}")
+    phase(f"9. quality metrics: configs/ddim_config.yaml as shipped with a real-image directory "
+          f"and aesthetic_score, SD-1.5 {SIZE}x{SIZE}, batch {METRIC_BATCH}")
+    run_metrics(report, card, metric_counts)
+
+    phase("10. kernels")
+    print(f"phases 1-9 took {time.perf_counter() - _T0:.1f} s; {card}")
     kernels = []
     for kind, meta in KERNELS.items():
         r = report[kind]
@@ -1603,6 +2012,8 @@ def main() -> None:
                 **{f"tiny {n}": m["fp32_attention_launches"] for n, m in
                    report["e2e"]["samplers_tiny_card_vs_cpu"].items()
                    if kind == "attention_fp32"}},
+            "phase9_wrapper_launches": report["e2e"]["metrics"]["wrapper_launches"][kind],
+            **({"phase6_launches": r["phase6_launches"]} if "phase6_launches" in r else {}),
             "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_by_ms"], key=r["bound_by_ms"].get),
@@ -1610,8 +2021,9 @@ def main() -> None:
             **({"sass": report_sass[kind]} if kind in report_sass else {}),
             "totals_over": (f"the main path's {kind} shapes in {meta['dtype']}: per-shape "
                             "median x launches at that shape in one run" if kind in MAIN else
-                            "the CLIP ViT-B/16 tower's attention shape in float32: per-shape "
-                            "median x its launches in one validate batch of the CLI run"),
+                            "the metric towers' attention shapes in float32 (ViT-B/16, BLIP "
+                            "ViT-L/16 and its BERT cross-attention, ViT-L/14): per-shape median "
+                            "x its launches in one validate batch of phase 9's CLI run"),
         })
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -1,10 +1,11 @@
-"""Prompt datasets of the port: a filename -> caption JSON.
+"""Datasets of the port: a filename -> caption JSON, and a folder of the
+images those filenames name.
 
-Counterpart of ``load_prompts``, ``PromptDataset`` and ``batched`` in
-``sonicdiffusionbayeslab_tpu/data/dataset.py``.  The image dataset
-(``ImageDatasetWithPrompts``) needs an image reader, which the port does
-not have yet; the experiment raises when a config names an image directory
-that exists.
+Counterpart of ``load_prompts``, ``PromptDataset``,
+``ImageDatasetWithPrompts`` and ``batched`` in
+``sonicdiffusionbayeslab_tpu/data/dataset.py``.  Images are read by
+``data/imageio.py::read_image`` (the port's native decoder and the
+reference's resize + center crop), as NHWC float32 in [0, 1].
 
 The prompt JSON format is {"<filename>": "<caption>", ...} (e.g.
 ``data/dataset/img2annotations_test.json``, 1000 entries); a COCO-style
@@ -59,15 +60,48 @@ class PromptDataset:
         return {"image_file": f, "prompt": self.img2prompt[f], "index": i}
 
 
+class ImageDatasetWithPrompts(PromptDataset):
+    """Images and captions, what validation (FID, ImageReward) needs.
+    ``image_size``: images are resized (short side) and center-cropped to
+    [image_size, image_size]; None keeps each image's size.  Raises at
+    construction when a listed file is missing."""
+
+    def __init__(self, image_dir: str | Path, prompts_file: str | Path,
+                 image_size: Optional[int] = None, max_count: Optional[int] = None):
+        super().__init__(prompts_file, max_count)
+        self.image_dir = Path(image_dir)
+        self.image_size = image_size
+        missing = [f for f in self.files if not (self.image_dir / f).exists()]
+        if missing:
+            raise FileNotFoundError(
+                f"{len(missing)} of {len(self.files)} dataset images missing under "
+                f"{self.image_dir}, e.g. {missing[:3]}")
+
+    def load_image(self, filename: str) -> np.ndarray:
+        from sonicdiffusionbayeslab_torch.data.imageio import read_image
+
+        return read_image(self.image_dir / filename, self.image_size)
+
+    def __getitem__(self, i: int) -> dict:
+        item = super().__getitem__(i)
+        item["image"] = self.load_image(item["image_file"])
+        return item
+
+
 def batched(dataset, batch_size: int) -> Iterator[dict]:
-    """Batches of ``batch_size`` items (the last one shorter) as dicts of
-    lists, ints as an int array: {"image_file": [...], "prompt": [...],
-    "index": array}."""
+    """Batches of ``batch_size`` items (the last one shorter) as dicts:
+    arrays stacked, ints as an int array, anything else as a list, e.g.
+    {"image_file": [...], "prompt": [...], "index": array, "image": [B, H, W, 3]}."""
     n = len(dataset)
     for s in range(0, n, batch_size):
         items = [dataset[i] for i in range(s, min(s + batch_size, n))]
         batch: dict = {}
         for k in items[0]:
             vals = [it[k] for it in items]
-            batch[k] = np.asarray(vals) if isinstance(vals[0], (int, np.integer)) else vals
+            if isinstance(vals[0], np.ndarray):
+                batch[k] = np.stack(vals)
+            elif isinstance(vals[0], (int, np.integer)):
+                batch[k] = np.asarray(vals)
+            else:
+                batch[k] = vals
         yield batch

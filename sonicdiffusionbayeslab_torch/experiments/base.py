@@ -13,9 +13,14 @@ The model runs on ``model.device`` (CUDA unless the config or the CLI's
 Grid point ``g`` samples with ``rng.grid_seed(seed, g)``, so a sample's
 initial latents depend only on (seed, grid point, sample index).
 
-What the port does not have yet raises at setup and names the gap:
-``inference.quant``, a ``dataset.img_dataset`` directory that exists (the
-image reader), and metrics other than ``clip_score``.
+Validation: every configured metric of the JAX package is ported
+(``clip_score``, ``image_reward``, ``fid``, ``aesthetic_score``); when
+``dataset.img_dataset`` names a directory that exists, the real images of
+each validation batch are read (``ImageDatasetWithPrompts``) for FID and
+ImageReward's win rate, and the table gains ``fid`` (from two images on)
+and ``image_reward``, as in the JAX package.  What the port does not have
+yet raises at setup and names the gap: ``inference.quant``.  The
+metrics' cross-process sums are not ported (one process).
 """
 
 from __future__ import annotations
@@ -27,14 +32,16 @@ from typing import Any, Dict, Iterable, List
 import numpy as np
 
 from sonicdiffusionbayeslab_torch.config import ConfigNode
-from sonicdiffusionbayeslab_torch.data.dataset import PromptDataset, batched
+from sonicdiffusionbayeslab_torch.data.dataset import (
+    ImageDatasetWithPrompts,
+    PromptDataset,
+    batched,
+)
 from sonicdiffusionbayeslab_torch.data.imageio import write_png
 from sonicdiffusionbayeslab_torch.loggers import Logger
 from sonicdiffusionbayeslab_torch.registry import metrics_registry, models_registry, schedulers_registry
 from sonicdiffusionbayeslab_torch.utils import rng as rng_util
 from sonicdiffusionbayeslab_torch.utils.images import make_grid, save_table, to_uint8
-
-PORTED_METRICS = ("clip_score",)
 
 
 class BaseMethod:
@@ -93,30 +100,35 @@ class BaseMethod:
         dcfg = self.config.dataset
         prompts = dcfg.get("prompts")
         img_dir = dcfg.get("img_dataset")
+        max_count = dcfg.get("max_count")
         if img_dir and Path(img_dir).exists() and prompts:
-            raise NotImplementedError(
-                f"dataset.img_dataset {img_dir!r} exists, but the image dataset (and its image "
-                "reader) is not ported yet to the PyTorch package; drop the key to score "
-                "generated images against prompts only")
-        if not prompts:
+            self.dataset = ImageDatasetWithPrompts(img_dir, prompts, dcfg.get("image_size", 512),
+                                                   max_count=max_count)
+            self.has_real_images = True
+        elif prompts:
+            self.dataset = PromptDataset(prompts, max_count=max_count)
+            self.has_real_images = False
+        else:
             raise ValueError("dataset config needs at least 'prompts'")
-        self.dataset = PromptDataset(prompts, max_count=dcfg.get("max_count"))
 
     def setup_metrics(self) -> None:
         q = self.config.get("quality_metrics", ConfigNode({}))
-        missing = [name for name in q if name not in PORTED_METRICS]
-        if missing:
-            raise NotImplementedError(f"quality_metrics {missing} are not ported yet to the "
-                                      f"PyTorch package; ported: {list(PORTED_METRICS)}")
         tiny = bool(self.config.model.get("tiny", False))
-        self.clip_score_metric = None
-        if "clip_score" in q:
-            kw = dict(q.get("clip_score") or ConfigNode({}))
+
+        def build(name):
+            if name not in q:
+                return None
+            kw = dict(q.get(name) or ConfigNode({}))
             if tiny:
                 kw["tiny"] = True
             kw.setdefault("device", str(self.model.device))
-            metrics_registry.validate_kwargs("clip_score", kw, allow_missing=True)
-            self.clip_score_metric = metrics_registry["clip_score"](**kw)
+            metrics_registry.validate_kwargs(name, kw, allow_missing=True)
+            return metrics_registry[name](**kw)
+
+        self.clip_score_metric = build("clip_score")
+        self.image_reward_metric = build("image_reward")
+        self.fid_metric = build("fid")
+        self.aesthetic_metric = build("aesthetic_score")
         self.time_metric = metrics_registry["time_metric"]()
 
     def setup_loggers(self) -> None:
@@ -201,16 +213,36 @@ class BaseMethod:
         images01 = gen["images"].astype(np.float32) / 255.0
         batch_size = self.config.inference.get("batch_size", 8)
         n = len(gen["prompts"])
+        for m in (self.clip_score_metric, self.image_reward_metric, self.fid_metric,
+                  self.aesthetic_metric):
+            if m is not None:
+                m.reset()
 
-        if self.clip_score_metric:
-            self.clip_score_metric.reset()
-            for s in range(0, n, batch_size):
-                sl = slice(s, min(s + batch_size, n))
-                self.clip_score_metric.update(images01[sl], gen["prompts"][sl])
+        for s in range(0, n, batch_size):
+            sl = slice(s, min(s + batch_size, n))
+            prompts = gen["prompts"][sl]
+            imgs = images01[sl]
+            if self.clip_score_metric:
+                self.clip_score_metric.update(imgs, prompts)
+            if self.aesthetic_metric:
+                self.aesthetic_metric.update(imgs)
+            if self.has_real_images and (self.fid_metric or self.image_reward_metric):
+                real = np.stack([self.dataset.load_image(f) for f in gen["files"][sl]])
+                if self.fid_metric:
+                    self.fid_metric.update(imgs, real=False)
+                    self.fid_metric.update(real, real=True)
+                if self.image_reward_metric:
+                    self.image_reward_metric.update(prompts, real, imgs)
 
         row = {"exp": label, "nfe": gen["nfe"], "time": self.time_metric.compute()}
         if self.clip_score_metric:
             row["clip_score"] = self.clip_score_metric.compute()
+        if self.has_real_images and self.fid_metric and n >= 2:
+            row["fid"] = self.fid_metric.compute()
+        if self.has_real_images and self.image_reward_metric:
+            row["image_reward"] = self.image_reward_metric.compute()
+        if self.aesthetic_metric:
+            row["aesthetic_score"] = self.aesthetic_metric.compute()
         for k, v in row.items():
             self.metric_dict.setdefault(k, []).append(v)
         self.logger.log_metrics({f"metrics/{k}": v for k, v in row.items() if k != "exp"},

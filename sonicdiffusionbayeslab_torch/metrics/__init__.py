@@ -1,9 +1,13 @@
 """Metrics of the port (registered in ``metrics_registry`` on import):
-``time_metric`` and ``clip_score``.  ``fid``, ``image_reward`` and
-``aesthetic_score`` are not ported yet."""
+``time_metric``, ``clip_score``, ``image_reward``, ``aesthetic_score`` and
+``fid``."""
 
+from sonicdiffusionbayeslab_torch.metrics.frechet import frechet_distance  # noqa: F401
 from sonicdiffusionbayeslab_torch.metrics.metrics import (  # noqa: F401
+    FID,
+    AestheticScoreMetric,
     ClipScoreMetric,
     Metric,
+    RewardModel,
     TimeMetric,
 )

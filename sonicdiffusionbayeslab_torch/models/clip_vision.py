@@ -11,7 +11,8 @@ by name.
 
 The vision tower's self-attention is unmasked, so ``ops.attention``
 sends it to the hand-written kernel; in fp32 (the metric's type) that is
-the split-TF32 kernel, at [B, 197, 12, 64] for ViT-B/16 at 224x224.
+the split-TF32 kernel, at [B, 197, 12, 64] for ViT-B/16 at 224x224 and
+[B, 257, 16, 64] for ViT-L/14.
 
 The resize: ``jax.image.resize(..., "bilinear")`` antialiases when it
 shrinks; ``F.interpolate(mode="bilinear", antialias=True,
@@ -49,6 +50,13 @@ class CLIPVisionConfig:
     def tiny(cls) -> "CLIPVisionConfig":
         return cls(image_size=32, patch_size=8, hidden_size=32, num_layers=2,
                    num_heads=2, intermediate_size=64)
+
+    @classmethod
+    def vit_l14(cls) -> "CLIPVisionConfig":
+        """openai/clip-vit-large-patch14's vision tower (the embedding space
+        the LAION aesthetic predictor was trained on; projection 768)."""
+        return cls(image_size=224, patch_size=14, hidden_size=1024,
+                   num_layers=24, num_heads=16, intermediate_size=4096)
 
     @property
     def num_positions(self) -> int:

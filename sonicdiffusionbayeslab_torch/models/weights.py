@@ -6,7 +6,11 @@ The port's own copies of the name maps in
 ``invert``: for every JAX parameter path, the diffusers / transformers
 tensor name and the layout change (HWIO conv -> OIHW, [in, out] dense ->
 [out, in], dense -> [out, in, 1, 1] for SD-1.5's 1x1-conv transformer
-projections).  The port's modules carry exactly those names, so a local
+projections).  The metric towers' maps follow the JAX package's loaders
+of the published files (``image_reward_name_map``: ImageReward-v1.0's
+names; ``inception_name_map``: pytorch-fid's; ``aesthetic_name_map``:
+the LAION head's), and ``*_from_jax`` turn those JAX trees into the
+port's state dicts.  The port's modules carry exactly those names, so a local
 diffusers snapshot or transformers CLIP checkpoint loads by name
 (``load_sd_checkpoint``, ``load_clip_checkpoint``), strictly, after
 dropping by name the few keys the port's modules do not have.
@@ -194,6 +198,105 @@ def clip_dual_name_map(vision_layers: int, text_layers: int) -> NameMap:
     m.dense("visual_projection", "visual_projection", bias=False)
     m.dense("text_projection", "text_projection", bias=False)
     return dict(m)
+
+
+def image_reward_name_map(vision_layers: int, text_layers: int) -> NameMap:
+    """The JAX ``ImageRewardModel`` tree -> the published ImageReward-v1.0
+    names (``metrics/image_reward_model.py``): timm's ViT under
+    ``blip.visual_encoder``, transformers' BERT under
+    ``blip.text_encoder.bert``, the head's ``mlp.layers.{0,2,4,6,7}``."""
+    m = MapEntries()
+    v = "blip.visual_encoder"
+    m.conv("vision/patch_embed", f"{v}.patch_embed.proj")
+    m["vision/cls_token"] = (f"{v}.cls_token", _id)
+    m["vision/pos_embed"] = (f"{v}.pos_embed", _id)
+    for i in range(vision_layers):
+        d, s = f"vision/block_{i}", f"{v}.blocks.{i}"
+        m.norm(f"{d}/ln1", f"{s}.norm1")
+        m.norm(f"{d}/ln2", f"{s}.norm2")
+        m.dense(f"{d}/qkv", f"{s}.attn.qkv")
+        m.dense(f"{d}/proj", f"{s}.attn.proj")
+        m.dense(f"{d}/fc1", f"{s}.mlp.fc1")
+        m.dense(f"{d}/fc2", f"{s}.mlp.fc2")
+    m.norm("vision/ln_final", f"{v}.norm")
+    b = "blip.text_encoder.bert"
+    m["text/word_embeddings/embedding"] = (f"{b}.embeddings.word_embeddings.weight", _id)
+    m["text/position_embeddings"] = (f"{b}.embeddings.position_embeddings.weight", _id)
+    m.norm("text/ln_embed", f"{b}.embeddings.LayerNorm")
+    for i in range(text_layers):
+        d, s = f"text/layer_{i}", f"{b}.encoder.layer.{i}"
+        for mine, theirs in (("self_attn", "attention"), ("cross_attn", "crossattention")):
+            for p in ("query", "key", "value"):
+                m.dense(f"{d}/{mine}/{p}", f"{s}.{theirs}.self.{p}")
+            m.dense(f"{d}/{mine}/out", f"{s}.{theirs}.output.dense")
+        m.norm(f"{d}/ln_self", f"{s}.attention.output.LayerNorm")
+        m.norm(f"{d}/ln_cross", f"{s}.crossattention.output.LayerNorm")
+        m.dense(f"{d}/fc1", f"{s}.intermediate.dense")
+        m.dense(f"{d}/fc2", f"{s}.output.dense")
+        m.norm(f"{d}/ln_out", f"{s}.output.LayerNorm")
+    for i, j in enumerate((0, 2, 4, 6)):
+        m.dense(f"head/fc{i}", f"mlp.layers.{j}")
+    m.dense("head/out", "mlp.layers.7")
+    return dict(m)
+
+
+def aesthetic_name_map() -> NameMap:
+    """The JAX ``AestheticScoreMLP`` tree -> ``layers.{0,2,4,6,7}``."""
+    m = MapEntries()
+    for i, j in enumerate((0, 2, 4, 6)):
+        m.dense(f"fc{i}", f"layers.{j}")
+    m.dense("out", "layers.7")
+    return dict(m)
+
+
+_BN = {"bn_mean": "running_mean", "bn_var": "running_var", "bn_scale": "weight",
+       "bn_bias": "bias"}
+
+
+def inception_name_map(tree: dict) -> NameMap:
+    """The JAX ``InceptionBlocks`` tree -> pytorch-fid's names: each
+    conv + frozen BatchNorm at JAX path ``A/B`` is torch module ``A.B``
+    (``.conv.weight``; ``.bn.running_mean``, ``.bn.running_var``,
+    ``.bn.weight``, ``.bn.bias``)."""
+    m = MapEntries()
+    for path in flatten(tree):
+        if path.endswith("/conv/kernel"):
+            unit = path[: -len("/conv/kernel")]
+            src = unit.replace("/", ".")
+            m[f"{unit}/conv/kernel"] = (f"{src}.conv.weight", _conv)
+            for jax_name, torch_name in _BN.items():
+                m[f"{unit}/{jax_name}"] = (f"{src}.bn.{torch_name}", _id)
+    return dict(m)
+
+
+def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {n: torch.from_numpy(np.ascontiguousarray(a)) for n, a in sd.items()}
+
+
+def image_reward_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
+    """A JAX ``ImageRewardModel`` tree (numpy leaves) -> the port's
+    ``ImageRewardModel`` state dict (``strict=True``)."""
+    return _tensors(invert(tree, image_reward_name_map(_count(tree["vision"], "block_{}"),
+                                                       _count(tree["text"], "layer_{}"))))
+
+
+def inception_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
+    """A JAX ``InceptionBlocks`` tree -> the port's ``InceptionBlocks`` state
+    dict at the same ``max_tap``."""
+    return _tensors(invert(tree, inception_name_map(tree)))
+
+
+def aesthetic_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
+    """A JAX ``AestheticScoreMLP`` tree -> the port's ``AestheticScoreMLP``
+    state dict."""
+    return _tensors(invert(tree, aesthetic_name_map()))
+
+
+def clip_dual_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
+    """A JAX ``CLIPDualEncoder`` tree of any geometry (ViT-B/16, ViT-L/14,
+    tiny) -> the port's ``CLIPDualEncoder`` state dict."""
+    return _tensors(invert(tree, clip_dual_name_map(_count(tree["vision"], "layer_{}"),
+                                                    _count(tree["text"], "layer_{}"))))
 
 
 def flatten(tree, prefix="") -> Dict[str, np.ndarray]:

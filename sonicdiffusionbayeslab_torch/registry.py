@@ -37,7 +37,7 @@ models_registry = PortRegistry("models_registry", (
     "stable_diffusion_controlnet_model", "stable_diffusion_xl_model",
 ))
 methods_registry = PortRegistry("methods_registry", ("flow_euler",))
-metrics_registry = PortRegistry("metrics_registry", ("aesthetic_score", "fid", "image_reward"))
+metrics_registry = PortRegistry("metrics_registry", ())
 schedulers_registry = PortRegistry("schedulers_registry", ("flow_match_euler_scheduler",))
 
 

@@ -3,6 +3,8 @@ for the CPU, and never a quiet fall back to the CPU."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -19,3 +21,16 @@ def resolve_device(device=None) -> torch.device:
 def synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """TF32 off for cuBLAS matmuls and cuDNN convolutions inside the block
+    (restored after): the metric towers compute their features in fp32, as
+    the JAX reference does, while the bf16 pipeline keeps torch's defaults."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

@@ -203,11 +203,20 @@ def test_cli_without_device_raises_without_gpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("overrides,match", [
     ({"inference.quant": "int8"}, "inference.quant"),
-    ({"quality_metrics.fid.feature": 64}, "fid"),
-    ({"dataset.img_dataset": str(REPO / "data" / "dataset")}, "image dataset"),
+    ({"scheduler.scheduler_name": "flow_match_euler_scheduler"}, "not ported yet"),
+    ({"model.model_name": "stable_diffusion_xl_model"}, "not ported yet"),
     ({"experiment.method": "flow_euler"}, "not ported yet"),
 ])
 def test_cli_names_what_is_not_ported(tmp_path, monkeypatch, overrides, match):
     monkeypatch.chdir(tmp_path)
     with pytest.raises((NotImplementedError, KeyError), match=match):
         cli.run(SMOKE, {"dataset.prompts": PROMPTS, **overrides}, device="cpu")
+
+
+def test_cli_image_dataset_with_missing_images_raises(tmp_path, monkeypatch):
+    """``dataset.img_dataset`` names a directory without the prompt file's
+    images: the dataset says how many are missing, as the JAX package's."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="dataset images missing"):
+        cli.run(SMOKE, {"dataset.prompts": PROMPTS, "dataset.img_dataset": str(tmp_path)},
+                device="cpu")

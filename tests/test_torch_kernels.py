@@ -378,6 +378,9 @@ def assert_fp32_gate(got, want):
     (2, 256, 256, 4, 80), (2, 256, 256, 4, 160), (1, 33, 45, 2, 80), (2, 300, 77, 8, 40),
     (2, 1000, 1000, 2, 40), (2, 64, 77, 8, 160), (4, 1024, 77, 8, 80), (4, 4096, 4096, 8, 40),
     (8, 197, 197, 12, 64), (2, 17, 17, 2, 16),  # the CLIP score's ViT-B/16 and tiny towers
+    # ImageReward's BLIP ViT-L/16 and BERT cross-attention (35 queries over
+    # the 197 image tokens), and the aesthetic score's CLIP ViT-L/14
+    (8, 197, 197, 16, 64), (8, 35, 197, 12, 64), (8, 257, 257, 16, 64),
 ])
 def test_tf32x3_attention_kernel_matches_plain(cuda, monkeypatch, B, N, M, H, D):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)  # the plain side in fp32

@@ -127,6 +127,9 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "sonicdiffusionbayeslab_torch.models.pipelines" in mods
+    assert {f"sonicdiffusionbayeslab_torch.{m}" for m in (
+        "calc_clip_score", "data._dataio", "data.imageio", "metrics.aesthetic", "metrics.frechet",
+        "metrics.image_reward_model", "metrics.inception")} <= set(mods)
 
 
 def test_pipeline_without_device_raises_without_gpu():
