@@ -102,11 +102,28 @@ prints no ``ok`` line:
      attentions take the plain path); FID at 2048 on the run's PNGs; the
      tiny and full ImageReward scorers, the ViT-L/14 tower and Inception at
      2048 card against CPU; each metric's device ms a validate batch;
- 10. the card line, then one JSON ``kernels`` line (the fp32 attention
+ 10. SD-2.1 (768-v) and SDXL-base: the census of their full-width UNets
+     (32 bf16 attention launches a SD-2.1 forward, 140 a SDXL forward, all
+     at head_dim 64) and VAE decoders (SDXL's GroupNorm at 1024 x 1024
+     rows a sample), found on the meta device; each kernel against its
+     plain version at every shape of this phase (bf16; the plain version
+     over batch slices where its fp32 intermediates pass 8 GB) and at the
+     tiny runs' (fp32), and timed at the CLI runs' shapes; the tiny fp32
+     SD-2.1 (v-prediction) and SDXL (added conditioning) pipelines,
+     graphed, on the card against the CPU; configs/sd21_config.yaml and
+     configs/sdxl_config.yaml as shipped through the CLI at 768^2 and
+     1024^2, batch 8 (the first sweep point of 10 DPM++ steps, one batch,
+     phase 9's real images and checkpoints: clip_score, fid at 64,
+     image_reward), each traced: table, PNGs, one capture, peak memory,
+     launches against the census by the wrappers and by the trace; and
+     each family's 20-step DPM++ loop at batch 2, CFG 7.5 (engine level,
+     median of 3, peak memory, a torch.profiler breakdown a step);
+ 11. the card line, then one JSON ``kernels`` line (the fp32 attention
      kernel's entry is phase 9's metric towers: 108 launches a validate
-     batch; each entry also lists its launches in each phase-7, phase-8
-     and phase-9 run);
- 11. the last line: {"ok": true, "device": {...}}.
+     batch; each entry also lists its launches in each phase-7, phase-8,
+     phase-9 and phase-10 run, and its phase-10 sums over one forward and
+     one decode of each family);
+ 12. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -231,6 +248,20 @@ METRIC_BATCH = 8
 # after 36 layers and an unnormalised head.
 METRIC_TOL = {"clip_l14_embedding": (1e-4, 0.0), "inception_2048": (1e-4, 1e-4),
               "image_reward": (1e-3, 1e-3), "image_reward_tiny": (1e-4, 1e-4)}
+# Phase 10: SD-2.1 (768-v) and SDXL-base through their shipped configs at
+# full width, batch FAMILY_BATCH (UNet batch 16 with CFG), the first sweep
+# point of each and one batch of the prompt file; then their engines'
+# ENGINE_STEPS-step DPM++ loops at batch BATCH, CFG GUIDANCE.
+FAMILY_BATCH, ENGINE_STEPS = 8, 20
+FAMILIES = {
+    "sd21": dict(config="sd21_config", size=768, steps=10, pipeline="stable_diffusion_model",
+                 kw={"variant": "sd21"}, prediction_type="v_prediction"),
+    "sdxl": dict(config="sdxl_config", size=1024, steps=10, pipeline="stable_diffusion_xl_model",
+                 kw={}, prediction_type="epsilon"),
+}
+# The plain versions' fp32 intermediates a call, at most: a larger call
+# runs them over slices of the batch (the same function).
+PLAIN_BYTES = 8e9
 
 
 _T0 = time.perf_counter()
@@ -358,18 +389,34 @@ def _kinds(calls):
     return out
 
 
-def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, tome=None):
+def family_configs(family="sd15", tiny=False):
+    """(UNetConfig, VAEConfig, latent size) of a family's pipeline at its
+    full width and size (SD-1.5 at SIZE, SD-2.1 and SDXL at their
+    configs' FAMILIES sizes), or with ``tiny`` its tiny configs at
+    the tiny pipelines' 8x8 latents."""
+    from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
+    from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
+
+    unet = {"sd15": (UNetConfig.sd15, UNetConfig.tiny), "sd21": (UNetConfig.sd21, UNetConfig.tiny21),
+            "sdxl": (UNetConfig.sdxl, UNetConfig.tiny_xl)}[family][int(tiny)]()
+    vae = VAEConfig.tiny() if tiny else (VAEConfig.sdxl() if family == "sdxl" else VAEConfig.sd15())
+    lat = 8 if tiny else (FAMILIES[family]["size"] if family in FAMILIES else SIZE) // 8
+    return unet, vae, lat
+
+
+def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, tome=None,
+                  family="sd15"):
     """{(kind, shape): launches} of one UNet call at ``unet_batch`` rows
     (DeepCache's shallow call at branch 0 with ``shallow``, else the plain
     or full call; with Token Merging at ratio ``tome``, whose merged
     self-attentions run at N = M = tokens - r) and one VAE decode of
-    ``vae_batch`` latents, from the SD-1.5 UNet and VAE decoder (or, with
-    ``tiny``, the tiny configs at StableDiffusionModel(tiny=True)'s 8x8
-    latents) run on the meta device with the two kernel entry points
-    replaced by shape recorders."""
+    ``vae_batch`` latents, from the UNet and VAE decoder of ``family``
+    (sd15, sd21 or sdxl: ``family_configs``; with ``tiny``, its tiny
+    configs at the tiny pipelines' 8x8 latents) run on the meta device
+    with the two kernel entry points replaced by shape recorders."""
     from sonicdiffusionbayeslab_torch.models import layers
-    from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
-    from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
+    from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition
+    from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL
     from sonicdiffusionbayeslab_torch.ops.attention import uses_kernel
     from sonicdiffusionbayeslab_torch.ops.groupnorm import resolve_groups
     from sonicdiffusionbayeslab_torch.ops.tome import TomeConfig
@@ -389,9 +436,7 @@ def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, to
 
     saved = layers.group_norm_silu, layers.dot_product_attention
     layers.group_norm_silu, layers.dot_product_attention = gn, attn
-    unet_cfg, vae_cfg = (UNetConfig.tiny(), VAEConfig.tiny()) if tiny else (UNetConfig.sd15(),
-                                                                            VAEConfig.sd15())
-    lat = 8 if tiny else SIZE // 8
+    unet_cfg, vae_cfg, lat = family_configs(family, tiny)
     try:
         with torch.device("meta"):
             if unet_batch:
@@ -399,16 +444,19 @@ def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, to
                 b = unet_batch
                 args = (torch.empty(b, lat, lat, 4), torch.empty(b),
                         torch.empty(b, 77, unet_cfg.cross_attention_dim))
+                # SDXL's pooled text embeddings and time_ids.
+                added = (() if unet_cfg.pooled_dim is None else
+                         (torch.empty(b, unet_cfg.pooled_dim), torch.empty(b, 6)))
                 kw, dst = {}, None
                 if tome:
                     kw["tome"] = cfg = TomeConfig(tome)
                     slots = unet.tome_slots(lat, lat, cfg, 0 if shallow else None)
                     dst = torch.zeros(len(slots), cfg.n_dst(lat, lat), dtype=torch.int64)
                 if shallow:
-                    unet(*args, torch.empty((b,) + unet.cache_shape(lat, lat, 0)), dst,
+                    unet(*args, torch.empty((b,) + unet.cache_shape(lat, lat, 0)), dst, *added,
                          cache_branch_id=0, **kw)
                 else:
-                    unet(*args, None, dst, **kw)
+                    unet(*args, None, dst, *added, **kw)
             if vae_batch:
                 AutoencoderKL(vae_cfg).decode(torch.empty(vae_batch, lat, lat, 4))
     finally:
@@ -491,18 +539,42 @@ def bound(kind, shape, dtype):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def plain_rows(kind, shape):
+    """Batch rows one plain-version call takes: all of them unless its fp32
+    intermediates (attention: logits, softmax and probabilities, 10 bytes
+    a logit; GroupNorm: about four fp32 copies of x) pass PLAIN_BYTES."""
+    if kind == "attention":
+        B, N, M, H, _ = shape
+        per_row = 10 * H * N * M
+    else:
+        B, N, C = shape[:3]
+        per_row = 16 * N * C
+    return max(1, min(B, int(PLAIN_BYTES // per_row)))
+
+
 def run_kernel(kind, shape, inputs):
+    """(kernel call, plain call) on ``inputs``; the plain call runs over
+    slices of ``plain_rows`` batch rows (each row's math is independent)."""
     from sonicdiffusionbayeslab_torch.ops.attention import plain_attention
     from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention
     from sonicdiffusionbayeslab_torch.ops.groupnorm import group_norm_silu, plain_group_norm
 
+    rows = plain_rows(kind, shape)
+
+    def sliced(fn, batched, *rest):
+        B = batched[0].shape[0]
+        if rows >= B:
+            return fn(*batched, *rest)
+        return torch.cat([fn(*(t[i:i + rows] for t in batched), *rest)
+                          for i in range(0, B, rows)])
+
     if kind == "attention":
         q, k, v = inputs
-        return (lambda: flash_attention(q, k, v)), (lambda: plain_attention(q, k, v))
+        return (lambda: flash_attention(q, k, v)), (lambda: sliced(plain_attention, (q, k, v)))
     _, _, _, G, eps, silu = shape
     x, w, b = inputs
     return (lambda: group_norm_silu(x, w, b, G, eps, silu),
-            lambda: plain_group_norm(x, w, b, G, eps, silu))
+            lambda: sliced(plain_group_norm, (x,), w, b, G, eps, silu))
 
 
 def library_call(kind, shape, inputs):
@@ -556,14 +628,16 @@ def check_kernels(shapes, fp32_shapes, report):
 
 def timing_row(kind, shape, dtype, path, launches, gen):
     """One kernel's timing row at ``shape``: the kernel, its plain version
-    and the library call (``cuda_ms``), beside the bound; printed."""
+    and the library call (``cuda_ms``: graphs of 20 calls, or of 5 where
+    the bound passes 1 ms), beside the bound; printed."""
     inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
     kern, plain = run_kernel(kind, shape, inputs)
     b_ms, b_by = bound(kind, shape, dtype)
+    reps = 20 if b_ms < 1.0 else 5
     row = dict(kernel=kind, dtype=str(dtype)[6:], shape=list(shape), path=path,
                launches_per_run=launches,
-               ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-               library_ms=cuda_ms(library_call(kind, shape, inputs)),
+               ms=cuda_ms(kern, reps), plain_ms=cuda_ms(plain, reps),
+               library_ms=cuda_ms(library_call(kind, shape, inputs), reps),
                bound_ms=b_ms, bound_by=b_by)
     if kind == "attention" and dtype == torch.float32:
         B, N, M, H, D = shape
@@ -812,20 +886,22 @@ def eager_vs_graphed_unet(model, per_unet, reps=5):
     return out
 
 
-def profile_loop(model, tome=None):
-    """Device time by kernel group over one 20-step denoising loop (UNet
-    forwards at the model batch, CFG combine, scheduler rows; no decode;
-    with Token Merging at ratio ``tome``, whose sorts, gathers and scatters
-    are a group of their own), from torch.profiler, per step, beside the
-    loop's wall clock."""
+def profile_loop(model, tome=None, size=SIZE, label=None):
+    """Device time by kernel group over one 20-step denoising loop of the
+    pipeline's plan (UNet forwards at the model batch, CFG combine,
+    scheduler rows; no decode; with Token Merging at ratio ``tome``, whose
+    sorts, gathers and scatters are a group of their own), from
+    torch.profiler, per step, beside the loop's wall clock.  The prompts
+    are encoded as the pipeline encodes them (with SDXL's added
+    conditioning)."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = model.engine
     plan = model.build_plan(STEPS)
-    emb = eng.encode_prompts(model.tokenizer(PROMPTS))
-    neg = eng.encode_prompts(model.tokenizer([""] * BATCH))
-    kw = dict(guidance_scale=GUIDANCE, latent_hw=(SIZE // 8, SIZE // 8), decode=False,
-              tome=tome)
+    lat_hw = (size // 8, size // 8)
+    emb, neg = model._encode(PROMPTS), model._encode([""] * BATCH)
+    kw = dict(guidance_scale=GUIDANCE, latent_hw=lat_hw, decode=False, tome=tome,
+              **model._extra_sample_kwargs(BATCH, lat_hw))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         loop_s = eng.sample(plan, emb, neg, **kw).execution_time
     by_name = collections.Counter()
@@ -857,7 +933,8 @@ def profile_loop(model, tome=None):
                device_idle_share=max(0.0, 1 - device_ms / step_ms) if device_ms else None,
                groups_ms_per_step=dict(groups.most_common()),
                top_kernels_ms_per_step={k[:120]: v for k, v in by_name.most_common(12)})
-    print(("profile" if tome is None else f"profile tome {tome}") + " " + json.dumps(out))
+    name = label or ("profile" if tome is None else f"profile tome {tome}")
+    print(f"{name} {json.dumps(out)}")
     if not device_ms:
         print("profile: torch.profiler reported no device time (not measured)")
     return out
@@ -1500,11 +1577,12 @@ def run_samplers(report, card, per_vae, profile):
 
 
 # ------------------------------------------------------- quality metrics
-def metric_census(batch, tiny=False):
+def metric_census(batch, tiny=False, aesthetic=True):
     """{(kind, shape): launches} of one validate batch of phase 9's metric
     towers: the CLIP score's ViT-B/16 vision and text towers, ImageReward's
     BLIP twice (the real and the generated images), the aesthetic score's
-    ViT-L/14 (``tiny``: the tiny towers); from the modules run on the meta
+    ViT-L/14 unless not ``aesthetic`` (phase 10's configs have none;
+    ``tiny``: the tiny towers); from the modules run on the meta
     device with the attention entry points replaced by shape recorders.
     Only unmasked calls the kernel takes are counted: BERT's masked
     self-attention and the CLIP text towers' causal one take the plain
@@ -1527,7 +1605,7 @@ def metric_census(batch, tiny=False):
     if tiny:
         vision, text, blip = [CLIPVisionConfig.tiny()], CLIPTextConfig.tiny(), irm.BLIPConfig.tiny()
     else:
-        vision = [CLIPVisionConfig(), CLIPVisionConfig.vit_l14()]
+        vision = [CLIPVisionConfig()] + [CLIPVisionConfig.vit_l14()] * aesthetic
         text, blip = CLIP_B16_TEXT, irm.BLIPConfig()
     saved = clip_text.dot_product_attention, irm.dot_product_attention
     clip_text.dot_product_attention = irm.dot_product_attention = attn
@@ -1743,11 +1821,12 @@ def metric_timings(card, backends, scorer, inception, images):
     return out
 
 
-def run_metrics(report, card, metric_counts):
+def run_metrics(report, card, metric_counts, tmp):
     """Phase 9: ``cli.run`` of configs/ddim_config.yaml as shipped, at SD-1.5
     512^2, with ``aesthetic_score`` added and only the image directory, its
     count, the batch, the checkpoints' paths and the sweep's length
-    overridden, in a temporary working directory, traced: its table row
+    overridden, in the directory ``tmp`` (which keeps the real images and
+    the checkpoints for phase 10: returned), traced: its table row
     (finite clip_score, fid, aesthetic_score; image_reward in [0, 1]), its
     PNGs, one graph capture, and each kernel's launches against the census
     (the metric towers' fp32 attention, the UNet's and VAE's bf16 kernels,
@@ -1778,79 +1857,78 @@ def run_metrics(report, card, metric_counts):
     want["attention_fp32"] = want_traced["attention_fp32"] = fp32_per_batch
     out = {}
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory(prefix="sdbl_metrics_") as tmp:
-        img_dir = write_real_images(tmp)
-        ckpts = write_metric_checkpoints(tmp)
-        aesthetic_ckpt = str(repo / "data" / "models" / "aethetic_score_model.pth")
-        overrides = {
-            "dataset.img_dataset": str(img_dir), "dataset.max_count": METRIC_BATCH,
-            "inference.batch_size": METRIC_BATCH,
-            "quality_metrics.image_reward.checkpoint": str(ckpts["image_reward"]),
-            "quality_metrics.fid.inception_checkpoint": str(ckpts["inception"]),
-            "quality_metrics.aesthetic_score.checkpoint": aesthetic_ckpt,
-            "experiment_params.num_inference_steps": [nfe], "logger.run_id": "metrics",
-            "dataset.prompts": str(repo / "data" / "dataset" / "img2annotations_test.json")}
-        os.chdir(tmp)
-        try:
-            wrapper_counts(reset=True)
-            t0 = time.perf_counter()
-            with _RecordingVariants() as rec:
-                metrics, traced = traced_launches(lambda: cli.run(config, overrides))
-            wall = time.perf_counter() - t0
-            counts = wrapper_counts()
-            caps, graphs_gb = rec.captures()
-            with open(Path(tmp) / "outputs" / "metrics" / "tables" / "final.tsv") as f:
-                rows = list(csv.DictReader(f, delimiter="	"))
-            # save_dir keeps the dataset's file names: PNG content under .jpg names.
-            pngs = sorted((Path(tmp) / "outputs" / "DDIM" / label).iterdir())
-            gen_imgs = np.stack([read_image(p) for p in pngs]) if pngs else None
-            real_imgs = np.stack([read_image(p, SIZE) for p in sorted(img_dir.iterdir())])
-        finally:
-            os.chdir(cwd)
-        row = rows[0] if rows else {}
-        vals = {k: float(row[k]) for k in ("clip_score", "fid", "image_reward", "aesthetic_score")
-                if k in row}
-        print(f"ddim_config as shipped with a real-image directory ({label}, SD-1.5 bf16 "
-              f"{SIZE}x{SIZE}, batch {METRIC_BATCH}, x0 of every sample; clip_score on ViT-B/16, "
-              f"fid at feature 64 on FID-Inception, image_reward on BLIP ViT-L/16 + BERT, "
-              f"aesthetic_score on ViT-L/14, random towers): whole CLI {wall:.3f} s, sweep "
-              f"{row.get('time')} s/image, {vals}; {card}; graph captures {dict(caps)}; "
-              f"launches: wrappers {counts}, trace {traced}", flush=True)
-        if list(row) != ["exp", "nfe", "time", "clip_score", "fid", "image_reward",
-                         "aesthetic_score"] or len(rows) != 1 or row["exp"] != label:
-            raise AssertionError(f"metrics run: table rows {rows}")
-        if metrics["exp"] != [label] or row["nfe"] != str(nfe):
-            raise AssertionError(f"metrics run: CLI returned {metrics}")
-        if not all(np.isfinite(v) for v in vals.values()) or not 0 <= vals["image_reward"] <= 1:
-            raise AssertionError(f"metrics run: values {vals}")
-        if len(pngs) != METRIC_BATCH or {_png_size(p) for p in pngs} != {(SIZE, SIZE)}:
-            raise AssertionError(f"metrics run: {len(pngs)} PNGs, expected {METRIC_BATCH} of "
-                                 f"{SIZE}x{SIZE}")
-        if sorted(caps.values()) != [1]:
-            raise AssertionError(f"metrics run: graph captures {caps}")
-        if counts != want or traced != want_traced:
-            raise AssertionError(f"metrics run: launches wrappers {counts}, trace {traced}; "
-                                 f"expected {want} and {want_traced}")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        fid = FID(feature=2048, inception_checkpoint=str(ckpts["inception"]), device="cuda")
-        fid.update(real_imgs, real=True)
-        fid.update(gen_imgs, real=False)
-        fid_2048 = fid.compute()
-        print(f"FID at feature 2048 (the whole FID-Inception, random weights) on the run's "
-              f"{len(pngs)} PNGs against the {len(real_imgs)} real images: {fid_2048:.6g}",
-              flush=True)
-        if not np.isfinite(fid_2048):
-            raise AssertionError(f"FID at 2048: {fid_2048}")
-        l14 = _clip_backend(None, False, "cuda", "l14")
-        backends = (_clip_backend("openai/clip-vit-base-patch16", False, "cuda"), l14,
-                    AestheticScorer(aesthetic_ckpt, device="cuda"))
-        scorer = ImageRewardScorer(str(ckpts["image_reward"]), device="cuda")
-        inception = {64: InceptionFeatures(64, str(ckpts["inception"]), device="cuda"),
-                     2048: fid._inception}
-        out["card_vs_cpu"] = metrics_card_vs_cpu(l14, ckpts, real_imgs)
-        out["device_ms_per_batch"] = metric_timings(card, backends, scorer, inception, gen_imgs)
-        torch.backends.cudnn.allow_tf32 = True
+    img_dir = write_real_images(tmp)
+    ckpts = write_metric_checkpoints(tmp)
+    aesthetic_ckpt = str(repo / "data" / "models" / "aethetic_score_model.pth")
+    overrides = {
+        "dataset.img_dataset": str(img_dir), "dataset.max_count": METRIC_BATCH,
+        "inference.batch_size": METRIC_BATCH,
+        "quality_metrics.image_reward.checkpoint": str(ckpts["image_reward"]),
+        "quality_metrics.fid.inception_checkpoint": str(ckpts["inception"]),
+        "quality_metrics.aesthetic_score.checkpoint": aesthetic_ckpt,
+        "experiment_params.num_inference_steps": [nfe], "logger.run_id": "metrics",
+        "dataset.prompts": str(repo / "data" / "dataset" / "img2annotations_test.json")}
+    os.chdir(tmp)
+    try:
+        wrapper_counts(reset=True)
+        t0 = time.perf_counter()
+        with _RecordingVariants() as rec:
+            metrics, traced = traced_launches(lambda: cli.run(config, overrides))
+        wall = time.perf_counter() - t0
+        counts = wrapper_counts()
+        caps, graphs_gb = rec.captures()
+        with open(Path(tmp) / "outputs" / "metrics" / "tables" / "final.tsv") as f:
+            rows = list(csv.DictReader(f, delimiter="	"))
+        # save_dir keeps the dataset's file names: PNG content under .jpg names.
+        pngs = sorted((Path(tmp) / "outputs" / "DDIM" / label).iterdir())
+        gen_imgs = np.stack([read_image(p) for p in pngs]) if pngs else None
+        real_imgs = np.stack([read_image(p, SIZE) for p in sorted(img_dir.iterdir())])
+    finally:
+        os.chdir(cwd)
+    row = rows[0] if rows else {}
+    vals = {k: float(row[k]) for k in ("clip_score", "fid", "image_reward", "aesthetic_score")
+            if k in row}
+    print(f"ddim_config as shipped with a real-image directory ({label}, SD-1.5 bf16 "
+          f"{SIZE}x{SIZE}, batch {METRIC_BATCH}, x0 of every sample; clip_score on ViT-B/16, "
+          f"fid at feature 64 on FID-Inception, image_reward on BLIP ViT-L/16 + BERT, "
+          f"aesthetic_score on ViT-L/14, random towers): whole CLI {wall:.3f} s, sweep "
+          f"{row.get('time')} s/image, {vals}; {card}; graph captures {dict(caps)}; "
+          f"launches: wrappers {counts}, trace {traced}", flush=True)
+    if list(row) != ["exp", "nfe", "time", "clip_score", "fid", "image_reward",
+                     "aesthetic_score"] or len(rows) != 1 or row["exp"] != label:
+        raise AssertionError(f"metrics run: table rows {rows}")
+    if metrics["exp"] != [label] or row["nfe"] != str(nfe):
+        raise AssertionError(f"metrics run: CLI returned {metrics}")
+    if not all(np.isfinite(v) for v in vals.values()) or not 0 <= vals["image_reward"] <= 1:
+        raise AssertionError(f"metrics run: values {vals}")
+    if len(pngs) != METRIC_BATCH or {_png_size(p) for p in pngs} != {(SIZE, SIZE)}:
+        raise AssertionError(f"metrics run: {len(pngs)} PNGs, expected {METRIC_BATCH} of "
+                             f"{SIZE}x{SIZE}")
+    if sorted(caps.values()) != [1]:
+        raise AssertionError(f"metrics run: graph captures {caps}")
+    if counts != want or traced != want_traced:
+        raise AssertionError(f"metrics run: launches wrappers {counts}, trace {traced}; "
+                             f"expected {want} and {want_traced}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fid = FID(feature=2048, inception_checkpoint=str(ckpts["inception"]), device="cuda")
+    fid.update(real_imgs, real=True)
+    fid.update(gen_imgs, real=False)
+    fid_2048 = fid.compute()
+    print(f"FID at feature 2048 (the whole FID-Inception, random weights) on the run's "
+          f"{len(pngs)} PNGs against the {len(real_imgs)} real images: {fid_2048:.6g}",
+          flush=True)
+    if not np.isfinite(fid_2048):
+        raise AssertionError(f"FID at 2048: {fid_2048}")
+    l14 = _clip_backend(None, False, "cuda", "l14")
+    backends = (_clip_backend("openai/clip-vit-base-patch16", False, "cuda"), l14,
+                AestheticScorer(aesthetic_ckpt, device="cuda"))
+    scorer = ImageRewardScorer(str(ckpts["image_reward"]), device="cuda")
+    inception = {64: InceptionFeatures(64, str(ckpts["inception"]), device="cuda"),
+                 2048: fid._inception}
+    out["card_vs_cpu"] = metrics_card_vs_cpu(l14, ckpts, real_imgs)
+    out["device_ms_per_batch"] = metric_timings(card, backends, scorer, inception, gen_imgs)
+    torch.backends.cudnn.allow_tf32 = True
     fp32 = report["attention_fp32"]
     fp32.update(launches=traced["attention_fp32"], wrapper_launches=counts["attention_fp32"],
                 launches_from="torch.profiler trace of phase 9's CLI run (one validate batch of "
@@ -1862,6 +1940,299 @@ def run_metrics(report, card, metric_counts):
     del scorer, inception, fid
     gc.collect()
     torch.cuda.empty_cache()
+    return dict(img_dir=img_dir, ckpts=ckpts)
+
+
+# ------------------------------------------------- SD-2.1 and SDXL (phase 10)
+def family_pipeline(family, **kw):
+    """The family's registered pipeline (``FAMILIES``) with ``kw``; SD-2.1's
+    scheduler predicts v, as its config's."""
+    from sonicdiffusionbayeslab_torch.registry import load_all_plugins, models_registry
+    from sonicdiffusionbayeslab_torch.schedulers import DPMSolverScheduler
+
+    load_all_plugins()
+    meta = FAMILIES[family]
+    model = models_registry[meta["pipeline"]](**meta["kw"], **kw)
+    model.scheduler = DPMSolverScheduler(solver_order=2, prediction_type=meta["prediction_type"])
+    return model
+
+
+def family_census():
+    """Per family: {(kind, shape): launches} of one UNet forward at the CLI
+    runs' UNet batch (2 x FAMILY_BATCH) and of one VAE decode of
+    FAMILY_BATCH latents, and the shapes of every UNet and VAE call phase
+    10 makes (also the engine timings' UNet batch 2 x BATCH) and of its
+    tiny fp32 runs."""
+    out = {}
+    for family in FAMILIES:
+        unet = module_census(2 * FAMILY_BATCH, family=family)
+        vae = module_census(vae_batch=FAMILY_BATCH, family=family)
+        engine = module_census(2 * BATCH, family=family)
+        tiny_unet = module_census(2 * BATCH, tiny=True, family=family)
+        tiny_vae = module_census(vae_batch=BATCH, tiny=True, family=family)
+        out[family] = dict(unet=unet, vae=vae, engine=engine, tiny_unet=tiny_unet,
+                           tiny_vae=tiny_vae)
+    return out
+
+
+def check_family_kernels(census, report):
+    """Each kernel against its plain version at every phase-10 shape: bf16
+    at the full-width runs' (the plain version over batch slices where its
+    fp32 intermediates pass PLAIN_BYTES), fp32 at the tiny runs'; max
+    errors into ``report["errs"]``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    work = sorted({(k, torch.bfloat16) for c in census.values()
+                   for part in ("unet", "vae", "engine") for k in c[part]} |
+                  {(k, torch.float32) for c in census.values()
+                   for part in ("tiny_unet", "tiny_vae") for k in c[part]},
+                  key=lambda w: (str(w[1]), w[0][0], [str(v) for v in w[0][1]]))
+    for (kind, shape), dtype in work:
+        inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
+        kern, plain = run_kernel(kind, shape, inputs)
+        got = kern()
+        torch.cuda.synchronize()
+        err = compare(kind, dtype, got, plain(), f"{kind} {shape} {dtype} (phase 10)")
+        report["errs"][report_key(kind, dtype)].append(err)
+        report["phase10_errs"][report_key(kind, dtype)].append(err)
+        print(f"phase 10 {kind} {str(dtype)[6:]} {shape}: max abs err {err:.3e}")
+        del inputs, got
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    return len(work)
+
+
+def time_family_kernels(census, card):
+    """Timing rows (``timing_row``) at each family's CLI-run shapes, bf16:
+    a UNet forward's (launches a forward) and a VAE decode's (launches a
+    decode); and per family and kernel the sums over one forward and one
+    decode (per-shape median x launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows, totals = [], {}
+    for family, c in census.items():
+        for part in ("unet", "vae"):
+            for (kind, shape), n in sorted(c[part].items(), key=lambda kv: (
+                    kv[0][0], [str(v) for v in kv[0][1]])):
+                r = timing_row(kind, shape, torch.bfloat16, f"{family} {part}", n, gen)
+                rows.append(r)
+                agg = totals.setdefault(family, {}).setdefault(part, {}).setdefault(
+                    kind, dict(launches=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0))
+                agg["launches"] += n
+                for field in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                    agg[field] += r[field] * n
+        torch.cuda.empty_cache()
+    print("phase 10 kernel totals (ms over one UNet forward at UNet batch "
+          f"{2 * FAMILY_BATCH} and one VAE decode of {FAMILY_BATCH}; {card}): "
+          + json.dumps(totals), flush=True)
+    return rows, totals
+
+
+def families_tiny_card_vs_cpu(census):
+    """The tiny fp32 SD-2.1 (v-prediction) and SDXL (added conditioning)
+    pipelines on the card, graphed, against the same weights on the CPU,
+    20-step DPM++ at batch 2, CFG 7.5: the images within 1e-3 and the fp32
+    attention kernel's launches the tiny census's."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention_tf32x3
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    out = {}
+    for family in FAMILIES:
+        cpu = family_pipeline(family, tiny=True, dtype="float32", seed=0, device="cpu")
+        card = family_pipeline(family, tiny=True, dtype="float32", seed=0, device="cuda")
+        eng = cpu.engine
+        card.engine.load_state_dicts({k: m.state_dict() for k, m in
+                                      zip(eng.MODULES, eng.modules())})
+        kw = dict(num_inference_steps=ENGINE_STEPS, guidance_scale=GUIDANCE, seed=29)
+        prompts = ["a lighthouse at dusk", "a red boat"]
+        a = cpu(prompts, **kw)[0]
+        flash_attention_tf32x3.launches = 0
+        b = card(prompts, **kw)[0]
+        launches = flash_attention_tf32x3.launches
+        caps = card.engine.graphed_unet.captures
+        err = float(np.abs(a - b).max())
+        want = ((GraphedCall.WARMUP + 1) * _kinds(census[family]["tiny_unet"])["attention"]
+                + _kinds(census[family]["tiny_vae"])["attention"])
+        print(f"tiny fp32 {family} pipeline, card (graphed) vs CPU: max abs image err {err:.3e} "
+              f"(tolerance 1e-3); flash_attention_tf32x3 launches {launches}; graph captures "
+              f"{caps}", flush=True)
+        if not err <= 1e-3:
+            raise AssertionError(f"the tiny {family} pipeline on the card disagrees with the CPU")
+        if launches != want or launches <= 0 or list(caps.values()) != [1]:
+            raise AssertionError(f"the tiny {family} run launched the fp32 attention kernel "
+                                 f"{launches} times (expected {want}), captures {caps}")
+        out[family] = dict(max_abs_image_err=err, fp32_attention_launches=launches)
+    return out
+
+
+def run_family_cli(family, census, assets, card):
+    """``cli.run`` of the family's shipped config at full width, overriding
+    only the real-image directory (phase 9's) and its count, the
+    checkpoints' paths, the prompt file's path and the sweep (its first
+    point), in a working directory under ``assets``, traced: its table row
+    (finite clip_score and fid, image_reward in [0, 1]), its PNGs, one
+    graph capture, the peak memory, and each kernel's launches against the
+    census by the wrappers and by the trace (the UNet's graph warm-up and
+    capture or replays, FAMILY_BATCH-latent decodes of the final and each
+    step's x0, the CLIP score's and ImageReward's fp32 attention of one
+    validate batch)."""
+    import csv
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch import cli
+    from sonicdiffusionbayeslab_torch.config import load_config
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    repo = Path(__file__).resolve().parent
+    meta = FAMILIES[family]
+    config = str(repo / "configs" / f"{meta['config']}.yaml")
+    nfe, size = meta["steps"], meta["size"]
+    label = f"steps_{nfe}"
+    per_unet, per_vae = _kinds(census[family]["unet"]), _kinds(census[family]["vae"])
+    W = GraphedCall.WARMUP
+    fp32 = sum(metric_census(FAMILY_BATCH, aesthetic=False).values())
+    want = {k: (W + 1) * per_unet[k] + (1 + nfe) * per_vae[k] for k in MAIN}
+    want_traced = {k: (W + nfe) * per_unet[k] + (1 + nfe) * per_vae[k] for k in MAIN}
+    want["attention_fp32"] = want_traced["attention_fp32"] = fp32
+    overrides = {
+        "dataset.img_dataset": str(assets["img_dir"]), "dataset.max_count": FAMILY_BATCH,
+        "quality_metrics.image_reward.checkpoint": str(assets["ckpts"]["image_reward"]),
+        "quality_metrics.fid.inception_checkpoint": str(assets["ckpts"]["inception"]),
+        "experiment_params.num_inference_steps": [nfe], "logger.run_id": family,
+        "dataset.prompts": str(repo / "data" / "dataset" / "img2annotations_test.json")}
+    work = Path(assets["root"]) / family
+    work.mkdir()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        wrapper_counts(reset=True)
+        t0 = time.perf_counter()
+        with _RecordingVariants() as rec:
+            metrics, traced = traced_launches(lambda: cli.run(config, overrides))
+        wall = time.perf_counter() - t0
+        counts = wrapper_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        caps, graphs_gb = rec.captures()
+        with open(work / "outputs" / family / "tables" / "final.tsv") as f:
+            rows = list(csv.DictReader(f, delimiter="\t"))
+        pngs = sorted((work / "outputs" / load_config(config).get("experiment_name") /
+                       label).iterdir())
+    finally:
+        os.chdir(cwd)
+    row = rows[0] if rows else {}
+    vals = {k: float(row[k]) for k in ("clip_score", "fid", "image_reward") if k in row}
+    print(f"{meta['config']} as shipped ({label}, bf16 {size}x{size}, batch {FAMILY_BATCH}, x0 of "
+          f"every sample, real-image directory; clip_score, fid at 64, image_reward on random "
+          f"towers): whole CLI {wall:.3f} s, sweep {row.get('time')} s/image, {vals}; peak memory "
+          f"{peak_gb:.2f} GB allocated; graph captures {dict(caps)} ({graphs_gb:.3f} GB); "
+          f"launches: wrappers {counts}, trace {traced}; {card}", flush=True)
+    if list(row) != ["exp", "nfe", "time", "clip_score", "fid", "image_reward"] or \
+            len(rows) != 1 or row["exp"] != label or row["nfe"] != str(nfe):
+        raise AssertionError(f"{family} run: table rows {rows}")
+    if metrics["exp"] != [label]:
+        raise AssertionError(f"{family} run: CLI returned {metrics}")
+    if not all(np.isfinite(v) for v in vals.values()) or not 0 <= vals["image_reward"] <= 1:
+        raise AssertionError(f"{family} run: values {vals}")
+    if not (np.isfinite(float(row["time"])) and float(row["time"]) > 0):
+        raise AssertionError(f"{family} run: time {row['time']}")
+    if len(pngs) != FAMILY_BATCH or {_png_size(p) for p in pngs} != {(size, size)}:
+        raise AssertionError(f"{family} run: {len(pngs)} PNGs, expected {FAMILY_BATCH} of "
+                             f"{size}x{size}")
+    if sorted(caps.values()) != [1]:
+        raise AssertionError(f"{family} run: graph captures {caps}")
+    if counts != want or traced != want_traced:
+        raise AssertionError(f"{family} run: launches wrappers {counts}, trace {traced}; "
+                             f"expected {want} and {want_traced}")
+    return dict(wall_s=wall, sec_per_image=float(row["time"]), values=vals, peak_gb=peak_gb,
+                graph_reserved_gb=graphs_gb, wrapper_launches=counts, traced_launches=traced)
+
+
+def family_engine_timings(family, census, card, reps=3):
+    """The family's pipeline at full width and size on random bf16
+    weights: a first ENGINE_STEPS-step DPM++ loop at batch BATCH, CFG
+    GUIDANCE (engine level, no decode) that captures the UNet's graph, with
+    the wrappers' counts set to 0 just before and read just after; then
+    ``reps`` warm loops (execution_time, median) with the peak memory over
+    them, and a torch.profiler breakdown of one loop per step."""
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    meta = FAMILIES[family]
+    size = meta["size"]
+    lat_hw = (size // 8, size // 8)
+    t0 = time.perf_counter()
+    model = family_pipeline(family, image_size=size, dtype="bfloat16", seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = model.engine
+    plan = model.build_plan(ENGINE_STEPS)
+    emb, neg = model._encode(PROMPTS), model._encode([""] * BATCH)
+    kw = dict(guidance_scale=GUIDANCE, latent_hw=lat_hw, seed=29, decode=False,
+              **model._extra_sample_kwargs(BATCH, lat_hw))
+    wrapper_counts(reset=True)
+    eng.sample(plan, emb, neg, **kw)
+    counts = bf16_only(wrapper_counts(), f"{family} engine loop")
+    per_unet = _kinds(census[family]["engine"])
+    want = {k: (GraphedCall.WARMUP + 1) * per_unet[k] for k in MAIN}
+    if counts != want:
+        raise AssertionError(f"{family} engine loop: wrapper launches {counts}, expected {want}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = [eng.sample(plan, emb, neg, **kw).execution_time for _ in range(reps)]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.memory_reserved() / 1e9
+    prof = profile_loop(model, size=size, label=f"profile {family}")
+    n_params = {name: sum(p.numel() for p in m.parameters()) / 1e6
+                for name, m in zip(eng.MODULES, eng.modules())}
+    out = dict(execution_time_s=times, median_s=statistics.median(times),
+               sec_per_image=statistics.median(times) / BATCH, peak_gb=peak_gb,
+               reserved_gb=reserved_gb, init_s=init_s, params_m=n_params,
+               first_run_wrapper_launches=counts, profile=prof)
+    print(f"{family} engine, bf16 {size}x{size}, {ENGINE_STEPS}-step DPM++ ({meta['prediction_type']}"
+          f"), batch {BATCH}, CFG {GUIDANCE} (warm, {reps} runs): execution_time {times} s, median "
+          f"{out['median_s']:.4f} s; peak memory {peak_gb:.2f} GB allocated, {reserved_gb:.2f} GB "
+          f"reserved; random init {init_s:.1f} s; parameters (M) {n_params}; first loop's "
+          f"wrapper launches {counts}; {card}", flush=True)
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_families(report, card, assets):
+    """Phase 10: SD-2.1 (768-v) and SDXL-base at full width."""
+    census = family_census()
+    for family, c in census.items():
+        per_unet, per_vae = _kinds(c["unet"]), _kinds(c["vae"])
+        print(f"{family}: per UNet forward at batch {2 * FAMILY_BATCH} {dict(per_unet)}, per VAE "
+              f"decode of {FAMILY_BATCH} {dict(per_vae)}; {len(c['unet'])} and {len(c['vae'])} "
+              f"distinct shapes", flush=True)
+    want = {"sd21": 32, "sdxl": 140}
+    got = {f: _kinds(c["unet"])["attention"] for f, c in census.items()}
+    if got != want:
+        raise AssertionError(f"bf16 attention launches a UNet forward {got}, expected {want}")
+    print_gn_plans(sorted({k for c in census.values() for part in ("unet", "vae", "engine")
+                           for k in c[part]}, key=lambda k: (k[0], [str(v) for v in k[1]])))
+    out = {"checked_shapes": check_family_kernels(census, report)}
+    out["timings"], out["kernel_totals"] = time_family_kernels(census, card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out["tiny_card_vs_cpu"] = families_tiny_card_vs_cpu(census)
+    torch.backends.cudnn.allow_tf32 = True
+    for family in FAMILIES:
+        out[f"{family}_cli"] = run_family_cli(family, census, assets, card)
+        out[f"{family}_engine"] = family_engine_timings(family, census, card)
+    out["census"] = {f: {part: {"attention": _kinds(c[part])["attention"],
+                                "group_norm": _kinds(c[part])["group_norm"]}
+                         for part in ("unet", "vae", "engine")} for f, c in census.items()}
+    report["e2e"]["families"] = out
 
 
 def main() -> None:
@@ -1953,6 +2324,7 @@ def main() -> None:
                   "bound_fma_ms": 0.0, "bound_by_ms": collections.Counter()}
               for k in (*KERNELS, "attention_fp32_unet")}
     report["errs"] = collections.defaultdict(list)
+    report["phase10_errs"] = collections.defaultdict(list)
     report["e2e"] = {}
 
     phase("3. kernels against their plain versions, at the shapes of the main path and the CLI "
@@ -1989,12 +2361,18 @@ def main() -> None:
     phase(f"8. the remaining samplers and Token Merging at SD-1.5 {SIZE}x{SIZE}")
     run_samplers(report, card, per_vae, args.profile)
 
-    phase(f"9. quality metrics: configs/ddim_config.yaml as shipped with a real-image directory "
-          f"and aesthetic_score, SD-1.5 {SIZE}x{SIZE}, batch {METRIC_BATCH}")
-    run_metrics(report, card, metric_counts)
+    with tempfile.TemporaryDirectory(prefix="sdbl_assets_") as tmp:
+        phase(f"9. quality metrics: configs/ddim_config.yaml as shipped with a real-image "
+              f"directory and aesthetic_score, SD-1.5 {SIZE}x{SIZE}, batch {METRIC_BATCH}")
+        assets = dict(run_metrics(report, card, metric_counts, tmp), root=tmp)
 
-    phase("10. kernels")
-    print(f"phases 1-9 took {time.perf_counter() - _T0:.1f} s; {card}")
+        phase(f"10. SD-2.1 (768-v) and SDXL-base: sd21_config.yaml and sdxl_config.yaml as "
+              f"shipped at full width, batch {FAMILY_BATCH}")
+        run_families(report, card, assets)
+
+    phase("11. kernels")
+    print(f"phases 1-10 took {time.perf_counter() - _T0:.1f} s; {card}")
+    fam = report["e2e"]["families"]
     kernels = []
     for kind, meta in KERNELS.items():
         r = report[kind]
@@ -2013,6 +2391,16 @@ def main() -> None:
                    report["e2e"]["samplers_tiny_card_vs_cpu"].items()
                    if kind == "attention_fp32"}},
             "phase9_wrapper_launches": report["e2e"]["metrics"]["wrapper_launches"][kind],
+            "phase10_wrapper_launches": {
+                **{f"{f} cli": fam[f"{f}_cli"]["wrapper_launches"][kind] for f in FAMILIES},
+                **{f"{f} cli trace": fam[f"{f}_cli"]["traced_launches"][kind] for f in FAMILIES},
+                **{f"{f} engine": fam[f"{f}_engine"]["first_run_wrapper_launches"].get(kind, 0)
+                   for f in FAMILIES},
+                **{f"tiny {f}": m["fp32_attention_launches"]
+                   for f, m in fam["tiny_card_vs_cpu"].items() if kind == "attention_fp32"}},
+            "phase10_totals": {f"{f} {part}": t[part][kind] for f, t in
+                               fam["kernel_totals"].items() for part in t if kind in t[part]},
+            "phase10_max_abs_err": max(report["phase10_errs"][kind], default=None),
             **({"phase6_launches": r["phase6_launches"]} if "phase6_launches" in r else {}),
             "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2030,6 +2418,7 @@ def main() -> None:
         Path(args.json).write_text(json.dumps(
             {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
              "kernels": kernels, "timings": rows, "tome_timings": report["tome_timings"],
+             "phase10_timings": fam["timings"],
              "e2e": report["e2e"],
              "attention_fp32_totals": fp32_totals,
              "profile": report.get("profile")}, indent=1))

@@ -3,9 +3,10 @@
     python -m sonicdiffusionbayeslab_torch.generate --prompt "a lighthouse at dusk" --steps 20
     python -m sonicdiffusionbayeslab_torch.generate --prompt "..." --tiny --device cpu
 
-Runs SD-1.5 (bf16, random weights from seed 0) with 20-step DPM-Solver++
-by default (``--scheduler`` picks another ported scheduler by its registry
-name) and writes one PNG per prompt.
+Runs SD-1.5 (bf16, random weights from seed 0, or a local diffusers
+snapshot named by ``--pretrained_model``) with 20-step DPM-Solver++ by
+default (``--scheduler`` picks another ported scheduler by its registry
+name; ``--variant sd21`` SD-2.x) and writes one PNG per prompt.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ def main(argv=None) -> None:
     p.add_argument("--scheduler_kwargs", default="{}",
                    help='JSON, e.g. \'{"use_karras_sigmas": true}\'')
     p.add_argument("--seed", type=int, default=29, help="initial-noise seed")
+    p.add_argument("--pretrained_model", default="runwayml/stable-diffusion-v1-5",
+                   help="a local diffusers snapshot, or a model id (random weights)")
+    p.add_argument("--variant", default="auto", help="sd15 | sd21 | auto")
     p.add_argument("--image_size", type=int, default=512)
     p.add_argument("--height", type=int, default=None, help="non-square height (multiple of 8)")
     p.add_argument("--width", type=int, default=None, help="non-square width (multiple of 8)")
@@ -45,7 +49,9 @@ def main(argv=None) -> None:
                          f"{', '.join(sorted(schedulers_registry.keys()))}")
     skw = {"solver_order": args.solver_order} if args.scheduler == "dpm_solver_scheduler" else {}
     skw.update(json.loads(args.scheduler_kwargs))
-    model = StableDiffusionModel(image_size=args.image_size, tiny=args.tiny, device=args.device)
+    model = StableDiffusionModel(pretrained_model=args.pretrained_model,
+                                 image_size=args.image_size, tiny=args.tiny,
+                                 variant=args.variant, device=args.device)
     model.scheduler = schedulers_registry[args.scheduler](**skw)
     images, exec_time, _ = model(
         args.prompt,

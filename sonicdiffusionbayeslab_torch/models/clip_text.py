@@ -1,9 +1,12 @@
-"""CLIP text encoder (ViT-L/14 text tower, SD-1.5's conditioner) in PyTorch.
+"""CLIP text encoders (SD-1.5's ViT-L/14 text tower, SD-2.x's OpenCLIP
+ViT-H and SDXL's OpenCLIP bigG) in PyTorch.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/clip_text.py``: pre-LN
-transformer with a causal mask and quick-GELU, then a final LayerNorm; SD
-conditions on the last hidden state [B, 77, 768], and the CLIP score on the
-pooled output (the hidden state at each sequence's end-of-text token).
+transformer with a causal mask and quick-GELU (exact GELU in the OpenCLIP
+towers), then a final LayerNorm; SD-1.5 and SD-2.1 condition on the last
+hidden state, SDXL on both towers' penultimate states (the last layer's
+input), and the CLIP score and SDXL's text_time conditioning on the pooled
+output (the hidden state at each sequence's end-of-text token).
 Parameter names follow transformers' ``CLIPTextModel``
 (``text_model.encoder.layers.{i}...``).  The causal mask sends attention
 down the plain path.  ``CLIPLayer`` is built from widths, so that the
@@ -38,6 +41,32 @@ class CLIPTextConfig:
     @classmethod
     def sd15(cls) -> "CLIPTextConfig":
         return cls()
+
+    @classmethod
+    def sd21(cls) -> "CLIPTextConfig":
+        """SD-2.1's tower: OpenCLIP ViT-H trimmed to 23 layers
+        (stable-diffusion-2-1 text_encoder/config.json); the checkpoint
+        already ends at the penultimate layer, so the UNet takes the last
+        hidden state."""
+        return cls(hidden_size=1024, num_layers=23, num_heads=16, intermediate_size=4096,
+                   hidden_act="gelu")
+
+    @classmethod
+    def tiny21(cls) -> "CLIPTextConfig":
+        return cls(vocab_size=1000, hidden_size=32, num_layers=2, num_heads=2,
+                   intermediate_size=64, hidden_act="gelu")
+
+    @classmethod
+    def sdxl_g(cls) -> "CLIPTextConfig":
+        """SDXL's second tower: OpenCLIP ViT-bigG's text model
+        (stable-diffusion-xl-base-1.0 text_encoder_2/config.json)."""
+        return cls(hidden_size=1280, num_layers=32, num_heads=20, intermediate_size=5120,
+                   hidden_act="gelu")
+
+    @classmethod
+    def tiny_g(cls) -> "CLIPTextConfig":
+        return cls(vocab_size=1000, hidden_size=16, num_layers=2, num_heads=2,
+                   intermediate_size=32, hidden_act="gelu")
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -118,11 +147,24 @@ class CLIPTextTransformer(nn.Module):
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """input_ids [B, T] -> last_hidden_state [B, T, C] in fp32."""
+        return self.outputs(input_ids)["last_hidden_state"]
+
+    def outputs(self, input_ids: torch.Tensor) -> dict:
+        """input_ids [B, T] -> ``last_hidden_state`` [B, T, C],
+        ``penultimate_hidden_state`` [B, T, C] (the last layer's input,
+        un-normed) and ``pooled_output`` [B, C] (``last_hidden_state`` at the
+        end-of-text token), all fp32."""
         T = input_ids.shape[1]
         emb = self.embeddings
         x = emb.token_embedding(input_ids) + emb.position_embedding.weight[:T]
         causal = torch.ones(T, T, dtype=torch.bool, device=input_ids.device).tril()[None, None]
-        return self.final_layer_norm(self.encoder(x, causal)).float()
+        *head, last = self.encoder.layers
+        for layer in head:
+            x = layer(x, causal)
+        penultimate = x.float()
+        x = self.final_layer_norm(last(x, causal)).float()
+        return {"last_hidden_state": x, "penultimate_hidden_state": penultimate,
+                "pooled_output": eot_pooled(x, input_ids)}
 
 
 def eot_pooled(hidden: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
@@ -140,3 +182,17 @@ class CLIPTextModel(nn.Module):
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """input_ids [B, T] -> last_hidden_state [B, T, C] in fp32."""
         return self.text_model(input_ids)
+
+    def outputs(self, input_ids: torch.Tensor) -> dict:
+        """The JAX tower's three outputs (``CLIPTextTransformer.outputs``)."""
+        return self.text_model.outputs(input_ids)
+
+
+class CLIPTextModelWithProjection(CLIPTextModel):
+    """transformers' ``CLIPTextModelWithProjection`` (SDXL's
+    ``text_encoder_2``): the tower and a bias-free ``text_projection`` of
+    the pooled output."""
+
+    def __init__(self, config: CLIPTextConfig):
+        super().__init__(config)
+        self.text_projection = nn.Linear(config.hidden_size, config.hidden_size, bias=False)

@@ -9,7 +9,8 @@ path's blocks).  Conventions:
   cuDNN runs it in NHWC and its output permutes back without a copy.
 * Parameters carry diffusers state-dict names and torch layouts (OIHW
   convs, [out, in] linears); SD-1.5's transformer ``proj_in``/``proj_out``
-  are 1x1 convs applied to the token matrix as linears.
+  are 1x1 convs applied to the token matrix as linears, SD-2.x's and
+  SDXL's are linears.
 * Each module computes in its parameters' dtype; GroupNorm statistics and
   the softmax run in fp32.
 * GroupNorm goes through ``ops.groupnorm.group_norm_silu`` and attention
@@ -195,20 +196,23 @@ class TransformerBlock(nn.Module):
 
 class SpatialTransformer(nn.Module):
     """Transformer2D over a [B, H, W, C] map: GN -> proj_in -> blocks ->
-    proj_out, plus the residual.  proj_in/out are 1x1 convs (SD-1.5).
+    proj_out, plus the residual.  proj_in/out are 1x1 convs (SD-1.5) or,
+    with ``linear``, ``nn.Linear`` (SD-2.x, SDXL); the compute is the same.
     ``tome``/``tome_dst``/``tome_cache``: Token Merging in each block
     (``TransformerBlock``); ``tome_dst`` holds one row of destinations per
     block.  A map that the cells do not tile (H % sy or W % sx) runs
     without it."""
 
     def __init__(self, channels: int, num_heads: int, head_dim: int, context_dim: int,
-                 depth: int = 1):
+                 depth: int = 1, linear: bool = False):
         super().__init__()
+        proj = (lambda: nn.Linear(channels, channels)) if linear else (
+            lambda: nn.Conv2d(channels, channels, 1))
         self.norm = GroupNorm(channels, eps=1e-6)  # diffusers Transformer2DModel eps
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList(
             [TransformerBlock(channels, num_heads, head_dim, context_dim) for _ in range(depth)])
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = proj()
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, tome=None,
                 tome_dst: Optional[torch.Tensor] = None,

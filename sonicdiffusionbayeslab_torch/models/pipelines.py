@@ -1,28 +1,35 @@
-"""SD-1.5 text-to-image pipeline of the port.
+"""Text-to-image pipelines of the port: SD-1.5, SD-2.x and SDXL.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/pipelines.py::
-StableDiffusionModel`` on the text-to-image path, with the same call
-contract: ``pipe(prompts, ...) -> (images, execution_time, x0_images)``,
-images [B, H, W, 3] in [0, 1], execution_time the denoising loop's wall
-clock.  It is registered as ``stable_diffusion_model``; the two-scheduler,
-interleaved-scheduler and skip-steps variants, which differ only in how
-they compose the plan, as ``stable_diffusion_model_two_schedulers``,
-``..._interliving_schedulers`` and ``..._skip_timesteps``.  Weights come
-from ``pretrained_model`` when it names a local diffusers snapshot
-directory, else from a deterministic random init from ``seed``; a LoRA
-from a local file is fused into the UNet with ``load_lora_weights`` and
-``fuse_lora``.
+StableDiffusionModel`` and ``StableDiffusionXLModel`` on the text-to-image
+path, with the same call contract: ``pipe(prompts, ...) -> (images,
+execution_time, x0_images)``, images [B, H, W, 3] in [0, 1],
+execution_time the denoising loop's wall clock.  ``StableDiffusionModel``
+is registered as ``stable_diffusion_model`` (``variant`` sd15, sd21 or
+auto); the two-scheduler, interleaved-scheduler and skip-steps variants,
+which differ only in how they compose the plan, as
+``stable_diffusion_model_two_schedulers``, ``..._interliving_schedulers``
+and ``..._skip_timesteps``; ``StableDiffusionXLModel`` as
+``stable_diffusion_xl_model``.  Weights come from ``pretrained_model``
+when it names a local diffusers snapshot directory, else from a
+deterministic random init from ``seed``; a LoRA from a local file is fused
+into the UNet with ``load_lora_weights`` and ``fuse_lora``.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
 from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig
-from sonicdiffusionbayeslab_torch.models.sampler import StableDiffusionEngine
+from sonicdiffusionbayeslab_torch.models.sampler import (
+    SDXLEngine,
+    SDXLTextConfigs,
+    StableDiffusionEngine,
+)
 from sonicdiffusionbayeslab_torch.models.tokenizer import load_tokenizer
 from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
@@ -50,21 +57,22 @@ class StableDiffusionModel:
     Merging; a call's ``tome_ratio`` overrides it) and ``guidance_rescale``
     (rescaled CFG, 0 for off); each call sets ``num_timesteps`` to its
     plan's number of UNet evaluations.  ``lora`` is the config's LoRA path,
-    which the ``consistency_model`` method loads."""
+    which the ``consistency_model`` method loads.  ``variant`` picks SD-1.5
+    (``sd15``) or SD-2.x (``sd21``: OpenCLIP ViT-H context, 64-wide heads,
+    linear projections); ``auto`` reads a local snapshot's
+    ``unet/config.json``, else the model id's name."""
 
     def __init__(self, pretrained_model: str = "runwayml/stable-diffusion-v1-5",
                  image_size: int = 512, tiny: bool = False, dtype: str = "bfloat16",
-                 seed: int = 0, lora: str = None, device=None):
+                 seed: int = 0, lora: str = None, variant: str = "auto", device=None):
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype!r}")
         self.lora = lora
+        self.pretrained_model = pretrained_model
         self.image_size = int(image_size)
         self.tiny = bool(tiny)
-        if tiny:
-            configs = (UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny())
-        else:
-            configs = (UNetConfig.sd15(), VAEConfig.sd15(), CLIPTextConfig.sd15())
-        self.engine = StableDiffusionEngine(*configs, dtype=DTYPES[dtype], device=device)
+        self.variant = self._resolve_variant(variant, pretrained_model)
+        self.engine = self._make_engine(DTYPES[dtype], self.tiny, device)
         snapshot = Path(pretrained_model)
         if snapshot.exists():
             load_sd_checkpoint(snapshot, self.engine)
@@ -72,9 +80,7 @@ class StableDiffusionModel:
             self.engine.init_params(seed)
         self.device = self.engine.device
         self.latent_hw = self.image_size // 8 if not tiny else 8
-        tc = self.engine.text_config
-        tok_dir = snapshot / "tokenizer" if snapshot.exists() else None
-        self.tokenizer = load_tokenizer(tok_dir and str(tok_dir), tc.vocab_size, tc.max_length)
+        self.tokenizer = self._tokenizer("tokenizer", self.engine.text_config)
         self.scheduler = DPMSolverScheduler(solver_order=2)
         self.num_timesteps = 0  # NFE of the last call
         self.unet_microbatch: Optional[int] = None  # the calls' default
@@ -83,6 +89,45 @@ class StableDiffusionModel:
         self.guidance_rescale = 0.0
         self._pending_lora = None
         self.lora_merged: List[str] = []  # modules the last fuse_lora changed
+
+    @staticmethod
+    def _resolve_variant(variant: str, pretrained_model: str) -> str:
+        """sd15 or sd21.  ``auto``: a local snapshot's ``unet/config.json``
+        (``cross_attention_dim`` 1024 is SD-2.x), else the model id's name."""
+        if variant != "auto":
+            if variant not in ("sd15", "sd21"):
+                raise ValueError(f"unknown variant {variant!r} (sd15|sd21|auto)")
+            return variant
+        cfg_path = Path(pretrained_model) / "unet" / "config.json"
+        if cfg_path.exists():
+            c = json.loads(cfg_path.read_text())
+            return "sd21" if int(c.get("cross_attention_dim", 768)) == 1024 else "sd15"
+        name = pretrained_model.lower()
+        return "sd21" if ("stable-diffusion-2" in name or "sd2" in name) else "sd15"
+
+    def _make_engine(self, dtype: torch.dtype, tiny: bool, device) -> StableDiffusionEngine:
+        if self.variant == "sd21":
+            configs = ((UNetConfig.tiny21(), VAEConfig.tiny(), CLIPTextConfig.tiny21()) if tiny
+                       else (UNetConfig.sd21(), VAEConfig.sd15(), CLIPTextConfig.sd21()))
+        else:
+            configs = ((UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny()) if tiny
+                       else (UNetConfig.sd15(), VAEConfig.sd15(), CLIPTextConfig.sd15()))
+        return StableDiffusionEngine(*configs, dtype=dtype, device=device)
+
+    def _tokenizer(self, subdir: str, tc: CLIPTextConfig):
+        """The snapshot's ``subdir`` BPE tokenizer where it has one, else the
+        offline hash tokenizer, for the tower ``tc``."""
+        snapshot = Path(self.pretrained_model)
+        tok_dir = snapshot / subdir if snapshot.exists() else None
+        return load_tokenizer(tok_dir and str(tok_dir), tc.vocab_size, tc.max_length)
+
+    def _encode(self, prompts: Sequence[str]) -> torch.Tensor:
+        return self.engine.encode_prompts(self.tokenizer(list(prompts)))
+
+    def _extra_sample_kwargs(self, batch: int, lat_hw) -> Dict[str, Any]:
+        """Subclass hook: more ``engine.sample`` arguments (SDXL's
+        ``added_cond``); ``lat_hw`` is the call's latent grid."""
+        return {}
 
     def build_plan(self, num_inference_steps: int, **plan_kw):
         if plan_kw:
@@ -144,11 +189,10 @@ class StableDiffusionModel:
         plan = self.build_plan(num_inference_steps, **plan_kw)
         self.num_timesteps = plan.nfe
 
-        embeds = self.engine.encode_prompts(self.tokenizer(list(prompt)))
+        embeds = self._encode(prompt)
         neg = None
         if guidance_scale > 1.0:
-            negs = list(negative_prompt) if negative_prompt else [""] * len(prompt)
-            neg = self.engine.encode_prompts(self.tokenizer(negs))
+            neg = self._encode(list(negative_prompt) if negative_prompt else [""] * len(prompt))
         out = self.engine.sample(
             plan, embeds, neg, seed=seed, sample_indices=sample_indices,
             guidance_scale=guidance_scale,
@@ -158,6 +202,7 @@ class StableDiffusionModel:
             microbatch=self.unet_microbatch if unet_microbatch is None else unet_microbatch,
             guidance_rescale=self.guidance_rescale,
             tome=self.tome_ratio if tome_ratio is None else tome_ratio,
+            **self._extra_sample_kwargs(len(prompt), lat_hw),
         )
         images = out.images if out.images is not None else out.latents
         x0 = out.x0_images.cpu().numpy() if out.x0_images is not None else None
@@ -218,3 +263,46 @@ class StableDiffusionModelInterlivingSchedulers(_InterlivingPlanMixin, StableDif
 @models_registry.add_to_registry("stable_diffusion_model_skip_timesteps")
 class StableDiffusionModelSkipTimesteps(_SkipTimestepsPlanMixin, StableDiffusionModel):
     """Step-skipping pipeline."""
+
+
+@models_registry.add_to_registry("stable_diffusion_xl_model")
+class StableDiffusionXLModel(StableDiffusionModel):
+    """SDXL text-to-image: the same engine loop, schedulers and call
+    contract, with SDXL's two text towers (CLIP ViT-L and OpenCLIP bigG,
+    penultimate states side by side) and its text_time conditioning: the
+    bigG tower's projected pooled embedding and the ``time_ids`` (original
+    size, crop corner, target size) from the call's latent grid.  The
+    unconditional half of CFG takes the negative prompt's pooled embedding,
+    as the JAX pipeline does."""
+
+    def __init__(self, pretrained_model: str = "stabilityai/stable-diffusion-xl-base-1.0",
+                 image_size: int = 1024, tiny: bool = False, dtype: str = "bfloat16",
+                 seed: int = 0, lora: str = None, device=None):
+        super().__init__(pretrained_model=pretrained_model, image_size=image_size, tiny=tiny,
+                         dtype=dtype, seed=seed, lora=lora, device=device)
+        self.tokenizer2 = self._tokenizer("tokenizer_2", self.engine.text2_config)
+        self._pooled_queue: List[torch.Tensor] = []
+
+    def _make_engine(self, dtype: torch.dtype, tiny: bool, device) -> SDXLEngine:
+        if tiny:
+            return SDXLEngine(UNetConfig.tiny_xl(), VAEConfig.tiny(), SDXLTextConfigs.tiny(),
+                              dtype=dtype, device=device)
+        return SDXLEngine(dtype=dtype, device=device)
+
+    def _encode(self, prompts: Sequence[str]) -> torch.Tensor:
+        ctx, pooled = self.engine.encode_prompts_xl(self.tokenizer(list(prompts)),
+                                                     self.tokenizer2(list(prompts)))
+        self._pooled_queue.append(pooled)
+        return ctx
+
+    def _extra_sample_kwargs(self, batch: int, lat_hw) -> Dict[str, Any]:
+        # __call__ encodes the prompts, then (under CFG) the negative prompts.
+        queue, self._pooled_queue = self._pooled_queue, []
+        # (orig_h, orig_w, crop_top, crop_left, target_h, target_w) of the
+        # call's latent grid, so height/width overrides follow.
+        h, w = float(lat_hw[0] * 8), float(lat_hw[1] * 8)
+        time_ids = torch.tensor([[h, w, 0.0, 0.0, h, w]]).repeat(batch, 1)
+        added = {"text_embeds": queue[0], "time_ids": time_ids}
+        if len(queue) > 1:
+            added["negative_text_embeds"] = queue[1]
+        return {"added_cond": added}

@@ -3,7 +3,9 @@ and the VAE decode.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/sampler.py::
 StableDiffusionEngine`` on the text-to-image path, with DeepCache
-(``CachePlan``), Token Merging, noise-injecting plans and rescaled CFG.  The JAX engine scans a jitted
+(``CachePlan``), Token Merging, noise-injecting plans and rescaled CFG, and
+of its ``SDXLEngine`` (two text towers and the UNet's text_time
+conditioning).  The JAX engine scans a jitted
 body over the plan's rows; here the loop is plain Python over the same
 rows, each step one UNet call (chunked when ``microbatch`` > 1), the CFG
 combine and one ``apply_row`` in fp32.  On a GPU each UNet call variant
@@ -25,7 +27,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+from sonicdiffusionbayeslab_torch.models.clip_text import (
+    CLIPTextConfig,
+    CLIPTextModel,
+    CLIPTextModelWithProjection,
+)
 from sonicdiffusionbayeslab_torch.models.layers import GroupNorm
 from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
@@ -63,6 +69,25 @@ class CachePlan:
     def every(cls, num_steps: int, cache_interval: int, branch: int = 0) -> "CachePlan":
         idx = np.arange(num_steps)
         return cls(full=(idx % int(cache_interval)) == 0, branch=int(branch))
+
+
+@dataclasses.dataclass(frozen=True)
+class SDXLTextConfigs:
+    """SDXL's two text towers: CLIP ViT-L (penultimate states) and OpenCLIP
+    bigG (penultimate states and the projected pooled embedding)."""
+
+    text1: CLIPTextConfig
+    text2: CLIPTextConfig
+
+    @classmethod
+    def sdxl(cls) -> "SDXLTextConfigs":
+        return cls(CLIPTextConfig.sd15(), CLIPTextConfig.sdxl_g())
+
+    @classmethod
+    def tiny(cls) -> "SDXLTextConfigs":
+        return cls(CLIPTextConfig(vocab_size=1000, hidden_size=16, num_layers=2, num_heads=2,
+                                  intermediate_size=32),
+                   CLIPTextConfig.tiny_g())
 
 
 @dataclasses.dataclass
@@ -107,10 +132,12 @@ def init_module(module: nn.Module, gen: torch.Generator) -> None:
 
 
 class StableDiffusionEngine:
-    """Owns the three modules on one device; parameters are initialised
-    with :meth:`init_params` or loaded with :meth:`load_state_dicts`.
-    On a GPU, ``graphed_unet`` replays each UNet call variant from a CUDA
-    graph of its last input shape."""
+    """Owns the modules (``MODULES``: UNet, VAE, text tower) on one device;
+    parameters are initialised with :meth:`init_params` or loaded with
+    :meth:`load_state_dicts`.  On a GPU, ``graphed_unet`` replays each
+    UNet call variant from a CUDA graph of its last input shape."""
+
+    MODULES = ("unet", "vae", "text")
 
     def __init__(
         self,
@@ -126,17 +153,20 @@ class StableDiffusionEngine:
         self.vae_config = vae_config or VAEConfig.sd15()
         self.text_config = text_config or CLIPTextConfig.sd15()
         with torch.device(self.device):
-            self.unet = UNet2DCondition(self.unet_config)
-            self.vae = AutoencoderKL(self.vae_config)
-            self.text = CLIPTextModel(self.text_config)
+            self._build_modules()
         for m in self.modules():
             m.requires_grad_(False).eval()
             # Conv weights in channels_last, matching the NHWC activations.
             m.to(dtype=dtype, memory_format=torch.channels_last)
         self.graphed_unet = GraphedVariants(self.unet)
 
-    def modules(self) -> Tuple[nn.Module, nn.Module, nn.Module]:
-        return self.unet, self.vae, self.text
+    def _build_modules(self) -> None:
+        self.unet = UNet2DCondition(self.unet_config)
+        self.vae = AutoencoderKL(self.vae_config)
+        self.text = CLIPTextModel(self.text_config)
+
+    def modules(self) -> Tuple[nn.Module, ...]:
+        return tuple(getattr(self, name) for name in self.MODULES)
 
     # ------------------------------------------------------------- params
     def init_params(self, seed: int = 0) -> "StableDiffusionEngine":
@@ -149,9 +179,9 @@ class StableDiffusionEngine:
         return self
 
     def load_state_dicts(self, sds: dict) -> "StableDiffusionEngine":
-        """``{"unet", "vae", "text"}`` state dicts (e.g. from
+        """A state dict for each of ``MODULES`` (e.g. from
         ``weights.state_dicts_from_jax``), loaded strictly."""
-        for key, m in zip(("unet", "vae", "text"), self.modules()):
+        for key, m in zip(self.MODULES, self.modules()):
             m.load_state_dict(sds[key], strict=True)
         self.graphed_unet.clear()
         return self
@@ -170,16 +200,19 @@ class StableDiffusionEngine:
         return (img / 2 + 0.5).clamp(0.0, 1.0)
 
     # ------------------------------------------------------------- sample
-    def _unet_chunks(self, microbatch: int, args, tome_dst=None, **static):
+    def _unet_chunks(self, microbatch: int, args, tome_dst=None, added=None, **static):
         """The UNet on the model batch as ``microbatch`` sequential chunks
         (or whole).  ``args`` (latents, timesteps, context and DeepCache's
-        features or None) are batch-leading and chunk alike, and so do the
+        features or None) and ``added`` (SDXL's pooled embeddings and
+        time_ids, or None) are batch-leading and chunk alike, and so do the
         outputs (one tensor, or DeepCache's pair); ``tome_dst`` goes whole
         to every chunk."""
         unet = self.graphed_unet if self.device.type == "cuda" else self.unet
+        n = len(args)
+        args = (*args, *(added or ()))
 
         def call(*part):
-            part = (*part, tome_dst)
+            part = (*part[:n], tome_dst, *part[n:])
             while part[-1] is None:
                 part = part[:-1]
             return unet(*part, **static)
@@ -215,6 +248,7 @@ class StableDiffusionEngine:
         step_noise: Optional[torch.Tensor] = None,  # [L, B, h, w, C]
         tome=None,  # a ratio in (0, 1) or a TomeConfig
         tome_dst: Optional[torch.Tensor] = None,  # [L, slots, D]
+        added_cond: Optional[dict] = None,
     ) -> SampleOutput:
         """One batch: CFG-doubled UNet calls over the plan's rows, then the
         decode.  Sample ``i``'s initial latents depend only on (seed, i)
@@ -228,7 +262,13 @@ class StableDiffusionEngine:
         ``tome`` merges tokens around the UNet's self-attentions
         (``ops/tome.py``); with ``tome.rand`` step i's destinations are
         drawn before the loop from (timestep, site, block) unless
-        ``tome_dst`` gives them (row i for every call of step i)."""
+        ``tome_dst`` gives them (row i for every call of step i).
+
+        ``added_cond`` (SDXL's text_time conditioning): ``text_embeds``
+        [B, P] (positive pooled embeddings), ``negative_text_embeds`` [B, P]
+        (CFG's unconditional half; zeros when absent) and ``time_ids``
+        [B, 6]; under CFG the pooled embeddings go in as [negative,
+        positive] and the time_ids twice, as the context does."""
         dev = self.device
         B = int(prompt_embeds.shape[0])
         do_cfg = guidance_scale > 1.0 and negative_embeds is not None
@@ -256,6 +296,7 @@ class StableDiffusionEngine:
         x0_count = B if x0_samples is None else max(1, min(int(x0_samples), B))
         tome, dst = self._tome_destinations(plan, tome, tome_dst, cache_plan, latent_hw)
         static = {} if tome is None else {"tome": tome}
+        added = self._added(added_cond, do_cfg)
 
         xs = plan_rows(plan, dev)
         carry = init_carry(plan, latents0)
@@ -270,15 +311,16 @@ class StableDiffusionEngine:
             tb = r["timestep"].expand(lat_in.shape[0])
             if cache_plan is None:
                 noise_pred = self._unet_chunks(microbatch, (lat_in, tb, embeds, None),
-                                               dst["full"][i] if dst else None, **static)
+                                               dst["full"][i] if dst else None, added,
+                                               **static)
             elif cache_plan.full[i]:
                 noise_pred, cache = self._unet_chunks(microbatch, (lat_in, tb, embeds, None),
-                                                      dst["full"][i] if dst else None,
+                                                      dst["full"][i] if dst else None, added,
                                                       return_cache=True,
                                                       cache_branch_id=cache_plan.branch, **static)
             else:
                 noise_pred = self._unet_chunks(microbatch, (lat_in, tb, embeds, cache),
-                                               dst["shallow"][i] if dst else None,
+                                               dst["shallow"][i] if dst else None, added,
                                                cache_branch_id=cache_plan.branch, **static)
             noise_pred = noise_pred.float()
             if do_cfg:
@@ -308,6 +350,20 @@ class StableDiffusionEngine:
         return SampleOutput(images=images, execution_time=execution_time,
                             x0_images=x0_images, latents=latents, nfe=plan.nfe)
 
+    def _added(self, added_cond, do_cfg):
+        """(pooled embeddings, time_ids) at the model batch on the device, or
+        None without ``added_cond``."""
+        if added_cond is None:
+            return None
+        pos = torch.as_tensor(added_cond["text_embeds"], dtype=torch.float32).to(self.device)
+        ids = torch.as_tensor(added_cond["time_ids"], dtype=torch.float32).to(self.device)
+        if do_cfg:
+            neg = added_cond.get("negative_text_embeds")
+            neg = (torch.zeros_like(pos) if neg is None
+                   else torch.as_tensor(neg, dtype=torch.float32).to(self.device))
+            pos, ids = torch.cat([neg, pos]), torch.cat([ids, ids])
+        return pos, ids
+
     def _tome_destinations(self, plan, tome, tome_dst, cache_plan, latent_hw):
         """(TomeConfig or None, {call variant: [L, slots, D] destinations on
         the device} or None).  A ratio <= 0 turns ToMe off.  Without
@@ -333,3 +389,37 @@ class StableDiffusionEngine:
             out[v] = torch.stack([tome_destinations(int(t), slots, tome)
                                   for t in plan.timesteps]).to(self.device)
         return tome, out
+
+
+class SDXLEngine(StableDiffusionEngine):
+    """The SDXL engine: SDXL's UNet (depth and heads a level, text_time
+    conditioning), the SDXL VAE and two text towers, ``text`` (CLIP ViT-L)
+    and ``text2`` (OpenCLIP bigG with its ``text_projection``).  Sampling
+    is the base engine's, given ``added_cond``."""
+
+    MODULES = ("unet", "vae", "text", "text2")
+
+    def __init__(self, unet_config: UNetConfig = None, vae_config: VAEConfig = None,
+                 text_configs: SDXLTextConfigs = None, dtype: torch.dtype = torch.bfloat16,
+                 device=None):
+        tc = text_configs or SDXLTextConfigs.sdxl()
+        self.text2_config = tc.text2
+        super().__init__(unet_config or UNetConfig.sdxl(), vae_config or VAEConfig.sdxl(),
+                         tc.text1, dtype=dtype, device=device)
+
+    def _build_modules(self) -> None:
+        super()._build_modules()
+        self.text2 = CLIPTextModelWithProjection(self.text2_config)
+
+    @torch.inference_mode()
+    def encode_prompts_xl(self, ids1: np.ndarray, ids2: np.ndarray):
+        """Token ids of each tower's tokenizer -> (context [B, 77, 768 + 1280],
+        both towers' penultimate states side by side; pooled [B, 1280], the
+        bigG tower's end-of-text state through ``text_projection``), fp32."""
+        as_ids = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.long,  # noqa: E731
+                                           device=self.device)
+        o1, o2 = self.text.outputs(as_ids(ids1)), self.text2.outputs(as_ids(ids2))
+        ctx = torch.cat([o1["penultimate_hidden_state"], o2["penultimate_hidden_state"]], dim=-1)
+        # In fp32, as the JAX engine keeps its projection.
+        pooled = o2["pooled_output"] @ self.text2.text_projection.weight.float().t()
+        return ctx, pooled

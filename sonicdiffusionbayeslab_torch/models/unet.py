@@ -1,9 +1,9 @@
-"""UNet2DCondition (SD-1.5 geometry) in PyTorch.
+"""UNet2DCondition (SD-1.5, SD-2.x and SDXL geometries) in PyTorch.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/unet.py`` on the
-text-to-image path with its DeepCache split and Token Merging (no SDXL
-added conditioning, ControlNet, IP-Adapter, guidance embedding or CFG
-shared prefix).
+text-to-image path with its DeepCache split, Token Merging and SDXL's
+text_time added conditioning (no ControlNet, IP-Adapter, guidance
+embedding or CFG shared prefix).
 Parameter names follow diffusers' ``UNet2DConditionModel``; activations
 are [B, H, W, C] at the module's boundary, as in the JAX package.
 """
@@ -11,7 +11,7 @@ are [B, H, W, C] at the module's boundary, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -31,16 +31,51 @@ from sonicdiffusionbayeslab_torch.models.layers import (
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """SD-1.5 defaults (runwayml/stable-diffusion-v1-5 unet/config.json)."""
+    """SD-1.5 defaults (runwayml/stable-diffusion-v1-5 unet/config.json).
+
+    ``transformer_depth`` and ``num_attention_heads`` are a scalar (the same
+    at every level, SD-1.5) or one value a level (SD-2.x heads, SDXL); the
+    mid block takes the last level's.  ``addition_time_embed_dim`` set means
+    SDXL's text_time conditioning: each of the 6 ``time_ids`` embedded
+    sinusoidally at that width, concatenated after the pooled text
+    embedding into ``projection_class_embeddings_input_dim`` features, goes
+    through ``add_embedding`` and is added to the time embedding.
+    ``use_linear_projection`` (diffusers' flag): the transformers'
+    ``proj_in``/``proj_out`` are ``nn.Linear`` (SD-2.x, SDXL) rather than
+    1x1 convs (SD-1.5); None follows ``addition_time_embed_dim``."""
 
     in_channels: int = 4
     out_channels: int = 4
     block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
     cross_attention: Tuple[bool, ...] = (True, True, True, False)
-    transformer_depth: int = 1
-    num_attention_heads: int = 8
+    transformer_depth: Union[int, Tuple[int, ...]] = 1
+    num_attention_heads: Union[int, Tuple[int, ...]] = 8
     cross_attention_dim: int = 768
+    addition_time_embed_dim: Optional[int] = None
+    projection_class_embeddings_input_dim: Optional[int] = None
+    use_linear_projection: Optional[bool] = None
+
+    @property
+    def linear_projection(self) -> bool:
+        if self.use_linear_projection is not None:
+            return bool(self.use_linear_projection)
+        return self.addition_time_embed_dim is not None
+
+    def depth_at(self, lvl: int) -> int:
+        d = self.transformer_depth
+        return int(d[lvl]) if isinstance(d, (tuple, list)) else int(d)
+
+    def heads_at(self, lvl: int) -> int:
+        h = self.num_attention_heads
+        return int(h[lvl]) if isinstance(h, (tuple, list)) else int(h)
+
+    @property
+    def pooled_dim(self) -> Optional[int]:
+        """Width of the pooled text embedding the text_time conditioning takes."""
+        if self.addition_time_embed_dim is None:
+            return None
+        return self.projection_class_embeddings_input_dim - 6 * self.addition_time_embed_dim
 
     @classmethod
     def tiny(cls) -> "UNetConfig":
@@ -53,6 +88,39 @@ class UNetConfig:
     def sd15(cls) -> "UNetConfig":
         return cls()
 
+    @classmethod
+    def sd21(cls) -> "UNetConfig":
+        """stabilityai/stable-diffusion-2-1 unet/config.json: SD-1.5's
+        topology with 64-wide heads (attention_head_dim [5, 10, 20, 20]),
+        OpenCLIP ViT-H context (1024) and linear projections."""
+        return cls(num_attention_heads=(5, 10, 20, 20), cross_attention_dim=1024,
+                   use_linear_projection=True)
+
+    @classmethod
+    def tiny21(cls) -> "UNetConfig":
+        """2-level SD-2.x-shaped UNet (linear projections, heads a level)."""
+        return cls(block_out_channels=(32, 64), layers_per_block=1,
+                   cross_attention=(True, False), num_attention_heads=(2, 4),
+                   cross_attention_dim=32, use_linear_projection=True)
+
+    @classmethod
+    def sdxl(cls) -> "UNetConfig":
+        """stabilityai/stable-diffusion-xl-base-1.0 unet/config.json."""
+        return cls(block_out_channels=(320, 640, 1280), layers_per_block=2,
+                   cross_attention=(False, True, True), transformer_depth=(1, 2, 10),
+                   num_attention_heads=(5, 10, 20), cross_attention_dim=2048,
+                   addition_time_embed_dim=256,
+                   projection_class_embeddings_input_dim=2816)  # pooled 1280 + 6 * 256
+
+    @classmethod
+    def tiny_xl(cls) -> "UNetConfig":
+        """2-level SDXL-shaped UNet (depth and heads a level, text_time)."""
+        return cls(block_out_channels=(32, 64), layers_per_block=1,
+                   cross_attention=(False, True), transformer_depth=(1, 2),
+                   num_attention_heads=(2, 4), cross_attention_dim=32,
+                   addition_time_embed_dim=8,
+                   projection_class_embeddings_input_dim=16 + 6 * 8)  # pooled 16 + ids
+
 
 class UNet2DCondition(nn.Module):
     def __init__(self, config: UNetConfig):
@@ -61,14 +129,16 @@ class UNet2DCondition(nn.Module):
         chans = cfg.block_out_channels
         n = len(chans)
         temb = chans[0] * 4
-        heads = cfg.num_attention_heads
 
-        def xfmr(ch):
+        def xfmr(lvl):
+            ch, heads = chans[lvl], cfg.heads_at(lvl)
             return SpatialTransformer(ch, heads, ch // heads, cfg.cross_attention_dim,
-                                      depth=cfg.transformer_depth)
+                                      depth=cfg.depth_at(lvl), linear=cfg.linear_projection)
 
         self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
         self.time_embedding = TimestepEmbedMLP(chans[0], temb)
+        if cfg.addition_time_embed_dim is not None:
+            self.add_embedding = TimestepEmbedMLP(cfg.projection_class_embeddings_input_dim, temb)
 
         skip_ch, cur = [chans[0]], chans[0]
         down = []
@@ -78,7 +148,7 @@ class UNet2DCondition(nn.Module):
                 res.append(ResnetBlock(cur, ch, temb))
                 cur = ch
                 if cfg.cross_attention[lvl]:
-                    att.append(xfmr(ch))
+                    att.append(xfmr(lvl))
                 skip_ch.append(ch)
             samp = [Downsample(ch)] if lvl < n - 1 else []
             if samp:
@@ -88,7 +158,7 @@ class UNet2DCondition(nn.Module):
 
         mid = chans[-1]
         self.mid_block = Level([ResnetBlock(cur, mid, temb), ResnetBlock(mid, mid, temb)],
-                               [xfmr(mid)])
+                               [xfmr(n - 1)])
         cur = mid
 
         up = []  # diffusers up_blocks[k] is level n - 1 - k
@@ -99,7 +169,7 @@ class UNet2DCondition(nn.Module):
                 res.append(ResnetBlock(cur + skip_ch.pop(), ch, temb))
                 cur = ch
                 if cfg.cross_attention[lvl]:
-                    att.append(xfmr(ch))
+                    att.append(xfmr(lvl))
             samp = [Upsample(ch)] if lvl > 0 else []
             up.append(Level(res, att, samp, "upsamplers"))
         self.up_blocks = nn.ModuleList(up)
@@ -113,10 +183,18 @@ class UNet2DCondition(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, cache: Optional[torch.Tensor] = None,
-                tome_dst: Optional[torch.Tensor] = None, return_cache: bool = False,
+                tome_dst: Optional[torch.Tensor] = None,
+                text_embeds: Optional[torch.Tensor] = None,
+                time_ids: Optional[torch.Tensor] = None, return_cache: bool = False,
                 cache_branch_id: int = 0, tome=None):
         """sample [B, h, w, C_in], timesteps [B] or scalar, context [B, T, D]
         -> [B, h, w, C_out] fp32.
+
+        SDXL's text_time conditioning (the JAX package's ``added_cond``):
+        ``text_embeds`` [B, P] pooled text embeddings and ``time_ids`` [B, 6],
+        required where the config has ``addition_time_embed_dim``.  They
+        are tensor arguments, so a CUDA graph of the call copies them in at
+        every replay.
 
         DeepCache: the shallow branch is down levels ``0..b`` and up levels
         ``b..0`` (b = ``cache_branch_id``); the deeper levels and the mid
@@ -147,6 +225,8 @@ class UNet2DCondition(nn.Module):
             timesteps = timesteps.expand(sample.shape[0])
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
         t_emb = self.time_embedding(t_emb.to(dt))
+        if cfg.addition_time_embed_dim is not None:
+            t_emb = t_emb + self._text_time(text_embeds, time_ids)
         ctx = encoder_hidden_states.to(dt)
         slot, tome_cache = 0, {}
 
@@ -192,6 +272,23 @@ class UNet2DCondition(nn.Module):
         out = conv_nhwc(self.conv_out, h).float()
         return (out, deep_features) if return_cache else out
 
+    def _text_time(self, text_embeds, time_ids) -> torch.Tensor:
+        """add_embedding of [pooled text embedding, sinusoids of the 6
+        time_ids] (diffusers' addition_embed_type "text_time")."""
+        cfg = self.config
+        if text_embeds is None or time_ids is None:
+            raise ValueError("this UNet config requires added conditioning: text_embeds "
+                             "(pooled) and time_ids")
+        B, K = time_ids.shape
+        ids = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim)
+        add_in = torch.cat([text_embeds.float(), ids.reshape(B, K * cfg.addition_time_embed_dim)],
+                           dim=-1)
+        want = cfg.projection_class_embeddings_input_dim
+        if add_in.shape[-1] != want:
+            raise ValueError(f"added conditioning width {add_in.shape[-1]} != "
+                             f"projection_class_embeddings_input_dim {want}")
+        return self.add_embedding(add_in.to(self.dtype))
+
     @staticmethod
     def _up(levels, h, skips, t_emb, xfmr):
         for lvl, level in levels:
@@ -228,7 +325,7 @@ class UNet2DCondition(nn.Module):
             for _ in range(count):
                 if (1 << lvl) > tome.max_downsample:
                     continue
-                slots += [(site, i) + shapes[lvl] for i in range(cfg.transformer_depth)]
+                slots += [(site, i) + shapes[lvl] for i in range(cfg.depth_at(lvl))]
                 site += 1
         return slots
 

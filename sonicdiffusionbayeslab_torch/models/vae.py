@@ -2,9 +2,10 @@
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/vae.py``: ``Decoder``
 and ``AutoencoderKL.decode`` (the encoder comes with img2img).  Geometry
-(SD-1.5 vae/config.json): 4 latent channels, block_out_channels
-(128, 256, 512, 512), 2 layers per block, a mid attention, scaling factor
-0.18215; every norm uses eps 1e-6.  Parameter names follow diffusers'
+(SD-1.5 vae/config.json, also SD-2.x's and SDXL's): 4 latent channels,
+block_out_channels (128, 256, 512, 512), 2 layers per block, a mid
+attention, scaling factor 0.18215 (SDXL's 0.13025); every norm uses eps
+1e-6.  Parameter names follow diffusers'
 ``AutoencoderKL``; maps are [B, H, W, C].
 """
 
@@ -45,6 +46,12 @@ class VAEConfig:
     @classmethod
     def sd15(cls) -> "VAEConfig":
         return cls()
+
+    @classmethod
+    def sdxl(cls) -> "VAEConfig":
+        """SD's geometry, retrained for SDXL (scaling factor 0.13025,
+        stable-diffusion-xl-base-1.0 vae/config.json)."""
+        return cls(scaling_factor=0.13025)
 
 
 class Decoder(nn.Module):

@@ -6,14 +6,15 @@ The port's own copies of the name maps in
 ``invert``: for every JAX parameter path, the diffusers / transformers
 tensor name and the layout change (HWIO conv -> OIHW, [in, out] dense ->
 [out, in], dense -> [out, in, 1, 1] for SD-1.5's 1x1-conv transformer
-projections).  The metric towers' maps follow the JAX package's loaders
+projections; SD-2.x's and SDXL's are linears).  The metric towers' maps follow the JAX package's loaders
 of the published files (``image_reward_name_map``: ImageReward-v1.0's
 names; ``inception_name_map``: pytorch-fid's; ``aesthetic_name_map``:
 the LAION head's), and ``*_from_jax`` turn those JAX trees into the
 port's state dicts.  The port's modules carry exactly those names, so a local
 diffusers snapshot or transformers CLIP checkpoint loads by name
-(``load_sd_checkpoint``, ``load_clip_checkpoint``), strictly, after
-dropping by name the few keys the port's modules do not have.
+(``load_sd_checkpoint``, ``load_sdxl_checkpoint``,
+``load_clip_checkpoint``), strictly, after dropping by name the few keys
+the port's modules do not have.
 """
 
 from __future__ import annotations
@@ -87,10 +88,10 @@ class MapEntries(dict):
         for i in (1, 2, 3):
             self.norm(f"{dst}/norm{i}", f"{src}.norm{i}")
 
-    def spatial_transformer(self, dst, src, depth):
+    def spatial_transformer(self, dst, src, depth, linear=False):
         self.norm(f"{dst}/norm", f"{src}.norm")
-        for p in ("proj_in", "proj_out"):  # SD-1.5: 1x1 convs
-            self[f"{dst}/{p}/kernel"] = (f"{src}.{p}.weight", _dense_to_conv1x1)
+        for p in ("proj_in", "proj_out"):  # SD-1.5: 1x1 convs; SD-2.x, SDXL: linears
+            self[f"{dst}/{p}/kernel"] = (f"{src}.{p}.weight", _lin if linear else _dense_to_conv1x1)
             self[f"{dst}/{p}/bias"] = (f"{src}.{p}.bias", _id)
         for d in range(depth):
             self.transformer_block(f"{dst}/block_{d}", f"{src}.transformer_blocks.{d}")
@@ -110,28 +111,31 @@ class MapEntries(dict):
 
 def unet_name_map(cfg: UNetConfig) -> NameMap:
     m = MapEntries()
-    depth = cfg.transformer_depth
+    lin = cfg.linear_projection
     m.conv("conv_in", "conv_in")
     m.dense("time_embedding/fc1", "time_embedding.linear_1")
     m.dense("time_embedding/fc2", "time_embedding.linear_2")
+    m.dense("add_embedding/fc1", "add_embedding.linear_1")  # SDXL's text_time conditioning
+    m.dense("add_embedding/fc2", "add_embedding.linear_2")
     n = len(cfg.block_out_channels)
     for lvl in range(n):
         for j in range(cfg.layers_per_block):
             m.resnet(f"down_{lvl}_res_{j}", f"down_blocks.{lvl}.resnets.{j}")
             if cfg.cross_attention[lvl]:
-                m.spatial_transformer(f"down_{lvl}_attn_{j}",
-                                      f"down_blocks.{lvl}.attentions.{j}", depth)
+                m.spatial_transformer(f"down_{lvl}_attn_{j}", f"down_blocks.{lvl}.attentions.{j}",
+                                      cfg.depth_at(lvl), lin)
         if lvl < n - 1:
             m.conv(f"down_{lvl}_downsample/conv", f"down_blocks.{lvl}.downsamplers.0.conv")
     m.resnet("mid_res_0", "mid_block.resnets.0")
     m.resnet("mid_res_1", "mid_block.resnets.1")
-    m.spatial_transformer("mid_attn", "mid_block.attentions.0", depth)
+    m.spatial_transformer("mid_attn", "mid_block.attentions.0", cfg.depth_at(n - 1), lin)
     for lvl in range(n):
         k = n - 1 - lvl  # diffusers up_blocks index
         for j in range(cfg.layers_per_block + 1):
             m.resnet(f"up_{lvl}_res_{j}", f"up_blocks.{k}.resnets.{j}")
             if cfg.cross_attention[lvl]:
-                m.spatial_transformer(f"up_{lvl}_attn_{j}", f"up_blocks.{k}.attentions.{j}", depth)
+                m.spatial_transformer(f"up_{lvl}_attn_{j}", f"up_blocks.{k}.attentions.{j}",
+                                      cfg.depth_at(lvl), lin)
         if lvl > 0:
             m.conv(f"up_{lvl}_upsample/conv", f"up_blocks.{k}.upsamplers.0.conv")
     m.norm("conv_norm_out", "conv_norm_out")
@@ -327,34 +331,50 @@ def _count(tree: dict, fmt: str) -> int:
 
 
 def unet_geometry(tree: dict) -> UNetConfig:
-    """The name-map-relevant geometry of a JAX UNet tree (levels, widths,
-    layers per block, which levels attend, transformer depth)."""
+    """The name-map-relevant geometry that a JAX UNet tree shows (levels,
+    widths, layers per block, which levels attend, transformer depth a
+    level).  A JAX kernel is [in, out] whether the torch module is a linear
+    or a 1x1 conv, so the tree cannot tell SD-2.x's linear projections from
+    SD-1.5's convs: this geometry has SD-1.5's convs, or linears where the
+    text_time ``add_embedding`` is present (SDXL; the JAX config's
+    default).  Head counts do not enter the names."""
     n = _count(tree, "down_{}_res_0")
+    attn = [f"down_{i}_attn_0" for i in range(n)]
+    depth = tuple(_count(tree[a], "block_{}") if a in tree else 1 for a in attn)
+    depth = depth[:-1] + (_count(tree["mid_attn"], "block_{}"),)
     return UNetConfig(
         block_out_channels=tuple(tree[f"down_{i}_res_0"]["conv1"]["kernel"].shape[-1]
                                  for i in range(n)),
         layers_per_block=_count(tree, "down_0_res_{}"),
-        cross_attention=tuple(f"down_{i}_attn_0" in tree for i in range(n)),
-        transformer_depth=_count(tree["mid_attn"], "block_{}"),
+        cross_attention=tuple(a in tree for a in attn),
+        transformer_depth=depth if len(set(depth)) > 1 else depth[0],
+        use_linear_projection=True if "add_embedding" in tree else None,
     )
 
 
-def state_dicts_from_jax(params_np: dict) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The JAX engine's ``{"unet", "vae", "text"}`` tree (numpy leaves) ->
-    ``{"unet", "vae", "text"}`` state dicts of fp32 tensors that the port's
-    modules load with ``strict=True``.  The VAE keeps its decoder side."""
+def state_dicts_from_jax(params_np: dict, unet_config: UNetConfig = None
+                         ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX engine's tree (numpy leaves) -> a state dict of fp32 tensors
+    for each module that the port's modules load with ``strict=True``:
+    ``{"unet", "vae", "text"}``, and an SDXL tree's ``"text2"`` (its
+    ``text2_proj`` kernel as ``text_projection.weight``).  The VAE keeps
+    its decoder side.  ``unet_config`` gives the UNet's projection layout
+    (needed for SD-2.x); without it the tree's own geometry is used
+    (``unet_geometry``)."""
     dec = params_np["vae"]["decoder"]
     vae = invert(params_np["vae"], vae_name_map(_count(dec, "up_{}_res_0"),
                                                 _count(dec, "up_0_res_{}") - 1))
     vae = {k: v for k, v in vae.items() if not k.startswith(("encoder.", "quant_conv."))}
-    sds = {
-        "unet": invert(params_np["unet"], unet_name_map(unet_geometry(params_np["unet"]))),
-        "vae": vae,
-        "text": invert(params_np["text"],
-                       clip_text_name_map(_count(params_np["text"], "layer_{}"))),
-    }
-    return {k: {n: torch.from_numpy(np.ascontiguousarray(a)) for n, a in sd.items()}
-            for k, sd in sds.items()}
+    cfg = unet_config or unet_geometry(params_np["unet"])
+    sds = {"unet": invert(params_np["unet"], unet_name_map(cfg)), "vae": vae}
+    for key in ("text", "text2"):
+        if key in params_np:
+            sds[key] = invert(params_np[key],
+                              clip_text_name_map(_count(params_np[key], "layer_{}")))
+    if "text2_proj" in params_np:
+        sds["text2"]["text_projection.weight"] = _lin(
+            np.asarray(params_np["text2_proj"]["kernel"], np.float32))
+    return {k: _tensors(sd) for k, sd in sds.items()}
 
 
 # ------------------------------------------------------- local checkpoints
@@ -407,19 +427,32 @@ def load_clip_checkpoint(snapshot_dir: str | Path, model: nn.Module) -> nn.Modul
 
 def load_sd_checkpoint(snapshot_dir: str | Path, engine) -> None:
     """A diffusers-layout SD snapshot dir (``unet/``, ``vae/``,
-    ``text_encoder/``) into ``engine``'s modules.  The VAE's encoder keys
-    and the text encoder's ``position_ids`` buffer are dropped by name; any
-    other extra or missing key raises."""
+    ``text_encoder/``; an SDXL snapshot also ``text_encoder_2/``, a
+    ``CLIPTextModelWithProjection``) into ``engine``'s modules.  The VAE's
+    encoder keys and the text encoders' ``position_ids`` buffers are
+    dropped by name; any other extra or missing key raises."""
     snapshot_dir = Path(snapshot_dir)
     names = ("diffusion_pytorch_model.bin", "pytorch_model.bin",
              "diffusion_pytorch_model.safetensors", "model.safetensors")
-    parts = (("unet", engine.unet, lambda k: False),
+    parts = [("unet", engine.unet, lambda k: False),
              ("vae", engine.vae, lambda k: k.startswith(_VAE_ENCODER)),
-             ("text_encoder", engine.text, lambda k: k in _CLIP_EXTRA))
+             ("text_encoder", engine.text, lambda k: k in _CLIP_EXTRA)]
+    if hasattr(engine, "text2"):
+        parts.append(("text_encoder_2", engine.text2, lambda k: k in _CLIP_EXTRA))
     for sub, module, drop in parts:
         path = _find_checkpoint(snapshot_dir / sub, names)
         _load_strict(module, load_torch_state_dict(path), drop, str(path))
     engine.graphed_unet.clear()
+
+
+def load_sdxl_checkpoint(snapshot_dir: str | Path, engine) -> None:
+    """A diffusers SDXL snapshot dir (``unet/``, ``vae/``, ``text_encoder/``
+    CLIP ViT-L, ``text_encoder_2/`` OpenCLIP bigG with its
+    ``text_projection``) into an ``SDXLEngine``, strictly."""
+    if not hasattr(engine, "text2"):
+        raise TypeError("load_sdxl_checkpoint needs an engine with a second text tower "
+                        "(SDXLEngine)")
+    load_sd_checkpoint(snapshot_dir, engine)
 
 
 # ------------------------------------------------------------------- LoRA

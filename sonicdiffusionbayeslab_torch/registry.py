@@ -34,7 +34,7 @@ class PortRegistry(ClassRegistry):
 models_registry = PortRegistry("models_registry", (
     "stable_diffusion_3_model", "stable_diffusion_3_model_interliving_schedulers",
     "stable_diffusion_3_model_skip_timesteps", "stable_diffusion_3_model_two_schedulers",
-    "stable_diffusion_controlnet_model", "stable_diffusion_xl_model",
+    "stable_diffusion_controlnet_model",
 ))
 methods_registry = PortRegistry("methods_registry", ("flow_euler",))
 metrics_registry = PortRegistry("metrics_registry", ())

@@ -8,6 +8,7 @@ JAX:  python -m pytest tests/test_torch_kernels.py -q --noconftest
 
 import collections
 import importlib.util
+import math
 import shutil
 import weakref
 
@@ -199,6 +200,27 @@ GN_MAIN_PATH = [
     (4, 4096, 960, 1e-5, True),
 ]
 GN_TINY = [(2, 64, 16, 1e-5, True), (2, 64, 32, 1e-5, True), (2, 256, 64, 1e-6, False)]
+# (B, N, C, eps, silu) of every GroupNorm of the SD-2.1 768^2 and SDXL
+# 1024^2 CLI runs (UNet at batch 16, VAE decode at batch 8; G = 32), up
+# to SDXL's decoder at 1024 x 1024 rows a sample.
+GN_SD21_SDXL = [
+    (8, 9216, 512, 1e-6, False), (8, 9216, 512, 1e-6, True), (8, 16384, 512, 1e-6, False),
+    (8, 16384, 512, 1e-6, True), (8, 36864, 512, 1e-6, True), (8, 65536, 512, 1e-6, True),
+    (8, 147456, 256, 1e-6, True), (8, 147456, 512, 1e-6, True), (8, 262144, 256, 1e-6, True),
+    (8, 262144, 512, 1e-6, True), (8, 589824, 128, 1e-6, True), (8, 589824, 256, 1e-6, True),
+    (8, 1048576, 128, 1e-6, True), (8, 1048576, 256, 1e-6, True), (16, 144, 1280, 1e-6, False),
+    (16, 144, 1280, 1e-5, True), (16, 144, 2560, 1e-5, True), (16, 576, 640, 1e-5, True),
+    (16, 576, 1280, 1e-6, False), (16, 576, 1280, 1e-5, True), (16, 576, 1920, 1e-5, True),
+    (16, 576, 2560, 1e-5, True), (16, 1024, 640, 1e-5, True), (16, 1024, 1280, 1e-6, False),
+    (16, 1024, 1280, 1e-5, True), (16, 1024, 1920, 1e-5, True), (16, 1024, 2560, 1e-5, True),
+    (16, 2304, 320, 1e-5, True), (16, 2304, 640, 1e-6, False), (16, 2304, 640, 1e-5, True),
+    (16, 2304, 960, 1e-5, True), (16, 2304, 1280, 1e-5, True), (16, 2304, 1920, 1e-5, True),
+    (16, 4096, 320, 1e-5, True), (16, 4096, 640, 1e-6, False), (16, 4096, 640, 1e-5, True),
+    (16, 4096, 960, 1e-5, True), (16, 4096, 1280, 1e-5, True), (16, 4096, 1920, 1e-5, True),
+    (16, 9216, 320, 1e-6, False), (16, 9216, 320, 1e-5, True), (16, 9216, 640, 1e-5, True),
+    (16, 9216, 960, 1e-5, True), (16, 16384, 320, 1e-5, True), (16, 16384, 640, 1e-5, True),
+    (16, 16384, 960, 1e-5, True),
+]
 
 
 def check_plan(p, B, N, C, G, elem):
@@ -230,12 +252,13 @@ def check_plan(p, B, N, C, G, elem):
 
 
 @pytest.mark.parametrize("elem", [2, 4])
-@pytest.mark.parametrize("B,N,C,eps,silu", GN_MAIN_PATH + GN_TINY)
+@pytest.mark.parametrize("B,N,C,eps,silu", GN_MAIN_PATH + GN_TINY + GN_SD21_SDXL)
 def test_groupnorm_plan_covers_groups_and_rows(B, N, C, eps, silu, elem):
     G = gn_ops.resolve_groups(C, 32)
     p = gn_ops.plan(B, N, C, G, elem)
     check_plan(p, B, N, C, G, elem)
-    # Every SD-1.5 level has an even C / G: 16-byte vectors throughout.
+    # Every SD-1.5, SD-2.1 and SDXL level has an even C / G: 16-byte
+    # vectors throughout.
     assert p.vec == 16 // elem
     assert p.channels * elem >= min(gn_ops.MIN_ROW_BYTES, C * elem)  # wide rows where C allows
     if B * N * C * elem >= gn_ops.TARGET_CTAS * gn_ops.MIN_CTA_BYTES:
@@ -455,6 +478,47 @@ def test_bf16_attention_kernel_matches_plain(cuda, B, N, M, H, D):
     assert err.max().item() <= 0.1 * rms, f"max abs err {err.max().item():.3e}, rms {rms:.3e}"
 
 
+# The SD-2.1 768^2 and SDXL 1024^2 UNets' attention shapes (head_dim 64),
+# at batch 2 in place of the CLI runs' 16.
+D64_SHAPES = [(2, 9216, 9216, 5, 64), (2, 2304, 2304, 10, 64), (2, 576, 576, 20, 64),
+              (2, 144, 144, 20, 64), (2, 9216, 77, 5, 64), (2, 144, 77, 20, 64),
+              (2, 4096, 4096, 10, 64), (2, 1024, 1024, 20, 64), (2, 4096, 77, 10, 64),
+              (2, 1024, 77, 20, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "fused"])
+@pytest.mark.parametrize("B,N,M,H,D", D64_SHAPES)
+def test_bf16_attention_d64_matches_plain(cuda, B, N, M, H, D, layout):
+    """Contiguous [B, N, H, D] tensors, or the strided views of fused
+    projections the UNet's layers would give (q of [B, N, H, D]; k, v of
+    one [B, M, 2, H, D]): within the bf16 elementwise gate of the plain
+    version, and the max error within 0.1 x rms(plain) or one bf16 spacing
+    at the largest |plain|, whichever is larger.  Both sides round their
+    outputs to bf16, so one spacing is the least they can differ by where
+    they round apart; with 4096 keys and logits of standard deviation 3 the
+    softmax is peaked enough that the largest output passes 4 (spacing
+    2^-5) while the rms stays near 0.28."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(B, N, H, D, generator=gen, device=cuda).mul(3).to(torch.bfloat16)
+    if layout == "contiguous":
+        k, v = (torch.randn(B, M, H, D, generator=gen, device=cuda).to(torch.bfloat16)
+                for _ in range(2))
+    else:
+        k, v = torch.randn(B, M, 2, H, D, generator=gen, device=cuda).to(torch.bfloat16).unbind(2)
+    n0 = fa.flash_attention_sm90.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_sm90.launches == n0 + 1
+    want = attn_ops.plain_attention(q, k, v).float()
+    err = (got.float() - want).abs()
+    assert (err <= 1e-2 + 2e-2 * want.abs()).all(), f"max abs err {err.max().item():.3e}"
+    rms = want.pow(2).mean().sqrt().item()
+    spacing = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+    assert err.max().item() <= max(0.1 * rms, spacing), (
+        f"max abs err {err.max().item():.3e}, rms {rms:.3e}, bf16 spacing {spacing:.3e}")
+
+
 @pytest.mark.cuda
 def test_bf16_attention_strided_views_bit_equal(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -497,6 +561,25 @@ def test_group_norm_kernel_matches_plain(cuda, dtype, atol):
             torch.cuda.synchronize()
             assert_close(got, want, atol, 1e-2)
         del x, got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,N,C", [
+    (1, 1024 * 1024, 128), (1, 1024 * 1024, 256),  # SDXL's decoder at 1024^2, one sample
+    (2, 9216, 320), (2, 2304, 640), (2, 576, 1280), (2, 144, 2560),  # SD-2.1's UNet at 96^2
+    (2, 16384, 320), (2, 16384, 960), (2, 4096, 640), (2, 1024, 1280),  # SDXL's at 128^2
+])
+def test_group_norm_sd21_sdxl_shapes_match_plain(cuda, B, N, C, dtype, atol):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn(B, N, C, generator=gen, device=cuda) * 3 + 1).to(dtype)
+    w = torch.randn(C, generator=gen, device=cuda).to(dtype)
+    b = torch.randn(C, generator=gen, device=cuda).to(dtype)
+    for silu in (True, False):
+        got = gn_ops.group_norm_silu(x, w, b, 32, 1e-6, silu)
+        want = gn_ops.plain_group_norm(x, w, b, 32, 1e-6, silu)
+        torch.cuda.synchronize()
+        assert_close(got, want, atol, 1e-2)
 
 
 @pytest.mark.cuda

@@ -69,6 +69,37 @@ def tiny_engines():
     return jeng, params, teng
 
 
+@functools.lru_cache(maxsize=None)
+def tiny_family_engines(family: str):
+    """(JAX tiny engine, its random numpy params, the port's tiny engine on
+    the CPU loaded with the same weights), all fp32, for ``family`` "sd21"
+    (``UNetConfig.tiny21``, ``CLIPTextConfig.tiny21``) or "sdxl"
+    (``UNetConfig.tiny_xl``, ``SDXLTextConfigs.tiny``)."""
+    from sonicdiffusionbayeslab_torch.models import sampler as TS
+    from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig
+    from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
+    from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
+    from sonicdiffusionbayeslab_torch.models.weights import state_dicts_from_jax
+    from sonicdiffusionbayeslab_tpu import models as jm
+    from sonicdiffusionbayeslab_tpu.models import sampler as JS
+
+    kw = dict(dtype=jnp.float32, param_dtype=jnp.float32)
+    if family == "sd21":
+        jeng = jm.StableDiffusionEngine(jm.UNetConfig.tiny21(), jm.VAEConfig.tiny(),
+                                        jm.CLIPTextConfig.tiny21(), **kw)
+        teng = TS.StableDiffusionEngine(UNetConfig.tiny21(), VAEConfig.tiny(),
+                                        CLIPTextConfig.tiny21(), dtype=torch.float32,
+                                        device="cpu")
+    else:
+        jeng = JS.SDXLEngine(jm.UNetConfig.tiny_xl(), jm.VAEConfig.tiny(),
+                             JS.SDXLTextConfigs.tiny(), **kw)
+        teng = TS.SDXLEngine(UNetConfig.tiny_xl(), VAEConfig.tiny(), TS.SDXLTextConfigs.tiny(),
+                             dtype=torch.float32, device="cpu")
+    params = random_params(jax.eval_shape(lambda: jeng.init_params(seed=0, latent_hw=8)), 0)
+    teng.load_state_dicts(state_dicts_from_jax(params, teng.unet_config))
+    return jeng, params, teng
+
+
 def load_block(torch_module, flax_params, fill) -> torch.nn.Module:
     """Load one block's Flax params into its torch twin (strict), with the
     entries ``fill(MapEntries, "b", "b")`` writes for it."""
