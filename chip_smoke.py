@@ -118,12 +118,32 @@ prints no ``ok`` line:
      launches against the census by the wrappers and by the trace; and
      each family's 20-step DPM++ loop at batch 2, CFG 7.5 (engine level,
      median of 3, peak memory, a torch.profiler breakdown a step);
- 11. the card line, then one JSON ``kernels`` line (the fp32 attention
+ 11. img2img, inpainting and int8: the GroupNorm kernel against its plain
+     version and timed at the VAE encoders' shapes (SD-1.5 at 512^2, batch
+     2; SDXL's at 1024^2, one image); cuBLASLt's int8 GEMM (torch._int_mm)
+     at every int8 conv shape of the phase, bit-equal to exact sums, timed,
+     and traced (one "gemm_s8" kernel a call); tiny fp32 img2img and inpainting
+     on the card against the CPU (1e-3) and a tiny int8_conv_only run held
+     to the CPU's quantization drift; the SDXL VAE encoder alone on one
+     1024^2 image (launches by wrappers and trace); SD-1.5 512^2 img2img
+     (20-step DPM++ at strength 0.8: 16 rows, batch 2, CFG 7.5, from a PNG
+     written and read back) through the pipeline, first run and traced
+     warm run against the census with the encoder's launches, inpainting
+     with a half mask whose kept half ends as the source's latents, and
+     generate.py --init_image --mask_image; engine loops at batch 2 of
+     exact DPM++, int8_conv_only and the turbo stack (ToMe 0.5 +
+     int8_conv_only), the exact loop bit-equal after them; then
+     configs/turbo_config.yaml as shipped through the CLI (batch 8, phase
+     9's real images and checkpoints), traced: table, PNGs, one capture,
+     launches against the census, 50 int8 GEMMs a UNet forward by the
+     wrappers and by kernel name in the trace, no int8 dense call; and an
+     exact run of the phase's model before and after it, bit-equal;
+ 12. the card line, then one JSON ``kernels`` line (the fp32 attention
      kernel's entry is phase 9's metric towers: 108 launches a validate
      batch; each entry also lists its launches in each phase-7, phase-8,
-     phase-9 and phase-10 run, and its phase-10 sums over one forward and
-     one decode of each family);
- 12. the last line: {"ok": true, "device": {...}}.
+     phase-9, phase-10 and phase-11 run, and its phase-10 sums over one
+     forward and one decode of each family);
+ 13. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -148,9 +168,15 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
 # products (495 TFLOP/s dense) for each fp32-accurate one.
 PEAK_TF32X3 = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+PEAK_INT8 = 1979e12  # H100 SXM int8 tensor-core operations a second, dense
 # Each kernel's symbol in a profiler trace: one kernel a call each.
 SYMBOLS = {"attention": "flash_fwd_sm90_kernel", "group_norm": "gn_cluster_kernel",
            "attention_fp32": "flash_fwd_tf32x3_kernel"}
+# cuBLASLt's int8 GEMM kernels (torch._int_mm) on this card:
+# cutlass_80_tensorop_i16832gemm_s8_<tile>_tn_align16, one a call.
+INT8_GEMM_SYMBOL = "gemm_s8"
+# Traced kernels before a traced run (traced_launches).
+PAD_KERNELS = 64
 # bf16 attention is also held to max |err| <= ATTN_RMS_GATE * rms(plain)
 # per shape: bf16 rounding of outputs up to ~4 stays near half of it, while
 # a lost rescale of O or a P.V on the wrong K/V tile is many times the rms.
@@ -259,6 +285,16 @@ FAMILIES = {
     "sdxl": dict(config="sdxl_config", size=1024, steps=10, pipeline="stable_diffusion_xl_model",
                  kw={}, prediction_type="epsilon"),
 }
+# Phase 11: img2img and inpainting at SD-1.5 width (STEPS-step DPM++ at
+# STRENGTH runs its last IMG2IMG_ROWS rows, batch BATCH, CFG GUIDANCE), the
+# SDXL VAE's encoder alone at ENC_XL_SIZE^2 (one image), and
+# configs/turbo_config.yaml as shipped through the CLI (ToMe TURBO_TOME and
+# int8_conv_only, batch TURBO_BATCH).
+STRENGTH, IMG2IMG_ROWS, ENC_XL_SIZE = 0.8, 16, 1024
+TURBO_BATCH, TURBO_TOME, TURBO_QUANT = 8, 0.5, "int8_conv_only"
+# The int8 3x3 convs of one SD-1.5 UNet forward: 22 ResnetBlocks x 2, 3
+# Downsample and 3 Upsample.
+INT8_CONVS = 50
 # The plain versions' fp32 intermediates a call, at most: a larger call
 # runs them over slices of the batch (the same function).
 PLAIN_BYTES = 8e9
@@ -405,23 +441,37 @@ def family_configs(family="sd15", tiny=False):
 
 
 def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, tome=None,
-                  family="sd15"):
+                  family="sd15", enc_batch=None, enc_size=None, quant=None):
     """{(kind, shape): launches} of one UNet call at ``unet_batch`` rows
     (DeepCache's shallow call at branch 0 with ``shallow``, else the plain
     or full call; with Token Merging at ratio ``tome``, whose merged
-    self-attentions run at N = M = tokens - r) and one VAE decode of
-    ``vae_batch`` latents, from the UNet and VAE decoder of ``family``
-    (sd15, sd21 or sdxl: ``family_configs``; with ``tiny``, its tiny
-    configs at the tiny pipelines' 8x8 latents) run on the meta device
-    with the two kernel entry points replaced by shape recorders."""
+    self-attentions run at N = M = tokens - r; in the int8 mode ``quant``,
+    whose int8 GEMMs are counted as ("int8_conv" or "int8_dense", (M, K,
+    N))), one VAE decode of ``vae_batch`` latents and one VAE encode of
+    ``enc_batch`` images of ``enc_size`` (default: the decode's image
+    size), from the UNet and VAE of ``family`` (sd15, sd21 or sdxl:
+    ``family_configs``; with ``tiny``, its tiny configs at the tiny
+    pipelines' 8x8 latents) run on the meta device with the kernel entry
+    points replaced by shape recorders."""
     from sonicdiffusionbayeslab_torch.models import layers
     from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition
     from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL
+    from sonicdiffusionbayeslab_torch.ops import quant as Q
     from sonicdiffusionbayeslab_torch.ops.attention import uses_kernel
     from sonicdiffusionbayeslab_torch.ops.groupnorm import resolve_groups
     from sonicdiffusionbayeslab_torch.ops.tome import TomeConfig
 
     calls = collections.Counter()
+
+    def q_conv(conv, x, padding):
+        y = layers.conv_nhwc(conv, x)
+        B, Ho, Wo, O = y.shape
+        calls[("int8_conv", (B * Ho * Wo, conv.weight[0].numel(), O))] += 1
+        return y
+
+    def q_dense(layer, x):
+        calls[("int8_dense", (x.numel() // x.shape[-1], x.shape[-1], layer.weight.shape[0]))] += 1
+        return torch.nn.functional.linear(x, layer.weight.flatten(1))
 
     def gn(x, weight, bias, groups=32, eps=1e-5, silu=True):
         B, C = x.shape[0], x.shape[-1]
@@ -434,13 +484,14 @@ def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, to
             calls[("attention", (B, N, k.shape[1], H, D))] += 1
         return torch.empty_like(q)
 
-    saved = layers.group_norm_silu, layers.dot_product_attention
+    saved = layers.group_norm_silu, layers.dot_product_attention, Q.conv_int8, Q.linear_int8
     layers.group_norm_silu, layers.dot_product_attention = gn, attn
+    Q.conv_int8, Q.linear_int8 = q_conv, q_dense
     unet_cfg, vae_cfg, lat = family_configs(family, tiny)
     try:
         with torch.device("meta"):
             if unet_batch:
-                unet = UNet2DCondition(unet_cfg)
+                unet = Q.set_quant_mode(UNet2DCondition(unet_cfg), quant)
                 b = unet_batch
                 args = (torch.empty(b, lat, lat, 4), torch.empty(b),
                         torch.empty(b, 77, unet_cfg.cross_attention_dim))
@@ -457,10 +508,16 @@ def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, to
                          cache_branch_id=0, **kw)
                 else:
                     unet(*args, None, dst, *added, **kw)
+            if vae_batch or enc_batch:
+                vae = AutoencoderKL(vae_cfg)
             if vae_batch:
-                AutoencoderKL(vae_cfg).decode(torch.empty(vae_batch, lat, lat, 4))
+                vae.decode(torch.empty(vae_batch, lat, lat, 4))
+            if enc_batch:
+                size = enc_size or lat * 2 ** (len(vae_cfg.block_out_channels) - 1)
+                vae.encode(torch.empty(enc_batch, size, size, 3))
     finally:
-        layers.group_norm_silu, layers.dot_product_attention = saved
+        (layers.group_norm_silu, layers.dot_product_attention, Q.conv_int8,
+         Q.linear_int8) = saved
     return calls
 
 
@@ -708,25 +765,38 @@ def tiny_card_vs_cpu(per_unet, per_vae):
     return launches
 
 
-def traced_launches(run):
+def traced_launches(run, symbols=None):
     """``run()``'s result and the executions on the card of each kernel of
     ours (every key of SYMBOLS), by symbol, from a torch.profiler (CUPTI)
-    trace of it: graph replays included, set-up excluded."""
+    trace of it: graph replays included, set-up excluded.  ``symbols``
+    ({key: name substring}) adds the executions of kernels whose names
+    hold each substring under each key."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # CUPTI has dropped the first kernels of work launched the moment
-        # tracing started (an eager UNet forward lost its first 2 attention
-        # and 4 GroupNorm executions); one traced kernel and a pause first.
-        torch.zeros(1, device="cuda").add_(1)
+        # CUPTI drops the first kernels launched as tracing starts (an
+        # eager UNet forward lost its first 2 attention and 4 GroupNorm
+        # executions; late in a long process up to 25 kernels), never the
+        # last: PAD_KERNELS spin kernels and a pause first, the recorded
+        # ones counted.
+        for _ in range(PAD_KERNELS):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         time.sleep(0.1)
         out = run()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return out, {kind: sum(sym in n for n in names) for kind, sym in SYMBOLS.items()}
+    seen = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    counts = {kind: sum(sym in n for n in seen) for kind, sym in SYMBOLS.items()}
+    for key, sym in (symbols or {}).items():
+        counts[key] = sum(sym in n for n in seen)
+    lead = next((i for i, n in enumerate(seen) if "spin_kernel" not in n), len(seen))
+    if lead != PAD_KERNELS:
+        print(f"trace: CUPTI recorded {lead} of the {PAD_KERNELS} pad kernels", flush=True)
+    if not lead:
+        raise AssertionError("CUPTI dropped every pad kernel: the trace may have lost the run's")
+    return out, counts
 
 
 def wrapper_counts(reset=False):
@@ -916,6 +986,8 @@ def profile_loop(model, tome=None, size=SIZE, label=None):
             groups["flash_attention (ours)"] += v
         elif SYMBOLS["group_norm"] in k:
             groups["group_norm_silu (ours)"] += v
+        elif "gemm_s8" in low or "imma" in low:
+            groups["int8 GEMMs (cuBLASLt)"] += v
         elif "fprop" in low or "conv" in low:
             groups["convolutions (cuDNN)"] += v
         elif any(w in low for w in ("gemm", "nvjet", "cutlass", "cublas")):
@@ -1107,8 +1179,8 @@ class _RecordingVariants:
         made = self.made
 
         class Recording(GraphedVariants):
-            def __init__(self, fn):
-                super().__init__(fn)
+            def __init__(self, fn, **kw):
+                super().__init__(fn, **kw)
                 made.append(self)
 
         sampler.GraphedVariants = Recording
@@ -2235,6 +2307,551 @@ def run_families(report, card, assets):
     report["e2e"]["families"] = out
 
 
+# ------------------------------ img2img, inpainting, int8 quant (phase 11)
+def img2img_census():
+    """{part: {(kind, shape): launches}} of phase 11: a UNet forward at the
+    img2img runs' batch (2 x BATCH; also ToMe's and the int8 modes' for the
+    loop timings), an encode and a decode of BATCH at SIZE, the SDXL VAE's
+    encode of one image at ENC_XL_SIZE, the turbo CLI's UNet forward
+    (2 x TURBO_BATCH, ToMe and int8_conv_only) and decode of TURBO_BATCH,
+    and the tiny fp32 runs' UNet forward, encode and decode."""
+    return dict(
+        unet=module_census(2 * BATCH), enc=module_census(enc_batch=BATCH),
+        vae=module_census(vae_batch=BATCH),
+        unet_int8=module_census(2 * BATCH, quant=TURBO_QUANT),
+        unet_turbo=module_census(2 * BATCH, tome=TURBO_TOME, quant=TURBO_QUANT),
+        enc_xl=module_census(enc_batch=1, enc_size=ENC_XL_SIZE, family="sdxl"),
+        turbo_unet=module_census(2 * TURBO_BATCH, tome=TURBO_TOME, quant=TURBO_QUANT),
+        turbo_vae=module_census(vae_batch=TURBO_BATCH),
+        tiny_unet=module_census(2 * BATCH, tiny=True),
+        tiny_unet_int8=module_census(2 * BATCH, tiny=True, quant=TURBO_QUANT),
+        tiny_enc=module_census(enc_batch=BATCH, tiny=True),
+        tiny_vae=module_census(vae_batch=BATCH, tiny=True))
+
+
+def int8_counts(reset=False):
+    """The int8 wrappers' card counts: GEMMs, and the conv and dense calls."""
+    from sonicdiffusionbayeslab_torch.ops import quant as Q
+
+    fns = {"int8_gemm": Q.int8_matmul, "int8_conv": Q.int8_conv, "int8_dense": Q.int8_dense}
+    if reset:
+        for f in fns.values():
+            f.launches = 0
+    return {k: f.launches for k, f in fns.items()}
+
+
+def check_int8_gemms(census):
+    """cuBLASLt's int8 GEMM (``torch._int_mm`` through ``int8_matmul``) at
+    every (M, K, N) of phase 11's int8 convs and at two small shapes that
+    need the zero padding (M <= 16, K and N not multiples of 8): the int32
+    sums bit-equal to a float64 product on the card (every partial sum an
+    integer below 2^53) and to int64 sums on the CPU over the first 16
+    rows; the device ms of each full-width shape; and a trace of one call
+    at each, which must run one kernel named INT8_GEMM_SYMBOL a call (the
+    count later traces are held to).  Returns the rows."""
+    from sonicdiffusionbayeslab_torch.ops import quant as Q
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    shapes = sorted({shape for c in census.values() for (kind, shape) in c
+                     if kind == "int8_conv"})
+    operands, rows = [], []
+    for M, K, N in shapes + [(5, 37, 11), (16, 24, 8)]:
+        a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+        got = Q.int8_matmul(a, w)
+        exact = a.double() @ w.double().t()
+        r = min(M, 16)
+        ok = (torch.equal(got.double(), exact)
+              and torch.equal(got[:r].cpu().long(), a[:r].cpu().long() @ w.cpu().long().t()))
+        if not ok or got.dtype != torch.int32 or got.shape != (M, N):
+            raise AssertionError(f"int8 GEMM {M}x{K}x{N}: the int32 sums differ from the exact ones")
+        row = dict(shape=[M, K, N])
+        if M > 16:
+            row.update(ms=cuda_ms(lambda: Q.int8_matmul(a, w)),
+                       bound_ms=max(2 * M * K * N / PEAK_INT8, (M * K + N * K + 4 * M * N)
+                                    / PEAK_BYTES) * 1e3)
+            operands.append((a, w))
+        rows.append(row)
+        del got, exact
+    _, traced = traced_launches(lambda: [Q.int8_matmul(a, w) for a, w in operands],
+                                symbols={"int8_gemm": INT8_GEMM_SYMBOL})
+    print(f"int8 GEMMs at {len(shapes)} phase-11 conv shapes and 2 padded small ones: int32 sums "
+          f"bit-equal to exact float64 (card) and int64 (CPU, 16 rows); one call at each "
+          f"full-width shape traced: {traced['int8_gemm']} '{INT8_GEMM_SYMBOL}' kernels; "
+          + json.dumps(rows), flush=True)
+    if traced["int8_gemm"] != len(operands):
+        raise AssertionError(f"{len(operands)} int8 GEMM calls ran {traced['int8_gemm']} kernels "
+                             f"named '{INT8_GEMM_SYMBOL}', expected one each")
+    return rows
+
+
+def img2img_inputs(root):
+    """A smooth random SIZE^2 image and a mask white on its right half,
+    written as PNGs by the port's writer and read back by its reader:
+    (image path, mask path, images [BATCH, SIZE, SIZE, 3], masks [BATCH,
+    SIZE, SIZE])."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.data.imageio import read_image, write_png
+
+    gen = np.random.default_rng(12)
+    yy, xx = np.mgrid[0:SIZE, 0:SIZE] / SIZE
+    px = np.stack([0.5 + 0.4 * np.sin(6 * xx + 2 * yy), 0.5 + 0.4 * np.cos(5 * yy),
+                   0.2 + 0.6 * xx * yy], -1) + gen.normal(0, 0.03, (SIZE, SIZE, 3))
+    mask = np.zeros((SIZE, SIZE, 3), np.float32)
+    mask[:, SIZE // 2:] = 1.0
+    paths = Path(root) / "init.png", Path(root) / "mask.png"
+    write_png(paths[0], np.clip(px, 0, 1))
+    write_png(paths[1], mask)
+    img = read_image(paths[0], SIZE)
+    m = (read_image(paths[1], SIZE).mean(-1) > 0.5).astype(np.float32)
+    return (*paths, np.stack([img] * BATCH), np.stack([m] * BATCH))
+
+
+def img2img_tiny_card_vs_cpu(census):
+    """The tiny fp32 pipeline on the card (graphed) against the CPU, batch
+    BATCH, CFG GUIDANCE, STEPS-step DPM++: img2img at STRENGTH and
+    inpainting (images within 1e-3, the fp32 attention kernel's launches
+    the census's, the encoder's included); then int8_conv_only text-to-image
+    runs, whose int8 rounding flips where the two devices' fp32 sums differ
+    by an ulp at a rounding boundary: held to the CPU's drift from its exact
+    run (the card's run nearer the CPU's quantized run than that is to the
+    exact one), with the max error and the int8 GEMMs' launches (the
+    census's) printed."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention_tf32x3
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    W = GraphedCall.WARMUP
+    cpu = StableDiffusionModel(tiny=True, dtype="float32", seed=0, device="cpu")
+    card = StableDiffusionModel(tiny=True, dtype="float32", seed=0, device="cuda")
+    card.engine.load_state_dicts({k: m.state_dict() for k, m in
+                                  zip(cpu.engine.MODULES, cpu.engine.modules())})
+    rng = np.random.default_rng(13)
+    img = rng.random((BATCH, 16, 16, 3)).astype(np.float32)
+    mask = np.zeros((BATCH, 16, 16), np.float32)
+    mask[:, :, 8:] = 1.0
+    prompts = ["a lighthouse at dusk", "a red boat"]
+    kw = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, seed=29)
+    k = {part: _kinds(census[part])["attention"] for part in
+         ("tiny_unet", "tiny_enc", "tiny_vae", "tiny_unet_int8")}
+    out = {}
+    for name, extra, first in (("img2img", dict(init_image=img, strength=STRENGTH), True),
+                               ("inpaint", dict(init_image=img, strength=STRENGTH,
+                                                mask_image=mask), False)):
+        a = cpu(prompts, **kw, **extra)[0]
+        flash_attention_tf32x3.launches = 0
+        b = card(prompts, **kw, **extra)[0]
+        launches = flash_attention_tf32x3.launches
+        want = (W + 1) * k["tiny_unet"] * first + k["tiny_enc"] + k["tiny_vae"]
+        err = float(np.abs(a - b).max())
+        print(f"tiny fp32 {name} ({card.num_timesteps} rows), card vs CPU: max abs image err "
+              f"{err:.3e} (tolerance 1e-3); flash_attention_tf32x3 launches {launches} "
+              f"(expected {want})", flush=True)
+        if not err <= 1e-3 or card.num_timesteps != IMG2IMG_ROWS:
+            raise AssertionError(f"the tiny {name} run on the card disagrees with the CPU")
+        if launches != want:
+            raise AssertionError(f"the tiny {name} run launched the fp32 attention kernel "
+                                 f"{launches} times, expected {want}")
+        out[name] = dict(max_abs_image_err=err, fp32_attention_launches=launches)
+    exact = cpu(prompts, **kw)[0]
+    for m in (cpu, card):
+        m.engine.set_quant_mode(TURBO_QUANT)
+    a = cpu(prompts, **kw)[0]
+    int8_counts(reset=True)
+    b = card(prompts, **kw)[0]
+    gemms = int8_counts()
+    for m in (cpu, card):
+        m.engine.set_quant_mode(None)
+    rel = lambda x, y: float(np.linalg.norm(x - y) / np.linalg.norm(y))  # noqa: E731
+    err, card_rel, drift = float(np.abs(a - b).max()), rel(b, a), rel(a, exact)
+    want = (W + 1) * _kinds(census["tiny_unet_int8"])["int8_conv"]
+    print(f"tiny fp32 {TURBO_QUANT} run, card vs CPU: max abs image err {err:.3e} (within 1e-3: "
+          f"{err <= 1e-3}), relative {card_rel:.3e} against the CPU's quantized-vs-exact drift "
+          f"{drift:.3e}; int8 launches {gemms} (expected {want} GEMMs)", flush=True)
+    if not card_rel < drift or gemms["int8_gemm"] != want or gemms["int8_conv"] != want \
+            or gemms["int8_dense"]:
+        raise AssertionError(f"the tiny {TURBO_QUANT} run on the card: relative err "
+                             f"{card_rel:.3e}, drift {drift:.3e}, int8 launches {gemms}")
+    out[TURBO_QUANT] = dict(max_abs_image_err=err, relative_err=card_rel, cpu_drift=drift,
+                            int8_launches=gemms)
+    return out
+
+
+def gn_encoder_kernels(census, report):
+    """The GroupNorm kernel against its plain version (bf16) at the
+    encoders' shapes (SD-1.5 at SIZE, batch BATCH; SDXL's at ENC_XL_SIZE,
+    one image), their plans, and a timing row of each (launches an
+    encode)."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    calls = collections.Counter(census["enc"])
+    calls.update(census["enc_xl"])
+    shapes = sorted(calls, key=lambda k: (k[0], [str(v) for v in k[1]]))
+    print_gn_plans(shapes)
+    rows = []
+    for kind, shape in shapes:
+        inputs = gn_inputs(shape, torch.bfloat16, gen)
+        kern, plain = run_kernel(kind, shape, inputs)
+        err = compare(kind, torch.bfloat16, kern(), plain(), f"{kind} {shape} (encoder)")
+        report["errs"][kind].append(err)
+        rows.append(dict(timing_row(kind, shape, torch.bfloat16, "encoder", calls[(kind, shape)],
+                                    gen), max_abs_err=err))
+        del inputs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sdxl_encoder(census, card):
+    """The SDXL VAE's encoder alone (random bf16 weights) on one
+    ENC_XL_SIZE^2 image: the GroupNorm wrapper's launches and a trace's
+    kernel executions against the census, finite latents of the expected
+    shape, and its device ms."""
+    from sonicdiffusionbayeslab_torch.models.sampler import init_module
+    from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.device("cuda"):
+        vae = AutoencoderKL(VAEConfig.sdxl())
+    init_module(vae, torch.Generator(device="cuda").manual_seed(23))
+    vae.requires_grad_(False).eval().to(dtype=torch.bfloat16, memory_format=torch.channels_last)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.rand(1, ENC_XL_SIZE, ENC_XL_SIZE, 3, generator=gen, device="cuda") * 2 - 1
+    noise = torch.randn(1, ENC_XL_SIZE // 8, ENC_XL_SIZE // 8, 4, generator=gen, device="cuda")
+    want = {k: _kinds(census["enc_xl"])[k] for k in MAIN}
+    with torch.inference_mode():
+        wrapper_counts(reset=True)
+        z = vae.encode_sample(x, noise)
+        counts = bf16_only(wrapper_counts(), "the SDXL encoder")
+        z2, traced = traced_launches(lambda: vae.encode_sample(x, noise))
+        traced = bf16_only(traced, "the SDXL encoder (trace)")
+        again = [traced_launches(lambda: vae.encode(x))[1]["group_norm"] for _ in range(2)]
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: vae.encode(x), reps=2)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for n, p in vae.named_parameters()
+                   if n.startswith(("encoder.", "quant_conv."))) / 1e6
+    print(f"SDXL VAE encoder ({n_params:.1f} M parameters with quant_conv), bf16 "
+          f"{ENC_XL_SIZE}x{ENC_XL_SIZE}, one image: {ms:.3f} ms device "
+          f"time (CUDA graph of 2 calls), peak {peak_gb:.2f} GB; latents {tuple(z.shape)}; "
+          f"launches: wrappers {counts}, trace {traced} (two more traces' GroupNorm: {again}), "
+          f"census {want}; {card}", flush=True)
+    if tuple(z.shape) != (1, ENC_XL_SIZE // 8, ENC_XL_SIZE // 8, 4) or \
+            not torch.isfinite(z).all() or not torch.equal(z, z2):
+        raise AssertionError(f"SDXL encoder latents {tuple(z.shape)}")
+    if counts != want or traced != want:
+        raise AssertionError(f"SDXL encoder launches: wrappers {counts}, trace {traced}, "
+                             f"expected {want}")
+    del vae, x, z, z2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ms=ms, peak_gb=peak_gb, params_m=n_params, wrapper_launches=counts,
+                traced_launches=traced)
+
+
+def img2img_pipeline(model, census, inputs, tmp, card):
+    """SD-1.5 img2img and inpainting at full width through the pipeline and
+    generate.py: the first img2img run (the wrappers' launches: the UNet
+    graph's warm-up and capture, one encode, one decode), a traced warm run
+    (IMG2IMG_ROWS replays, encode, decode; timed) with the same images; an
+    inpainting run whose kept half's final latents are the encoder's
+    latents of the source (the blend's last row is the clean source); and
+    ``generate.py --init_image --mask_image`` (a new model: its capture)
+    writing BATCH PNGs."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch import generate
+    from sonicdiffusionbayeslab_torch.models.pipelines import resize_mask
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+    from sonicdiffusionbayeslab_torch.utils.rng import ENCODE_NOISE_TAG, per_sample_noise
+
+    W = GraphedCall.WARMUP
+    png, mask_png, img, mask = inputs
+    kw = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, seed=29, init_image=img,
+              strength=STRENGTH)
+    k = {part: _kinds(census[part]) for part in ("unet", "enc", "vae")}
+    first = {m: (W + 1) * k["unet"][m] + k["enc"][m] + k["vae"][m] for m in MAIN}
+    warm = {m: IMG2IMG_ROWS * k["unet"][m] + k["enc"][m] + k["vae"][m] for m in MAIN}
+    wrapper_counts(reset=True)
+    imgs = model(PROMPTS, **kw)[0]
+    counts = bf16_only(wrapper_counts(), "img2img")
+    t0 = time.perf_counter()
+    (imgs2, exec_time, _), traced = traced_launches(lambda: model(PROMPTS, **kw))
+    wall = time.perf_counter() - t0
+    traced = bf16_only(traced, "img2img (trace)")
+    check_images(imgs)
+    print(f"img2img (SD-1.5 bf16 {SIZE}x{SIZE}, {STEPS}-step DPM++ at strength {STRENGTH}: "
+          f"{model.num_timesteps} rows, batch {BATCH}, CFG {GUIDANCE}; a PNG read back): "
+          f"traced warm run execution_time {exec_time:.4f} s, whole call {wall:.3f} s (traced); "
+          f"launches: first run's wrappers {counts} (expected {first}), traced run {traced} "
+          f"(expected {warm}); {card}", flush=True)
+    if model.num_timesteps != IMG2IMG_ROWS or counts != first or traced != warm:
+        raise AssertionError(f"img2img: {model.num_timesteps} rows, launches {counts} / {traced}")
+    if not np.array_equal(imgs, imgs2):
+        raise AssertionError("img2img: a second identical run gave other images")
+    lat_shape = (SIZE // 8, SIZE // 8, 4)
+    noise = per_sample_noise(29, range(BATCH), lat_shape, ENCODE_NOISE_TAG)
+    wrapper_counts(reset=True)
+    lat = model(PROMPTS, output_type="latent", mask_image=mask, encode_noise=noise, **kw)[0]
+    inpaint_counts = bf16_only(wrapper_counts(), "inpaint")
+    z = model.engine.encode_image(img, noise).cpu().numpy()
+    keep = resize_mask(mask, lat_shape[:2]).numpy()[..., 0] == 0
+    moved = float(np.abs(lat[~keep] - z[~keep]).mean())
+    print(f"inpainting (mask white on the right half): kept half's final latents equal the "
+          f"encoder's latents of the source: {np.array_equal(lat[keep], z[keep])}; the "
+          f"regenerated half's mean |latent - source| {moved:.4f}; launches {inpaint_counts}",
+          flush=True)
+    if not (np.isfinite(lat).all() and np.array_equal(lat[keep], z[keep]) and moved > 0):
+        raise AssertionError("inpainting: the kept half is not the source's latents")
+    if inpaint_counts != {m: k["enc"][m] for m in MAIN}:  # eager: the encode alone
+        raise AssertionError(f"inpainting launches {inpaint_counts}")
+    out_png = Path(tmp) / "generate" / "img_{i:03d}.png"
+    gc.collect()
+    torch.cuda.empty_cache()
+    wrapper_counts(reset=True)
+    t0 = time.perf_counter()
+    generate.main([a for p in PROMPTS for a in ("--prompt", p)]
+                  + ["--steps", str(STEPS), "--init_image", str(png), "--mask_image",
+                     str(mask_png), "--strength", str(STRENGTH), "--out", str(out_png)])
+    gen_wall = time.perf_counter() - t0
+    gen_counts = bf16_only(wrapper_counts(), "generate.py")
+    pngs = sorted(out_png.parent.glob("*.png"))
+    print(f"generate.py --init_image --mask_image (a new SD-1.5 model, {STEPS} steps at strength "
+          f"{STRENGTH}): {len(pngs)} PNGs in {gen_wall:.2f} s (init and capture included); "
+          f"wrapper launches {gen_counts}", flush=True)
+    if len(pngs) != BATCH or {_png_size(p) for p in pngs} != {(SIZE, SIZE)} or gen_counts != first:
+        raise AssertionError(f"generate.py wrote {len(pngs)} PNGs, launches {gen_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(execution_time_s=exec_time, call_s=wall, first_run_wrapper_launches=counts,
+                traced_launches=traced, inpaint_wrapper_launches=inpaint_counts,
+                inpaint_regenerated_mean_abs=moved, generate_s=gen_wall,
+                generate_wrapper_launches=gen_counts)
+
+
+def quant_loop_timings(model, census, card, profile, reps=3):
+    """Engine-level STEPS-step DPM++ loops at batch BATCH, CFG GUIDANCE:
+    exact, int8_conv_only, and the turbo stack (ToMe TURBO_TOME and
+    int8_conv_only), each first run capturing its graph (int8 launches
+    against the census), then ``reps`` warm runs in turns (execution_time,
+    median); the quantized latents' drift from the exact ones; the exact
+    run again after them, bit-equal to the first (the mode is the model's,
+    switched off)."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    eng = model.engine
+    plan = model.build_plan(STEPS)
+    emb, neg = model._encode(PROMPTS), model._encode([""] * BATCH)
+    kw = dict(guidance_scale=GUIDANCE, latent_hw=(SIZE // 8, SIZE // 8), seed=29, decode=False)
+    runs = {"exact": (None, None, "unet"), TURBO_QUANT: (TURBO_QUANT, None, "unet_int8"),
+            "turbo": (TURBO_QUANT, TURBO_TOME, "unet_turbo")}
+
+    def run(name):
+        mode, tome, _ = runs[name]
+        eng.set_quant_mode(mode)
+        try:
+            return eng.sample(plan, emb, neg, tome=tome, **kw)
+        finally:
+            eng.set_quant_mode(None)
+
+    first, launches = {}, {}
+    for name, (_, _, part) in runs.items():
+        int8_counts(reset=True)
+        first[name] = run(name).latents
+        launches[name] = int8_counts()
+        n = (GraphedCall.WARMUP + 1) * _kinds(census[part]).get("int8_conv", 0)
+        if launches[name] != {"int8_gemm": n, "int8_conv": n, "int8_dense": 0}:
+            raise AssertionError(f"{name} loop: int8 launches {launches[name]}, expected {n}")
+    times = {name: [] for name in runs}
+    for i in range(reps):
+        for name in (runs if i % 2 == 0 else reversed(list(runs))):
+            times[name].append(run(name).execution_time)
+    again = run("exact").latents
+    drift = {name: float((first[name] - first["exact"]).norm() / first["exact"].norm())
+             for name in runs if name != "exact"}
+    out = dict(execution_time_s=times, median_s={k: statistics.median(v) for k, v in times.items()},
+               drift=drift, first_run_int8_launches=launches)
+    print(f"engine loops, SD-1.5 bf16 {SIZE}x{SIZE}, {STEPS}-step DPM++, batch {BATCH}, CFG "
+          f"{GUIDANCE} (warm, in turns, {reps} each): execution_time medians {out['median_s']} s; "
+          f"latents' relative drift from the exact run {drift}; first runs' int8 launches "
+          f"{launches}; the exact run after them bit-equal: {torch.equal(again, first['exact'])}; "
+          f"{card}", flush=True)
+    if not torch.equal(again, first["exact"]):
+        raise AssertionError("an exact loop after the int8 loops differs from the one before")
+    if not all(0.0 < d < 1.0 for d in drift.values()) or \
+            not all(torch.isfinite(v).all() for v in first.values()):
+        raise AssertionError(f"int8 loops: drift {drift}")
+    if profile:
+        eng.set_quant_mode(TURBO_QUANT)
+        try:
+            out["profile_int8_conv_only"] = profile_loop(model, label=f"profile {TURBO_QUANT}")
+        finally:
+            eng.set_quant_mode(None)
+    return out
+
+
+def run_turbo_cli(census, assets, card):
+    """``cli.run`` of configs/turbo_config.yaml as shipped (tome 0.5 +
+    int8_conv_only, DPM++ 20 steps, batch 8, clip_score, image_reward, fid
+    at 64), overriding only phase 9's real-image directory and its count,
+    the checkpoints' paths, the prompt file's path and the run id, traced:
+    its table row, PNGs, one capture of the (ToMe, int8) variant, and the
+    launches against the census by the wrappers and by the trace: the
+    GroupNorm and attention kernels, and the int8 GEMMs (INT8_CONVS a
+    forward; by kernel name, INT8_GEMM_SYMBOL, in the trace); no int8 dense
+    call."""
+    import csv
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch import cli
+    from sonicdiffusionbayeslab_torch.config import load_config
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    repo = Path(__file__).resolve().parent
+    config = str(repo / "configs" / "turbo_config.yaml")
+    nfe = int(load_config(config).experiment_params.num_inference_steps)
+    per_unet, per_vae = _kinds(census["turbo_unet"]), _kinds(census["turbo_vae"])
+    W = GraphedCall.WARMUP
+    fp32 = sum(metric_census(TURBO_BATCH, aesthetic=False).values())
+    want = {k: (W + 1) * per_unet[k] + (1 + nfe) * per_vae[k] for k in MAIN}
+    want_traced = {k: (W + nfe) * per_unet[k] + (1 + nfe) * per_vae[k] for k in MAIN}
+    want["attention_fp32"] = want_traced["attention_fp32"] = fp32
+    want_gemm_traced = (W + nfe) * per_unet["int8_conv"]  # one kernel a GEMM
+    n_int8 = (W + 1) * per_unet["int8_conv"]
+    overrides = {
+        "dataset.img_dataset": str(assets["img_dir"]), "dataset.max_count": TURBO_BATCH,
+        "quality_metrics.image_reward.checkpoint": str(assets["ckpts"]["image_reward"]),
+        "quality_metrics.fid.inception_checkpoint": str(assets["ckpts"]["inception"]),
+        "logger.run_id": "turbo",
+        "dataset.prompts": str(repo / "data" / "dataset" / "img2annotations_test.json")}
+    work = Path(assets["root"]) / "turbo"
+    work.mkdir()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        wrapper_counts(reset=True)
+        int8_counts(reset=True)
+        t0 = time.perf_counter()
+        with _RecordingVariants() as rec:
+            metrics, traced = traced_launches(lambda: cli.run(config, overrides),
+                                              symbols={"int8_gemm": INT8_GEMM_SYMBOL})
+        wall = time.perf_counter() - t0
+        counts, q = wrapper_counts(), int8_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        caps, graphs_gb = rec.captures()
+        with open(work / "outputs" / "turbo" / "tables" / "final.tsv") as f:
+            rows = list(csv.DictReader(f, delimiter="\t"))
+        label = rows[0]["exp"] if rows else ""
+        pngs = sorted((work / "outputs" / load_config(config).get("experiment_name") /
+                       label).iterdir()) if label else []
+    finally:
+        os.chdir(cwd)
+    gemm_traced = traced.pop("int8_gemm")
+    row = rows[0] if rows else {}
+    vals = {k: float(row[k]) for k in ("clip_score", "fid", "image_reward") if k in row}
+    print(f"turbo_config as shipped ({label}: ToMe {TURBO_TOME} + {TURBO_QUANT}, {nfe}-step DPM++, "
+          f"bf16 {SIZE}x{SIZE}, batch {TURBO_BATCH}, x0 of every sample, real-image directory; "
+          f"clip_score, fid at 64, image_reward on random towers): whole CLI {wall:.3f} s, sweep "
+          f"{row.get('time')} s/image, {vals}; peak memory {peak_gb:.2f} GB; graph captures "
+          f"{dict(caps)} ({graphs_gb:.3f} GB); launches: wrappers {counts} (expected {want}), "
+          f"trace {traced} (expected {want_traced}); int8 wrappers {q} (expected {n_int8} GEMMs "
+          f"and convs, no dense), int8 GEMM kernel executions in the trace {gemm_traced} "
+          f"(expected {want_gemm_traced}); {card}", flush=True)
+    if len(rows) != 1 or row["nfe"] != str(nfe) or metrics["exp"] != [label] or \
+            list(row) != ["exp", "nfe", "time", "clip_score", "fid", "image_reward"]:
+        raise AssertionError(f"turbo run: table rows {rows}, CLI returned {metrics}")
+    if not all(np.isfinite(v) for v in vals.values()) or not 0 <= vals["image_reward"] <= 1:
+        raise AssertionError(f"turbo run: values {vals}")
+    if len(pngs) != TURBO_BATCH or {_png_size(p) for p in pngs} != {(SIZE, SIZE)}:
+        raise AssertionError(f"turbo run: {len(pngs)} PNGs")
+    if sorted(caps.values()) != [1] or not any(("quant", TURBO_QUANT) in key for key in caps):
+        raise AssertionError(f"turbo run: graph captures {caps}")
+    if counts != want or traced != want_traced:
+        raise AssertionError(f"turbo run: launches wrappers {counts}, trace {traced}")
+    if q != {"int8_gemm": n_int8, "int8_conv": n_int8, "int8_dense": 0} or \
+            gemm_traced != want_gemm_traced:
+        raise AssertionError(f"turbo run: int8 launches {q}, traced GEMM kernels {gemm_traced}")
+    caps = {", ".join(f"{k}={v}" for k, v in key): n for key, n in caps.items()}
+    return dict(wall_s=wall, sec_per_image=float(row["time"]), values=vals, peak_gb=peak_gb,
+                graph_captures=caps, graph_reserved_gb=graphs_gb, wrapper_launches=counts,
+                traced_launches=traced, int8_wrapper_launches=q,
+                int8_gemm_traced_executions=gemm_traced)
+
+
+def phase11_launches(out, kind):
+    """A kernel's launches in each phase-11 run: wrappers over the first
+    (capturing) runs, and traces."""
+    pipe, turbo, tiny = out["pipeline"], out["turbo_cli"], out["tiny_card_vs_cpu"]
+    if kind == "attention_fp32":
+        return {**{f"tiny {n}": tiny[n]["fp32_attention_launches"] for n in ("img2img", "inpaint")},
+                "turbo cli": turbo["wrapper_launches"][kind],
+                "turbo cli trace": turbo["traced_launches"][kind]}
+    return {"img2img first run": pipe["first_run_wrapper_launches"][kind],
+            "img2img trace": pipe["traced_launches"][kind],
+            "inpaint": pipe["inpaint_wrapper_launches"][kind],
+            "generate.py inpaint": pipe["generate_wrapper_launches"][kind],
+            "sdxl encoder 1024": out["sdxl_encoder"]["traced_launches"][kind],
+            "turbo cli": turbo["wrapper_launches"][kind],
+            "turbo cli trace": turbo["traced_launches"][kind]}
+
+
+def run_img2img_quant(report, card, assets, profile):
+    """Phase 11: img2img, inpainting and the int8 turbo stack."""
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+
+    census = img2img_census()
+    k = _kinds(census["turbo_unet"])
+    print(f"phase 11 census: per UNet forward at batch {2 * BATCH} {dict(_kinds(census['unet']))}, "
+          f"per encode of {BATCH} at {SIZE}^2 {dict(_kinds(census['enc']))}, per SDXL encode of "
+          f"one {ENC_XL_SIZE}^2 image {dict(_kinds(census['enc_xl']))}, turbo forward at batch "
+          f"{2 * TURBO_BATCH} {dict(k)}", flush=True)
+    if k["int8_conv"] != INT8_CONVS or k.get("int8_dense", 0):
+        raise AssertionError(f"the turbo UNet forward has {dict(k)} int8 calls, expected "
+                             f"{INT8_CONVS} convs and no dense")
+    out = {"census": {part: dict(_kinds(c)) for part, c in census.items()}}
+    out["gn_encoder_timings"] = gn_encoder_kernels(census, report)
+    out["int8_gemms"] = check_int8_gemms(census)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out["tiny_card_vs_cpu"] = img2img_tiny_card_vs_cpu(census)
+    torch.backends.cudnn.allow_tf32 = True
+    out["sdxl_encoder"] = sdxl_encoder(census, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = StableDiffusionModel(image_size=SIZE, tiny=False, dtype="bfloat16", seed=0,
+                                 device="cuda")
+    out["pipeline"] = img2img_pipeline(model, census, img2img_inputs(assets["root"]),
+                                       assets["root"], card)
+    out["loops"] = quant_loop_timings(model, census, card, profile)
+    # The exact text-to-image run before the turbo CLI run, and after it.
+    exact = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, seed=29)
+    before = model(PROMPTS, **exact)[0]
+    _, bf16_traced = traced_launches(lambda: model(PROMPTS, **exact),
+                                     symbols={"int8_gemm": INT8_GEMM_SYMBOL})
+    if bf16_traced["int8_gemm"]:
+        raise AssertionError(f"an exact run ran {bf16_traced['int8_gemm']} int8 GEMM kernels")
+    out["turbo_cli"] = run_turbo_cli(census, assets, card)
+    int8_counts(reset=True)
+    after = model(PROMPTS, **exact)[0]
+    leak = int8_counts()
+    print(f"an exact SD-1.5 run after the turbo CLI run: bit-equal to the one before it "
+          f"{bool((before == after).all())}, int8 launches {leak}", flush=True)
+    if not (before == after).all() or any(leak.values()):
+        raise AssertionError("the int8 mode leaked into a later exact run")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["e2e"]["img2img_quant"] = out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2370,8 +2987,13 @@ def main() -> None:
               f"shipped at full width, batch {FAMILY_BATCH}")
         run_families(report, card, assets)
 
-    phase("11. kernels")
-    print(f"phases 1-10 took {time.perf_counter() - _T0:.1f} s; {card}")
+        phase(f"11. img2img and inpainting at SD-1.5 {SIZE}x{SIZE} (strength {STRENGTH}), the "
+              f"SDXL encoder at {ENC_XL_SIZE}^2, and turbo_config.yaml ({TURBO_QUANT} + ToMe "
+              f"{TURBO_TOME}) as shipped, batch {TURBO_BATCH}")
+        run_img2img_quant(report, card, assets, args.profile)
+
+    phase("12. kernels")
+    print(f"phases 1-11 took {time.perf_counter() - _T0:.1f} s; {card}")
     fam = report["e2e"]["families"]
     kernels = []
     for kind, meta in KERNELS.items():
@@ -2401,6 +3023,7 @@ def main() -> None:
             "phase10_totals": {f"{f} {part}": t[part][kind] for f, t in
                                fam["kernel_totals"].items() for part in t if kind in t[part]},
             "phase10_max_abs_err": max(report["phase10_errs"][kind], default=None),
+            "phase11_wrapper_launches": phase11_launches(report["e2e"]["img2img_quant"], kind),
             **({"phase6_launches": r["phase6_launches"]} if "phase6_launches" in r else {}),
             "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2419,6 +3042,8 @@ def main() -> None:
             {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
              "kernels": kernels, "timings": rows, "tome_timings": report["tome_timings"],
              "phase10_timings": fam["timings"],
+             "phase11_gn_encoder_timings": report["e2e"]["img2img_quant"]["gn_encoder_timings"],
+             "phase11_int8_gemms": report["e2e"]["img2img_quant"]["int8_gemms"],
              "e2e": report["e2e"],
              "attention_fp32_totals": fp32_totals,
              "profile": report.get("profile")}, indent=1))

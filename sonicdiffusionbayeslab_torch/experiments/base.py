@@ -18,9 +18,10 @@ Validation: every configured metric of the JAX package is ported
 ``dataset.img_dataset`` names a directory that exists, the real images of
 each validation batch are read (``ImageDatasetWithPrompts``) for FID and
 ImageReward's win rate, and the table gains ``fid`` (from two images on)
-and ``image_reward``, as in the JAX package.  What the port does not have
-yet raises at setup and names the gap: ``inference.quant``.  The
-metrics' cross-process sums are not ported (one process).
+and ``image_reward``, as in the JAX package.  ``inference.quant`` sets the
+model's UNet int8 mode (``ops/quant.py``; the JAX package sets a process
+global); ``inference.unet_microbatch`` its UNet chunking.  The metrics'
+cross-process sums are not ported (one process).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from sonicdiffusionbayeslab_torch.data.dataset import (
 )
 from sonicdiffusionbayeslab_torch.data.imageio import write_png
 from sonicdiffusionbayeslab_torch.loggers import Logger
+from sonicdiffusionbayeslab_torch.ops.quant import check_mode
 from sonicdiffusionbayeslab_torch.registry import metrics_registry, models_registry, schedulers_registry
 from sonicdiffusionbayeslab_torch.utils import rng as rng_util
 from sonicdiffusionbayeslab_torch.utils.images import make_grid, save_table, to_uint8
@@ -67,9 +69,12 @@ class BaseMethod:
         self.seed = rng_util.setup_seed(self.config.experiment.get("seed", 29))
 
     def setup_model(self) -> None:
-        if self.config.inference.get("quant") is not None:
-            raise NotImplementedError("inference.quant (int8 W8A8) is not ported yet to the "
-                                      "PyTorch package")
+        quant = self.config.inference.get("quant")
+        if quant is not None:  # checked before the weights are built
+            try:
+                quant = check_mode(str(quant).lower() or None)
+            except ValueError as e:
+                raise ValueError(f"inference.quant: {e}") from None
         mcfg = self.config.model
         name = mcfg.model_name
         kw = dict(mcfg)
@@ -80,6 +85,8 @@ class BaseMethod:
         mb = self.config.inference.get("unet_microbatch")
         if mb is not None:
             self.model.unet_microbatch = int(mb)
+        if quant is not None:
+            self.model.engine.set_quant_mode(quant)
 
     def setup_scheduler(self) -> None:
         scfg = self.config.get("scheduler")

@@ -1,12 +1,18 @@
-"""One-off text-to-image generation with the PyTorch/CUDA port:
+"""One-off generation with the PyTorch/CUDA port:
 
     python -m sonicdiffusionbayeslab_torch.generate --prompt "a lighthouse at dusk" --steps 20
     python -m sonicdiffusionbayeslab_torch.generate --prompt "..." --tiny --device cpu
+    python -m sonicdiffusionbayeslab_torch.generate --prompt "..." --init_image in.png \
+        --strength 0.8 [--mask_image mask.png]
 
 Runs SD-1.5 (bf16, random weights from seed 0, or a local diffusers
 snapshot named by ``--pretrained_model``) with 20-step DPM-Solver++ by
 default (``--scheduler`` picks another ported scheduler by its registry
 name; ``--variant sd21`` SD-2.x) and writes one PNG per prompt.
+``--init_image`` makes it img2img from that image (read at
+``--image_size``, 16 for ``--tiny``), ``--mask_image`` inpainting (white =
+regenerate: the mask is the image's channel mean > 0.5);
+``--cache_interval`` > 0 turns DeepCache on.
 """
 
 from __future__ import annotations
@@ -37,10 +43,19 @@ def main(argv=None) -> None:
     p.add_argument("--out", default="outputs/generate_torch/img_{i:03d}.png")
     p.add_argument("--tiny", action="store_true", help="tiny random-weight model (smoke)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--cache_interval", type=int, default=0, help="DeepCache interval (0 = off)")
+    p.add_argument("--cache_branch_id", type=int, default=0, help="DeepCache split depth")
+    p.add_argument("--init_image", default=None, help="img2img source image path")
+    p.add_argument("--strength", type=float, default=0.8, help="img2img noising strength")
+    p.add_argument("--mask_image", default=None,
+                   help="inpainting mask path (white = regenerate); needs --init_image")
     args = p.parse_args(argv)
 
-    from sonicdiffusionbayeslab_torch.data.imageio import write_png
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.data.imageio import read_image, write_png
     from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.models.sampler import CachePlan
     from sonicdiffusionbayeslab_torch.registry import load_all_plugins, schedulers_registry
 
     load_all_plugins()
@@ -53,6 +68,21 @@ def main(argv=None) -> None:
                                  image_size=args.image_size, tiny=args.tiny,
                                  variant=args.variant, device=args.device)
     model.scheduler = schedulers_registry[args.scheduler](**skw)
+    if args.cache_interval > 0:
+        model.cache_plan_fn = lambda n: CachePlan.every(n, args.cache_interval,
+                                                        args.cache_branch_id)
+    call_kw = {}
+    if args.init_image:
+        size = 16 if args.tiny else args.image_size
+        img = read_image(args.init_image, image_size=size)
+        call_kw.update(init_image=np.repeat(img[None], len(args.prompt), axis=0),
+                       strength=args.strength)
+        if args.mask_image:
+            m = read_image(args.mask_image, image_size=size).mean(axis=-1, keepdims=True)
+            call_kw["mask_image"] = np.repeat((m > 0.5).astype(np.float32)[None],
+                                              len(args.prompt), axis=0)
+    elif args.mask_image:
+        raise ValueError("--mask_image needs --init_image")
     images, exec_time, _ = model(
         args.prompt,
         num_inference_steps=args.steps,
@@ -61,6 +91,7 @@ def main(argv=None) -> None:
         seed=args.seed,
         height=args.height,
         width=args.width,
+        **call_kw,
     )
     for i, img in enumerate(images):
         path = args.out.format(i=i)

@@ -16,6 +16,13 @@ path's blocks).  Conventions:
 * GroupNorm goes through ``ops.groupnorm.group_norm_silu`` and attention
   through ``ops.attention.dot_product_attention``: the hand-written CUDA
   kernels on a CUDA tensor, their plain versions on a CPU tensor.
+* Modules with int8 call sites (``_Quantizable``) read their
+  ``quant_mode``, which ``ops.quant.set_quant_mode`` sets on a whole model
+  (the JAX package's ``projection_dense``, ``QuantDense`` and
+  ``QuantConv``): the projections run ``int8_dense`` under ``int8`` and
+  ``int8_conv``, the 3x3 convs of a module built with ``allow_quant`` run
+  ``int8_conv`` under ``int8_conv`` and ``int8_conv_only``.  The weights
+  stay float masters.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sonicdiffusionbayeslab_torch.ops import quant
 from sonicdiffusionbayeslab_torch.ops.attention import dot_product_attention
 from sonicdiffusionbayeslab_torch.ops.groupnorm import group_norm_silu
 from sonicdiffusionbayeslab_torch.ops.tome import bipartite_soft_matching_2d
@@ -35,6 +43,30 @@ from sonicdiffusionbayeslab_torch.ops.tome import bipartite_soft_matching_2d
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """Apply an NCHW ``nn.Conv2d`` to a channels-last [B, H, W, C] map."""
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class _Quantizable(nn.Module):
+    """A module with int8 call sites; ``quant_mode`` None is exact."""
+
+    quant_mode: Optional[str] = None
+    allow_quant = False
+
+    def _proj(self, layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """A projection (a linear, or a 1x1 conv applied to tokens as the
+        linear it is) on [..., C] tokens."""
+        if quant.dense_enabled(self.quant_mode):
+            return quant.linear_int8(layer, x)
+        return F.linear(x, layer.weight.flatten(1), layer.bias)
+
+    def _conv(self, conv: nn.Conv2d, x: torch.Tensor, padding=((1, 1), (1, 1))) -> torch.Tensor:
+        """A 3x3 conv on a channels-last map with ``padding`` zeros
+        ((top, bottom), (left, right)); int8 where ``allow_quant``."""
+        if self.allow_quant and quant.conv_enabled(self.quant_mode):
+            return quant.conv_int8(conv, x, padding)
+        if conv.padding == (0, 0):  # built unpadded: the padding is applied here
+            (top, bottom), (left, right) = padding
+            x = F.pad(x, (0, 0, left, right, top, bottom))
+        return conv_nhwc(conv, x)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -75,13 +107,16 @@ class GroupNorm(nn.Module):
         return group_norm_silu(x, self.weight, self.bias, self.num_groups, self.eps, self.silu)
 
 
-class ResnetBlock(nn.Module):
+class ResnetBlock(_Quantizable):
     """GN+SiLU -> conv3x3 -> (+time) -> GN+SiLU -> conv3x3, plus the skip.
-    ``temb_dim=None`` drops the time projection (the VAE's resnets)."""
+    ``temb_dim=None`` drops the time projection (the VAE's resnets).
+    ``allow_quant``: the two 3x3 convs run int8 under the conv modes (the
+    VAE passes False); the 1x1 shortcut never does."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_dim: Optional[int] = None,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, allow_quant: bool = True):
         super().__init__()
+        self.allow_quant = allow_quant
         self.norm1 = GroupNorm(in_channels, eps=eps, silu=True)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_dim, out_channels) if temb_dim is not None else None
@@ -91,16 +126,16 @@ class ResnetBlock(nn.Module):
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, t_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = conv_nhwc(self.conv1, self.norm1(x))
+        h = self._conv(self.conv1, self.norm1(x))
         if t_emb is not None:
             h = h + self.time_emb_proj(F.silu(t_emb))[:, None, None, :]
-        h = conv_nhwc(self.conv2, self.norm2(h))
+        h = self._conv(self.conv2, self.norm2(h))
         if self.conv_shortcut is not None:
             x = conv_nhwc(self.conv_shortcut, x)
         return x + h
 
 
-class Attention(nn.Module):
+class Attention(_Quantizable):
     """Multi-head attention over [B, N, C] with an optional cross context;
     bias-free q/k/v projections, biased output projection."""
 
@@ -119,24 +154,24 @@ class Attention(nn.Module):
         ctx = x if context is None else context
         B, N, _ = x.shape
         M = ctx.shape[1]
-        q = self.to_q(x).view(B, N, self.num_heads, self.head_dim)
-        k = self.to_k(ctx).view(B, M, self.num_heads, self.head_dim)
-        v = self.to_v(ctx).view(B, M, self.num_heads, self.head_dim)
+        q = self._proj(self.to_q, x).view(B, N, self.num_heads, self.head_dim)
+        k = self._proj(self.to_k, ctx).view(B, M, self.num_heads, self.head_dim)
+        v = self._proj(self.to_v, ctx).view(B, M, self.num_heads, self.head_dim)
         o = dot_product_attention(q, k, v, mask=mask)
-        return self.to_out[0](o.reshape(B, N, -1))
+        return self._proj(self.to_out[0], o.reshape(B, N, -1))
 
 
-class _GEGLU(nn.Module):
+class _GEGLU(_Quantizable):
     def __init__(self, dim: int, inner: int):
         super().__init__()
         self.proj = nn.Linear(dim, inner * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, gate = self.proj(x).chunk(2, dim=-1)
+        h, gate = self._proj(self.proj, x).chunk(2, dim=-1)
         return h * F.gelu(gate)  # exact erf GELU, as diffusers' GEGLU
 
 
-class GEGLUFeedForward(nn.Module):
+class GEGLUFeedForward(_Quantizable):
     """GEGLU feed-forward with 4x widening (diffusers ``ff.net.{0,2}``)."""
 
     def __init__(self, dim: int, mult: int = 4):
@@ -145,9 +180,7 @@ class GEGLUFeedForward(nn.Module):
                                   nn.Linear(dim * mult, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.net:
-            x = layer(x)
-        return x
+        return self._proj(self.net[2], self.net[0](x))
 
 
 class TransformerBlock(nn.Module):
@@ -194,7 +227,7 @@ class TransformerBlock(nn.Module):
         return mu
 
 
-class SpatialTransformer(nn.Module):
+class SpatialTransformer(_Quantizable):
     """Transformer2D over a [B, H, W, C] map: GN -> proj_in -> blocks ->
     proj_out, plus the residual.  proj_in/out are 1x1 convs (SD-1.5) or,
     with ``linear``, ``nn.Linear`` (SD-2.x, SDXL); the compute is the same.
@@ -221,14 +254,14 @@ class SpatialTransformer(nn.Module):
         if tome is not None and (H % tome.sy or W % tome.sx):
             tome = None
         h = self.norm(x).reshape(B, H * W, C)
-        h = F.linear(h, self.proj_in.weight.flatten(1), self.proj_in.bias)
+        h = self._proj(self.proj_in, h)
         for i, block in enumerate(self.transformer_blocks):
             if tome is None:
                 h = block(h, context)
             else:
                 dst = None if tome_dst is None else tome_dst[i, :tome.n_dst(H, W)]
                 h = block(h, context, tome, (H, W), dst, tome_cache)
-        h = F.linear(h, self.proj_out.weight.flatten(1), self.proj_out.bias)
+        h = self._proj(self.proj_out, h)
         return h.reshape(B, H, W, C) + x
 
 
@@ -245,28 +278,35 @@ class Level(nn.Module):
             setattr(self, resampler_name, nn.ModuleList(resamplers))
 
 
-class Downsample(nn.Module):
-    """Strided 3x3 conv with symmetric padding 1 (the UNet's downsamplers)."""
+class Downsample(_Quantizable):
+    """Strided 3x3 conv.  Symmetric padding 1 (the UNet's downsamplers), or
+    with ``asymmetric_pad`` one zero row and column at the bottom and right
+    only (the VAE encoder's: diffusers' ``Downsample2D`` with padding 0 after
+    ``F.pad(x, (0, 1, 0, 1))``).  ``allow_quant``: int8 under the conv
+    modes (only the UNet's pass True)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, asymmetric_pad: bool = False, allow_quant: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.allow_quant = allow_quant
+        self.padding = ((0, 1), (0, 1)) if asymmetric_pad else ((1, 1), (1, 1))
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0 if asymmetric_pad else 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_nhwc(self.conv, x)
+        return self._conv(self.conv, x, self.padding)
 
 
-class Upsample(nn.Module):
-    """Nearest 2x resize + 3x3 conv."""
+class Upsample(_Quantizable):
+    """Nearest 2x resize + 3x3 conv; ``allow_quant`` as in Downsample."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, allow_quant: bool = False):
         super().__init__()
+        self.allow_quant = allow_quant
         self.conv = nn.Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
         x = x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(B, 2 * H, 2 * W, C)
-        return conv_nhwc(self.conv, x)
+        return self._conv(self.conv, x)
 
 
 class AttnBlock2D(Attention):

@@ -1,10 +1,12 @@
-"""Text-to-image pipelines of the port: SD-1.5, SD-2.x and SDXL.
+"""Pipelines of the port: SD-1.5, SD-2.x and SDXL, text-to-image,
+img2img and inpainting.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/pipelines.py::
-StableDiffusionModel`` and ``StableDiffusionXLModel`` on the text-to-image
-path, with the same call contract: ``pipe(prompts, ...) -> (images,
-execution_time, x0_images)``, images [B, H, W, 3] in [0, 1],
-execution_time the denoising loop's wall clock.  ``StableDiffusionModel``
+StableDiffusionModel`` and ``StableDiffusionXLModel``, with the same call
+contract: ``pipe(prompts, ...) -> (images, execution_time, x0_images)``,
+images [B, H, W, 3] in [0, 1], execution_time the denoising loop's wall
+clock; ``init_image`` (with ``strength``) and ``mask_image`` turn a call
+into img2img and inpainting.  ``StableDiffusionModel``
 is registered as ``stable_diffusion_model`` (``variant`` sd15, sd21 or
 auto); the two-scheduler, interleaved-scheduler and skip-steps variants,
 which differ only in how they compose the plan, as
@@ -22,6 +24,7 @@ import json
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig
@@ -41,8 +44,31 @@ from sonicdiffusionbayeslab_torch.models.weights import (
 from sonicdiffusionbayeslab_torch.registry import models_registry
 from sonicdiffusionbayeslab_torch.schedulers import DPMSolverScheduler
 from sonicdiffusionbayeslab_torch.schedulers import plans as plan_composers
+from sonicdiffusionbayeslab_torch.utils.rng import (
+    ENCODE_NOISE_TAG,
+    INIT_NOISE_TAG,
+    per_sample_noise,
+)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def nearest_indices(size_in: int, size_out: int) -> np.ndarray:
+    """The source index of each output index of a nearest resize, as
+    ``jax.image.resize(..., "nearest")`` computes it: floor((i + 0.5) *
+    size_in / size_out) in float32 (torch's "nearest" rounds otherwise)."""
+    pos = (np.arange(size_out, dtype=np.float32) + np.float32(0.5)) * np.float32(size_in)
+    return np.floor(pos / np.float32(size_out)).astype(np.int64)
+
+
+def resize_mask(mask, hw) -> torch.Tensor:
+    """A mask [B, H, W] or [B, H, W, 1] -> [B, h, w, 1] fp32 by nearest
+    resize (``nearest_indices``)."""
+    m = torch.as_tensor(np.asarray(mask, np.float32))
+    if m.dim() == 3:
+        m = m[..., None]
+    rows, cols = nearest_indices(m.shape[1], hw[0]), nearest_indices(m.shape[2], hw[1])
+    return m[:, rows][:, :, cols]
 
 
 @models_registry.add_to_registry("stable_diffusion_model")
@@ -55,7 +81,8 @@ class StableDiffusionModel:
     ``scheduler`` and may set ``unet_microbatch`` and ``cache_plan_fn``
     (DeepCache: plan length -> ``CachePlan``), ``tome_ratio`` (Token
     Merging; a call's ``tome_ratio`` overrides it) and ``guidance_rescale``
-    (rescaled CFG, 0 for off); each call sets ``num_timesteps`` to its
+    (rescaled CFG, 0 for off), and set the UNet's int8 mode with
+    ``engine.set_quant_mode``; each call sets ``num_timesteps`` to its
     plan's number of UNet evaluations.  ``lora`` is the config's LoRA path,
     which the ``consistency_model`` method loads.  ``variant`` picks SD-1.5
     (``sd15``) or SD-2.x (``sd21``: OpenCLIP ViT-H context, 64-wide heads,
@@ -172,12 +199,29 @@ class StableDiffusionModel:
         width: Optional[int] = None,
         unet_microbatch: Optional[int] = None,
         tome_ratio: Optional[float] = None,
+        init_image=None,
+        strength: float = 0.8,
+        mask_image=None,
+        encode_noise=None,
+        init_noise=None,
+        blend_noise=None,
         **plan_kw,
     ):
         """Returns (images [B, H, W, 3] in [0, 1] as numpy, or the final
         latents when ``output_type == "latent"``; execution_time;
         x0_images [S, n, H, W, 3] or None).  ``plan_kw`` goes to
-        ``build_plan`` (the composing variants' arguments)."""
+        ``build_plan`` (the composing variants' arguments).
+
+        img2img: ``init_image`` [B, H, W, 3] in [0, 1] runs the last
+        ``min(int(n * strength), n)`` of the ``n`` steps (diffusers'
+        strength) from the image's latents noised to the first of them
+        (the scheduler's ``tail_plan`` and ``noised_latents``).  Inpainting
+        adds ``mask_image`` [B, H, W] or [B, H, W, 1], 1 = regenerate: the
+        rest is held to the source re-noised to each step's level (the
+        scheduler's ``blend_schedule``).  Sample i's draws, the encoder's
+        posterior sample (``encode_noise``), the start noise
+        (``init_noise``) and the blend's (``blend_noise``), each [B, h, w,
+        4], come from (seed, i) and a tag of each where not given."""
         if output_type not in ("np", "latent"):
             raise ValueError(f"output_type must be 'np' or 'latent', got {output_type!r}")
         lat_hw = (self.latent_hw, self.latent_hw)
@@ -185,8 +229,20 @@ class StableDiffusionModel:
             h, w = int(height or self.image_size), int(width or self.image_size)
             if h % 8 or w % 8:
                 raise ValueError(f"height/width must be multiples of 8, got {h}x{w}")
+            if init_image is not None:
+                raise ValueError("height/width override is text2img-only")
             lat_hw = (h // 8, w // 8)
-        plan = self.build_plan(num_inference_steps, **plan_kw)
+        if mask_image is not None and init_image is None:
+            raise ValueError("mask_image requires init_image")
+        img2img = {}
+        if init_image is not None:
+            plan, img2img = self._img2img(num_inference_steps, init_image, strength, mask_image,
+                                          seed, sample_indices, encode_noise, init_noise)
+            lat_hw = tuple(img2img["init_latents"].shape[1:3])
+            if "blend" in img2img:
+                img2img["blend_noise"] = blend_noise
+        else:
+            plan = self.build_plan(num_inference_steps, **plan_kw)
         self.num_timesteps = plan.nfe
 
         embeds = self._encode(prompt)
@@ -202,11 +258,44 @@ class StableDiffusionModel:
             microbatch=self.unet_microbatch if unet_microbatch is None else unet_microbatch,
             guidance_rescale=self.guidance_rescale,
             tome=self.tome_ratio if tome_ratio is None else tome_ratio,
+            **img2img,
             **self._extra_sample_kwargs(len(prompt), lat_hw),
         )
         images = out.images if out.images is not None else out.latents
         x0 = out.x0_images.cpu().numpy() if out.x0_images is not None else None
         return images.cpu().numpy(), out.execution_time, x0
+
+    def _img2img(self, num_steps, init_image, strength, mask_image, seed, sample_indices,
+                 encode_noise, init_noise):
+        """(the tail plan, ``engine.sample``'s ``init_latents`` and, with a
+        mask, ``blend``) of an img2img or inpainting call."""
+        sched = self.scheduler
+        if sched is None or not hasattr(sched, "tail_plan"):
+            raise RuntimeError("img2img needs a scheduler with tail_plan")
+        n = int(num_steps)
+        start = max(n - min(int(n * strength), n), 0)
+        if start >= n:
+            raise ValueError(f"strength {strength} leaves no steps to run")
+        plan = sched.tail_plan(n, start)
+        img = torch.as_tensor(np.asarray(init_image, np.float32))
+        idx = range(img.shape[0]) if sample_indices is None else [int(i) for i in sample_indices]
+        f = 2 ** (len(self.engine.vae_config.block_out_channels) - 1)  # pixels a latent spans
+        lat_shape = (img.shape[1] // f, img.shape[2] // f, self.engine.vae_config.latent_channels)
+
+        def draw(given, tag):
+            if given is not None:
+                return torch.as_tensor(given, dtype=torch.float32)
+            return per_sample_noise(seed, idx, lat_shape, tag)
+
+        z = self.engine.encode_image(img, draw(encode_noise, ENCODE_NOISE_TAG))
+        noise = draw(init_noise, INIT_NOISE_TAG).to(z.device)
+        out = {"init_latents": sched.noised_latents(z, noise, n, start)}
+        if mask_image is not None:
+            blend_a, blend_s = sched.blend_schedule(n, start)
+            if len(blend_a) != plan.num_steps:
+                raise RuntimeError("blend schedule misaligned with plan rows")
+            out["blend"] = (resize_mask(mask_image, z.shape[1:3]), z, blend_a, blend_s)
+        return plan, out
 
 
 class _TwoSchedulersPlanMixin:

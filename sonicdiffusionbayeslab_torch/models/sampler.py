@@ -2,10 +2,11 @@
 and the VAE decode.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/sampler.py::
-StableDiffusionEngine`` on the text-to-image path, with DeepCache
-(``CachePlan``), Token Merging, noise-injecting plans and rescaled CFG, and
-of its ``SDXLEngine`` (two text towers and the UNet's text_time
-conditioning).  The JAX engine scans a jitted
+StableDiffusionEngine`` with DeepCache (``CachePlan``), Token Merging,
+noise-injecting plans, rescaled CFG, img2img's image encode and
+inpainting's per-step blend, and the UNet's int8 modes, and of its
+``SDXLEngine`` (two text towers and the UNet's text_time conditioning).
+The JAX engine scans a jitted
 body over the plan's rows; here the loop is plain Python over the same
 rows, each step one UNet call (chunked when ``microbatch`` > 1), the CFG
 combine and one ``apply_row`` in fp32.  On a GPU each UNet call variant
@@ -35,13 +36,16 @@ from sonicdiffusionbayeslab_torch.models.clip_text import (
 from sonicdiffusionbayeslab_torch.models.layers import GroupNorm
 from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
+from sonicdiffusionbayeslab_torch.ops import quant
 from sonicdiffusionbayeslab_torch.ops.tome import TomeConfig
 from sonicdiffusionbayeslab_torch.schedulers.plan import SamplePlan
 from sonicdiffusionbayeslab_torch.schedulers.runtime import apply_row, init_carry, plan_rows, row
 from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedVariants
 from sonicdiffusionbayeslab_torch.utils.device import resolve_device, synchronize
 from sonicdiffusionbayeslab_torch.utils.rng import (
+    BLEND_NOISE_TAG,
     per_sample_latents,
+    per_sample_noise,
     per_sample_step_noise,
     tome_destinations,
 )
@@ -135,7 +139,9 @@ class StableDiffusionEngine:
     """Owns the modules (``MODULES``: UNet, VAE, text tower) on one device;
     parameters are initialised with :meth:`init_params` or loaded with
     :meth:`load_state_dicts`.  On a GPU, ``graphed_unet`` replays each
-    UNet call variant from a CUDA graph of its last input shape."""
+    UNet call variant (and int8 mode) from a CUDA graph of its last input
+    shape.  :meth:`set_quant_mode` sets the UNet's int8 mode; the VAE and
+    the text towers stay exact."""
 
     MODULES = ("unet", "vae", "text")
 
@@ -158,7 +164,16 @@ class StableDiffusionEngine:
             m.requires_grad_(False).eval()
             # Conv weights in channels_last, matching the NHWC activations.
             m.to(dtype=dtype, memory_format=torch.channels_last)
-        self.graphed_unet = GraphedVariants(self.unet)
+        self.graphed_unet = GraphedVariants(self.unet, state=self._graph_state)
+
+    def _graph_state(self):
+        mode = self.unet.quant_mode
+        return (("quant", mode),) if mode else ()
+
+    def set_quant_mode(self, mode: Optional[str]) -> "StableDiffusionEngine":
+        """The UNet's int8 mode (``ops.quant.MODES``; None is exact)."""
+        quant.set_quant_mode(self.unet, mode)
+        return self
 
     def _build_modules(self) -> None:
         self.unet = UNet2DCondition(self.unet_config)
@@ -198,6 +213,14 @@ class StableDiffusionEngine:
         """Scaled latents [B, h, w, 4] -> images [B, 8h, 8w, 3] in [0, 1]."""
         img = self.vae.decode(latents.to(self.device))
         return (img / 2 + 0.5).clamp(0.0, 1.0)
+
+    @torch.inference_mode()
+    def encode_image(self, images, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Images [B, H, W, 3] in [0, 1] -> scaled latents [B, H/8, W/8, 4]
+        fp32: mapped to [-1, 1], encoded, one posterior sample (``noise``,
+        else torch's default CPU generator's draw)."""
+        x = torch.as_tensor(images, dtype=torch.float32).to(self.device) * 2.0 - 1.0
+        return self.vae.encode_sample(x, noise)
 
     # ------------------------------------------------------------- sample
     def _unet_chunks(self, microbatch: int, args, tome_dst=None, added=None, **static):
@@ -249,6 +272,8 @@ class StableDiffusionEngine:
         tome=None,  # a ratio in (0, 1) or a TomeConfig
         tome_dst: Optional[torch.Tensor] = None,  # [L, slots, D]
         added_cond: Optional[dict] = None,
+        blend: Optional[tuple] = None,
+        blend_noise: Optional[torch.Tensor] = None,  # [B, h, w, C]
     ) -> SampleOutput:
         """One batch: CFG-doubled UNet calls over the plan's rows, then the
         decode.  Sample ``i``'s initial latents depend only on (seed, i)
@@ -268,7 +293,15 @@ class StableDiffusionEngine:
         [B, P] (positive pooled embeddings), ``negative_text_embeds`` [B, P]
         (CFG's unconditional half; zeros when absent) and ``time_ids``
         [B, 6]; under CFG the pooled embeddings go in as [negative,
-        positive] and the time_ids twice, as the context does."""
+        positive] and the time_ids twice, as the context does.
+
+        ``blend`` (inpainting): ``(mask [B, h, w, 1], 1 = regenerate; source
+        latents [B, h, w, C]; blend_a [L]; blend_s [L])``, the last two from
+        the scheduler's ``blend_schedule``.  After row k's scheduler step
+        the kept region (mask 0) becomes ``blend_a[k] * source + blend_s[k]
+        * blend_noise``; where not given, sample i's ``blend_noise`` is
+        drawn from (seed, i, ``BLEND_NOISE_TAG``) (the JAX engine draws the
+        batch's from ``fold_in(key, 0xB1E0D)``)."""
         dev = self.device
         B = int(prompt_embeds.shape[0])
         do_cfg = guidance_scale > 1.0 and negative_embeds is not None
@@ -299,6 +332,21 @@ class StableDiffusionEngine:
         added = self._added(added_cond, do_cfg)
 
         xs = plan_rows(plan, dev)
+        blend_src = None
+        if blend is not None:
+            mask, source, blend_a, blend_s = blend
+            if len(blend_a) != plan.num_steps or len(blend_s) != plan.num_steps:
+                raise ValueError("blend schedule length != plan length")
+            xs["blend_a"] = torch.as_tensor(np.asarray(blend_a, np.float32), device=dev)
+            xs["blend_s"] = torch.as_tensor(np.asarray(blend_s, np.float32), device=dev)
+            blend_mask = torch.as_tensor(mask, dtype=torch.float32).to(dev)
+            blend_src = torch.as_tensor(source, dtype=torch.float32).to(dev)
+            if blend_noise is None:
+                blend_noise = per_sample_noise(seed, idx, lat_shape, BLEND_NOISE_TAG)
+            blend_noise = torch.as_tensor(blend_noise, dtype=torch.float32).to(dev)
+            if blend_noise.shape != latents0.shape or blend_src.shape != latents0.shape:
+                raise ValueError(f"blend source {tuple(blend_src.shape)} and noise "
+                                 f"{tuple(blend_noise.shape)} != latents {tuple(latents0.shape)}")
         carry = init_carry(plan, latents0)
         cache = None
         x0s = []
@@ -339,6 +387,10 @@ class StableDiffusionEngine:
                 noise = (step_noise[i] if step_noise is not None
                          else per_sample_step_noise(seed, idx, i, lat_shape, device=dev))
             carry, x0 = apply_row(carry, eps, r, noise)
+            if blend_src is not None:
+                target = r["blend_a"] * blend_src + r["blend_s"] * blend_noise
+                carry = carry._replace(
+                    latents=blend_mask * carry.latents + (1.0 - blend_mask) * target)
             if collect_x0:
                 x0s.append(x0[:x0_count])
         synchronize(dev)

@@ -2,8 +2,8 @@
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/unet.py`` on the
 text-to-image path with its DeepCache split, Token Merging and SDXL's
-text_time added conditioning (no ControlNet, IP-Adapter, guidance
-embedding or CFG shared prefix).
+text_time added conditioning and the int8 W8A8 modes (no ControlNet,
+IP-Adapter, guidance embedding or CFG shared prefix).
 Parameter names follow diffusers' ``UNet2DConditionModel``; activations
 are [B, H, W, C] at the module's boundary, as in the JAX package.
 """
@@ -123,6 +123,14 @@ class UNetConfig:
 
 
 class UNet2DCondition(nn.Module):
+    """``quant_mode``: the int8 mode of the whole UNet (``ops.quant``), set
+    with ``ops.quant.set_quant_mode``; None is exact.  The ResnetBlocks'
+    and the Downsample/Upsample 3x3 convs quantize under the conv modes
+    (50 convs a SD-1.5 forward), the transformers' projections under
+    ``int8`` and ``int8_conv``."""
+
+    quant_mode = None
+
     def __init__(self, config: UNetConfig):
         super().__init__()
         cfg = self.config = config
@@ -150,7 +158,7 @@ class UNet2DCondition(nn.Module):
                 if cfg.cross_attention[lvl]:
                     att.append(xfmr(lvl))
                 skip_ch.append(ch)
-            samp = [Downsample(ch)] if lvl < n - 1 else []
+            samp = [Downsample(ch, allow_quant=True)] if lvl < n - 1 else []
             if samp:
                 skip_ch.append(ch)
             down.append(Level(res, att, samp, "downsamplers"))
@@ -170,7 +178,7 @@ class UNet2DCondition(nn.Module):
                 cur = ch
                 if cfg.cross_attention[lvl]:
                     att.append(xfmr(lvl))
-            samp = [Upsample(ch)] if lvl > 0 else []
+            samp = [Upsample(ch, allow_quant=True)] if lvl > 0 else []
             up.append(Level(res, att, samp, "upsamplers"))
         self.up_blocks = nn.ModuleList(up)
 

@@ -144,8 +144,7 @@ def unet_name_map(cfg: UNetConfig) -> NameMap:
 
 
 def vae_name_map(n_levels: int, layers_per_block: int) -> NameMap:
-    """Encoder entries included, so the whole JAX VAE tree inverts; the
-    port's ``AutoencoderKL`` keeps only the decoder side."""
+    """The whole JAX VAE tree: the decoder and the encoder side."""
     m = MapEntries()
     m.conv("decoder/conv_in", "decoder.conv_in")
     m.resnet("decoder/mid_res_0", "decoder.mid_block.resnets.0")
@@ -358,13 +357,13 @@ def state_dicts_from_jax(params_np: dict, unet_config: UNetConfig = None
     for each module that the port's modules load with ``strict=True``:
     ``{"unet", "vae", "text"}``, and an SDXL tree's ``"text2"`` (its
     ``text2_proj`` kernel as ``text_projection.weight``).  The VAE keeps
-    its decoder side.  ``unet_config`` gives the UNet's projection layout
+    both sides (a tree without the encoder loads for decoding only).
+    ``unet_config`` gives the UNet's projection layout
     (needed for SD-2.x); without it the tree's own geometry is used
     (``unet_geometry``)."""
     dec = params_np["vae"]["decoder"]
     vae = invert(params_np["vae"], vae_name_map(_count(dec, "up_{}_res_0"),
                                                 _count(dec, "up_0_res_{}") - 1))
-    vae = {k: v for k, v in vae.items() if not k.startswith(("encoder.", "quant_conv."))}
     cfg = unet_config or unet_geometry(params_np["unet"])
     sds = {"unet": invert(params_np["unet"], unet_name_map(cfg)), "vae": vae}
     for key in ("text", "text2"):
@@ -380,10 +379,9 @@ def state_dicts_from_jax(params_np: dict, unet_config: UNetConfig = None
 # ------------------------------------------------------- local checkpoints
 # Keys a checkpoint may carry that the port's modules have no parameter
 # for: transformers' position-id buffers and CLIPModel's logit scale (the
-# score does not use it), and a full diffusers VAE's encoder side.
+# score does not use it).
 _CLIP_EXTRA = ("text_model.embeddings.position_ids", "vision_model.embeddings.position_ids",
                "logit_scale")
-_VAE_ENCODER = ("encoder.", "quant_conv.")
 
 
 def load_torch_state_dict(path: str | Path) -> Dict[str, torch.Tensor]:
@@ -428,14 +426,15 @@ def load_clip_checkpoint(snapshot_dir: str | Path, model: nn.Module) -> nn.Modul
 def load_sd_checkpoint(snapshot_dir: str | Path, engine) -> None:
     """A diffusers-layout SD snapshot dir (``unet/``, ``vae/``,
     ``text_encoder/``; an SDXL snapshot also ``text_encoder_2/``, a
-    ``CLIPTextModelWithProjection``) into ``engine``'s modules.  The VAE's
-    encoder keys and the text encoders' ``position_ids`` buffers are
-    dropped by name; any other extra or missing key raises."""
+    ``CLIPTextModelWithProjection``) into ``engine``'s modules.  The text
+    encoders' ``position_ids`` buffers are dropped by name; a VAE without
+    its encoder's keys loads for decoding only (``AutoencoderKL.
+    has_encoder``); any other extra or missing key raises."""
     snapshot_dir = Path(snapshot_dir)
     names = ("diffusion_pytorch_model.bin", "pytorch_model.bin",
              "diffusion_pytorch_model.safetensors", "model.safetensors")
     parts = [("unet", engine.unet, lambda k: False),
-             ("vae", engine.vae, lambda k: k.startswith(_VAE_ENCODER)),
+             ("vae", engine.vae, lambda k: False),
              ("text_encoder", engine.text, lambda k: k in _CLIP_EXTRA)]
     if hasattr(engine, "text2"):
         parts.append(("text_encoder_2", engine.text2, lambda k: k in _CLIP_EXTRA))

@@ -33,6 +33,7 @@ MAX_THREADS = 512
 ROWS_PER_THREAD = 4    # rows a thread walks where the block has that many
 MIN_CTA_BYTES = 8192   # a cluster of several blocks only where each reads at least this
 MIN_ROW_BYTES = 64     # a channel range spans at least 64 bytes of a row where C allows
+SECTOR_BYTES = 32      # ...and never less than one DRAM sector where it must go narrower
 CACHE_BYTES = 96 * 1024  # a block keeps its rows in shared memory up to this size
 MAX_SMEM = 232448      # 227 KB
 # A range of one lane's channels keeps mean, M2, gamma and beta in shared
@@ -162,8 +163,11 @@ def plan(B: int, N: int, C: int, G: int, elem: int, aligned: bool = True,
     the one with the most.  Only layouts whose clusters the card holds all
     at once count (``active_clusters(vec, cluster, threads, smem)``; a
     second wave would double the time), and a cluster of several blocks
-    only where each block reads at least ``MIN_CTA_BYTES``.  Where no
-    layout fits one wave, the first that fits shared memory."""
+    only where each block reads at least ``MIN_CTA_BYTES``.  A shape with
+    the work to fill the card (``TARGET_CTAS`` blocks of ``MIN_CTA_BYTES``)
+    that no such layout fills, e.g. one image at 128 channels, takes
+    ranges narrower than ``MIN_ROW_BYTES`` too, down to ``SECTOR_BYTES``.  Where no layout fits one
+    wave, the first that fits shared memory."""
     if C % G:
         raise ValueError(f"channels {C} not divisible by groups {G}")
     gs = C // G
@@ -173,24 +177,28 @@ def plan(B: int, N: int, C: int, G: int, elem: int, aligned: bool = True,
     g0 = vec // math.gcd(gs, vec)
     widths = [k for k in range(g0, G + 1, g0) if G % k == 0]
     wide = [k for k in widths if k * gs * elem >= MIN_ROW_BYTES]
-    widths = (wide or widths[-1:])[::-1]
+    narrow = [k for k in widths if k not in wide and k * gs * elem >= SECTOR_BYTES][::-1]
+    passes = [(wide or widths[-1:])[::-1]]
+    if wide and narrow and B * N * C * elem >= TARGET_CTAS * MIN_CTA_BYTES:
+        passes.append(narrow)
     best = fallback = None
-    for cluster in (1, 2, 4, 8, 16):
-        if cluster > MAX_CLUSTER or (cluster - 1) * -(-N // cluster) >= N:
-            continue  # every block of a cluster owns at least one row
-        for k in widths:
-            p = _layout(B, N, C, G, elem, vec, k, cluster)
-            if p.smem > MAX_SMEM:
-                continue
-            fallback = fallback or p
-            if cluster > 1 and p.rows * p.channels * elem < MIN_CTA_BYTES:
-                continue
-            if B * p.ranges > active_clusters(vec, cluster, p.threads, p.smem):
-                continue
-            if p.ctas >= TARGET_CTAS:
-                return p
-            if best is None or p.ctas > best.ctas:
-                best = p
+    for widths in passes:
+        for cluster in (1, 2, 4, 8, 16):
+            if cluster > MAX_CLUSTER or (cluster - 1) * -(-N // cluster) >= N:
+                continue  # every block of a cluster owns at least one row
+            for k in widths:
+                p = _layout(B, N, C, G, elem, vec, k, cluster)
+                if p.smem > MAX_SMEM:
+                    continue
+                fallback = fallback or p
+                if cluster > 1 and p.rows * p.channels * elem < MIN_CTA_BYTES:
+                    continue
+                if B * p.ranges > active_clusters(vec, cluster, p.threads, p.smem):
+                    continue
+                if p.ctas >= TARGET_CTAS:
+                    return p
+                if best is None or p.ctas > best.ctas:
+                    best = p
     if fallback is None:
         raise ValueError(f"no GroupNorm plan fits {MAX_SMEM} bytes of shared memory for "
                          f"C={C}, G={G}")

@@ -74,6 +74,37 @@ class _PlanBuilder:
     def build_plan(self, num_steps: int) -> SamplePlan:
         raise NotImplementedError
 
+    # img2img hooks.
+    def tail_plan(self, num_steps: int, start_index: int) -> SamplePlan:
+        """The rows of steps ``start_index..`` of an ``num_steps`` run
+        (img2img's strength).  Here a slice of the whole plan, right for
+        samplers whose rows keep no history (DDIM, LCM); the multistep
+        builders re-simulate their warm-up from the start row, and the
+        Euler family re-grids its sigmas."""
+        if start_index == 0:
+            return self.build_plan(num_steps)
+        return self.build_plan(num_steps).tail(start_index)
+
+    def noised_latents(self, z, noise, num_steps: int, start_index: int):
+        """``tail_plan``'s initial latents: z noised to the start step's
+        level in this sampler's space (VP: a_t z + s_t noise)."""
+        t = int(self.timesteps(num_steps)[start_index])
+        a, s = self.schedule.alpha_sigma(t)
+        return float(a) * z + float(s) * noise
+
+    def blend_schedule(self, num_steps: int, start_index: int = 0):
+        """(a [R], s [R]) float32, aligned with ``tail_plan``'s rows:
+        inpainting's kept region after row k is ``a[k] z + s[k] noise``,
+        the source re-noised to that row's output level; the last is the
+        clean source (1, 0)."""
+        ts = self.timesteps(num_steps)
+        a, s = [], []
+        for k in range(start_index, num_steps):
+            ak, sk = self.schedule.alpha_sigma(int(ts[k + 1])) if k + 1 < num_steps else (1.0, 0.0)
+            a.append(float(ak))
+            s.append(float(sk))
+        return np.asarray(a, np.float32), np.asarray(s, np.float32)
+
     # Composer hooks; overridden where supported.
     def transition_rows(self, ts, num_steps, executed, tag=""):
         raise NotImplementedError(f"{self.NAME} cannot be composed this way")
@@ -180,6 +211,16 @@ class _MultistepLadderScheduler(_PlanBuilder):
             name=f"{self.PLAN_PREFIX}{self.solver_order}{kar}(n={num_steps}){sfx}",
             hist_depth=self.solver_order,
         )
+
+    def noised_latents(self, z, noise, num_steps: int, start_index: int):
+        ladder = self._ladder(num_steps)
+        return float(ladder.alpha[start_index]) * z + float(ladder.sigma_t[start_index]) * noise
+
+    def blend_schedule(self, num_steps: int, start_index: int = 0):
+        ladder = self._ladder(num_steps)
+        idx = np.arange(start_index + 1, num_steps + 1)
+        return (np.asarray(ladder.alpha[idx], np.float32),
+                np.asarray(ladder.sigma_t[idx], np.float32))
 
     def transition_rows(self, ts, num_steps, executed, tag=""):
         ladder = make_ladder(self.schedule, ts, self.final_sigmas_type)
@@ -311,6 +352,8 @@ class UniPCScheduler(_PlanBuilder):
         self.use_karras_sigmas = bool(use_karras_sigmas)
 
     _ladder = _MultistepLadderScheduler._ladder
+    noised_latents = _MultistepLadderScheduler.noised_latents
+    blend_schedule = _MultistepLadderScheduler.blend_schedule
 
     def build_plan(self, num_steps: int) -> SamplePlan:
         return self.tail_plan(num_steps, 0)
@@ -379,6 +422,16 @@ class EulerScheduler(_PlanBuilder):
                           name=f"{self.NAME}{kar}(n={num_steps}){sfx}",
                           init_scale=init if start_index == 0 else 1.0)
 
+    def noised_latents(self, z, noise, num_steps: int, start_index: int):
+        """Sigma-space seeding: z + sigma_start * noise."""
+        _, sigmas, _ = self._grid(num_steps)
+        return z + float(sigmas[start_index]) * noise
+
+    def blend_schedule(self, num_steps: int, start_index: int = 0):
+        _, sigmas, _ = self._grid(num_steps)
+        s = np.asarray(sigmas[start_index + 1:], np.float32)
+        return np.ones_like(s), s
+
 
 @schedulers_registry.add_to_registry("euler_ancestral_scheduler")
 class EulerAncestralScheduler(EulerScheduler):
@@ -398,6 +451,17 @@ class HeunScheduler(EulerScheduler):
     def _rows(self, ts, sigmas):
         return heun_rows(self.schedule, ts, prediction_type=self.config.prediction_type,
                          sigmas=sigmas)
+
+    def blend_schedule(self, num_steps: int, start_index: int = 0):
+        """A row each: both rows of a transition end at its target sigma;
+        the last transition (to sigma 0) has one row."""
+        _, sigmas, _ = self._grid(num_steps)
+        s = []
+        for k in range(start_index, num_steps):
+            s2 = float(sigmas[k + 1])
+            s.extend([s2] if s2 == 0.0 else [s2, s2])
+        s = np.asarray(s, np.float32)
+        return np.ones_like(s), s
 
 
 @schedulers_registry.add_to_registry("pndm_scheduler")

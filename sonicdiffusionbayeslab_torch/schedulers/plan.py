@@ -113,6 +113,17 @@ class SamplePlan:
             np.any(self.w_saved != 0.0) or np.any(self.s_x != 0.0) or np.any(self.s_hist != 0.0)
         )
 
+    def tail(self, start_index: int) -> "SamplePlan":
+        """The plan of rows ``start_index..`` (img2img's start).
+        ``init_scale`` is 1: the caller's latents are already noised to the
+        start row's level (the schedulers' ``noised_latents``)."""
+        if not self.rows:
+            raise ValueError("plan has no retained rows to slice")
+        if not 0 <= start_index < len(self.rows):
+            raise ValueError(f"start_index {start_index} out of range [0, {len(self.rows)})")
+        return stack_rows(list(self.rows[start_index:]), name=f"{self.name}[{start_index}:]",
+                          hist_depth=self.hist_depth, init_scale=1.0)
+
     def scan_xs(self) -> Dict[str, np.ndarray]:
         """The per-step arrays the runtime walks through."""
         return {

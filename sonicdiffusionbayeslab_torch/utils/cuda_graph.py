@@ -85,10 +85,14 @@ class GraphedCall:
 class GraphedVariants:
     """``fn(*tensors, **static)`` with one :class:`GraphedCall` per distinct
     ``static`` (keyword arguments that are not tensors; pass tensors
-    positionally)."""
+    positionally) and ``state()``: the (name, value) pairs of whatever else
+    the traced work depends on (the UNet's int8 mode), read at each call,
+    so that a change of it captures a graph of its own instead of replaying
+    a stale one."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, state=None):
         self.fn = fn
+        self.state = state
         self.calls = {}
 
     def clear(self) -> None:
@@ -101,7 +105,7 @@ class GraphedVariants:
         return {k: c.captures for k, c in self.calls.items()}
 
     def __call__(self, *args: torch.Tensor, **static):
-        key = tuple(sorted(static.items()))
+        key = tuple(sorted(static.items())) + (tuple(self.state()) if self.state else ())
         call = self.calls.get(key)
         if call is None:
             call = self.calls[key] = GraphedCall(functools.partial(self.fn, **static))

@@ -10,6 +10,10 @@ from the JAX package's, so parity tests pass ``init_latents``.
 Noise-injecting plans (LCM) draw fresh noise at each denoising step the
 same way: sample ``i``'s noise at step ``k`` depends only on (seed, i, k).
 
+img2img's draws (the encoder's posterior sample, the start noise and
+inpainting's blend noise) are sample ``i``'s from (seed, i, tag), a tag
+each.
+
 Token Merging's random destinations (one per cell of each ToMe slot's
 token map) depend only on (timestep, site, block), with no seed, as the JAX
 package's ``fold_in`` chain from ``PRNGKey(0x703E)`` does; the draws are
@@ -33,6 +37,11 @@ from sonicdiffusionbayeslab_torch.ops.tome import dst_index_grid
 STEP_NOISE_TAG = 0x5EED
 # The stream of Token Merging's destinations.
 TOME_TAG = 0x703E
+# The streams of inpainting's blend noise (the JAX engine's fold-in tag),
+# img2img's posterior sample of the encoder and its start noise.
+BLEND_NOISE_TAG = 0xB1E0D
+ENCODE_NOISE_TAG = 0xE1C0D
+INIT_NOISE_TAG = 0x1217
 
 
 def sample_generator(seed: int, index: int, *stream: int) -> torch.Generator:
@@ -50,13 +59,20 @@ def per_sample_latents(seed: int, sample_indices: Sequence[int], shape, device="
     return torch.stack(rows).to(device=device, dtype=dtype)
 
 
+def per_sample_noise(seed: int, sample_indices: Sequence[int], shape, *stream: int,
+                     device="cpu") -> torch.Tensor:
+    """[B, *shape] fp32 standard normal noise, row b drawn from the
+    generator of (seed, ``sample_indices[b]``, *stream)."""
+    rows = [torch.randn(tuple(shape), generator=sample_generator(seed, i, *stream),
+                        dtype=torch.float32) for i in sample_indices]
+    return torch.stack(rows).to(device=device)
+
+
 def per_sample_step_noise(seed: int, sample_indices: Sequence[int], step: int, shape,
                           device="cpu") -> torch.Tensor:
     """[B, *shape] fp32 standard normal noise of denoising step ``step``,
     row b drawn from the generator of (seed, ``sample_indices[b]``, step)."""
-    rows = [torch.randn(tuple(shape), generator=sample_generator(seed, i, STEP_NOISE_TAG, step),
-                        dtype=torch.float32) for i in sample_indices]
-    return torch.stack(rows).to(device=device)
+    return per_sample_noise(seed, sample_indices, shape, STEP_NOISE_TAG, step, device=device)
 
 
 def tome_destinations(timestep: int, slots, tome) -> torch.Tensor:

@@ -202,14 +202,14 @@ def test_cli_without_device_raises_without_gpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"inference.quant": "int8"}, "inference.quant"),
+    ({"inference.quant": "int4"}, "inference.quant"),
     ({"scheduler.scheduler_name": "flow_match_euler_scheduler"}, "not ported yet"),
     ({"model.model_name": "stable_diffusion_controlnet_model"}, "not ported yet"),
     ({"experiment.method": "flow_euler"}, "not ported yet"),
 ])
 def test_cli_names_what_is_not_ported(tmp_path, monkeypatch, overrides, match):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises((NotImplementedError, KeyError), match=match):
+    with pytest.raises((NotImplementedError, KeyError, ValueError), match=match):
         cli.run(SMOKE, {"dataset.prompts": PROMPTS, **overrides}, device="cpu")
 
 

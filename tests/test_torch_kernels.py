@@ -20,6 +20,7 @@ from sonicdiffusionbayeslab_torch.ops import _build
 from sonicdiffusionbayeslab_torch.ops import attention as attn_ops
 from sonicdiffusionbayeslab_torch.ops import flash_attention as fa
 from sonicdiffusionbayeslab_torch.ops import groupnorm as gn_ops
+from sonicdiffusionbayeslab_torch.ops import quant as quant_ops
 from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention
 from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
 
@@ -200,6 +201,14 @@ GN_MAIN_PATH = [
     (4, 4096, 960, 1e-5, True),
 ]
 GN_TINY = [(2, 64, 16, 1e-5, True), (2, 64, 32, 1e-5, True), (2, 256, 64, 1e-6, False)]
+# The VAE encoder's GroupNorms not in the lists above: SD-1.5's at 512^2,
+# batch 2 (img2img) and SDXL's at 1024^2, batch 1.
+GN_ENCODER = [
+    (2, 65536, 128, 1e-6, True), (2, 16384, 256, 1e-6, True), (2, 4096, 512, 1e-6, True),
+    (1, 1048576, 128, 1e-6, True), (1, 262144, 128, 1e-6, True), (1, 262144, 256, 1e-6, True),
+    (1, 65536, 256, 1e-6, True), (1, 65536, 512, 1e-6, True), (1, 16384, 512, 1e-6, True),
+    (1, 16384, 512, 1e-6, False),
+]
 # (B, N, C, eps, silu) of every GroupNorm of the SD-2.1 768^2 and SDXL
 # 1024^2 CLI runs (UNet at batch 16, VAE decode at batch 8; G = 32), up
 # to SDXL's decoder at 1024 x 1024 rows a sample.
@@ -268,6 +277,25 @@ def test_groupnorm_plan_covers_groups_and_rows(B, N, C, eps, silu, elem):
     unaligned = gn_ops.plan(B, N, C, G, elem, aligned=False)
     check_plan(unaligned, B, N, C, G, elem)
     assert unaligned.vec == 1
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("B,N,C,eps,silu", GN_ENCODER)
+def test_groupnorm_plan_fills_the_card_at_the_encoders_shapes(B, N, C, eps, silu, elem):
+    """The encoder's shapes, one image at 128 channels among them: every
+    group and row covered, and 128 blocks, with channel ranges narrower
+    than MIN_ROW_BYTES only where the wider ones cannot fill the card, and
+    never below a 32-byte sector."""
+    G = gn_ops.resolve_groups(C, 32)
+    p = gn_ops.plan(B, N, C, G, elem)
+    check_plan(p, B, N, C, G, elem)
+    assert p.vec == 16 // elem and p.ctas >= gn_ops.TARGET_CTAS
+    assert p.channels * elem >= gn_ops.SECTOR_BYTES
+    if p.channels * elem < gn_ops.MIN_ROW_BYTES:
+        gs = C // G
+        for k in range(1, G + 1):
+            if G % k == 0 and k * gs * elem >= gn_ops.MIN_ROW_BYTES:
+                assert B * (G // k) * gn_ops.MAX_CLUSTER < gn_ops.TARGET_CTAS
 
 
 @pytest.mark.parametrize("C,G", [(20, 4), (48, 16), (640, 32), (gn_ops.MAX_CHANNELS, 1),
@@ -746,3 +774,63 @@ def test_attention_kernels_take_only_their_dtype(cuda):
     qb = q.to(torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
         fa.flash_attention_tf32x3(qb, qb, qb)
+
+
+# (M, K, N) of int8 GEMMs: full-width SD-1.5 UNet 3x3 convs (im2col rows
+# at UNet batch 4; K = 9 C in; N = C out) and small ones that need the zero
+# rows and columns of _int_mm's shape rules.
+INT8_SHAPES = [(16384, 2880, 320), (4096, 5760, 640), (1024, 11520, 1280), (256, 23040, 1280),
+               (1024, 8640, 640), (5, 37, 11), (16, 24, 8), (17, 40, 13)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", INT8_SHAPES)
+def test_int8_matmul_card_bit_equal_to_int64(cuda, M, K, N):
+    """cuBLASLt's int8 GEMM (``torch._int_mm``) through the wrapper: its
+    int32 sums bit-equal to int64 sums on the CPU (first 64 rows) and to a
+    float64 product on the card, where every partial sum is an integer
+    below 2^53; one launch counted."""
+    g = torch.Generator().manual_seed(M + K + N)
+    a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, K), generator=g, dtype=torch.int8)
+    n0 = quant_ops.int8_matmul.launches
+    got = quant_ops.int8_matmul(a.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert quant_ops.int8_matmul.launches == n0 + 1
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    rows = min(M, 64)
+    assert torch.equal(got[:rows].cpu().long(), a[:rows].long() @ w.long().t())
+    assert torch.equal(got.double(), a.to(cuda).double() @ w.to(cuda).double().t())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,stride,pad", [((2, 64, 64, 320), (1, 1), ((1, 1), (1, 1))),
+                                              ((2, 16, 16, 640), (2, 2), ((1, 1), (1, 1))),
+                                              ((1, 7, 9, 8), (2, 2), ((0, 1), (0, 1)))])
+def test_int8_conv_and_dense_card_bit_equal_to_cpu(cuda, shape, stride, pad):
+    """``int8_conv`` (im2col + the int8 GEMM) and ``int8_dense`` on the card
+    against their plain versions on the CPU, fp32: the same int8 operands,
+    exact int32 sums and the same epilogue give the same bits; and a CUDA
+    graph of the conv replays them."""
+    C = shape[-1]
+    x, w, b = randn(shape, 1), randn((C, C, 3, 3), 2) / (3 * C ** 0.5), randn((C,), 3)
+    want = quant_ops.int8_conv(x, w, b, stride=stride, padding=pad)
+    xc, wc, bc = x.to(cuda), w.to(cuda), b.to(cuda)
+    call = lambda: quant_ops.int8_conv(xc, wc, bc, stride=stride, padding=pad)  # noqa: E731
+    n0 = quant_ops.int8_conv.launches
+    assert torch.equal(call().cpu(), want)
+    assert quant_ops.int8_conv.launches == n0 + 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured.cpu(), want)
+    tokens, wd = x.reshape(shape[0], -1, C), randn((C, C), 4) / C ** 0.5
+    assert torch.equal(quant_ops.int8_dense(tokens.to(cuda), wd.to(cuda), b.to(cuda)).cpu(),
+                       quant_ops.int8_dense(tokens, wd, b))

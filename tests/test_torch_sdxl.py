@@ -206,14 +206,12 @@ def test_tokenizers_ids_equal_jax():
 
 def test_snapshot_loads_strictly(tmp_path):
     """A diffusers SDXL snapshot written with torch.save (the port's own
-    tiny modules' tensors, plus the keys a real snapshot carries that the
-    port drops by name): every module loads strictly, and a missing key
-    raises."""
+    tiny modules' tensors, the VAE's encoder side included, plus the keys a
+    real snapshot carries that the port drops by name): every module loads
+    strictly, and a missing key raises."""
     src = SDXLEngine(UNetConfig.tiny_xl(), VAEConfig.tiny(), SDXLTextConfigs.tiny(),
                      dtype=torch.float32, device="cpu").init_params(7)
-    extra = {"vae": {"encoder.conv_in.weight": torch.zeros(16, 3, 3, 3),
-                     "quant_conv.bias": torch.zeros(8)},
-             "text_encoder": {"text_model.embeddings.position_ids": torch.arange(77)[None]},
+    extra = {"text_encoder": {"text_model.embeddings.position_ids": torch.arange(77)[None]},
              "text_encoder_2": {"text_model.embeddings.position_ids": torch.arange(77)[None]}}
     for sub, module in zip(("unet", "vae", "text_encoder", "text_encoder_2"), src.modules()):
         (tmp_path / sub).mkdir()
