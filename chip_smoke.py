@@ -138,12 +138,35 @@ prints no ``ok`` line:
      launches against the census, 50 int8 GEMMs a UNet forward by the
      wrappers and by kernel name in the trace, no int8 dense call; and an
      exact run of the phase's model before and after it, bit-equal;
- 12. the card line, then one JSON ``kernels`` line (the fp32 attention
+ 12. SD3-medium (MMDiT depth 24, 24 heads of 64; the 16-channel VAE; CLIP-L
+     and bigG; T5-XXL) on random bf16 weights: the census of the MMDiT (24
+     joint attentions a forward, at 4096 + 77 tokens at 1024^2; 4429 with
+     T5, 2125 and 3149 under ToMe 0.5 and 0.25, 1101 at 512^2; 287 int8
+     dense calls) and the SD3 decoder, found on the meta device; each
+     kernel against its plain version at every shape of the phase (bf16;
+     the plain version over batch slices) and at the tiny runs' and the
+     towers' (fp32), the bf16 kernel on views of one concatenated q/k/v
+     projection bit-equal to contiguous copies, and timed (the joint
+     attention a forward beside SDPA and the bound); tiny fp32 SD3
+     pipelines (exact, trunk-delta, ToMe, T5, two-scheduler, skip) on the
+     card against the CPU within 1e-3 and an int8 one below the CPU's
+     drift; through the pipeline at 1024^2, 28-step flow Euler (shift 3),
+     CFG 7, batch 2: a run at 512^2, then exact, trunk-delta (interval 3,
+     branch 2), ToMe 0.5 and int8 loops (first runs' launches against the
+     census, warm execution_time and peak memory, the exact run traced),
+     and use_t5 staged and resident, bit-equal; random SD3 and SD-1.5
+     snapshots written, configs/sd3_config.yaml, sd3_skip_steps_config.yaml
+     and sd3_two_schedulers_config.yaml as shipped through the CLI on the
+     SD3 snapshot (first sweep point, batch 4, phase 9's real images and
+     checkpoints; the first traced): table, PNGs, one capture, launches;
+     quality_frontier's main on both snapshots (16 rows); and the exact
+     run again after them, bit-equal;
+ 13. the card line, then one JSON ``kernels`` line (the fp32 attention
      kernel's entry is phase 9's metric towers: 108 launches a validate
      batch; each entry also lists its launches in each phase-7, phase-8,
-     phase-9, phase-10 and phase-11 run, and its phase-10 sums over one
-     forward and one decode of each family);
- 13. the last line: {"ok": true, "device": {...}}.
+     phase-9, phase-10, phase-11 and phase-12 run, and its phase-10 and
+     phase-12 sums over one forward and one decode);
+ 14. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -175,8 +198,9 @@ SYMBOLS = {"attention": "flash_fwd_sm90_kernel", "group_norm": "gn_cluster_kerne
 # cuBLASLt's int8 GEMM kernels (torch._int_mm) on this card:
 # cutlass_80_tensorop_i16832gemm_s8_<tile>_tn_align16, one a call.
 INT8_GEMM_SYMBOL = "gemm_s8"
-# Traced kernels before a traced run (traced_launches).
-PAD_KERNELS = 64
+# Traced kernels before a traced run (traced_launches), in bursts of
+# PAD_BURST, each burst PAD_GAP_S after the last one ended: ~0.14 s in all.
+PAD_KERNELS, PAD_BURST, PAD_GAP_S = 1024, 32, 0.004
 # bf16 attention is also held to max |err| <= ATTN_RMS_GATE * rms(plain)
 # per shape: bf16 rounding of outputs up to ~4 stays near half of it, while
 # a lost rescale of O or a P.V on the wrong K/V tile is many times the rms.
@@ -295,6 +319,27 @@ TURBO_BATCH, TURBO_TOME, TURBO_QUANT = 8, 0.5, "int8_conv_only"
 # The int8 3x3 convs of one SD-1.5 UNet forward: 22 ResnetBlocks x 2, 3
 # Downsample and 3 Upsample.
 INT8_CONVS = 50
+# Phase 12: SD3-medium (MMDiT of depth 24, 24 heads of 64; the 16-channel
+# VAE; CLIP-L and bigG, optionally T5-XXL) on random bf16 weights at
+# SD3_SIZE^2: SD3_STEPS-step flow Euler at shift SD3_SHIFT, CFG
+# SD3_GUIDANCE, batch BATCH, exact, with the trunk-delta cache at
+# (interval, branch) SD3_CACHE, ToMe at SD3_TOME and int8, and one run at
+# SD3_SMALL^2; the three shipped SD3 configs through the CLI at batch
+# SD3_CLI_BATCH, each at its first sweep point: (config, overrides, label,
+# nfe, MMDiT rows a call (the configs' unet_microbatch), x0 captured); and
+# the quality frontier at FRONTIER's prompts, batches and steps.
+SD3_SIZE, SD3_STEPS, SD3_GUIDANCE, SD3_SHIFT = 1024, 28, 7.0, 3.0
+SD3_CACHE, SD3_TOME, SD3_SMALL, SD3_CLI_BATCH = (3, 2), 0.5, 512, 4
+SD3_CLI_RUNS = [
+    ("sd3_config", {_P + "num_inference_steps": [14]}, "steps_14", 14, 8, True),
+    ("sd3_skip_steps_config", {_P + "num_inference_steps": [20], _P + "skip_steps": [[5, 10]]},
+     "steps_20_skip_5-10", 18, 2, True),
+    ("sd3_two_schedulers_config", {_P + "num_inference_steps_first": [20],
+                                   _P + "num_inference_steps_second": [20],
+                                   _P + "num_step_switch": [5]},
+     "first_20_second_20_switch_5", 21, 2, False),
+]
+FRONTIER = dict(prompts=2, batch=2, sd3_batch=2, steps=4)
 # The plain versions' fp32 intermediates a call, at most: a larger call
 # runs them over slices of the batch (the same function).
 PLAIN_BYTES = 8e9
@@ -776,14 +821,17 @@ def traced_launches(run, symbols=None):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # CUPTI drops the first kernels launched as tracing starts (an
-        # eager UNet forward lost its first 2 attention and 4 GroupNorm
-        # executions; late in a long process up to 25 kernels), never the
-        # last: PAD_KERNELS spin kernels and a pause first, the recorded
-        # ones counted.
-        for _ in range(PAD_KERNELS):
+        # CUPTI drops the first kernels launched as tracing starts, never
+        # the last ones.  How many grows over a long process and does not
+        # depend on their spacing: 1-33 of 64 pads, back to back or 2 ms
+        # apart alike, and on one machine all 64.  So PAD_KERNELS spin
+        # kernels spread over ~0.14 s and a pause come first; a pad recorded
+        # means the dropped prefix ended before the run began.
+        for i in range(PAD_KERNELS):
             torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
+            if (i + 1) % PAD_BURST == 0:
+                torch.cuda.synchronize()
+                time.sleep(PAD_GAP_S)
         time.sleep(0.1)
         out = run()
         torch.cuda.synchronize()
@@ -791,10 +839,15 @@ def traced_launches(run, symbols=None):
     counts = {kind: sum(sym in n for n in seen) for kind, sym in SYMBOLS.items()}
     for key, sym in (symbols or {}).items():
         counts[key] = sum(sym in n for n in seen)
+    # A pad recorded means the dropped prefix ended before the run began;
+    # the pads are counted wherever they sort among the device events.
+    pads = sum("spin_kernel" in n for n in seen)
     lead = next((i for i, n in enumerate(seen) if "spin_kernel" not in n), len(seen))
-    if lead != PAD_KERNELS:
-        print(f"trace: CUPTI recorded {lead} of the {PAD_KERNELS} pad kernels", flush=True)
-    if not lead:
+    if pads != PAD_KERNELS or lead != pads:
+        print(f"trace: CUPTI recorded {pads} of the {PAD_KERNELS} pad kernels, {lead} of them "
+              f"before the first other device event, of {len(seen)} device events; the first "
+              f"events: {seen[:3]}", flush=True)
+    if not pads:
         raise AssertionError("CUPTI dropped every pad kernel: the trace may have lost the run's")
     return out, counts
 
@@ -2852,6 +2905,671 @@ def run_img2img_quant(report, card, assets, profile):
     report["e2e"]["img2img_quant"] = out
 
 
+# ------------------------------------------------------ SD3-medium (phase 12)
+def sd3_pipeline(name="stable_diffusion_3_model", **kw):
+    """A registered SD3 pipeline (``kw`` to its constructor) with flow Euler
+    at SD3_SHIFT, or the composing variant's own schedulers."""
+    from sonicdiffusionbayeslab_torch.registry import load_all_plugins, models_registry
+    from sonicdiffusionbayeslab_torch.schedulers import FlowMatchEulerScheduler
+
+    load_all_plugins()
+    pipe = models_registry[name](**kw)
+    pipe.scheduler = FlowMatchEulerScheduler(shift=SD3_SHIFT)
+    if name.endswith("two_schedulers"):
+        pipe.scheduler_first = FlowMatchEulerScheduler(shift=SD3_SHIFT)
+        pipe.scheduler_second = FlowMatchEulerScheduler(shift=SD3_SHIFT)
+    return pipe
+
+
+_META_MMDIT = {}  # the census's MMDiTs on the meta device, by tiny
+
+
+def sd3_module_census(batch=None, size=SD3_SIZE, tome=None, ctx_len=77, vae_batch=None,
+                      tiny=False, quant=None, branch=None):
+    """{(kind, shape): launches} of one MMDiT call at ``batch`` rows (a full
+    call, or with ``branch`` the trunk-delta cache's cached call: blocks
+    0..branch-1; DiT-ToMe at ratio ``tome``; ``ctx_len`` context tokens,
+    77 CLIP or 77 + 256 with T5; in the int8 mode ``quant``, whose dense
+    calls are counted as ("int8_dense", (M, K, N))) and of one SD3 VAE
+    decode of ``vae_batch`` latents, at ``size``^2 pixels (``tiny``: the
+    tiny MMDiT and VAE at 8x8 latents), run on the meta device with the
+    kernel entry points replaced by shape recorders."""
+    from sonicdiffusionbayeslab_torch.models import layers, mmdit
+    from sonicdiffusionbayeslab_torch.models.mmdit import MMDiT, MMDiTConfig
+    from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
+    from sonicdiffusionbayeslab_torch.ops import quant as Q
+    from sonicdiffusionbayeslab_torch.ops.attention import uses_kernel
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import resolve_groups
+    from sonicdiffusionbayeslab_torch.ops.tome import TomeConfig
+
+    calls = collections.Counter()
+
+    def gn(x, weight, bias, groups=32, eps=1e-5, silu=True):
+        B, C = x.shape[0], x.shape[-1]
+        calls[("group_norm", (B, x.numel() // (B * C), C, resolve_groups(C, groups), eps, silu))] += 1
+        return torch.empty_like(x)
+
+    def attn(q, k, v, mask=None):
+        if uses_kernel(q, mask):
+            B, N, H, D = q.shape
+            calls[("attention", (B, N, k.shape[1], H, D))] += 1
+        return torch.empty_like(q)
+
+    def dense(x, weight, bias=None, out_dtype=None, weight_q=None):
+        calls[("int8_dense", (x.numel() // x.shape[-1], x.shape[-1], weight.shape[0]))] += 1
+        return torch.nn.functional.linear(x, weight, bias)
+
+    saved = (layers.group_norm_silu, layers.dot_product_attention, mmdit.dot_product_attention,
+             Q.int8_dense)
+    layers.group_norm_silu, layers.dot_product_attention = gn, attn
+    mmdit.dot_product_attention, Q.int8_dense = attn, dense
+    cfg = MMDiTConfig.tiny() if tiny else MMDiTConfig.sd3_medium()
+    lat = 8 if tiny else size // 8
+    ctx_len = (77 + 16 if ctx_len > 77 else 77) if tiny else ctx_len
+    try:
+        with torch.device("meta"):
+            if batch:
+                m = _META_MMDIT.get(tiny) or _META_MMDIT.setdefault(tiny, MMDiT(cfg))
+                Q.set_quant_mode(m, quant)
+                kw, dst = {}, None
+                if tome:
+                    kw["tome"] = tc = TomeConfig(tome)
+                    slots = m.tome_slots(lat, lat, tc, branch)
+                    dst = torch.zeros(len(slots), tc.n_dst(lat // 2, lat // 2), dtype=torch.int64)
+                cache = (None if branch is None else
+                         torch.empty((batch,) + m.cache_shape(lat, lat, branch)))
+                m(torch.empty(batch, lat, lat, 16), torch.empty(batch),
+                  torch.empty(batch, ctx_len, cfg.joint_attention_dim), cache, dst,
+                  torch.empty(batch, cfg.pooled_projection_dim), cache_branch_id=branch or 0, **kw)
+            if vae_batch:
+                AutoencoderKL(VAEConfig.tiny16() if tiny else VAEConfig.sd3()).decode(
+                    torch.empty(vae_batch, lat, lat, 16))
+    finally:
+        (layers.group_norm_silu, layers.dot_product_attention, mmdit.dot_product_attention,
+         Q.int8_dense) = saved
+    return calls
+
+
+def sd3_census():
+    """{part: {(kind, shape): launches}} of every MMDiT call and SD3 decode
+    phase 12 makes: the loops' forward at UNet batch 2 x BATCH (plain,
+    trunk-delta's cached call at SD3_CACHE's branch, ToMe 0.5 and 0.25 --
+    the frontier's too --, int8, T5's 333 context tokens, and at
+    SD3_SMALL^2), the CLI runs' at 2 x SD3_CLI_BATCH and its chunk of
+    microbatch 4, the decodes of BATCH (and at SD3_SMALL^2) and
+    SD3_CLI_BATCH, and the tiny fp32 runs' (forward at 2 x BATCH, the
+    trunk-delta cached call at branch 1, ToMe, int8, decode of BATCH)."""
+    b = 2 * BATCH
+    branch = SD3_CACHE[1]
+    return dict(
+        loop=sd3_module_census(b), shallow=sd3_module_census(b, branch=branch),
+        tome=sd3_module_census(b, tome=SD3_TOME), tome_025=sd3_module_census(b, tome=0.25),
+        tome_shallow=sd3_module_census(b, tome=SD3_TOME, branch=branch),
+        int8=sd3_module_census(b, quant="int8"), t5=sd3_module_census(b, ctx_len=77 + 256),
+        small=sd3_module_census(b, size=SD3_SMALL),
+        cli=sd3_module_census(2 * SD3_CLI_BATCH), cli_chunk=sd3_module_census(2),
+        vae=sd3_module_census(vae_batch=BATCH),
+        vae_small=sd3_module_census(vae_batch=BATCH, size=SD3_SMALL),
+        vae_cli=sd3_module_census(vae_batch=SD3_CLI_BATCH),
+        tiny=sd3_module_census(b, tiny=True), tiny_shallow=sd3_module_census(b, tiny=True,
+                                                                            branch=1),
+        tiny_tome=sd3_module_census(b, tiny=True, tome=SD3_TOME),
+        tiny_t5=sd3_module_census(b, tiny=True, ctx_len=77 + 256),
+        tiny_int8=sd3_module_census(b, tiny=True, quant="int8"),
+        tiny_vae=sd3_module_census(vae_batch=BATCH, tiny=True))
+
+
+SD3_BF16_PARTS = ("loop", "shallow", "tome", "tome_025", "tome_shallow", "t5", "small", "cli",
+                  "cli_chunk", "vae", "vae_small", "vae_cli")
+
+
+def check_sd3_kernels(census, report):
+    """Each kernel against its plain version at every phase-12 shape (the
+    plain attention over batch slices where its fp32 intermediates pass
+    PLAIN_BYTES): bf16 at the full-width runs' (the joint attention at
+    4173, 4429, 2125, 3149 and 1101 tokens), fp32 at the tiny runs', the
+    CLIP score's tower at the frontier's validate batch and the metric
+    towers' at the CLI runs'; and the bf16 kernel on q, k and v as views of
+    one concatenated [B, N, 3 x 1536] projection at the loops' joint shape,
+    bit-equal to contiguous copies.  Max errors into ``report``."""
+    from sonicdiffusionbayeslab_torch.ops.attention import plain_attention
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bf16 = {k for part in SD3_BF16_PARTS for k in census[part] if k[0] in MAIN}
+    fp32 = {k for part, c in census.items() if part.startswith("tiny") for k in c if k[0] in MAIN}
+    fp32 |= set(clip_census(FRONTIER["sd3_batch"])) | set(metric_census(SD3_CLI_BATCH,
+                                                                        aesthetic=False))
+    work = [(k, torch.bfloat16) for k in bf16] + [(k, torch.float32) for k in fp32]
+    work.sort(key=lambda w: (str(w[1]), w[0][0], [str(v) for v in w[0][1]]))
+    for (kind, shape), dtype in work:
+        inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
+        kern, plain = run_kernel(kind, shape, inputs)
+        got = kern()
+        torch.cuda.synchronize()
+        err = compare(kind, dtype, got, plain(), f"{kind} {shape} {dtype} (phase 12)")
+        report["errs"][report_key(kind, dtype)].append(err)
+        report["phase12_errs"][report_key(kind, dtype)].append(err)
+        print(f"phase 12 {kind} {str(dtype)[6:]} {shape}: max abs err {err:.3e}")
+        del inputs, got
+    (B, N, _, H, D), = [s for k, s in census["loop"] if k == "attention"]
+    qkv = torch.randn(B, N, 3 * H * D, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.view(B, N, 3, H, D).unbind(2)
+    q = q * 3
+    got = flash_attention(q, k, v)
+    if not torch.equal(got, flash_attention(q.contiguous(), k.contiguous(), v.contiguous())):
+        raise AssertionError("attention: projection views differ from contiguous inputs")
+    err = compare("attention", torch.bfloat16, got,
+                  torch.cat([plain_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+                             for i in range(B)]), "joint attention projection views")
+    print(f"phase 12 attention bf16 views of one [{B}, {N}, 3 x {H * D}] projection: bit-equal "
+          f"to contiguous, max abs err {err:.3e}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    return len(work)
+
+
+def time_sd3_kernels(census, card):
+    """Timing rows (``timing_row``, bf16) at the loops' shapes: the joint
+    attention of the exact, ToMe 0.5 and 0.25, T5 and SD3_SMALL^2 forwards
+    (launches a forward) and the GroupNorm of a decode of BATCH at 1024^2;
+    totals of one MMDiT forward (the kernel's SD3 column: per-shape median x
+    launches, beside SDPA's time for the same calls and the bound) and of
+    one decode."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows, totals = [], {}
+    for part, kinds in (("loop", ("attention",)), ("tome", ("attention",)),
+                        ("tome_025", ("attention",)), ("t5", ("attention",)),
+                        ("small", ("attention",)), ("vae", ("group_norm",))):
+        for (kind, shape), n in sorted(census[part].items(), key=lambda kv: str(kv[0])):
+            if kind not in kinds:
+                continue
+            r = timing_row(kind, shape, torch.bfloat16, f"sd3 {part}", n, gen)
+            rows.append(r)
+            agg = totals.setdefault(part, {}).setdefault(
+                kind, dict(launches=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0))
+            agg["launches"] += n
+            for field in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                agg[field] += r[field] * n
+        torch.cuda.empty_cache()
+    print(f"phase 12 kernel totals (ms over one MMDiT forward at UNet batch {2 * BATCH} and one "
+          f"SD3 decode of {BATCH} at {SD3_SIZE}^2; {card}): " + json.dumps(totals), flush=True)
+    return rows, totals
+
+
+def sd3_tiny_card_vs_cpu(census):
+    """Tiny fp32 SD3 pipelines on the card (graphed) against the same weights
+    on the CPU, batch BATCH, CFG SD3_GUIDANCE, 8 flow Euler steps: exact,
+    trunk-delta (interval 2, branch 1), ToMe 0.5 (the engine's own
+    destinations, drawn on the host), with T5, the two-scheduler switch and
+    step skipping; images within 1e-3, the exact run's fp32 attention
+    launches the census's.  Then int8 runs, held to the CPU's drift from
+    its exact run, with their int8 GEMMs the census's."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.sampler import CachePlan
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention_tf32x3
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    W = GraphedCall.WARMUP
+    prompts = ["a lighthouse at dusk", "a red boat"]
+    kw = dict(num_inference_steps=8, guidance_scale=SD3_GUIDANCE, seed=29)
+    out = {}
+
+    def pair(name="stable_diffusion_3_model", **extra):
+        cpu = sd3_pipeline(name, tiny=True, dtype="float32", seed=0, device="cpu", **extra)
+        card = sd3_pipeline(name, tiny=True, dtype="float32", seed=0, device="cuda", **extra)
+        card.engine.load_state_dicts({k: m.state_dict() for k, m in
+                                      zip(cpu.engine.MODULES, cpu.engine.modules())})
+        return cpu, card
+
+    base = pair()
+    cases = [("exact", base, {}, None), ("trunk_delta", base, {}, (2, 1)),
+             ("tome", base, dict(tome_ratio=SD3_TOME), None),
+             ("t5", pair(use_t5=True), {}, None),
+             ("two_schedulers", pair("stable_diffusion_3_model_two_schedulers"),
+              dict(num_step_switch=3), None),
+             ("skip", pair("stable_diffusion_3_model_skip_timesteps"),
+              dict(skip_timesteps=[2, 5]), None)]
+    per = {p: _kinds(census[p])["attention"] for p in ("tiny", "tiny_vae")}
+    for name, (cpu, card), extra, cache in cases:
+        for m in (cpu, card):
+            m.cache_plan_fn = (lambda n, c=cache: CachePlan.every(n, *c)) if cache else None
+        a = cpu(prompts, **kw, **extra)[0]
+        flash_attention_tf32x3.launches = 0
+        b = card(prompts, **kw, **extra)[0]
+        launches = flash_attention_tf32x3.launches
+        for m in (cpu, card):
+            m.cache_plan_fn = None
+        err = float(np.abs(a - b).max())
+        print(f"tiny fp32 SD3 {name} ({card.num_timesteps} rows), card vs CPU: max abs image err "
+              f"{err:.3e} (tolerance 1e-3); flash_attention_tf32x3 launches {launches}; graph "
+              f"captures {card.engine.graphed_unet.captures}", flush=True)
+        if not err <= 1e-3 or not np.isfinite(b).all():
+            raise AssertionError(f"the tiny SD3 {name} run on the card disagrees with the CPU")
+        want = (W + 1) * per["tiny"] + per["tiny_vae"]
+        if name == "exact" and launches != want:
+            raise AssertionError(f"the tiny SD3 run launched the fp32 attention kernel "
+                                 f"{launches} times, expected {want}")
+        out[name] = dict(max_abs_image_err=err, fp32_attention_launches=launches)
+    caps = base[1].engine.graphed_unet.captures
+    if sorted(caps.values()) != [1] * 4:  # plain, trunk-delta's full and cached, ToMe
+        raise AssertionError(f"the tiny SD3 runs captured {caps}")
+    cpu, card = base
+    exact = cpu(prompts, **kw)[0]
+    for m in (cpu, card):
+        m.engine.set_quant_mode("int8")
+    try:
+        a = cpu(prompts, **kw)[0]
+        int8_counts(reset=True)
+        b = card(prompts, **kw)[0]
+        q = int8_counts()
+    finally:
+        for m in (cpu, card):
+            m.engine.set_quant_mode(None)
+    rel = lambda x, y: float(np.linalg.norm(x - y) / np.linalg.norm(y))  # noqa: E731
+    err, card_rel, drift = float(np.abs(a - b).max()), rel(b, a), rel(a, exact)
+    n = (W + 1) * _kinds(census["tiny_int8"])["int8_dense"]
+    print(f"tiny fp32 SD3 int8 run, card vs CPU: max abs image err {err:.3e} (within 1e-3: "
+          f"{err <= 1e-3}), relative {card_rel:.3e} against the CPU's quantized-vs-exact drift "
+          f"{drift:.3e}; int8 launches {q} (expected {n} GEMMs and dense calls)", flush=True)
+    if not card_rel < drift or q != {"int8_gemm": n, "int8_conv": 0, "int8_dense": n}:
+        raise AssertionError(f"the tiny SD3 int8 run on the card: relative err {card_rel:.3e}, "
+                             f"drift {drift:.3e}, int8 launches {q}")
+    out["int8"] = dict(max_abs_image_err=err, relative_err=card_rel, cpu_drift=drift,
+                       int8_launches=q)
+    return out
+
+
+def sd3_loops(model, census, card, reps=(2, 2, 2, 1)):
+    """SD3-medium at SD3_SIZE^2 through the pipeline (random bf16 weights,
+    SD3_STEPS-step flow Euler at shift SD3_SHIFT, CFG SD3_GUIDANCE, batch
+    BATCH): one run at SD3_SMALL^2 first (its own capture); then exact,
+    trunk-delta (interval and branch SD3_CACHE), ToMe SD3_TOME and int8,
+    each first run capturing its graphs with the wrappers' counts set to 0
+    just before and read just after (the census of each variant's warm-ups
+    and capture and one decode; int8 dense calls and GEMMs too), then
+    ``reps`` warm runs of each in turns (exact, trunk-delta, ToMe, int8;
+    execution_time, peak memory); a warm exact
+    run traced (24 joint attentions a forward, by kernel name); one
+    capture per variant (the plain one's second, after SD3_SMALL's).
+    Returns the results and the exact run's images."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.sampler import CachePlan
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    W = GraphedCall.WARMUP
+    eng = model.engine
+    kw = dict(num_inference_steps=SD3_STEPS, guidance_scale=SD3_GUIDANCE, seed=29)
+    vae = _kinds(census["vae"])
+    out = {}
+    wrapper_counts(reset=True)
+    imgs, secs, _ = model(PROMPTS, height=SD3_SMALL, width=SD3_SMALL, **kw)
+    counts = bf16_only(wrapper_counts(), "sd3 512 run")
+    want = {k: (W + 1) * _kinds(census["small"])[k] + _kinds(census["vae_small"])[k] for k in MAIN}
+    print(f"SD3 {SD3_SMALL}x{SD3_SMALL}, {SD3_STEPS} steps, batch {BATCH}: execution_time "
+          f"{secs:.4f} s (graph capture included); wrapper launches {counts} (expected {want})",
+          flush=True)
+    if counts != want or imgs.shape != (BATCH, SD3_SMALL, SD3_SMALL, 3) or \
+            not np.isfinite(imgs).all():
+        raise AssertionError(f"SD3 {SD3_SMALL} run: launches {counts}, images {imgs.shape}")
+    out["small"] = dict(execution_time_s=secs, first_run_wrapper_launches=counts)
+    full = SD3_STEPS // SD3_CACHE[0] + bool(SD3_STEPS % SD3_CACHE[0])
+    runs = {"exact": ({}, None, None), "trunk_delta": ({}, SD3_CACHE, None),
+            "tome": (dict(tome_ratio=SD3_TOME), None, None), "int8": ({}, None, "int8")}
+
+    def run(name):
+        extra, cache, quant = runs[name]
+        model.cache_plan_fn = (lambda n: CachePlan.every(n, *cache)) if cache else None
+        eng.set_quant_mode(quant)
+        try:
+            return model(PROMPTS, **kw, **extra)
+        finally:
+            eng.set_quant_mode(None)
+            model.cache_plan_fn = None
+
+    first, launches = {}, {}
+    for name in runs:
+        wrapper_counts(reset=True)
+        int8_counts(reset=True)
+        first[name] = run(name)[0]
+        counts, q = bf16_only(wrapper_counts(), f"sd3 {name}"), int8_counts()
+        launches[name] = counts
+        parts = {"exact": ["loop"], "trunk_delta": ["loop", "shallow"], "tome": ["tome"],
+                 "int8": ["int8"]}[name]
+        want = {k: (W + 1) * sum(_kinds(census[p])[k] for p in parts) + vae[k] for k in MAIN}
+        n8 = (W + 1) * _kinds(census["int8"])["int8_dense"] if name == "int8" else 0
+        want_q = {"int8_gemm": n8, "int8_conv": 0, "int8_dense": n8}
+        print(f"SD3 {name} first run: wrapper launches {counts} (expected {want}), int8 {q} "
+              f"(expected {want_q})", flush=True)
+        if counts != want or q != want_q or not np.isfinite(first[name]).all():
+            raise AssertionError(f"SD3 {name} first run: launches {counts}, int8 {q}")
+    times = {name: [] for name in runs}
+    peak = {}
+    left = dict(zip(runs, reps))
+    for i in range(max(reps)):
+        for name in (runs if i % 2 == 0 else reversed(list(runs))):
+            if not left[name]:
+                continue
+            left[name] -= 1
+            torch.cuda.reset_peak_memory_stats()
+            imgs, secs, _ = run(name)
+            times[name].append(secs)
+            peak[name] = max(peak.get(name, 0.0), torch.cuda.max_memory_allocated() / 1e9)
+            if name == "exact" and not np.array_equal(imgs, first["exact"]):
+                raise AssertionError("SD3: a warm exact run gave other images")
+    wrapper_counts(reset=True)
+    (imgs, _, _), traced = traced_launches(lambda: run("exact"))
+    traced = bf16_only(traced, "sd3 exact (trace)")
+    want = {k: SD3_STEPS * _kinds(census["loop"])[k] + vae[k] for k in MAIN}
+    caps = {", ".join(f"{k}={v}" for k, v in key) or "plain": n
+            for key, n in eng.graphed_unet.captures.items()}
+    drift = {name: float(np.linalg.norm(first[name] - first["exact"]) /
+                         np.linalg.norm(first["exact"])) for name in runs if name != "exact"}
+    out.update(execution_time_s=times, median_s={k: statistics.median(v) for k, v in times.items()},
+               sec_per_image={k: statistics.median(v) / BATCH for k, v in times.items()},
+               peak_gb=peak, image_drift=drift, traced_launches=traced, graph_captures=caps,
+               first_run_wrapper_launches=launches, trunk_delta_full_steps=full)
+    print(f"SD3 engine loops, bf16 {SD3_SIZE}x{SD3_SIZE}, {SD3_STEPS}-step flow Euler (shift "
+          f"{SD3_SHIFT}), CFG {SD3_GUIDANCE}, batch {BATCH} (warm, in turns, {reps} runs): "
+          f"execution_time medians {out['median_s']} s; peak memory {peak} GB; images' relative "
+          f"drift from exact {drift}; traced exact run {traced} (expected {want}); graph captures "
+          f"{caps}; {card}", flush=True)
+    if traced != want or not np.array_equal(imgs, first["exact"]):
+        raise AssertionError(f"SD3 exact traced run: {traced}, expected {want}")
+    # The plain variant was captured at SD3_SMALL^2, then at SD3_SIZE^2.
+    if sorted(eng.graphed_unet.captures.values()) != [1, 1, 1, 1, 2]:
+        raise AssertionError(f"SD3 loops: graph captures {caps}")
+    if not all(0.0 < d < 1.0 for d in drift.values()):
+        raise AssertionError(f"SD3 loops: drift {drift}")
+    return out, first["exact"]
+
+
+def sd3_t5_runs(census, card):
+    """``use_t5=True``: the pipeline resident (T5-XXL on the card) and
+    staged (its weights in host memory, on the card only for the call's
+    encodes), each built from seed 0 and run once like the exact loop; the
+    images bit-equal, each run's launches the census's at 333 context
+    tokens, the staged pipeline's T5 back in host memory, and each run's
+    peak memory and the memory allocated after it."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    W = GraphedCall.WARMUP
+    kw = dict(num_inference_steps=SD3_STEPS, guidance_scale=SD3_GUIDANCE, seed=29)
+    want = {k: (W + 1) * _kinds(census["t5"])[k] + _kinds(census["vae"])[k] for k in MAIN}
+    imgs, out = {}, {}
+    for staged in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pipe = sd3_pipeline(image_size=SD3_SIZE, seed=0, device="cuda", use_t5=True,
+                            t5_staged=staged)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        wrapper_counts(reset=True)
+        t0 = time.perf_counter()
+        imgs[staged], secs, _ = pipe(PROMPTS, **kw)
+        wall = time.perf_counter() - t0
+        counts = bf16_only(wrapper_counts(), "sd3 t5")
+        name = "staged" if staged else "resident"
+        t5_dev = pipe.engine.t5.shared.weight.device.type
+        out[name] = dict(init_s=init_s, execution_time_s=secs, call_s=wall,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         allocated_before_gb=held_gb,
+                         allocated_after_gb=torch.cuda.memory_allocated() / 1e9,
+                         t5_device=t5_dev, wrapper_launches=counts)
+        print(f"SD3 + T5-XXL {name}: {json.dumps(out[name])}; {card}", flush=True)
+        if counts != want or t5_dev != ("cpu" if staged else "cuda") or pipe._t5_dev is not None:
+            raise AssertionError(f"SD3 + T5 {name}: launches {counts} (expected {want}), T5 on "
+                                 f"{t5_dev}")
+        del pipe
+    if not np.array_equal(imgs[False], imgs[True]) or not np.isfinite(imgs[True]).all():
+        raise AssertionError("SD3 + T5: staged and resident images differ")
+    return out
+
+
+def write_sd3_snapshots(model, root):
+    """The phase's SD3 weights (``model``'s, random from seed 0) and a
+    random SD-1.5 model's as diffusers snapshots under ``root``; returns
+    their paths and the seconds the writes took."""
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.models.weights import write_snapshot
+
+    t0 = time.perf_counter()
+    sd3 = write_snapshot(model.engine, Path(root) / "sd3")
+    sd15_pipe = StableDiffusionModel(image_size=SIZE, seed=0, device="cuda")
+    sd15 = write_snapshot(sd15_pipe.engine, Path(root) / "sd15")
+    del sd15_pipe
+    secs = time.perf_counter() - t0
+    gb = sum(f.stat().st_size for d in (sd3, sd15) for f in d.rglob("*") if f.is_file()) / 1e9
+    print(f"random SD3-medium and SD-1.5 snapshots written: {gb:.2f} GB in {secs:.1f} s",
+          flush=True)
+    return dict(sd3=sd3, sd15=sd15, write_s=secs, gb=gb)
+
+
+def run_sd3_cli(name, point, label, nfe, chunk, x0, census, assets, snapshots, card,
+                trace=False):
+    """``cli.run`` of configs/<name>.yaml as shipped at full width on the
+    phase's SD3 snapshot (its first sweep point, one batch of
+    SD3_CLI_BATCH prompts, phase 9's real images and checkpoints: clip_score,
+    fid at 64, image_reward), in a working directory under ``assets``: its
+    table row, PNGs, one graph capture, the peak memory, and each kernel's
+    launches against the census by the wrappers (and, with ``trace``, by a
+    trace): the MMDiT's warm-ups and capture at its chunk of ``chunk``
+    rows, a decode of the batch and, where the method captures x0, one a
+    step, the metric towers' fp32 attention of one validate batch."""
+    import csv
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch import cli
+    from sonicdiffusionbayeslab_torch.config import load_config
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    repo = Path(__file__).resolve().parent
+    config = str(repo / "configs" / f"{name}.yaml")
+    W = GraphedCall.WARMUP
+    per = _kinds(census["cli" if chunk == 2 * SD3_CLI_BATCH else "cli_chunk"])
+    per_vae = _kinds(census["vae_cli"])
+    calls = 2 * SD3_CLI_BATCH // chunk  # MMDiT calls a step
+    decodes = 1 + nfe * x0
+    fp32 = sum(metric_census(SD3_CLI_BATCH, aesthetic=False).values())
+    want = {k: (W + 1) * per[k] + decodes * per_vae[k] for k in MAIN}
+    want_traced = {k: (W + nfe * calls) * per[k] + decodes * per_vae[k] for k in MAIN}
+    want["attention_fp32"] = want_traced["attention_fp32"] = fp32
+    overrides = {
+        **point, "model.pretrained_model": str(snapshots["sd3"]),
+        "dataset.img_dataset": str(assets["img_dir"]), "dataset.max_count": SD3_CLI_BATCH,
+        "quality_metrics.image_reward.checkpoint": str(assets["ckpts"]["image_reward"]),
+        "quality_metrics.fid.inception_checkpoint": str(assets["ckpts"]["inception"]),
+        "logger.run_id": name,
+        "dataset.prompts": str(repo / "data" / "dataset" / "img2annotations_test.json")}
+    work = Path(assets["root"]) / name
+    work.mkdir()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        wrapper_counts(reset=True)
+        t0 = time.perf_counter()
+        with _RecordingVariants() as rec:
+            if trace:
+                metrics, traced = traced_launches(lambda: cli.run(config, overrides))
+            else:
+                metrics, traced = cli.run(config, overrides), None
+        wall = time.perf_counter() - t0
+        counts = wrapper_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        caps, graphs_gb = rec.captures()
+        with open(work / "outputs" / name / "tables" / "final.tsv") as f:
+            rows = list(csv.DictReader(f, delimiter="\t"))
+        pngs = sorted((work / "outputs" / load_config(config).get("experiment_name") /
+                       label).iterdir())
+    finally:
+        os.chdir(cwd)
+    row = rows[0] if rows else {}
+    vals = {k: float(row[k]) for k in ("clip_score", "fid", "image_reward") if k in row}
+    print(f"{name} as shipped ({label}, nfe {nfe}, MMDiT chunk {chunk}, bf16 {SD3_SIZE}x{SD3_SIZE}, "
+          f"batch {SD3_CLI_BATCH}, random snapshot, real-image directory; clip_score, fid at 64, "
+          f"image_reward on random towers): whole CLI {wall:.3f} s, sweep {row.get('time')} "
+          f"s/image, {vals}; peak memory {peak_gb:.2f} GB; graph captures {dict(caps)} "
+          f"({graphs_gb:.3f} GB); launches: wrappers {counts} (expected {want}), trace {traced} "
+          f"(expected {want_traced if trace else None}); {card}", flush=True)
+    if list(row) != ["exp", "nfe", "time", "clip_score", "fid", "image_reward"] or \
+            len(rows) != 1 or row["exp"] != label or row["nfe"] != str(nfe):
+        raise AssertionError(f"{name} run: table rows {rows}")
+    if metrics["exp"] != [label]:
+        raise AssertionError(f"{name} run: CLI returned {metrics}")
+    if not all(np.isfinite(v) for v in vals.values()) or not 0 <= vals["image_reward"] <= 1:
+        raise AssertionError(f"{name} run: values {vals}")
+    if not (np.isfinite(float(row["time"])) and float(row["time"]) > 0):
+        raise AssertionError(f"{name} run: time {row['time']}")
+    if len(pngs) != SD3_CLI_BATCH or {_png_size(p) for p in pngs} != {(SD3_SIZE, SD3_SIZE)}:
+        raise AssertionError(f"{name} run: {len(pngs)} PNGs")
+    if sorted(caps.values()) != [1]:
+        raise AssertionError(f"{name} run: graph captures {caps}")
+    if counts != want or (trace and traced != want_traced):
+        raise AssertionError(f"{name} run: launches wrappers {counts}, trace {traced}")
+    return dict(wall_s=wall, sec_per_image=float(row["time"]), values=vals, peak_gb=peak_gb,
+                graph_reserved_gb=graphs_gb, wrapper_launches=counts, traced_launches=traced)
+
+
+def run_frontier(snapshots, root, card):
+    """``python -m sonicdiffusionbayeslab_torch.quality_frontier``'s ``main``
+    on the phase's random SD-1.5 and SD3 snapshots and a random CLIP
+    ViT-B/16 (FRONTIER: prompts, batches, steps): its 16 rows (9 SD-1.5, 7
+    SD3) in the TSV and JSONL, each with the steps' NFE, a finite CLIP score
+    and time, and the wrappers' launches over the run."""
+    import csv
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch import quality_frontier
+
+    out_prefix = Path(root) / "frontier" / "frontier"
+    args = ["--sd15", str(snapshots["sd15"]), "--sd3", str(snapshots["sd3"]),
+            "--clip", "openai/clip-vit-base-patch16", "--prompts", str(FRONTIER["prompts"]),
+            "--batch", str(FRONTIER["batch"]), "--sd3-batch", str(FRONTIER["sd3_batch"]),
+            "--steps", str(FRONTIER["steps"]), "--device", "cuda", "--out", str(out_prefix)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    wrapper_counts(reset=True)
+    int8_counts(reset=True)
+    t0 = time.perf_counter()
+    rc = quality_frontier.main(args)
+    wall = time.perf_counter() - t0
+    counts, q = wrapper_counts(), int8_counts()
+    with open(f"{out_prefix}.tsv") as f:
+        rows = list(csv.DictReader(f, delimiter="\t"))
+    jsonl = [json.loads(line) for line in open(f"{out_prefix}.jsonl")]
+    labels = [m.label for m in quality_frontier.SD15_MODES + quality_frontier.SD3_MODES]
+    print(f"quality_frontier ({' '.join(args[:-2])}): {len(rows)} rows in {wall:.1f} s; "
+          f"launches: wrappers {counts}, int8 {q}; {card}", flush=True)
+    for r in rows:
+        print("frontier " + json.dumps(r), flush=True)
+    if rc != 0 or [r["mode"] for r in rows] != labels or [r["mode"] for r in jsonl] != labels:
+        raise AssertionError(f"frontier: rc {rc}, rows {[r['mode'] for r in rows]}")
+    if any(r["nfe"] != str(FRONTIER["steps"]) or not float(r["sec_per_image"]) > 0
+           or not np.isfinite(float(r["clip_score"])) for r in rows):
+        raise AssertionError(f"frontier rows {rows}")
+    return dict(wall_s=wall, rows=rows, wrapper_launches=counts, int8_launches=q)
+
+
+def phase12_launches(out, kind):
+    """A kernel's launches in each phase-12 run: wrappers over each first
+    (capturing) run, and the traces."""
+    if kind == "attention_fp32":
+        return {**{f"tiny {n}": r["fp32_attention_launches"]
+                   for n, r in out["tiny_card_vs_cpu"].items() if "fp32_attention_launches" in r},
+                **{f"{n} cli": r["wrapper_launches"][kind] for n, r in out["cli"].items()},
+                "frontier": out["frontier"]["wrapper_launches"][kind]}
+    loops = out["loops"]
+    return {"512 first run": loops["small"]["first_run_wrapper_launches"][kind],
+            **{f"{n} first run": c[kind] for n, c in loops["first_run_wrapper_launches"].items()},
+            "exact trace": loops["traced_launches"][kind],
+            **{f"t5 {n}": r["wrapper_launches"][kind] for n, r in out["t5"].items()},
+            **{f"{n} cli": r["wrapper_launches"][kind] for n, r in out["cli"].items()},
+            **{f"{n} cli trace": r["traced_launches"][kind] for n, r in out["cli"].items()
+               if r["traced_launches"]},
+            "frontier": out["frontier"]["wrapper_launches"][kind]}
+
+
+def run_sd3(report, card, assets, profile):
+    """Phase 12: SD3-medium at full width."""
+    import numpy as np
+
+    census = sd3_census()
+    per = {part: dict(_kinds(c)) for part, c in census.items()}
+    print(f"phase 12 census (launches a call): {json.dumps(per)}", flush=True)
+    if per["loop"]["attention"] != 24 or per["tome"]["attention"] != 24 or \
+            per["int8"]["int8_dense"] != 1 + 23 * 12 + 9 + 1 or "group_norm" in per["loop"]:
+        raise AssertionError(f"the SD3-medium MMDiT census gives {per['loop']}, {per['tome']}, "
+                             f"{per['int8']}: expected 24 joint attentions a forward, no "
+                             f"GroupNorm, 287 int8 dense calls")
+    joint = sorted({shape[1] for p in ("loop", "t5", "tome", "tome_025", "small")
+                    for kind, shape in census[p] if kind == "attention"})
+    print(f"phase 12 joint attention token counts: {joint}", flush=True)
+    if joint != [1101, 2125, 3149, 4173, 4429]:
+        raise AssertionError(f"joint sequence lengths {joint}")
+    out = {"census": per}
+    out["checked_shapes"] = check_sd3_kernels(census, report)
+    out["timings"], out["kernel_totals"] = time_sd3_kernels(census, card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out["tiny_card_vs_cpu"] = sd3_tiny_card_vs_cpu(census)
+    torch.backends.cudnn.allow_tf32 = True
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = sd3_pipeline(image_size=SD3_SIZE, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    eng = model.engine
+    out["params_m"] = {n: sum(p.numel() for p in m.parameters()) / 1e6
+                       for n, m in zip(eng.MODULES, eng.modules())}
+    print(f"SD3-medium random bf16 init on the card: {out['init_s']:.1f} s; parameters (M) "
+          f"{out['params_m']}", flush=True)
+    out["loops"], before = sd3_loops(model, census, card)
+    if profile:
+        out["profile"] = profile_loop(model, size=SD3_SIZE, label="profile sd3")
+        out["profile_tome"] = profile_loop(model, tome=SD3_TOME, size=SD3_SIZE,
+                                           label=f"profile sd3 tome {SD3_TOME}")
+        eng.set_quant_mode("int8")
+        try:
+            out["profile_int8"] = profile_loop(model, size=SD3_SIZE, label="profile sd3 int8")
+        finally:
+            eng.set_quant_mode(None)
+    out["t5"] = sd3_t5_runs(census, card)
+    snapshots = write_sd3_snapshots(model, assets["root"])
+    out["snapshots"] = dict(write_s=snapshots["write_s"], gb=snapshots["gb"])
+    out["cli"] = {}
+    for i, (name, point, label, nfe, chunk, x0) in enumerate(SD3_CLI_RUNS):
+        out["cli"][name] = run_sd3_cli(name, point, label, nfe, chunk, x0, census, assets,
+                                       snapshots, card, trace=i == 0)
+    out["frontier"] = run_frontier(snapshots, assets["root"], card)
+    kw = dict(num_inference_steps=SD3_STEPS, guidance_scale=SD3_GUIDANCE, seed=29)
+    int8_counts(reset=True)
+    after = model(PROMPTS, **kw)[0]
+    leak = int8_counts()
+    print(f"an exact SD3 run after the int8, T5, CLI and frontier runs: bit-equal to the one "
+          f"before them {np.array_equal(before, after)}, int8 launches {leak}", flush=True)
+    if not np.array_equal(before, after) or any(leak.values()):
+        raise AssertionError("the SD3 exact run changed after the int8 and frontier runs")
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["e2e"]["sd3"] = out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2942,6 +3660,7 @@ def main() -> None:
               for k in (*KERNELS, "attention_fp32_unet")}
     report["errs"] = collections.defaultdict(list)
     report["phase10_errs"] = collections.defaultdict(list)
+    report["phase12_errs"] = collections.defaultdict(list)
     report["e2e"] = {}
 
     phase("3. kernels against their plain versions, at the shapes of the main path and the CLI "
@@ -2992,8 +3711,13 @@ def main() -> None:
               f"{TURBO_TOME}) as shipped, batch {TURBO_BATCH}")
         run_img2img_quant(report, card, assets, args.profile)
 
-    phase("12. kernels")
-    print(f"phases 1-11 took {time.perf_counter() - _T0:.1f} s; {card}")
+        phase(f"12. SD3-medium at {SD3_SIZE}x{SD3_SIZE}: flow Euler loops (exact, trunk-delta, "
+              f"ToMe, int8, T5 staged and resident), the three sd3 configs as shipped at batch "
+              f"{SD3_CLI_BATCH}, and the quality frontier")
+        run_sd3(report, card, assets, args.profile)
+
+    phase("13. kernels")
+    print(f"phases 1-12 took {time.perf_counter() - _T0:.1f} s; {card}")
     fam = report["e2e"]["families"]
     kernels = []
     for kind, meta in KERNELS.items():
@@ -3024,6 +3748,10 @@ def main() -> None:
                                fam["kernel_totals"].items() for part in t if kind in t[part]},
             "phase10_max_abs_err": max(report["phase10_errs"][kind], default=None),
             "phase11_wrapper_launches": phase11_launches(report["e2e"]["img2img_quant"], kind),
+            "phase12_wrapper_launches": phase12_launches(report["e2e"]["sd3"], kind),
+            "phase12_totals": {part: t[kind] for part, t in
+                               report["e2e"]["sd3"]["kernel_totals"].items() if kind in t},
+            "phase12_max_abs_err": max(report["phase12_errs"][kind], default=None),
             **({"phase6_launches": r["phase6_launches"]} if "phase6_launches" in r else {}),
             "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3044,6 +3772,7 @@ def main() -> None:
              "phase10_timings": fam["timings"],
              "phase11_gn_encoder_timings": report["e2e"]["img2img_quant"]["gn_encoder_timings"],
              "phase11_int8_gemms": report["e2e"]["img2img_quant"]["int8_gemms"],
+             "phase12_timings": report["e2e"]["sd3"]["timings"],
              "e2e": report["e2e"],
              "attention_fp32_totals": fp32_totals,
              "profile": report.get("profile")}, indent=1))

@@ -4,7 +4,7 @@ Counterpart of ``sonicdiffusionbayeslab_tpu/experiments/methods.py``: the
 reference's ``default`` (PNDM), ``ddim``, ``dpm_solver``, ``deep_cache``
 (with Token Merging's ``tome_ratio``), ``consistency_model`` (LCM),
 ``two_schedulers``, ``interliving_schedulers`` and ``skip_steps``, and the
-JAX package's ``unipc``, ``deis`` and ``tome``, with the JAX methods' grid
+JAX package's ``unipc``, ``deis``, ``tome`` and ``flow_euler`` (SD3), with the JAX methods' grid
 labels and call arguments.
 A method is a scheduler assignment and a grid definition; generation and
 validation live in ``BaseMethod``.
@@ -99,6 +99,22 @@ class UniPCMethod(BaseMethod):
 
     def grid(self) -> Iterable[dict]:
         return _steps_grid(self.params, [20])
+
+
+@methods_registry.add_to_registry("flow_euler")
+class FlowEulerMethod(BaseMethod):
+    """Rectified-flow Euler step sweep for the SD3 family (``shift``: the
+    sigma grid's resolution shift, 3.0 = SD3-medium), the same sweep as
+    dpm_solver's."""
+
+    def setup_scheduler(self) -> None:
+        self.model.scheduler = self.build_scheduler(
+            self.config.scheduler.get("scheduler_name", "flow_match_euler_scheduler"),
+            shift=float(self.params.get("shift", 3.0)),
+        )
+
+    def grid(self) -> Iterable[dict]:
+        return _steps_grid(self.params, [28])
 
 
 @methods_registry.add_to_registry("deis")

@@ -62,6 +62,10 @@ def main(argv=None) -> None:
     if args.scheduler not in schedulers_registry:
         raise ValueError(f"scheduler {args.scheduler!r} is not ported; ported: "
                          f"{', '.join(sorted(schedulers_registry.keys()))}")
+    if getattr(schedulers_registry[args.scheduler], "SPACE", "vp") == "flow":
+        raise ValueError(f"scheduler {args.scheduler!r} samples flow-matching models (SD3): SD3 "
+                         "through generate.py is not ported yet; use the pipeline "
+                         "stable_diffusion_3_model or the experiment CLI")
     skw = {"solver_order": args.solver_order} if args.scheduler == "dpm_solver_scheduler" else {}
     skw.update(json.loads(args.scheduler_kwargs))
     model = StableDiffusionModel(pretrained_model=args.pretrained_model,

@@ -37,7 +37,7 @@ from torch import nn
 from sonicdiffusionbayeslab_torch.ops import quant
 from sonicdiffusionbayeslab_torch.ops.attention import dot_product_attention
 from sonicdiffusionbayeslab_torch.ops.groupnorm import group_norm_silu
-from sonicdiffusionbayeslab_torch.ops.tome import bipartite_soft_matching_2d
+from sonicdiffusionbayeslab_torch.ops.tome import shared_matching
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -105,6 +105,22 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return group_norm_silu(x, self.weight, self.bias, self.num_groups, self.eps, self.silu)
+
+
+class RMSNorm(nn.Module):
+    """RMS norm over the last axis, no mean and no bias (T5's layer norm,
+    the MMDiT's q/k norms): ``x * (rsqrt(mean(x^2) + eps) * weight)`` in
+    fp32, cast to x's dtype, as the JAX package's ``nn.RMSNorm``."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mul = torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + self.eps)
+        return (xf * (mul * self.weight.float())).to(x.dtype)
 
 
 class ResnetBlock(_Quantizable):
@@ -209,22 +225,10 @@ class TransformerBlock(nn.Module):
         if tome is None:
             x = x + self.attn1(self.norm1(x))
         else:
-            merge, unmerge = self._matching(x, tome, tome_hw, tome_dst, tome_cache)
+            merge, unmerge = shared_matching(x, tome, tome_hw, tome_dst, tome_cache)
             x = x + unmerge(self.attn1(merge(self.norm1(x))))
         x = x + self.attn2(self.norm2(x), context=context)
         return x + self.ff(self.norm3(x))
-
-    @staticmethod
-    def _matching(x, tome, hw, dst, cache):
-        share = tome.share and cache is not None
-        if share:  # a matching of this map built at a batch that divides x's
-            for (h, w, b), mu in cache.items():
-                if (h, w) == tuple(hw) and x.shape[0] % b == 0:
-                    return mu
-        mu = bipartite_soft_matching_2d(x, hw[0], hw[1], tome, dst)
-        if share:
-            cache[(hw[0], hw[1], x.shape[0])] = mu
-        return mu
 
 
 class SpatialTransformer(_Quantizable):

@@ -1,4 +1,4 @@
-"""Pipelines of the port: SD-1.5, SD-2.x and SDXL, text-to-image,
+"""Pipelines of the port: SD-1.5, SD-2.x, SDXL and SD3, text-to-image,
 img2img and inpainting.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/pipelines.py::
@@ -12,7 +12,9 @@ auto); the two-scheduler, interleaved-scheduler and skip-steps variants,
 which differ only in how they compose the plan, as
 ``stable_diffusion_model_two_schedulers``, ``..._interliving_schedulers``
 and ``..._skip_timesteps``; ``StableDiffusionXLModel`` as
-``stable_diffusion_xl_model``.  Weights come from ``pretrained_model``
+``stable_diffusion_xl_model``; ``StableDiffusion3Model`` (the MMDiT,
+flow-matching) as ``stable_diffusion_3_model``, with its three composing
+variants.  Weights come from ``pretrained_model``
 when it names a local diffusers snapshot directory, else from a
 deterministic random init from ``seed``; a LoRA from a local file is fused
 into the UNet with ``load_lora_weights`` and ``fuse_lora``.
@@ -33,10 +35,11 @@ from sonicdiffusionbayeslab_torch.models.sampler import (
     SDXLTextConfigs,
     StableDiffusionEngine,
 )
-from sonicdiffusionbayeslab_torch.models.tokenizer import load_tokenizer
+from sonicdiffusionbayeslab_torch.models.tokenizer import load_t5_tokenizer, load_tokenizer
 from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
 from sonicdiffusionbayeslab_torch.models.weights import (
+    load_sd3_checkpoint,
     load_sd_checkpoint,
     load_torch_state_dict,
     merge_lora,
@@ -102,7 +105,7 @@ class StableDiffusionModel:
         self.engine = self._make_engine(DTYPES[dtype], self.tiny, device)
         snapshot = Path(pretrained_model)
         if snapshot.exists():
-            load_sd_checkpoint(snapshot, self.engine)
+            self._load_checkpoint(snapshot)
         else:  # a hub id with no local copy: deterministic random init
             self.engine.init_params(seed)
         self.device = self.engine.device
@@ -140,6 +143,9 @@ class StableDiffusionModel:
             configs = ((UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny()) if tiny
                        else (UNetConfig.sd15(), VAEConfig.sd15(), CLIPTextConfig.sd15()))
         return StableDiffusionEngine(*configs, dtype=dtype, device=device)
+
+    def _load_checkpoint(self, snapshot: Path) -> None:
+        load_sd_checkpoint(snapshot, self.engine)
 
     def _tokenizer(self, subdir: str, tc: CLIPTextConfig):
         """The snapshot's ``subdir`` BPE tokenizer where it has one, else the
@@ -395,3 +401,125 @@ class StableDiffusionXLModel(StableDiffusionModel):
         if len(queue) > 1:
             added["negative_text_embeds"] = queue[1]
         return {"added_cond": added}
+
+
+@models_registry.add_to_registry("stable_diffusion_3_model")
+class StableDiffusion3Model(StableDiffusionXLModel):
+    """SD3-class rectified-flow text-to-image (``models/mmdit.py``,
+    ``models/sd3.py``): the MMDiT velocity transformer, sampled with
+    ``flow_match_euler_scheduler`` plans by the same engine loop; CFG, x0
+    capture, microbatch, img2img's flow-path seeding, DeepCache (the
+    trunk-delta cache), Token Merging (image tokens) and int8 W8A8 apply.
+    Conditioning is CLIP-only by default (both towers' penultimate states
+    zero-padded to T5's width, both projected pooled embeddings);
+    ``use_t5`` adds T5-XXL's states after them on the sequence axis, with
+    ``HashTokenizer`` ids (a snapshot's ``tokenizer_3/tokenizer.json`` has
+    no reader in the port and raises).
+
+    ``t5_staged``: the T5 weights stay in host memory, go to the card for
+    a call's encodes and are freed before its denoising loop (``True``,
+    "staged"), or stay on the card (``False``, "resident"); "auto" stages
+    at full size and keeps the tiny model resident (the JAX package's rule
+    for one device).  Both give the same images.
+
+    ControlNet, IP-Adapter and prompt weighting are refused, as in the JAX
+    package."""
+
+    def __init__(self, pretrained_model: str = "stabilityai/stable-diffusion-3-medium",
+                 image_size: int = 1024, tiny: bool = False, dtype: str = "bfloat16",
+                 seed: int = 0, lora: str = None, use_t5: bool = False,
+                 t5_staged: object = "auto", prompt_weighting: bool = False,
+                 ip_adapter: str = None, device=None):
+        if prompt_weighting:
+            raise NotImplementedError(
+                "prompt weighting is not wired for SD3's padded dual-tower context (weights "
+                "would need to apply before the T5-width pad)")
+        if ip_adapter:
+            raise NotImplementedError("IP-Adapter is a UNet-family feature")
+        self._use_t5 = bool(use_t5)
+        self.tiny = bool(tiny)
+        self.t5_staged = self._staged(t5_staged)
+        self.pretrained_model = pretrained_model
+        # Checked before the weights are built: the T5 tokenizer of a real
+        # snapshot has no reader here.
+        self.tokenizer3 = None
+        if self._use_t5:
+            self.tokenizer3 = self._t5_tokenizer(tiny)
+        self._t5_dev = None  # the staged mode's copy of T5 on the card during encodes
+        super().__init__(pretrained_model=pretrained_model, image_size=image_size, tiny=tiny,
+                         dtype=dtype, seed=seed, lora=lora, device=device)
+        if self.t5_staged:
+            self.engine.t5.to("cpu")
+
+    def _staged(self, opt) -> bool:
+        if not self._use_t5:
+            return False
+        if opt in (False, "false", "off", "resident"):
+            return False
+        if opt in (True, "true", "staged"):
+            return True
+        if opt != "auto":
+            raise ValueError(f"t5_staged must be auto, staged or resident, got {opt!r}")
+        return not self.tiny
+
+    def _t5_tokenizer(self, tiny: bool):
+        from sonicdiffusionbayeslab_torch.models.t5 import T5Config
+
+        cfg = T5Config.tiny() if tiny else T5Config.xxl()
+        snapshot = Path(self.pretrained_model)
+        tok_dir = snapshot / "tokenizer_3" if snapshot.exists() else None
+        return load_t5_tokenizer(tok_dir and str(tok_dir), cfg.vocab_size, cfg.max_length)
+
+    def _make_engine(self, dtype: torch.dtype, tiny: bool, device):
+        from sonicdiffusionbayeslab_torch.models.mmdit import MMDiTConfig
+        from sonicdiffusionbayeslab_torch.models.sd3 import SD3Engine
+        from sonicdiffusionbayeslab_torch.models.t5 import T5Config
+
+        if tiny:
+            return SD3Engine(MMDiTConfig.tiny(), VAEConfig.tiny16(), SDXLTextConfigs.tiny(),
+                             t5_config=T5Config.tiny() if self._use_t5 else None, dtype=dtype,
+                             device=device)
+        return SD3Engine(use_t5=self._use_t5, dtype=dtype, device=device)
+
+    def _load_checkpoint(self, snapshot: Path) -> None:
+        load_sd3_checkpoint(snapshot, self.engine)
+
+    def _encode(self, prompts: Sequence[str]) -> torch.Tensor:
+        ids3 = self.tokenizer3(list(prompts)) if self.tokenizer3 is not None else None
+        t5 = None
+        if ids3 is not None and self.t5_staged:
+            if self._t5_dev is None:
+                self._t5_dev = self.engine.t5_copy(self.device)
+            t5 = self._t5_dev
+        ctx, pooled = self.engine.encode_prompts_sd3(self.tokenizer(list(prompts)),
+                                                     self.tokenizer2(list(prompts)), ids3, t5)
+        self._pooled_queue.append(pooled)
+        return ctx
+
+    def _extra_sample_kwargs(self, batch: int, lat_hw) -> Dict[str, Any]:
+        # The staged T5 copy goes before the loop claims the memory; the
+        # caching allocator reuses it once the encodes' kernels are done.
+        self._t5_dev = None
+        queue, self._pooled_queue = self._pooled_queue, []
+        # time_ids: engine plumbing only; the MMDiT ignores them.
+        added = {"text_embeds": queue[0], "time_ids": torch.zeros(batch, 6)}
+        if len(queue) > 1:
+            added["negative_text_embeds"] = queue[1]
+        return {"added_cond": added}
+
+
+@models_registry.add_to_registry("stable_diffusion_3_model_two_schedulers")
+class StableDiffusion3ModelTwoSchedulers(_TwoSchedulersPlanMixin, StableDiffusion3Model):
+    """SD3 scheduler switching: both schedulers flow-space (the composers'
+    SPACE guard refuses a flow-to-VP mix)."""
+
+
+@models_registry.add_to_registry("stable_diffusion_3_model_interliving_schedulers")
+class StableDiffusion3ModelInterlivingSchedulers(_InterlivingPlanMixin, StableDiffusion3Model):
+    """SD3 interleaved schedulers (flow-to-flow)."""
+
+
+@models_registry.add_to_registry("stable_diffusion_3_model_skip_timesteps")
+class StableDiffusion3ModelSkipTimesteps(_SkipTimestepsPlanMixin, StableDiffusion3Model):
+    """SD3 step skipping on the flow sigma grid (skipped transitions are
+    absent)."""

@@ -33,7 +33,7 @@ from sonicdiffusionbayeslab_torch.models.clip_text import (
     CLIPTextModel,
     CLIPTextModelWithProjection,
 )
-from sonicdiffusionbayeslab_torch.models.layers import GroupNorm
+from sonicdiffusionbayeslab_torch.models.layers import GroupNorm, RMSNorm
 from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
 from sonicdiffusionbayeslab_torch.ops import quant
@@ -130,6 +130,8 @@ def init_module(module: nn.Module, gen: torch.Generator) -> None:
         elif isinstance(m, (GroupNorm, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, RMSNorm):
+            m.weight.fill_(1.0)
         elif isinstance(m, nn.Embedding):
             std = 0.01 if name.endswith("position_embedding") else m.embedding_dim ** -0.5
             _normal_(m.weight, std, gen)

@@ -2,8 +2,10 @@
 deterministic offline stand-in.
 
 The port's own copy of ``sonicdiffusionbayeslab_tpu/models/tokenizer.py``
-(``CLIPBPETokenizer``, ``HashTokenizer``, ``load_tokenizer``).  Both give
-fixed-length [B, 77] int32 ids: BOS, ids, EOS, then EOS padding.
+(``CLIPBPETokenizer``, ``HashTokenizer``, ``load_tokenizer``,
+``load_t5_tokenizer``).  Both give fixed-length [B, 77] int32 ids: BOS,
+ids, EOS, then EOS padding (SD3's T5 tower takes the hash ids at its own
+vocabulary and 256 tokens).
 """
 
 from __future__ import annotations
@@ -129,4 +131,23 @@ def load_tokenizer(local_dir: str | None = None, vocab_size: int = 49408, max_le
         vocab, merges = d / "vocab.json", d / "merges.txt"
         if vocab.exists() and merges.exists():
             return CLIPBPETokenizer(str(vocab), str(merges), max_length)
+    return HashTokenizer(vocab_size, max_length)
+
+
+class T5TokenizerNotPorted(NotImplementedError):
+    """A snapshot's T5 ``tokenizer.json`` (a Unigram model read by the
+    ``tokenizers`` package in the JAX package) has no reader in the port."""
+
+
+def load_t5_tokenizer(local_dir: str | None = None, vocab_size: int = 32128,
+                      max_length: int = 256):
+    """SD3's T5 tokenizer: ``HashTokenizer(vocab_size, max_length)``, as
+    the JAX package falls back to without a snapshot.  A ``local_dir`` that
+    holds ``tokenizer.json`` raises: hashing a real checkpoint's prompts
+    would give ids its embedding never learned."""
+    if local_dir and (Path(local_dir) / "tokenizer.json").exists():
+        raise T5TokenizerNotPorted(
+            f"{Path(local_dir) / 'tokenizer.json'}: the T5 tokenizer.json reader is not ported "
+            "yet to the PyTorch package (ROADMAP A4); run SD3 without use_t5, or with a "
+            "snapshot that has no tokenizer_3/tokenizer.json")
     return HashTokenizer(vocab_size, max_length)

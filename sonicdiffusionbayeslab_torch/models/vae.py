@@ -6,8 +6,8 @@ Counterpart of ``sonicdiffusionbayeslab_tpu/models/vae.py``: ``Decoder``,
 the JAX package's VAE).  Geometry
 (SD-1.5 vae/config.json, also SD-2.x's and SDXL's): 4 latent channels,
 block_out_channels (128, 256, 512, 512), 2 layers per block, a mid
-attention, scaling factor 0.18215 (SDXL's 0.13025); every norm uses eps
-1e-6.  Parameter names follow diffusers'
+attention, scaling factor 0.18215 (SDXL's 0.13025; SD3's: 16 channels,
+1.5305 and shift 0.0609, no quant convs); every norm uses eps 1e-6.  Parameter names follow diffusers'
 ``AutoencoderKL``; maps are [B, H, W, C].
 """
 
@@ -63,6 +63,19 @@ class VAEConfig:
         """SD's geometry, retrained for SDXL (scaling factor 0.13025,
         stable-diffusion-xl-base-1.0 vae/config.json)."""
         return cls(scaling_factor=0.13025)
+
+    @classmethod
+    def sd3(cls) -> "VAEConfig":
+        """stable-diffusion-3-medium vae/config.json: 16-channel latents,
+        scaling 1.5305, shift 0.0609, no (post_)quant convs."""
+        return cls(latent_channels=16, scaling_factor=1.5305, shift_factor=0.0609,
+                   use_quant_conv=False)
+
+    @classmethod
+    def tiny16(cls) -> "VAEConfig":
+        """The tiny geometry with SD3's 16-channel latent contract."""
+        return cls(block_out_channels=(16, 32), layers_per_block=1, latent_channels=16,
+                   scaling_factor=1.5305, shift_factor=0.0609, use_quant_conv=False)
 
 
 class Decoder(nn.Module):

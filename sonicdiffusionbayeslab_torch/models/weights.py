@@ -2,8 +2,8 @@
 
 The port's own copies of the name maps in
 ``sonicdiffusionbayeslab_tpu/models/weights.py`` (``unet_name_map``,
-``vae_name_map``, ``clip_text_name_map``, ``clip_dual_name_map``) and of
-``invert``: for every JAX parameter path, the diffusers / transformers
+``vae_name_map``, ``clip_text_name_map``, ``clip_dual_name_map``,
+``mmdit_name_map``, ``t5_name_map``) and of ``invert``: for every JAX parameter path, the diffusers / transformers
 tensor name and the layout change (HWIO conv -> OIHW, [in, out] dense ->
 [out, in], dense -> [out, in, 1, 1] for SD-1.5's 1x1-conv transformer
 projections; SD-2.x's and SDXL's are linears).  The metric towers' maps follow the JAX package's loaders
@@ -12,13 +12,14 @@ names; ``inception_name_map``: pytorch-fid's; ``aesthetic_name_map``:
 the LAION head's), and ``*_from_jax`` turn those JAX trees into the
 port's state dicts.  The port's modules carry exactly those names, so a local
 diffusers snapshot or transformers CLIP checkpoint loads by name
-(``load_sd_checkpoint``, ``load_sdxl_checkpoint``,
-``load_clip_checkpoint``), strictly, after dropping by name the few keys
+(``load_sd_checkpoint``, ``load_sdxl_checkpoint``, ``load_sd3_checkpoint``,
+``load_clip_checkpoint``; ``write_snapshot`` writes one), strictly, after dropping by name the few keys
 the port's modules do not have.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Callable, Dict, List, Tuple
 
@@ -272,6 +273,74 @@ def inception_name_map(tree: dict) -> NameMap:
     return dict(m)
 
 
+def mmdit_name_map(cfg) -> NameMap:
+    """The JAX ``MMDiT`` tree -> diffusers ``SD3Transformer2DModel`` names.
+    The JAX patch kernel [p * p * C, O] in (ph, pw, c) row order becomes
+    ``pos_embed.proj``'s OIHW conv weight; the final block has no context
+    output projection or feed-forward; the sincos table is not a
+    parameter."""
+    m = MapEntries()
+    p = cfg.patch_size
+
+    def patch(w):  # [ph * pw * C, O] -> [O, C, ph, pw]
+        return np.asarray(w).reshape(p, p, -1, w.shape[-1]).transpose(3, 2, 0, 1)
+
+    m["patch_proj/kernel"] = ("pos_embed.proj.weight", patch)
+    m["patch_proj/bias"] = ("pos_embed.proj.bias", _id)
+    for ours, theirs in (("timestep_embedder", "timestep_embedder"),
+                         ("text_embedder", "text_embedder")):
+        m.dense(f"{ours}/fc1", f"time_text_embed.{theirs}.linear_1")
+        m.dense(f"{ours}/fc2", f"time_text_embed.{theirs}.linear_2")
+    m.dense("context_embedder", "context_embedder")
+    for i in range(cfg.depth):
+        d, s = f"blocks_{i}", f"transformer_blocks.{i}"
+        m.dense(f"{d}/norm1/linear", f"{s}.norm1.linear")
+        m.dense(f"{d}/norm1_context/linear", f"{s}.norm1_context.linear")
+        for proj in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj"):
+            m.dense(f"{d}/{proj}", f"{s}.attn.{proj}")
+        m.dense(f"{d}/to_out", f"{s}.attn.to_out.0")
+        if cfg.qk_norm:
+            for n in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+                m[f"{d}/{n}/scale"] = (f"{s}.attn.{n}.weight", _id)
+        m.dense(f"{d}/ff/proj_in", f"{s}.ff.net.0.proj")
+        m.dense(f"{d}/ff/proj_out", f"{s}.ff.net.2")
+        if i < cfg.depth - 1:
+            m.dense(f"{d}/to_add_out", f"{s}.attn.to_add_out")
+            m.dense(f"{d}/ff_context/proj_in", f"{s}.ff_context.net.0.proj")
+            m.dense(f"{d}/ff_context/proj_out", f"{s}.ff_context.net.2")
+    m.dense("norm_out/linear", "norm_out.linear")
+    m.dense("proj_out", "proj_out")
+    return dict(m)
+
+
+def t5_name_map(num_layers: int) -> NameMap:
+    """The JAX ``T5Encoder`` tree -> transformers ``T5EncoderModel`` names;
+    the shared relative-position table is block 0's."""
+    m = MapEntries()
+    m["token_embedding/embedding"] = ("shared.weight", _id)
+    m["relative_attention_bias"] = (
+        "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight", _id)
+    m["final_ln/scale"] = ("encoder.final_layer_norm.weight", _id)
+    for i in range(num_layers):
+        d, s = f"block_{i}", f"encoder.block.{i}"
+        for p in "qkvo":
+            m.dense(f"{d}/attn/{p}", f"{s}.layer.0.SelfAttention.{p}", bias=False)
+        m[f"{d}/ln1/scale"] = (f"{s}.layer.0.layer_norm.weight", _id)
+        for p in ("wi_0", "wi_1", "wo"):
+            m.dense(f"{d}/{p}", f"{s}.layer.1.DenseReluDense.{p}", bias=False)
+        m[f"{d}/ln2/scale"] = (f"{s}.layer.1.layer_norm.weight", _id)
+    return dict(m)
+
+
+def mmdit_geometry(tree: dict, patch_size: int = 2):
+    """The name-map-relevant geometry of a JAX MMDiT tree (depth, q/k
+    norms); the patch size does not show in the tree (SD3's is 2)."""
+    from sonicdiffusionbayeslab_torch.models.mmdit import MMDiTConfig
+
+    return MMDiTConfig(depth=_count(tree, "blocks_{}"), patch_size=patch_size,
+                       qk_norm="norm_q" in tree["blocks_0"])
+
+
 def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {n: torch.from_numpy(np.ascontiguousarray(a)) for n, a in sd.items()}
 
@@ -351,28 +420,37 @@ def unet_geometry(tree: dict) -> UNetConfig:
     )
 
 
-def state_dicts_from_jax(params_np: dict, unet_config: UNetConfig = None
+def state_dicts_from_jax(params_np: dict, unet_config=None
                          ) -> Dict[str, Dict[str, torch.Tensor]]:
     """The JAX engine's tree (numpy leaves) -> a state dict of fp32 tensors
     for each module that the port's modules load with ``strict=True``:
-    ``{"unet", "vae", "text"}``, and an SDXL tree's ``"text2"`` (its
-    ``text2_proj`` kernel as ``text_projection.weight``).  The VAE keeps
-    both sides (a tree without the encoder loads for decoding only).
-    ``unet_config`` gives the UNet's projection layout
-    (needed for SD-2.x); without it the tree's own geometry is used
-    (``unet_geometry``)."""
+    ``{"unet", "vae", "text"}``, an SDXL tree's ``"text2"`` (its
+    ``text2_proj`` kernel as ``text_projection.weight``), and an SD3 tree's
+    MMDiT as ``"unet"``, both towers' projections (``text_proj``,
+    ``text2_proj``) and its optional ``"t5"``.  The VAE keeps both sides (a
+    tree without the encoder loads for decoding only).  ``unet_config``
+    gives the UNet's projection layout (needed for SD-2.x) or the MMDiT's
+    patch size; without it the tree's own geometry is used
+    (``unet_geometry``, ``mmdit_geometry``)."""
     dec = params_np["vae"]["decoder"]
     vae = invert(params_np["vae"], vae_name_map(_count(dec, "up_{}_res_0"),
                                                 _count(dec, "up_0_res_{}") - 1))
-    cfg = unet_config or unet_geometry(params_np["unet"])
-    sds = {"unet": invert(params_np["unet"], unet_name_map(cfg)), "vae": vae}
+    tree = params_np["unet"]
+    if "blocks_0" in tree:  # the MMDiT
+        cfg = mmdit_geometry(tree, unet_config.patch_size if unet_config else 2)
+        unet = invert(tree, mmdit_name_map(cfg))
+    else:
+        unet = invert(tree, unet_name_map(unet_config or unet_geometry(tree)))
+    sds = {"unet": unet, "vae": vae}
     for key in ("text", "text2"):
         if key in params_np:
             sds[key] = invert(params_np[key],
                               clip_text_name_map(_count(params_np[key], "layer_{}")))
-    if "text2_proj" in params_np:
-        sds["text2"]["text_projection.weight"] = _lin(
-            np.asarray(params_np["text2_proj"]["kernel"], np.float32))
+        if f"{key}_proj" in params_np:
+            sds[key]["text_projection.weight"] = _lin(
+                np.asarray(params_np[f"{key}_proj"]["kernel"], np.float32))
+    if "t5" in params_np:
+        sds["t5"] = invert(params_np["t5"], t5_name_map(_count(params_np["t5"], "block_{}")))
     return {k: _tensors(sd) for k, sd in sds.items()}
 
 
@@ -442,6 +520,66 @@ def load_sd_checkpoint(snapshot_dir: str | Path, engine) -> None:
         path = _find_checkpoint(snapshot_dir / sub, names)
         _load_strict(module, load_torch_state_dict(path), drop, str(path))
     engine.graphed_unet.clear()
+
+
+# Keys of a diffusers SD3 snapshot with no parameter in the port: the
+# transformer's fixed sincos table (recomputed) and T5's tied copy of its
+# token embedding.
+_SD3_EXTRA = {"transformer": ("pos_embed.pos_embed",),
+              "text_encoder_3": ("encoder.embed_tokens.weight",)}
+_CHECKPOINT_NAMES = ("diffusion_pytorch_model.bin", "pytorch_model.bin",
+                     "diffusion_pytorch_model.safetensors", "model.safetensors")
+# Each module's directory in a diffusers snapshot, and its file name.
+_SNAPSHOT_DIRS = {"unet": ("unet", "diffusion_pytorch_model.bin"),
+                  "vae": ("vae", "diffusion_pytorch_model.bin"),
+                  "text": ("text_encoder", "pytorch_model.bin"),
+                  "text2": ("text_encoder_2", "pytorch_model.bin"),
+                  "t5": ("text_encoder_3", "pytorch_model.bin")}
+
+
+def _load_dir(d: Path) -> Dict[str, torch.Tensor]:
+    """The state dict under a snapshot directory: one checkpoint file, or
+    the shards a ``*.index.json`` lists (transformers' sharded layout)."""
+    for index in sorted(d.glob("*.index.json")):
+        shards = sorted(set(json.loads(index.read_text())["weight_map"].values()))
+        sd = {}
+        for shard in shards:
+            sd.update(load_torch_state_dict(d / shard))
+        return sd
+    return load_torch_state_dict(_find_checkpoint(d, _CHECKPOINT_NAMES))
+
+
+def load_sd3_checkpoint(snapshot_dir: str | Path, engine) -> None:
+    """A diffusers SD3 snapshot dir (``transformer/`` the MMDiT, ``vae/``,
+    ``text_encoder/`` and ``text_encoder_2/`` both
+    ``CLIPTextModelWithProjection``, and ``text_encoder_3/`` T5 only when
+    the engine has T5) into an ``SD3Engine``, strictly: the keys the port
+    recomputes or ties (``_SD3_EXTRA``) and the towers' position ids are
+    dropped by name, any other extra or missing key raises."""
+    snapshot_dir = Path(snapshot_dir)
+    parts = [("transformer", engine.unet, _SD3_EXTRA["transformer"]),
+             ("vae", engine.vae, ()), ("text_encoder", engine.text, _CLIP_EXTRA),
+             ("text_encoder_2", engine.text2, _CLIP_EXTRA)]
+    if getattr(engine, "t5", None) is not None:
+        parts.append(("text_encoder_3", engine.t5, _SD3_EXTRA["text_encoder_3"]))
+    for sub, module, extra in parts:
+        d = snapshot_dir / sub
+        _load_strict(module, _load_dir(d), lambda k, extra=extra: k in extra, str(d))
+    engine.graphed_unet.clear()
+
+
+def write_snapshot(engine, snapshot_dir: str | Path) -> Path:
+    """Each of the engine's modules into a diffusers-layout snapshot dir
+    (``torch.save`` of its state dict, the MMDiT under ``transformer/``),
+    which ``load_sd_checkpoint``/``load_sd3_checkpoint`` read back."""
+    root = Path(snapshot_dir)
+    for key, module in zip(engine.MODULES, engine.modules()):
+        sub, name = _SNAPSHOT_DIRS[key]
+        if key == "unet" and hasattr(module, "transformer_blocks"):
+            sub = "transformer"
+        (root / sub).mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, root / sub / name)
+    return root
 
 
 def load_sdxl_checkpoint(snapshot_dir: str | Path, engine) -> None:

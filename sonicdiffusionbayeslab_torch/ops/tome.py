@@ -29,7 +29,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-__all__ = ["TomeConfig", "bipartite_soft_matching_2d", "dst_index_grid"]
+__all__ = ["TomeConfig", "bipartite_soft_matching_2d", "dst_index_grid", "shared_matching"]
 
 
 class TomeConfig:
@@ -194,3 +194,20 @@ def bipartite_soft_matching_2d(metric: torch.Tensor, h: int, w: int, cfg: TomeCo
         return _rows(x, _tile(idx_map, x.shape[0]))
 
     return merge, unmerge
+
+
+def shared_matching(x: torch.Tensor, cfg: TomeConfig, hw, dst_idx: Optional[torch.Tensor],
+                    cache: Optional[dict]) -> Matching:
+    """:func:`bipartite_soft_matching_2d` of ``x`` on the ``hw`` token map,
+    shared through ``cache`` (one dict per model call) when ``cfg.share``:
+    a matching of the same map built at a batch that divides x's is reused
+    (the first block's, so later blocks' destinations go unused)."""
+    share = cfg.share and cache is not None
+    if share:
+        for (h, w, b), mu in cache.items():
+            if (h, w) == tuple(hw) and x.shape[0] % b == 0:
+                return mu
+    mu = bipartite_soft_matching_2d(x, hw[0], hw[1], cfg, dst_idx)
+    if share:
+        cache[(hw[0], hw[1], x.shape[0])] = mu
+    return mu

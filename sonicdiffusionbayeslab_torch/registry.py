@@ -31,14 +31,10 @@ class PortRegistry(ClassRegistry):
         return super().__getitem__(name)
 
 
-models_registry = PortRegistry("models_registry", (
-    "stable_diffusion_3_model", "stable_diffusion_3_model_interliving_schedulers",
-    "stable_diffusion_3_model_skip_timesteps", "stable_diffusion_3_model_two_schedulers",
-    "stable_diffusion_controlnet_model",
-))
-methods_registry = PortRegistry("methods_registry", ("flow_euler",))
+models_registry = PortRegistry("models_registry", ("stable_diffusion_controlnet_model",))
+methods_registry = PortRegistry("methods_registry", ())
 metrics_registry = PortRegistry("metrics_registry", ())
-schedulers_registry = PortRegistry("schedulers_registry", ("flow_match_euler_scheduler",))
+schedulers_registry = PortRegistry("schedulers_registry", ())
 
 
 def load_all_plugins() -> None:

@@ -27,6 +27,11 @@ from sonicdiffusionbayeslab_torch.schedulers.dpm import (
     simulate_orders,
 )
 from sonicdiffusionbayeslab_torch.schedulers.euler import euler_rows, euler_sigmas, heun_rows
+from sonicdiffusionbayeslab_torch.schedulers.flow import (
+    flow_euler_rows,
+    flow_sigmas,
+    flow_transition_row,
+)
 from sonicdiffusionbayeslab_torch.schedulers.lcm import lcm_rows
 from sonicdiffusionbayeslab_torch.schedulers.plan import SamplePlan, StepRow, stack_rows
 from sonicdiffusionbayeslab_torch.schedulers.plans import (
@@ -47,7 +52,7 @@ from sonicdiffusionbayeslab_torch.schedulers.unipc import unipc_rows
 __all__ = [
     "ScheduleConfig", "NoiseSchedule", "SamplePlan", "StepRow", "DDIMScheduler",
     "DEISScheduler", "DPMSolverScheduler", "EulerAncestralScheduler", "EulerScheduler",
-    "HeunScheduler", "LCMScheduler", "PNDMScheduler", "UniPCScheduler", "two_scheduler_plan",
+    "FlowMatchEulerScheduler", "HeunScheduler", "LCMScheduler", "PNDMScheduler", "UniPCScheduler", "two_scheduler_plan",
     "interleave_plan", "skip_plan",
 ]
 
@@ -462,6 +467,81 @@ class HeunScheduler(EulerScheduler):
             s.extend([s2] if s2 == 0.0 else [s2, s2])
         s = np.asarray(s, np.float32)
         return np.ones_like(s), s
+
+
+@schedulers_registry.add_to_registry("flow_match_euler_scheduler")
+class FlowMatchEulerScheduler(_PlanBuilder):
+    """Rectified-flow Euler (``flow.py``), the sampler of SD3-class
+    flow-matching transformers (``models/mmdit.py``): the carried sample
+    lives on the path ``x = (1 - sigma) x0 + sigma eps`` and the model
+    predicts velocity.  ``shift`` is the sigma grid's resolution shift (3.0
+    is SD3-medium's).  Every composer hook is defined for flow-to-flow
+    composition (memoryless rows on one sigma path); the composers' SPACE
+    guard refuses a mix with a VP or sigma-space scheduler."""
+
+    NAME = "flow_euler"
+    SPACE = "flow"
+
+    def __init__(self, schedule_config=None, prediction_type=None, shift: float = 3.0):
+        cfg = dict(schedule_config or {})
+        self.shift = float(cfg.pop("shift", shift))
+        super().__init__(cfg, prediction_type)
+
+    def _sigmas(self, num_steps: int) -> np.ndarray:
+        return flow_sigmas(num_steps, shift=self.shift,
+                           num_train_timesteps=self.config.num_train_timesteps)
+
+    def timesteps(self, num_steps: int) -> np.ndarray:
+        """sigma * T, descending floats (the grid without its trailing 0);
+        the composers recover the sigmas exactly as ``t / T``."""
+        return self._sigmas(num_steps)[:-1] * self.config.num_train_timesteps
+
+    def _rows_on_grid(self, sigmas, indices, tag=""):
+        sig = np.asarray(sigmas, np.float64)
+        return [flow_transition_row(float(sig[i]), float(sig[i + 1]),
+                                    num_train_timesteps=self.config.num_train_timesteps, tag=tag)
+                for i in indices]
+
+    @staticmethod
+    def _grid_from_ts(ts, T) -> np.ndarray:
+        """The sigma grid (trailing 0.0) of a composer's timestep array."""
+        return np.concatenate([np.asarray(ts, np.float64) / T, [0.0]])
+
+    def transition_rows(self, ts, num_steps, executed, tag=""):
+        sig = self._grid_from_ts(ts, self.config.num_train_timesteps)
+        return self._rows_on_grid(sig, list(executed), tag=tag)
+
+    def transition_rows_from_schedule(self, ts, start, tag=""):
+        sig = self._grid_from_ts(ts, self.config.num_train_timesteps)
+        return self._rows_on_grid(sig, range(start, len(ts)), tag=tag)
+
+    def ladder_rows(self, ts_exec, positions, tag=""):
+        # Executed steps move along the executed schedule's noise levels.
+        sig = self._grid_from_ts(ts_exec, self.config.num_train_timesteps)
+        return self._rows_on_grid(sig, list(positions), tag=tag)
+
+    def skip_rows(self, num_steps, executed, tag=""):
+        # Memoryless rows: each executed step keeps its own sigma[i] ->
+        # sigma[i + 1]; skipped transitions are absent, as DDIM's skips.
+        return self._rows_on_grid(self._sigmas(num_steps), list(executed), tag=tag)
+
+    def build_plan(self, num_steps: int) -> SamplePlan:
+        return self.tail_plan(num_steps, 0)
+
+    def tail_plan(self, num_steps: int, start_index: int) -> SamplePlan:
+        rows = flow_euler_rows(self._sigmas(num_steps)[start_index:],
+                               num_train_timesteps=self.config.num_train_timesteps)
+        sfx = f"[{start_index}:]" if start_index else ""
+        return stack_rows(rows, name=f"{self.NAME}(n={num_steps},shift={self.shift:g}){sfx}")
+
+    def noised_latents(self, z, noise, num_steps: int, start_index: int):
+        """Flow-path seeding (img2img): (1 - sigma) z + sigma noise."""
+        s = float(self._sigmas(num_steps)[start_index])
+        return (1.0 - s) * z + s * noise
+
+    def blend_schedule(self, num_steps: int, start_index: int = 0):
+        s = np.asarray(self._sigmas(num_steps)[start_index + 1:], np.float32)
+        return (1.0 - s), s
 
 
 @schedulers_registry.add_to_registry("pndm_scheduler")

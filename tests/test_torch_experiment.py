@@ -201,14 +201,25 @@ def test_cli_without_device_raises_without_gpu(tmp_path, monkeypatch):
         cli.main(["--config", SMOKE, "--set", f"dataset.prompts={PROMPTS}"])
 
 
+# SD3 with T5 on a snapshot whose tokenizer_3 holds a tokenizer.json (the
+# T5 reader is not ported): through the flow scheduler and the flow_euler
+# method, each on an SD3 pipeline.
+_SD3_T5 = {"model.pretrained_model": "sd3", "model.use_t5": True}
+
+
 @pytest.mark.parametrize("overrides,match", [
     ({"inference.quant": "int4"}, "inference.quant"),
-    ({"scheduler.scheduler_name": "flow_match_euler_scheduler"}, "not ported yet"),
+    ({"scheduler.scheduler_name": "flow_match_euler_scheduler",
+      "model.model_name": "stable_diffusion_3_model", **_SD3_T5}, "not ported yet"),
     ({"model.model_name": "stable_diffusion_controlnet_model"}, "not ported yet"),
-    ({"experiment.method": "flow_euler"}, "not ported yet"),
+    ({"experiment.method": "flow_euler",
+      "model.model_name": "stable_diffusion_3_model_skip_timesteps", **_SD3_T5},
+     "not ported yet"),
 ])
 def test_cli_names_what_is_not_ported(tmp_path, monkeypatch, overrides, match):
     monkeypatch.chdir(tmp_path)
+    (tmp_path / "sd3" / "tokenizer_3").mkdir(parents=True)
+    (tmp_path / "sd3" / "tokenizer_3" / "tokenizer.json").write_text("{}")
     with pytest.raises((NotImplementedError, KeyError, ValueError), match=match):
         cli.run(SMOKE, {"dataset.prompts": PROMPTS, **overrides}, device="cpu")
 

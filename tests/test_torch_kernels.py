@@ -547,6 +547,44 @@ def test_bf16_attention_d64_matches_plain(cuda, B, N, M, H, D, layout):
         f"max abs err {err.max().item():.3e}, rms {rms:.3e}, bf16 spacing {spacing:.3e}")
 
 
+# SD3-medium's joint attention (24 heads of 64): image tokens + 77 CLIP
+# tokens at 1024^2 (4096 + 77), with T5's 256 more, under ToMe 0.5 and
+# 0.25, and at 512^2; ragged in N and M, M spanning many K/V tiles.
+JOINT_TOKENS = [4173, 4429, 2125, 3149, 1101]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "projection_views"])
+@pytest.mark.parametrize("N", JOINT_TOKENS)
+def test_bf16_attention_sd3_joint_shapes_match_plain(cuda, N, layout):
+    """The MMDiT's joint shapes at batch 2, [2, N, 24, 64] with N = M:
+    contiguous, or q, k and v as views of one concatenated [2, N, 3 * 1536]
+    projection; the gates of ``test_bf16_attention_d64_matches_plain``."""
+    B, H, D = 2, 24, 64
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    if layout == "contiguous":
+        q, k, v = (torch.randn(B, N, H, D, generator=gen, device=cuda).to(torch.bfloat16)
+                   for _ in range(3))
+    else:
+        qkv = torch.randn(B, N, 3 * H * D, generator=gen, device=cuda).to(torch.bfloat16)
+        q, k, v = qkv.view(B, N, 3, H, D).unbind(2)
+    q = q * 3
+    n0 = fa.flash_attention_sm90.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_sm90.launches == n0 + 1
+    want = torch.cat([attn_ops.plain_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+                      for i in range(B)]).float()
+    err = (got.float() - want).abs()
+    assert (err <= 1e-2 + 2e-2 * want.abs()).all(), f"max abs err {err.max().item():.3e}"
+    rms = want.pow(2).mean().sqrt().item()
+    spacing = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+    assert err.max().item() <= max(0.1 * rms, spacing), (
+        f"max abs err {err.max().item():.3e}, rms {rms:.3e}, bf16 spacing {spacing:.3e}")
+    if layout == "projection_views":
+        assert torch.equal(got, flash_attention(q.contiguous(), k.contiguous(), v.contiguous()))
+
+
 @pytest.mark.cuda
 def test_bf16_attention_strided_views_bit_equal(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -834,3 +872,52 @@ def test_int8_conv_and_dense_card_bit_equal_to_cpu(cuda, shape, stride, pad):
     tokens, wd = x.reshape(shape[0], -1, C), randn((C, C), 4) / C ** 0.5
     assert torch.equal(quant_ops.int8_dense(tokens.to(cuda), wd.to(cuda), b.to(cuda)).cpu(),
                        quant_ops.int8_dense(tokens, wd, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["exact", "trunk_delta", "tome"])
+def test_tiny_sd3_engine_card_matches_cpu(cuda, monkeypatch, case):
+    """The tiny fp32 SD3 engine (MMDiT, 16-channel VAE, both projected CLIP
+    towers), graphed on the card against the same weights on the CPU: 4
+    flow Euler steps at CFG 5 from given latents, exact, with the
+    trunk-delta cache (interval 2, branch 1) and with DiT-ToMe 0.5 on given
+    destinations; images within 1e-3 and one capture per graph variant."""
+    from sonicdiffusionbayeslab_torch.models.mmdit import MMDiTConfig
+    from sonicdiffusionbayeslab_torch.models.sampler import CachePlan, SDXLTextConfigs
+    from sonicdiffusionbayeslab_torch.models.sd3 import SD3Engine
+    from sonicdiffusionbayeslab_torch.models.tokenizer import HashTokenizer
+    from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
+    from sonicdiffusionbayeslab_torch.ops.tome import TomeConfig
+    from sonicdiffusionbayeslab_torch.schedulers import FlowMatchEulerScheduler
+    from sonicdiffusionbayeslab_torch.utils.rng import tome_destinations
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    engines = [SD3Engine(MMDiTConfig.tiny(), VAEConfig.tiny16(), SDXLTextConfigs.tiny(),
+                         dtype=torch.float32, device=d) for d in ("cpu", cuda)]
+    engines[0].init_params(0)
+    engines[1].load_state_dicts({k: m.state_dict() for k, m in
+                                 zip(engines[0].MODULES, engines[0].modules())})
+    plan = FlowMatchEulerScheduler(shift=3.0).build_plan(4)
+    kw = dict(guidance_scale=5.0, latent_hw=(8, 8), init_latents=randn((2, 8, 8, 16), 3))
+    if case == "trunk_delta":
+        kw["cache_plan"] = CachePlan.every(4, 2, 1)
+    if case == "tome":
+        tome = TomeConfig(0.5)
+        slots = engines[0].unet.tome_slots(8, 8, tome)
+        kw.update(tome=tome, tome_dst=torch.stack([tome_destinations(int(ts), slots, tome)
+                                                   for ts in plan.timesteps]))
+    out = []
+    for eng in engines:
+        ids = [HashTokenizer(c.vocab_size, c.max_length)(p)
+               for p in (["a cat", "a red boat"], ["", ""])
+               for c in (eng.text_config, eng.text2_config)]
+        ctx, pooled = eng.encode_prompts_sd3(ids[0], ids[1])
+        nctx, npooled = eng.encode_prompts_sd3(ids[2], ids[3])
+        added = {"text_embeds": pooled, "negative_text_embeds": npooled,
+                 "time_ids": torch.zeros(2, 6)}
+        out.append(eng.sample(plan, ctx, nctx, added_cond=added, **kw).images.cpu())
+    err = (out[0] - out[1]).abs().max().item()
+    assert err <= 1e-3, f"max abs image err {err:.3e}"
+    assert sorted(engines[1].graphed_unet.captures.values()) == [1] * (
+        2 if case == "trunk_delta" else 1)

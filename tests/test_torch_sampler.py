@@ -129,7 +129,8 @@ def test_port_imports_no_jax():
     assert "sonicdiffusionbayeslab_torch.models.pipelines" in mods
     assert {f"sonicdiffusionbayeslab_torch.{m}" for m in (
         "calc_clip_score", "data._dataio", "data.imageio", "metrics.aesthetic", "metrics.frechet",
-        "metrics.image_reward_model", "metrics.inception", "ops.quant")} <= set(mods)
+        "metrics.image_reward_model", "metrics.inception", "ops.quant", "models.mmdit",
+        "models.sd3", "models.t5", "schedulers.flow", "quality_frontier")} <= set(mods)
 
 
 def test_pipeline_without_device_raises_without_gpu():
