@@ -161,12 +161,31 @@ prints no ``ok`` line:
      checkpoints; the first traced): table, PNGs, one capture, launches;
      quality_frontier's main on both snapshots (16 rows); and the exact
      run again after them, bit-equal;
- 13. the card line, then one JSON ``kernels`` line (the fp32 attention
+ 13. serving and the conditioning families at SD-1.5 width (random bf16
+     weights, 512^2, 20-step DPM++, CFG 7.5): the census of the ControlNet
+     call (its encoder copy before the UNet) and of the UNet with
+     IP-Adapter's 4 image tokens (16 decoupled crosses a forward at M = 4:
+     4,4096,4,8,40; 4,1024,4,8,80; 4,256,4,8,160; 4,64,4,8,160), each new
+     shape against the plain version (bf16; fp32 at the tiny runs') and the
+     M = 4 crosses timed beside SDPA and the bound; tiny fp32 ControlNet,
+     IP-Adapter and prompt-weighting pipelines on the card against the CPU
+     (1e-3); the exact, ControlNet and IP-Adapter loops at batch 2, graphed
+     (first run's wrappers and a traced run against the census, warm
+     execution_time, repeats bit-equal); serving.server.serve on port 0
+     (max_batch 8, pipeline_depth 2) answering one warm batch and then 24
+     concurrent /generate requests (every PNG decodes; a request alone
+     bit-equal to a direct call of its batch; the device's uint8 round
+     equal to the host's; the counters; e2e images/hour, captures, the
+     worker's wait on the finisher), and a request at row 0 among 7
+     others bit-equal to it alone (at row 3 it may differ by rounding:
+     the UNet's library matmuls or convolutions sum by row position); and
+     serve_bench's hero mode (batch 32, 128 requests);
+ 14. the card line, then one JSON ``kernels`` line (the fp32 attention
      kernel's entry is phase 9's metric towers: 108 launches a validate
      batch; each entry also lists its launches in each phase-7, phase-8,
-     phase-9, phase-10, phase-11 and phase-12 run, and its phase-10 and
-     phase-12 sums over one forward and one decode);
- 14. the last line: {"ok": true, "device": {...}}.
+     phase-9, phase-10, phase-11, phase-12 and phase-13 run, and its
+     phase-10 and phase-12 sums over one forward and one decode);
+ 15. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -201,6 +220,8 @@ INT8_GEMM_SYMBOL = "gemm_s8"
 # Traced kernels before a traced run (traced_launches), in bursts of
 # PAD_BURST, each burst PAD_GAP_S after the last one ended: ~0.14 s in all.
 PAD_KERNELS, PAD_BURST, PAD_GAP_S = 1024, 32, 0.004
+# Traces of one run that ``traced_exact`` takes at most (see there).
+TRACE_ATTEMPTS = 3
 # bf16 attention is also held to max |err| <= ATTN_RMS_GATE * rms(plain)
 # per shape: bf16 rounding of outputs up to ~4 stays near half of it, while
 # a lost rescale of O or a P.V on the wrong K/V tile is many times the rms.
@@ -340,6 +361,10 @@ SD3_CLI_RUNS = [
      "first_20_second_20_switch_5", 21, 2, False),
 ]
 FRONTIER = dict(prompts=2, batch=2, sd3_batch=2, steps=4)
+# Phase 13: HTTP serving at max_batch SERVE_BATCH (SERVE_REQUESTS concurrent
+# requests), serve_bench's hero mode (batch SERVE_BENCH_BATCH), and the
+# ControlNet and IP-Adapter loops (IP_TOKENS image tokens) at batch BATCH.
+SERVE_BATCH, SERVE_REQUESTS, SERVE_BENCH_BATCH, IP_TOKENS = 8, 24, 32, 4
 # The plain versions' fp32 intermediates a call, at most: a larger call
 # runs them over slices of the batch (the same function).
 PLAIN_BYTES = 8e9
@@ -486,7 +511,8 @@ def family_configs(family="sd15", tiny=False):
 
 
 def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, tome=None,
-                  family="sd15", enc_batch=None, enc_size=None, quant=None):
+                  family="sd15", enc_batch=None, enc_size=None, quant=None, ip=False,
+                  control=False):
     """{(kind, shape): launches} of one UNet call at ``unet_batch`` rows
     (DeepCache's shallow call at branch 0 with ``shallow``, else the plain
     or full call; with Token Merging at ratio ``tome``, whose merged
@@ -497,8 +523,11 @@ def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, to
     size), from the UNet and VAE of ``family`` (sd15, sd21 or sdxl:
     ``family_configs``; with ``tiny``, its tiny configs at the tiny
     pipelines' 8x8 latents) run on the meta device with the kernel entry
-    points replaced by shape recorders."""
+    points replaced by shape recorders.  ``ip``: the UNet call with
+    IP-Adapter's 4 image tokens (a decoupled cross-attention beside each
+    cross-attention); ``control``: the ControlNet's call before it."""
     from sonicdiffusionbayeslab_torch.models import layers
+    from sonicdiffusionbayeslab_torch.models.controlnet import ControlNet
     from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition
     from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL
     from sonicdiffusionbayeslab_torch.ops import quant as Q
@@ -548,6 +577,13 @@ def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, to
                     kw["tome"] = cfg = TomeConfig(tome)
                     slots = unet.tome_slots(lat, lat, cfg, 0 if shallow else None)
                     dst = torch.zeros(len(slots), cfg.n_dst(lat, lat), dtype=torch.int64)
+                if control:
+                    kw["control_residuals"] = ControlNet(unet_cfg)(
+                        *args, torch.empty(b, 8 * lat, 8 * lat, 3), torch.empty(()), *added)
+                if ip:
+                    unet.add_ip_adapter()
+                    added = (*(added or (None, None)),
+                             torch.empty(b, 4, unet_cfg.cross_attention_dim), torch.empty(()))
                 if shallow:
                     unet(*args, torch.empty((b,) + unet.cache_shape(lat, lat, 0)), dst, *added,
                          cache_branch_id=0, **kw)
@@ -810,6 +846,19 @@ def tiny_card_vs_cpu(per_unet, per_vae):
     return launches
 
 
+def _pads():
+    """PAD_KERNELS spin kernels in bursts of PAD_BURST, PAD_GAP_S apart."""
+    for i in range(PAD_KERNELS):
+        torch.cuda._sleep(1000)
+        if (i + 1) % PAD_BURST == 0:
+            torch.cuda.synchronize()
+            time.sleep(PAD_GAP_S)
+
+
+class TraceLost(AssertionError):
+    """A trace that recorded none of its leading or none of its trailing pads."""
+
+
 def traced_launches(run, symbols=None):
     """``run()``'s result and the executions on the card of each kernel of
     ours (every key of SYMBOLS), by symbol, from a torch.profiler (CUPTI)
@@ -821,35 +870,89 @@ def traced_launches(run, symbols=None):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # CUPTI drops the first kernels launched as tracing starts, never
-        # the last ones.  How many grows over a long process and does not
-        # depend on their spacing: 1-33 of 64 pads, back to back or 2 ms
-        # apart alike, and on one machine all 64.  So PAD_KERNELS spin
-        # kernels spread over ~0.14 s and a pause come first; a pad recorded
-        # means the dropped prefix ended before the run began.
-        for i in range(PAD_KERNELS):
-            torch.cuda._sleep(1000)
-            if (i + 1) % PAD_BURST == 0:
-                torch.cuda.synchronize()
-                time.sleep(PAD_GAP_S)
+        # CUPTI drops the first kernels launched as tracing starts: how many
+        # grows over a long process and does not depend on their spacing
+        # (1-33 of 64 pads, back to back or 2 ms apart alike; on one machine
+        # all 64).  So PAD_KERNELS spin kernels spread over ~0.14 s and a
+        # pause come first; a pad recorded means the dropped prefix ended
+        # before the run began.  A pause and as many pads come last, so a
+        # loss at the end shows too.  Losses inside the run are left to
+        # traced_exact.
+        _pads()
         time.sleep(0.1)
         out = run()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+        _pads()
         torch.cuda.synchronize()
     seen = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     counts = {kind: sum(sym in n for n in seen) for kind, sym in SYMBOLS.items()}
     for key, sym in (symbols or {}).items():
         counts[key] = sum(sym in n for n in seen)
-    # A pad recorded means the dropped prefix ended before the run began;
-    # the pads are counted wherever they sort among the device events.
-    pads = sum("spin_kernel" in n for n in seen)
-    lead = next((i for i, n in enumerate(seen) if "spin_kernel" not in n), len(seen))
-    if pads != PAD_KERNELS or lead != pads:
-        print(f"trace: CUPTI recorded {pads} of the {PAD_KERNELS} pad kernels, {lead} of them "
-              f"before the first other device event, of {len(seen)} device events; the first "
-              f"events: {seen[:3]}", flush=True)
-    if not pads:
-        raise AssertionError("CUPTI dropped every pad kernel: the trace may have lost the run's")
+    is_pad = ["spin_kernel" in n for n in seen]
+    lead = next((i for i, p in enumerate(is_pad) if not p), len(seen))
+    trail = next((i for i, p in enumerate(reversed(is_pad)) if not p), 0)
+    among = sum(is_pad) - lead - trail
+    if lead != PAD_KERNELS or trail != PAD_KERNELS or among:
+        print(f"trace: CUPTI recorded {lead} of the {PAD_KERNELS} leading pad kernels and "
+              f"{trail} of the trailing ones, {among} pads among the other device events, of "
+              f"{len(seen)} device events", flush=True)
+    if not lead or (not trail and lead < len(seen)):
+        raise TraceLost(f"CUPTI dropped every {'leading' if not lead else 'trailing'} pad "
+                        "kernel: the trace may have lost the run's kernels")
     return out, counts
+
+
+def traced_exact(run, want, what, same=None, reset=None, symbols=None):
+    """``traced_launches(run, symbols)`` whose counts must equal WANT ({kind:
+    executions}) on every key of WANT: ``(out, counts, traces taken)``.
+    CUPTI has lost records inside a trace's run as well: once every kernel
+    after a CLI run's denoising loop, once one GroupNorm of a loop's 1760,
+    each with its pads recorded.  So a trace short of WANT in some kind and
+    over it in none, whose output passes ``same`` (where given: equal to an
+    untraced run's), or one that lost all its leading or trailing pads
+    (``TraceLost``), is printed and the run traced again, ``reset()``
+    first (the state the run's checks read: wrapper counts, recorded
+    engines, peak memory), up to TRACE_ATTEMPTS traces in all.  The run
+    replays the same CUDA graphs each time: one that launched fewer kernels
+    is short in every trace, and a trace over WANT raises at once."""
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        if attempt > 1 and reset is not None:
+            reset()
+        try:
+            out, counts = traced_launches(run, symbols)
+        except TraceLost as e:
+            got = f"none: {e}"
+            print(f"trace {attempt} of {TRACE_ATTEMPTS} of {what}: {e}", flush=True)
+            continue
+        got = {k: counts[k] for k in want}
+        if got == want:
+            return out, counts, attempt
+        short = all(got[k] <= n for k, n in want.items())
+        kept = same is None or same(out)
+        print(f"trace {attempt} of {TRACE_ATTEMPTS} of {what}: kernel executions {got}, "
+              f"expected {want}; short in some kind and over in none: {short}; output equal "
+              f"to an untraced run's: {kept}", flush=True)
+        if not (short and kept):
+            break
+    raise AssertionError(f"{what}: traced kernel executions {got}, expected {want} "
+                         f"(trace {attempt} of at most {TRACE_ATTEMPTS})")
+
+
+def retrace_reset(rec=None, int8=False):
+    """``traced_exact``'s ``reset`` for a run whose checks read the wrapper
+    counts (and the int8 counts), the engines ``rec`` recorded and the peak
+    memory: each anew, the earlier attempt's engine and graphs dropped."""
+    def reset():
+        if rec is not None:
+            rec.made.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        wrapper_counts(reset=True)
+        if int8:
+            int8_counts(reset=True)
+    return reset
 
 
 def wrapper_counts(reset=False):
@@ -927,7 +1030,10 @@ def run_main_path(report, per_unet, per_vae, tiny_census, card, profile):
         # The same run again, traced: every kernel execution on the card is
         # the census of each UNet forward and of the decode.
         wrapper_counts(reset=True)
-        (imgs_traced, _, _), traced = traced_launches(lambda: model(PROMPTS, unet_microbatch=mb, **kw))
+        (imgs_traced, _, _), traced, _ = traced_exact(
+            lambda: model(PROMPTS, unet_microbatch=mb, **kw),
+            {k: STEPS * (mb or 1) * per_unet[k] + per_vae[k] for k in MAIN}, f"the {name} run",
+            same=lambda o: np.array_equal(o[0], imgs), reset=retrace_reset())
         traced = bf16_only(traced, f"{name} (trace)")
         decode_counts = bf16_only(wrapper_counts(), name)
         print(f"main path {name} (unet_microbatch={mb}): execution_time {exec_time:.4f} s "
@@ -985,7 +1091,8 @@ def eager_vs_graphed_unet(model, per_unet, reps=5):
     want = {k: per_unet[k] for k in MAIN}
     with torch.inference_mode():
         wrapper_counts(reset=True)
-        eager, traced = traced_launches(lambda: eng.unet(lat, tb, embeds))
+        eager, traced, _ = traced_exact(lambda: eng.unet(lat, tb, embeds), want,
+                                        "an eager UNet forward", reset=retrace_reset())
         traced = bf16_only(traced, "an eager UNet forward (trace)")
         counts = bf16_only(wrapper_counts(), "an eager UNet forward")
         if counts != want or traced != want:
@@ -1102,7 +1209,9 @@ def run_cli(report, per_unet, per_vae, clip_per_batch, card):
                 if run == "first":
                     metrics, traced = cli.run(config, overrides), None
                 else:
-                    metrics, traced = traced_launches(lambda: cli.run(config, overrides))
+                    metrics, traced, _ = traced_exact(lambda: cli.run(config, overrides),
+                                                      want_traced, "the CLI traced run",
+                                                      reset=retrace_reset())
                 wall = time.perf_counter() - t0
                 counts = wrapper_counts()
                 with open(Path(tmp) / "outputs" / run / "tables" / "final.tsv") as f:
@@ -1340,7 +1449,10 @@ def run_methods(card, runs, trace_all=False):
                         if not trace:
                             metrics, traced = cli.run(config, overrides), None
                         else:
-                            metrics, traced = traced_launches(lambda: cli.run(config, overrides))
+                            metrics, traced, _ = traced_exact(
+                                lambda: cli.run(config, overrides), dict(want_traced),
+                                f"the {name} CLI run",
+                                reset=lambda: (merged.clear(), retrace_reset(rec)()))
                 finally:
                     if fuse is not None:
                         StableDiffusionModel.fuse_lora = fuse
@@ -1998,7 +2110,8 @@ def run_metrics(report, card, metric_counts, tmp):
         wrapper_counts(reset=True)
         t0 = time.perf_counter()
         with _RecordingVariants() as rec:
-            metrics, traced = traced_launches(lambda: cli.run(config, overrides))
+            metrics, traced, _ = traced_exact(lambda: cli.run(config, overrides), want_traced,
+                                              "the metrics CLI run", reset=retrace_reset(rec))
         wall = time.perf_counter() - t0
         counts = wrapper_counts()
         caps, graphs_gb = rec.captures()
@@ -2239,7 +2352,8 @@ def run_family_cli(family, census, assets, card):
         wrapper_counts(reset=True)
         t0 = time.perf_counter()
         with _RecordingVariants() as rec:
-            metrics, traced = traced_launches(lambda: cli.run(config, overrides))
+            metrics, traced, _ = traced_exact(lambda: cli.run(config, overrides), want_traced,
+                                              f"the {family} CLI run", reset=retrace_reset(rec))
         wall = time.perf_counter() - t0
         counts = wrapper_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2426,7 +2540,8 @@ def check_int8_gemms(census):
             operands.append((a, w))
         rows.append(row)
         del got, exact
-    _, traced = traced_launches(lambda: [Q.int8_matmul(a, w) for a, w in operands],
+    _, traced, _ = traced_exact(lambda: [Q.int8_matmul(a, w) for a, w in operands],
+                                {"int8_gemm": len(operands)}, "the int8 GEMM calls",
                                 symbols={"int8_gemm": INT8_GEMM_SYMBOL})
     print(f"int8 GEMMs at {len(shapes)} phase-11 conv shapes and 2 padded small ones: int32 sums "
           f"bit-equal to exact float64 (card) and int64 (CPU, 16 rows); one call at each "
@@ -2578,7 +2693,8 @@ def sdxl_encoder(census, card):
         wrapper_counts(reset=True)
         z = vae.encode_sample(x, noise)
         counts = bf16_only(wrapper_counts(), "the SDXL encoder")
-        z2, traced = traced_launches(lambda: vae.encode_sample(x, noise))
+        z2, traced, _ = traced_exact(lambda: vae.encode_sample(x, noise), want,
+                                     "the SDXL encoder", same=lambda o: torch.equal(o, z))
         traced = bf16_only(traced, "the SDXL encoder (trace)")
         again = [traced_launches(lambda: vae.encode(x))[1]["group_norm"] for _ in range(2)]
         torch.cuda.reset_peak_memory_stats()
@@ -2631,7 +2747,9 @@ def img2img_pipeline(model, census, inputs, tmp, card):
     imgs = model(PROMPTS, **kw)[0]
     counts = bf16_only(wrapper_counts(), "img2img")
     t0 = time.perf_counter()
-    (imgs2, exec_time, _), traced = traced_launches(lambda: model(PROMPTS, **kw))
+    (imgs2, exec_time, _), traced, _ = traced_exact(
+        lambda: model(PROMPTS, **kw), warm, "the img2img run",
+        same=lambda o: np.array_equal(o[0], imgs))
     wall = time.perf_counter() - t0
     traced = bf16_only(traced, "img2img (trace)")
     check_images(imgs)
@@ -2794,8 +2912,10 @@ def run_turbo_cli(census, assets, card):
         int8_counts(reset=True)
         t0 = time.perf_counter()
         with _RecordingVariants() as rec:
-            metrics, traced = traced_launches(lambda: cli.run(config, overrides),
-                                              symbols={"int8_gemm": INT8_GEMM_SYMBOL})
+            metrics, traced, _ = traced_exact(
+                lambda: cli.run(config, overrides), {**want_traced, "int8_gemm": want_gemm_traced},
+                "the turbo CLI run", reset=retrace_reset(rec, int8=True),
+                symbols={"int8_gemm": INT8_GEMM_SYMBOL})
         wall = time.perf_counter() - t0
         counts, q = wrapper_counts(), int8_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3262,9 +3382,10 @@ def sd3_loops(model, census, card, reps=(2, 2, 2, 1)):
             if name == "exact" and not np.array_equal(imgs, first["exact"]):
                 raise AssertionError("SD3: a warm exact run gave other images")
     wrapper_counts(reset=True)
-    (imgs, _, _), traced = traced_launches(lambda: run("exact"))
-    traced = bf16_only(traced, "sd3 exact (trace)")
     want = {k: SD3_STEPS * _kinds(census["loop"])[k] + vae[k] for k in MAIN}
+    (imgs, _, _), traced, _ = traced_exact(lambda: run("exact"), want, "the SD3 exact run",
+                                           same=lambda o: np.array_equal(o[0], first["exact"]))
+    traced = bf16_only(traced, "sd3 exact (trace)")
     caps = {", ".join(f"{k}={v}" for k, v in key) or "plain": n
             for key, n in eng.graphed_unet.captures.items()}
     drift = {name: float(np.linalg.norm(first[name] - first["exact"]) /
@@ -3403,7 +3524,8 @@ def run_sd3_cli(name, point, label, nfe, chunk, x0, census, assets, snapshots, c
         t0 = time.perf_counter()
         with _RecordingVariants() as rec:
             if trace:
-                metrics, traced = traced_launches(lambda: cli.run(config, overrides))
+                metrics, traced, _ = traced_exact(lambda: cli.run(config, overrides), want_traced,
+                                                  f"the {name} CLI run", reset=retrace_reset(rec))
             else:
                 metrics, traced = cli.run(config, overrides), None
         wall = time.perf_counter() - t0
@@ -3570,6 +3692,467 @@ def run_sd3(report, card, assets, profile):
     report["e2e"]["sd3"] = out
 
 
+def cond_census():
+    """Phase 13's {(kind, shape): launches} at full SD-1.5 width, by call:
+    the loops' one call at UNet batch 2 x BATCH (the ControlNet before the
+    UNet; the UNet with IP's tokens; the exact call), the served batches'
+    UNet forward (UNet batch 2 x SERVE_BATCH, also serve_bench's chunks),
+    VAE decodes of SERVE_BATCH and SERVE_BENCH_BATCH latents, and the tiny
+    fp32 runs' ControlNet and IP calls."""
+    return dict(
+        control=module_census(2 * BATCH, control=True),
+        ip=module_census(2 * BATCH, ip=True),
+        exact=module_census(2 * BATCH),
+        serve_unet=module_census(2 * SERVE_BATCH),
+        serve_vae=module_census(vae_batch=SERVE_BATCH),
+        bench_vae=module_census(vae_batch=SERVE_BENCH_BATCH),
+        tiny_control=module_census(2 * BATCH, tiny=True, control=True),
+        tiny_ip=module_census(2 * BATCH, tiny=True, ip=True))
+
+
+def check_cond_kernels(census, report, checked):
+    """Each kernel against its plain version at every phase-13 shape that
+    phase 3 did not check (``checked``: the (kind, shape), dtype pairs it
+    did): bf16 at the full-width calls' (the M = 4 crosses of IP-Adapter,
+    serve_bench's VAE decodes of 32), fp32 at the tiny runs' (their M = 4
+    crosses); max errors into ``report["errs"]`` and
+    ``report["phase13_errs"]``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    full = ("control", "ip", "serve_unet", "serve_vae", "bench_vae")
+    work = sorted(({(k, torch.bfloat16) for p in full for k in census[p]} |
+                   {(k, torch.float32) for p in census if p.startswith("tiny")
+                    for k in census[p]}) - checked,
+                  key=lambda w: (str(w[1]), w[0][0], [str(v) for v in w[0][1]]))
+    for (kind, shape), dtype in work:
+        inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
+        kern, plain = run_kernel(kind, shape, inputs)
+        got = kern()
+        torch.cuda.synchronize()
+        err = compare(kind, dtype, got, plain(), f"{kind} {shape} {dtype} (phase 13)")
+        report["errs"][report_key(kind, dtype)].append(err)
+        report["phase13_errs"][report_key(kind, dtype)].append(err)
+        print(f"phase 13 {kind} {str(dtype)[6:]} {shape}: max abs err {err:.3e}")
+        del inputs, got
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    return len(work)
+
+
+def time_ip_crosses(census, card):
+    """Timing rows (``timing_row``: the kernel, its plain version, SDPA and
+    the bound) at IP-Adapter's M = 4 crosses, bf16, with their launches in
+    one UNet forward, and their sum over one forward."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = [timing_row(kind, shape, torch.bfloat16, "ip unet", n, gen)
+            for (kind, shape), n in sorted(census["ip"].items(), key=lambda kv: str(kv[0]))
+            if kind == "attention" and shape[2] == IP_TOKENS]
+    total = {f: sum(r[f] * r["launches_per_run"] for r in rows)
+             for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    total["launches"] = sum(r["launches_per_run"] for r in rows)
+    print(f"phase 13 IP-Adapter M = {IP_TOKENS} crosses, sums over one UNet forward at UNet batch "
+          f"{2 * BATCH} ({card}): {json.dumps(total)}", flush=True)
+    if total["launches"] != 16:
+        raise AssertionError(f"{total['launches']} IP crosses a SD-1.5 forward, expected 16")
+    return rows, total
+
+
+def cond_tiny_card_vs_cpu():
+    """Tiny fp32 pipelines, card (graphed) against CPU on the same weights,
+    20-step DPM++ at batch 2, CFG 7.5: ControlNet (random heads, a 64^2
+    control image at scale 0.8), IP-Adapter (a random adapter at scale 1.0)
+    and prompt weighting, each image within 1e-3; the fp32 attention
+    kernel's launches in each card run."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.pipelines import (StableDiffusionControlNetModel,
+                                                               StableDiffusionModel)
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention_tf32x3
+
+    def pair(cls, **kw):
+        cpu = cls(tiny=True, image_size=64, dtype="float32", seed=0, device="cpu", **kw)
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            # The text tower's final LayerNorm with a bias, as a trained one
+            # has: with the init's zero bias every token's states average to
+            # 0, and prompt weighting's rescale by the ratio of two means
+            # near 0 is ill-conditioned (in the JAX package alike).
+            dict(cpu.engine.text.named_parameters())["text_model.final_layer_norm.bias"].normal_(
+                0.0, 0.05, generator=gen)
+            if cpu.engine.controlnet is not None:
+                for conv in cpu.engine.controlnet.heads():
+                    conv.weight.normal_(0.0, 0.05, generator=gen)
+        card = cls(tiny=True, image_size=64, dtype="float32", seed=0, device="cuda", **kw)
+        src, dst = cpu.engine, card.engine
+        dst.load_state_dicts({**{k: m.state_dict() for k, m in zip(src.MODULES, src.modules())},
+                              **({"image_proj": src.image_proj.state_dict()}
+                                 if src.image_proj is not None else {})})
+        if src.controlnet is not None:
+            dst.controlnet.load_state_dict(src.controlnet.state_dict())
+            dst.weights_changed()
+        return cpu, card
+
+    rng = np.random.default_rng(0)
+    control = rng.random((BATCH, 64, 64, 3)).astype(np.float32)
+    embeds = rng.standard_normal((BATCH, 1024)).astype(np.float32)
+    kw = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, seed=29)
+    cn = pair(StableDiffusionControlNetModel)
+    ipw = pair(StableDiffusionModel, ip_adapter="random.bin", prompt_weighting=True)
+    runs = {"controlnet": (cn, ["a lighthouse at dusk", "a red boat"],
+                           dict(control_image=control, controlnet_scale=0.8)),
+            "ip_adapter": (ipw, ["a lighthouse at dusk", "a red boat"],
+                           dict(ip_image_embeds=embeds, ip_scale=1.0)),
+            "prompt_weighting": (ipw, ["a (lighthouse:1.4) at [dusk]", "a ((red)) boat"], {})}
+    out = {}
+    for name, ((cpu, card), prompts, extra) in runs.items():
+        a = cpu(prompts, **kw, **extra)[0]
+        flash_attention_tf32x3.launches = 0
+        b = card(prompts, **kw, **extra)[0]
+        launches = flash_attention_tf32x3.launches
+        err = float(np.abs(a - b).max())
+        print(f"tiny fp32 {name}, card (graphed) vs CPU: max abs image err {err:.3e} (tolerance "
+              f"1e-3); flash_attention_tf32x3 launches {launches}; captures "
+              f"{card.engine.graphed_unet.captures}", flush=True)
+        if not err <= 1e-3 or launches <= 0:
+            raise AssertionError(f"the tiny {name} run on the card disagrees with the CPU "
+                                 f"({err:.3e}) or launched no fp32 attention kernel")
+        out[name] = dict(max_abs_image_err=err, fp32_attention_launches=launches)
+    plain = ipw[0](["a lighthouse at dusk", "a red boat"], **kw)[0]
+    if not np.abs(plain - ipw[0](runs["prompt_weighting"][1], **kw)[0]).max() > 1e-4:
+        raise AssertionError("prompt weighting left the tiny images as they were")
+    return out
+
+
+def cond_loops(census, card, reps=3):
+    """SD-1.5 at full width on random bf16 weights, 20-step DPM++ at batch
+    BATCH, CFG GUIDANCE (engine level, no decode), each loop's UNet call
+    graphed: exact, ControlNet (random encoder copy, random heads, scale
+    1.0) and IP-Adapter (a random adapter, scale 1.0).  Each: a first run
+    with the wrappers' counts set to 0 just before and read just after
+    (graph warm-up and capture: the census of one call x 3), ``reps`` warm
+    runs (execution_time, median; their latents bit-equal), and a traced
+    run whose kernel executions must be STEPS x the census of one call."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionControlNetModel
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = StableDiffusionControlNetModel(image_size=SIZE, dtype="bfloat16", seed=0,
+                                           device="cuda", ip_adapter="random.bin")
+    eng = model.engine
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    with torch.no_grad():
+        for conv in eng.controlnet.heads():
+            conv.weight.normal_(0.0, 0.02, generator=gen)
+    eng.weights_changed()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plan = model.build_plan(STEPS)
+    emb, neg = model._encode(PROMPTS), model._encode([""] * BATCH)
+    rng = np.random.default_rng(1)
+    hint = rng.random((BATCH, SIZE, SIZE, 3)).astype(np.float32)
+    embeds = rng.standard_normal((BATCH, model.ip_embed_dim)).astype(np.float32)
+    loops = {"exact": ({}, "exact"),
+             "controlnet": (dict(control={"image": hint, "scale": 1.0}), "control"),
+             "ip_adapter": (dict(ip_adapter={"image_embeds": embeds, "scale": 1.0}), "ip")}
+    kw = dict(guidance_scale=GUIDANCE, latent_hw=(SIZE // 8, SIZE // 8), seed=29, decode=False)
+    out = {"init_s": init_s}
+    latents = {}
+    for name, (extra, part) in loops.items():
+        per_call = {k: _kinds(census[part])[k] for k in MAIN}
+        wrapper_counts(reset=True)
+        eng.sample(plan, emb, neg, **kw, **extra)
+        first = bf16_only(wrapper_counts(), f"{name} loop")
+        want = {k: (GraphedCall.WARMUP + 1) * n for k, n in per_call.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [eng.sample(plan, emb, neg, **kw, **extra) for _ in range(reps)]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        times = [r.execution_time for r in runs]
+        same = all(torch.equal(r.latents, runs[0].latents) for r in runs)
+        traced_out, traced, traces = traced_exact(
+            lambda: eng.sample(plan, emb, neg, **kw, **extra),
+            {k: STEPS * n for k, n in per_call.items()}, f"the {name} loop",
+            same=lambda o: torch.equal(o.latents, runs[0].latents))
+        traced = bf16_only(traced, f"{name} loop (trace)")
+        same = same and torch.equal(traced_out.latents, runs[0].latents)
+        latents[name] = runs[0].latents
+        rec = dict(execution_time_s=times, median_s=statistics.median(times),
+                   sec_per_image=statistics.median(times) / BATCH,
+                   images_per_hour=3600 * BATCH / statistics.median(times), peak_gb=peak_gb,
+                   first_run_wrapper_launches=first, traced_launches=traced, traces=traces,
+                   launches_per_call=per_call, repeats_bit_equal=same)
+        print(f"phase 13 {name} loop, SD-1.5 bf16 {SIZE}x{SIZE}, {STEPS}-step DPM++, batch "
+              f"{BATCH}, CFG {GUIDANCE} (warm, {reps} runs): execution_time {times} s, median "
+              f"{rec['median_s']:.4f} s ({rec['images_per_hour']:.1f} images/hour, loop only); "
+              f"peak memory {peak_gb:.2f} GB; repeats bit-equal {same}; launches a call "
+              f"{per_call}: first run's wrappers {first}, traced run {traced} (trace {traces}); "
+              f"{card}",
+              flush=True)
+        if first != want:
+            raise AssertionError(f"{name} loop: first run's wrapper launches {first}, expected "
+                                 f"{want}")
+        if not same:
+            raise AssertionError(f"{name} loop: repeated runs gave other latents")
+        out[name] = rec
+    for name in ("controlnet", "ip_adapter"):
+        diff = float((latents[name] - latents["exact"]).abs().max())
+        out[name]["max_abs_latent_diff_vs_exact"] = diff
+        out[name]["vs_exact"] = out[name]["median_s"] / out["exact"]["median_s"]
+        print(f"phase 13 {name} loop / exact loop: {out[name]['vs_exact']:.4f}x; max abs latent "
+              f"difference from the exact loop {diff:.3e}", flush=True)
+        if not diff > 1e-3:
+            raise AssertionError(f"the {name} loop gave the exact loop's latents")
+    out["captures"] = {str(k): v for k, v in eng.graphed_unet.captures.items()}
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _decode_png(b64):
+    import base64
+
+    from sonicdiffusionbayeslab_torch.data.imageio import _decode
+
+    return _decode(base64.b64decode(b64), "a served PNG")
+
+
+def serve_http(census, card):
+    """``serving.server.serve`` on port 0 (max_batch SERVE_BATCH,
+    pipeline_depth 2) in front of SD-1.5 at full width (random bf16 weights,
+    20-step DPM++, CFG 7.5): one warm batch, then SERVE_REQUESTS concurrent
+    /generate requests (seeds 100..), then one of them alone.  Gates: every
+    PNG decodes to a SIZE^2 image; the lone request's PNG equals the served
+    pixels of a direct pipeline call with its batch, whose device round
+    equals the host round of its float images; the counters count the
+    requests, and the batches as sum(1 / batch_size); the wrappers launched
+    the census of one UNet forward x 3 (warm-up and capture) and a decode a
+    batch.  Then, through the same server's ``submit`` from one thread (so
+    rows follow the order of submission), a request among 7 others at row
+    0 is bit-equal to it alone; at row 3 it differs only by rounding (the
+    UNet's library matmuls or convolutions sum a row at another position in
+    another order; the kernels, text tower and decode do not), within the
+    5e-2 of phase 5's chunked run."""
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.serving.batcher import quantize_uint8
+    from sonicdiffusionbayeslab_torch.serving.server import serve
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = StableDiffusionModel(image_size=SIZE, dtype="bfloat16", seed=0, device="cuda")
+    ready = threading.Event()
+    wrapper_counts(reset=True)
+    th = threading.Thread(target=serve, args=(pipe, "stable_diffusion_model"), daemon=True,
+                          kwargs=dict(host="127.0.0.1", port=0, max_batch=SERVE_BATCH,
+                                      max_wait_ms=25.0, pipeline_depth=2, ready_event=ready))
+    th.start()
+    if not ready.wait(timeout=60):
+        raise AssertionError("the server did not start")
+    base = f"http://127.0.0.1:{ready.httpd.server_address[1]}"
+    srv = ready.inference
+
+    def post(body):
+        req = urllib.request.Request(f"{base}/generate", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    def body(i):
+        return {"prompt": PROMPTS[i % len(PROMPTS)], "steps": STEPS, "guidance": GUIDANCE,
+                "seed": 100 + i}
+
+    try:
+        with ThreadPoolExecutor(max_workers=SERVE_REQUESTS) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(post, [body(1000 + i) for i in range(SERVE_BATCH)]))
+            warm_s = time.perf_counter() - t0
+            before = dict(srv.stats)
+            wait0 = srv.finisher_wait_s
+            t0 = time.perf_counter()
+            outs = list(pool.map(post, [body(i) for i in range(SERVE_REQUESTS)]))
+            elapsed = time.perf_counter() - t0
+        stats = {k: srv.stats[k] - before[k] for k in ("requests", "images", "batches", "errors")}
+        finisher_wait = srv.finisher_wait_s - wait0
+        full = [i for i, o in enumerate(outs) if o["batch_size"] == SERVE_BATCH]
+        if not full:
+            raise AssertionError(f"no request was served in a full batch of {SERVE_BATCH}: "
+                                 f"batch sizes {[o['batch_size'] for o in outs]}")
+        k = full[0]
+        lone = post(body(k))
+        counts = bf16_only(wrapper_counts(), "the served batches")
+        health = json.loads(urllib.request.urlopen(f"{base}/healthz", timeout=30).read())
+        rows = served_rows(srv)
+    finally:
+        ready.httpd.shutdown()
+        srv.shutdown(wait=True)
+        th.join(timeout=60)
+    pngs = [_decode_png(o["image_png_base64"]) for o in outs]
+    if any(p.shape != (SIZE, SIZE, 3) for p in pngs):
+        raise AssertionError("a served PNG did not decode to a 512x512 RGB image")
+    lone_px = _decode_png(lone["image_png_base64"])
+    if lone["batch_size"] != 1:
+        raise AssertionError(f"the lone request rode a batch of {lone['batch_size']}")
+    # The lone request's batch, called directly: the device round against
+    # the host round of the same float images, and against the served pixels.
+    seed_idx = 2 * (100 + k) + 1
+    imgs, _, _ = pipe([PROMPTS[k % len(PROMPTS)]] + [""] * (SERVE_BATCH - 1),
+                      num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+                      negative_prompt=[""] * SERVE_BATCH,
+                      sample_indices=[seed_idx] + [0] * (SERVE_BATCH - 1), seed=0,
+                      output_type="device", time_loop=False)
+    host = imgs.float().cpu().numpy()
+    device_u8 = quantize_uint8(imgs).cpu().numpy()
+    host_u8 = np.clip(host * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    round_equal = bool(np.array_equal(device_u8, host_u8))
+    served_equal = bool(np.array_equal(device_u8[0], lone_px))
+    batches = sum(1.0 / o["batch_size"] for o in outs)
+    per_unet, per_vae = _kinds(census["serve_unet"]), _kinds(census["serve_vae"])
+    n_batches = before["batches"] + stats["batches"] + 1
+    want = {kd: (GraphedCall.WARMUP + 1) * per_unet[kd] + n_batches * per_vae[kd] for kd in MAIN}
+    rec = dict(requests=SERVE_REQUESTS, max_batch=SERVE_BATCH, pipeline_depth=2,
+               elapsed_s=elapsed, images_per_hour=SERVE_REQUESTS / elapsed * 3600,
+               warm_batch_s=warm_s, stats=stats, batch_sizes=[o["batch_size"] for o in outs],
+               execution_times_s=sorted({o["execution_time"] for o in outs}),
+               finisher_wait_s=finisher_wait,
+               captures=sum(pipe.engine.graphed_unet.captures.values()),
+               rows=rows, device_round_equals_host=round_equal,
+               served_equals_direct=served_equal, wrapper_launches=counts,
+               devices=health["devices"])
+    print(f"phase 13 HTTP serving, SD-1.5 bf16 {SIZE}x{SIZE}, {STEPS}-step DPM++, CFG {GUIDANCE}, "
+          f"max_batch {SERVE_BATCH}, pipeline_depth 2: {SERVE_REQUESTS} concurrent requests in "
+          f"{elapsed:.3f} s = {rec['images_per_hour']:.1f} images/hour e2e (after one warm batch "
+          f"of {warm_s:.3f} s); batch sizes {rec['batch_sizes']}; batch wall clocks "
+          f"{rec['execution_times_s']} s; counters {stats}; worker's wait on the finisher "
+          f"{finisher_wait:.4f} s; graph captures {rec['captures']}; device round == host round "
+          f"{round_equal}; served == direct {served_equal}; one request alone and among 7 "
+          f"others {rows}; wrappers {counts} (want {want}); {card}", flush=True)
+    if not (round_equal and served_equal):
+        raise AssertionError("a served image differs (device vs host round, or served vs "
+                             "direct)")
+    if not rows["row0_equal"] or not rows["row3_max_abs_diff"] <= 5e-2:
+        raise AssertionError(f"a request among 7 others: {rows}")
+    if stats["requests"] != SERVE_REQUESTS or stats["errors"] or \
+            abs(batches - stats["batches"]) > 1e-9:
+        raise AssertionError(f"the counters {stats} do not count {SERVE_REQUESTS} requests in "
+                             f"{batches} batches")
+    if counts != want:
+        raise AssertionError(f"served batches: wrapper launches {counts}, expected {want}")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def served_rows(srv):
+    """One request (seed 77) served alone, then at row 0 and at row 3 of a
+    batch of SERVE_BATCH distinct requests, through ``srv.submit`` from this
+    thread: rows follow the order of submission.  (row 0 bit-equal to
+    alone, row 3's max abs pixel difference / 255 from alone)."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.serving.batcher import GenerateRequest
+
+    def req(i, seed):
+        return GenerateRequest(PROMPTS[i % len(PROMPTS)], STEPS, GUIDANCE, seed=seed)
+
+    def batch(row):
+        reqs = [req(i + 1, 500 + i) for i in range(SERVE_BATCH - 1)]
+        reqs.insert(row, req(0, 77))
+        futs = [srv.submit(r) for r in reqs]
+        outs = [f.result(timeout=300) for f in futs]
+        if any(o["batch_size"] != SERVE_BATCH for o in outs):
+            raise AssertionError(f"an ordered batch split: {[o['batch_size'] for o in outs]}")
+        return outs[row]["image"]
+
+    alone = srv.submit(req(0, 77)).result(timeout=300)["image"]
+    row0, row3 = batch(0), batch(3)
+    return dict(row0_equal=bool(np.array_equal(row0, alone)),
+                row3_equal=bool(np.array_equal(row3, alone)),
+                row3_max_abs_diff=float(np.abs(row3.astype(np.float32)
+                                               - alone.astype(np.float32)).max()) / 255)
+
+
+def serve_bench_hero(census, card):
+    """``sonicdiffusionbayeslab_torch.serve_bench``'s hero mode with its
+    defaults (SD-1.5 512^2 bf16, batch 32 with unet_microbatch 4, 128
+    requests, 20 steps, pipeline_depth 2), wrappers counted over it."""
+    from sonicdiffusionbayeslab_torch import serve_bench
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    wrapper_counts(reset=True)
+    rec = serve_bench.main(["hero"])
+    counts = bf16_only(wrapper_counts(), "serve_bench hero")
+    per_unet, per_vae = _kinds(census["serve_unet"]), _kinds(census["bench_vae"])
+    want = {k: (GraphedCall.WARMUP + 1) * per_unet[k] + rec["batches"] * per_vae[k] for k in MAIN}
+    rec["wrapper_launches"] = counts
+    print(f"phase 13 serve_bench hero: {rec['images_per_hour']:.1f} images/hour e2e at batch "
+          f"{rec['max_batch']} ({rec['requests']} requests, {rec['batches']} batches, worker's "
+          f"wait on the finisher {rec['finisher_wait_s']:.4f} s) beside the loop-only 30428 images/hour "
+          f"at batch 2 (PERF.md section 5); wrappers {counts} (want {want}); {card}", flush=True)
+    if counts != want or rec["captures"] != 1:
+        raise AssertionError(f"serve_bench hero: wrapper launches {counts}, expected {want}; "
+                             f"captures {rec['captures']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase13_launches(out, kind):
+    """A kernel's launches in each phase-13 run."""
+    if kind == "attention_fp32":
+        return {f"tiny {n}": r["fp32_attention_launches"]
+                for n, r in out["tiny_card_vs_cpu"].items()}
+    return {"http serving": out["http"]["wrapper_launches"][kind],
+            "serve_bench hero": out["serve_bench"]["wrapper_launches"][kind],
+            **{f"{n} first run": out["loops"][n]["first_run_wrapper_launches"][kind]
+               for n in ("exact", "controlnet", "ip_adapter")},
+            **{f"{n} trace": out["loops"][n]["traced_launches"][kind]
+               for n in ("exact", "controlnet", "ip_adapter")}}
+
+
+def run_serving_conditioning(report, card, checked):
+    """Phase 13: serving (HTTP and serve_bench hero) and the conditioning
+    families (ControlNet, IP-Adapter, prompt weighting) at SD-1.5 width."""
+    census = cond_census()
+    per = {part: dict(_kinds(c)) for part, c in census.items()}
+    print(f"phase 13 census (launches a call): {json.dumps(per)}", flush=True)
+    ip_crosses = sorted(shape for kind, shape in census["ip"] if shape[2] == IP_TOKENS)
+    print(f"phase 13 IP-Adapter cross shapes: {ip_crosses}", flush=True)
+    if per["ip"]["attention"] != per["exact"]["attention"] + 16 or \
+            per["ip"]["group_norm"] != per["exact"]["group_norm"] or \
+            per["control"]["attention"] <= per["exact"]["attention"]:
+        raise AssertionError(f"phase 13 census {per}: expected 16 more attentions a forward "
+                             "with IP-Adapter and the ControlNet's own")
+    out = {"census": per}
+    t0 = time.perf_counter()
+    out["checked_shapes"] = check_cond_kernels(census, report, checked)
+    out["ip_timings"], out["ip_totals"] = time_ip_crosses(census, card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out["tiny_card_vs_cpu"] = cond_tiny_card_vs_cpu()
+    torch.backends.cudnn.allow_tf32 = True
+    out["loops"] = cond_loops(census, card)
+    out["http"] = serve_http(census, card)
+    out["serve_bench"] = serve_bench_hero(census, card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 13 took {out['phase_s']:.1f} s", flush=True)
+    report["e2e"]["serving_conditioning"] = out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3661,6 +4244,7 @@ def main() -> None:
     report["errs"] = collections.defaultdict(list)
     report["phase10_errs"] = collections.defaultdict(list)
     report["phase12_errs"] = collections.defaultdict(list)
+    report["phase13_errs"] = collections.defaultdict(list)
     report["e2e"] = {}
 
     phase("3. kernels against their plain versions, at the shapes of the main path and the CLI "
@@ -3716,8 +4300,16 @@ def main() -> None:
               f"{SD3_CLI_BATCH}, and the quality frontier")
         run_sd3(report, card, assets, args.profile)
 
-    phase("13. kernels")
-    print(f"phases 1-12 took {time.perf_counter() - _T0:.1f} s; {card}")
+    phase(f"13. serving (HTTP at max_batch {SERVE_BATCH}, serve_bench hero at batch "
+          f"{SERVE_BENCH_BATCH}) and ControlNet, IP-Adapter and prompt weighting at SD-1.5 "
+          f"{SIZE}x{SIZE}")
+    checked = ({(k, torch.bfloat16) for k in check_shapes}
+               | {(k, torch.float32) for k in check_shapes}
+               | {(k, torch.float32) for k, _ in fp32_shapes})
+    run_serving_conditioning(report, card, checked)
+
+    phase("14. kernels")
+    print(f"phases 1-13 took {time.perf_counter() - _T0:.1f} s; {card}")
     fam = report["e2e"]["families"]
     kernels = []
     for kind, meta in KERNELS.items():
@@ -3752,6 +4344,9 @@ def main() -> None:
             "phase12_totals": {part: t[kind] for part, t in
                                report["e2e"]["sd3"]["kernel_totals"].items() if kind in t},
             "phase12_max_abs_err": max(report["phase12_errs"][kind], default=None),
+            "phase13_wrapper_launches": phase13_launches(report["e2e"]["serving_conditioning"],
+                                                         kind),
+            "phase13_max_abs_err": max(report["phase13_errs"][kind], default=None),
             **({"phase6_launches": r["phase6_launches"]} if "phase6_launches" in r else {}),
             "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3773,6 +4368,7 @@ def main() -> None:
              "phase11_gn_encoder_timings": report["e2e"]["img2img_quant"]["gn_encoder_timings"],
              "phase11_int8_gemms": report["e2e"]["img2img_quant"]["int8_gemms"],
              "phase12_timings": report["e2e"]["sd3"]["timings"],
+             "phase13_ip_timings": report["e2e"]["serving_conditioning"]["ip_timings"],
              "e2e": report["e2e"],
              "attention_fp32_totals": fp32_totals,
              "profile": report.get("profile")}, indent=1))

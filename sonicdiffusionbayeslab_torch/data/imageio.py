@@ -9,8 +9,11 @@ The port's counterparts of ``read_image`` and ``write_png`` in
   JPEG with libjpeg where the library was built with it, else it raises
   naming libjpeg.  The resize and center crop are the reference's filter
   bank, so they give the same bytes.
-* ``write_png`` uses the standard library alone (zlib + struct): 8-bit
-  RGB, one filter-0 scanline per row.
+* ``write_png`` uses numpy and the standard library alone (zlib + struct)
+  and writes the bytes libpng writes with the reference's settings
+  (``runtime/dataio.cpp::sdbl_encode_png``: 8-bit RGB, compression level
+  3): libpng's filter choice per row, its zlib parameters and its
+  8192-byte IDAT chunks.
 """
 
 from __future__ import annotations
@@ -88,17 +91,91 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
+# libpng's defaults for 8-bit RGB with compression level 3 (png.h 1.6:
+# PNG_ALL_FILTERS, PNG_Z_DEFAULT_STRATEGY = Z_FILTERED, memLevel 8,
+# PNG_ZBUF_SIZE = 8192 bytes of deflate output an IDAT chunk).
+_PNG_LEVEL = 3
+_PNG_ZBUF = 8192
+
+
+def _filter_rows(image: np.ndarray) -> np.ndarray:
+    """[H, W, 3] uint8 -> [H, 1 + 3W] uint8 scanlines, each row filtered as
+    libpng's ``png_write_find_filter`` chooses: the filter among None, Sub,
+    Up, Average and Paeth whose bytes, read as signed, have the least sum of
+    absolute values, the first of them on a tie.  The row above the first
+    is zeros; a single row leaves out Up, Average and Paeth, a single
+    column Sub, Average and Paeth (``png_write_start_row``)."""
+    h, w, c = image.shape
+    x = image.reshape(h, w * c)
+    up, left, corner = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    up[1:], left[:, c:], corner[1:, c:] = x[:-1], x[:, :-c], x[:-1, :-c]
+    # The five candidates, each byte mod 256 (uint8 arithmetic wraps).
+    tries = np.empty((5,) + x.shape, np.uint8)
+    tries[0] = x
+    np.subtract(x, left, out=tries[1])
+    np.subtract(x, up, out=tries[2])
+    np.subtract(x, (left >> 1) + (up >> 1) + (left & up & 1), out=tries[3])
+    p = up.astype(np.int16) - corner
+    q = left.astype(np.int16) - corner
+    pa, pb, pc = np.abs(p), np.abs(q), np.abs(p + q)
+    paeth = corner.copy()
+    np.copyto(paeth, up, where=pb <= pc)
+    np.copyto(paeth, left, where=(pa <= pb) & (pa <= pc))
+    np.subtract(x, paeth, out=tries[4])
+    # |byte as int8|, where int8's abs(-128) is -128: 128 as uint8.
+    cost = np.abs(tries.view(np.int8)).view(np.uint8).sum(axis=2, dtype=np.uint32)
+    if h == 1:
+        cost[[2, 3, 4]] = np.iinfo(np.uint32).max
+    if w == 1:
+        cost[[1, 3, 4]] = np.iinfo(np.uint32).max
+    best = np.argmin(cost, axis=0)
+    rows = np.empty((h, 1 + w * c), np.uint8)
+    rows[:, 0] = best
+    rows[:, 1:] = tries[best, np.arange(h)]
+    return rows
+
+
+def _deflate(data: bytes) -> bytes:
+    """The zlib stream libpng writes for an image of ``len(data)`` filtered
+    bytes: a smaller window for images of at most 16 KiB
+    (``png_deflate_claim``), and the header's window size lowered to the
+    data's (``optimize_cmf``)."""
+    size, wbits = len(data), 15
+    if size <= 16384:
+        half = 1 << (wbits - 1)
+        while size + 262 <= half:
+            half >>= 1
+            wbits -= 1
+    co = zlib.compressobj(_PNG_LEVEL, zlib.DEFLATED, wbits, 8, zlib.Z_FILTERED)
+    z = bytearray(co.compress(data) + co.flush())
+    cmf = z[0]
+    if size <= 16384 and (cmf & 0x0F) == 8 and (cmf & 0xF0) <= 0x70:
+        cinfo = cmf >> 4
+        half = 1 << (cinfo + 7)
+        if size <= half:
+            half >>= 1
+            cinfo -= 1
+            while cinfo > 0 and size <= half:
+                half >>= 1
+                cinfo -= 1
+            z[0] = cmf = (cmf & 0x0F) | (cinfo << 4)
+            flg = z[1] & 0xE0
+            z[1] = flg + 0x1F - ((cmf << 8) + flg) % 0x1F
+    return bytes(z)
+
+
 def encode_png_bytes(image: np.ndarray) -> bytes:
-    """HWC uint8, or float in [0, 1], RGB image -> PNG bytes."""
+    """HWC uint8, or float in [0, 1], RGB image -> PNG bytes, the same bytes
+    as the reference's native encoder."""
     if image.dtype != np.uint8:
         image = np.clip(np.asarray(image, np.float32) * 255.0 + 0.5, 0, 255).astype(np.uint8)
     if image.ndim != 3 or image.shape[2] != 3:
         raise ValueError(f"expected an [H, W, 3] image, got {image.shape}")
     h, w = image.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, w * 3)], axis=1)
-    return (b"\x89PNG\r\n\x1a\n"
+    z = _deflate(_filter_rows(np.ascontiguousarray(image)).tobytes())
+    return (_PNG
             + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + b"".join(_chunk(b"IDAT", z[i:i + _PNG_ZBUF]) for i in range(0, len(z), _PNG_ZBUF))
             + _chunk(b"IEND", b""))
 
 

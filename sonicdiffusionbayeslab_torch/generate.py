@@ -12,7 +12,8 @@ name; ``--variant sd21`` SD-2.x) and writes one PNG per prompt.
 ``--init_image`` makes it img2img from that image (read at
 ``--image_size``, 16 for ``--tiny``), ``--mask_image`` inpainting (white =
 regenerate: the mask is the image's channel mean > 0.5);
-``--cache_interval`` > 0 turns DeepCache on.
+``--cache_interval`` > 0 turns DeepCache on, ``--prompt_weighting`` the
+``(word:1.3)`` emphasis syntax.
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ def main(argv=None) -> None:
     p.add_argument("--strength", type=float, default=0.8, help="img2img noising strength")
     p.add_argument("--mask_image", default=None,
                    help="inpainting mask path (white = regenerate); needs --init_image")
+    p.add_argument("--prompt_weighting", action="store_true",
+                   help="parse (word:1.3) / (word) / [word] emphasis in the prompts")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -70,7 +73,8 @@ def main(argv=None) -> None:
     skw.update(json.loads(args.scheduler_kwargs))
     model = StableDiffusionModel(pretrained_model=args.pretrained_model,
                                  image_size=args.image_size, tiny=args.tiny,
-                                 variant=args.variant, device=args.device)
+                                 variant=args.variant, device=args.device,
+                                 prompt_weighting=args.prompt_weighting)
     model.scheduler = schedulers_registry[args.scheduler](**skw)
     if args.cache_interval > 0:
         model.cache_plan_fn = lambda n: CachePlan.every(n, args.cache_interval,

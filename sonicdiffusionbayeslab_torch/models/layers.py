@@ -153,7 +153,13 @@ class ResnetBlock(_Quantizable):
 
 class Attention(_Quantizable):
     """Multi-head attention over [B, N, C] with an optional cross context;
-    bias-free q/k/v projections, biased output projection."""
+    bias-free q/k/v projections, biased output projection.
+
+    IP-Adapter (``add_ip``): the decoupled ``to_k_ip``/``to_v_ip``
+    projections of the image-prompt tokens; given ``ip_context`` [B, P, Dc]
+    a second attention over them shares the queries, and its output times
+    ``ip_scale`` (a tensor, so that a CUDA graph reads it at each replay)
+    is added before ``to_out``."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  context_dim: Optional[int] = None):
@@ -165,16 +171,32 @@ class Attention(_Quantizable):
         self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
+    def add_ip(self) -> None:
+        """Add the IP-Adapter projections (from the cross context's width),
+        in the module's dtype and device; their weights are to be loaded."""
+        w = self.to_k.weight
+        for name in ("to_k_ip", "to_v_ip"):
+            if not hasattr(self, name):
+                setattr(self, name, nn.Linear(w.shape[1], w.shape[0], bias=False,
+                                              device=w.device, dtype=w.dtype).requires_grad_(False))
+
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, ip_context: Optional[torch.Tensor] = None,
+                ip_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         ctx = x if context is None else context
         B, N, _ = x.shape
         M = ctx.shape[1]
         q = self._proj(self.to_q, x).view(B, N, self.num_heads, self.head_dim)
         k = self._proj(self.to_k, ctx).view(B, M, self.num_heads, self.head_dim)
         v = self._proj(self.to_v, ctx).view(B, M, self.num_heads, self.head_dim)
-        o = dot_product_attention(q, k, v, mask=mask)
-        return self._proj(self.to_out[0], o.reshape(B, N, -1))
+        o = dot_product_attention(q, k, v, mask=mask).reshape(B, N, -1)
+        if ip_context is not None:
+            P = ip_context.shape[1]
+            k_ip = self._proj(self.to_k_ip, ip_context).view(B, P, self.num_heads, self.head_dim)
+            v_ip = self._proj(self.to_v_ip, ip_context).view(B, P, self.num_heads, self.head_dim)
+            o_ip = dot_product_attention(q, k_ip, v_ip)
+            o = o + ip_scale.to(o.dtype) * o_ip.reshape(B, N, -1)
+        return self._proj(self.to_out[0], o)
 
 
 class _GEGLU(_Quantizable):
@@ -221,19 +243,22 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, tome=None, tome_hw=None,
                 tome_dst: Optional[torch.Tensor] = None,
-                tome_cache: Optional[dict] = None) -> torch.Tensor:
+                tome_cache: Optional[dict] = None, ip_context: Optional[torch.Tensor] = None,
+                ip_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         if tome is None:
             x = x + self.attn1(self.norm1(x))
         else:
             merge, unmerge = shared_matching(x, tome, tome_hw, tome_dst, tome_cache)
             x = x + unmerge(self.attn1(merge(self.norm1(x))))
-        x = x + self.attn2(self.norm2(x), context=context)
+        x = x + self.attn2(self.norm2(x), context=context, ip_context=ip_context,
+                           ip_scale=ip_scale)
         return x + self.ff(self.norm3(x))
 
 
 class SpatialTransformer(_Quantizable):
     """Transformer2D over a [B, H, W, C] map: GN -> proj_in -> blocks ->
-    proj_out, plus the residual.  proj_in/out are 1x1 convs (SD-1.5) or,
+    proj_out, plus the residual; ``ip_context``/``ip_scale`` go to each
+    block's cross-attention (IP-Adapter).  proj_in/out are 1x1 convs (SD-1.5) or,
     with ``linear``, ``nn.Linear`` (SD-2.x, SDXL); the compute is the same.
     ``tome``/``tome_dst``/``tome_cache``: Token Merging in each block
     (``TransformerBlock``); ``tome_dst`` holds one row of destinations per
@@ -253,18 +278,20 @@ class SpatialTransformer(_Quantizable):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, tome=None,
                 tome_dst: Optional[torch.Tensor] = None,
-                tome_cache: Optional[dict] = None) -> torch.Tensor:
+                tome_cache: Optional[dict] = None, ip_context: Optional[torch.Tensor] = None,
+                ip_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, H, W, C = x.shape
         if tome is not None and (H % tome.sy or W % tome.sx):
             tome = None
         h = self.norm(x).reshape(B, H * W, C)
         h = self._proj(self.proj_in, h)
+        ip = dict(ip_context=ip_context, ip_scale=ip_scale)
         for i, block in enumerate(self.transformer_blocks):
             if tome is None:
-                h = block(h, context)
+                h = block(h, context, **ip)
             else:
                 dst = None if tome_dst is None else tome_dst[i, :tome.n_dst(H, W)]
-                h = block(h, context, tome, (H, W), dst, tome_cache)
+                h = block(h, context, tome, (H, W), dst, tome_cache, **ip)
         h = self._proj(self.proj_out, h)
         return h.reshape(B, H, W, C) + x
 

@@ -1,5 +1,5 @@
 """Pipelines of the port: SD-1.5, SD-2.x, SDXL and SD3, text-to-image,
-img2img and inpainting.
+img2img and inpainting, and SD-1.5 with ControlNet.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/pipelines.py::
 StableDiffusionModel`` and ``StableDiffusionXLModel``, with the same call
@@ -14,7 +14,11 @@ which differ only in how they compose the plan, as
 and ``..._skip_timesteps``; ``StableDiffusionXLModel`` as
 ``stable_diffusion_xl_model``; ``StableDiffusion3Model`` (the MMDiT,
 flow-matching) as ``stable_diffusion_3_model``, with its three composing
-variants.  Weights come from ``pretrained_model``
+variants; ``StableDiffusionControlNetModel`` as
+``stable_diffusion_controlnet_model``.  IP-Adapter (``ip_adapter``, and
+a call's ``ip_image_embeds``) and ``(word:1.3)`` prompt weighting
+(``prompt_weighting``) apply to the UNet families.  Weights come from
+``pretrained_model``
 when it names a local diffusers snapshot directory, else from a
 deterministic random init from ``seed``; a LoRA from a local file is fused
 into the UNet with ``load_lora_weights`` and ``fuse_lora``.
@@ -29,7 +33,14 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
 from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig
+from sonicdiffusionbayeslab_torch.models.ip_adapter import load_ip_adapter, merge_ip_params
+from sonicdiffusionbayeslab_torch.models.prompt_weighting import (
+    apply_prompt_weights,
+    batch_weighted_ids,
+)
 from sonicdiffusionbayeslab_torch.models.sampler import (
     SDXLEngine,
     SDXLTextConfigs,
@@ -39,6 +50,7 @@ from sonicdiffusionbayeslab_torch.models.tokenizer import load_t5_tokenizer, loa
 from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
 from sonicdiffusionbayeslab_torch.models.weights import (
+    load_controlnet_checkpoint,
     load_sd3_checkpoint,
     load_sd_checkpoint,
     load_torch_state_dict,
@@ -90,11 +102,23 @@ class StableDiffusionModel:
     which the ``consistency_model`` method loads.  ``variant`` picks SD-1.5
     (``sd15``) or SD-2.x (``sd21``: OpenCLIP ViT-H context, 64-wide heads,
     linear projections); ``auto`` reads a local snapshot's
-    ``unet/config.json``, else the model id's name."""
+    ``unet/config.json``, else the model id's name.
+
+    ``ip_adapter``: an IP-Adapter ``.bin`` (a path that does not exist
+    initialises one randomly, for a 1024-wide image embedding, as the JAX
+    package does); calls then take ``ip_image_embeds`` [B, E] and
+    ``ip_scale`` (default ``ip_scale``).  ``prompt_weighting``: the
+    ``(word:1.3)`` emphasis syntax (``models/prompt_weighting.py``), off by
+    default so that literal parentheses in captions stay literal.
+
+    A uniform batch of prompts (all one string, e.g. the serving path's
+    empty negatives) is encoded once and kept, 4 entries at most, keyed on
+    (prompt, batch size) and dropped when the engine's weights change."""
 
     def __init__(self, pretrained_model: str = "runwayml/stable-diffusion-v1-5",
                  image_size: int = 512, tiny: bool = False, dtype: str = "bfloat16",
-                 seed: int = 0, lora: str = None, variant: str = "auto", device=None):
+                 seed: int = 0, lora: str = None, variant: str = "auto", device=None,
+                 ip_adapter: str = None, ip_scale: float = 1.0, prompt_weighting: bool = False):
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype!r}")
         self.lora = lora
@@ -119,6 +143,25 @@ class StableDiffusionModel:
         self.guidance_rescale = 0.0
         self._pending_lora = None
         self.lora_merged: List[str] = []  # modules the last fuse_lora changed
+        self.prompt_weighting = bool(prompt_weighting)
+        self.ip_scale = float(ip_scale)
+        self.has_ip = ip_adapter is not None
+        if self.has_ip:
+            self._load_ip_adapter(ip_adapter)
+        self._encode_memo: Dict[tuple, torch.Tensor] = {}
+        self._memo_version = self.engine.weights_version
+
+    def _load_ip_adapter(self, path: str) -> None:
+        eng = self.engine
+        if Path(path).exists():
+            loaded = load_ip_adapter(path, eng.unet_config)
+            eng.init_ip_adapter(embed_dim=loaded["embed_dim"], num_tokens=loaded["num_tokens"])
+            merge_ip_params(eng.unet, loaded["unet_ip"])
+            eng.image_proj.load_state_dict(loaded["image_proj"], strict=True)
+            eng.weights_changed()
+        else:  # no local file: a random adapter (random base weights anyway)
+            eng.init_ip_adapter(seed=0)
+        self.ip_embed_dim = eng.image_proj.embed_dim
 
     @staticmethod
     def _resolve_variant(variant: str, pretrained_model: str) -> str:
@@ -155,7 +198,32 @@ class StableDiffusionModel:
         return load_tokenizer(tok_dir and str(tok_dir), tc.vocab_size, tc.max_length)
 
     def _encode(self, prompts: Sequence[str]) -> torch.Tensor:
-        return self.engine.encode_prompts(self.tokenizer(list(prompts)))
+        prompts = list(prompts)
+        if not prompts or any(p != prompts[0] for p in prompts):
+            return self._encode_uncached(prompts)
+        if self._memo_version != self.engine.weights_version:
+            self._encode_memo.clear()
+            self._memo_version = self.engine.weights_version
+        key = (prompts[0], len(prompts))
+        states = self._encode_memo.get(key)
+        if states is None:
+            states = self._encode_uncached(prompts)
+            if len(self._encode_memo) >= 4:
+                self._encode_memo.pop(next(iter(self._encode_memo)))
+            self._encode_memo[key] = states
+        return states
+
+    @torch.inference_mode()
+    def _encode_uncached(self, prompts: Sequence[str]) -> torch.Tensor:
+        if not self.prompt_weighting:
+            return self.engine.encode_prompts(self.tokenizer(list(prompts)))
+        # Emphasis syntax: per-token scaling with the mean restored; a batch
+        # without it takes the plain ids and no rescale.
+        ids, weights = batch_weighted_ids(self.tokenizer, list(prompts))
+        states = self.engine.encode_prompts(ids)
+        if np.any(weights != 1.0):
+            states = apply_prompt_weights(states, weights)
+        return states
 
     def _extra_sample_kwargs(self, batch: int, lat_hw) -> Dict[str, Any]:
         """Subclass hook: more ``engine.sample`` arguments (SDXL's
@@ -186,7 +254,7 @@ class StableDiffusionModel:
             unet = self.engine.unet
             sd, self.lora_merged = merge_lora(unet.state_dict(), self._pending_lora, scale)
             unet.load_state_dict(sd, strict=True)
-            self.engine.graphed_unet.clear()
+            self.engine.weights_changed()
             self._pending_lora = None
         return self
 
@@ -211,10 +279,16 @@ class StableDiffusionModel:
         encode_noise=None,
         init_noise=None,
         blend_noise=None,
+        ip_image_embeds=None,
+        ip_scale: Optional[float] = None,
+        time_loop: bool = True,
         **plan_kw,
     ):
         """Returns (images [B, H, W, 3] in [0, 1] as numpy, or the final
-        latents when ``output_type == "latent"``; execution_time;
+        latents when ``output_type == "latent"``, or the images as the
+        device's tensor, not yet copied to the host, when ``output_type ==
+        "device"``; execution_time, -1.0 with ``time_loop`` False, which
+        skips the loop's device synchronisations (the serving path);
         x0_images [S, n, H, W, 3] or None).  ``plan_kw`` goes to
         ``build_plan`` (the composing variants' arguments).
 
@@ -228,8 +302,9 @@ class StableDiffusionModel:
         posterior sample (``encode_noise``), the start noise
         (``init_noise``) and the blend's (``blend_noise``), each [B, h, w,
         4], come from (seed, i) and a tag of each where not given."""
-        if output_type not in ("np", "latent"):
-            raise ValueError(f"output_type must be 'np' or 'latent', got {output_type!r}")
+        if output_type not in ("np", "latent", "device"):
+            raise ValueError(f"output_type must be 'np', 'latent' or 'device', "
+                             f"got {output_type!r}")
         lat_hw = (self.latent_hw, self.latent_hw)
         if height is not None or width is not None:
             h, w = int(height or self.image_size), int(width or self.image_size)
@@ -255,6 +330,16 @@ class StableDiffusionModel:
         neg = None
         if guidance_scale > 1.0:
             neg = self._encode(list(negative_prompt) if negative_prompt else [""] * len(prompt))
+        ip_arg = None
+        if ip_image_embeds is not None:
+            if not self.has_ip:
+                raise ValueError("pipeline built without ip_adapter; pass ip_adapter=")
+            emb = np.asarray(ip_image_embeds, np.float32)
+            if emb.shape[-1] != self.ip_embed_dim:
+                raise ValueError(f"ip_image_embeds dim {emb.shape[-1]} != adapter's embedding "
+                                 f"dim {self.ip_embed_dim}")
+            ip_arg = {"image_embeds": emb,
+                      "scale": self.ip_scale if ip_scale is None else float(ip_scale)}
         out = self.engine.sample(
             plan, embeds, neg, seed=seed, sample_indices=sample_indices,
             guidance_scale=guidance_scale,
@@ -264,10 +349,13 @@ class StableDiffusionModel:
             microbatch=self.unet_microbatch if unet_microbatch is None else unet_microbatch,
             guidance_rescale=self.guidance_rescale,
             tome=self.tome_ratio if tome_ratio is None else tome_ratio,
+            ip_adapter=ip_arg, time_loop=time_loop,
             **img2img,
             **self._extra_sample_kwargs(len(prompt), lat_hw),
         )
         images = out.images if out.images is not None else out.latents
+        if output_type == "device":
+            return images, out.execution_time, out.x0_images
         x0 = out.x0_images.cpu().numpy() if out.x0_images is not None else None
         return images.cpu().numpy(), out.execution_time, x0
 
@@ -368,13 +456,16 @@ class StableDiffusionXLModel(StableDiffusionModel):
     bigG tower's projected pooled embedding and the ``time_ids`` (original
     size, crop corner, target size) from the call's latent grid.  The
     unconditional half of CFG takes the negative prompt's pooled embedding,
-    as the JAX pipeline does."""
+    as the JAX pipeline does.  Prompt weighting weights each tower's states
+    with its own tokenizer's weights and leaves the pooled embedding
+    unweighted; no prompt memo."""
 
     def __init__(self, pretrained_model: str = "stabilityai/stable-diffusion-xl-base-1.0",
                  image_size: int = 1024, tiny: bool = False, dtype: str = "bfloat16",
-                 seed: int = 0, lora: str = None, device=None):
+                 seed: int = 0, lora: str = None, device=None, prompt_weighting: bool = False):
         super().__init__(pretrained_model=pretrained_model, image_size=image_size, tiny=tiny,
-                         dtype=dtype, seed=seed, lora=lora, device=device)
+                         dtype=dtype, seed=seed, lora=lora, device=device,
+                         prompt_weighting=prompt_weighting)
         self.tokenizer2 = self._tokenizer("tokenizer_2", self.engine.text2_config)
         self._pooled_queue: List[torch.Tensor] = []
 
@@ -384,10 +475,21 @@ class StableDiffusionXLModel(StableDiffusionModel):
                               dtype=dtype, device=device)
         return SDXLEngine(dtype=dtype, device=device)
 
+    @torch.inference_mode()
     def _encode(self, prompts: Sequence[str]) -> torch.Tensor:
-        ctx, pooled = self.engine.encode_prompts_xl(self.tokenizer(list(prompts)),
-                                                     self.tokenizer2(list(prompts)))
+        if not self.prompt_weighting:
+            ctx, pooled = self.engine.encode_prompts_xl(self.tokenizer(list(prompts)),
+                                                         self.tokenizer2(list(prompts)))
+            self._pooled_queue.append(pooled)
+            return ctx
+        ids1, w1 = batch_weighted_ids(self.tokenizer, list(prompts))
+        ids2, w2 = batch_weighted_ids(self.tokenizer2, list(prompts))
+        ctx, pooled = self.engine.encode_prompts_xl(ids1, ids2)
         self._pooled_queue.append(pooled)
+        if np.any(w1 != 1.0) or np.any(w2 != 1.0):
+            h1 = self.engine.text_config.hidden_size  # tower 1's features come first
+            ctx = torch.cat([apply_prompt_weights(ctx[..., :h1], w1),
+                             apply_prompt_weights(ctx[..., h1:], w2)], dim=-1)
         return ctx
 
     def _extra_sample_kwargs(self, batch: int, lat_hw) -> Dict[str, Any]:
@@ -523,3 +625,59 @@ class StableDiffusion3ModelInterlivingSchedulers(_InterlivingPlanMixin, StableDi
 class StableDiffusion3ModelSkipTimesteps(_SkipTimestepsPlanMixin, StableDiffusion3Model):
     """SD3 step skipping on the flow sigma grid (skipped transitions are
     absent)."""
+
+
+def resize_bilinear(images, hw) -> torch.Tensor:
+    """Images [B, H, W, C] -> [B, h, w, C] fp32, bilinear with half-pixel
+    centres, antialiased where it shrinks (as ``jax.image.resize(...,
+    "bilinear")`` is)."""
+    x = torch.as_tensor(np.asarray(images, np.float32))
+    if tuple(x.shape[1:3]) == tuple(hw):
+        return x
+    x = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode="bilinear", antialias=True,
+                      align_corners=False)
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+@models_registry.add_to_registry("stable_diffusion_controlnet_model")
+class StableDiffusionControlNetModel(StableDiffusionModel):
+    """ControlNet-conditioned text-to-image (``models/controlnet.py``): the
+    same engine, schedulers and call contract, with the ControlNet's
+    residuals added to the UNet's skip states at every step.  ``controlnet``
+    names a local diffusers ControlNet snapshot dir; without one the
+    ControlNet is random with zero heads (an exact no-op).  A call needs
+    ``control_image`` [B, H, W, 3] in [0, 1] (resized to the call's pixel
+    size where it differs) and takes ``controlnet_scale`` (default
+    ``controlnet_scale``).  DeepCache and ``unet_microbatch`` > 1 are
+    refused with it, as in the JAX package."""
+
+    def __init__(self, pretrained_model: str = "runwayml/stable-diffusion-v1-5",
+                 image_size: int = 512, tiny: bool = False, dtype: str = "bfloat16",
+                 seed: int = 0, lora: str = None, variant: str = "auto", device=None,
+                 controlnet: str = None, controlnet_scale: float = 1.0, ip_adapter: str = None,
+                 ip_scale: float = 1.0, prompt_weighting: bool = False):
+        super().__init__(pretrained_model=pretrained_model, image_size=image_size, tiny=tiny,
+                         dtype=dtype, seed=seed, lora=lora, variant=variant, device=device,
+                         ip_adapter=ip_adapter, ip_scale=ip_scale,
+                         prompt_weighting=prompt_weighting)
+        self.controlnet_scale = float(controlnet_scale)
+        self.engine.init_controlnet(seed=0)
+        if controlnet and Path(controlnet).exists():
+            load_controlnet_checkpoint(controlnet, self.engine)
+        self._control_call: Optional[Dict[str, Any]] = None
+
+    def __call__(self, prompt, *args, control_image=None, controlnet_scale=None, **kw):
+        if control_image is None:
+            raise ValueError("stable_diffusion_controlnet_model requires control_image")
+        hw = (int(kw.get("height") or self.image_size), int(kw.get("width") or self.image_size))
+        self._control_call = {
+            "image": resize_bilinear(control_image, hw),
+            "scale": self.controlnet_scale if controlnet_scale is None else float(controlnet_scale),
+        }
+        try:
+            return super().__call__(prompt, *args, **kw)
+        finally:
+            self._control_call = None
+
+    def _extra_sample_kwargs(self, batch: int, lat_hw) -> Dict[str, Any]:
+        return {"control": self._control_call}

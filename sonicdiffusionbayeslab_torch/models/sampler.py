@@ -4,8 +4,9 @@ and the VAE decode.
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/sampler.py::
 StableDiffusionEngine`` with DeepCache (``CachePlan``), Token Merging,
 noise-injecting plans, rescaled CFG, img2img's image encode and
-inpainting's per-step blend, and the UNet's int8 modes, and of its
-``SDXLEngine`` (two text towers and the UNet's text_time conditioning).
+inpainting's per-step blend, the UNet's int8 modes, ControlNet and
+IP-Adapter, and of its ``SDXLEngine`` (two text towers and the UNet's
+text_time conditioning).
 The JAX engine scans a jitted
 body over the plan's rows; here the loop is plain Python over the same
 rows, each step one UNet call (chunked when ``microbatch`` > 1), the CFG
@@ -33,6 +34,8 @@ from sonicdiffusionbayeslab_torch.models.clip_text import (
     CLIPTextModel,
     CLIPTextModelWithProjection,
 )
+from sonicdiffusionbayeslab_torch.models.controlnet import ControlNet
+from sonicdiffusionbayeslab_torch.models.ip_adapter import ImageProjection
 from sonicdiffusionbayeslab_torch.models.layers import GroupNorm, RMSNorm
 from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
@@ -142,8 +145,17 @@ class StableDiffusionEngine:
     parameters are initialised with :meth:`init_params` or loaded with
     :meth:`load_state_dicts`.  On a GPU, ``graphed_unet`` replays each
     UNet call variant (and int8 mode) from a CUDA graph of its last input
-    shape.  :meth:`set_quant_mode` sets the UNet's int8 mode; the VAE and
-    the text towers stay exact."""
+    shape; the call is :meth:`denoise`, the UNet with the ControlNet (when
+    the call passes a control image) before it.  :meth:`set_quant_mode`
+    sets the UNet's int8 mode; the VAE and the text towers stay exact.
+
+    ControlNet and IP-Adapter are optional: :meth:`init_controlnet` builds
+    ``controlnet`` (weights from ``load_state_dict`` or
+    ``weights.load_controlnet_checkpoint``), :meth:`init_ip_adapter` builds
+    ``image_proj`` and adds the UNet's IP projections.  Every change of
+    weights goes through :meth:`weights_changed`, which drops the graphs
+    and counts ``weights_version`` up (the pipeline's prompt memo reads
+    it)."""
 
     MODULES = ("unet", "vae", "text")
 
@@ -163,10 +175,22 @@ class StableDiffusionEngine:
         with torch.device(self.device):
             self._build_modules()
         for m in self.modules():
-            m.requires_grad_(False).eval()
-            # Conv weights in channels_last, matching the NHWC activations.
-            m.to(dtype=dtype, memory_format=torch.channels_last)
-        self.graphed_unet = GraphedVariants(self.unet, state=self._graph_state)
+            self._place(m)
+        self.controlnet: Optional[ControlNet] = None
+        self.image_proj: Optional[ImageProjection] = None
+        self.weights_version = 0
+        self.graphed_unet = GraphedVariants(self.denoise, state=self._graph_state)
+
+    def _place(self, m: nn.Module) -> nn.Module:
+        m.requires_grad_(False).eval()
+        # Conv weights in channels_last, matching the NHWC activations.
+        return m.to(device=self.device, dtype=self.dtype, memory_format=torch.channels_last)
+
+    def weights_changed(self) -> None:
+        """Drop the UNet's CUDA graphs and count ``weights_version`` up:
+        called after any change of the modules' weights."""
+        self.graphed_unet.clear()
+        self.weights_version += 1
 
     def _graph_state(self):
         mode = self.unet.quant_mode
@@ -189,19 +213,69 @@ class StableDiffusionEngine:
     def init_params(self, seed: int = 0) -> "StableDiffusionEngine":
         """Deterministic random init on the engine's device."""
         for i, m in enumerate(self.modules()):
-            state = np.random.SeedSequence([int(seed), i]).generate_state(1, np.uint64)[0]
-            gen = torch.Generator(device=self.device).manual_seed(int(state) & (2**63 - 1))
-            init_module(m, gen)
-        self.graphed_unet.clear()
+            init_module(m, self._generator(seed, i))
+        self.weights_changed()
         return self
 
     def load_state_dicts(self, sds: dict) -> "StableDiffusionEngine":
         """A state dict for each of ``MODULES`` (e.g. from
-        ``weights.state_dicts_from_jax``), loaded strictly."""
+        ``weights.state_dicts_from_jax``), loaded strictly; an
+        ``"image_proj"`` entry (IP-Adapter's projection, with the UNet's
+        IP entries) needs :meth:`init_ip_adapter` first."""
         for key, m in zip(self.MODULES, self.modules()):
             m.load_state_dict(sds[key], strict=True)
-        self.graphed_unet.clear()
+        if "image_proj" in sds:
+            if self.image_proj is None:
+                raise ValueError("an image_proj state dict needs init_ip_adapter first")
+            self.image_proj.load_state_dict(sds["image_proj"], strict=True)
+        self.weights_changed()
         return self
+
+    def _generator(self, seed: int, stream: int) -> torch.Generator:
+        """A generator on the device seeded from (seed, stream)."""
+        state = np.random.SeedSequence([int(seed), int(stream)]).generate_state(1, np.uint64)[0]
+        return torch.Generator(device=self.device).manual_seed(int(state) & (2**63 - 1))
+
+    def init_controlnet(self, seed: int = 0) -> ControlNet:
+        """Build ``controlnet`` (the UNet's config) with a random encoder
+        copy and zero heads: an exact no-op until trained or loaded."""
+        with torch.device(self.device):
+            net = ControlNet(self.unet_config)
+        init_module(net, self._generator(seed, 0xC0))
+        self.controlnet = self._place(net.zero_heads())
+        self.weights_changed()
+        return self.controlnet
+
+    def init_ip_adapter(self, seed: int = 0, embed_dim: int = 1024,
+                        num_tokens: int = 4) -> ImageProjection:
+        """Build ``image_proj`` (``embed_dim`` -> ``num_tokens`` tokens) and
+        add the UNet's ``to_k_ip``/``to_v_ip``, all randomly initialised."""
+        with torch.device(self.device):
+            proj = ImageProjection(embed_dim, self.unet_config.cross_attention_dim, num_tokens)
+        self.unet.add_ip_adapter()
+        ip = nn.ModuleList([getattr(a, p) for _, a in self.unet.cross_attentions()
+                            for p in ("to_k_ip", "to_v_ip")])
+        init_module(ip, self._generator(seed, 0x1BAD))
+        init_module(proj, self._generator(seed, 0x1BAE))
+        self.image_proj = self._place(proj)
+        self.weights_changed()
+        return self.image_proj
+
+    def denoise(self, sample, timesteps, context, cache=None, tome_dst=None, text_embeds=None,
+                time_ids=None, ip_context=None, ip_scale=None, control_image=None,
+                control_scale=None, **static):
+        """One UNet call (``UNet2DCondition.forward``'s arguments), with
+        IP-Adapter's tokens and scale, and, given ``control_image`` [B, 8h,
+        8w, 3] and ``control_scale`` (a 0-dim tensor), the ControlNet's
+        residuals first: every input a tensor, so that one CUDA graph holds
+        both networks."""
+        if control_image is not None:
+            static["control_residuals"] = self.controlnet(
+                sample, timesteps, context, control_image, control_scale, text_embeds, time_ids)
+        if ip_context is not None:
+            static.update(ip_context=ip_context, ip_scale=ip_scale)
+        return self.unet(sample, timesteps, context, cache, tome_dst, text_embeds, time_ids,
+                         **static)
 
     # ------------------------------------------------------ encode / decode
     @torch.inference_mode()
@@ -225,19 +299,22 @@ class StableDiffusionEngine:
         return self.vae.encode_sample(x, noise)
 
     # ------------------------------------------------------------- sample
-    def _unet_chunks(self, microbatch: int, args, tome_dst=None, added=None, **static):
-        """The UNet on the model batch as ``microbatch`` sequential chunks
-        (or whole).  ``args`` (latents, timesteps, context and DeepCache's
-        features or None) and ``added`` (SDXL's pooled embeddings and
-        time_ids, or None) are batch-leading and chunk alike, and so do the
-        outputs (one tensor, or DeepCache's pair); ``tome_dst`` goes whole
-        to every chunk."""
-        unet = self.graphed_unet if self.device.type == "cuda" else self.unet
+    def _unet_chunks(self, microbatch: int, args, tome_dst=None, added=None, extra=(),
+                     **static):
+        """:meth:`denoise` on the model batch as ``microbatch`` sequential
+        chunks (or whole).  ``args`` (latents, timesteps, context and
+        DeepCache's features or None) and ``added`` (SDXL's pooled
+        embeddings and time_ids, or None) are batch-leading and chunk alike,
+        and so do the outputs (one tensor, or DeepCache's pair);
+        ``tome_dst`` goes whole to every chunk, and so does ``extra``
+        (IP-Adapter's tokens and scale, the control image and scale, each
+        or None), which the sampler passes only unchunked."""
+        unet = self.graphed_unet if self.device.type == "cuda" else self.denoise
         n = len(args)
-        args = (*args, *(added or ()))
+        args = (*args, *(added or (None, None)))
 
         def call(*part):
-            part = (*part[:n], tome_dst, *part[n:])
+            part = (*part[:n], tome_dst, *part[n:], *extra)
             while part[-1] is None:
                 part = part[:-1]
             return unet(*part, **static)
@@ -276,6 +353,9 @@ class StableDiffusionEngine:
         added_cond: Optional[dict] = None,
         blend: Optional[tuple] = None,
         blend_noise: Optional[torch.Tensor] = None,  # [B, h, w, C]
+        control: Optional[dict] = None,
+        ip_adapter: Optional[dict] = None,
+        time_loop: bool = True,
     ) -> SampleOutput:
         """One batch: CFG-doubled UNet calls over the plan's rows, then the
         decode.  Sample ``i``'s initial latents depend only on (seed, i)
@@ -303,7 +383,18 @@ class StableDiffusionEngine:
         the kept region (mask 0) becomes ``blend_a[k] * source + blend_s[k]
         * blend_noise``; where not given, sample i's ``blend_noise`` is
         drawn from (seed, i, ``BLEND_NOISE_TAG``) (the JAX engine draws the
-        batch's from ``fold_in(key, 0xB1E0D)``)."""
+        batch's from ``fold_in(key, 0xB1E0D)``).
+
+        ``control`` (ControlNet, :meth:`init_controlnet`): ``image`` [B, 8h,
+        8w, 3] in [0, 1] at the latents' pixel size, doubled under CFG, and
+        ``scale`` (1.0 where absent); DeepCache refuses it.  ``ip_adapter``
+        (:meth:`init_ip_adapter`): ``image_embeds`` [B, E] and ``scale``;
+        under CFG the unconditional half takes the projection of a zero
+        embedding.  Neither composes with ``microbatch`` > 1.
+
+        ``time_loop`` False skips the device synchronisations around the
+        loop, so the loop, the decode and whatever follows queue on the
+        device without a wait; ``execution_time`` is then -1.0."""
         dev = self.device
         B = int(prompt_embeds.shape[0])
         do_cfg = guidance_scale > 1.0 and negative_embeds is not None
@@ -332,6 +423,8 @@ class StableDiffusionEngine:
         tome, dst = self._tome_destinations(plan, tome, tome_dst, cache_plan, latent_hw)
         static = {} if tome is None else {"tome": tome}
         added = self._added(added_cond, do_cfg)
+        extra = self._conditioning(control, ip_adapter, cache_plan, microbatch, B, latent_hw,
+                                   do_cfg)
 
         xs = plan_rows(plan, dev)
         blend_src = None
@@ -352,7 +445,8 @@ class StableDiffusionEngine:
         carry = init_carry(plan, latents0)
         cache = None
         x0s = []
-        synchronize(dev)
+        if time_loop:
+            synchronize(dev)
         t0 = time.perf_counter()
         for i in range(plan.num_steps):
             r = row(xs, i)
@@ -361,16 +455,16 @@ class StableDiffusionEngine:
             tb = r["timestep"].expand(lat_in.shape[0])
             if cache_plan is None:
                 noise_pred = self._unet_chunks(microbatch, (lat_in, tb, embeds, None),
-                                               dst["full"][i] if dst else None, added,
+                                               dst["full"][i] if dst else None, added, extra,
                                                **static)
             elif cache_plan.full[i]:
                 noise_pred, cache = self._unet_chunks(microbatch, (lat_in, tb, embeds, None),
                                                       dst["full"][i] if dst else None, added,
-                                                      return_cache=True,
+                                                      extra, return_cache=True,
                                                       cache_branch_id=cache_plan.branch, **static)
             else:
                 noise_pred = self._unet_chunks(microbatch, (lat_in, tb, embeds, cache),
-                                               dst["shallow"][i] if dst else None, added,
+                                               dst["shallow"][i] if dst else None, added, extra,
                                                cache_branch_id=cache_plan.branch, **static)
             noise_pred = noise_pred.float()
             if do_cfg:
@@ -395,14 +489,51 @@ class StableDiffusionEngine:
                     latents=blend_mask * carry.latents + (1.0 - blend_mask) * target)
             if collect_x0:
                 x0s.append(x0[:x0_count])
-        synchronize(dev)
-        execution_time = time.perf_counter() - t0
+        if time_loop:
+            synchronize(dev)
+            execution_time = time.perf_counter() - t0
+        else:
+            execution_time = -1.0  # not timed: nothing waited for the loop
 
         latents = carry.latents
         images = self.decode(latents) if decode else None
         x0_images = torch.stack([self.decode(x) for x in x0s]) if collect_x0 else None
         return SampleOutput(images=images, execution_time=execution_time,
                             x0_images=x0_images, latents=latents, nfe=plan.nfe)
+
+    def _conditioning(self, control, ip_adapter, cache_plan, microbatch, B, latent_hw, do_cfg):
+        """(IP tokens, IP scale, control image, control scale) at the model
+        batch on the device, each None where unused."""
+        dev = self.device
+        ip_tokens = ip_scale = hint = control_scale = None
+        if control is not None:
+            if self.controlnet is None:
+                raise ValueError("control needs the engine's ControlNet (init_controlnet)")
+            if cache_plan is not None:
+                raise ValueError("ControlNet cannot be combined with DeepCache")
+            hint = torch.as_tensor(np.asarray(control["image"], np.float32)).to(dev)
+            want = (B, latent_hw[0] * 8, latent_hw[1] * 8, 3)
+            if tuple(hint.shape) != want:
+                raise ValueError(f"control image {tuple(hint.shape)} != {want}")
+            if do_cfg:
+                hint = torch.cat([hint, hint])
+            control_scale = torch.tensor(float(control.get("scale", 1.0)), device=dev)
+        if ip_adapter is not None:
+            if self.image_proj is None:
+                raise ValueError("ip_adapter needs the engine's image projection "
+                                 "(init_ip_adapter, or a loaded IP-Adapter)")
+            emb = torch.as_tensor(np.asarray(ip_adapter["image_embeds"], np.float32)).to(dev)
+            if emb.shape[0] != B:
+                raise ValueError(f"image_embeds batch {emb.shape[0]} != {B}")
+            ip_tokens = self.image_proj(emb)
+            if do_cfg:
+                # The unconditional half conditions on a zero image embedding.
+                ip_tokens = torch.cat([self.image_proj(torch.zeros_like(emb)), ip_tokens])
+            ip_scale = torch.tensor(float(ip_adapter.get("scale", 1.0)), device=dev)
+        if microbatch > 1 and (control is not None or ip_adapter is not None):
+            raise ValueError("unet_microbatch composes with the plain, SDXL and DeepCache UNet "
+                             "calls only (not ControlNet or IP-Adapter)")
+        return ip_tokens, ip_scale, hint, control_scale
 
     def _added(self, added_cond, do_cfg):
         """(pooled embeddings, time_ids) at the model batch on the device, or

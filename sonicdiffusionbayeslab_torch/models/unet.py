@@ -1,9 +1,10 @@
 """UNet2DCondition (SD-1.5, SD-2.x and SDXL geometries) in PyTorch.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/unet.py`` on the
-text-to-image path with its DeepCache split, Token Merging and SDXL's
-text_time added conditioning and the int8 W8A8 modes (no ControlNet,
-IP-Adapter, guidance embedding or CFG shared prefix).
+text-to-image path with its DeepCache split, Token Merging, SDXL's
+text_time added conditioning, the int8 W8A8 modes, ControlNet's residuals
+and IP-Adapter's decoupled cross-attentions (no guidance embedding or CFG
+shared prefix).
 Parameter names follow diffusers' ``UNet2DConditionModel``; activations
 are [B, H, W, C] at the module's boundary, as in the JAX package.
 """
@@ -122,6 +123,99 @@ class UNetConfig:
                    projection_class_embeddings_input_dim=16 + 6 * 8)  # pooled 16 + ids
 
 
+def _transformer(cfg: UNetConfig, lvl: int) -> SpatialTransformer:
+    ch, heads = cfg.block_out_channels[lvl], cfg.heads_at(lvl)
+    return SpatialTransformer(ch, heads, ch // heads, cfg.cross_attention_dim,
+                              depth=cfg.depth_at(lvl), linear=cfg.linear_projection)
+
+
+def build_encoder(module: nn.Module, cfg: UNetConfig):
+    """The encoder half of the UNet on ``module``, under diffusers' names:
+    ``conv_in``, ``time_embedding`` (and SDXL's ``add_embedding``),
+    ``down_blocks`` and ``mid_block``; the UNet and the ControlNet's copy
+    share it.  Returns the channels of each skip state, in order."""
+    chans = cfg.block_out_channels
+    n, temb = len(chans), chans[0] * 4
+    module.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
+    module.time_embedding = TimestepEmbedMLP(chans[0], temb)
+    if cfg.addition_time_embed_dim is not None:
+        module.add_embedding = TimestepEmbedMLP(cfg.projection_class_embeddings_input_dim, temb)
+    skip_ch, cur = [chans[0]], chans[0]
+    down = []
+    for lvl, ch in enumerate(chans):
+        res, att = [], []
+        for _ in range(cfg.layers_per_block):
+            res.append(ResnetBlock(cur, ch, temb))
+            cur = ch
+            if cfg.cross_attention[lvl]:
+                att.append(_transformer(cfg, lvl))
+            skip_ch.append(ch)
+        samp = [Downsample(ch, allow_quant=True)] if lvl < n - 1 else []
+        if samp:
+            skip_ch.append(ch)
+        down.append(Level(res, att, samp, "downsamplers"))
+    module.down_blocks = nn.ModuleList(down)
+    mid = chans[-1]
+    module.mid_block = Level([ResnetBlock(cur, mid, temb), ResnetBlock(mid, mid, temb)],
+                             [_transformer(cfg, n - 1)])
+    return skip_ch
+
+
+def time_embedding(module: nn.Module, cfg: UNetConfig, timesteps: torch.Tensor,
+                   text_embeds: Optional[torch.Tensor], time_ids: Optional[torch.Tensor],
+                   batch: int) -> torch.Tensor:
+    """``module``'s time embedding of ``timesteps`` (a scalar broadcasts to
+    ``batch``), plus SDXL's text_time conditioning where the config has
+    it: add_embedding of [pooled text embedding, sinusoids of the 6
+    time_ids] (diffusers' addition_embed_type "text_time")."""
+    dt = module.conv_in.weight.dtype
+    if timesteps.dim() == 0:
+        timesteps = timesteps.expand(batch)
+    t_emb = module.time_embedding(timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt))
+    if cfg.addition_time_embed_dim is None:
+        return t_emb
+    if text_embeds is None or time_ids is None:
+        raise ValueError("this UNet config requires added conditioning: text_embeds "
+                         "(pooled) and time_ids")
+    B, K = time_ids.shape
+    ids = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim)
+    add_in = torch.cat([text_embeds.float(), ids.reshape(B, K * cfg.addition_time_embed_dim)],
+                       dim=-1)
+    want = cfg.projection_class_embeddings_input_dim
+    if add_in.shape[-1] != want:
+        raise ValueError(f"added conditioning width {add_in.shape[-1]} != "
+                         f"projection_class_embeddings_input_dim {want}")
+    return t_emb + module.add_embedding(add_in.to(dt))
+
+
+def encoder_levels(module: nn.Module, h: torch.Tensor, t_emb: torch.Tensor, xfmr,
+                   last: int, downsample_last: bool):
+    """Down levels ``0..last`` of ``module``'s encoder from ``conv_in``'s
+    output ``h``: (h, the skip states, ``h`` first), each level's
+    downsample included except the last's unless ``downsample_last``;
+    ``xfmr(attn, lvl, h)`` runs a transformer."""
+    skips = [h]
+    for lvl, level in enumerate(module.down_blocks[:last + 1]):
+        attns = getattr(level, "attentions", None)
+        for j, res in enumerate(level.resnets):
+            h = res(h, t_emb)
+            if attns is not None:
+                h = xfmr(attns[j], lvl, h)
+            skips.append(h)
+        if downsample_last or lvl < last:
+            for samp in getattr(level, "downsamplers", ()):
+                h = samp(h)
+                skips.append(h)
+    return h, skips
+
+
+def mid_level(module: nn.Module, h: torch.Tensor, t_emb: torch.Tensor, xfmr) -> torch.Tensor:
+    n = len(module.down_blocks)
+    h = module.mid_block.resnets[0](h, t_emb)
+    h = xfmr(module.mid_block.attentions[0], n - 1, h)
+    return module.mid_block.resnets[1](h, t_emb)
+
+
 class UNet2DCondition(nn.Module):
     """``quant_mode``: the int8 mode of the whole UNet (``ops.quant``), set
     with ``ops.quant.set_quant_mode``; None is exact.  The ResnetBlocks'
@@ -138,36 +232,8 @@ class UNet2DCondition(nn.Module):
         n = len(chans)
         temb = chans[0] * 4
 
-        def xfmr(lvl):
-            ch, heads = chans[lvl], cfg.heads_at(lvl)
-            return SpatialTransformer(ch, heads, ch // heads, cfg.cross_attention_dim,
-                                      depth=cfg.depth_at(lvl), linear=cfg.linear_projection)
-
-        self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
-        self.time_embedding = TimestepEmbedMLP(chans[0], temb)
-        if cfg.addition_time_embed_dim is not None:
-            self.add_embedding = TimestepEmbedMLP(cfg.projection_class_embeddings_input_dim, temb)
-
-        skip_ch, cur = [chans[0]], chans[0]
-        down = []
-        for lvl, ch in enumerate(chans):
-            res, att = [], []
-            for _ in range(cfg.layers_per_block):
-                res.append(ResnetBlock(cur, ch, temb))
-                cur = ch
-                if cfg.cross_attention[lvl]:
-                    att.append(xfmr(lvl))
-                skip_ch.append(ch)
-            samp = [Downsample(ch, allow_quant=True)] if lvl < n - 1 else []
-            if samp:
-                skip_ch.append(ch)
-            down.append(Level(res, att, samp, "downsamplers"))
-        self.down_blocks = nn.ModuleList(down)
-
-        mid = chans[-1]
-        self.mid_block = Level([ResnetBlock(cur, mid, temb), ResnetBlock(mid, mid, temb)],
-                               [xfmr(n - 1)])
-        cur = mid
+        skip_ch = build_encoder(self, cfg)
+        cur = chans[-1]
 
         up = []  # diffusers up_blocks[k] is level n - 1 - k
         for lvl in reversed(range(n)):
@@ -177,7 +243,7 @@ class UNet2DCondition(nn.Module):
                 res.append(ResnetBlock(cur + skip_ch.pop(), ch, temb))
                 cur = ch
                 if cfg.cross_attention[lvl]:
-                    att.append(xfmr(lvl))
+                    att.append(_transformer(cfg, lvl))
             samp = [Upsample(ch, allow_quant=True)] if lvl > 0 else []
             up.append(Level(res, att, samp, "upsamplers"))
         self.up_blocks = nn.ModuleList(up)
@@ -193,8 +259,10 @@ class UNet2DCondition(nn.Module):
                 encoder_hidden_states: torch.Tensor, cache: Optional[torch.Tensor] = None,
                 tome_dst: Optional[torch.Tensor] = None,
                 text_embeds: Optional[torch.Tensor] = None,
-                time_ids: Optional[torch.Tensor] = None, return_cache: bool = False,
-                cache_branch_id: int = 0, tome=None):
+                time_ids: Optional[torch.Tensor] = None,
+                ip_context: Optional[torch.Tensor] = None,
+                ip_scale: Optional[torch.Tensor] = None, return_cache: bool = False,
+                cache_branch_id: int = 0, tome=None, control_residuals=None):
         """sample [B, h, w, C_in], timesteps [B] or scalar, context [B, T, D]
         -> [B, h, w, C_out] fp32.
 
@@ -203,6 +271,14 @@ class UNet2DCondition(nn.Module):
         required where the config has ``addition_time_embed_dim``.  They
         are tensor arguments, so a CUDA graph of the call copies them in at
         every replay.
+
+        IP-Adapter: ``ip_context`` [B, P, D] image-prompt tokens and
+        ``ip_scale`` (a 0-dim tensor) go to every cross-attention's
+        decoupled projections (``add_ip_adapter`` adds them).
+
+        ControlNet: ``control_residuals`` (down residuals, one a skip state;
+        the mid residual) from ``ControlNet`` are added to the skip states
+        and to the mid block's output; a DeepCache step refuses them.
 
         DeepCache: the shallow branch is down levels ``0..b`` and up levels
         ``b..0`` (b = ``cache_branch_id``); the deeper levels and the mid
@@ -229,47 +305,37 @@ class UNet2DCondition(nn.Module):
             raise ValueError("tome.rand needs tome_dst, each ToMe slot's destinations "
                              "(utils/rng.py::tome_destinations)")
         deep = cache is None
-        if timesteps.dim() == 0:
-            timesteps = timesteps.expand(sample.shape[0])
-        t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
-        t_emb = self.time_embedding(t_emb.to(dt))
-        if cfg.addition_time_embed_dim is not None:
-            t_emb = t_emb + self._text_time(text_embeds, time_ids)
+        if control_residuals is not None and not deep:
+            raise ValueError("control_residuals cannot be combined with a DeepCache step")
+        t_emb = time_embedding(self, cfg, timesteps, text_embeds, time_ids, sample.shape[0])
         ctx = encoder_hidden_states.to(dt)
+        ip = {} if ip_context is None else dict(ip_context=ip_context.to(dt), ip_scale=ip_scale)
         slot, tome_cache = 0, {}
 
         def xfmr(attn, lvl, h):
             nonlocal slot
             if tome is None or (1 << lvl) > tome.max_downsample:
-                return attn(h, ctx)
+                return attn(h, ctx, **ip)
             depth = len(attn.transformer_blocks)
             dst = None if tome_dst is None else tome_dst[slot:slot + depth]
             slot += depth
-            return attn(h, ctx, tome, dst, tome_cache)
+            return attn(h, ctx, tome, dst, tome_cache, **ip)
 
         h = conv_nhwc(self.conv_in, sample.to(dt))
-        skips = [h]
-        for lvl, level in enumerate(self.down_blocks):
-            if lvl > branch and not deep:
-                break
-            attns = getattr(level, "attentions", None)
-            for j, res in enumerate(level.resnets):
-                h = res(h, t_emb)
-                if attns is not None:
-                    h = xfmr(attns[j], lvl, h)
-                skips.append(h)
-            # Level b's downsample feeds only the trunk.
-            if deep or lvl < branch:
-                for samp in getattr(level, "downsamplers", ()):
-                    h = samp(h)
-                    skips.append(h)
+        # Level b's downsample feeds only the trunk.
+        h, skips = encoder_levels(self, h, t_emb, xfmr, n - 1 if deep else branch, deep)
+        if control_residuals is not None:
+            down_r, mid_r = control_residuals
+            if len(down_r) != len(skips):
+                raise ValueError(f"{len(down_r)} control residuals != {len(skips)} skip states")
+            skips = [s + r.to(s.dtype) for s, r in zip(skips, down_r)]
 
         # up_blocks[k] is level n - 1 - k.
         up = [(n - 1 - k, level) for k, level in enumerate(self.up_blocks)]
         if deep:
-            h = self.mid_block.resnets[0](h, t_emb)
-            h = xfmr(self.mid_block.attentions[0], n - 1, h)
-            h = self.mid_block.resnets[1](h, t_emb)
+            h = mid_level(self, h, t_emb, xfmr)
+            if control_residuals is not None:
+                h = h + mid_r.to(h.dtype)
             h = self._up(up[:n - 1 - branch], h, skips, t_emb, xfmr)
             deep_features = h
         else:
@@ -280,22 +346,18 @@ class UNet2DCondition(nn.Module):
         out = conv_nhwc(self.conv_out, h).float()
         return (out, deep_features) if return_cache else out
 
-    def _text_time(self, text_embeds, time_ids) -> torch.Tensor:
-        """add_embedding of [pooled text embedding, sinusoids of the 6
-        time_ids] (diffusers' addition_embed_type "text_time")."""
-        cfg = self.config
-        if text_embeds is None or time_ids is None:
-            raise ValueError("this UNet config requires added conditioning: text_embeds "
-                             "(pooled) and time_ids")
-        B, K = time_ids.shape
-        ids = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim)
-        add_in = torch.cat([text_embeds.float(), ids.reshape(B, K * cfg.addition_time_embed_dim)],
-                           dim=-1)
-        want = cfg.projection_class_embeddings_input_dim
-        if add_in.shape[-1] != want:
-            raise ValueError(f"added conditioning width {add_in.shape[-1]} != "
-                             f"projection_class_embeddings_input_dim {want}")
-        return self.add_embedding(add_in.to(self.dtype))
+    def cross_attentions(self):
+        """(name, module) of every cross-attention (each transformer block's
+        ``attn2``) in diffusers' ``attn_processors`` order: down blocks,
+        mid block, up blocks."""
+        return [(name, m) for name, m in self.named_modules() if name.endswith(".attn2")]
+
+    def add_ip_adapter(self) -> "UNet2DCondition":
+        """Add IP-Adapter's ``to_k_ip``/``to_v_ip`` to every cross-attention
+        (no-op where present); their weights are then loaded."""
+        for _, attn in self.cross_attentions():
+            attn.add_ip()
+        return self
 
     @staticmethod
     def _up(levels, h, skips, t_emb, xfmr):

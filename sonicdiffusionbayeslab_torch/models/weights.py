@@ -3,7 +3,8 @@
 The port's own copies of the name maps in
 ``sonicdiffusionbayeslab_tpu/models/weights.py`` (``unet_name_map``,
 ``vae_name_map``, ``clip_text_name_map``, ``clip_dual_name_map``,
-``mmdit_name_map``, ``t5_name_map``) and of ``invert``: for every JAX parameter path, the diffusers / transformers
+``mmdit_name_map``, ``t5_name_map``, ``controlnet_name_map``) and of
+``invert``: for every JAX parameter path, the diffusers / transformers
 tensor name and the layout change (HWIO conv -> OIHW, [in, out] dense ->
 [out, in], dense -> [out, in, 1, 1] for SD-1.5's 1x1-conv transformer
 projections; SD-2.x's and SDXL's are linears).  The metric towers' maps follow the JAX package's loaders
@@ -13,7 +14,8 @@ the LAION head's), and ``*_from_jax`` turn those JAX trees into the
 port's state dicts.  The port's modules carry exactly those names, so a local
 diffusers snapshot or transformers CLIP checkpoint loads by name
 (``load_sd_checkpoint``, ``load_sdxl_checkpoint``, ``load_sd3_checkpoint``,
-``load_clip_checkpoint``; ``write_snapshot`` writes one), strictly, after dropping by name the few keys
+``load_clip_checkpoint``, ``load_controlnet_checkpoint``; ``write_snapshot``
+writes one), strictly, after dropping by name the few keys
 the port's modules do not have.
 """
 
@@ -77,7 +79,8 @@ class MapEntries(dict):
         self.conv(f"{dst}/conv_shortcut", f"{src}.conv_shortcut")
 
     def attention(self, dst, src):
-        for p in ("to_q", "to_k", "to_v"):
+        # to_k_ip/to_v_ip: IP-Adapter's projections, in a tree that has them.
+        for p in ("to_q", "to_k", "to_v", "to_k_ip", "to_v_ip"):
             self.dense(f"{dst}/{p}", f"{src}.{p}", bias=False)
         self.dense(f"{dst}/to_out", f"{src}.to_out.0")
 
@@ -141,6 +144,27 @@ def unet_name_map(cfg: UNetConfig) -> NameMap:
             m.conv(f"up_{lvl}_upsample/conv", f"up_blocks.{k}.upsamplers.0.conv")
     m.norm("conv_norm_out", "conv_norm_out")
     m.conv("conv_out", "conv_out")
+    return dict(m)
+
+
+def controlnet_name_map(cfg: UNetConfig) -> NameMap:
+    """The JAX ControlNet tree -> diffusers ``ControlNetModel`` names: the
+    encoder copy's entries are the UNet map's (the same module names on both
+    sides), plus the conditioning embedding and the zero-conv heads."""
+    from sonicdiffusionbayeslab_torch.models.controlnet import COND_EMBED_CHANNELS
+
+    m = MapEntries({k: v for k, v in unet_name_map(cfg).items()
+                    if k.split("/")[0] in ("conv_in", "time_embedding", "add_embedding")
+                    or k.startswith(("down_", "mid_"))})
+    m.conv("cond_embedding/conv_in", "controlnet_cond_embedding.conv_in")
+    for j in range(2 * (len(COND_EMBED_CHANNELS) - 1)):
+        m.conv(f"cond_embedding/blocks_{j}", f"controlnet_cond_embedding.blocks.{j}")
+    m.conv("cond_embedding/conv_out", "controlnet_cond_embedding.conv_out")
+    n = len(cfg.block_out_channels)
+    n_skips = 1 + sum(cfg.layers_per_block + (lvl < n - 1) for lvl in range(n))
+    for i in range(n_skips):
+        m.conv(f"control_out_{i}", f"controlnet_down_blocks.{i}")
+    m.conv("control_mid", "controlnet_mid_block")
     return dict(m)
 
 
@@ -451,7 +475,19 @@ def state_dicts_from_jax(params_np: dict, unet_config=None
                 np.asarray(params_np[f"{key}_proj"]["kernel"], np.float32))
     if "t5" in params_np:
         sds["t5"] = invert(params_np["t5"], t5_name_map(_count(params_np["t5"], "block_{}")))
+    if "image_proj" in params_np:  # IP-Adapter's projection
+        m = MapEntries()
+        m.dense("proj", "proj")
+        m.norm("norm", "norm")
+        sds["image_proj"] = invert(params_np["image_proj"], dict(m))
     return {k: _tensors(sd) for k, sd in sds.items()}
+
+
+def controlnet_state_dict_from_jax(tree: dict, unet_config=None) -> Dict[str, torch.Tensor]:
+    """The JAX ControlNet tree -> the port's ``ControlNet`` state dict
+    (``unet_config`` as in :func:`state_dicts_from_jax`; without it the
+    geometry of the encoder copy)."""
+    return _tensors(invert(tree, controlnet_name_map(unet_config or unet_geometry(tree))))
 
 
 # ------------------------------------------------------- local checkpoints
@@ -519,7 +555,7 @@ def load_sd_checkpoint(snapshot_dir: str | Path, engine) -> None:
     for sub, module, drop in parts:
         path = _find_checkpoint(snapshot_dir / sub, names)
         _load_strict(module, load_torch_state_dict(path), drop, str(path))
-    engine.graphed_unet.clear()
+    engine.weights_changed()
 
 
 # Keys of a diffusers SD3 snapshot with no parameter in the port: the
@@ -565,7 +601,7 @@ def load_sd3_checkpoint(snapshot_dir: str | Path, engine) -> None:
     for sub, module, extra in parts:
         d = snapshot_dir / sub
         _load_strict(module, _load_dir(d), lambda k, extra=extra: k in extra, str(d))
-    engine.graphed_unet.clear()
+    engine.weights_changed()
 
 
 def write_snapshot(engine, snapshot_dir: str | Path) -> Path:
@@ -580,6 +616,15 @@ def write_snapshot(engine, snapshot_dir: str | Path) -> Path:
         (root / sub).mkdir(parents=True, exist_ok=True)
         torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, root / sub / name)
     return root
+
+
+def load_controlnet_checkpoint(snapshot_dir: str | Path, engine) -> None:
+    """A diffusers ControlNet snapshot dir (``diffusion_pytorch_model.bin``
+    or ``.safetensors``) into the engine's ``controlnet``, strictly."""
+    d = Path(snapshot_dir)
+    _load_strict(engine.controlnet, load_torch_state_dict(_find_checkpoint(d, _CHECKPOINT_NAMES)),
+                 lambda k: False, str(d))
+    engine.weights_changed()
 
 
 def load_sdxl_checkpoint(snapshot_dir: str | Path, engine) -> None:

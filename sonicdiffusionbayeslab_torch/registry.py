@@ -31,7 +31,7 @@ class PortRegistry(ClassRegistry):
         return super().__getitem__(name)
 
 
-models_registry = PortRegistry("models_registry", ("stable_diffusion_controlnet_model",))
+models_registry = PortRegistry("models_registry", ())
 methods_registry = PortRegistry("methods_registry", ())
 metrics_registry = PortRegistry("metrics_registry", ())
 schedulers_registry = PortRegistry("schedulers_registry", ())

@@ -77,7 +77,9 @@ class GraphedCall:
                 self.fn(*static_in)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # thread_local: CUDA calls of other threads (the server's finisher
+        # copying a finished batch to the host) go on during the capture.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             static_out = self.fn(*static_in)
         return graph, static_in, static_out
 

@@ -211,7 +211,8 @@ _SD3_T5 = {"model.pretrained_model": "sd3", "model.use_t5": True}
     ({"inference.quant": "int4"}, "inference.quant"),
     ({"scheduler.scheduler_name": "flow_match_euler_scheduler",
       "model.model_name": "stable_diffusion_3_model", **_SD3_T5}, "not ported yet"),
-    ({"model.model_name": "stable_diffusion_controlnet_model"}, "not ported yet"),
+    # Ported: the experiment passes no control image, which it refuses as JAX's does.
+    ({"model.model_name": "stable_diffusion_controlnet_model"}, "requires control_image"),
     ({"experiment.method": "flow_euler",
       "model.model_name": "stable_diffusion_3_model_skip_timesteps", **_SD3_T5},
      "not ported yet"),

@@ -17,6 +17,7 @@ from sonicdiffusionbayeslab_torch.data.dataset import ImageDatasetWithPrompts, b
 from sonicdiffusionbayeslab_torch.data.imageio import encode_png_bytes, read_image
 from sonicdiffusionbayeslab_tpu import calc_clip_score as jax_cli
 from sonicdiffusionbayeslab_tpu.data import dataset as jds
+from sonicdiffusionbayeslab_tpu.data.imageio import encode_png_bytes as jax_png
 from sonicdiffusionbayeslab_tpu.data.imageio import read_image as jax_read_image
 
 REPO = Path(__file__).resolve().parents[1]
@@ -31,7 +32,7 @@ def _pixels(h, w, seed):
 
 
 def _write(path, img, kind):
-    """``kind``: "png" (the port's stdlib writer, filter 0 rows), "png_pil"
+    """``kind``: "png" (the port's writer, libpng's row filters), "png_pil"
     (PIL's adaptive row filters), "rgba_pil", or "jpeg" (PIL, quality 90)."""
     if kind == "png":
         path.write_bytes(encode_png_bytes(img))
@@ -58,6 +59,34 @@ def test_read_image_bit_equal_to_jax(tmp_path, kind, size):
         assert got.dtype == np.float32 and got.shape == want.shape
         assert got.shape == ((h, w, 3) if size is None else (size, size, 3))
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 7), (7, 1), (8, 8), (37, 53), (64, 64),
+                                   (512, 512)])
+@pytest.mark.parametrize("content", ["noise_ramp", "flat", "float"])
+def test_png_bytes_equal_jax(shape, content):
+    """The port's PNG writer gives the JAX package's bytes: each row's
+    filter, the zlib window of images under 16 KiB and the 8192-byte IDAT
+    chunks of large ones (512^2), single rows and columns included."""
+    h, w = shape
+    if content == "noise_ramp":
+        img = _pixels(h, w, h * 1000 + w)
+    elif content == "flat":
+        img = np.full((h, w, 3), 17, np.uint8)
+    else:
+        img = np.random.default_rng(h + w).random((h, w, 3), dtype=np.float32)
+    png = encode_png_bytes(img)
+    assert png == jax_png(img)
+    np.testing.assert_array_equal(
+        _decoded(png), np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        if content == "float" else img)
+
+
+def _decoded(png):
+    """The pixels of PNG bytes, read back by the port's decoder."""
+    from sonicdiffusionbayeslab_torch.data.imageio import _decode
+
+    return _decode(png, "a test PNG")
 
 
 def test_jpeg_without_libjpeg_names_the_library(tmp_path, monkeypatch):

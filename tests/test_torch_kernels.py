@@ -921,3 +921,59 @@ def test_tiny_sd3_engine_card_matches_cpu(cuda, monkeypatch, case):
     assert err <= 1e-3, f"max abs image err {err:.3e}"
     assert sorted(engines[1].graphed_unet.captures.values()) == [1] * (
         2 if case == "trunk_delta" else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("D", [40, 80, 160])
+def test_bf16_attention_single_partial_kv_tile_matches_plain(cuda, M, D):
+    """M < 64: one K/V tile, most of its keys past M (IP-Adapter's four
+    image tokens), against the plain version under chip_smoke.py's bf16 gate
+    (1e-2 + 2e-2 |ref|, and max |err| <= 0.1 rms); query rows ragged too."""
+    gen = torch.Generator(device=cuda).manual_seed(M * D)
+    for B, N, H in ((4, 1024, 8), (2, 77, 4)):
+        q = (torch.randn(B, N, H, D, generator=gen, device=cuda) * 3).to(torch.bfloat16)
+        k, v = (torch.randn(B, M, H, D, generator=gen, device=cuda).to(torch.bfloat16)
+                for _ in range(2))
+        n0 = fa.flash_attention_sm90.launches
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_sm90.launches == n0 + 1
+        want = attn_ops.plain_attention(q, k, v)
+        assert torch.isfinite(got).all()
+        assert_close(got, want, 1e-2, 2e-2)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 0.1 * want.float().pow(2).mean().sqrt().item()
+        if M == 1:  # softmax over one key: the output is v, broadcast
+            assert_close(got, v.expand(B, N, H, D), 1e-2, 1e-2)
+
+
+@pytest.mark.cuda
+def test_graphed_controlnet_pipeline_call_matches_eager(cuda):
+    """The ControlNet pipeline's denoiser call (the ControlNet's residuals,
+    then the UNet with IP-Adapter's tokens) replayed from a CUDA graph is
+    bit-equal to the eager call, and the graph takes new control images and
+    scales at each replay."""
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionControlNetModel
+
+    pipe = StableDiffusionControlNetModel(tiny=True, image_size=64, dtype="bfloat16", seed=0,
+                                          device=cuda, ip_adapter="random.bin")
+    eng = pipe.engine
+    with torch.no_grad():
+        for conv in eng.controlnet.heads():  # nonzero residuals
+            conv.weight.normal_(0.0, 0.05)
+    x = randn((4, 8, 8, 4), 1).to(cuda, torch.bfloat16)
+    t = torch.tensor([500.0, 500.0, 20.0, 20.0], device=cuda)
+    e = randn((4, 77, 32), 2).to(cuda, torch.bfloat16)
+    tokens = randn((4, 4, 32), 3).to(cuda, torch.bfloat16)
+    hint = torch.rand(4, 64, 64, 3, device=cuda)
+    with torch.inference_mode():
+        for scale, ip in ((1.0, 0.5), (0.3, 1.0)):
+            args = (x, t, e, None, None, None, None, tokens, torch.tensor(ip, device=cuda), hint,
+                    torch.tensor(scale, device=cuda))
+            want = eng.denoise(*args)
+            got = eng.graphed_unet(*args)
+            assert torch.equal(got, want)
+        bare = eng.unet(x, t, e)
+        assert not torch.equal(got, bare)
+    assert list(eng.graphed_unet.captures.values()) == [1]

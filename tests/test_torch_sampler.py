@@ -130,7 +130,9 @@ def test_port_imports_no_jax():
     assert {f"sonicdiffusionbayeslab_torch.{m}" for m in (
         "calc_clip_score", "data._dataio", "data.imageio", "metrics.aesthetic", "metrics.frechet",
         "metrics.image_reward_model", "metrics.inception", "ops.quant", "models.mmdit",
-        "models.sd3", "models.t5", "schedulers.flow", "quality_frontier")} <= set(mods)
+        "models.sd3", "models.t5", "schedulers.flow", "quality_frontier", "serving",
+        "serving.batcher", "serving.server", "serve_bench", "models.controlnet",
+        "models.ip_adapter", "models.prompt_weighting")} <= set(mods)
 
 
 def test_pipeline_without_device_raises_without_gpu():
