@@ -180,12 +180,34 @@ prints no ``ok`` line:
      others bit-equal to it alone (at row 3 it may differ by rounding:
      the UNet's library matmuls or convolutions sum by row position); and
      serve_bench's hero mode (batch 32, 128 requests);
- 14. the card line, then one JSON ``kernels`` line (the fp32 attention
+ 14. training at SD-1.5 width: the kernels against their plain versions at
+     the phase's new shapes (the VAE encode at batch 8, the SD3 bench's
+     joint attention over 4096 + 154 tokens, the tiny UNet's at batch 2);
+     gradients through FlashAttentionFn and GroupNormSiLUFn (the kernel
+     forward, the JAX package's stock backward) at every attention shape
+     of the UNet at batch 8 and of the MMDiT at batch 2, and every
+     GroupNorm shape of the UNet with SiLU on and off, bf16 and fp32,
+     against autograd through the plain version in fp32 (GRAD_TOL), one
+     launch a forward and none a backward; three tiny fp32 LoRA and full
+     steps on the card against the CPU (1e-3), every adapter's b with a
+     gradient at step 0 and every a from step 1; configs/train_lora.yaml
+     as shipped through training.loop.run_training (batch 8 at 512^2,
+     random bf16 weights; overridden: the dataset, 16 real PNGs under the
+     first 16 names of img2annotations_train.json, num_steps 12, log_every
+     4, save_dir): finite losses, steps/s, peak memory, the wrappers'
+     launches equal to the census (32 attentions and 61 GroupNorms a step,
+     22 GroupNorms an encode), lora_peft.npz with every target's tensors,
+     fused by merge_lora into a 512^2 sample that differs from the base's,
+     and a 2-step run traced against the census; the port's train_bench
+     lora512, full512 and sd3_lora at 12 steps (their JSON lines; launches
+     against the census, remat's twice a step); with --profile a trace of
+     each of those modes' steps by kernel group, backward and optimizer;
+ 15. the card line, then one JSON ``kernels`` line (the fp32 attention
      kernel's entry is phase 9's metric towers: 108 launches a validate
-     batch; each entry also lists its launches in each phase-7, phase-8,
-     phase-9, phase-10, phase-11, phase-12 and phase-13 run, and its
-     phase-10 and phase-12 sums over one forward and one decode);
- 15. the last line: {"ok": true, "device": {...}}.
+     batch; each entry also lists its launches in each phase-7 to phase-14
+     run, and its phase-10 and phase-12 sums over one forward and one
+     decode);
+ 16. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -196,6 +218,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -916,18 +939,20 @@ def traced_exact(run, want, what, same=None, reset=None, symbols=None):
     engines, peak memory), up to TRACE_ATTEMPTS traces in all.  The run
     replays the same CUDA graphs each time: one that launched fewer kernels
     is short in every trace, and a trace over WANT raises at once."""
+    history = []
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         if attempt > 1 and reset is not None:
             reset()
         try:
             out, counts = traced_launches(run, symbols)
         except TraceLost as e:
-            got = f"none: {e}"
+            history.append(f"none: {e}")
             print(f"trace {attempt} of {TRACE_ATTEMPTS} of {what}: {e}", flush=True)
             continue
         got = {k: counts[k] for k in want}
         if got == want:
             return out, counts, attempt
+        history.append(got)
         short = all(got[k] <= n for k, n in want.items())
         kept = same is None or same(out)
         print(f"trace {attempt} of {TRACE_ATTEMPTS} of {what}: kernel executions {got}, "
@@ -935,15 +960,21 @@ def traced_exact(run, want, what, same=None, reset=None, symbols=None):
               f"to an untraced run's: {kept}", flush=True)
         if not (short and kept):
             break
-    raise AssertionError(f"{what}: traced kernel executions {got}, expected {want} "
-                         f"(trace {attempt} of at most {TRACE_ATTEMPTS})")
+    raise AssertionError(f"{what}: traced kernel executions {history[-1]}, expected {want} "
+                         f"(trace {attempt} of at most {TRACE_ATTEMPTS}; every trace's: "
+                         f"{history})")
 
 
-def retrace_reset(rec=None, int8=False):
+def retrace_reset(rec=None, int8=False, run_dir=None):
     """``traced_exact``'s ``reset`` for a run whose checks read the wrapper
     counts (and the int8 counts), the engines ``rec`` recorded and the peak
-    memory: each anew, the earlier attempt's engine and graphs dropped."""
+    memory: each anew, the earlier attempt's engine and graphs dropped.  For
+    a CLI run, ``run_dir`` (its logger's directory) is removed: its
+    sweep_state.json would make the retried sweep skip every point it has
+    done, so the retrace would launch nothing."""
     def reset():
+        if run_dir is not None:
+            shutil.rmtree(run_dir, ignore_errors=True)
         if rec is not None:
             rec.made.clear()
         gc.collect()
@@ -1116,6 +1147,29 @@ def eager_vs_graphed_unet(model, per_unet, reps=5):
     return out
 
 
+def kernel_group(name, tome=False):
+    """The group a device kernel's time is summed into by the profiles:
+    ours by symbol, the libraries' by their kernel-name conventions;
+    with ``tome``, Token Merging's sorts, gathers and scatters apart."""
+    low = name.lower()
+    if SYMBOLS["attention_fp32"] in name or SYMBOLS["attention"] in name:
+        return "flash_attention (ours)"
+    if SYMBOLS["group_norm"] in name:
+        return "group_norm_silu (ours)"
+    if INT8_GEMM_SYMBOL in low or "imma" in low:
+        return "int8 GEMMs (cuBLASLt)"
+    if any(w in low for w in ("fprop", "dgrad", "wgrad", "conv")):
+        return "convolutions (cuDNN)"
+    if any(w in low for w in ("gemm", "nvjet", "cutlass", "cublas", "xmma")):
+        return "matmuls (cuBLAS)"
+    if "layer_norm" in low:
+        return "layer_norm"
+    if tome and any(w in low for w in ("sort", "gather", "scatter", "indexselect",
+                                         "index_select")):
+        return "tome sorts, gathers, scatters"
+    return "elementwise, reductions and copies"
+
+
 def profile_loop(model, tome=None, size=SIZE, label=None):
     """Device time by kernel group over one 20-step denoising loop of the
     pipeline's plan (UNet forwards at the model batch, CFG combine,
@@ -1141,24 +1195,7 @@ def profile_loop(model, tome=None, size=SIZE, label=None):
             by_name[e.key] += dev_us / 1e3 / STEPS
     groups = collections.Counter()
     for k, v in by_name.items():
-        low = k.lower()
-        if SYMBOLS["attention_fp32"] in k or SYMBOLS["attention"] in k:
-            groups["flash_attention (ours)"] += v
-        elif SYMBOLS["group_norm"] in k:
-            groups["group_norm_silu (ours)"] += v
-        elif "gemm_s8" in low or "imma" in low:
-            groups["int8 GEMMs (cuBLASLt)"] += v
-        elif "fprop" in low or "conv" in low:
-            groups["convolutions (cuDNN)"] += v
-        elif any(w in low for w in ("gemm", "nvjet", "cutlass", "cublas")):
-            groups["matmuls (cuBLAS)"] += v
-        elif "layer_norm" in low:
-            groups["layer_norm"] += v
-        elif tome and any(w in low for w in ("sort", "gather", "scatter", "indexselect",
-                                                "index_select")):
-            groups["tome sorts, gathers, scatters"] += v
-        else:
-            groups["elementwise and copies"] += v
+        groups[kernel_group(k, tome=bool(tome))] += v
     device_ms = sum(by_name.values())
     step_ms = loop_s * 1e3 / STEPS  # profiler on: the loop runs slower than unprofiled
     out = dict(step_wall_ms=step_ms, step_device_ms=device_ms,
@@ -1211,7 +1248,8 @@ def run_cli(report, per_unet, per_vae, clip_per_batch, card):
                 else:
                     metrics, traced, _ = traced_exact(lambda: cli.run(config, overrides),
                                                       want_traced, "the CLI traced run",
-                                                      reset=retrace_reset())
+                                                      reset=retrace_reset(
+                                                          run_dir=Path(tmp) / "outputs" / run))
                 wall = time.perf_counter() - t0
                 counts = wrapper_counts()
                 with open(Path(tmp) / "outputs" / run / "tables" / "final.tsv") as f:
@@ -1452,7 +1490,8 @@ def run_methods(card, runs, trace_all=False):
                             metrics, traced, _ = traced_exact(
                                 lambda: cli.run(config, overrides), dict(want_traced),
                                 f"the {name} CLI run",
-                                reset=lambda: (merged.clear(), retrace_reset(rec)()))
+                                reset=lambda: (merged.clear(), retrace_reset(
+                                    rec, run_dir=Path(tmp) / "outputs" / name)()))
                 finally:
                     if fuse is not None:
                         StableDiffusionModel.fuse_lora = fuse
@@ -2111,7 +2150,8 @@ def run_metrics(report, card, metric_counts, tmp):
         t0 = time.perf_counter()
         with _RecordingVariants() as rec:
             metrics, traced, _ = traced_exact(lambda: cli.run(config, overrides), want_traced,
-                                              "the metrics CLI run", reset=retrace_reset(rec))
+                                              "the metrics CLI run", reset=retrace_reset(
+                                                  rec, run_dir=Path(tmp) / "outputs" / "metrics"))
         wall = time.perf_counter() - t0
         counts = wrapper_counts()
         caps, graphs_gb = rec.captures()
@@ -2353,7 +2393,8 @@ def run_family_cli(family, census, assets, card):
         t0 = time.perf_counter()
         with _RecordingVariants() as rec:
             metrics, traced, _ = traced_exact(lambda: cli.run(config, overrides), want_traced,
-                                              f"the {family} CLI run", reset=retrace_reset(rec))
+                                              f"the {family} CLI run", reset=retrace_reset(
+                                                  rec, run_dir=work / "outputs" / family))
         wall = time.perf_counter() - t0
         counts = wrapper_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2914,7 +2955,8 @@ def run_turbo_cli(census, assets, card):
         with _RecordingVariants() as rec:
             metrics, traced, _ = traced_exact(
                 lambda: cli.run(config, overrides), {**want_traced, "int8_gemm": want_gemm_traced},
-                "the turbo CLI run", reset=retrace_reset(rec, int8=True),
+                "the turbo CLI run",
+                reset=retrace_reset(rec, int8=True, run_dir=work / "outputs" / "turbo"),
                 symbols={"int8_gemm": INT8_GEMM_SYMBOL})
         wall = time.perf_counter() - t0
         counts, q = wrapper_counts(), int8_counts()
@@ -3525,7 +3567,8 @@ def run_sd3_cli(name, point, label, nfe, chunk, x0, census, assets, snapshots, c
         with _RecordingVariants() as rec:
             if trace:
                 metrics, traced, _ = traced_exact(lambda: cli.run(config, overrides), want_traced,
-                                                  f"the {name} CLI run", reset=retrace_reset(rec))
+                                                  f"the {name} CLI run", reset=retrace_reset(
+                                                      rec, run_dir=work / "outputs" / name))
             else:
                 metrics, traced = cli.run(config, overrides), None
         wall = time.perf_counter() - t0
@@ -4153,6 +4196,492 @@ def run_serving_conditioning(report, card, checked):
     report["e2e"]["serving_conditioning"] = out
 
 
+# --------------------------------------------------------- training (phase 14)
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LOG, TRAIN_IMAGES, TRAIN_TRACE_STEPS = 8, 12, 4, 16, 2
+TRAIN_BENCH_MODES = ("lora512", "full512", "sd3_lora")  # each at its default batch (8, 8, 2)
+# The SD3 LoRA bench's context: CLIP-L's and bigG's 77 tokens side by side
+# on the sequence axis (the root train_bench.py's T_ctx), so its joint
+# attention runs over 4096 + 154 tokens at 1024^2.
+SD3_TRAIN_CTX = 154
+# Gradients through the Functions (the kernel forward, the stock backward)
+# against autograd through the plain version in fp32 on the same inputs:
+# |grad - ref| <= atol * max|ref| + rtol * |ref|.  fp32: the same fp32 math
+# in another summation order.  bf16: each gradient is rounded to bf16 after
+# the same fp32 math (half a step is 2^-9 relative); atol covers entries
+# near 0 where the inputs' bf16 rounding dominates.
+GRAD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (4e-3, 8e-3)}
+
+
+def train_census():
+    """Phase 14's {(kind, shape): launches} by call: one SD-1.5 UNet forward
+    at TRAIN_BATCH rows (512^2: a train step's forward), one VAE encode of
+    TRAIN_BATCH 512^2 images (the loop's prep), one MMDiT forward at batch
+    2 with SD3_TRAIN_CTX context tokens (1024^2, the SD3 LoRA bench) and the
+    tiny UNet's forward at batch 2 (the card-vs-CPU steps)."""
+    return dict(unet=module_census(TRAIN_BATCH),
+                encode=module_census(enc_batch=TRAIN_BATCH, enc_size=SIZE),
+                sd3=sd3_module_census(batch=2, ctx_len=SD3_TRAIN_CTX),
+                tiny=module_census(2, tiny=True))
+
+
+def check_train_forward(census, report, checked):
+    """Each kernel against its plain version at every phase-14 shape that
+    phase 3 did not check (bf16 at the full-width calls, fp32 at the tiny
+    UNet's); max errors into ``report["errs"]`` and ``report["phase14_errs"]``."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    work = sorted(({(k, torch.bfloat16) for p in ("unet", "encode", "sd3") for k in census[p]}
+                   | {(k, torch.float32) for k in census["tiny"]}) - checked,
+                  key=lambda w: (str(w[1]), w[0][0], [str(v) for v in w[0][1]]))
+    for (kind, shape), dtype in work:
+        inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
+        kern, plain = run_kernel(kind, shape, inputs)
+        got = kern()
+        torch.cuda.synchronize()
+        err = compare(kind, dtype, got, plain(), f"{kind} {shape} {dtype} (phase 14)")
+        report["errs"][report_key(kind, dtype)].append(err)
+        report["phase14_errs"][report_key(kind, dtype)].append(err)
+        print(f"phase 14 {kind} {str(dtype)[6:]} {shape}: max abs err {err:.3e}")
+        del inputs, got
+    torch.cuda.empty_cache()
+    return len(work)
+
+
+def grad_close(got, want, dtype, what):
+    """Max |got - want| within GRAD_TOL (raises otherwise)."""
+    atol, rtol = GRAD_TOL[dtype]
+    want = want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite gradient")
+    err = (got.float() - want).abs()
+    bound = atol * want.abs().max() + rtol * want.abs()
+    if (err > bound).any():
+        raise AssertionError(f"{what}: max abs err {err.max().item():.3e} exceeds "
+                             f"{atol} x max|ref| {want.abs().max().item():.3e} + {rtol} x |ref|")
+    return err.max().item()
+
+
+def check_train_gradients(census, report):
+    """dq/dk/dv through ``FlashAttentionFn`` (the kernel forward, the stock
+    ``attention_vjp``) at every attention shape of the phase's UNet and
+    MMDiT calls, and dx/dγ/dβ through ``GroupNormSiLUFn`` at every GroupNorm
+    shape of the UNet's, SiLU on and off, in bf16 and fp32, against autograd
+    through the plain version in fp32 on the same inputs (a few batch rows
+    at a time); each forward launches its kernel once, no backward any.
+    Max errors into ``report["phase14_grad_errs"]``."""
+    from sonicdiffusionbayeslab_torch.ops import flash_attention as fa
+    from sonicdiffusionbayeslab_torch.ops.attention import dot_product_attention, plain_attention
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import (GroupNormSiLUFn, group_norm_silu,
+                                                             plain_group_norm)
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    attn = sorted({s for p in ("unet", "sd3") for k, s in census[p] if k == "attention"})
+    gns = sorted({s[:5] for k, s in census["unet"] if k == "group_norm"})
+    out = collections.defaultdict(float)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in attn:
+            q, k, v = attn_inputs(shape, dtype, gen)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            wrapper = fa._KERNELS[fa.kernel_for(dtype)]
+            n0 = wrapper.launches
+            o = dot_product_attention(*ins)
+            if not isinstance(o.grad_fn, fa.FlashAttentionFn._backward_cls):
+                raise AssertionError(f"attention {shape} with grad did not go through the Function")
+            grads = torch.autograd.grad(o, ins, do)
+            torch.cuda.synchronize()
+            if wrapper.launches != n0 + 1:
+                raise AssertionError(f"attention {shape}: {wrapper.launches - n0} launches for one "
+                                     "forward and backward, not 1")
+            B, N, M, H, _ = shape
+            rows = max(1, min(B, int(PLAIN_BYTES // (30 * H * N * M))))
+            errs = [0.0, 0.0, 0.0]
+            for b in range(0, B, rows):
+                ref_in = [x[b:b + rows].float().requires_grad_(True) for x in (q, k, v)]
+                ref = torch.autograd.grad(plain_attention(*ref_in), ref_in,
+                                          do[b:b + rows].float())
+                for i, (g, r) in enumerate(zip(grads, ref)):
+                    errs[i] = max(errs[i], grad_close(g[b:b + rows], r, dtype,
+                                                      f"attention {shape} {dtype} d{'qkv'[i]}"))
+                del ref_in, ref
+            key = report_key("attention", dtype)
+            out[key] = max(out[key], *errs)
+            report["phase14_grad_errs"][key].append(max(errs))
+            print(f"phase 14 attention {str(dtype)[6:]} {shape} gradients: max abs err dq "
+                  f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}")
+            del q, k, v, do, ins, o, grads
+        for B, N, C, G, eps in gns:
+            for silu in (True, False):
+                x, w, b = gn_inputs((B, N, C), dtype, gen)
+                dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+                ins = [t.clone().requires_grad_(True) for t in (x, w, b)]
+                n0 = group_norm_silu.launches
+                y = group_norm_silu(*ins, G, eps, silu)
+                if not isinstance(y.grad_fn, GroupNormSiLUFn._backward_cls):
+                    raise AssertionError(f"GroupNorm {(B, N, C)} with grad did not go through "
+                                         "the Function")
+                grads = torch.autograd.grad(y, ins, dy)
+                torch.cuda.synchronize()
+                if group_norm_silu.launches != n0 + 1:
+                    raise AssertionError(f"GroupNorm {(B, N, C)}: "
+                                         f"{group_norm_silu.launches - n0} launches, not 1")
+                ref_in = [t.float().requires_grad_(True) for t in (x, w, b)]
+                ref = torch.autograd.grad(plain_group_norm(*ref_in, G, eps, silu), ref_in,
+                                          dy.float())
+                errs = [grad_close(g, r, dtype, f"GroupNorm {(B, N, C, silu)} {dtype} d{n}")
+                        for g, r, n in zip(grads, ref, ("x", "gamma", "beta"))]
+                key = report_key("group_norm", dtype)
+                out[key] = max(out[key], *errs)
+                report["phase14_grad_errs"][key].append(max(errs))
+                print(f"phase 14 group_norm {str(dtype)[6:]} {(B, N, C, G, eps, silu)} gradients: "
+                      f"max abs err dx {errs[0]:.3e} dgamma {errs[1]:.3e} dbeta {errs[2]:.3e}")
+    torch.cuda.empty_cache()
+    print(f"phase 14 gradients at {len(attn)} attention and {len(gns)} x 2 GroupNorm shapes in bf16 "
+          f"and fp32, max abs errs {json.dumps(out)} (GRAD_TOL {GRAD_TOL[torch.bfloat16]} bf16, "
+          f"{GRAD_TOL[torch.float32]} fp32)", flush=True)
+    return dict(out)
+
+
+TINY_TRAIN_LR = 1e-4
+# Card against CPU, each step's gradients at the card's state: every
+# tensor's max |g_card - g_cpu| within this share of its max |g_cpu| (or of
+# 1e-3 x the largest tensor's, for a tensor whose gradient is 0 up to
+# rounding).  fp32 on both (TF32 off, the split-TF32 attention kernel)
+# differs by summation order; a gradient that a backward drops or gets
+# wrong is off by its own size.
+TINY_GRAD_REL = 1e-3
+
+
+def train_tiny_card_vs_cpu(tiny_census):
+    """Three steps of the tiny fp32 UNet's LoRA (rank 4) and full fine-tune
+    on the card (TF32 off) and on the CPU, from the same weights, adapters,
+    latents, context, t and noise (``tiny_census``: the tiny UNet's
+    launches a forward at batch 2).  Gates: each step's gradients on the
+    card against the CPU's at the card's state, every tensor within
+    TINY_GRAD_REL of its max |g| (step 0 of LoRA: every b has a gradient;
+    from step 1 on every a); each step's loss and grad norm, and the
+    trained tensors after, within 1e-3, with at most 0.1% of the entries
+    more than 0.1 x lr apart; the card's launches are the forwards' alone.
+    Adam's first updates are m/(sqrt(v) + eps) ~ sign(g): an entry whose
+    gradient lies within the two devices' fp32 noise of 0 can step the
+    other way, up to 2 x lr a step, so lr is TINY_TRAIN_LR, 3 steps of
+    which stay inside 1e-3."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.training.trainer import (DiffusionTrainer, TrainConfig,
+                                                               TrainState, leaves)
+
+    def on_cpu(tree):
+        return {k: (on_cpu(v) if isinstance(v, dict) else
+                    v.detach().cpu().requires_grad_(True)) for k, v in tree.items()}
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    per = _kinds(tiny_census)
+    rng = np.random.default_rng(14)
+    lat = torch.from_numpy(rng.standard_normal((2, 8, 8, 4)).astype(np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((2, 77, 32)).astype(np.float32))
+    draws = [(torch.from_numpy(rng.standard_normal((2, 8, 8, 4)).astype(np.float32)),
+              torch.tensor([100 + 7 * s, 900 - 7 * s])) for s in range(3)]
+    engines = {d: StableDiffusionModel("x", tiny=True, dtype="float32", device=d).engine
+               for d in ("cpu", "cuda")}
+    src = engines["cpu"]
+    engines["cuda"].load_state_dicts({k: m.state_dict() for k, m in zip(src.MODULES,
+                                                                          src.modules())})
+    out = {}
+    try:
+        for name, cfg in (("lora", TrainConfig(lora_rank=4, learning_rate=TINY_TRAIN_LR)),
+                          ("full", TrainConfig(learning_rate=TINY_TRAIN_LR))):
+            trainers = {d: DiffusionTrainer(e, cfg) for d, e in engines.items()}
+            init = trainers["cpu"].init_state(generator=torch.Generator().manual_seed(0)).trainable
+            states = {d: tr.init_state(adapters=init if name == "lora" else None)
+                      for d, tr in trainers.items()}
+            wrapper_counts(reset=True)
+            err = grad_rel = 0.0
+            for s, (noise, ts) in enumerate(draws):
+                _, grads = trainers["cuda"].value_and_grad(states["cuda"], lat, ctx, noise=noise,
+                                                           timesteps=ts)
+                _, want = trainers["cpu"].value_and_grad(
+                    TrainState(s, on_cpu(states["cuda"].trainable), None, None), lat, ctx,
+                    noise=noise, timesteps=ts)
+                if name == "lora":
+                    silent = [k for k, g in grads.items()
+                              if (k.endswith("/b") or s > 0) and not g.abs().max() > 0]
+                    if silent:
+                        raise AssertionError(f"tiny LoRA step {s} on the card: no gradient on "
+                                             f"{silent}")
+                tops = {k: w.abs().max().item() for k, w in want.items()}
+                floor = 1e-3 * max(tops.values())
+                for k, w in want.items():
+                    top = max(tops[k], floor)
+                    diff = (grads[k].cpu() - w).abs().max().item()
+                    if not diff <= TINY_GRAD_REL * top:
+                        raise AssertionError(f"tiny {name} step {s} gradient of {k}: card vs CPU "
+                                             f"{diff:.3e}, over {TINY_GRAD_REL} x {top:.3e}")
+                    grad_rel = max(grad_rel, diff / top)
+                m = {}
+                for d, tr in trainers.items():
+                    states[d], mm = tr.train_step(states[d], lat, ctx, noise=noise, timesteps=ts)
+                    m[d] = (float(mm["loss"]), float(mm["grad_norm"]))
+                err = max(err, *(abs(a - b) for a, b in zip(m["cuda"], m["cpu"])))
+            got, want = leaves(states["cuda"].trainable), leaves(states["cpu"].trainable)
+            diffs = torch.cat([(got[k].detach().cpu() - v.detach()).abs().flatten()
+                               for k, v in want.items()])
+            err = max(err, diffs.max().item())
+            share = (diffs > 0.1 * TINY_TRAIN_LR).float().mean().item()
+            counts = wrapper_counts()
+            forwards = 3 * 2  # value_and_grad's and train_step's
+            want_counts = {"attention_fp32": forwards * per["attention"],
+                           "group_norm": forwards * per["group_norm"], "attention": 0}
+            print(f"tiny fp32 {name} steps, card vs CPU: gradients at the card's state within "
+                  f"{grad_rel:.2e} of each tensor's max|g| (at most {TINY_GRAD_REL}); max abs err "
+                  f"{err:.3e} over losses, grad norms and the trained tensors (tolerance 1e-3), "
+                  f"{share:.2e} of the tensors' entries beyond 0.1 x lr (at most 1e-3); launches "
+                  f"{counts}, expected {want_counts}", flush=True)
+            if not (err <= 1e-3 and share <= 1e-3) or counts != want_counts:
+                raise AssertionError(f"the tiny {name} steps on the card disagree with the CPU "
+                                     "or launched other than their forwards' kernels")
+            out[name] = dict(max_abs_err=err, max_grad_rel_err=grad_rel,
+                             share_beyond_tenth_lr=share,
+                             fp32_attention_launches=counts["attention_fp32"],
+                             group_norm_launches=counts["group_norm"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return out
+
+
+def write_train_images(root):
+    """TRAIN_IMAGES PNGs at 640x480 (PNG content under the .jpg names of
+    the first TRAIN_IMAGES entries of data/dataset/img2annotations_train.json)
+    and an annotation file holding those entries."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.data.imageio import encode_png_bytes
+
+    repo = Path(__file__).resolve().parent
+    entries = list(json.loads((repo / "data" / "dataset" /
+                               "img2annotations_train.json").read_text()).items())[:TRAIN_IMAGES]
+    img_dir = Path(root) / "train_images"
+    img_dir.mkdir()
+    gen = np.random.default_rng(14)
+    for name, _ in entries:
+        ramp = np.linspace(0, 255, 640)[None, :, None] * np.linspace(0.2, 1, 480)[:, None, None]
+        px = np.clip(ramp * gen.uniform(0.3, 1, 3) + gen.normal(0, 30, (480, 640, 3)), 0, 255)
+        (img_dir / name).write_bytes(encode_png_bytes(px.astype(np.uint8)))
+    ann = Path(root) / "img2annotations_train_first16.json"
+    ann.write_text(json.dumps(dict(entries)))
+    return img_dir, ann
+
+
+def run_train_lora_config(census, card, root):
+    """configs/train_lora.yaml as shipped through the port's
+    ``training.loop.run_training`` at full SD-1.5 width (random bf16
+    weights, batch 8 at 512^2), overriding only the dataset (TRAIN_IMAGES
+    real PNGs), num_steps, log_every and save_dir: every logged loss
+    finite, steps/s and peak memory printed, the wrappers' launches equal
+    to the census (a step's UNet forward and the prep's encode; no
+    backward launches any), ``final/lora_peft.npz`` holding every target's
+    three tensors, fused by ``merge_lora`` into the run's engine a 512^2
+    sample that differs from the base engine's; then a TRAIN_TRACE_STEPS
+    run traced, its kernel executions equal to the census."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.config import load_config
+    from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
+    from sonicdiffusionbayeslab_torch.models.weights import merge_lora
+    from sonicdiffusionbayeslab_torch.training.lora import lora_targets
+    from sonicdiffusionbayeslab_torch.training.loop import run_training
+
+    repo = Path(__file__).resolve().parent
+    img_dir, ann = write_train_images(root)
+    overrides = {"dataset.img_dataset": str(img_dir), "dataset.prompts": str(ann),
+                 "training.num_steps": TRAIN_STEPS, "training.log_every": TRAIN_LOG,
+                 "training.save_dir": str(Path(root) / "lora_out")}
+    print(f"configs/train_lora.yaml with overrides {json.dumps(overrides)}", flush=True)
+    unet, enc = _kinds(census["unet"]), _kinds(census["encode"])
+    per_step = {"attention": unet["attention"], "group_norm": unet["group_norm"] +
+                enc["group_norm"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wrapper_counts(reset=True)
+    t0 = time.perf_counter()
+    out = run_training(load_config(repo / "configs" / "train_lora.yaml", overrides))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = bf16_only(wrapper_counts(), "the train_lora.yaml run")
+    want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
+    losses = out["losses"]
+    rec = dict(losses=losses, steps_per_sec=out["steps_per_sec"],
+               images_per_sec=out["steps_per_sec"] * TRAIN_BATCH, wall_s=wall,
+               peak_gb=peak, wrapper_launches=counts, census_launches=want)
+    print(f"train_lora.yaml, SD-1.5 bf16 {SIZE}x{SIZE}, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps "
+          f"(LoRA rank 8, AdamW, warmup 100, min-SNR 5, EMA 0.999): losses {losses}, steady "
+          f"{out['steps_per_sec']:.3f} steps/s ({rec['images_per_sec']:.2f} images/s), run wall "
+          f"{wall:.1f} s, peak memory {peak:.2f} GB; wrapper launches {counts}, census {want} "
+          f"({per_step} a step); {card}", flush=True)
+    if len(losses) != TRAIN_STEPS // TRAIN_LOG or not all(np.isfinite(losses)):
+        raise AssertionError(f"train_lora.yaml run: logged losses {losses}")
+    if counts != want:
+        raise AssertionError(f"train_lora.yaml run: wrapper launches {counts}, census {want}")
+    with torch.device("meta"):
+        targets = lora_targets(UNet2DCondition(UNetConfig.sd15()))
+    npz = np.load(Path(root) / "lora_out" / "final" / "lora_peft.npz")
+    keys = {f"unet.{m}.{s}" for m in targets for s in ("lora_A.weight", "lora_B.weight", "alpha")}
+    if set(npz.files) != keys:
+        raise AssertionError(f"lora_peft.npz holds {len(npz.files)} arrays, the census of "
+                             f"{len(targets)} targets {len(keys)}")
+    pipe, engine = out["pipeline"], out["engine"]
+    kw = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, seed=29)
+    base = pipe(PROMPTS[:1], **kw)[0]
+    sd, names = merge_lora(engine.unet.state_dict(),
+                           {k: torch.from_numpy(npz[k]) for k in npz.files})
+    changed = sum(int((sd[k] != v).sum()) for k, v in engine.unet.state_dict().items())
+    engine.unet.load_state_dict(sd)
+    engine.weights_changed()
+    fused = pipe(PROMPTS[:1], **kw)[0]
+    diff = float(np.abs(fused - base).max())
+    rec.update(fused_modules=len(names), fused_entries_changed=changed, image_max_abs_diff=diff)
+    print(f"lora_peft.npz: {len(npz.files)} arrays ({len(targets)} targets x 3); fused by "
+          f"merge_lora into {len(names)} modules ({changed} bf16 entries changed); one "
+          f"{SIZE}x{SIZE} sample, {STEPS}-step DPM++, after weights_changed(): max abs diff from "
+          f"the base engine's {diff:.4f}", flush=True)
+    if fused.shape != (1, SIZE, SIZE, 3) or not np.isfinite(fused).all() or not diff > 0:
+        raise AssertionError(f"the fused LoRA's sample: shape {fused.shape}, max abs diff from "
+                             f"the base engine's {diff}")
+    del out, pipe, engine, sd, base, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    short = load_config(repo / "configs" / "train_lora.yaml", {
+        **overrides, "training.num_steps": TRAIN_TRACE_STEPS,
+        "training.save_dir": str(Path(root) / "lora_trace")})
+    want_trace = {k: TRAIN_TRACE_STEPS * n for k, n in per_step.items()}
+    _, traced, attempts = traced_exact(lambda: run_training(short), want_trace,
+                                       "the traced train_lora.yaml run", reset=retrace_reset())
+    if traced["attention_fp32"]:
+        raise AssertionError("the traced train_lora.yaml run launched the fp32 kernel")
+    rec.update(traced_launches=traced, trace_steps=TRAIN_TRACE_STEPS, trace_attempts=attempts)
+    print(f"traced train_lora.yaml run of {TRAIN_TRACE_STEPS} steps: kernel executions "
+          f"{json.dumps({k: traced[k] for k in MAIN})}, census {want_trace}", flush=True)
+    return rec
+
+
+def run_train_bench(census, card):
+    """The port's train_bench lora512, full512 (remat, AdamW) and sd3_lora
+    modes at TRAIN_STEPS timed steps: each JSON line, and the wrappers'
+    launches over the first and the timed steps equal to the census (remat
+    runs each forward kernel twice a step; no backward launches any)."""
+    from sonicdiffusionbayeslab_torch import train_bench
+
+    unet, sd3 = _kinds(census["unet"]), _kinds(census["sd3"])
+    per = {"lora512": {"attention": unet["attention"], "group_norm": unet["group_norm"]},
+           "full512": {"attention": 2 * unet["attention"], "group_norm": 2 * unet["group_norm"]},
+           "sd3_lora": {"attention": 2 * sd3["attention"], "group_norm": 0}}
+    out = {}
+    for mode in TRAIN_BENCH_MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        wrapper_counts(reset=True)
+        rec = train_bench.run_mode(mode, steps=TRAIN_STEPS)
+        print(json.dumps(rec), flush=True)
+        counts = bf16_only(wrapper_counts(), f"train_bench {mode}")
+        want = {k: (TRAIN_STEPS + 1) * n for k, n in per[mode].items()}
+        print(f"train_bench {mode}: wrapper launches {counts}, census {want} ({per[mode]} a "
+              f"step); {card}", flush=True)
+        if not rec["fits"] or counts != want:
+            raise AssertionError(f"train_bench {mode}: fits {rec['fits']}, launches {counts}, "
+                                 f"census {want}")
+        out[mode] = dict(rec, wrapper_launches=counts, census_launches=want)
+    return out
+
+
+def profile_train_step(mode, card, steps=2):
+    """Device time of ``steps`` train steps of a train_bench mode (after two
+    warm ones), from torch.profiler: by kernel group, the spans of the
+    attention and GroupNorm backwards (their autograd nodes) and of the
+    optimizer (``train_step.optimizer``), beside the steps' wall clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sonicdiffusionbayeslab_torch import train_bench
+
+    once = train_bench.make_step(mode)
+    once()
+    once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            once()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    groups = collections.Counter()
+    device_ms = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3 / steps
+        device_ms += ms
+        groups[kernel_group(e.name)] += ms
+    spans = {"attention backward (FlashAttentionFnBackward)": "FlashAttentionFnBackward",
+             "group_norm backward (GroupNormSiLUFnBackward)": "GroupNormSiLUFnBackward",
+             "optimizer (train_step.optimizer)": "train_step.optimizer"}
+    span_ms = {}
+    for label, key in spans.items():
+        vals = [(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
+                for e in prof.key_averages() if e.key and e.key.endswith(key)]
+        span_ms[label] = max(vals, default=0) / 1e3 / steps
+    rec = dict(step_wall_ms=wall, step_device_ms=device_ms,
+               device_idle_share=max(0.0, 1 - device_ms / wall) if device_ms else None,
+               groups_ms_per_step=dict(groups.most_common()), spans_ms_per_step=span_ms)
+    print(f"profile train_bench {mode} {json.dumps(rec)}; {card}", flush=True)
+    del once
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase14_launches(out, kind):
+    """A kernel's launches in each phase-14 run."""
+    if kind == "attention_fp32":
+        return {f"tiny {n}": r["fp32_attention_launches"]
+                for n, r in out["tiny_card_vs_cpu"].items()}
+    return {"train_lora.yaml run": out["train_lora"]["wrapper_launches"][kind],
+            "train_lora.yaml trace": out["train_lora"]["traced_launches"][kind],
+            **{f"train_bench {m}": r["wrapper_launches"][kind]
+               for m, r in out["train_bench"].items()}}
+
+
+def run_training_phase(report, card, checked, profile):
+    """Phase 14: training at full width (train_lora.yaml through the loop,
+    train_bench's lora512, full512 and sd3_lora), gradients through both
+    Functions on the card, and tiny fp32 steps card vs CPU."""
+    census = train_census()
+    per = {part: dict(_kinds(c)) for part, c in census.items()}
+    print(f"phase 14 census (launches a forward or an encode): {json.dumps(per)}", flush=True)
+    if (per["unet"]["attention"], per["unet"]["group_norm"], per["encode"]["group_norm"],
+            per["sd3"]["attention"]) != (32, 61, 22, 24):
+        raise AssertionError(f"phase 14 census {per}: expected 32 attentions and 61 GroupNorms a "
+                             "UNet forward, 22 GroupNorms an encode, 24 attentions a MMDiT forward")
+    out = {"census": per}
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out["checked_shapes"] = check_train_forward(census, report, checked)
+    out["gradients"] = check_train_gradients(census, report)
+    out["tiny_card_vs_cpu"] = train_tiny_card_vs_cpu(census["tiny"])
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory(prefix="sdbl_train_") as tmp:
+        out["train_lora"] = run_train_lora_config(census, card, tmp)
+    out["train_bench"] = run_train_bench(census, card)
+    if profile:
+        out["profiles"] = {m: profile_train_step(m, card) for m in TRAIN_BENCH_MODES}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 14 took {out['phase_s']:.1f} s", flush=True)
+    report["e2e"]["training"] = out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4245,6 +4774,8 @@ def main() -> None:
     report["phase10_errs"] = collections.defaultdict(list)
     report["phase12_errs"] = collections.defaultdict(list)
     report["phase13_errs"] = collections.defaultdict(list)
+    report["phase14_errs"] = collections.defaultdict(list)
+    report["phase14_grad_errs"] = collections.defaultdict(list)
     report["e2e"] = {}
 
     phase("3. kernels against their plain versions, at the shapes of the main path and the CLI "
@@ -4308,8 +4839,13 @@ def main() -> None:
                | {(k, torch.float32) for k, _ in fp32_shapes})
     run_serving_conditioning(report, card, checked)
 
-    phase("14. kernels")
-    print(f"phases 1-13 took {time.perf_counter() - _T0:.1f} s; {card}")
+    phase(f"14. training at SD-1.5 {SIZE}x{SIZE} (configs/train_lora.yaml through the loop, "
+          f"batch {TRAIN_BATCH}; train_bench {', '.join(TRAIN_BENCH_MODES)}), gradients through "
+          "the kernels' autograd Functions, tiny fp32 steps card vs CPU")
+    run_training_phase(report, card, checked, args.profile)
+
+    phase("15. kernels")
+    print(f"phases 1-14 took {time.perf_counter() - _T0:.1f} s; {card}")
     fam = report["e2e"]["families"]
     kernels = []
     for kind, meta in KERNELS.items():
@@ -4347,6 +4883,9 @@ def main() -> None:
             "phase13_wrapper_launches": phase13_launches(report["e2e"]["serving_conditioning"],
                                                          kind),
             "phase13_max_abs_err": max(report["phase13_errs"][kind], default=None),
+            "phase14_wrapper_launches": phase14_launches(report["e2e"]["training"], kind),
+            "phase14_max_abs_err": max(report["phase14_errs"][kind], default=None),
+            "phase14_max_abs_grad_err": max(report["phase14_grad_errs"][kind], default=None),
             **({"phase6_launches": r["phase6_launches"]} if "phase6_launches" in r else {}),
             "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -15,7 +15,8 @@ path's blocks).  Conventions:
   the softmax run in fp32.
 * GroupNorm goes through ``ops.groupnorm.group_norm_silu`` and attention
   through ``ops.attention.dot_product_attention``: the hand-written CUDA
-  kernels on a CUDA tensor, their plain versions on a CPU tensor.
+  kernels on a CUDA tensor, their plain versions on a CPU tensor; where a
+  backward is recorded, inside the ops' autograd Functions.
 * Modules with int8 call sites (``_Quantizable``) read their
   ``quant_mode``, which ``ops.quant.set_quant_mode`` sets on a whole model
   (the JAX package's ``projection_dense``, ``QuantDense`` and
@@ -95,7 +96,10 @@ class TimestepEmbedMLP(nn.Module):
 
 class GroupNorm(nn.Module):
     """GroupNorm over the last (channel) axis with fp32 statistics and an
-    optional fused SiLU; ``gcd(C, groups)`` groups when C does not divide."""
+    optional fused SiLU; ``gcd(C, groups)`` groups when C does not divide.
+    With grad mode on and an input or weight that requires grad,
+    ``group_norm_silu`` runs it through ``GroupNormSiLUFn``, as
+    ``flash_attention`` runs attention through ``FlashAttentionFn``."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5, silu: bool = False):
         super().__init__()

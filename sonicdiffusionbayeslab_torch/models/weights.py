@@ -16,7 +16,8 @@ diffusers snapshot or transformers CLIP checkpoint loads by name
 (``load_sd_checkpoint``, ``load_sdxl_checkpoint``, ``load_sd3_checkpoint``,
 ``load_clip_checkpoint``, ``load_controlnet_checkpoint``; ``write_snapshot``
 writes one), strictly, after dropping by name the few keys
-the port's modules do not have.
+the port's modules do not have.  ``lora_from_jax`` and
+``mmdit_lora_from_jax`` carry a JAX LoRA adapter tree across.
 """
 
 from __future__ import annotations
@@ -488,6 +489,40 @@ def controlnet_state_dict_from_jax(tree: dict, unet_config=None) -> Dict[str, to
     (``unet_config`` as in :func:`state_dicts_from_jax`; without it the
     geometry of the encoder copy)."""
     return _tensors(invert(tree, controlnet_name_map(unet_config or unet_geometry(tree))))
+
+
+def _adapter_items(tree: dict, prefix: str = ""):
+    """(JAX module path, {"a", "b"}) of each adapter in a JAX LoRA tree."""
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict) and set(v) == {"a", "b"}:
+            yield path, v
+        elif isinstance(v, dict):
+            yield from _adapter_items(v, path)
+
+
+def _lora_from_jax(adapters: dict, name_map: NameMap) -> Dict[str, Dict[str, torch.Tensor]]:
+    out = {}
+    for path, node in _adapter_items(adapters):
+        name = name_map[path][0]  # the path ends in the kernel's own "/kernel"
+        out[name[: -len(".weight")]] = {k: torch.from_numpy(np.array(node[k], np.float32))
+                                         for k in ("a", "b")}
+    return out
+
+
+def lora_from_jax(adapters: dict, unet_config=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX UNet LoRA tree (``training/lora.py::init_lora``'s, numpy
+    leaves) -> the port's adapters: keyed by the module's torch name
+    through ``unet_name_map`` (``unet_config``: the UNet's levels and
+    depth, default SD-1.5's), each ``{"a": [in, r], "b": [r, out]}`` in
+    fp32 as JAX keeps them."""
+    return _lora_from_jax(adapters, unet_name_map(unet_config or UNetConfig.sd15()))
+
+
+def mmdit_lora_from_jax(adapters: dict, mmdit_config=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """:func:`lora_from_jax` for a JAX MMDiT LoRA tree, through
+    ``mmdit_name_map`` (``mmdit_config`` default: the adapters' own depth)."""
+    return _lora_from_jax(adapters, mmdit_name_map(mmdit_config or mmdit_geometry(adapters)))
 
 
 # ------------------------------------------------------- local checkpoints

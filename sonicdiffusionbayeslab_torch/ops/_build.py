@@ -116,3 +116,13 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed with CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"{what}: launch failed with cudaError_t {err}")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """One more launch on ``wrapper.launches``, under a lock: the training
+    loop's prep thread launches kernels beside the main thread."""
+    with _count_lock:
+        wrapper.launches += 1

@@ -11,6 +11,9 @@ one instantiation per such head_dim); no call falls back
 from one to the other.  A masked call (CLIP's causal mask) and the VAE's
 single-head D=512 mid-block attention take the plain path, as the JAX
 reference sends them to XLA.
+
+With grad mode on and an input that requires grad, ``flash_attention``
+itself goes through its autograd Function (``FlashAttentionFn``).
 """
 
 from __future__ import annotations

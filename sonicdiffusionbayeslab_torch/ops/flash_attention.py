@@ -24,6 +24,13 @@ view.
 A CPU tensor takes the plain version (``ops.attention.plain_attention``);
 a CUDA tensor launches a kernel or raises.  ``flash_attention_sm90.launches``
 and ``flash_attention_tf32x3.launches`` count the launches of each kernel.
+
+Gradients: with grad mode on and an input that requires grad,
+``flash_attention`` goes through ``FlashAttentionFn`` (on both devices, so
+the CPU tests run the backward the card runs), whose forward is the same
+kernel or plain call and whose backward is ``attention_vjp``, the port's
+copy of the JAX package's reverse-mode rule ``_flash_bwd`` (plain einsums
+in fp32 with P recomputed, no Pallas backward kernel there either).
 """
 
 from __future__ import annotations
@@ -114,7 +121,7 @@ def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
             float(D) ** -0.5, query_tile_rows(B, H, N), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "flash_attention_sm90")
-    flash_attention_sm90.launches += 1
+    _build.count_launch(flash_attention_sm90)
     return o
 
 
@@ -132,7 +139,7 @@ def flash_attention_tf32x3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
             float(D) ** -0.5, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "flash_attention_tf32x3")
-    flash_attention_tf32x3.launches += 1
+    _build.count_launch(flash_attention_tf32x3)
     return o
 
 
@@ -142,7 +149,17 @@ _KERNELS = {"sm90": flash_attention_sm90, "tf32x3": flash_attention_tf32x3}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """q [B, N, H, D], k/v [B, M, H, D] -> [B, N, H, D] in q's dtype; fp32 softmax."""
+    """q [B, N, H, D], k/v [B, M, H, D] -> [B, N, H, D] in q's dtype; fp32 softmax.
+
+    With grad mode on and an input that requires grad the call goes
+    through ``FlashAttentionFn``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v)
+    return _flash_attention(q, k, v)
+
+
+def _flash_attention(q, k, v):
+    """The kernel on CUDA tensors, ``plain_attention`` on CPU ones."""
     if q.device.type == "cpu":
         from sonicdiffusionbayeslab_torch.ops.attention import plain_attention
 
@@ -150,3 +167,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
     return _KERNELS[kernel_for(q.dtype)](q, k, v)
+
+
+# fp32 bytes of one [chunk, N, M] score tensor of attention_vjp at most; a
+# call holds about four such tensors at once (P, dP, dS and a temporary).
+VJP_SCORE_BYTES = 1 << 30
+
+
+def _vjp_block(q, k, v, do):
+    """The JAX package's ``_flash_bwd`` on one block of [B, *, H, D]:
+    P recomputed in fp32, dV = Pᵀ·dO, dS = P ∘ (dP − rowsum(dP ∘ P)),
+    dQ = dS·K·D^-½, dK = dSᵀ·Q·D^-½, in fp32."""
+    scale = float(q.shape[-1]) ** -0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale, dim=-1)
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
+    dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    del p, dp
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
+    return dq, dk, dv
+
+
+def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor):
+    """(dq, dk, dv) of softmax(q·kᵀ·D^-½)·v for the cotangent ``do`` [B, N,
+    H, D], each in its input's dtype.  The [B, H, N, M] fp32 scores are
+    formed a chunk of (batch, head) pairs at a time, at most
+    ``VJP_SCORE_BYTES`` each: whole batch rows where a row's heads fit,
+    else groups of one row's heads; each pair's gradient is independent of
+    the others', so the chunks give the unchunked result."""
+    B, N, H, _ = q.shape
+    pairs = max(1, VJP_SCORE_BYTES // (4 * N * k.shape[1]))
+    if pairs >= B * H:
+        grads = _vjp_block(q, k, v, do)
+    else:
+        grads = tuple(torch.empty(t.shape, dtype=torch.float32, device=t.device)
+                      for t in (q, k, v))
+        if pairs >= H:
+            rows = pairs // H
+            cuts = [(slice(b, b + rows), slice(None)) for b in range(0, B, rows)]
+        else:
+            cuts = [(slice(b, b + 1), slice(h, h + pairs)) for b in range(B)
+                    for h in range(0, H, pairs)]
+        for b, h in cuts:
+            part = _vjp_block(*(t[b, :, h] for t in (q, k, v, do)))
+            for out, g in zip(grads, part):
+                out[b, :, h] = g
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel (CUDA) or plain version (CPU) with ``attention_vjp`` as
+    its backward: the JAX package's ``_flash_autodiff``.  Saves q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _flash_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        return attention_vjp(*ctx.saved_tensors, do)

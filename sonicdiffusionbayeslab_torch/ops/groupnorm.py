@@ -11,6 +11,13 @@ variance as the mean of squared deviations, output in x's dtype.
 A CPU tensor takes ``plain_group_norm``; a CUDA tensor launches the kernel
 or raises.  ``group_norm_silu.launches`` counts calls that launched it: one
 kernel launch a call, a grid of thread-block clusters laid out by ``plan``.
+
+Gradients: with grad mode on and an input that requires grad,
+``group_norm_silu`` goes through ``GroupNormSiLUFn`` (on both devices),
+whose forward is the same kernel or plain version and whose backward is
+autograd through ``reference_group_norm``, the port's copy of the JAX
+package's ``_gn_silu_ref`` (one-pass E[x²] − mean² statistics), as the JAX
+package's ``_gn_bwd`` is ``jax.vjp`` of it.
 """
 
 from __future__ import annotations
@@ -205,13 +212,61 @@ def plan(B: int, N: int, C: int, G: int, elem: int, aligned: bool = True,
     return best or fallback
 
 
+def reference_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         groups: int, eps: float, silu: bool) -> torch.Tensor:
+    """GroupNorm(+SiLU) with fp32 one-pass statistics (variance as
+    E[x²] − mean²): the function whose gradient ``GroupNormSiLUFn``
+    takes, as the JAX package's ``_gn_silu_ref``."""
+    B, C = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(B, -1, groups, C // groups)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = (xf * xf).mean(dim=(1, 3), keepdim=True) - mean * mean
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    y = y * weight.float() + bias.float()
+    if silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
+
+
+class GroupNormSiLUFn(torch.autograd.Function):
+    """``group_norm_silu``'s kernel (CUDA) or plain version (CPU) forward,
+    with the gradient of ``reference_group_norm`` as its backward; saves
+    x, weight and bias.  ``groups`` is already resolved."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps, silu):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.config = (groups, eps, silu)
+        return _group_norm_silu(x, weight, bias, groups, eps, silu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y = reference_group_norm(*inputs, *ctx.config)
+            grads = iter(torch.autograd.grad(y, wanted, dy))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None, None)
+
+
 def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     groups: int = 32, eps: float = 1e-5, silu: bool = True) -> torch.Tensor:
     """x [B, H, W, C] or [B, N, C] (channels last) -> GroupNorm(+SiLU).
 
-    ``groups`` follows the gcd rule when C does not divide by it."""
+    ``groups`` follows the gcd rule when C does not divide by it.  With grad
+    mode on and an input that requires grad the call goes through
+    ``GroupNormSiLUFn``."""
+    groups = resolve_groups(x.shape[-1], groups)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return GroupNormSiLUFn.apply(x, weight, bias, groups, eps, silu)
+    return _group_norm_silu(x, weight, bias, groups, eps, silu)
+
+
+def _group_norm_silu(x, weight, bias, groups, eps, silu):
+    """The kernel on a CUDA tensor, ``plain_group_norm`` on a CPU one."""
     C = x.shape[-1]
-    groups = resolve_groups(C, groups)
     if x.device.type == "cpu":
         return plain_group_norm(x, weight, bias, groups, eps, silu)
     if x.device.type != "cuda":
@@ -243,7 +298,7 @@ def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             int(p.cache), float(eps), int(bool(silu)), _DTYPES[x.dtype], stream,
         )
     _build.check(err, "group_norm_silu")
-    group_norm_silu.launches += 1
+    _build.count_launch(group_norm_silu)
     return y
 
 

@@ -7,10 +7,12 @@ JAX:  python -m pytest tests/test_torch_kernels.py -q --noconftest
 """
 
 import collections
+import functools
 import importlib.util
 import math
 import shutil
 import weakref
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -977,3 +979,88 @@ def test_graphed_controlnet_pipeline_call_matches_eager(cuda):
         bare = eng.unet(x, t, e)
         assert not torch.equal(got, bare)
     assert list(eng.graphed_unet.captures.values()) == [1]
+
+
+# ------------------------------------------------------------- gradients
+# The autograd Functions on the card: the kernel forward (one launch) and
+# the stock backward (no launch), against autograd through the plain
+# version in fp32 on the same inputs, under chip_smoke.py's GRAD_TOL:
+# |grad - ref| <= atol * max|ref| + rtol * |ref|.
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,N,M,H,D", [
+    (2, 4096, 4096, 8, 40), (2, 1024, 77, 8, 80), (2, 256, 256, 8, 160),  # SD-1.5's levels
+    (1, 4250, 4250, 24, 64),  # the SD3 LoRA bench's joint attention (4096 + 154 tokens)
+])
+def test_attention_function_gradients_match_plain_on_card(cuda, dtype, B, N, M, H, D):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = ((torch.randn(B, L, H, D, generator=gen, device=cuda) * s).to(dtype)
+               for L, s in ((N, 2.0), (M, 1.0), (M, 1.0)))
+    do = torch.randn(B, N, H, D, generator=gen, device=cuda).to(dtype)
+    qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
+    launches = fa._KERNELS[fa.kernel_for(dtype)]
+    n0 = launches.launches
+    o = attn_ops.dot_product_attention(qr, kr, vr)
+    assert isinstance(o.grad_fn, fa.FlashAttentionFn._backward_cls)
+    got = torch.autograd.grad(o, (qr, kr, vr), do)
+    torch.cuda.synchronize()
+    assert launches.launches == n0 + 1  # the forward's one launch; none in the backward
+    for b in range(B):  # the plain version a batch row at a time (its [H, N, M] fp32 graph)
+        ref_in = [x[b:b + 1].float().requires_grad_(True) for x in (q, k, v)]
+        ref = torch.autograd.grad(attn_ops.plain_attention(*ref_in), ref_in,
+                                  do[b:b + 1].float())
+        for g, r in zip(got, ref):
+            assert g.dtype == dtype
+            _chip_smoke().grad_close(g[b:b + 1], r, dtype, f"attention {b}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("shape", [(8, 4096, 320), (8, 1024, 640), (8, 64, 1280), (8, 4096, 960)])
+def test_group_norm_function_gradients_match_plain_on_card(cuda, dtype, silu, shape):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    C = shape[-1]
+    x = (torch.randn(*shape, generator=gen, device=cuda) * 3 + 1).to(dtype)
+    w = (torch.randn(C, generator=gen, device=cuda) * 0.5 + 1).to(dtype)
+    b = (torch.randn(C, generator=gen, device=cuda) * 0.5).to(dtype)
+    dy = torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+    ins = [a.clone().requires_grad_(True) for a in (x, w, b)]
+    n0 = gn_ops.group_norm_silu.launches
+    y = gn_ops.group_norm_silu(*ins, 32, 1e-5, silu)
+    assert isinstance(y.grad_fn, gn_ops.GroupNormSiLUFn._backward_cls)
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    assert gn_ops.group_norm_silu.launches == n0 + 1
+    ref_in = [a.float().requires_grad_(True) for a in (x, w, b)]
+    ref = torch.autograd.grad(gn_ops.plain_group_norm(*ref_in, 32, 1e-5, silu), ref_in,
+                              dy.float())
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype
+        _chip_smoke().grad_close(g, r, dtype, "GroupNorm")
+
+
+@pytest.mark.cuda
+def test_tiny_lora_steps_on_card_match_cpu_and_drop_no_gradient(cuda):
+    """Three LoRA and three full fine-tune steps of the tiny fp32 UNet on
+    the card (its attention and GroupNorm on the kernels, TF32 off) and on
+    the CPU from the same weights, adapters and draws, through
+    chip_smoke.py's gate: each step's gradients at the card's state within
+    TINY_GRAD_REL of each tensor's max |g|; every b has a gradient at step
+    0 and every a from step 1 on (no backward drops one); losses, grad
+    norms and the trained tensors within 1e-3, at most 0.1% of the entries
+    more than 0.1 x lr apart; only the forwards launch kernels."""
+    smoke = _chip_smoke()
+    out = smoke.train_tiny_card_vs_cpu(smoke.module_census(2, tiny=True))
+    for name, r in out.items():
+        assert r["max_grad_rel_err"] <= smoke.TINY_GRAD_REL, name
+        assert r["fp32_attention_launches"] > 0 and r["group_norm_launches"] > 0, name

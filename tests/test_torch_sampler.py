@@ -132,7 +132,9 @@ def test_port_imports_no_jax():
         "metrics.image_reward_model", "metrics.inception", "ops.quant", "models.mmdit",
         "models.sd3", "models.t5", "schedulers.flow", "quality_frontier", "serving",
         "serving.batcher", "serving.server", "serve_bench", "models.controlnet",
-        "models.ip_adapter", "models.prompt_weighting")} <= set(mods)
+        "models.ip_adapter", "models.prompt_weighting", "training", "training.lora",
+        "training.optim", "training.opt8bit", "training.trainer", "training.loop",
+        "train_bench")} <= set(mods)
 
 
 def test_pipeline_without_device_raises_without_gpu():
