@@ -202,12 +202,34 @@ prints no ``ok`` line:
      lora512, full512 and sd3_lora at 12 steps (their JSON lines; launches
      against the census, remat's twice a step); with --profile a trace of
      each of those modes' steps by kernel group, backward and optimizer;
- 15. the card line, then one JSON ``kernels`` line (the fp32 attention
+ 15. LCM distillation and textual inversion at SD-1.5 width: dk and dv
+     through FlashAttentionFn with only K and V requiring grad (textual
+     inversion's first cross-attention) at the UNet's cross shapes, bf16,
+     against autograd through the plain version (GRAD_TOL); one LCM-LoRA,
+     one w-conditioned full distill step and one textual-inversion step
+     of the tiny fp32 UNet on the card against the CPU (TINY_GRAD_REL);
+     training.mode distill through run_training (configs/train_lora.yaml's
+     model and dataset, LCM-LoRA rank 64 on a 50-node grid, batch 8, 12
+     steps): finite losses, steps/s, peak memory, launches equal to the
+     census (96 attentions and 183 GroupNorms a step: the teacher at 16
+     rows, the EMA target and the student at 8; 22 GroupNorms an encode),
+     the teacher bit-equal, lora_peft.npz fused by merge_lora into a
+     4-step LCM sample at consistency_model_config.yaml's guidance that
+     differs from the base model's, a 2-step run traced; the w-conditioned
+     full student (cond_proj 256 wide, w in [3, 15]) at batch 4 for 6
+     steps, loaded strictly into a UNet with time_cond_proj_dim 256, LCM
+     samples at batch 2 through the CUDA graph at two embedded guidance
+     scales (different images), an eager forward bit-equal to the graphed
+     one; textual inversion of two rows at batch 8 for 12 steps (only
+     those rows change; launches 32 attentions and 61 GroupNorms a step;
+     the embeddings' npz); with --profile a trace of a distill and a TI
+     step by kernel group, backward and span;
+ 16. the card line, then one JSON ``kernels`` line (the fp32 attention
      kernel's entry is phase 9's metric towers: 108 launches a validate
-     batch; each entry also lists its launches in each phase-7 to phase-14
+     batch; each entry also lists its launches in each phase-7 to phase-15
      run, and its phase-10 and phase-12 sums over one forward and one
      decode);
- 16. the last line: {"ok": true, "device": {...}}.
+ 17. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -4227,22 +4249,32 @@ def train_census():
 def check_train_forward(census, report, checked):
     """Each kernel against its plain version at every phase-14 shape that
     phase 3 did not check (bf16 at the full-width calls, fp32 at the tiny
-    UNet's); max errors into ``report["errs"]`` and ``report["phase14_errs"]``."""
-    gen = torch.Generator(device="cuda").manual_seed(14)
-    work = sorted(({(k, torch.bfloat16) for p in ("unet", "encode", "sd3") for k in census[p]}
-                   | {(k, torch.float32) for k in census["tiny"]}) - checked,
+    UNet's); max errors into ``report["errs"]`` and ``report["phase14_errs"]``;
+    adds them to ``checked``."""
+    work = ({(k, torch.bfloat16) for p in ("unet", "encode", "sd3") for k in census[p]}
+            | {(k, torch.float32) for k in census["tiny"]})
+    return check_forward(work, report, checked, 14)
+
+
+def check_forward(work, report, checked, phase):
+    """Each ((kind, shape), dtype) of ``work`` that ``checked`` lacks: the
+    kernel against its plain version, max errors into ``report["errs"]``
+    and ``report[f"phase{phase}_errs"]``; adds them to ``checked``."""
+    gen = torch.Generator(device="cuda").manual_seed(phase)
+    work = sorted(set(work) - checked,
                   key=lambda w: (str(w[1]), w[0][0], [str(v) for v in w[0][1]]))
     for (kind, shape), dtype in work:
         inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
         kern, plain = run_kernel(kind, shape, inputs)
         got = kern()
         torch.cuda.synchronize()
-        err = compare(kind, dtype, got, plain(), f"{kind} {shape} {dtype} (phase 14)")
+        err = compare(kind, dtype, got, plain(), f"{kind} {shape} {dtype} (phase {phase})")
         report["errs"][report_key(kind, dtype)].append(err)
-        report["phase14_errs"][report_key(kind, dtype)].append(err)
-        print(f"phase 14 {kind} {str(dtype)[6:]} {shape}: max abs err {err:.3e}")
+        report[f"phase{phase}_errs"][report_key(kind, dtype)].append(err)
+        print(f"phase {phase} {kind} {str(dtype)[6:]} {shape}: max abs err {err:.3e}")
         del inputs, got
     torch.cuda.empty_cache()
+    checked.update(work)
     return len(work)
 
 
@@ -4351,6 +4383,37 @@ TINY_TRAIN_LR = 1e-4
 TINY_GRAD_REL = 1e-3
 
 
+def tiny_engine_pair():
+    """The tiny fp32 SD-1.5 engine on the CPU and its twin on the card with
+    the same weights: {"cpu": engine, "cuda": engine}."""
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+
+    engines = {d: StableDiffusionModel("x", tiny=True, dtype="float32", device=d).engine
+               for d in ("cpu", "cuda")}
+    src = engines["cpu"]
+    engines["cuda"].load_state_dicts({k: m.state_dict() for k, m in zip(src.MODULES,
+                                                                          src.modules())})
+    return engines
+
+
+def tiny_grads_close(grads, want, what):
+    """Each gradient on the card (``grads``) against the CPU's (``want``),
+    both {name: tensor}: max |g_card - g_cpu| within TINY_GRAD_REL of the
+    tensor's max |g_cpu|, or of 1e-3 x the largest tensor's where that is
+    more; returns the largest share of it used."""
+    tops = {k: w.abs().max().item() for k, w in want.items()}
+    floor = 1e-3 * max(tops.values())
+    rel = 0.0
+    for k, w in want.items():
+        top = max(tops[k], floor)
+        diff = (grads[k].cpu() - w).abs().max().item()
+        if not diff <= TINY_GRAD_REL * top:
+            raise AssertionError(f"{what}: gradient of {k} card vs CPU {diff:.3e}, over "
+                                 f"{TINY_GRAD_REL} x {top:.3e}")
+        rel = max(rel, diff / top)
+    return rel
+
+
 def train_tiny_card_vs_cpu(tiny_census):
     """Three steps of the tiny fp32 UNet's LoRA (rank 4) and full fine-tune
     on the card (TF32 off) and on the CPU, from the same weights, adapters,
@@ -4367,7 +4430,6 @@ def train_tiny_card_vs_cpu(tiny_census):
     which stay inside 1e-3."""
     import numpy as np
 
-    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
     from sonicdiffusionbayeslab_torch.training.trainer import (DiffusionTrainer, TrainConfig,
                                                                TrainState, leaves)
 
@@ -4383,11 +4445,7 @@ def train_tiny_card_vs_cpu(tiny_census):
     ctx = torch.from_numpy(rng.standard_normal((2, 77, 32)).astype(np.float32))
     draws = [(torch.from_numpy(rng.standard_normal((2, 8, 8, 4)).astype(np.float32)),
               torch.tensor([100 + 7 * s, 900 - 7 * s])) for s in range(3)]
-    engines = {d: StableDiffusionModel("x", tiny=True, dtype="float32", device=d).engine
-               for d in ("cpu", "cuda")}
-    src = engines["cpu"]
-    engines["cuda"].load_state_dicts({k: m.state_dict() for k, m in zip(src.MODULES,
-                                                                          src.modules())})
+    engines = tiny_engine_pair()
     out = {}
     try:
         for name, cfg in (("lora", TrainConfig(lora_rank=4, learning_rate=TINY_TRAIN_LR)),
@@ -4410,15 +4468,7 @@ def train_tiny_card_vs_cpu(tiny_census):
                     if silent:
                         raise AssertionError(f"tiny LoRA step {s} on the card: no gradient on "
                                              f"{silent}")
-                tops = {k: w.abs().max().item() for k, w in want.items()}
-                floor = 1e-3 * max(tops.values())
-                for k, w in want.items():
-                    top = max(tops[k], floor)
-                    diff = (grads[k].cpu() - w).abs().max().item()
-                    if not diff <= TINY_GRAD_REL * top:
-                        raise AssertionError(f"tiny {name} step {s} gradient of {k}: card vs CPU "
-                                             f"{diff:.3e}, over {TINY_GRAD_REL} x {top:.3e}")
-                    grad_rel = max(grad_rel, diff / top)
+                grad_rel = max(grad_rel, tiny_grads_close(grads, want, f"tiny {name} step {s}"))
                 m = {}
                 for d, tr in trainers.items():
                     states[d], mm = tr.train_step(states[d], lat, ctx, noise=noise, timesteps=ts)
@@ -4597,16 +4647,23 @@ def run_train_bench(census, card):
 
 
 def profile_train_step(mode, card, steps=2):
-    """Device time of ``steps`` train steps of a train_bench mode (after two
+    """:func:`profile_steps` of a train_bench mode's step, its optimizer the
+    ``train_step.optimizer`` span."""
+    from sonicdiffusionbayeslab_torch import train_bench
+
+    return profile_steps(train_bench.make_step(mode), f"train_bench {mode}", card,
+                         {"optimizer (train_step.optimizer)": "train_step.optimizer"}, steps)
+
+
+def profile_steps(once, label, card, spans, steps=2):
+    """Device time of ``steps`` calls of ``once`` (a train step, after two
     warm ones), from torch.profiler: by kernel group, the spans of the
-    attention and GroupNorm backwards (their autograd nodes) and of the
-    optimizer (``train_step.optimizer``), beside the steps' wall clock."""
+    attention and GroupNorm backwards (their autograd nodes) and of
+    ``spans`` ({label: record_function name}), beside the steps' wall
+    clock."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from sonicdiffusionbayeslab_torch import train_bench
-
-    once = train_bench.make_step(mode)
     once()
     once()
     torch.cuda.synchronize()
@@ -4626,16 +4683,16 @@ def profile_train_step(mode, card, steps=2):
         groups[kernel_group(e.name)] += ms
     spans = {"attention backward (FlashAttentionFnBackward)": "FlashAttentionFnBackward",
              "group_norm backward (GroupNormSiLUFnBackward)": "GroupNormSiLUFnBackward",
-             "optimizer (train_step.optimizer)": "train_step.optimizer"}
+             **spans}
     span_ms = {}
-    for label, key in spans.items():
+    for span, key in spans.items():
         vals = [(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
                 for e in prof.key_averages() if e.key and e.key.endswith(key)]
-        span_ms[label] = max(vals, default=0) / 1e3 / steps
+        span_ms[span] = max(vals, default=0) / 1e3 / steps
     rec = dict(step_wall_ms=wall, step_device_ms=device_ms,
                device_idle_share=max(0.0, 1 - device_ms / wall) if device_ms else None,
                groups_ms_per_step=dict(groups.most_common()), spans_ms_per_step=span_ms)
-    print(f"profile train_bench {mode} {json.dumps(rec)}; {card}", flush=True)
+    print(f"profile {label} {json.dumps(rec)}; {card}", flush=True)
     del once
     gc.collect()
     torch.cuda.empty_cache()
@@ -4680,6 +4737,537 @@ def run_training_phase(report, card, checked, profile):
     out["phase_s"] = time.perf_counter() - t0
     print(f"phase 14 took {out['phase_s']:.1f} s", flush=True)
     report["e2e"]["training"] = out
+
+
+# ------------------------------ distillation, textual inversion (phase 15)
+# configs/train_lora.yaml's model and dataset with a distill training
+# section: LCM-LoRA of rank DISTILL_RANK on a grid of DISTILL_GRID nodes,
+# otherwise LCMDistillConfig's defaults, batch TRAIN_BATCH.
+DISTILL_STEPS, DISTILL_LOG, DISTILL_TRACE_STEPS = 12, 4, 2
+DISTILL_RANK, DISTILL_GRID = 64, 50
+# The w-conditioned full student (the full LCM recipe) at WCOND_BATCH.
+WCOND_BATCH, WCOND_STEPS, WCOND_DIM, WCOND_W = 4, 6, 256, (3.0, 15.0)
+# Textual inversion: two placeholder rows seeded from two other tokens'.
+TI_STEPS, TI_LR, TI_PLACEHOLDERS, TI_INIT = 12, 5e-3, (49400, 49401), (1929, 2368)
+LCM_STEPS = 4  # the LCM plan's steps of the samples
+WCOND_GUIDANCE = (8.0, 2.0)  # the w-conditioned engine's two embedded guidance scales
+
+
+def distill_census():
+    """Phase 15's {(kind, shape): launches} by call: the teacher's forward at
+    twice TRAIN_BATCH (CFG's two halves), the target's and the student's at
+    TRAIN_BATCH, the w-conditioned run's at twice WCOND_BATCH and at
+    WCOND_BATCH, an encode of TRAIN_BATCH 512^2 images, the LCM sample's
+    UNet call at BATCH rows (no CFG) and its decode."""
+    return dict(teacher=module_census(2 * TRAIN_BATCH), unet=module_census(TRAIN_BATCH),
+                wcond_teacher=module_census(2 * WCOND_BATCH), wcond=module_census(WCOND_BATCH),
+                encode=module_census(enc_batch=TRAIN_BATCH, enc_size=SIZE),
+                sample=module_census(BATCH), decode=module_census(vae_batch=BATCH))
+
+
+def distill_step_census(per, teacher="teacher", unet="unet"):
+    """A distill step's launches: the teacher's forward, the target's and
+    the student's (no backward launches any)."""
+    return {k: per[teacher][k] + 2 * per[unet][k] for k in MAIN}
+
+
+def check_kv_gradients(census, report):
+    """dk and dv through ``FlashAttentionFn`` with only K and V requiring grad
+    (the query from activations no gradient reaches: textual inversion's
+    first cross-attention), at every cross-attention shape of the UNet at
+    TRAIN_BATCH, bf16, against autograd through the plain version in fp32
+    under GRAD_TOL; one launch a forward, none a backward, no dq formed
+    for the caller.  Max errors into ``report["phase15_grad_errs"]``."""
+    from sonicdiffusionbayeslab_torch.ops import flash_attention as fa
+    from sonicdiffusionbayeslab_torch.ops.attention import dot_product_attention, plain_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    shapes = sorted({s for k, s in census["unet"] if k == "attention" and s[2] == 77})
+    dtype = torch.bfloat16
+    wrapper = fa._KERNELS[fa.kernel_for(dtype)]
+    out = 0.0
+    for shape in shapes:
+        q, k, v = attn_inputs(shape, dtype, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        kr, vr = (x.clone().requires_grad_(True) for x in (k, v))
+        n0 = wrapper.launches
+        o = dot_product_attention(q, kr, vr)
+        if not isinstance(o.grad_fn, fa.FlashAttentionFn._backward_cls):
+            raise AssertionError(f"K/V-only attention {shape} did not go through the Function")
+        grads = torch.autograd.grad(o, (kr, vr), do)
+        torch.cuda.synchronize()
+        if wrapper.launches != n0 + 1:
+            raise AssertionError(f"K/V-only attention {shape}: {wrapper.launches - n0} launches")
+        B, N, M, H, _ = shape
+        rows = max(1, min(B, int(PLAIN_BYTES // (30 * H * N * M))))
+        errs = [0.0, 0.0]
+        for b in range(0, B, rows):
+            ref_in = [x[b:b + rows].float().requires_grad_(True) for x in (k, v)]
+            ref = torch.autograd.grad(plain_attention(q[b:b + rows].float(), *ref_in), ref_in,
+                                      do[b:b + rows].float())
+            for i, (g, r) in enumerate(zip(grads, ref)):
+                errs[i] = max(errs[i], grad_close(g[b:b + rows], r, dtype,
+                                                  f"K/V-only attention {shape} d{'kv'[i]}"))
+        out = max(out, *errs)
+        report["phase15_grad_errs"]["attention"].append(max(errs))
+        print(f"phase 15 K/V-only attention bf16 {shape} gradients: max abs err dk "
+              f"{errs[0]:.3e} dv {errs[1]:.3e} (GRAD_TOL {GRAD_TOL[dtype]})", flush=True)
+        del q, k, v, do, kr, vr, o, grads
+    torch.cuda.empty_cache()
+    return dict(shapes=[list(s) for s in shapes], max_abs_err=out)
+
+
+def distill_tiny_card_vs_cpu(tiny_census):
+    """One LCM-LoRA (rank 4) and one w-conditioned full distill step's
+    gradients, and one textual-inversion step's row gradient, of the tiny
+    fp32 UNet on the card (TF32 off) and on the CPU from the same weights,
+    state, latents, contexts and draws (the first row at the clean
+    boundary): every gradient within TINY_GRAD_REL of its tensor's max |g|
+    (``tiny_grads_close``), the losses within 1e-3; the card's launches
+    are the forwards' (a distill step's three, a TI step's one)."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.training.distillation import (LCMDistillConfig,
+                                                                     LCMDistiller)
+    from sonicdiffusionbayeslab_torch.training.textual_inversion import TextualInversionTrainer
+
+    per = _kinds(tiny_census)
+    rng = np.random.default_rng(15)
+    arr = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    lat, ctx, unc, noise = arr(2, 8, 8, 4), arr(2, 77, 32), arr(2, 77, 32) * 0.1, arr(2, 8, 8, 4)
+    draws = dict(idx=torch.tensor([0, 6]), noise=noise, w=torch.tensor([3.0, 9.0]))
+    engines = tiny_engine_pair()
+    grid = dict(original_inference_steps=10, learning_rate=TINY_TRAIN_LR)
+    cases = {"distill lora": LCMDistillConfig(lora_rank=4, **grid),
+             "distill wcond full": LCMDistillConfig(lora_rank=0, w_min=2.0, w_max=10.0,
+                                                    student_time_cond_proj_dim=8, **grid)}
+    ids = np.full((2, 77), 5, np.int64)
+    ids[:, 3], ids[:, 4] = 997, 998
+    ti_draws = dict(timesteps=torch.tensor([37, 812]), noise=noise)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name in (*cases, "textual inversion"):
+            wrapper_counts(reset=True)
+            if name in cases:
+                trainers = {d: LCMDistiller(e, cases[name]) for d, e in engines.items()}
+                init = trainers["cpu"].init_state(generator=torch.Generator().manual_seed(0))
+                res = {d: tr.value_and_grad(tr.init_state(trainable=init.trainable), lat, ctx,
+                                            unc, **draws)
+                       for d, tr in trainers.items()}
+                forwards = 3
+            else:
+                trainers = {d: TextualInversionTrainer(e, [997, 998]) for d, e in engines.items()}
+                res = {}
+                for d, tr in trainers.items():
+                    loss, g = tr.value_and_grad(tr.init_state(init_ids=[10, 11]), lat, ids,
+                                                **ti_draws)
+                    res[d] = loss, {"rows": g}
+                forwards = 1
+            counts = wrapper_counts()
+            rel = tiny_grads_close(res["cuda"][1], res["cpu"][1], f"tiny {name}")
+            err = abs(float(res["cuda"][0]) - float(res["cpu"][0]))
+            want = {"attention_fp32": forwards * per["attention"],
+                    "group_norm": forwards * per["group_norm"], "attention": 0}
+            print(f"tiny fp32 {name} step, card vs CPU: gradients within {rel:.2e} of each "
+                  f"tensor's max|g| (at most {TINY_GRAD_REL}), loss abs err {err:.3e} (tolerance "
+                  f"1e-3); launches {counts}, expected {want}", flush=True)
+            if not err <= 1e-3 or counts != want:
+                raise AssertionError(f"the tiny {name} step on the card disagrees with the CPU "
+                                     "or launched other than its forwards' kernels")
+            out[name] = dict(max_grad_rel_err=rel, loss_abs_err=err,
+                             fp32_attention_launches=counts["attention_fp32"],
+                             group_norm_launches=counts["group_norm"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return out
+
+
+def run_distill_loop(per, card, root, img_dir, ann):
+    """``mode: distill`` through ``training.loop.run_training`` at full
+    SD-1.5 width (configs/train_lora.yaml's model and dataset with the
+    TRAIN_IMAGES PNGs; training: LCM-LoRA of rank DISTILL_RANK, grid
+    DISTILL_GRID, batch TRAIN_BATCH, DISTILL_STEPS steps, otherwise
+    LCMDistillConfig's defaults): finite losses, steps/s and peak memory,
+    the wrappers' launches equal to the census (a step's teacher, target
+    and student forwards, the prep's encode), the teacher's weights
+    bit-equal from the distiller's first sight of them to the end,
+    lora_peft.npz with every target's tensors fused by merge_lora into a
+    LCM_STEPS-step LCM sample at consistency_model_config.yaml's guidance
+    that differs from the base model's; then a DISTILL_TRACE_STEPS run
+    traced against the census."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.config import load_config
+    from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
+    from sonicdiffusionbayeslab_torch.models.weights import merge_lora
+    from sonicdiffusionbayeslab_torch.schedulers import LCMScheduler
+    from sonicdiffusionbayeslab_torch.training import distillation as D
+    from sonicdiffusionbayeslab_torch.training.lora import lora_targets
+    from sonicdiffusionbayeslab_torch.training.loop import run_training
+
+    repo = Path(__file__).resolve().parent
+    training = {"mode": "distill", "lora_rank": DISTILL_RANK,
+                "original_inference_steps": DISTILL_GRID, "batch_size": TRAIN_BATCH,
+                "num_steps": DISTILL_STEPS, "log_every": DISTILL_LOG,
+                "save_dir": str(Path(root) / "distill_out")}
+    overrides = {"dataset.img_dataset": str(img_dir), "dataset.prompts": str(ann),
+                 "training": training}
+    print(f"configs/train_lora.yaml with overrides {json.dumps(overrides)}", flush=True)
+    step = distill_step_census(per)
+    per_step = {"attention": step["attention"],
+                "group_norm": step["group_norm"] + per["encode"]["group_norm"]}
+    seen = {}
+    orig = D.LCMDistiller.init_state
+
+    def init_state(self, *a, **kw):  # the teacher's weights as the distiller first sees them
+        seen["teacher"] = {k: v.clone() for k, v in self.engine.unet.state_dict().items()}
+        return orig(self, *a, **kw)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wrapper_counts(reset=True)
+    D.LCMDistiller.init_state = init_state
+    try:
+        t0 = time.perf_counter()
+        out = run_training(load_config(repo / "configs" / "train_lora.yaml", overrides))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        D.LCMDistiller.init_state = orig
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = bf16_only(wrapper_counts(), "the distill run")
+    want = {k: DISTILL_STEPS * n for k, n in per_step.items()}
+    losses = out["losses"]
+    pipe, engine = out["pipeline"], out["engine"]
+    teacher_same = all(torch.equal(v, seen["teacher"][k])
+                       for k, v in engine.unet.state_dict().items())
+    del seen
+    rec = dict(losses=losses, steps_per_sec=out["steps_per_sec"],
+               images_per_sec=out["steps_per_sec"] * TRAIN_BATCH, wall_s=wall, peak_gb=peak,
+               wrapper_launches=counts, census_launches=want, teacher_bit_equal=teacher_same)
+    print(f"distill (LCM-LoRA rank {DISTILL_RANK}, grid {DISTILL_GRID}, AdamW, EMA target "
+          f"0.95), SD-1.5 bf16 {SIZE}x{SIZE}, batch {TRAIN_BATCH}, {DISTILL_STEPS} steps through "
+          f"the loop: losses {losses}, steady {out['steps_per_sec']:.3f} steps/s "
+          f"({rec['images_per_sec']:.2f} images/s), run wall {wall:.1f} s, peak memory "
+          f"{peak:.2f} GB; wrapper launches {counts}, census {want} ({per_step} a step); "
+          f"teacher bit-equal after: {teacher_same}; {card}", flush=True)
+    if len(losses) != DISTILL_STEPS // DISTILL_LOG or not all(np.isfinite(losses)):
+        raise AssertionError(f"distill run: logged losses {losses}")
+    if counts != want or not teacher_same:
+        raise AssertionError(f"distill run: wrapper launches {counts}, census {want}; teacher "
+                             f"bit-equal {teacher_same}")
+    with torch.device("meta"):
+        targets = lora_targets(UNet2DCondition(UNetConfig.sd15()))
+    npz = np.load(Path(root) / "distill_out" / "final" / "lora_peft.npz")
+    keys = {f"unet.{m}.{s}" for m in targets for s in ("lora_A.weight", "lora_B.weight", "alpha")}
+    ranks = {npz[k].shape[0] for k in keys if k.endswith("lora_A.weight")}
+    if set(npz.files) != keys or ranks != {DISTILL_RANK}:
+        raise AssertionError(f"lora_peft.npz holds {len(npz.files)} arrays, the census of "
+                             f"{len(targets)} targets {len(keys)}")
+    guidance = float(load_config(repo / "configs" / "consistency_model_config.yaml")
+                     .experiment_params["guidance_scale"])
+    pipe.scheduler = LCMScheduler(original_inference_steps=DISTILL_GRID)
+    kw = dict(num_inference_steps=LCM_STEPS, guidance_scale=guidance, seed=29)
+    base = pipe(PROMPTS[:1], **kw)[0]
+    sd, names = merge_lora(engine.unet.state_dict(),
+                           {k: torch.from_numpy(npz[k]) for k in npz.files})
+    engine.unet.load_state_dict(sd)
+    engine.weights_changed()
+    fused = pipe(PROMPTS[:1], **kw)[0]
+    diff = float(np.abs(fused - base).max())
+    rec.update(fused_modules=len(names), lcm_guidance=guidance, image_max_abs_diff=diff)
+    print(f"lora_peft.npz: {len(npz.files)} arrays (rank {DISTILL_RANK}); fused by merge_lora "
+          f"into {len(names)} modules; one {SIZE}x{SIZE} sample, {LCM_STEPS}-step LCM at "
+          f"guidance {guidance} (consistency_model_config.yaml): max abs diff from the base "
+          f"model's {diff:.4f}", flush=True)
+    if fused.shape != (1, SIZE, SIZE, 3) or not np.isfinite(fused).all() or not diff > 0:
+        raise AssertionError(f"the distilled LoRA's sample: shape {fused.shape}, max abs diff "
+                             f"from the base model's {diff}")
+    del out, pipe, engine, sd, base, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    short = load_config(repo / "configs" / "train_lora.yaml", {
+        **overrides, "training": {**training, "num_steps": DISTILL_TRACE_STEPS,
+                                  "save_dir": str(Path(root) / "distill_trace")}})
+    want_trace = {k: DISTILL_TRACE_STEPS * n for k, n in per_step.items()}
+    _, traced, attempts = traced_exact(lambda: run_training(short), want_trace,
+                                       "the traced distill run", reset=retrace_reset())
+    if traced["attention_fp32"]:
+        raise AssertionError("the traced distill run launched the fp32 kernel")
+    rec.update(traced_launches=traced, trace_steps=DISTILL_TRACE_STEPS, trace_attempts=attempts)
+    print(f"traced distill run of {DISTILL_TRACE_STEPS} steps: kernel executions "
+          f"{json.dumps({k: traced[k] for k in MAIN})}, census {want_trace}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _steps(step, n):
+    """``n`` calls of ``step()`` (each returning a step's metrics) -> (the
+    losses, steady steps/s over calls 2..n, the device synchronised at
+    both ends)."""
+    losses, t_first = [], None
+    for i in range(n):
+        metrics = step()
+        losses.append(metrics["loss"])
+        if i == 0:
+            torch.cuda.synchronize()
+            t_first = time.perf_counter()
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], (n - 1) / (time.perf_counter() - t_first)
+
+
+def run_wcond_and_ti(per, card, root, img_dir, ann, profile):
+    """On one SD-1.5 engine (random bf16 weights, seed 0) and TRAIN_BATCH of
+    the PNGs encoded: the w-conditioned full student (LCMDistiller with
+    lora_rank 0, cond_proj of width WCOND_DIM, w in WCOND_W) at WCOND_BATCH
+    for WCOND_STEPS steps (cond_proj nonzero after the first update, the
+    teacher bit-equal, launches equal to the census), its EMA student
+    loaded strictly into an engine whose UNet has time_cond_proj_dim, a
+    LCM_STEPS-step LCM sample at BATCH through the CUDA graph at each of
+    WCOND_GUIDANCE (the capturing run's launches equal to the census; the
+    images differ), one eager forward bit-equal to the graphed one; then
+    textual inversion of TI_PLACEHOLDERS seeded from TI_INIT at TRAIN_BATCH
+    for TI_STEPS steps (only those rows change; the token table's other
+    rows, the text tower and the UNet bit-equal; launches equal to the
+    census; the embeddings' npz).  With ``profile``, a trace of a LCM-LoRA
+    distill step and of a TI step at TRAIN_BATCH."""
+    import dataclasses
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.data.dataset import ImageDatasetWithPrompts, batched
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.models.sampler import (StableDiffusionEngine,
+                                                             guidance_scale_embedding)
+    from sonicdiffusionbayeslab_torch.schedulers import LCMScheduler
+    from sonicdiffusionbayeslab_torch.training.distillation import (LCMDistillConfig,
+                                                                     LCMDistiller)
+    from sonicdiffusionbayeslab_torch.training.textual_inversion import (TOKEN_TABLE,
+                                                                          TextualInversionTrainer)
+    from sonicdiffusionbayeslab_torch.training.trainer import TrainConfig
+
+    out = {}
+    pipe = StableDiffusionModel(image_size=SIZE)
+    eng = pipe.engine
+    batch = next(iter(batched(ImageDatasetWithPrompts(str(img_dir), str(ann), SIZE), TRAIN_BATCH)))
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    lat_hw = SIZE // 2 ** (len(eng.vae_config.block_out_channels) - 1)
+    latents = eng.encode_image(torch.as_tensor(batch["image"]).cuda(), noise=torch.randn(
+        (TRAIN_BATCH, lat_hw, lat_hw, 4), generator=gen, device="cuda"))
+    prompts = list(batch["prompt"])
+    context = eng.encode_prompts(pipe.tokenizer(prompts))
+    uncond = eng.encode_prompts(pipe.tokenizer([""] * TRAIN_BATCH))
+    unet_before = {k: v.clone() for k, v in eng.unet.state_dict().items()}
+    text_before = {k: v.clone() for k, v in eng.text.state_dict().items()}
+
+    # ---- the w-conditioned full student
+    cfg = LCMDistillConfig(lora_rank=0, student_time_cond_proj_dim=WCOND_DIM,
+                           w_min=WCOND_W[0], w_max=WCOND_W[1])
+    dist = LCMDistiller(eng, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = dist.init_state()
+    cp = state.trainable["time_embedding.cond_proj.weight"]
+    zero_before = bool(cp.abs().max() == 0)
+    wrapper_counts(reset=True)
+    box = [state]
+    moved = []
+
+    def step():
+        box[0], m = dist.distill_step(box[0], latents[:WCOND_BATCH], context[:WCOND_BATCH],
+                                      uncond[:WCOND_BATCH], gen)
+        if not moved:
+            moved.append(float(box[0].trainable["time_embedding.cond_proj.weight"].detach()
+                               .abs().max()))
+        return m
+
+    losses, rate = _steps(step, WCOND_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = bf16_only(wrapper_counts(), "the w-conditioned distill steps")
+    want = {k: WCOND_STEPS * n for k, n in distill_step_census(per, "wcond_teacher",
+                                                               "wcond").items()}
+    teacher_same = all(torch.equal(v, unet_before[k]) for k, v in eng.unet.state_dict().items())
+    print(f"w-conditioned full student (cond_proj {WCOND_DIM} wide, zero at init: "
+          f"{zero_before}; w in {WCOND_W}), SD-1.5 bf16 {SIZE}x{SIZE}, batch {WCOND_BATCH}, "
+          f"{WCOND_STEPS} steps: losses {losses}, steady {rate:.3f} steps/s, peak memory "
+          f"{peak:.2f} GB; max |cond_proj| after the first update {moved[0]:.3e}; wrapper "
+          f"launches {counts}, census {want}; teacher bit-equal after: {teacher_same}; {card}",
+          flush=True)
+    if (not all(np.isfinite(losses)) or not zero_before or not moved[0] > 0 or counts != want
+            or not teacher_same):
+        raise AssertionError("the w-conditioned distill steps: losses, cond_proj, launches or "
+                             "the teacher wrong")
+    out["wcond"] = dict(losses=losses, steps_per_sec=rate, peak_gb=peak,
+                        cond_proj_after_first_update=moved[0], wrapper_launches=counts,
+                        census_launches=want)
+    student = dist.student_unet_params(box[0])
+    del dist, state, box, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    weng = StableDiffusionEngine(dataclasses.replace(eng.unet_config,
+                                                     time_cond_proj_dim=WCOND_DIM),
+                                 eng.vae_config, eng.text_config, device="cuda")
+    weng.load_state_dicts({"unet": student, "vae": eng.vae.state_dict(),
+                           "text": eng.text.state_dict()})  # strict
+    del student
+    plan = LCMScheduler(original_inference_steps=DISTILL_GRID).build_plan(LCM_STEPS)
+    ctx2 = context[:BATCH]
+    images, first = [], None
+    for g in WCOND_GUIDANCE:
+        wrapper_counts(reset=True)
+        with torch.inference_mode():
+            o = weng.sample(plan, ctx2, None, seed=29, guidance_scale=g,
+                            latent_hw=(lat_hw, lat_hw))
+        images.append(o.images.float().cpu().numpy())
+        if first is None:
+            first = bf16_only(wrapper_counts(), "the w-conditioned LCM sample")
+    want_first = {k: 3 * per["sample"][k] + per["decode"].get(k, 0) for k in MAIN}
+    diff = float(np.abs(images[0] - images[1]).max())
+    captures = dict(weng.graphed_unet.captures)
+    with torch.inference_mode():
+        lat = torch.randn((BATCH, lat_hw, lat_hw, 4), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        tb = torch.full((BATCH,), float(plan.timesteps[1]), device="cuda")
+        emb = guidance_scale_embedding(torch.full((BATCH,), WCOND_GUIDANCE[0] - 1.0),
+                                       WCOND_DIM).cuda()
+        eager = weng.unet(lat, tb, ctx2, timestep_cond=emb)
+        graphed = weng.graphed_unet(lat, tb, ctx2, *(None,) * 8, emb)
+    same = bool(torch.equal(eager, graphed))
+    print(f"w-conditioned engine (time_cond_proj_dim {WCOND_DIM}, the EMA student loaded "
+          f"strictly): {LCM_STEPS}-step LCM samples at batch {BATCH} through the CUDA graph at "
+          f"guidance {WCOND_GUIDANCE} embedded (no CFG): max abs diff {diff:.4f}; the first "
+          f"run's wrapper launches {first}, census {want_first} (warm-ups and capture: 3 "
+          f"forwards, and a decode); captures {captures}; eager forward bit-equal to the "
+          f"graphed one: {same}", flush=True)
+    if (not all(np.isfinite(i).all() for i in images) or images[0].shape != (BATCH, SIZE, SIZE, 3)
+            or not diff > 0 or first != want_first or not same or list(captures.values()) != [1]):
+        raise AssertionError("the w-conditioned engine's samples, launches or graph disagree")
+    out["wcond"].update(sample_launches=first, sample_census=want_first, guidance_diff=diff,
+                        eager_graphed_bit_equal=same)
+    del weng, images, eager, graphed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- textual inversion
+    ids = np.asarray(pipe.tokenizer(prompts)).copy()
+    ids[:, 1:1 + len(TI_PLACEHOLDERS)] = TI_PLACEHOLDERS
+    ti = TextualInversionTrainer(eng, TI_PLACEHOLDERS, TrainConfig(learning_rate=TI_LR))
+    torch.cuda.reset_peak_memory_stats()
+    box = [ti.init_state(init_ids=TI_INIT)]
+    seeded = bool(torch.equal(box[0].trainable.to(eng.dtype),
+                              text_before[TOKEN_TABLE][list(TI_INIT)]))
+    wrapper_counts(reset=True)
+
+    def ti_step():
+        box[0], m = ti.train_step(box[0], latents, ids, gen)
+        return m
+
+    losses, rate = _steps(ti_step, TI_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = bf16_only(wrapper_counts(), "the textual inversion steps")
+    want = {k: TI_STEPS * per["unet"][k] for k in MAIN}
+    table = ti.text_params(box[0])[TOKEN_TABLE]
+    changed = torch.nonzero((table != text_before[TOKEN_TABLE]).any(dim=1)).flatten().tolist()
+    frozen = (all(torch.equal(v, text_before[k]) for k, v in eng.text.state_dict().items())
+              and all(torch.equal(v, unet_before[k]) for k, v in eng.unet.state_dict().items()))
+    ti.save_embeddings(box[0], Path(root) / "ti.npz")
+    npz = np.load(Path(root) / "ti.npz")
+    print(f"textual inversion of tokens {TI_PLACEHOLDERS} (seeded from {TI_INIT}: {seeded}), "
+          f"Adam lr {TI_LR}, SD-1.5 bf16 {SIZE}x{SIZE}, batch {TRAIN_BATCH}, {TI_STEPS} steps: "
+          f"losses {losses}, steady {rate:.3f} steps/s ({rate * TRAIN_BATCH:.2f} images/s), peak "
+          f"memory {peak:.2f} GB; rows changed {changed}; token table's other rows, text tower "
+          f"and UNet bit-equal: {frozen}; wrapper launches {counts}, census {want} (the text "
+          f"tower's masked attention takes the plain path); ti.npz {npz.files} "
+          f"{list(npz['embeddings'].shape)}; {card}", flush=True)
+    if (not all(np.isfinite(losses)) or not seeded or changed != sorted(TI_PLACEHOLDERS)
+            or not frozen or counts != want or npz.files != ["ids", "embeddings"]
+            or list(npz["ids"]) != list(TI_PLACEHOLDERS)):
+        raise AssertionError("textual inversion: losses, rows, frozen weights, launches or the "
+                             "npz wrong")
+    out["ti"] = dict(losses=losses, steps_per_sec=rate, images_per_sec=rate * TRAIN_BATCH,
+                     peak_gb=peak, rows_changed=changed, wrapper_launches=counts,
+                     census_launches=want)
+    if profile:
+        lora = LCMDistiller(eng, LCMDistillConfig(lora_rank=DISTILL_RANK,
+                                                  original_inference_steps=DISTILL_GRID))
+        dbox = [lora.init_state()]
+
+        def distill_once():
+            dbox[0], m = lora.distill_step(dbox[0], latents, context, uncond, gen)
+            float(m["loss"])
+
+        out["profiles"] = {
+            "distill": profile_steps(distill_once, f"distill LCM-LoRA batch {TRAIN_BATCH}", card, {
+                "teacher (distill_step.teacher)": "distill_step.teacher",
+                "target (distill_step.target)": "distill_step.target",
+                "optimizer (distill_step.optimizer)": "distill_step.optimizer"}),
+            "ti": profile_steps(lambda: float(ti_step()["loss"]),
+                                f"textual inversion batch {TRAIN_BATCH}", card,
+                                {"optimizer (ti_step.optimizer)": "ti_step.optimizer"})}
+        del lora, dbox
+    del pipe, eng, ti, box, unet_before, text_before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase15_launches(out, kind):
+    """A kernel's launches in each phase-15 run."""
+    if kind == "attention_fp32":
+        return {f"tiny {n}": r["fp32_attention_launches"]
+                for n, r in out["tiny_card_vs_cpu"].items()}
+    return {"distill run": out["distill"]["wrapper_launches"][kind],
+            "distill trace": out["distill"]["traced_launches"][kind],
+            "w-conditioned steps": out["wcond"]["wrapper_launches"][kind],
+            "w-conditioned LCM sample (capture)": out["wcond"]["sample_launches"][kind],
+            "textual inversion": out["ti"]["wrapper_launches"][kind]}
+
+
+def run_distill_phase(report, card, checked, profile):
+    """Phase 15: LCM distillation (LCM-LoRA through the loop, the
+    w-conditioned full student and its sampling) and textual inversion at
+    full SD-1.5 width, K/V-only gradients through the bf16 attention
+    Function, tiny fp32 steps card vs CPU."""
+    census = distill_census()
+    per = {part: dict(_kinds(c)) for part, c in census.items()}
+    print(f"phase 15 census (launches a forward, an encode or a decode): {json.dumps(per)}",
+          flush=True)
+    step = distill_step_census(per)
+    if (step["attention"], step["group_norm"], per["encode"]["group_norm"]) != (96, 183, 22):
+        raise AssertionError(f"phase 15 census {per}: expected 96 attentions and 183 GroupNorms "
+                             "a distill step, 22 GroupNorms an encode")
+    out = {"census": per, "part_s": {}}
+    t0 = time.perf_counter()
+
+    def timed(part, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        out["part_s"][part] = time.perf_counter() - t
+        return result
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out["checked_shapes"] = timed("forward checks", check_forward, {
+        (k, torch.bfloat16) for c in census.values() for k in c}, report, checked, 15)
+    out["kv_gradients"] = timed("K/V-only gradients", check_kv_gradients, census, report)
+    out["tiny_card_vs_cpu"] = timed("tiny card vs CPU", distill_tiny_card_vs_cpu,
+                                    module_census(2, tiny=True))
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory(prefix="sdbl_distill_") as tmp:
+        img_dir, ann = write_train_images(tmp)
+        out["distill"] = timed("distill through the loop", run_distill_loop, per, card, tmp,
+                               img_dir, ann)
+        out.update(timed("w-conditioned student and textual inversion", run_wcond_and_ti, per,
+                         card, tmp, img_dir, ann, profile))
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 15 took {out['phase_s']:.1f} s: "
+          f"{json.dumps({k: round(v, 1) for k, v in out['part_s'].items()})}", flush=True)
+    report["e2e"]["distillation"] = out
 
 
 def main() -> None:
@@ -4776,6 +5364,8 @@ def main() -> None:
     report["phase13_errs"] = collections.defaultdict(list)
     report["phase14_errs"] = collections.defaultdict(list)
     report["phase14_grad_errs"] = collections.defaultdict(list)
+    report["phase15_errs"] = collections.defaultdict(list)
+    report["phase15_grad_errs"] = collections.defaultdict(list)
     report["e2e"] = {}
 
     phase("3. kernels against their plain versions, at the shapes of the main path and the CLI "
@@ -4844,8 +5434,13 @@ def main() -> None:
           "the kernels' autograd Functions, tiny fp32 steps card vs CPU")
     run_training_phase(report, card, checked, args.profile)
 
-    phase("15. kernels")
-    print(f"phases 1-14 took {time.perf_counter() - _T0:.1f} s; {card}")
+    phase(f"15. LCM distillation (LCM-LoRA through the loop, the w-conditioned full student "
+          f"and its LCM sampling) and textual inversion at SD-1.5 {SIZE}x{SIZE}, K/V-only "
+          "gradients through the bf16 attention Function, tiny fp32 steps card vs CPU")
+    run_distill_phase(report, card, checked, args.profile)
+
+    phase("16. kernels")
+    print(f"phases 1-15 took {time.perf_counter() - _T0:.1f} s; {card}")
     fam = report["e2e"]["families"]
     kernels = []
     for kind, meta in KERNELS.items():
@@ -4886,6 +5481,9 @@ def main() -> None:
             "phase14_wrapper_launches": phase14_launches(report["e2e"]["training"], kind),
             "phase14_max_abs_err": max(report["phase14_errs"][kind], default=None),
             "phase14_max_abs_grad_err": max(report["phase14_grad_errs"][kind], default=None),
+            "phase15_wrapper_launches": phase15_launches(report["e2e"]["distillation"], kind),
+            "phase15_max_abs_err": max(report["phase15_errs"][kind], default=None),
+            "phase15_max_abs_grad_err": max(report["phase15_grad_errs"][kind], default=None),
             **({"phase6_launches": r["phase6_launches"]} if "phase6_launches" in r else {}),
             "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -18,6 +18,7 @@ With its zero-initialised heads an untrained ControlNet changes nothing.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -64,7 +65,8 @@ class ControlNet(nn.Module):
 
     def __init__(self, config: UNetConfig):
         super().__init__()
-        cfg = self.config = config
+        # No guidance embedding: the JAX package's ControlNet has no cond_proj.
+        cfg = self.config = dataclasses.replace(config, time_cond_proj_dim=None)
         skip_ch = build_encoder(self, cfg)
         self.controlnet_cond_embedding = ConditioningEmbedding(cfg.block_out_channels[0])
         self.controlnet_down_blocks = nn.ModuleList([nn.Conv2d(c, c, 1) for c in skip_ch])

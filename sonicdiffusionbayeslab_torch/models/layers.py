@@ -83,14 +83,22 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10
 
 
 class TimestepEmbedMLP(nn.Module):
-    """time_embedding: Linear -> SiLU -> Linear (diffusers TimestepEmbedding)."""
+    """time_embedding: Linear -> SiLU -> Linear (diffusers TimestepEmbedding).
 
-    def __init__(self, in_dim: int, dim: int):
+    With ``cond_dim`` it also has diffusers' bias-free ``cond_proj``: a
+    conditioning vector (a full LCM model's guidance embedding) projected
+    onto the sinusoid and added to it before ``linear_1``."""
+
+    def __init__(self, in_dim: int, dim: int, cond_dim: Optional[int] = None):
         super().__init__()
         self.linear_1 = nn.Linear(in_dim, dim)
         self.linear_2 = nn.Linear(dim, dim)
+        if cond_dim is not None:  # last, so the other weights' random init is unchanged
+            self.cond_proj = nn.Linear(cond_dim, in_dim, bias=False)
 
-    def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, t_emb: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if cond is not None:
+            t_emb = t_emb + self.cond_proj(cond.to(t_emb.dtype))
         return self.linear_2(F.silu(self.linear_1(t_emb)))
 
 

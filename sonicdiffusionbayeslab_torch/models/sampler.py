@@ -5,8 +5,9 @@ Counterpart of ``sonicdiffusionbayeslab_tpu/models/sampler.py::
 StableDiffusionEngine`` with DeepCache (``CachePlan``), Token Merging,
 noise-injecting plans, rescaled CFG, img2img's image encode and
 inpainting's per-step blend, the UNet's int8 modes, ControlNet and
-IP-Adapter, and of its ``SDXLEngine`` (two text towers and the UNet's
-text_time conditioning).
+IP-Adapter, a w-conditioned (full LCM) UNet's guidance embedding, and of
+its ``SDXLEngine`` (two text towers and the UNet's text_time
+conditioning).
 The JAX engine scans a jitted
 body over the plan's rows; here the loop is plain Python over the same
 rows, each step one UNet call (chunked when ``microbatch`` > 1), the CFG
@@ -76,6 +77,25 @@ class CachePlan:
     def every(cls, num_steps: int, cache_interval: int, branch: int = 0) -> "CachePlan":
         idx = np.arange(num_steps)
         return cls(full=(idx % int(cache_interval)) == 0, branch=int(branch))
+
+
+def guidance_scale_embedding(w, dim: int) -> torch.Tensor:
+    """The sinusoidal embedding [B, dim] of guidance scales ``w`` [B] for a
+    w-conditioned (full LCM) UNet's ``timestep_cond``: diffusers'
+    ``get_guidance_scale_embedding``, w x 1000, sines then cosines at
+    ``exp(i * -log(10000) / (half - 1))``, a zero column for odd ``dim``.
+    The arguments are fp32 products, as the JAX package forms them; exp,
+    sin and cos of them are taken in float64 and rounded, since their fp32
+    versions differ by an ulp between libraries and the sines' arguments
+    reach 10^4 (an ulp of a frequency there moves a sine by 10^-4)."""
+    w = torch.as_tensor(w, dtype=torch.float32) * 1000.0
+    half = dim // 2
+    step = -torch.log(torch.tensor(10000.0, device=w.device)) / (half - 1)
+    x = torch.arange(half, dtype=torch.float32, device=w.device) * step
+    freqs = torch.exp(x.double()).float()
+    emb = (w[:, None] * freqs[None, :]).double()
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1).float()
+    return torch.nn.functional.pad(emb, (0, dim % 2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,17 +283,20 @@ class StableDiffusionEngine:
 
     def denoise(self, sample, timesteps, context, cache=None, tome_dst=None, text_embeds=None,
                 time_ids=None, ip_context=None, ip_scale=None, control_image=None,
-                control_scale=None, **static):
+                control_scale=None, timestep_cond=None, **static):
         """One UNet call (``UNet2DCondition.forward``'s arguments), with
-        IP-Adapter's tokens and scale, and, given ``control_image`` [B, 8h,
-        8w, 3] and ``control_scale`` (a 0-dim tensor), the ControlNet's
-        residuals first: every input a tensor, so that one CUDA graph holds
-        both networks."""
+        IP-Adapter's tokens and scale, given ``control_image`` [B, 8h, 8w,
+        3] and ``control_scale`` (a 0-dim tensor) the ControlNet's residuals
+        first, and a w-conditioned UNet's ``timestep_cond``: every input a
+        tensor, so that one CUDA graph holds both networks and copies each
+        input in at every replay."""
         if control_image is not None:
             static["control_residuals"] = self.controlnet(
                 sample, timesteps, context, control_image, control_scale, text_embeds, time_ids)
         if ip_context is not None:
             static.update(ip_context=ip_context, ip_scale=ip_scale)
+        if timestep_cond is not None:
+            static["timestep_cond"] = timestep_cond
         return self.unet(sample, timesteps, context, cache, tome_dst, text_embeds, time_ids,
                          **static)
 
@@ -304,17 +327,20 @@ class StableDiffusionEngine:
         """:meth:`denoise` on the model batch as ``microbatch`` sequential
         chunks (or whole).  ``args`` (latents, timesteps, context and
         DeepCache's features or None) and ``added`` (SDXL's pooled
-        embeddings and time_ids, or None) are batch-leading and chunk alike,
+        embeddings and time_ids, and a w-conditioned UNet's guidance
+        embedding, each or None) are batch-leading and chunk alike,
         and so do the outputs (one tensor, or DeepCache's pair);
         ``tome_dst`` goes whole to every chunk, and so does ``extra``
         (IP-Adapter's tokens and scale, the control image and scale, each
         or None), which the sampler passes only unchunked."""
         unet = self.graphed_unet if self.device.type == "cuda" else self.denoise
         n = len(args)
-        args = (*args, *(added or (None, None)))
+        args = (*args, *(added or (None, None, None)))
 
         def call(*part):
-            part = (*part[:n], tome_dst, *part[n:], *extra)
+            text_embeds, time_ids, timestep_cond = part[n:]
+            part = (*part[:n], tome_dst, text_embeds, time_ids, *(extra or (None,) * 4),
+                    timestep_cond)
             while part[-1] is None:
                 part = part[:-1]
             return unet(*part, **static)
@@ -392,6 +418,10 @@ class StableDiffusionEngine:
         under CFG the unconditional half takes the projection of a zero
         embedding.  Neither composes with ``microbatch`` > 1.
 
+        A w-conditioned UNet (``time_cond_proj_dim``, a full LCM model)
+        takes the embedding of ``guidance_scale - 1`` for every row of the
+        model batch (CFG-doubled where CFG runs) as its ``timestep_cond``.
+
         ``time_loop`` False skips the device synchronisations around the
         loop, so the loop, the decode and whatever follows queue on the
         device without a wait; ``execution_time`` is then -1.0."""
@@ -422,7 +452,8 @@ class StableDiffusionEngine:
         x0_count = B if x0_samples is None else max(1, min(int(x0_samples), B))
         tome, dst = self._tome_destinations(plan, tome, tome_dst, cache_plan, latent_hw)
         static = {} if tome is None else {"tome": tome}
-        added = self._added(added_cond, do_cfg)
+        added = (*(self._added(added_cond, do_cfg) or (None, None)),
+                 self._timestep_cond(guidance_scale, B * (2 if do_cfg else 1)))
         extra = self._conditioning(control, ip_adapter, cache_plan, microbatch, B, latent_hw,
                                    do_cfg)
 
@@ -534,6 +565,15 @@ class StableDiffusionEngine:
             raise ValueError("unet_microbatch composes with the plain, SDXL and DeepCache UNet "
                              "calls only (not ControlNet or IP-Adapter)")
         return ip_tokens, ip_scale, hint, control_scale
+
+    def _timestep_cond(self, guidance_scale: float, rows: int) -> Optional[torch.Tensor]:
+        """A w-conditioned UNet's guidance embedding of ``guidance_scale -
+        1`` for ``rows`` rows on the device, else None."""
+        dim = getattr(self.unet_config, "time_cond_proj_dim", None)
+        if dim is None:
+            return None
+        w = torch.full((rows,), guidance_scale - 1.0, dtype=torch.float32)
+        return guidance_scale_embedding(w, dim).to(self.device)
 
     def _added(self, added_cond, do_cfg):
         """(pooled embeddings, time_ids) at the model batch on the device, or

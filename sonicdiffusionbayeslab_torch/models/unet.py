@@ -2,8 +2,9 @@
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/models/unet.py`` on the
 text-to-image path with its DeepCache split, Token Merging, SDXL's
-text_time added conditioning, the int8 W8A8 modes, ControlNet's residuals
-and IP-Adapter's decoupled cross-attentions (no guidance embedding or CFG
+text_time added conditioning, a full LCM model's guidance embedding
+(``time_cond_proj_dim``, ``timestep_cond``), the int8 W8A8 modes,
+ControlNet's residuals and IP-Adapter's decoupled cross-attentions (no CFG
 shared prefix).
 Parameter names follow diffusers' ``UNet2DConditionModel``; activations
 are [B, H, W, C] at the module's boundary, as in the JAX package.
@@ -43,7 +44,11 @@ class UNetConfig:
     through ``add_embedding`` and is added to the time embedding.
     ``use_linear_projection`` (diffusers' flag): the transformers'
     ``proj_in``/``proj_out`` are ``nn.Linear`` (SD-2.x, SDXL) rather than
-    1x1 convs (SD-1.5); None follows ``addition_time_embed_dim``."""
+    1x1 convs (SD-1.5); None follows ``addition_time_embed_dim``.
+    ``time_cond_proj_dim`` (diffusers' name) set means a w-conditioned,
+    full LCM UNet: the time embedding's ``cond_proj`` takes a guidance
+    embedding of that width (``sampler.guidance_scale_embedding``), e.g. 256
+    for LCM_Dreamshaper_v7."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -56,6 +61,7 @@ class UNetConfig:
     addition_time_embed_dim: Optional[int] = None
     projection_class_embeddings_input_dim: Optional[int] = None
     use_linear_projection: Optional[bool] = None
+    time_cond_proj_dim: Optional[int] = None
 
     @property
     def linear_projection(self) -> bool:
@@ -137,7 +143,7 @@ def build_encoder(module: nn.Module, cfg: UNetConfig):
     chans = cfg.block_out_channels
     n, temb = len(chans), chans[0] * 4
     module.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
-    module.time_embedding = TimestepEmbedMLP(chans[0], temb)
+    module.time_embedding = TimestepEmbedMLP(chans[0], temb, cfg.time_cond_proj_dim)
     if cfg.addition_time_embed_dim is not None:
         module.add_embedding = TimestepEmbedMLP(cfg.projection_class_embeddings_input_dim, temb)
     skip_ch, cur = [chans[0]], chans[0]
@@ -163,15 +169,23 @@ def build_encoder(module: nn.Module, cfg: UNetConfig):
 
 def time_embedding(module: nn.Module, cfg: UNetConfig, timesteps: torch.Tensor,
                    text_embeds: Optional[torch.Tensor], time_ids: Optional[torch.Tensor],
-                   batch: int) -> torch.Tensor:
+                   batch: int, timestep_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``module``'s time embedding of ``timesteps`` (a scalar broadcasts to
-    ``batch``), plus SDXL's text_time conditioning where the config has
-    it: add_embedding of [pooled text embedding, sinusoids of the 6
-    time_ids] (diffusers' addition_embed_type "text_time")."""
+    ``batch``), with ``timestep_cond`` through ``cond_proj`` where the config
+    has ``time_cond_proj_dim`` (required there, ignored elsewhere), plus
+    SDXL's text_time conditioning where the config has it: add_embedding
+    of [pooled text embedding, sinusoids of the 6 time_ids] (diffusers'
+    addition_embed_type "text_time")."""
     dt = module.conv_in.weight.dtype
     if timesteps.dim() == 0:
         timesteps = timesteps.expand(batch)
-    t_emb = module.time_embedding(timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt))
+    if cfg.time_cond_proj_dim is None:
+        timestep_cond = None
+    elif timestep_cond is None:
+        raise ValueError("this UNet config requires timestep_cond (guidance embedding, "
+                         f"dim {cfg.time_cond_proj_dim})")
+    t_emb = module.time_embedding(timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt),
+                                  timestep_cond)
     if cfg.addition_time_embed_dim is None:
         return t_emb
     if text_embeds is None or time_ids is None:
@@ -262,15 +276,20 @@ class UNet2DCondition(nn.Module):
                 time_ids: Optional[torch.Tensor] = None,
                 ip_context: Optional[torch.Tensor] = None,
                 ip_scale: Optional[torch.Tensor] = None, return_cache: bool = False,
-                cache_branch_id: int = 0, tome=None, control_residuals=None):
+                cache_branch_id: int = 0, tome=None, control_residuals=None,
+                timestep_cond: Optional[torch.Tensor] = None):
         """sample [B, h, w, C_in], timesteps [B] or scalar, context [B, T, D]
         -> [B, h, w, C_out] fp32.
 
         SDXL's text_time conditioning (the JAX package's ``added_cond``):
         ``text_embeds`` [B, P] pooled text embeddings and ``time_ids`` [B, 6],
-        required where the config has ``addition_time_embed_dim``.  They
-        are tensor arguments, so a CUDA graph of the call copies them in at
-        every replay.
+        required where the config has ``addition_time_embed_dim``.
+        ``timestep_cond`` [B, time_cond_proj_dim], the guidance embedding of
+        a w-conditioned (full LCM) UNet, required where the config has
+        ``time_cond_proj_dim`` and ignored elsewhere.  They are tensor
+        arguments, so a CUDA graph of the call copies them in at every
+        replay (``engine.denoise`` takes ``timestep_cond`` positionally,
+        after the control image's scale).
 
         IP-Adapter: ``ip_context`` [B, P, D] image-prompt tokens and
         ``ip_scale`` (a 0-dim tensor) go to every cross-attention's
@@ -307,7 +326,8 @@ class UNet2DCondition(nn.Module):
         deep = cache is None
         if control_residuals is not None and not deep:
             raise ValueError("control_residuals cannot be combined with a DeepCache step")
-        t_emb = time_embedding(self, cfg, timesteps, text_embeds, time_ids, sample.shape[0])
+        t_emb = time_embedding(self, cfg, timesteps, text_embeds, time_ids, sample.shape[0],
+                               timestep_cond)
         ctx = encoder_hidden_states.to(dt)
         ip = {} if ip_context is None else dict(ip_context=ip_context.to(dt), ip_scale=ip_scale)
         slot, tome_cache = 0, {}

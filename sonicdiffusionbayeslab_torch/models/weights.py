@@ -120,6 +120,8 @@ def unet_name_map(cfg: UNetConfig) -> NameMap:
     m.conv("conv_in", "conv_in")
     m.dense("time_embedding/fc1", "time_embedding.linear_1")
     m.dense("time_embedding/fc2", "time_embedding.linear_2")
+    # A full LCM UNet's guidance embedding (time_cond_proj_dim).
+    m.dense("time_embedding/cond_proj", "time_embedding.cond_proj", bias=False)
     m.dense("add_embedding/fc1", "add_embedding.linear_1")  # SDXL's text_time conditioning
     m.dense("add_embedding/fc2", "add_embedding.linear_2")
     n = len(cfg.block_out_channels)
@@ -430,7 +432,8 @@ def unet_geometry(tree: dict) -> UNetConfig:
     or a 1x1 conv, so the tree cannot tell SD-2.x's linear projections from
     SD-1.5's convs: this geometry has SD-1.5's convs, or linears where the
     text_time ``add_embedding`` is present (SDXL; the JAX config's
-    default).  Head counts do not enter the names."""
+    default), and the guidance embedding's width where ``cond_proj`` is.
+    Head counts do not enter the names."""
     n = _count(tree, "down_{}_res_0")
     attn = [f"down_{i}_attn_0" for i in range(n)]
     depth = tuple(_count(tree[a], "block_{}") if a in tree else 1 for a in attn)
@@ -442,6 +445,8 @@ def unet_geometry(tree: dict) -> UNetConfig:
         cross_attention=tuple(a in tree for a in attn),
         transformer_depth=depth if len(set(depth)) > 1 else depth[0],
         use_linear_projection=True if "add_embedding" in tree else None,
+        time_cond_proj_dim=(tree["time_embedding"]["cond_proj"]["kernel"].shape[0]
+                            if "cond_proj" in tree["time_embedding"] else None),
     )
 
 
@@ -523,6 +528,20 @@ def mmdit_lora_from_jax(adapters: dict, mmdit_config=None) -> Dict[str, Dict[str
     """:func:`lora_from_jax` for a JAX MMDiT LoRA tree, through
     ``mmdit_name_map`` (``mmdit_config`` default: the adapters' own depth)."""
     return _lora_from_jax(adapters, mmdit_name_map(mmdit_config or mmdit_geometry(adapters)))
+
+
+def trainable_from_jax(tree, unet_config=None):
+    """The trainable (or EMA) tree of a JAX ``TrainState``, numpy leaves, as
+    the port's trainers hold it: LoRA adapters (:func:`lora_from_jax`), a
+    full UNet tree (a state dict through ``unet_name_map``, a w-conditioned
+    student's ``cond_proj`` included) or textual inversion's [k, C] rows
+    (one tensor); all fp32.  ``unet_config`` as in :func:`lora_from_jax`
+    (default: the tree's own geometry for a full tree, SD-1.5 for LoRA)."""
+    if not isinstance(tree, dict):
+        return torch.from_numpy(np.array(tree, np.float32))
+    if next(_adapter_items(tree), None) is not None:
+        return lora_from_jax(tree, unet_config)
+    return _tensors(invert(tree, unet_name_map(unet_config or unet_geometry(tree))))
 
 
 # ------------------------------------------------------- local checkpoints

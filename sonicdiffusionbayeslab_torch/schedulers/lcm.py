@@ -31,6 +31,18 @@ def lcm_timesteps(
     return origin[::-1][::skipping][:num_steps]
 
 
+def boundary_scalings(t, timestep_scaling: float = 10.0, sigma_data: float = 0.5):
+    """The consistency boundary scalings (c_skip, c_out) at timesteps ``t``
+    in float64: with u = t * timestep_scaling, c_skip = sigma_data^2 / (u^2
+    + sigma_data^2) and c_out = u / sqrt(u^2 + sigma_data^2), so f(x, 0) = x.
+    The plan rows and the distillation step (``training/distillation.py``)
+    both take them from here."""
+    scaled = np.asarray(t, np.float64) * timestep_scaling
+    c_skip = sigma_data**2 / (scaled**2 + sigma_data**2)
+    c_out = scaled / np.sqrt(scaled**2 + sigma_data**2)
+    return c_skip, c_out
+
+
 def lcm_rows(
     schedule: NoiseSchedule,
     num_steps: int,
@@ -46,9 +58,7 @@ def lcm_rows(
     for i, t in enumerate(ts):
         last = i == len(ts) - 1
         acp_prev = 1.0 if last else float(schedule.acp(int(ts[i + 1])))
-        scaled = float(t) * timestep_scaling
-        c_skip = sigma_data**2 / (scaled**2 + sigma_data**2)
-        c_out = scaled / np.sqrt(scaled**2 + sigma_data**2)
+        c_skip, c_out = (float(c) for c in boundary_scalings(t, timestep_scaling, sigma_data))
         a_s, a_e = x0_conversion_coeffs(schedule, int(t), prediction_type)
 
         # denoised = c_out * x0 + c_skip * x; prev = sqrt(acp_prev) * denoised

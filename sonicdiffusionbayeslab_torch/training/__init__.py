@@ -1,16 +1,19 @@
 """Training: the diffusion train step (full fine-tune, LoRA, ControlNet;
-ddpm and flow objectives; EMA; remat), its optimizers and the
-config-driven loop.
+ddpm and flow objectives; EMA; remat), LCM consistency distillation
+(LCM-LoRA and the w-conditioned full student), textual inversion, their
+optimizers and the config-driven loop.
 
-Counterpart of ``sonicdiffusionbayeslab_tpu/training/`` without LCM
-distillation and textual inversion (ROADMAP.md item A6).
+Counterpart of ``sonicdiffusionbayeslab_tpu/training/`` on one device
+(``mesh_data > 0`` is ROADMAP.md item A8).
 """
 
+from sonicdiffusionbayeslab_torch.training.distillation import LCMDistillConfig, LCMDistiller
 from sonicdiffusionbayeslab_torch.training.lora import (
     apply_lora,
     init_lora,
     lora_to_peft_state_dict,
 )
+from sonicdiffusionbayeslab_torch.training.textual_inversion import TextualInversionTrainer
 from sonicdiffusionbayeslab_torch.training.trainer import (
     DiffusionTrainer,
     TrainConfig,
@@ -19,6 +22,9 @@ from sonicdiffusionbayeslab_torch.training.trainer import (
 
 __all__ = [
     "DiffusionTrainer",
+    "LCMDistillConfig",
+    "LCMDistiller",
+    "TextualInversionTrainer",
     "TrainConfig",
     "TrainState",
     "init_lora",

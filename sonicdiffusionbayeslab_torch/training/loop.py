@@ -1,25 +1,33 @@
 """Config-driven fine-tuning loop.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/training/loop.py``: drives
-:class:`DiffusionTrainer` from the experiment YAML (``model`` and
-``dataset`` sections as the CLI reads them, plus a ``training`` section):
+:class:`DiffusionTrainer` (``training.mode: diffusion``, the default) or
+:class:`LCMDistiller` (``mode: distill``, LCM consistency distillation of
+an SD-1.5/2.x UNet) from the experiment YAML (``model`` and ``dataset``
+sections as the CLI reads them, plus a ``training`` section whose keys
+that name the trainer's config fields set them):
 
   images + captions -> VAE encode (frozen) + text encode (frozen)
-  -> train_step (noise, UNet, loss, optimizer, EMA)
+  -> train_step (noise, UNet, loss, optimizer, EMA), or distill_step
+     (the teacher with CFG against the empty prompt's context, encoded
+     once; the EMA target; the student)
   -> metric lines every ``log_every`` steps and checkpoints under
      ``save_dir`` (``step_<n>/`` every ``save_every`` steps, ``final/``)
 
     python -m sonicdiffusionbayeslab_torch.training.loop --config configs/train_lora.yaml \\
         [--set training.num_steps=12 ...] [--device cpu]
 
-A LoRA run writes ``lora_peft.npz`` (the peft layout that
-``models/weights.py::merge_lora`` reads, as the JAX package writes it); a
-full or ControlNet run writes the trained weights as a torch state dict
-under diffusers names (``unet/diffusion_pytorch_model.bin`` or
+A LoRA run (LCM-LoRA too) writes ``lora_peft.npz`` from the trained
+adapters (the peft layout that ``models/weights.py::merge_lora`` reads, as
+the JAX package writes it); a full or ControlNet run writes the trained
+weights as a torch state dict under diffusers names
+(``unet/diffusion_pytorch_model.bin`` or
 ``controlnet/diffusion_pytorch_model.bin``, which ``load_sd_checkpoint``
-and ``load_controlnet_checkpoint`` read), where the JAX package writes an
-orbax checkpoint.  Not ported yet (each raises and names its ROADMAP
-item): ``mode: distill`` and textual inversion, ``mesh_data > 0``.
+and ``load_controlnet_checkpoint`` read; a full distillation's student
+from its EMA target), where the JAX package writes an orbax checkpoint.
+Textual inversion is a library API
+(``training/textual_inversion.py``), not a mode, as in the JAX package.
+Not ported yet (raises and names its ROADMAP item): ``mesh_data > 0``.
 """
 
 from __future__ import annotations
@@ -35,16 +43,19 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from sonicdiffusionbayeslab_torch.training.distillation import LCMDistillConfig, LCMDistiller
 from sonicdiffusionbayeslab_torch.training.trainer import DiffusionTrainer, TrainConfig
 from sonicdiffusionbayeslab_torch.utils.device import synchronize
 
 
-def train_config_from_dict(d: Dict[str, Any]) -> TrainConfig:
-    keep = {f.name for f in dataclasses.fields(TrainConfig)}
+def train_config_from_dict(d: Dict[str, Any], cls=TrainConfig):
+    """``cls`` (``TrainConfig`` or ``LCMDistillConfig``) from the keys of
+    ``d`` that name its fields, ``betas`` as a tuple."""
+    keep = {f.name for f in dataclasses.fields(cls)}
     kw = {k: v for k, v in dict(d).items() if k in keep}
     if "betas" in kw:
         kw["betas"] = tuple(kw["betas"])
-    return TrainConfig(**kw)
+    return cls(**kw)
 
 
 def _generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
@@ -74,11 +85,7 @@ def run_training(config) -> Dict[str, Any]:
     tcfg_raw.pop("mesh_model", None)
     mode = str(tcfg_raw.pop("mode", "diffusion"))
     prefetch = int(tcfg_raw.pop("prefetch", 2))
-    if mode in ("distill", "textual_inversion"):
-        raise NotImplementedError(
-            f"training mode {mode!r} is not ported yet (ROADMAP.md item A6: LCM distillation "
-            "and textual inversion are the next training slice)")
-    if mode != "diffusion":
+    if mode not in ("diffusion", "distill"):
         raise ValueError(f"unknown training mode {mode!r} (diffusion|distill)")
     if n_data:
         raise NotImplementedError(
@@ -99,6 +106,12 @@ def run_training(config) -> Dict[str, Any]:
 
         tcfg_raw.setdefault("objective", "flow")
         tcfg_raw.setdefault("lora_targets", MMDIT_TARGETS)
+        if mode == "distill":
+            raise ValueError("LCM distillation targets the UNet family; the "
+                             "MMDiT family trains with objective: flow")
+    if is_sdxl and mode == "distill":
+        raise ValueError("LCM distillation is wired for the SD-1.5/2.x UNet "
+                         "family (no added_cond plumbing in the distiller)")
 
     dcfg = config.dataset
     dataset = ImageDatasetWithPrompts(dcfg["img_dataset"], dcfg["prompts"],
@@ -106,7 +119,12 @@ def run_training(config) -> Dict[str, Any]:
     if len(dataset) < batch_size:
         raise ValueError(f"dataset has {len(dataset)} items < batch_size {batch_size}")
 
-    trainer = DiffusionTrainer(engine, train_config_from_dict(tcfg_raw))
+    if mode == "distill":
+        trainer = LCMDistiller(engine, train_config_from_dict(tcfg_raw, LCMDistillConfig))
+        # The empty prompt's context is constant: encoded once.
+        uncond = engine.encode_prompts(pipe.tokenizer([""] * batch_size))
+    else:
+        trainer = DiffusionTrainer(engine, train_config_from_dict(tcfg_raw))
     state = trainer.init_state(generator=_generator(dev, seed, 0))
     step_gen, prep_gen = _generator(dev, seed, 1), _generator(dev, seed, 2)
     vcfg = engine.vae_config
@@ -202,8 +220,11 @@ def run_training(config) -> Dict[str, Any]:
     t_first = t_last = None
     try:
         for latents, context, hint, added in stream:
-            state, metrics = trainer.train_step(state, latents, context, step_gen, hint=hint,
-                                                added=added)
+            if mode == "distill":
+                state, metrics = trainer.distill_step(state, latents, context, uncond, step_gen)
+            else:
+                state, metrics = trainer.train_step(state, latents, context, step_gen,
+                                                    hint=hint, added=added)
             step += 1
             if step == 1:
                 synchronize(dev)
@@ -230,8 +251,7 @@ def run_training(config) -> Dict[str, Any]:
             "pipeline": pipe, "steps_per_sec": steady}
 
 
-def _save(trainer: DiffusionTrainer, state, save_dir: Path, step: int,
-          final: bool = False) -> Path:
+def _save(trainer, state, save_dir: Path, step: int, final: bool = False) -> Path:
     from sonicdiffusionbayeslab_torch.training.lora import lora_to_peft_state_dict
 
     out = save_dir / ("final" if final else f"step_{step}")
@@ -239,8 +259,12 @@ def _save(trainer: DiffusionTrainer, state, save_dir: Path, step: int,
         out.mkdir(parents=True, exist_ok=True)
         np.savez(out / "lora_peft.npz", **lora_to_peft_state_dict(state.trainable))
     else:
-        sub, sd = (("controlnet", trainer.controlnet_params(state))
-                   if trainer.target == "controlnet" else ("unet", trainer.unet_params(state)))
+        if trainer.target == "controlnet":
+            sub, sd = "controlnet", trainer.controlnet_params(state)
+        elif isinstance(trainer, LCMDistiller):
+            sub, sd = "unet", trainer.student_unet_params(state)
+        else:
+            sub, sd = "unet", trainer.unet_params(state)
         (out / sub).mkdir(parents=True, exist_ok=True)
         torch.save({k: v.cpu() for k, v in sd.items()}, out / sub / "diffusion_pytorch_model.bin")
     print(f"saved {out.name} -> {out}", flush=True)

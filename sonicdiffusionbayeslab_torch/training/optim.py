@@ -128,6 +128,12 @@ def scale_by_learning_rate(learning_rate: Union[float, Schedule],
     return Transform(_count_state, update)
 
 
+def adam(learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> Transform:
+    """optax.adam: Adam, then ``* -lr``."""
+    return chain(scale_by_adam(b1, b2, eps), scale_by_learning_rate(learning_rate))
+
+
 def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 1e-4) -> Transform:
     """optax.adamw: Adam, then decoupled decay ``+ wd * p``, then ``* -lr``."""

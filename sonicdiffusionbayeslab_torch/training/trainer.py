@@ -114,6 +114,24 @@ def leaves(trainable) -> Dict[str, torch.Tensor]:
     return out
 
 
+@torch.no_grad()
+def ema_update(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
+               decay: float) -> None:
+    """``e = d * e + (1 - d) * p`` in place for every leaf, d in fp32 as the
+    JAX package's EMA takes it."""
+    d = torch.tensor(decay, dtype=torch.float32)
+    one_minus = float(1.0 - d)
+    for k, e in ema.items():
+        e.mul_(float(d)).add_(params[k] * one_minus)
+
+
+def _f32_copy(tree, device):
+    """An fp32 copy of a {name: tensor} or LoRA {module: {"a", "b"}} tree on
+    ``device``, never an alias of the caller's tensors."""
+    return {k: (_f32_copy(v, device) if isinstance(v, dict)
+                else v.detach().to(device, torch.float32, copy=True)) for k, v in tree.items()}
+
+
 def _clone_tree(trainable):
     return {k: ({kk: vv.detach().clone() for kk, vv in v.items()} if isinstance(v, dict)
                 else v.detach().clone()) for k, v in trainable.items()}
@@ -193,16 +211,14 @@ class DiffusionTrainer:
         if self.target == "lora":
             trainable = adapters or init_lora(eng.unet, cfg.lora_rank,
                                               generator or self.generator, cfg.lora_targets)
-            trainable = {k: {kk: vv.detach().to(eng.device, torch.float32).clone()
-                             for kk, vv in v.items()} for k, v in trainable.items()}
         elif self.target == "controlnet":
             if controlnet_state is None:
                 net = eng.controlnet if eng.controlnet is not None else eng.init_controlnet(0)
                 controlnet_state = dict(net.named_parameters())
-            trainable = {k: v.detach().to(eng.device, torch.float32).clone()
-                         for k, v in controlnet_state.items()}
+            trainable = controlnet_state
         else:
-            trainable = {k: v.detach().float().clone() for k, v in eng.unet.named_parameters()}
+            trainable = dict(eng.unet.named_parameters())
+        trainable = _f32_copy(trainable, eng.device)
         flat = leaves(trainable)
         for t in flat.values():
             t.requires_grad_(True)
@@ -321,14 +337,10 @@ class DiffusionTrainer:
             gnorm = optim.global_norm(grads)
             updates, opt_state = self.tx.update(grads, state.opt_state, flat)
             optim.apply_updates(flat, updates)
-            ema = state.ema
             if self.config.ema_decay:
-                d = torch.tensor(self.config.ema_decay, dtype=torch.float32)
-                one_minus = float(1.0 - d)
-                for k, e in leaves(ema).items():
-                    e.mul_(float(d)).add_(flat[k] * one_minus)
+                ema_update(leaves(state.ema), flat, self.config.ema_decay)
         new_state = TrainState(step=state.step + 1, trainable=state.trainable,
-                               opt_state=opt_state, ema=ema)
+                               opt_state=opt_state, ema=state.ema)
         return new_state, {"loss": loss, "grad_norm": gnorm}
 
     # ----------------------------------------------------------- export

@@ -1064,3 +1064,78 @@ def test_tiny_lora_steps_on_card_match_cpu_and_drop_no_gradient(cuda):
     for name, r in out.items():
         assert r["max_grad_rel_err"] <= smoke.TINY_GRAD_REL, name
         assert r["fp32_attention_launches"] > 0 and r["group_norm_launches"] > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,N,M,H,D", [
+    (8, 4096, 77, 8, 40),  # textual inversion's first cross-attention: K/V from the text
+    (2, 1024, 1024, 8, 80),  # a self-attention shape
+])
+def test_attention_function_kv_only_gradients_match_plain_on_card(cuda, dtype, B, N, M, H, D):
+    """Only K and V require grad (the query holds no path to the trained
+    tensors): the Function still runs the kernel once and returns dk and
+    dv against autograd through the plain version, under GRAD_TOL."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    q, k, v = ((torch.randn(B, L, H, D, generator=gen, device=cuda) * s).to(dtype)
+               for L, s in ((N, 2.0), (M, 1.0), (M, 1.0)))
+    do = torch.randn(B, N, H, D, generator=gen, device=cuda).to(dtype)
+    kr, vr = (x.clone().requires_grad_(True) for x in (k, v))
+    launches = fa._KERNELS[fa.kernel_for(dtype)]
+    n0 = launches.launches
+    o = attn_ops.dot_product_attention(q, kr, vr)
+    assert isinstance(o.grad_fn, fa.FlashAttentionFn._backward_cls)
+    got = torch.autograd.grad(o, (kr, vr), do)
+    torch.cuda.synchronize()
+    assert launches.launches == n0 + 1
+    for b in range(B):
+        ref_in = [x[b:b + 1].float().requires_grad_(True) for x in (k, v)]
+        ref = torch.autograd.grad(attn_ops.plain_attention(q[b:b + 1].float(), *ref_in), ref_in,
+                                  do[b:b + 1].float())
+        for g, r in zip(got, ref):
+            assert g.dtype == dtype
+            _chip_smoke().grad_close(g[b:b + 1], r, dtype, f"K/V-only attention {b}")
+
+
+@pytest.mark.cuda
+def test_graphed_wcond_unet_matches_eager(cuda):
+    """A w-conditioned UNet's graphed call copies its guidance embedding in
+    at each replay: two embedded guidance scales, each replay bit-equal to
+    the eager call, one capture."""
+    import dataclasses
+
+    from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig
+    from sonicdiffusionbayeslab_torch.models.sampler import (StableDiffusionEngine,
+                                                             guidance_scale_embedding)
+    from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
+    from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
+
+    cfg = dataclasses.replace(UNetConfig.tiny(), time_cond_proj_dim=8)
+    eng = StableDiffusionEngine(cfg, VAEConfig.tiny(), CLIPTextConfig.tiny(),
+                                dtype=torch.bfloat16, device=cuda).init_params(0)
+    x = randn((2, 8, 8, 4), 1).to(cuda, torch.bfloat16)
+    t = torch.tensor([500.0, 20.0], device=cuda)
+    e = randn((2, 77, 32), 2).to(cuda, torch.bfloat16)
+    outs = []
+    with torch.inference_mode():
+        for w in (8.0, 2.0):
+            emb = guidance_scale_embedding(torch.full((2,), w - 1.0), 8).to(cuda)
+            want = eng.unet(x, t, e, timestep_cond=emb)
+            got = eng.graphed_unet(x, t, e, *(None,) * 8, emb)
+            assert torch.equal(got, want)
+            outs.append(got)
+    assert not torch.equal(outs[0], outs[1])
+    assert list(eng.graphed_unet.captures.values()) == [1]
+
+
+@pytest.mark.cuda
+def test_tiny_distill_and_ti_steps_on_card_match_cpu(cuda):
+    """chip_smoke.py's gate for one LCM-LoRA, one w-conditioned full distill
+    step and one textual-inversion step of the tiny fp32 UNet on the card
+    against the CPU: gradients within TINY_GRAD_REL, losses within 1e-3,
+    only the forwards' launches."""
+    smoke = _chip_smoke()
+    out = smoke.distill_tiny_card_vs_cpu(smoke.module_census(2, tiny=True))
+    assert set(out) == {"distill lora", "distill wcond full", "textual inversion"}
+    for name, r in out.items():
+        assert r["max_grad_rel_err"] <= smoke.TINY_GRAD_REL, name

@@ -119,8 +119,8 @@ def test_port_imports_no_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'pandas', 'PIL',\n"
-        "                                    'sonicdiffusionbayeslab_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'pandas',\n"
+        "                                    'PIL', 'sonicdiffusionbayeslab_tpu'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -134,7 +134,7 @@ def test_port_imports_no_jax():
         "serving.batcher", "serving.server", "serve_bench", "models.controlnet",
         "models.ip_adapter", "models.prompt_weighting", "training", "training.lora",
         "training.optim", "training.opt8bit", "training.trainer", "training.loop",
-        "train_bench")} <= set(mods)
+        "train_bench", "training.distillation", "training.textual_inversion")} <= set(mods)
 
 
 def test_pipeline_without_device_raises_without_gpu():

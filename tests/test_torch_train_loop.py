@@ -256,12 +256,25 @@ def test_run_training_sdxl_time_ids(tmp_path):
     assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
 
 
-@pytest.mark.parametrize("training,item", [
-    ({"mode": "distill"}, "A6"), ({"mode": "textual_inversion"}, "A6"),
-    ({"mesh_data": 4}, "A8")])
+@pytest.mark.parametrize("training,item", [({"mesh_data": 4}, "A8")])
 def test_modes_still_to_come_name_their_roadmap_item(tmp_path, training, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         TLoop.run_training(_config(tmp_path, training))
+
+
+@pytest.mark.parametrize("mode", ["textual_inversion", "lora", "Distill"])
+def test_other_modes_raise_the_jax_loops_error(tmp_path, mode):
+    """Textual inversion is a library API, not a loop mode, in both
+    packages: any mode but diffusion and distill is the JAX loop's
+    ValueError, word for word."""
+    import inspect
+
+    from sonicdiffusionbayeslab_tpu.training import loop as JLoop
+
+    with pytest.raises(ValueError) as err:
+        TLoop.run_training(_config(tmp_path, {"mode": mode}))
+    assert str(err.value) == f"unknown training mode {mode!r} (diffusion|distill)"
+    assert 'f"unknown training mode {mode!r} (diffusion|distill)"' in inspect.getsource(JLoop)
 
 
 def test_prefetch_surfaces_a_prep_error_in_the_loop(tmp_path):

@@ -25,11 +25,11 @@ import re
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
-from torch_parity import assert_close, random_params, randn, t, tiny_engines
+from torch_parity import (assert_adam_close, assert_close, random_params, randn, step_lrs, t,
+                          tiny_engines)
 from sonicdiffusionbayeslab_torch.config import load_config
 from sonicdiffusionbayeslab_torch.models import mmdit as TM
 from sonicdiffusionbayeslab_torch.models import weights as W
@@ -65,23 +65,6 @@ def port_step(trainer, state, lat, ctx, step, flow=False, **kw):
     first, noise = jax_draws(step, lat.shape, flow)
     draws = {"u": t(first)} if flow else {"timesteps": torch.from_numpy(first)}
     return trainer.train_step(state, t(lat), t(ctx), noise=t(noise), **draws, **kw)
-
-
-def step_lrs(learning_rate, steps, warmup_steps=0):
-    """The rate of each step run, lr(c) for c = 0..steps-1: optax's
-    warmup schedule as the JAX trainer builds it, else the constant."""
-    if warmup_steps > 0:
-        sched = optax.linear_schedule(0.0, learning_rate, warmup_steps)
-        return [float(sched(c)) for c in range(steps)]
-    return [learning_rate] * steps
-
-
-def assert_adam_close(got, want, lrs):
-    """See the module docstring: every entry within 2·Σ lrs, at most 0.1%
-    beyond 0.1·max lrs (``lrs``: the rate of each step run)."""
-    err = np.abs(np.asarray(got, np.float32) - np.asarray(want, np.float32))
-    assert err.max() <= 2 * sum(lrs), err.max()
-    assert (err > 0.1 * max(lrs)).mean() <= 1e-3, (err > 0.1 * max(lrs)).mean()
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import torch
 
 from sonicdiffusionbayeslab_torch.models.weights import MapEntries, invert
@@ -145,3 +146,36 @@ def jax_tome_destinations(timesteps, slots, sy=2, sx=2) -> np.ndarray:
         out.append([np.asarray(_dst_index_grid(h, w, sy, sx, jax.random.fold_in(
             jax.random.fold_in(k, site), block))) for site, block, h, w in slots])
     return np.asarray(out, np.int64)
+
+
+def step_lrs(learning_rate, steps, warmup_steps=0):
+    """The rate of each step run, lr(c) for c = 0..steps-1: optax's
+    warmup schedule as the JAX trainers build it, else the constant."""
+    if warmup_steps > 0:
+        sched = optax.linear_schedule(0.0, learning_rate, warmup_steps)
+        return [float(sched(c)) for c in range(steps)]
+    return [learning_rate] * steps
+
+
+def assert_adam_close(got, want, lrs):
+    """Trained tensors of two runs of Adam (tests/test_torch_training.py's
+    docstring): every entry within 2·Σ lrs, at most 0.1% beyond 0.1·max
+    lrs (``lrs``: the rate of each step run)."""
+    err = np.abs(np.asarray(got, np.float32) - np.asarray(want, np.float32))
+    assert err.max() <= 2 * sum(lrs), err.max()
+    assert (err > 0.1 * max(lrs)).mean() <= 1e-3, (err > 0.1 * max(lrs)).mean()
+
+
+def fast_flax_init(monkeypatch) -> None:
+    """While ``monkeypatch`` is active, JAX modules get random params from
+    ``jax.eval_shape`` (``random_params``) in place of Flax's eager
+    ``init``, which compiles op by op (a tiny JAX pipeline's takes ~60 s)."""
+    from flax import linen as nn
+
+    orig = nn.Module.init
+
+    def init(self, rng, *args, **kw):
+        shapes = jax.eval_shape(lambda r, *a: orig(self, r, *a, **kw), rng, *args)
+        return {"params": random_params(shapes["params"], 0)}
+
+    monkeypatch.setattr(nn.Module, "init", init)
