@@ -250,18 +250,17 @@ from pathlib import Path
 
 import torch
 
+# Each kernel's symbol in a profiler trace (one kernel a call each),
+# cuBLASLt's int8 GEMM kernels' (torch._int_mm), and the profiles' groups.
+from sonicdiffusionbayeslab_torch.utils.trace_analysis import (INT8_GEMM_SYMBOL, SYMBOLS,
+                                                               kernel_group)
+
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
 # fp32 attention runs its products as split TF32: three TF32 tensor-core
 # products (495 TFLOP/s dense) for each fp32-accurate one.
 PEAK_TF32X3 = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 PEAK_INT8 = 1979e12  # H100 SXM int8 tensor-core operations a second, dense
-# Each kernel's symbol in a profiler trace: one kernel a call each.
-SYMBOLS = {"attention": "flash_fwd_sm90_kernel", "group_norm": "gn_cluster_kernel",
-           "attention_fp32": "flash_fwd_tf32x3_kernel"}
-# cuBLASLt's int8 GEMM kernels (torch._int_mm) on this card:
-# cutlass_80_tensorop_i16832gemm_s8_<tile>_tn_align16, one a call.
-INT8_GEMM_SYMBOL = "gemm_s8"
 # Traced kernels before a traced run (traced_launches), in bursts of
 # PAD_BURST, each burst PAD_GAP_S after the last one ended: ~0.14 s in all.
 PAD_KERNELS, PAD_BURST, PAD_GAP_S = 1024, 32, 0.004
@@ -1167,29 +1166,6 @@ def eager_vs_graphed_unet(model, per_unet, reps=5):
           f"{out['graphed_ms']:.2f} ms (wall clock, mean of {reps}); bit-equal; eager launches "
           f"{counts} (the census of one forward)")
     return out
-
-
-def kernel_group(name, tome=False):
-    """The group a device kernel's time is summed into by the profiles:
-    ours by symbol, the libraries' by their kernel-name conventions;
-    with ``tome``, Token Merging's sorts, gathers and scatters apart."""
-    low = name.lower()
-    if SYMBOLS["attention_fp32"] in name or SYMBOLS["attention"] in name:
-        return "flash_attention (ours)"
-    if SYMBOLS["group_norm"] in name:
-        return "group_norm_silu (ours)"
-    if INT8_GEMM_SYMBOL in low or "imma" in low:
-        return "int8 GEMMs (cuBLASLt)"
-    if any(w in low for w in ("fprop", "dgrad", "wgrad", "conv")):
-        return "convolutions (cuDNN)"
-    if any(w in low for w in ("gemm", "nvjet", "cutlass", "cublas", "xmma")):
-        return "matmuls (cuBLAS)"
-    if "layer_norm" in low:
-        return "layer_norm"
-    if tome and any(w in low for w in ("sort", "gather", "scatter", "indexselect",
-                                         "index_select")):
-        return "tome sorts, gathers, scatters"
-    return "elementwise, reductions and copies"
 
 
 def profile_loop(model, tome=None, size=SIZE, label=None):
@@ -5270,12 +5246,456 @@ def run_distill_phase(report, card, checked, profile):
     report["e2e"]["distillation"] = out
 
 
+# ------------------------------------------------ multi-device (phase 16)
+# Two ranks share the one card (gloo: NCCL refuses two ranks on one GPU),
+# so every number here is contention between two processes, not scaling.
+DP_RANKS = 2
+DP_PROMPTS = PROMPTS + ["a red fox in fresh snow, photograph",
+                        "a city street at night, neon lights, rain"]
+DP_TRAIN_STEPS = 2
+# The two-rank LoRA run (train_lora.yaml, batch 4 a rank) against one
+# process.  One step on fixed inputs: the ranks' averaged loss and
+# gradients within DP_SPLIT_REL of one process's mean over the same two
+# halves of the batch (the same shapes and kernels; only the all-reduce
+# differs), and within DP_GRAD_REL of its tensor's largest entry of one
+# process at batch 8 (TINY_GRAD_REL's form; bf16 at full width, where
+# half the batch gives cuBLAS and cuDNN other shapes to sum: 2.12e-2 in
+# PR 16's first chip run).  The run: each logged loss within DP_LOSS_REL
+# of one process's at batch 8; each adapter tensor's update over the run
+# (trained minus initial) within DP_UPDATE_REL of one process's L2 norm
+# (AdamW's normalised step turns gradient rounding into update
+# differences of its own size where a gradient entry is near 0).
+DP_SPLIT_REL, DP_LOSS_REL, DP_GRAD_REL, DP_UPDATE_REL = 1e-6, 1e-2, 5e-2, 1e-1
+DP_TIMEOUT_S = 600
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_train(root, img_dir, ann, mesh_data=0):
+    """configs/train_lora.yaml through ``run_training`` for DP_TRAIN_STEPS
+    steps (the dataset and save_dir overridden; ``training.mesh_data``
+    ``mesh_data``): (record, {adapter: update over the run}, {"loss",
+    adapter: gradient} of one step on fixed inputs from the loop's initial
+    adapters, this rank's rows of them; in one process, also the mean of
+    the steps on each rank's rows, with their rows of the batch's
+    draws)."""
+    from sonicdiffusionbayeslab_torch.config import load_config
+    from sonicdiffusionbayeslab_torch.parallel.mesh import batch_sharding
+    from sonicdiffusionbayeslab_torch.training.loop import _generator, run_training
+    from sonicdiffusionbayeslab_torch.training.trainer import leaves
+
+    repo = Path(__file__).resolve().parent
+    overrides = {"dataset.img_dataset": str(img_dir), "dataset.prompts": str(ann),
+                 "training.num_steps": DP_TRAIN_STEPS, "training.log_every": 1,
+                 "training.save_dir": str(Path(root) / f"lora_dp{mesh_data}"),
+                 "training.mesh_data": mesh_data}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wrapper_counts(reset=True)
+    t0 = time.perf_counter()
+    out = run_training(load_config(repo / "configs" / "train_lora.yaml", overrides))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = dict(losses=out["losses"], steps_per_sec=out["steps_per_sec"], wall_s=wall,
+               peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+               wrapper_launches=bf16_only(wrapper_counts(), "the LoRA run"))
+    trainer, dev = out["trainer"], out["engine"].device
+    init = leaves(trainer.init_state(generator=_generator(dev, 29, 0)).trainable)
+    update = {k: (v - init[k]).detach().cpu() for k, v in leaves(out["state"].trainable).items()}
+    batch = int(load_config(repo / "configs" / "train_lora.yaml").training["batch_size"])
+    g = torch.Generator().manual_seed(16)
+    lat = torch.randn((batch, SIZE // 8, SIZE // 8, 4), generator=g)
+    ctx = torch.randn((batch, 77, 768), generator=g)
+    rows = batch_sharding(trainer.mesh).rows(batch)
+    state = trainer.init_state(generator=_generator(dev, 29, 0))
+    loss, grads = trainer.value_and_grad(state, lat[rows], ctx[rows],
+                                         generator=torch.Generator(device=dev).manual_seed(17))
+    grads = {"loss": loss.cpu(), **{k: v.detach().cpu() for k, v in grads.items()}}
+    if not mesh_data:
+        ts, noise = trainer.draws(batch, lat.shape, torch.Generator(device=dev).manual_seed(17))
+        n = batch // DP_RANKS
+        halves = [trainer.value_and_grad(state, lat[r * n:(r + 1) * n], ctx[r * n:(r + 1) * n],
+                                         noise=noise[r * n:(r + 1) * n],
+                                         timesteps=ts[r * n:(r + 1) * n])
+                  for r in range(DP_RANKS)]
+        grads["split"] = {"loss": (halves[0][0] + halves[1][0]).cpu() / 2, **{
+            k: ((halves[0][1][k] + halves[1][1][k]) / 2).cpu() for k in halves[0][1]}}
+    del out, trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, update, grads
+
+
+def dp_rank(rank, addr, root):
+    """One rank of phase 16 (parts b and c), run as its own process: the
+    SD-1.5 pipeline with ``mesh_data=DP_RANKS`` over a gloo group on the
+    card (a cold run checked against the census' capture count, a timed
+    run, a traced run whose kernel executions are the census of a batch-2
+    run), then the two-rank LoRA run.  Writes ``rank<r>.json``, and rank
+    0 its gathered images and the run's updates and gradients."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.parallel import distributed
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    root = Path(root)
+    t_start = time.perf_counter()
+    distributed.initialize(coordinator=addr, num_processes=DP_RANKS, process_id=rank,
+                           backend="gloo", device="cuda")
+    # A rank's rows: BATCH prompts, CFG-doubled in its UNet calls.
+    _, per_unet, per_vae = census(2 * BATCH)
+    t0 = time.perf_counter()
+    model = StableDiffusionModel(image_size=SIZE, tiny=False, dtype="bfloat16", seed=0,
+                                 device="cuda", mesh_data=DP_RANKS)
+    init_s = time.perf_counter() - t0
+    kw = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, seed=29)
+    wrapper_counts(reset=True)
+    t0 = time.perf_counter()
+    model(DP_PROMPTS, **kw)
+    cold_s = time.perf_counter() - t0
+    first = bf16_only(wrapper_counts(), f"rank {rank}'s first run")
+    want_first = {k: (GraphedCall.WARMUP + 1) * per_unet[k] + per_vae[k] for k in MAIN}
+    if first != want_first:
+        raise AssertionError(f"rank {rank}: first run's wrapper launches {first}, census "
+                             f"{want_first}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    imgs, exec_time, _ = model(DP_PROMPTS, **kw)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if imgs.shape != (len(DP_PROMPTS), SIZE, SIZE, 3) or not np.isfinite(imgs).all():
+        raise AssertionError(f"rank {rank}: images {imgs.shape}")
+    want = {k: STEPS * per_unet[k] + per_vae[k] for k in MAIN}
+    (imgs_t, _, _), traced, attempts = traced_exact(
+        lambda: model(DP_PROMPTS, **kw), want, f"rank {rank}'s data-parallel run",
+        same=lambda o: np.array_equal(o[0], imgs), reset=retrace_reset())
+    if not np.array_equal(imgs_t, imgs):
+        raise AssertionError(f"rank {rank}: a second identical run gave other images")
+    np.save(root / f"images_rank{rank}.npy", imgs)
+    sampling = dict(init_s=init_s, cold_s=cold_s, execution_time_s=exec_time, call_s=wall,
+                    peak_gb=peak, first_run_wrapper_launches=first,
+                    traced_launches={k: traced[k] for k in MAIN}, trace_attempts=attempts)
+    print(f"phase 16 rank {rank} sampling {json.dumps(sampling)}", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec, update, grads = dp_train(root, root / "train_images",
+                                  root / "img2annotations_train_first16.json", DP_RANKS)
+    print(f"phase 16 rank {rank} training {json.dumps(rec)}", flush=True)
+    if rank == 0:
+        torch.save({"update": update, "grads": grads}, root / "train_rank0.pt")
+    (root / f"rank{rank}.json").write_text(json.dumps(dict(
+        sampling=sampling, training=rec, wall_s=time.perf_counter() - t_start)))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def nccl_one_rank():
+    """Phase 16 (a): a one-rank NCCL group on the card: all_sum_scalar and
+    all_sum_array through device tensors, make_mesh(1) on cuda."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from sonicdiffusionbayeslab_torch.parallel import distributed, mesh
+
+    t0 = time.perf_counter()
+    if not distributed.initialize(coordinator=f"localhost:{_free_port()}", num_processes=1,
+                                  process_id=0, device="cuda"):
+        raise AssertionError("initialize started no process group")
+    try:
+        backend = dist.get_backend()
+        s = distributed.all_sum_scalar(1.5)
+        a = distributed.all_sum_array(np.arange(4.0))
+        m = mesh.make_mesh(1)
+        got = dict(backend=backend, scalar=s, array=a.tolist(), mesh=str(m),
+                   mesh_device=m.device_type, data_axis=mesh.axis_size(m, "data"))
+    finally:
+        dist.destroy_process_group()
+    got["wall_s"] = time.perf_counter() - t0
+    print(f"phase 16 (a) one-rank NCCL group: {json.dumps(got)}", flush=True)
+    if (backend != "nccl" or s != 1.5 or got["array"] != [0.0, 1.0, 2.0, 3.0]
+            or got["mesh_device"] != "cuda" or got["data_axis"] != 1):
+        raise AssertionError(f"one-rank NCCL group: {got}")
+    return got
+
+
+def run_dp_ranks(root):
+    """Phase 16 (b, c): DP_RANKS processes of this script (``--dp-rank``),
+    each rank's output in ``rank<r>.log``; every rank must exit 0 within
+    DP_TIMEOUT_S, and every process is stopped."""
+    addr = f"localhost:{_free_port()}"
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(DP_RANKS):
+            logs.append(open(root / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(r),
+                 "--dp-addr", addr, "--dp-dir", str(root)], env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        text = (root / f"rank{r}.log").read_text()
+        print(f"--- rank {r} (exit {p.returncode}), last lines:\n" + "\n".join(
+            text.splitlines()[-12:]), flush=True)
+        if p.returncode != 0:
+            raise AssertionError(f"phase 16 rank {r} exited {p.returncode}")
+    return [json.loads((root / f"rank{r}.json").read_text()) for r in range(DP_RANKS)], wall
+
+
+def dp_reference_rows(model, root):
+    """Phase 16 (b)'s one-process runs: each rank's rows of DP_PROMPTS
+    (encoded as the pipeline encodes the whole batch) through the engine
+    with their global sample indices; each must be bit-equal to the ranks'
+    gathered images."""
+    import numpy as np
+
+    kw = dict(guidance_scale=GUIDANCE, latent_hw=(SIZE // 8, SIZE // 8), seed=29)
+    emb, neg = model._encode(DP_PROMPTS), model._encode([""] * len(DP_PROMPTS))
+    plan = model.build_plan(STEPS)
+    rows = len(DP_PROMPTS) // DP_RANKS
+    want = np.concatenate([
+        model.engine.sample(plan, emb[r * rows:(r + 1) * rows], neg[r * rows:(r + 1) * rows],
+                            sample_indices=range(r * rows, (r + 1) * rows), **kw).images
+        .cpu().numpy() for r in range(DP_RANKS)])
+    got = [np.load(root / f"images_rank{r}.npy") for r in range(DP_RANKS)]
+    equal = [bool(np.array_equal(g, want)) for g in got]
+    diff = [float(np.abs(g - want).max()) for g in got]
+    print(f"phase 16 (b) gathered images of each rank against one-process runs of each rank's "
+          f"rows: bit-equal {equal} (max abs diff {diff})", flush=True)
+    if not all(equal):
+        raise AssertionError(f"the two-rank images differ from the one-process rows: {diff}")
+    return dict(bit_equal=equal, max_abs_diff=diff)
+
+
+def dp_compare_training(root, one):
+    """Phase 16 (c): the ranks' LoRA run against one process's (``one``
+    from dp_train) within DP_LOSS_REL, DP_GRAD_REL and DP_UPDATE_REL."""
+    rec, update, grads = one
+    split = grads.pop("split")
+    ranks = torch.load(root / "train_rank0.pt")
+    got_rec = json.loads((root / "rank0.json").read_text())["training"]
+
+    def rel(got, want):
+        """Largest |got - want| / max |want| over the gradient tensors, and
+        the loss's relative difference."""
+        g = max(float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for k, w in want.items() if k != "loss")
+        return g, abs(float(got["loss"]) - float(want["loss"])) / abs(float(want["loss"]))
+
+    loss_rel = max(abs(g - w) / abs(w) for g, w in zip(got_rec["losses"], rec["losses"]))
+    split_rel, split_loss_rel = rel(ranks["grads"], split)
+    split_equal = all(torch.equal(ranks["grads"][k], v) for k, v in split.items())
+    grad_rel, grad_loss_rel = rel(ranks["grads"], grads)
+    upd_rel = max(float((ranks["update"][k] - u).norm()) / max(float(u.norm()), 1e-30)
+                  for k, u in update.items())
+    out = dict(one_process=rec, two_ranks_losses=got_rec["losses"], loss_rel=loss_rel,
+               split_rel=split_rel, split_loss_rel=split_loss_rel, split_bit_equal=split_equal,
+               step_loss_rel=grad_loss_rel, grad_rel=grad_rel, update_rel=upd_rel,
+               adapters=len(update))
+    print(f"phase 16 (c) two ranks at batch 4 against one process: one step on fixed inputs "
+          f"against the mean of one process's steps on the same halves: gradients max |diff| / "
+          f"max |g| {split_rel:.2e}, loss rel {split_loss_rel:.2e} (bound {DP_SPLIT_REL}; "
+          f"bit-equal {split_equal}); against one process at batch 8: gradients {grad_rel:.2e} "
+          f"(bound {DP_GRAD_REL}), loss rel {grad_loss_rel:.2e}; the run's losses "
+          f"{got_rec['losses']} vs {rec['losses']} (max rel {loss_rel:.2e}, bound "
+          f"{DP_LOSS_REL}); {len(update)} adapter updates over the run: max L2 rel "
+          f"{upd_rel:.2e} (bound {DP_UPDATE_REL})", flush=True)
+    if not (split_rel <= DP_SPLIT_REL and split_loss_rel <= DP_SPLIT_REL
+            and loss_rel <= DP_LOSS_REL and grad_loss_rel <= DP_LOSS_REL
+            and grad_rel <= DP_GRAD_REL and upd_rel <= DP_UPDATE_REL):
+        raise AssertionError(f"the two-rank LoRA run differs from one process's: {out}")
+    return out
+
+
+def meta_unet_flops(unet_batch):
+    """The FLOPs of one SD-1.5 UNet forward counted from shapes alone (no
+    device): FlopCounterMode over the census' meta-device run (convolutions
+    and matmuls), plus 4·B·H·N·M·D per attention call and 10 (6 without
+    SiLU) operations an element per GroupNorm call of the census."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        calls = module_census(unet_batch)
+    kernels = 0
+    for (kind, shape), n in calls.items():
+        if kind == "attention":
+            B, N, M, H, D = shape
+            kernels += n * 4 * B * H * N * M * D
+        else:
+            B, N, C, _, _, silu = shape
+            kernels += n * (10 if silu else 6) * B * N * C
+    return int(fc.get_total_flops()) + kernels
+
+
+def run_tools(model, per_unet, per_vae, root, card):
+    """Phase 16 (d): ``profiling.trace`` around one batch-2 pipeline call
+    (pads before and after it, as traced_launches has), read by
+    ``python -m sonicdiffusionbayeslab_torch.utils.trace_analysis``, whose
+    rollup must count the census' kernels by group (retraced up to
+    TRACE_ATTEMPTS times, as traced_exact does); then ``flops_estimate``
+    of one eager UNet forward at the loop's batch against the count from
+    shapes."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.utils import profiling
+
+    kw = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, seed=29)
+    imgs = model(PROMPTS, **kw)[0]
+    want = {"flash_attention (ours)": STEPS * per_unet["attention"] + per_vae["attention"],
+            "group_norm_silu (ours)": STEPS * per_unet["group_norm"] + per_vae["group_norm"]}
+    pat = re.compile(r"^(flash_attention \(ours\)|group_norm_silu \(ours\))\s+([\d.]+)\s+"
+                     r"[\d.]+%\s+(\d+)")
+    history = []
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        d = root / f"trace{attempt}"
+        t0 = time.perf_counter()
+        with profiling.trace(d):
+            _pads()
+            time.sleep(0.1)
+            out = model(PROMPTS, **kw)[0]
+            torch.cuda.synchronize()
+            time.sleep(0.1)
+            _pads()
+        trace_s = time.perf_counter() - t0
+        r = subprocess.run([sys.executable, "-m",
+                            "sonicdiffusionbayeslab_torch.utils.trace_analysis", str(d), "12"],
+                           capture_output=True, text=True, timeout=300,
+                           env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)))
+        if r.returncode != 0:
+            raise AssertionError(f"trace_analysis exited {r.returncode}: {r.stderr[-2000:]}")
+        rows = [m for m in map(pat.match, r.stdout.splitlines()) if m]
+        got = {m.group(1): int(m.group(3)) for m in rows}
+        ms = {m.group(1): float(m.group(2)) for m in rows}
+        history.append(got)
+        if got == want:
+            break
+        short = all(got.get(k, 0) <= n for k, n in want.items())
+        print(f"trace {attempt} of {TRACE_ATTEMPTS} of the tools' trace: {got}, expected {want}; "
+              f"short in some kind and over in none: {short}", flush=True)
+        if not (short and np.array_equal(out, imgs)):
+            break
+    if got != want:
+        raise AssertionError(f"trace_analysis counted {history}, census {want}")
+    print(f"phase 16 (d) trace_analysis of one batch-2 run ({trace_s:.2f} s traced, trace "
+          f"{attempt}):\n{r.stdout}", flush=True)
+    eng = model.engine
+    b = 2 * BATCH
+    g = torch.Generator().manual_seed(18)
+    x = torch.randn((b, SIZE // 8, SIZE // 8, 4), generator=g).cuda().to(eng.dtype)
+    ctx = torch.randn((b, 77, 768), generator=g).cuda().to(eng.dtype)
+    tb = torch.full((b,), 501.0, device="cuda")
+    with torch.inference_mode():
+        est = profiling.flops_estimate(eng.unet, x, tb, ctx)["flops"]
+    shapes = meta_unet_flops(b)
+    print(f"phase 16 (d) flops_estimate of one UNet forward at batch {b}: {est} "
+          f"({est / 1e12:.4f} TFLOP); the count from shapes: {shapes}; {card}", flush=True)
+    if est != shapes:
+        raise AssertionError(f"flops_estimate {est} != the count from shapes {shapes}")
+    return dict(trace_counts=got, trace_ms=ms, trace_attempts=attempt, trace_s=trace_s,
+                flops_estimate=est, flops_from_shapes=shapes)
+
+
+def run_multi_device(report, card):
+    """Phase 16: (a) a one-rank NCCL group; (b) SD-1.5 data-parallel
+    sampling and (c) LoRA training on DP_RANKS gloo ranks sharing the card,
+    against one process; (d) the profiling tools.  Each part's wall clock
+    and the ranks' memory peaks are printed."""
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+
+    out = {}
+    t0 = time.perf_counter()
+    out["nccl"] = nccl_one_rank()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="sdbl_dp_") as tmp:
+        root = Path(tmp)
+        write_train_images(root)
+        ranks, ranks_wall = run_dp_ranks(root)
+        out["ranks"] = ranks
+        out["ranks_wall_s"] = ranks_wall
+        _, per_unet, per_vae = census(2 * BATCH)
+        for r, rec in enumerate(ranks):
+            s = rec["sampling"]
+            print(f"phase 16 (b) rank {r}: 20-step loop {s['execution_time_s']:.4f} s, call "
+                  f"{s['call_s']:.4f} s, peak {s['peak_gb']:.2f} GiB, first-run wrappers "
+                  f"{s['first_run_wrapper_launches']}, traced {s['traced_launches']}; training "
+                  f"{rec['training']['steps_per_sec']} steps/s, peak "
+                  f"{rec['training']['peak_gb']:.2f} GiB; rank wall {rec['wall_s']:.1f} s; "
+                  f"{card}", flush=True)
+        t1 = time.perf_counter()
+        model = StableDiffusionModel(image_size=SIZE, tiny=False, dtype="bfloat16", seed=0,
+                                     device="cuda")
+        out["rows"] = dp_reference_rows(model, root)
+        out["rows_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["tools"] = run_tools(model, per_unet, per_vae, root, card)
+        out["tools_s"] = time.perf_counter() - t1
+        del model
+        t1 = time.perf_counter()
+        one = dp_train(root, root / "train_images", root / "img2annotations_train_first16.json")
+        out["training"] = dp_compare_training(root, one)
+        out["training_s"] = time.perf_counter() - t1
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 16 wall clock: {out['wall_s']:.1f} s (NCCL {out['nccl']['wall_s']:.1f}, "
+          f"ranks {ranks_wall:.1f}, one-process rows {out['rows_s']:.1f}, tools "
+          f"{out['tools_s']:.1f}, one-process LoRA {out['training_s']:.1f}); {card}", flush=True)
+    report["e2e"]["multi_device"] = out
+    return out
+
+
+def phase16_launches(out, kind):
+    """A kernel's launches in phase 16: each rank's first-run wrappers and
+    traced executions, and the tools' trace."""
+    if kind not in MAIN:
+        return {f"rank {r}": 0 for r in range(DP_RANKS)}
+    group = {"attention": "flash_attention (ours)", "group_norm": "group_norm_silu (ours)"}[kind]
+    res = {}
+    for r, rec in enumerate(out["ranks"]):
+        res[f"rank {r} first run wrappers"] = rec["sampling"]["first_run_wrapper_launches"][kind]
+        res[f"rank {r} traced"] = rec["sampling"]["traced_launches"][kind]
+        res[f"rank {r} LoRA run wrappers"] = rec["training"]["wrapper_launches"][kind]
+    res["trace_analysis"] = out["tools"]["trace_counts"][group]
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile the denoising loop with torch.profiler")
     ap.add_argument("--json", default=None, help="write the full report to this path")
+    # Phase 16's rank processes: this script started by run_dp_ranks.
+    ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-addr", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dp_rank is not None:
+        if not torch.cuda.is_available():
+            print("no CUDA device: this script needs a GPU", file=sys.stderr)
+            sys.exit(1)
+        dp_rank(args.dp_rank, args.dp_addr, args.dp_dir)
+        return
 
     phase("1. environment")
     if not torch.cuda.is_available():
@@ -5439,8 +5859,14 @@ def main() -> None:
           "gradients through the bf16 attention Function, tiny fp32 steps card vs CPU")
     run_distill_phase(report, card, checked, args.profile)
 
-    phase("16. kernels")
-    print(f"phases 1-15 took {time.perf_counter() - _T0:.1f} s; {card}")
+    phase(f"16. multi-device: a one-rank NCCL group; SD-1.5 {SIZE}x{SIZE} data-parallel sampling "
+          f"(batch {len(DP_PROMPTS)}) and train_lora.yaml (batch 8) on {DP_RANKS} gloo ranks "
+          "sharing the card, against one process; profiling.trace, trace_analysis and "
+          "flops_estimate")
+    run_multi_device(report, card)
+
+    phase("17. kernels")
+    print(f"phases 1-16 took {time.perf_counter() - _T0:.1f} s; {card}")
     fam = report["e2e"]["families"]
     kernels = []
     for kind, meta in KERNELS.items():
@@ -5484,6 +5910,7 @@ def main() -> None:
             "phase15_wrapper_launches": phase15_launches(report["e2e"]["distillation"], kind),
             "phase15_max_abs_err": max(report["phase15_errs"][kind], default=None),
             "phase15_max_abs_grad_err": max(report["phase15_grad_errs"][kind], default=None),
+            "phase16_launches": phase16_launches(report["e2e"]["multi_device"], kind),
             **({"phase6_launches": r["phase6_launches"]} if "phase6_launches" in r else {}),
             "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -10,6 +10,15 @@ and torch, builds the registered method and runs its sweep, then prints the
 run directory and the metric table.  The model and the metrics run on CUDA
 unless ``--device`` (or ``model.device`` in the config) names another
 device; without a GPU the default raises.
+
+On N ranks (one process a GPU), with the batches sampled data-parallel:
+
+    torchrun --nproc_per_node N -m sonicdiffusionbayeslab_torch.cli \
+        --config configs/smoke.yaml --set model.mesh_data=N
+
+``run`` starts the process group first (``parallel.initialize``: NCCL on
+CUDA, gloo with ``--device cpu``); every rank runs the sweep, rank 0
+writes the run directory and every rank prints the same metric lines.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from __future__ import annotations
 import argparse
 
 from sonicdiffusionbayeslab_torch.config import load_config, parse_value
+from sonicdiffusionbayeslab_torch.parallel.distributed import initialize
 from sonicdiffusionbayeslab_torch.registry import load_all_plugins, methods_registry
 from sonicdiffusionbayeslab_torch.utils.rng import setup_seed
 
@@ -36,6 +46,7 @@ def _parse_sets(pairs):
 def run(config_path: str, overrides=None, device=None):
     """Run the config's sweep; ``device`` (e.g. "cpu") sets ``model.device``.
     Returns the metric table {column: values}."""
+    initialize(device=device)
     load_all_plugins()
     overrides = dict(overrides or {})
     if device is not None:

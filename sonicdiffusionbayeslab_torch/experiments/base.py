@@ -20,13 +20,25 @@ each validation batch are read (``ImageDatasetWithPrompts``) for FID and
 ImageReward's win rate, and the table gains ``fid`` (from two images on)
 and ``image_reward``, as in the JAX package.  ``inference.quant`` sets the
 model's UNet int8 mode (``ops/quant.py``; the JAX package sets a process
-global); ``inference.unet_microbatch`` its UNet chunking.  The metrics'
-cross-process sums are not ported (one process).
+global); ``inference.unet_microbatch`` its UNet chunking.
+
+In a multi-process run (``torchrun``; ``model.mesh_data`` N samples each
+batch data-parallel) every rank runs the sweep and holds every batch's
+images, and rank 0 alone writes the run directory (events, tables, grids,
+PNGs, ``sweep_state.json``).  The metrics sum their statistics across the
+ranks (``metrics/metrics.py``), so each rank updates its image metrics
+with its own share of each validation batch and the sums are the global
+batch's.  The time metric is updated on every rank with the whole batch
+and the loop time of the slowest rank, which every rank gets alike: its
+all-summed seconds and images are both the world size times one rank's,
+so their ratio, the metric, is unchanged.  Every rank prints the same
+metric lines.
 """
 
 from __future__ import annotations
 
 import json
+import uuid
 from pathlib import Path
 from typing import Any, Dict, Iterable, List
 
@@ -41,6 +53,7 @@ from sonicdiffusionbayeslab_torch.data.dataset import (
 from sonicdiffusionbayeslab_torch.data.imageio import write_png
 from sonicdiffusionbayeslab_torch.loggers import Logger
 from sonicdiffusionbayeslab_torch.ops.quant import check_mode
+from sonicdiffusionbayeslab_torch.parallel import distributed
 from sonicdiffusionbayeslab_torch.registry import metrics_registry, models_registry, schedulers_registry
 from sonicdiffusionbayeslab_torch.utils import rng as rng_util
 from sonicdiffusionbayeslab_torch.utils.images import make_grid, save_table, to_uint8
@@ -140,12 +153,17 @@ class BaseMethod:
 
     def setup_loggers(self) -> None:
         lcfg = self.config.get("logger", ConfigNode({}))
+        run_name = self.config.get("experiment_name", "run")
+        run_id = lcfg.get("run_id")
+        if run_id is None and distributed.world_size() > 1:  # one directory for every rank
+            run_id = distributed.broadcast_object(f"{run_name}-{uuid.uuid4().hex[:8]}")
         self.logger = Logger(
             config=self.config.to_dict(),
             wandb_enable=lcfg.get("wandb_enable", False),
             project_name=lcfg.get("project_name", "sonic-diffusion-tpu"),
-            run_name=self.config.get("experiment_name", "run"),
-            run_id=lcfg.get("run_id"),
+            run_name=run_name,
+            run_id=run_id,
+            write=distributed.is_main(),
         )
         self.log_images_step = lcfg.get("log_images_step", 0)
         self.save_images = lcfg.get("save", False)
@@ -158,9 +176,11 @@ class BaseMethod:
 
     def run_experiment(self) -> Dict[str, List]:
         state_file = self.logger.local.dir / "sweep_state.json"
+        main = distributed.is_main()
         done = set()
-        if state_file.exists():
+        if main and state_file.exists():
             done = set(json.loads(state_file.read_text())["done"])
+        done = distributed.broadcast_object(done)  # rank 0's: every rank skips alike
         for gi, point in enumerate(self.grid()):
             label = point["label"]
             if label in done:
@@ -168,9 +188,11 @@ class BaseMethod:
             gen = self.generate(grid_index=gi, **point["call_kw"])
             self.validate(gen, label=label, grid_index=gi)
             done.add(label)
-            state_file.write_text(json.dumps({"done": sorted(done)}))
+            if main:
+                state_file.write_text(json.dumps({"done": sorted(done)}))
         self.logger.log_metrics_into_table(self.metric_dict, name="final")
-        self.save_table()
+        if main:
+            self.save_table()
         return self.metric_dict
 
     # ---------------------------------------------------------- generate
@@ -225,8 +247,14 @@ class BaseMethod:
             if m is not None:
                 m.reset()
 
+        rank, ranks = distributed.rank(), distributed.world_size()
         for s in range(0, n, batch_size):
-            sl = slice(s, min(s + batch_size, n))
+            # This rank's share of the validation batch: the metrics sum
+            # the ranks' statistics.
+            e = min(s + batch_size, n)
+            sl = slice(s + rank * (e - s) // ranks, s + (rank + 1) * (e - s) // ranks)
+            if sl.start == sl.stop:
+                continue
             prompts = gen["prompts"][sl]
             imgs = images01[sl]
             if self.clip_score_metric:
@@ -263,7 +291,7 @@ class BaseMethod:
             )
         for i, g in enumerate(gen["x0_grids"]):
             self.logger.log_batch_of_images(g[None], name=f"x0/{label}_{i}", step=grid_index)
-        if self.save_images:
+        if self.save_images and distributed.is_main():
             save_dir = Path(self.save_dir_tmpl.format(
                 experiment=self.config.get("experiment_name", "exp"), args=label))
             for fname, img in zip(gen["files"], gen["images"]):

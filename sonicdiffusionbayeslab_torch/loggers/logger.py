@@ -1,5 +1,5 @@
 """Experiment logging of the port: always a local run log, and wandb when
-it is enabled.
+it is enabled; in a multi-process run only rank 0's logger writes.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/loggers/logger.py``:
 ``LocalRunLogger`` writes ``<root>/<run_id>/`` (``events.jsonl``, TSV
@@ -26,26 +26,38 @@ from sonicdiffusionbayeslab_torch.utils.images import make_grid, to_uint8, write
 
 
 class LocalRunLogger:
-    """Filesystem logger: <root>/<run_id>/{events.jsonl, tables/, images/}."""
+    """Filesystem logger: <root>/<run_id>/{events.jsonl, tables/, images/}.
+    With ``write`` False (a rank other than 0 of a multi-process run) it
+    names the same directory and writes nothing."""
 
-    def __init__(self, root: str = "outputs", run_name: str = "run", run_id: Optional[str] = None):
+    def __init__(self, root: str = "outputs", run_name: str = "run", run_id: Optional[str] = None,
+                 write: bool = True):
         self.run_id = run_id or f"{run_name}-{uuid.uuid4().hex[:8]}"
         self.dir = Path(root) / self.run_id
-        self.dir.mkdir(parents=True, exist_ok=True)
-        self._events = open(self.dir / "events.jsonl", "a")
+        self.write = bool(write)
+        self._events = None
+        if self.write:
+            self.dir.mkdir(parents=True, exist_ok=True)
+            self._events = open(self.dir / "events.jsonl", "a")
 
     def log(self, data: Dict, step: Optional[int] = None) -> None:
+        if not self.write:
+            return
         rec = {"t": time.time(), "step": step, **_jsonable(data)}
         self._events.write(json.dumps(rec) + "\n")
         self._events.flush()
 
-    def log_table(self, name: str, rows: Dict[str, Sequence]) -> Path:
+    def log_table(self, name: str, rows: Dict[str, Sequence]) -> Optional[Path]:
+        if not self.write:
+            return None
         tdir = self.dir / "tables"
         tdir.mkdir(exist_ok=True)
         return write_table(rows, tdir / f"{name}.tsv")
 
     def log_images(self, name: str, images: np.ndarray, captions: Optional[Sequence[str]] = None,
-                   step: Optional[int] = None) -> Path:
+                   step: Optional[int] = None) -> Optional[Path]:
+        if not self.write:
+            return None
         idir = self.dir / "images"
         idir.mkdir(exist_ok=True)
         grid = make_grid(to_uint8(np.asarray(images)), nrow=8)
@@ -58,7 +70,8 @@ class LocalRunLogger:
         return out
 
     def finish(self) -> None:
-        self._events.close()
+        if self._events is not None:
+            self._events.close()
 
 
 class WandbLogger:
@@ -111,10 +124,11 @@ class Logger:
         run_name: str = "run",
         run_id: Optional[str] = None,
         output_root: str = "outputs",
+        write: bool = True,
     ):
-        self.local = LocalRunLogger(output_root, run_name, run_id)
+        self.local = LocalRunLogger(output_root, run_name, run_id, write=write)
         self.wandb: Optional[WandbLogger] = None
-        if wandb_enable:
+        if wandb_enable and write:
             try:
                 self.wandb = WandbLogger(project_name, run_name, run_id, config)
             except Exception as e:  # wandb missing, offline or refused: keep the local log

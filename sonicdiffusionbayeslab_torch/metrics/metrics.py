@@ -5,8 +5,10 @@ Counterparts of ``Metric``, ``TimeMetric``, ``_ClipBackend``,
 ``ClipScoreMetric``, ``RewardModel``, ``AestheticScoreMetric`` and ``FID``
 in ``sonicdiffusionbayeslab_tpu/metrics/metrics.py``, with the same
 update()/compute()/reset() protocol, registry names and arguments (plus
-``device``: CUDA unless given).  ``compute`` sums this process's
-statistics (one process; the cross-process sums are not ported).
+``device``: CUDA unless given).  ``compute`` sums each metric's
+statistics across the ranks of a multi-process run
+(``parallel/distributed.py``; the identity in one process), so a rank
+updates with its own rows and every rank computes the global value.
 
 Every tower runs in fp32 on the metric's device, with TF32 off for its
 matmuls and convolutions (``utils/device.py::full_fp32``): the CLIP dual
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from sonicdiffusionbayeslab_torch.metrics.frechet import StreamingMoments, frechet_distance
+from sonicdiffusionbayeslab_torch.parallel.distributed import all_sum_array, all_sum_scalar
 from sonicdiffusionbayeslab_torch.registry import metrics_registry
 from sonicdiffusionbayeslab_torch.utils.device import full_fp32
 
@@ -60,7 +63,9 @@ class TimeMetric(Metric):
         self.images += int(batch_size)
 
     def compute(self) -> float:
-        return self.time_sum / max(self.images, 1)
+        t = all_sum_scalar(self.time_sum)
+        n = all_sum_scalar(self.images)
+        return t / max(n, 1)
 
     def reset(self) -> None:
         self.time_sum = 0.0
@@ -170,7 +175,9 @@ class ClipScoreMetric(Metric):
         return self.compute()
 
     def compute(self) -> float:
-        return self.score_sum / max(self.n, 1)
+        s = all_sum_scalar(self.score_sum)
+        n = all_sum_scalar(self.n)
+        return s / max(n, 1)
 
     def reset(self) -> None:
         self.score_sum = 0.0
@@ -233,7 +240,9 @@ class RewardModel(Metric):
         self.n += len(prompts)
 
     def compute(self) -> float:
-        return self.wins / max(self.n, 1)
+        wins = all_sum_scalar(self.wins)
+        n = all_sum_scalar(self.n)
+        return wins / max(n, 1)
 
     def reset(self) -> None:
         self.wins = 0
@@ -274,7 +283,9 @@ class AestheticScoreMetric(Metric):
         self.n += len(s)
 
     def compute(self) -> float:
-        return self.score_sum / max(self.n, 1)
+        s = all_sum_scalar(self.score_sum)
+        n = all_sum_scalar(self.n)
+        return s / max(n, 1)
 
     def reset(self) -> None:
         self.score_sum = 0.0
@@ -328,9 +339,21 @@ class FID(Metric):
     def update(self, images: np.ndarray, real: bool) -> None:
         (self.real if real else self.fake).update(self._features(images))
 
+    @staticmethod
+    def _global_mean_cov(m: StreamingMoments):
+        """mean_cov over the moments summed across the ranks."""
+        n = int(all_sum_scalar(m.n))
+        if n < 2:
+            raise ValueError("need >= 2 samples for covariance")
+        s = all_sum_array(m.sum)
+        outer = all_sum_array(m.outer)
+        mu = s / n
+        cov = (outer - n * np.outer(mu, mu)) / (n - 1)
+        return mu, cov
+
     def compute(self) -> float:
-        mu1, c1 = self.real.mean_cov()
-        mu2, c2 = self.fake.mean_cov()
+        mu1, c1 = self._global_mean_cov(self.real)
+        mu2, c2 = self._global_mean_cov(self.fake)
         return frechet_distance(mu1, c1, mu2, c2)
 
     def reset(self) -> None:

@@ -56,6 +56,7 @@ from sonicdiffusionbayeslab_torch.models.weights import (
     load_torch_state_dict,
     merge_lora,
 )
+from sonicdiffusionbayeslab_torch.parallel.mesh import check_data_only, make_mesh, shard_params
 from sonicdiffusionbayeslab_torch.registry import models_registry
 from sonicdiffusionbayeslab_torch.schedulers import DPMSolverScheduler
 from sonicdiffusionbayeslab_torch.schedulers import plans as plan_composers
@@ -113,14 +114,23 @@ class StableDiffusionModel:
 
     A uniform batch of prompts (all one string, e.g. the serving path's
     empty negatives) is encoded once and kept, 4 entries at most, keyed on
-    (prompt, batch size) and dropped when the engine's weights change."""
+    (prompt, batch size) and dropped when the engine's weights change.
+
+    ``mesh_data`` > 1 (0 or 1: one device) samples data-parallel over that
+    many ranks (``torch.distributed``, one process each, started before
+    the pipeline): every rank builds the same weights and calls the
+    pipeline with the same arguments, samples its rows of the batch and
+    returns the whole batch (``engine.sample``'s ``mesh``).  ``mesh_seq``
+    or ``mesh_model`` above 1 raises (ROADMAP.md item A9)."""
 
     def __init__(self, pretrained_model: str = "runwayml/stable-diffusion-v1-5",
                  image_size: int = 512, tiny: bool = False, dtype: str = "bfloat16",
                  seed: int = 0, lora: str = None, variant: str = "auto", device=None,
-                 ip_adapter: str = None, ip_scale: float = 1.0, prompt_weighting: bool = False):
+                 ip_adapter: str = None, ip_scale: float = 1.0, prompt_weighting: bool = False,
+                 mesh_data: int = 0, mesh_seq: int = 1, mesh_model: int = 1):
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype!r}")
+        check_data_only(mesh_seq, mesh_model, type(self).__name__)
         self.lora = lora
         self.pretrained_model = pretrained_model
         self.image_size = int(image_size)
@@ -150,6 +160,23 @@ class StableDiffusionModel:
             self._load_ip_adapter(ip_adapter)
         self._encode_memo: Dict[tuple, torch.Tensor] = {}
         self._memo_version = self.engine.weights_version
+        self.mesh = None
+        self.placements: Dict[str, Dict[str, tuple]] = {}
+        if (int(mesh_data) or 1) > 1:
+            self.mesh = make_mesh(n_data=int(mesh_data), device_type=self.device.type)
+            self.place_params(self.engine.MODULES + (("image_proj",) if self.has_ip else ()))
+
+    def place_params(self, names: Sequence[str]) -> None:
+        """Place the engine modules ``names`` on the mesh
+        (``parallel.shard_params``; every rank holds its own copy, so no
+        data moves) and keep each weight's placements in
+        ``placements[name]``: replicated along every axis, since only the
+        data axis runs.  The DTensors themselves are dropped, so a module
+        moved later (SD3's staged T5) leaves no copy behind."""
+        for name in names:
+            sd = getattr(self.engine, name).state_dict()
+            self.placements[name] = {k: v.placements
+                                     for k, v in shard_params(sd, self.mesh).items()}
 
     def _load_ip_adapter(self, path: str) -> None:
         eng = self.engine
@@ -349,7 +376,7 @@ class StableDiffusionModel:
             microbatch=self.unet_microbatch if unet_microbatch is None else unet_microbatch,
             guidance_rescale=self.guidance_rescale,
             tome=self.tome_ratio if tome_ratio is None else tome_ratio,
-            ip_adapter=ip_arg, time_loop=time_loop,
+            ip_adapter=ip_arg, time_loop=time_loop, mesh=self.mesh,
             **img2img,
             **self._extra_sample_kwargs(len(prompt), lat_hw),
         )
@@ -462,10 +489,12 @@ class StableDiffusionXLModel(StableDiffusionModel):
 
     def __init__(self, pretrained_model: str = "stabilityai/stable-diffusion-xl-base-1.0",
                  image_size: int = 1024, tiny: bool = False, dtype: str = "bfloat16",
-                 seed: int = 0, lora: str = None, device=None, prompt_weighting: bool = False):
+                 seed: int = 0, lora: str = None, device=None, prompt_weighting: bool = False,
+                 mesh_data: int = 0, mesh_seq: int = 1, mesh_model: int = 1):
         super().__init__(pretrained_model=pretrained_model, image_size=image_size, tiny=tiny,
                          dtype=dtype, seed=seed, lora=lora, device=device,
-                         prompt_weighting=prompt_weighting)
+                         prompt_weighting=prompt_weighting, mesh_data=mesh_data,
+                         mesh_seq=mesh_seq, mesh_model=mesh_model)
         self.tokenizer2 = self._tokenizer("tokenizer_2", self.engine.text2_config)
         self._pooled_queue: List[torch.Tensor] = []
 
@@ -531,7 +560,9 @@ class StableDiffusion3Model(StableDiffusionXLModel):
                  image_size: int = 1024, tiny: bool = False, dtype: str = "bfloat16",
                  seed: int = 0, lora: str = None, use_t5: bool = False,
                  t5_staged: object = "auto", prompt_weighting: bool = False,
-                 ip_adapter: str = None, device=None):
+                 ip_adapter: str = None, device=None, mesh_data: int = 0, mesh_seq: int = 1,
+                 mesh_model: int = 1):
+        check_data_only(mesh_seq, mesh_model, type(self).__name__)
         if prompt_weighting:
             raise NotImplementedError(
                 "prompt weighting is not wired for SD3's padded dual-tower context (weights "
@@ -549,7 +580,7 @@ class StableDiffusion3Model(StableDiffusionXLModel):
             self.tokenizer3 = self._t5_tokenizer(tiny)
         self._t5_dev = None  # the staged mode's copy of T5 on the card during encodes
         super().__init__(pretrained_model=pretrained_model, image_size=image_size, tiny=tiny,
-                         dtype=dtype, seed=seed, lora=lora, device=device)
+                         dtype=dtype, seed=seed, lora=lora, device=device, mesh_data=mesh_data)
         if self.t5_staged:
             self.engine.t5.to("cpu")
 
@@ -655,15 +686,19 @@ class StableDiffusionControlNetModel(StableDiffusionModel):
                  image_size: int = 512, tiny: bool = False, dtype: str = "bfloat16",
                  seed: int = 0, lora: str = None, variant: str = "auto", device=None,
                  controlnet: str = None, controlnet_scale: float = 1.0, ip_adapter: str = None,
-                 ip_scale: float = 1.0, prompt_weighting: bool = False):
+                 ip_scale: float = 1.0, prompt_weighting: bool = False, mesh_data: int = 0,
+                 mesh_seq: int = 1, mesh_model: int = 1):
         super().__init__(pretrained_model=pretrained_model, image_size=image_size, tiny=tiny,
                          dtype=dtype, seed=seed, lora=lora, variant=variant, device=device,
                          ip_adapter=ip_adapter, ip_scale=ip_scale,
-                         prompt_weighting=prompt_weighting)
+                         prompt_weighting=prompt_weighting, mesh_data=mesh_data,
+                         mesh_seq=mesh_seq, mesh_model=mesh_model)
         self.controlnet_scale = float(controlnet_scale)
         self.engine.init_controlnet(seed=0)
         if controlnet and Path(controlnet).exists():
             load_controlnet_checkpoint(controlnet, self.engine)
+        if self.mesh is not None:  # the ControlNet's copy is placed like the UNet
+            self.place_params(("controlnet",))
         self._control_call: Optional[Dict[str, Any]] = None
 
     def __call__(self, prompt, *args, control_image=None, controlnet_scale=None, **kw):

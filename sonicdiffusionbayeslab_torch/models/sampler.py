@@ -22,6 +22,7 @@ device synchronised on both sides (the reference's timing contract).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Optional, Sequence, Tuple
@@ -42,6 +43,8 @@ from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
 from sonicdiffusionbayeslab_torch.ops import quant
 from sonicdiffusionbayeslab_torch.ops.tome import TomeConfig
+from sonicdiffusionbayeslab_torch.parallel import distributed
+from sonicdiffusionbayeslab_torch.parallel import mesh as mesh_lib
 from sonicdiffusionbayeslab_torch.schedulers.plan import SamplePlan
 from sonicdiffusionbayeslab_torch.schedulers.runtime import apply_row, init_carry, plan_rows, row
 from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedVariants
@@ -382,6 +385,7 @@ class StableDiffusionEngine:
         control: Optional[dict] = None,
         ip_adapter: Optional[dict] = None,
         time_loop: bool = True,
+        mesh=None,
     ) -> SampleOutput:
         """One batch: CFG-doubled UNet calls over the plan's rows, then the
         decode.  Sample ``i``'s initial latents depend only on (seed, i)
@@ -424,7 +428,22 @@ class StableDiffusionEngine:
 
         ``time_loop`` False skips the device synchronisations around the
         loop, so the loop, the decode and whatever follows queue on the
-        device without a wait; ``execution_time`` is then -1.0."""
+        device without a wait; ``execution_time`` is then -1.0.
+
+        ``mesh`` (``parallel.make_mesh``) with a data axis above 1: every
+        argument is the global batch's, this rank samples its rows
+        (:meth:`_sample_rows`) and every rank returns the global batch."""
+        if mesh is not None and mesh_lib.axis_size(mesh, "data") > 1:
+            return self._sample_rows(mesh, plan, prompt_embeds, negative_embeds, dict(
+                seed=seed, sample_indices=sample_indices, guidance_scale=guidance_scale,
+                guidance_rescale=guidance_rescale, cache_plan=cache_plan, latent_hw=latent_hw,
+                collect_x0=collect_x0, x0_samples=x0_samples, decode=decode,
+                init_latents=init_latents, microbatch=microbatch, step_noise=step_noise,
+                tome=tome, tome_dst=tome_dst, added_cond=added_cond, blend=blend,
+                blend_noise=blend_noise, control=control, ip_adapter=ip_adapter,
+                time_loop=time_loop))
+        mesh_lib.check_data_only(mesh_lib.axis_size(mesh, "seq"),
+                                 mesh_lib.axis_size(mesh, "model"), "engine.sample")
         dev = self.device
         B = int(prompt_embeds.shape[0])
         do_cfg = guidance_scale > 1.0 and negative_embeds is not None
@@ -531,6 +550,50 @@ class StableDiffusionEngine:
         x0_images = torch.stack([self.decode(x) for x in x0s]) if collect_x0 else None
         return SampleOutput(images=images, execution_time=execution_time,
                             x0_images=x0_images, latents=latents, nfe=plan.nfe)
+
+    def _sample_rows(self, mesh, plan, prompt_embeds, negative_embeds, kw) -> SampleOutput:
+        """Data-parallel :meth:`sample`: this rank's contiguous rows of the
+        batch (``parallel.mesh.RowShard``) with their global
+        ``sample_indices``, so each row draws what it draws in one process,
+        and its rows of every per-sample input (``init_latents``,
+        ``step_noise``, ``blend`` and ``blend_noise``, ``added_cond``, the
+        control image, the IP-Adapter embeddings); CFG pairs a row's own
+        negative and positive.  The images, latents and x0 decodes are
+        all-gathered along the data axis in rank order; ``execution_time``
+        is the slowest rank's loop."""
+        shard = mesh_lib.latent_sharding(mesh)
+        B = int(prompt_embeds.shape[0])
+        take = shard.take
+        idx = np.arange(B) if kw["sample_indices"] is None else np.asarray(kw["sample_indices"])
+        if len(idx) != B:
+            raise ValueError(f"sample_indices has {len(idx)} entries for a batch of {B}")
+        x0_count = B if kw["x0_samples"] is None else max(1, min(int(kw["x0_samples"]), B))
+        n = B // shard.count
+        # Each rank decodes the x0 of its first m rows (one shape on every
+        # rank, for the gather); the batch's first x0_count rows are among them.
+        m = min(n, x0_count)
+        kw.update(sample_indices=[int(i) for i in take(idx)], x0_samples=m,
+                  init_latents=take(kw["init_latents"]), blend_noise=take(kw["blend_noise"]),
+                  step_noise=None if kw["step_noise"] is None else take(kw["step_noise"], 1))
+        if kw["blend"] is not None:
+            mask, source, blend_a, blend_s = kw["blend"]
+            kw["blend"] = (take(mask), take(source), blend_a, blend_s)
+        if kw["added_cond"] is not None:
+            kw["added_cond"] = {k: take(v) for k, v in kw["added_cond"].items()}
+        for key, field in (("control", "image"), ("ip_adapter", "image_embeds")):
+            if kw[key] is not None:
+                kw[key] = {**kw[key], field: take(np.asarray(kw[key][field], np.float32))}
+        out = self.sample(plan, take(prompt_embeds), take(negative_embeds), **kw)
+        group = mesh_lib.axis_group(mesh, "data")
+        gather = functools.partial(distributed.all_gather_rows, group=group)
+        x0 = None
+        if out.x0_images is not None:
+            x0 = gather(out.x0_images, dim=1)[:, [g // n * m + g % n for g in range(x0_count)]]
+        t = out.execution_time
+        return SampleOutput(
+            images=None if out.images is None else gather(out.images),
+            execution_time=distributed.all_max_scalar(t, group) if t >= 0 else t,
+            x0_images=x0, latents=gather(out.latents), nfe=out.nfe)
 
     def _conditioning(self, control, ip_adapter, cache_plan, microbatch, B, latent_hw, do_cfg):
         """(IP tokens, IP scale, control image, control scale) at the model

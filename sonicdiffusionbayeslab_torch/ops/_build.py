@@ -126,3 +126,16 @@ def count_launch(wrapper) -> None:
     loop's prep thread launches kernels beside the main thread."""
     with _count_lock:
         wrapper.launches += 1
+
+
+# The open FLOP counts (``utils/profiling.py::flops_estimate``), each a
+# one-element list: torch's FlopCounterMode cannot see a ctypes launch.
+flop_sinks: list = []
+
+
+def add_flops(n: int) -> None:
+    """Add ``n`` operations to every open FLOP count."""
+    if flop_sinks:
+        with _count_lock:
+            for sink in flop_sinks:
+                sink[0] += int(n)

@@ -122,6 +122,7 @@ def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
         )
     _build.check(err, "flash_attention_sm90")
     _build.count_launch(flash_attention_sm90)
+    _build.add_flops(4 * B * H * N * M * D)  # Q·Kᵀ and P·V
     return o
 
 
@@ -140,6 +141,7 @@ def flash_attention_tf32x3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
         )
     _build.check(err, "flash_attention_tf32x3")
     _build.count_launch(flash_attention_tf32x3)
+    _build.add_flops(4 * B * H * N * M * D)  # Q·Kᵀ and P·V
     return o
 
 

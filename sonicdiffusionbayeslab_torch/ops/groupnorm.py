@@ -267,6 +267,9 @@ def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def _group_norm_silu(x, weight, bias, groups, eps, silu):
     """The kernel on a CUDA tensor, ``plain_group_norm`` on a CPU one."""
     C = x.shape[-1]
+    # Statistics and normalisation ~6 operations an element, SiLU ~4 more;
+    # counted on both paths (FlopCounterMode counts no elementwise work).
+    _build.add_flops((10 if silu else 6) * x.numel())
     if x.device.type == "cpu":
         return plain_group_norm(x, weight, bias, groups, eps, silu)
     if x.device.type != "cuda":

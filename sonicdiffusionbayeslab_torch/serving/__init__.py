@@ -7,6 +7,7 @@ from sonicdiffusionbayeslab_torch.serving.batcher import (
     GenerateRequest,
     InferenceServer,
     ServerOverloadedError,
+    follow,
 )
 
-__all__ = ["GenerateRequest", "InferenceServer", "ServerOverloadedError"]
+__all__ = ["GenerateRequest", "InferenceServer", "ServerOverloadedError", "follow"]

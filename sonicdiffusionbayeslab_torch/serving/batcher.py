@@ -22,6 +22,14 @@ shape captures new CUDA graphs.  The batcher therefore:
   most ``pipeline_depth - 1`` batches, which bounds the device memory in
   flight.
 
+A pipeline on a data-parallel mesh (``mesh_data`` N > 1, one process a
+rank) is served from rank 0: for each batch the worker broadcasts the
+call's arguments on a control group (``parallel.distributed.
+control_group``) and every other rank, in :func:`follow`, makes the same
+call, so the ranks sample their rows together and rank 0 gets the
+gathered images.  When the worker stops it broadcasts a stop, which
+releases the followers.
+
 On the GPU the copy must not wait behind the next batch: the worker records
 a CUDA event after batch N's decode and round, and the finisher waits on
 that event and copies on a side stream into pinned memory (a plain
@@ -42,6 +50,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from sonicdiffusionbayeslab_torch.parallel import distributed
+from sonicdiffusionbayeslab_torch.parallel.mesh import axis_size
 
 
 class ServerOverloadedError(RuntimeError):
@@ -118,6 +129,13 @@ class InferenceServer:
             "rejected": 0, "timeouts": 0, "batch_seconds": 0.0,
         }
         self.finisher_wait_s = 0.0
+        # The followers' channel when the pipeline is data-parallel.
+        self._control = None
+        if axis_size(getattr(pipe, "mesh", None), "data") > 1:
+            if distributed.rank() != 0:
+                raise ValueError("rank 0 serves a data-parallel pipeline; the other ranks run "
+                                 "serving.batcher.follow(pipe)")
+            self._control = distributed.control_group()
         self._finisher: Optional[threading.Thread] = None
         if self.pipeline_depth > 1:
             self._finish_queue: "queue.Queue" = queue.Queue(maxsize=self.pipeline_depth - 1)
@@ -210,6 +228,20 @@ class InferenceServer:
         return (int(r.num_inference_steps), float(r.guidance_scale), r.height, r.width)
 
     def _loop(self) -> None:
+        try:
+            self._serve()
+        finally:
+            if self._control is not None:  # release the followers
+                distributed.broadcast_object(("stop",), group=self._control)
+
+    def _call_pipe(self, prompts, kw):
+        """The pipeline call, sent to the followers first where there are
+        any."""
+        if self._control is not None:
+            distributed.broadcast_object(("call", prompts, kw), group=self._control)
+        return self.pipe(prompts, **kw)
+
+    def _serve(self) -> None:
         while not self._stop.is_set():
             # Backlog first: requests spilled from earlier cycles are older
             # than anything queued, so one signature's stream cannot starve
@@ -294,7 +326,7 @@ class InferenceServer:
             # Without the loop's synchronisation the encode, loop, decode and
             # round all queue on the device; execution_time is then the
             # batch's wall clock to host pixels (_finalize).
-            images, exec_time, _ = self.pipe(prompts, **kw)
+            images, exec_time, _ = self._call_pipe(prompts, kw)
             if isinstance(images, torch.Tensor):
                 if self.readback_dtype == "uint8":
                     images = quantize_uint8(images)
@@ -386,3 +418,24 @@ class InferenceServer:
                 "batch_size": n,
                 "nfe": nfe,
             })
+
+
+def follow(pipe) -> int:
+    """A rank other than 0 of a data-parallel server: make each pipeline
+    call that rank 0's :class:`InferenceServer` broadcasts (its images,
+    gathered to every rank, are rank 0's to return) until the stop;
+    returns the number of calls.  A call that raises here raises alike on
+    rank 0 (the same arguments and weights), so the follower reports it
+    and waits for the next."""
+    group = distributed.control_group()
+    calls = 0
+    while True:
+        msg = distributed.broadcast_object(None, group=group)
+        if msg[0] == "stop":
+            return calls
+        _, prompts, kw = msg
+        try:
+            pipe(prompts, **kw)
+        except Exception as e:  # rank 0's batch fails with the same error
+            print(f"rank {distributed.rank()}: pipeline call failed: {e!r}", flush=True)
+        calls += 1

@@ -12,9 +12,17 @@ Counterpart of ``sonicdiffusionbayeslab_tpu/serving/server.py``.  Endpoints:
                  -> {"image_png_base64": "...", "execution_time": s,
                      "batch_size": n, "nfe": k}
 
-One process, one device: the handler threads only marshal JSON, and all
-compute goes through the batcher's single worker, so requests coalesce
-into full batches.  ``--port 0`` takes a free port (printed).
+The handler threads only marshal JSON, and all compute goes through the
+batcher's single worker, so requests coalesce into full batches.  ``--port
+0`` takes a free port (printed).  ``--mesh_data N`` serves one pipeline
+data-parallel over N ranks (one process a GPU):
+
+    torchrun --nproc_per_node N -m sonicdiffusionbayeslab_torch.serving.server \
+        --config configs/dpm_solver_config.yaml --mesh_data N
+
+Rank 0 owns the HTTP front end and the batcher; the other ranks follow
+its pipeline calls (``serving/batcher.py::follow``) until it shuts down.
+``--mesh_seq`` and ``--mesh_model`` above 1 raise (ROADMAP.md item A9).
 """
 
 from __future__ import annotations
@@ -31,7 +39,10 @@ import numpy as np
 import torch
 
 from sonicdiffusionbayeslab_torch.data.imageio import encode_png_bytes
-from sonicdiffusionbayeslab_torch.serving.batcher import GenerateRequest, InferenceServer
+from sonicdiffusionbayeslab_torch.parallel import distributed
+from sonicdiffusionbayeslab_torch.parallel.distributed import initialize
+from sonicdiffusionbayeslab_torch.parallel.mesh import check_data_only
+from sonicdiffusionbayeslab_torch.serving.batcher import GenerateRequest, InferenceServer, follow
 
 
 def _png_b64(image: np.ndarray) -> str:
@@ -39,8 +50,10 @@ def _png_b64(image: np.ndarray) -> str:
 
 
 def device_count() -> int:
-    """The devices this process serves from: the CUDA devices, or 1 (the
-    CPU) without any."""
+    """The devices the server runs on: the world size of a multi-process
+    server, else this process's CUDA devices, or 1 (the CPU) without any."""
+    if distributed.is_initialized():
+        return distributed.world_size()
     return torch.cuda.device_count() if torch.cuda.is_available() else 1
 
 
@@ -124,23 +137,28 @@ def serve(pipe, model_name: str, host: str = "127.0.0.1", port: int = 8000,
         httpd.serve_forever()
     finally:
         httpd.server_close()
-        inference.shutdown(wait=False)
+        # A data-parallel server waits for its worker, whose stop releases
+        # the followers.
+        inference.shutdown(wait=distributed.world_size() > 1)
 
 
-def build_pipe(cfg, device=None):
+def build_pipe(cfg, device=None, mesh_data: int = 0):
     """The pipeline a config serves: the model section (``image_size``
     from the dataset's where unset), the scheduler with its arguments from
     ``experiment_params``, and the acceleration knobs the experiment path
     reads: ``inference.quant``, ``inference.unet_microbatch``,
     ``experiment_params.tome_ratio`` and a scalar
-    ``experiment_params.cache_interval`` (with ``cache_branch_id``).
-    Returns (pipeline, model name)."""
+    ``experiment_params.cache_interval`` (with ``cache_branch_id``);
+    ``mesh_data`` > 1 overrides the model section's.  Returns (pipeline,
+    model name)."""
     from sonicdiffusionbayeslab_torch.models.sampler import CachePlan
     from sonicdiffusionbayeslab_torch.ops.quant import check_mode
     from sonicdiffusionbayeslab_torch.registry import models_registry, schedulers_registry
 
     mcfg = dict(cfg.model)
     name = mcfg.pop("model_name")
+    if int(mesh_data) > 1:
+        mcfg["mesh_data"] = int(mesh_data)
     mcfg.setdefault("image_size", cfg.dataset.get("image_size", 512))
     ep = dict(cfg.get("experiment_params", {}) or {})
     ci = ep.get("cache_interval")
@@ -191,16 +209,22 @@ def main(argv=None) -> None:
                              "copy to the host finishes (1 = serial)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     parser.add_argument("--mesh_data", type=int, default=0,
-                        help="data-parallel mesh axis; above 1 is not ported (ROADMAP.md A8)")
-    parser.add_argument("--mesh_seq", type=int, default=1)
-    parser.add_argument("--mesh_model", type=int, default=1)
+                        help="data-parallel ranks (started by torchrun, one a GPU); 0 or 1: "
+                             "one process")
+    parser.add_argument("--mesh_seq", type=int, default=1,
+                        help="above 1 is not ported (ROADMAP.md A9)")
+    parser.add_argument("--mesh_model", type=int, default=1,
+                        help="above 1 is not ported (ROADMAP.md A9)")
     args = parser.parse_args(argv)
-    if args.mesh_data > 1 or args.mesh_seq > 1 or args.mesh_model > 1:
-        raise NotImplementedError("multi-device meshes (--mesh_*) are not ported yet to the "
-                                  "PyTorch package (ROADMAP.md A8)")
+    check_data_only(args.mesh_seq, args.mesh_model, "the server")
+    if args.mesh_data > 1:
+        initialize(device=args.device)
     load_all_plugins()
     cfg = load_config(args.config)
-    pipe, name = build_pipe(cfg, args.device)
+    pipe, name = build_pipe(cfg, args.device, args.mesh_data)
+    if distributed.rank() != 0:
+        follow(pipe)
+        return
     serve(pipe, name, args.host, args.port, args.max_batch, args.max_wait_ms,
           args.pipeline_depth)
 

@@ -3,8 +3,9 @@ ddpm and flow objectives; EMA; remat), LCM consistency distillation
 (LCM-LoRA and the w-conditioned full student), textual inversion, their
 optimizers and the config-driven loop.
 
-Counterpart of ``sonicdiffusionbayeslab_tpu/training/`` on one device
-(``mesh_data > 0`` is ROADMAP.md item A8).
+Counterpart of ``sonicdiffusionbayeslab_tpu/training/``, on one device or
+data-parallel over ranks (``mesh_data``; tensor and sequence parallel
+are ROADMAP.md item A9).
 """
 
 from sonicdiffusionbayeslab_torch.training.distillation import LCMDistillConfig, LCMDistiller

@@ -29,6 +29,9 @@ batch and the target under ``no_grad``, the student with its backward
 through the kernels' autograd Functions), ``torch.autograd.grad`` over the
 trainable tensors, then clip, AdamW and the EMA, all in place.  The draws
 (grid index, noise, w) come from a ``torch.Generator`` or are passed in.
+Data parallel (``mesh``) as ``training/trainer.py``: this rank's rows,
+the global batch's draws, the loss and gradients averaged over the data
+axis.
 """
 
 from __future__ import annotations
@@ -47,8 +50,9 @@ from sonicdiffusionbayeslab_torch.schedulers.lcm import boundary_scalings
 from sonicdiffusionbayeslab_torch.schedulers.schedule import NoiseSchedule, ScheduleConfig
 from sonicdiffusionbayeslab_torch.training import optim
 from sonicdiffusionbayeslab_torch.training.lora import DEFAULT_TARGETS, apply_lora, init_lora
+from sonicdiffusionbayeslab_torch.parallel.mesh import batch_sharding
 from sonicdiffusionbayeslab_torch.training.trainer import (TrainState, _clone_tree, _f32_copy,
-                                                           _own, ema_update, leaves)
+                                                           _own, data_mean_, ema_update, leaves)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,9 +91,10 @@ class LCMDistiller:
     from the distiller's own, seeded with 0."""
 
     def __init__(self, engine, config: LCMDistillConfig = LCMDistillConfig(),
-                 schedule_config: ScheduleConfig = None):
+                 schedule_config: ScheduleConfig = None, mesh=None):
         self.engine = engine
         self.config = config
+        self.mesh = mesh
         self.schedule = NoiseSchedule.create(schedule_config or ScheduleConfig())
         if self.schedule.config.prediction_type != "epsilon":
             raise ValueError("LCM distillation implemented for epsilon-prediction teachers")
@@ -205,11 +210,14 @@ class LCMDistiller:
         latents = _own(latents).to(dev, torch.float32)
         context, uncond = _own(context).to(dev), _own(uncond_context).to(dev)
         B = latents.shape[0]
+        shard = batch_sharding(self.mesh)
         if idx is None or noise is None or (w is None and cfg.w_min is not None):
-            d_idx, d_noise, d_w = self.draws(B, latents.shape, generator)
+            Bg = B * shard.count  # the global batch's draws on every rank
+            d_idx, d_noise, d_w = self.draws(Bg, (Bg,) + tuple(latents.shape[1:]), generator)
             idx = d_idx if idx is None else idx
             noise = d_noise if noise is None else noise
             w = d_w if w is None else w
+        idx, noise, w = shard.take(idx), shard.take(noise), shard.take(w)
         if cfg.w_min is None:
             w = torch.full((B,), cfg.guidance_scale, dtype=torch.float32)
         w = torch.as_tensor(w).to(dev, torch.float32)
@@ -252,7 +260,9 @@ class LCMDistiller:
                                  *self._scalings(t))
             loss = (torch.sqrt((f_on - f_tgt) ** 2 + cfg.huber_c ** 2) - cfg.huber_c).mean()
             grads = torch.autograd.grad(loss, list(flat.values()))
-        return loss.detach(), dict(zip(flat, grads))
+        loss = loss.detach()
+        data_mean_(self.mesh, [loss, *grads])
+        return loss, dict(zip(flat, grads))
 
     def distill_step(self, state: TrainState, latents, context, uncond_context,
                      generator: Optional[torch.Generator] = None, idx=None, noise=None, w=None):

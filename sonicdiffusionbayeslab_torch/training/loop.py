@@ -27,7 +27,18 @@ and ``load_controlnet_checkpoint`` read; a full distillation's student
 from its EMA target), where the JAX package writes an orbax checkpoint.
 Textual inversion is a library API
 (``training/textual_inversion.py``), not a mode, as in the JAX package.
-Not ported yet (raises and names its ROADMAP item): ``mesh_data > 0``.
+
+``training.mesh_data`` N > 1 trains data-parallel on N ranks (one
+process a GPU):
+
+    torchrun --nproc_per_node N -m sonicdiffusionbayeslab_torch.training.loop \
+        --config configs/train_lora.yaml --set training.mesh_data=N
+
+``batch_size`` stays the global batch.  Every rank draws the prep noise
+of the global batch and encodes its own rows; the trainer draws the
+global batch's timesteps and noise and averages the gradients over the
+ranks, so every rank takes the one-process step.  Rank 0 alone prints and
+saves.  ``mesh_model`` or ``mesh_seq`` above 1 raises (ROADMAP.md A9).
 """
 
 from __future__ import annotations
@@ -43,9 +54,12 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from sonicdiffusionbayeslab_torch.parallel import distributed
+from sonicdiffusionbayeslab_torch.parallel.distributed import initialize
+from sonicdiffusionbayeslab_torch.parallel.mesh import batch_sharding, check_data_only, make_mesh
 from sonicdiffusionbayeslab_torch.training.distillation import LCMDistillConfig, LCMDistiller
 from sonicdiffusionbayeslab_torch.training.trainer import DiffusionTrainer, TrainConfig
-from sonicdiffusionbayeslab_torch.utils.device import synchronize
+from sonicdiffusionbayeslab_torch.utils.device import resolve_device, synchronize
 
 
 def train_config_from_dict(d: Dict[str, Any], cls=TrainConfig):
@@ -81,15 +95,19 @@ def run_training(config) -> Dict[str, Any]:
     save_every = int(tcfg_raw.pop("save_every", 0))
     save_dir = tcfg_raw.pop("save_dir", None)
     seed = int(config.get("experiment", {}).get("seed", 29))
-    n_data = int(tcfg_raw.pop("mesh_data", 0))
-    tcfg_raw.pop("mesh_model", None)
+    n_data = int(tcfg_raw.pop("mesh_data", 0)) or 1
+    check_data_only(tcfg_raw.pop("mesh_seq", 1), tcfg_raw.pop("mesh_model", 1) or 1,
+                    "training")
     mode = str(tcfg_raw.pop("mode", "diffusion"))
     prefetch = int(tcfg_raw.pop("prefetch", 2))
     if mode not in ("diffusion", "distill"):
         raise ValueError(f"unknown training mode {mode!r} (diffusion|distill)")
-    if n_data:
-        raise NotImplementedError(
-            f"mesh_data={n_data}: multi-device training is not ported yet (ROADMAP.md item A8)")
+    # Checked before the weights are built: the world must hold the mesh.
+    mesh = (make_mesh(n_data, device_type=resolve_device(config.model.get("device")).type)
+            if n_data > 1 else None)
+    shard = batch_sharding(mesh)
+    shard.rows(batch_size)  # the global batch must divide over the data axis
+    main = distributed.is_main()
 
     mcfg = dict(config.model)
     name = mcfg.pop("model_name", "stable_diffusion_model")
@@ -119,12 +137,14 @@ def run_training(config) -> Dict[str, Any]:
     if len(dataset) < batch_size:
         raise ValueError(f"dataset has {len(dataset)} items < batch_size {batch_size}")
 
+    local_batch = batch_size // shard.count
     if mode == "distill":
-        trainer = LCMDistiller(engine, train_config_from_dict(tcfg_raw, LCMDistillConfig))
+        trainer = LCMDistiller(engine, train_config_from_dict(tcfg_raw, LCMDistillConfig),
+                               mesh=mesh)
         # The empty prompt's context is constant: encoded once.
-        uncond = engine.encode_prompts(pipe.tokenizer([""] * batch_size))
+        uncond = engine.encode_prompts(pipe.tokenizer([""] * local_batch))
     else:
-        trainer = DiffusionTrainer(engine, train_config_from_dict(tcfg_raw))
+        trainer = DiffusionTrainer(engine, train_config_from_dict(tcfg_raw), mesh=mesh)
     state = trainer.init_state(generator=_generator(dev, seed, 0))
     step_gen, prep_gen = _generator(dev, seed, 1), _generator(dev, seed, 2)
     vcfg = engine.vae_config
@@ -132,14 +152,17 @@ def run_training(config) -> Dict[str, Any]:
     t5 = []  # the staged mode's copy of T5 on the card, made at the first encode
 
     def prep(batch) -> tuple:
-        """Batch prep: VAE encode (its posterior sample's noise from the
-        loop's prep generator) and text encode."""
-        images = torch.as_tensor(batch["image"], dtype=torch.float32).to(dev)
+        """Batch prep of this rank's rows: VAE encode (its posterior
+        sample's noise drawn for the global batch from the loop's prep
+        generator) and text encode."""
+        images = torch.as_tensor(batch["image"], dtype=torch.float32)
         B, H, W, _ = images.shape
         noise = torch.randn((B, H // down, W // down, vcfg.latent_channels),
                             generator=prep_gen, device=prep_gen.device)
+        images, noise = shard.take(images).to(dev), shard.take(noise)
+        B = images.shape[0]
         latents = engine.encode_image(images, noise=noise)
-        prompts = list(batch["prompt"])
+        prompts = list(shard.take(list(batch["prompt"])))
         added = None
         if is_sd3:
             ids3 = pipe.tokenizer3(prompts) if pipe.tokenizer3 is not None else None
@@ -233,10 +256,11 @@ def run_training(config) -> Dict[str, Any]:
                 loss = float(metrics["loss"])
                 losses.append(loss)
                 rate = step / (time.perf_counter() - t0)
-                print(f"step {step}/{num_steps} loss {loss:.4f} "
-                      f"grad_norm {float(metrics['grad_norm']):.3f} ({rate:.2f} it/s)",
-                      flush=True)
-            if save_every and save_dir and step % save_every == 0:
+                if main:
+                    print(f"step {step}/{num_steps} loss {loss:.4f} "
+                          f"grad_norm {float(metrics['grad_norm']):.3f} ({rate:.2f} it/s)",
+                          flush=True)
+            if save_every and save_dir and main and step % save_every == 0:
                 _save(trainer, state, Path(save_dir), step)
         synchronize(dev)
         t_last = time.perf_counter()
@@ -245,7 +269,7 @@ def run_training(config) -> Dict[str, Any]:
             stop.set()
             worker.join(timeout=60)
     steady = (step - 1) / (t_last - t_first) if step > 1 else None
-    if save_dir:
+    if save_dir and main:
         _save(trainer, state, Path(save_dir), step, final=True)
     return {"losses": losses, "state": state, "trainer": trainer, "engine": engine,
             "pipeline": pipe, "steps_per_sec": steady}
@@ -285,6 +309,7 @@ def main(argv=None) -> None:
     overrides = _parse_sets(args.sets)
     if args.device is not None:
         overrides["model.device"] = args.device
+    initialize(device=args.device)
     run_training(load_config(args.config, overrides))
 
 

@@ -17,6 +17,14 @@ and may be passed in (``noise=``, ``timesteps=``, ``u=``), so a test can
 feed the JAX package's draws.  The state's tensors are updated in place,
 as the JAX step donates its state: always continue from the returned
 state.
+
+Data parallel (``mesh`` with a data axis above 1, one process a rank): a
+step's batch arguments are this rank's rows of the global batch, the
+draws (drawn or passed) are the global batch's, made alike on every rank
+from the same generator and cut to the rank's rows, and the loss and the
+gradients are averaged over the data axis before the clip and the
+optimizer, so every rank takes the step one process takes on the global
+batch.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from torch.func import functional_call
 from torch.profiler import record_function
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from sonicdiffusionbayeslab_torch.parallel import distributed
+from sonicdiffusionbayeslab_torch.parallel.mesh import axis_group, axis_size, batch_sharding
 from sonicdiffusionbayeslab_torch.schedulers.schedule import NoiseSchedule, ScheduleConfig
 from sonicdiffusionbayeslab_torch.training import optim
 from sonicdiffusionbayeslab_torch.training.lora import DEFAULT_TARGETS, apply_lora, init_lora
@@ -103,6 +113,13 @@ def _own(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return t.clone() if t is not None and t.is_inference() else t
 
 
+def data_mean_(mesh, tensors) -> None:
+    """Average ``tensors`` in place over ``mesh``'s data axis (no-op
+    without one)."""
+    if axis_size(mesh, "data") > 1:
+        distributed.all_mean_(tensors, axis_group(mesh, "data"))
+
+
 def leaves(trainable) -> Dict[str, torch.Tensor]:
     """The trainable tensors as one flat tree (LoRA: ``<module>/a``, ``/b``)."""
     out = {}
@@ -144,9 +161,10 @@ class DiffusionTrainer:
     own, seeded with 0."""
 
     def __init__(self, engine, config: TrainConfig = TrainConfig(),
-                 schedule_config: ScheduleConfig = None):
+                 schedule_config: ScheduleConfig = None, mesh=None):
         self.engine = engine
         self.config = config
+        self.mesh = mesh
         self.schedule = NoiseSchedule.create(schedule_config or ScheduleConfig())
         if config.prediction_type not in ("epsilon", "v_prediction"):
             raise ValueError(f"unknown prediction_type {config.prediction_type!r}")
@@ -256,13 +274,16 @@ class DiffusionTrainer:
         context = _own(context).to(dev)
         added = {k: _own(v).to(dev) for k, v in (added or {}).items()}
         B = latents.shape[0]
+        shard = batch_sharding(self.mesh)
         if (noise is None) or (timesteps is None and u is None):
-            first, drawn = self.draws(B, latents.shape, generator)
+            Bg = B * shard.count  # the global batch's draws on every rank
+            first, drawn = self.draws(Bg, (Bg,) + tuple(latents.shape[1:]), generator)
             noise = drawn if noise is None else noise
             if cfg.objective == "flow":
                 u = first if u is None else u
             else:
                 timesteps = first if timesteps is None else timesteps
+        noise, timesteps, u = shard.take(noise), shard.take(timesteps), shard.take(u)
         noise = torch.as_tensor(noise).to(dev, torch.float32)
         if cfg.objective == "flow":
             sigma = torch.sigmoid(torch.as_tensor(u).to(dev, torch.float32))
@@ -320,7 +341,9 @@ class DiffusionTrainer:
         per = ((pred - y) ** 2).mean(dim=(1, 2, 3))
         loss = (w * per).mean()
         grads = torch.autograd.grad(loss, list(flat.values()))
-        return loss.detach(), dict(zip(flat, grads))
+        loss = loss.detach()
+        data_mean_(self.mesh, [loss, *grads])
+        return loss, dict(zip(flat, grads))
 
     def train_step(self, state: TrainState, latents, context, generator=None, hint=None,
                    added=None, noise=None, timesteps=None, u=None):

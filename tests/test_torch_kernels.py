@@ -508,6 +508,19 @@ def test_bf16_attention_kernel_matches_plain(cuda, B, N, M, H, D):
     assert err.max().item() <= 0.1 * rms, f"max abs err {err.max().item():.3e}, rms {rms:.3e}"
 
 
+@pytest.mark.cuda
+def test_flops_estimate_counts_the_bf16_kernel(cuda):
+    """FlopCounterMode cannot see the kernel's ctypes launch: its wrapper
+    adds the two products' 4·B·H·N·M·D itself, once a launch."""
+    from sonicdiffusionbayeslab_torch.utils.profiling import flops_estimate
+
+    B, N, M, H, D = 2, 1024, 77, 8, 40
+    q, k, v = (torch.randn(B, L, H, D, device=cuda, dtype=torch.bfloat16) for L in (N, M, M))
+    n0 = fa.flash_attention_sm90.launches
+    assert flops_estimate(flash_attention, q, k, v) == {"flops": 4 * B * H * N * M * D}
+    assert fa.flash_attention_sm90.launches == n0 + 1
+
+
 # The SD-2.1 768^2 and SDXL 1024^2 UNets' attention shapes (head_dim 64),
 # at batch 2 in place of the CLI runs' 16.
 D64_SHAPES = [(2, 9216, 9216, 5, 64), (2, 2304, 2304, 10, 64), (2, 576, 576, 20, 64),

@@ -134,7 +134,9 @@ def test_port_imports_no_jax():
         "serving.batcher", "serving.server", "serve_bench", "models.controlnet",
         "models.ip_adapter", "models.prompt_weighting", "training", "training.lora",
         "training.optim", "training.opt8bit", "training.trainer", "training.loop",
-        "train_bench", "training.distillation", "training.textual_inversion")} <= set(mods)
+        "train_bench", "training.distillation", "training.textual_inversion", "parallel",
+        "parallel.distributed", "parallel.mesh", "utils.profiling", "utils.trace_analysis")
+    } <= set(mods)
 
 
 def test_pipeline_without_device_raises_without_gpu():

@@ -560,8 +560,14 @@ def test_serve_main_refuses_a_cache_sweep_and_meshes(tmp_path):
                    experiment_params={"cache_interval": "[2, 3, 5]"})
     with pytest.raises(SystemExit, match="scalar"):
         server_mod.main(["--config", path, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        server_mod.main(["--config", path, "--device", "cpu", "--mesh_data", "2"])
+    for axis in ("--mesh_seq", "--mesh_model"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
+            server_mod.main(["--config", path, "--device", "cpu", axis, "2"])
+    # Two data-parallel ranks need a process group of two (torchrun's).
+    (tmp_path / "plain").mkdir()
+    plain = _config(tmp_path / "plain", inference={"batch_size": 4})
+    with pytest.raises(ValueError, match="mesh 2x1x1 != 1 processes"):
+        server_mod.main(["--config", plain, "--device", "cpu", "--mesh_data", "2"])
 
 
 def test_serve_bench_tiny_json_line(capsys):

@@ -256,7 +256,7 @@ def test_run_training_sdxl_time_ids(tmp_path):
     assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
 
 
-@pytest.mark.parametrize("training,item", [({"mesh_data": 4}, "A8")])
+@pytest.mark.parametrize("training,item", [({"mesh_model": 2}, "A9"), ({"mesh_seq": 2}, "A9")])
 def test_modes_still_to_come_name_their_roadmap_item(tmp_path, training, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         TLoop.run_training(_config(tmp_path, training))
