@@ -224,12 +224,33 @@ prints no ``ok`` line:
      those rows change; launches 32 attentions and 61 GroupNorms a step;
      the embeddings' npz); with --profile a trace of a distill and a TI
      step by kernel group, backward and span;
- 16. the card line, then one JSON ``kernels`` line (the fp32 attention
+ 16. multi-device: a one-rank NCCL group; SD-1.5 data-parallel sampling
+     and train_lora.yaml on two gloo ranks sharing the card (this script
+     with --dp-rank), against one process; profiling.trace,
+     trace_analysis and flops_estimate;
+ 17. tensor and sequence parallel on gloo ranks sharing the card (this
+     script with --tp-rank; every time is contention, not scaling): (a)
+     the split GroupNorm pair (group_norm_partials, group_norm_apply) at
+     every GroupNorm shape of the SD-1.5 UNet at batch 4 in 2 and 4 row
+     slices, bf16 and fp32, the merged statistics against all rows', the
+     output against plain_group_norm, both timed at a mesh_seq=2 rank's
+     shapes; (b) SD-1.5 at 512^2 on two ranks at mesh_model=2 and at
+     mesh_seq=2: one fp32 (TF32 off) and one bf16 UNet forward, a 4-step
+     fp32 and a 20-step bf16 run, each against one process, every rank's
+     launches equal to the census restated for the mode; (c) four ranks at
+     mesh_seq=2 x mesh_model=2: both forwards and a 4-step bf16 run; (d)
+     SD3-medium at 1024^2: at mesh_model=2 T5-XXL's block 0 (bf16, fp32)
+     and its fp32 encode, and at mesh_model=2 and mesh_seq=2 one bf16 and
+     one fp32 MMDiT forward and a 2-step run against one process; (e)
+     serving.server.serve at mesh_model=2 answering one request, its PNG
+     bit-equal to a direct call on the same ranks;
+ 18. the card line, then one JSON ``kernels`` line (the fp32 attention
      kernel's entry is phase 9's metric towers: 108 launches a validate
-     batch; each entry also lists its launches in each phase-7 to phase-15
+     batch; each entry also lists its launches in each phase-7 to phase-17
      run, and its phase-10 and phase-12 sums over one forward and one
-     decode);
- 17. the last line: {"ok": true, "device": {...}}.
+     decode; the split GroupNorm pair's entries are phase 17's mesh_seq=2
+     run);
+ 19. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -5680,6 +5701,936 @@ def phase16_launches(out, kind):
     return res
 
 
+# ------------------------- tensor and sequence parallel on ranks sharing the card (phase 17)
+# Gloo ranks share the one card (NCCL refuses two ranks on one GPU), so the
+# phase shows correctness and launch counts; every time it prints is
+# contention between processes, with the collectives through the host.
+TP_NOTE = "contention on one card, gloo through the host: not scaling"
+TP_WORLD = {"model": 2, "seq": 2, "both": 4, "sd3_model": 2, "sd3_seq": 2}
+TP_MESH = {"model": dict(mesh_model=2), "seq": dict(mesh_seq=2),
+           "both": dict(mesh_seq=2, mesh_model=2), "sd3_model": dict(mesh_model=2),
+           "sd3_seq": dict(mesh_seq=2)}
+# The fp32 runs', the four-rank run's, the served request's and SD3's
+# denoising steps (the phase cuts steps, never widths: a reduce crosses the
+# host, and a rank's 20-step bf16 SD-1.5 loop takes ~26 s under model).
+TP_SHORT_STEPS, SD3_TP_STEPS, SD3_T5_STEPS = 4, 2, 1
+# Against one process: a forward's relative L2 (UNet, MMDiT, T5) and the
+# images' mean |difference| on [0, 1], by dtype.  fp32 runs with TF32 off.
+# T5-XXL with random weights (lecun-normal q and k, 8x T5's own q scale,
+# and unscaled logits) amplifies any change of summation order with depth:
+# on an H100 one process's fp32 encode moves 3.5e-2 (relative L2) when its
+# channels are permuted (``permuted_t5_encode``), and its bf16 encode is
+# far from its fp32 one.  So the split T5 is held block by block (each
+# block on the one process's input to it, bf16 at block 0, fp32 at every
+# block) with these gates, and its whole fp32 encode to T5_ORDER_FACTOR
+# times the permuted encode's drift in the same run.  SD3's tight loops
+# run on the CLIP context; the T5-conditioned one has the bf16 image gate.
+TP_FORWARD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+TP_IMAGE_MEAN = {"float32": 1e-3, "bfloat16": 5e-2}
+T5_ORDER_FACTOR = 2.0
+# The split GroupNorm's statistics merged from TP_SPLITS row slices against
+# the same kernel's over all rows (the one-launch kernel's steps 1-4).
+GN_STATS_REL, TP_SPLITS = 1e-6, (2, 4)
+TP_TIMEOUT_S = 600
+TP_SERVE_SEED = 170
+SPLIT_GN = {
+    "group_norm_partials": dict(name="group_norm_partials", route="cuda", dtype="bfloat16",
+                                source="sonicdiffusionbayeslab_torch/ops/csrc/groupnorm.cu",
+                                replaces="sonicdiffusionbayeslab_tpu/ops/groupnorm.py:27"),
+    "group_norm_apply": dict(name="group_norm_apply", route="cuda", dtype="bfloat16",
+                             source="sonicdiffusionbayeslab_torch/ops/csrc/groupnorm.cu",
+                             replaces="sonicdiffusionbayeslab_tpu/ops/groupnorm.py:27"),
+}
+
+
+def split_gn_counts(reset=False):
+    """The split GroupNorm wrappers' launch counts."""
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import group_norm_apply, group_norm_partials
+
+    wrappers = {"group_norm_partials": group_norm_partials, "group_norm_apply": group_norm_apply}
+    if reset:
+        for w in wrappers.values():
+            w.launches = 0
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def all_counts(reset=False):
+    return {**wrapper_counts(reset), **split_gn_counts(reset)}
+
+
+def split_gn_bound(kind, B, N, C, G, silu, dtype):
+    """(least ms, "bytes" | "operations") of one split-GroupNorm launch on a
+    rank's [B, N, C]: the partials read x and write [B, G, 3] fp32, ~4
+    operations an element; the apply reads x, the statistics, gamma and
+    beta and writes y, ~2 operations an element (6 with the SiLU)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    if kind == "group_norm_partials":
+        nbytes, ops = B * N * C * size + 12 * B * G, 4 * B * N * C
+    else:
+        nbytes, ops = 2 * B * N * C * size + 2 * C * size + 8 * B * G, (6 if silu else 2) * B * N * C
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def split_pair(x, w, b, G, eps, silu, n):
+    """The split GroupNorm pair in one process as ``n`` seq ranks run it on
+    ``x``'s rows cut in ``n`` slices: each slice's partials, merged in row
+    order, applied to each slice; (output, merged statistics)."""
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import (group_norm_apply, group_norm_partials,
+                                                            merge_group_stats)
+
+    slices = [s.contiguous() for s in x.chunk(n, dim=1)]
+    stats = merge_group_stats(torch.stack([group_norm_partials(s, G) for s in slices]), eps)
+    return torch.cat([group_norm_apply(s, stats, w, b, silu) for s in slices], dim=1), stats
+
+
+def check_split_group_norm(unet_calls):
+    """Phase 17 (a): the split GroupNorm pair at every GroupNorm shape of the
+    SD-1.5 UNet at batch 2 * BATCH, its rows cut in 2 and 4 slices (one
+    process), bf16 and fp32: the partials of the slices merged in order
+    within GN_STATS_REL (relative) of the same kernel's over all rows,
+    within the plain partials' merge; the apply of the merged statistics
+    to every slice against ``plain_group_norm`` with the GroupNorm gates.
+    Then each kernel timed at a rank's shape of n_seq 2 (bf16), beside its
+    plain version, ``torch.var_mean`` (the partials' library call) and the
+    bound; totals are per-shape medians x the launches at that shape in
+    one rank's seq-split batch-2 run."""
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import (group_norm_apply, group_norm_partials,
+                                                            merge_group_stats, plain_group_norm,
+                                                            plain_group_norm_apply,
+                                                            plain_group_norm_partials)
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shapes = sorted(s for k, s in unet_calls if k == "group_norm")
+    out = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                   bound_by=collections.Counter(), launches_a_forward=0) for k in SPLIT_GN}
+    stats_rel = 0.0
+    timings = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in shapes:
+            B, N, C, G, eps, silu = shape
+            x, w, b = gn_inputs(shape, dtype, gen)
+            whole = merge_group_stats(group_norm_partials(x, G)[None], eps)
+            want = plain_group_norm(x, w, b, G, eps, silu)
+            for n in TP_SPLITS:
+                slices = [s.contiguous() for s in x.chunk(n, dim=1)]
+                y, stats = split_pair(x, w, b, G, eps, silu, n)
+                rel = ((stats - whole).abs() / whole.abs()).max().item()
+                stats_rel = max(stats_rel, rel)
+                if rel > GN_STATS_REL:
+                    raise AssertionError(f"split GroupNorm {shape} in {n} slices, {dtype}: merged "
+                                         f"statistics {rel:.3e} from all rows' (relative)")
+                plain = merge_group_stats(torch.stack([plain_group_norm_partials(s, G)
+                                                       for s in slices]), eps)
+                p_err = (stats - plain).abs().max().item()
+                a_err = compare("group_norm", dtype, y, want,
+                                f"split GroupNorm {shape} in {n} slices, {dtype}")
+                out["group_norm_partials"]["max_abs_err"] = max(
+                    out["group_norm_partials"]["max_abs_err"], p_err)
+                out["group_norm_apply"]["max_abs_err"] = max(out["group_norm_apply"]["max_abs_err"],
+                                                             a_err)
+            if dtype != torch.bfloat16:
+                continue
+            xs = x[:, :N // 2].contiguous()
+            launches = unet_calls[("group_norm", shape)]
+            calls = {
+                "group_norm_partials": (lambda: group_norm_partials(xs, G),
+                                        lambda: plain_group_norm_partials(xs, G),
+                                        lambda: torch.var_mean(xs.view(B, -1, G, C // G),
+                                                               dim=(1, 3))),
+                "group_norm_apply": (lambda: group_norm_apply(xs, whole, w, b, silu),
+                                     lambda: plain_group_norm_apply(xs, whole, w, b, silu), None),
+            }
+            for kind, (kern, plain_fn, lib) in calls.items():
+                ms, plain_ms = cuda_ms(kern), cuda_ms(plain_fn)
+                lib_ms = cuda_ms(lib) if lib is not None else None
+                b_ms, by = split_gn_bound(kind, B, N // 2, C, G, silu, dtype)
+                r = out[kind]
+                r["ms"] += STEPS * launches * ms
+                r["plain_ms"] += STEPS * launches * plain_ms
+                r["bound_ms"] += STEPS * launches * b_ms
+                r["bound_by"][by] += STEPS * launches * b_ms
+                if lib_ms is not None:
+                    r["library_ms"] += STEPS * launches * lib_ms
+                r["launches_a_forward"] += launches
+                timings.append(dict(kernel=kind, shape=[B, N // 2, C, G], launches=launches,
+                                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                                    bound_by=by))
+                print(f"phase 17 (a) {kind} bf16 {B},{N // 2},{C} (G {G}) x{launches} a forward: "
+                      f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library "
+                      f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}, bound "
+                      f"{b_ms * 1e3:.1f} us ({by})", flush=True)
+    for r in out.values():
+        r["bound_by"] = max(r["bound_by"], key=r["bound_by"].get)
+    out["group_norm_apply"]["library_ms"] = None  # no one call applies given statistics
+    print(f"phase 17 (a) split GroupNorm: merged statistics within {stats_rel:.3e} (relative) "
+          f"of all rows' over {len(shapes)} shapes x {TP_SPLITS} slices x bf16/fp32; max abs err "
+          f"partials {out['group_norm_partials']['max_abs_err']:.3e}, apply "
+          f"{out['group_norm_apply']['max_abs_err']:.3e}; totals over one rank's run: "
+          + json.dumps({k: {f: r[f] for f in ('ms', 'plain_ms', 'bound_ms', 'library_ms')}
+                        for k, r in out.items()}), flush=True)
+    return dict(kernels=out, stats_rel=stats_rel, timings=timings)
+
+
+def rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+class recording_kernel_shapes:
+    """A context in which every attention, GroupNorm and split-GroupNorm
+    call of the UNet's, the MMDiT's and their layers' adds its shape to
+    the set ``shapes`` and goes on unchanged: ("attention", (B, N, M, H,
+    D)) for a call the kernel takes, ("group_norm", (B, N, C, G, eps,
+    silu)) and ("group_norm_split", (B, N, C, G, eps, silu, ranks))."""
+
+    def __init__(self, shapes):
+        self.shapes = shapes
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from sonicdiffusionbayeslab_torch.models import layers, mmdit
+        from sonicdiffusionbayeslab_torch.ops.attention import uses_kernel
+        from sonicdiffusionbayeslab_torch.ops.groupnorm import resolve_groups
+
+        self.saved = (layers.dot_product_attention, mmdit.dot_product_attention,
+                      layers.group_norm_silu, layers.group_norm_silu_split)
+        attn_fn, _, gn_fn, split_fn = self.saved
+        add = self.shapes.add
+
+        def rows(x, groups, eps, silu):
+            B, C = x.shape[0], x.shape[-1]
+            return (B, x.numel() // (B * C), C, resolve_groups(C, groups), eps, bool(silu))
+
+        def attn(q, k, v, mask=None):
+            if uses_kernel(q, mask):
+                add(("attention", (*q.shape[:2], k.shape[1], *q.shape[2:])))
+            return attn_fn(q, k, v, mask=mask)
+
+        def gn(x, weight, bias, groups=32, eps=1e-5, silu=True):
+            add(("group_norm", rows(x, groups, eps, silu)))
+            return gn_fn(x, weight, bias, groups, eps, silu)
+
+        def split(x, weight, bias, groups, eps, silu, group):
+            add(("group_norm_split", rows(x, groups, eps, silu) + (dist.get_world_size(group),)))
+            return split_fn(x, weight, bias, groups, eps, silu, group)
+
+        layers.dot_product_attention = mmdit.dot_product_attention = attn
+        layers.group_norm_silu, layers.group_norm_silu_split = gn, split
+        return self.shapes
+
+    def __exit__(self, *exc):
+        from sonicdiffusionbayeslab_torch.models import layers, mmdit
+
+        (layers.dot_product_attention, mmdit.dot_product_attention, layers.group_norm_silu,
+         layers.group_norm_silu_split) = self.saved
+
+
+def check_split_shapes(ranks):
+    """Phase 17 (a, split shapes): each kernel at every shape rank 0 of each
+    mode launched in its UNet or MMDiT forwards (``kernel_shapes``), bf16
+    and fp32, against its plain version with ``compare``'s gates: the
+    attention kernels on a model rank's heads and on a seq rank's queries
+    against the gathered keys (N != M); the one-launch GroupNorm on a model
+    rank's channels and groups; the split pair on a seq rank's rows, cut
+    from a whole map of ``ranks`` times its rows and held to
+    ``plain_group_norm`` of the whole.  Raises if a mode recorded none of
+    the kinds its split launches; returns the max abs errors by kernel and
+    dtype and the shapes by kind."""
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import plain_group_norm
+
+    want_kinds = {"model": {"attention", "group_norm"}, "seq": {"attention", "group_norm_split"},
+                  "both": {"attention", "group_norm_split"}, "sd3_model": {"attention"},
+                  "sd3_seq": {"attention"}}
+    shapes = set()
+    for mode, recs in ranks.items():
+        got = {(kind, tuple(shape)) for kind, shape in recs[0]["kernel_shapes"]}
+        missing = want_kinds[mode] - {kind for kind, _ in got}
+        if missing:
+            raise AssertionError(f"phase 17 {mode}: rank 0 recorded no {sorted(missing)} shape")
+        shapes |= got
+    gen = torch.Generator(device="cuda").manual_seed(171)
+    errs = collections.defaultdict(float)
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "" if dtype == torch.bfloat16 else "_fp32"
+        for kind, shape in sorted(shapes):
+            what = f"phase 17 {kind} {shape} {dtype}"
+            if kind == "group_norm_split":
+                B, N, C, G, eps, silu, n = shape
+                x, w, b = gn_inputs((B, n * N, C), dtype, gen)
+                got = split_pair(x, w, b, G, eps, silu, n)[0]
+                err = compare("group_norm", dtype, got, plain_group_norm(x, w, b, G, eps, silu),
+                              what)
+            else:
+                inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
+                kern, plain = run_kernel(kind, shape, inputs)
+                err = compare(kind, dtype, kern(), plain(), what)
+            errs[kind + tag] = max(errs[kind + tag], err)
+        torch.cuda.empty_cache()
+    by_kind = collections.defaultdict(list)
+    for kind, shape in sorted(shapes):
+        by_kind[kind].append(list(shape))
+    print(f"phase 17 (a) the kernels at the split modes' {len(shapes)} shapes x bf16/fp32 against "
+          f"their plain versions: max abs err {json.dumps(dict(errs))}; shapes "
+          f"{json.dumps(by_kind)}", flush=True)
+    return dict(max_abs_err=dict(errs), shapes=by_kind)
+
+
+def seq_drift_parts(unet, inp):
+    """One process's bf16 UNet forward on the fixed inputs against itself
+    with one numerical change of the seq split emulated in the process
+    (relative L2 of the output): "batch_halves", the batch as two calls
+    (other GEMM and conv algorithms, nothing split); "conv", every conv on
+    two row halves, each with the halo rows its padding reads (stride 2:
+    only the row above), as two seq ranks run it; "group_norm", every
+    GroupNorm as the split pair over two row halves; "attention", every
+    attention as two halves of the queries against all the keys; "all",
+    the three at once."""
+    import torch.nn.functional as F
+
+    from sonicdiffusionbayeslab_torch.models import layers
+
+    orig = {"conv_padded": layers.conv_padded, "group_norm_silu": layers.group_norm_silu,
+            "dot_product_attention": layers.dot_product_attention}
+
+    def conv(conv_, x, padding=((1, 1), (1, 1)), bias=True):
+        (top, bottom), lr = padding
+        stride, h = conv_.stride[0], x.shape[1] // 2
+        bottom_read = 0 if stride == 2 else bottom
+        xp = F.pad(x, (0, 0, 0, 0, top, bottom))
+        return torch.cat([orig["conv_padded"](conv_, xp[:, r * h:(r + 1) * h + top + bottom_read],
+                                              ((0, 0), lr), bias) for r in (0, 1)], dim=1)
+
+    def gn(x, weight, bias, groups=32, eps=1e-5, silu=True):
+        from sonicdiffusionbayeslab_torch.ops.groupnorm import resolve_groups
+
+        return split_pair(x, weight, bias, resolve_groups(x.shape[-1], groups), eps, silu, 2)[0]
+
+    def attn(q, k, v, mask=None):
+        return torch.cat([orig["dot_product_attention"](h.contiguous(), k, v, mask=mask)
+                          for h in q.chunk(2, dim=1)], dim=1)
+
+    emul = {"conv": ("conv_padded", conv), "group_norm": ("group_norm_silu", gn),
+            "attention": ("dot_product_attention", attn)}
+    args = (inp["x"].to(unet.dtype), inp["t"], inp["ctx"].to(unet.dtype))
+
+    def forward(*a):
+        with torch.inference_mode():
+            return unet(*a).float()
+
+    base = forward(*args)
+    half = args[0].shape[0] // 2
+    out = {"batch_halves": rel_l2(torch.cat([forward(*(t[:half] for t in args)),
+                                             forward(*(t[half:] for t in args))]), base)}
+    for name, parts in [(k, [k]) for k in emul] + [("all", list(emul))]:
+        try:
+            for part in parts:
+                setattr(layers, *emul[part])
+            out[name] = rel_l2(forward(*args), base)
+        finally:
+            for attr, fn in orig.items():
+                setattr(layers, attr, fn)
+    return out
+
+
+def t5_block_states(t5, ids):
+    """[L + 1, B, T, d_model] on the host: the hidden states entering each
+    of T5's blocks and leaving the last (before the final norm)."""
+    x, bias = t5.shared(ids), t5.position_bias(ids.shape[1], ids.device)
+    states = [x.float().cpu()]
+    for blk in t5.encoder.block:
+        x = blk(x, bias)
+        states.append(x.float().cpu())
+    return torch.stack(states)
+
+
+def t5_block_drift(t5, states):
+    """Each of T5's (split) blocks run on the one-process input to it
+    (``states``, as ``t5_block_states`` gives them): its update (output
+    minus input) against the one process's, relative L2, a block each."""
+    dev = t5.shared.weight.device
+    bias = t5.position_bias(states.shape[2], dev)
+    out = []
+    for i, blk in enumerate(t5.encoder.block):
+        x = states[i].to(dev, t5.shared.weight.dtype)
+        out.append(rel_l2(blk(x, bias).float().cpu() - states[i], states[i + 1] - states[i]))
+    return out
+
+
+def permuted_t5_encode(t5, ids, seed=17):
+    """T5's encode of ``ids`` as the same function with d_model, d_ff and
+    the heads permuted (each weight's rows and columns, the norms' scales
+    and the bias table's columns moved alike), so that every contraction
+    sums in another order; returned in the original channel order.
+    Permutes ``t5``'s weights in place."""
+    cfg, dev = t5.config, t5.shared.weight.device
+    gen = torch.Generator().manual_seed(seed)
+    p_d, p_ff, p_h = (torch.randperm(n, generator=gen) for n in
+                      (cfg.d_model, cfg.d_ff, cfg.num_heads))
+    p_inner = (p_h[:, None] * cfg.d_kv + torch.arange(cfg.d_kv)).flatten()
+    p_d, p_ff, p_h, p_inner = (t.to(dev) for t in (p_d, p_ff, p_h, p_inner))
+
+    def take(mod, dim, idx):
+        mod.weight.data = mod.weight.data.index_select(dim, idx)
+
+    take(t5.shared, 1, p_d)
+    for blk in t5.encoder.block:
+        attn, ff = blk.layer
+        sa, mlp = attn.SelfAttention, ff.DenseReluDense
+        for norm in (attn.layer_norm, ff.layer_norm):
+            take(norm, 0, p_d)
+        for lin in (sa.q, sa.k, sa.v):
+            take(lin, 1, p_d)
+            take(lin, 0, p_inner)
+        take(sa.o, 0, p_d)
+        take(sa.o, 1, p_inner)
+        if hasattr(sa, "relative_attention_bias"):
+            take(sa.relative_attention_bias, 1, p_h)
+        for lin in (mlp.wi_0, mlp.wi_1):
+            take(lin, 1, p_d)
+            take(lin, 0, p_ff)
+        take(mlp.wo, 0, p_d)
+        take(mlp.wo, 1, p_ff)
+    take(t5.encoder.final_layer_norm, 0, p_d)
+    return t5(ids).index_select(-1, torch.argsort(p_d))
+
+
+def tp_references(root):
+    """The one-process runs the split ones are held to: SD-1.5 (random
+    weights from seed 0) one UNet forward at batch 2 * BATCH on fixed
+    inputs and images at batch BATCH (seed 29), fp32 (TF32 off,
+    TP_SHORT_STEPS steps) and bf16 (STEPS and TP_SHORT_STEPS steps);
+    SD3-medium with T5-XXL (``sd3_tp_runs``).  Inputs and outputs go to
+    ``root``.  Returns the seconds each took and one process's own drift
+    (``seq_drift_parts``; bf16 against fp32; T5's permuted encode)."""
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.models.t5 import T5Config
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(170)
+    lat = SIZE // 8
+    inp = dict(x=torch.randn(2 * BATCH, lat, lat, 4, generator=gen, device="cuda"),
+               t=torch.full((2 * BATCH,), 501.0, device="cuda"),
+               ctx=torch.randn(2 * BATCH, 77, 768, generator=gen, device="cuda"))
+    torch.save({k: v.cpu() for k, v in inp.items()}, root / "tp_inputs.pt")
+    refs = {}
+    kw = dict(guidance_scale=GUIDANCE, seed=29)
+    for dtype in ("float32", "bfloat16"):
+        torch.backends.cudnn.allow_tf32 = dtype != "float32"
+        model = StableDiffusionModel(image_size=SIZE, dtype=dtype, seed=0, device="cuda")
+        dt = model.engine.dtype
+        with torch.inference_mode():
+            refs[f"{dtype}_forward"] = model.engine.unet(
+                inp["x"].to(dt), inp["t"], inp["ctx"].to(dt)).float().cpu()
+        if dtype == "bfloat16":
+            drift = seq_drift_parts(model.engine.unet, inp)
+        refs[f"{dtype}_images"] = torch.from_numpy(model(
+            PROMPTS, num_inference_steps=STEPS if dtype == "bfloat16" else TP_SHORT_STEPS,
+            **kw)[0])
+        if dtype == "bfloat16":
+            refs["bfloat16_images_short"] = torch.from_numpy(
+                model(PROMPTS, num_inference_steps=TP_SHORT_STEPS, **kw)[0])
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.save(refs, root / "tp_refs.pt")
+    drift["bf16_vs_fp32"] = rel_l2(refs["bfloat16_forward"], refs["float32_forward"])
+    sd15_s = time.perf_counter() - t0
+
+    cfg = T5Config.xxl()
+    sd3_lat = SD3_SIZE // 8
+    sinp = dict(ids=torch.randint(0, cfg.vocab_size, (2, cfg.max_length), generator=gen,
+                                  device="cuda").cpu(),
+                t5_h=torch.randn(2, cfg.max_length, cfg.d_model, generator=gen, device="cuda").cpu(),
+                x=torch.randn(2, sd3_lat, sd3_lat, 16, generator=gen, device="cuda").cpu(),
+                t=torch.full((2,), 700.0),
+                ctx=torch.randn(2, 77 + cfg.max_length, cfg.d_model, generator=gen,
+                                device="cuda").cpu(),
+                pooled=torch.randn(2, 2048, generator=gen, device="cuda").cpu())
+    torch.save(sinp, root / "tp_sd3_inputs.pt")
+    sd3_refs = sd3_tp_runs(None, root)[1]
+    torch.save(sd3_refs, root / "tp_sd3_refs.pt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # One process's own rounding, beside the split's drift: its bf16
+    # forward against its fp32 one, and the split's changes emulated one at
+    # a time (SD-1.5); T5's fp32 encode against the same function with
+    # every contraction reordered.
+    drift.update(mmdit_bf16_vs_fp32=rel_l2(sd3_refs["bfloat16_forward"], sd3_refs["float32_forward"]),
+                 t5_permuted=rel_l2(sd3_refs["t5_permuted"], sd3_refs["t5"]))
+    print(f"phase 17 one process's own drift (relative L2): {json.dumps(drift)}", flush=True)
+    return dict(sd15_s=sd15_s, sd3_s=time.perf_counter() - t0 - sd15_s), drift
+
+
+def t5_xxl():
+    """T5-XXL's encoder on the card in bf16 with random weights from a fixed
+    seed (``init_module``'s families), built on the meta device so that no
+    fp32 copy is ever allocated."""
+    from sonicdiffusionbayeslab_torch.models.sampler import init_module
+    from sonicdiffusionbayeslab_torch.models.t5 import T5Config, T5Encoder
+
+    with torch.device("meta"):
+        t5 = T5Encoder(T5Config.xxl()).to(torch.bfloat16)
+    t5 = t5.to_empty(device="cuda").requires_grad_(False).eval()
+    init_module(t5, torch.Generator(device="cuda").manual_seed(5))
+    return t5
+
+
+def sd3_tp_runs(mode, root):
+    """Phase 17 (d) in one process (``mode`` None) or split by ``mode`` on
+    this rank; returns (record, outputs).  T5-XXL (not for ``sd3_seq``,
+    which does not split it) as a module: block 0 on fixed hidden states
+    in bf16, then cast to fp32 (TF32 off), block 0 again and one encode of
+    the fixed ids; one process keeps the hidden states entering each block
+    and encodes once more with its channels permuted
+    (``permuted_t5_encode``), a split rank runs each block on the one
+    process's input to it (``t5_block_drift``).  SD3-medium (random bf16
+    weights from seed 0, CLIP context: a T5-conditioned run would only
+    carry T5's drift, see TP_FORWARD_REL): one bf16 MMDiT forward at batch
+    2 on the fixed inputs (its patch rows; the seq axis's gathered), with
+    its kernel shapes, one SD3_TP_STEPS-step run of one prompt (CFG: model
+    batch 2) with its launches, then the MMDiT cast to fp32 and one more
+    forward.  Then, but for ``sd3_seq``, the T5-conditioned pipeline (T5
+    resident) for SD3_T5_STEPS steps of the same prompt."""
+    from sonicdiffusionbayeslab_torch.parallel import distributed
+    from sonicdiffusionbayeslab_torch.parallel import mesh as M
+
+    inp = {k: v.cuda() for k, v in torch.load(root / "tp_sd3_inputs.pt").items()}
+    mesh_kw = TP_MESH[mode] if mode else {}
+    torch.cuda.reset_peak_memory_stats()
+    rec, outs, shapes = {}, {}, set()
+    if mode != "sd3_seq":
+        t0 = time.perf_counter()
+        t5 = t5_xxl()
+        if mode is not None:
+            M.place_module(t5, M.ParallelContext.from_mesh(M.make_mesh(n_data=1, n_model=2)))
+        blk, T = t5.encoder.block[0], inp["ids"].shape[1]
+        with torch.inference_mode():
+            outs["t5_block_bfloat16"] = blk(inp["t5_h"].to(torch.bfloat16),
+                                            t5.position_bias(T, "cuda")).float().cpu()
+            t5.float()
+            torch.backends.cudnn.allow_tf32 = False
+            outs["t5_block_float32"] = blk(inp["t5_h"], t5.position_bias(T, "cuda")).cpu()
+            outs["t5"] = t5(inp["ids"]).cpu()
+            if mode is None:
+                torch.save(t5_block_states(t5, inp["ids"]), root / "tp_t5_states.pt")
+                outs["t5_permuted"] = permuted_t5_encode(t5, inp["ids"]).cpu()
+            else:
+                rec["t5_blocks_rel_l2"] = t5_block_drift(t5, torch.load(root / "tp_t5_states.pt"))
+            torch.backends.cudnn.allow_tf32 = True
+        rec["t5_s"] = time.perf_counter() - t0
+        del t5, blk
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipe = sd3_pipeline(image_size=SD3_SIZE, seed=0, device="cuda", **mesh_kw)
+    eng = pipe.engine
+    rec["init_s"] = time.perf_counter() - t0
+    par = eng.par
+    rows = M.latent_sharding(pipe.mesh, eng.unet.seq_multiple).height.rows(SD3_SIZE // 8)
+    rec["latent_rows"] = [rows.start or 0, rows.stop or SD3_SIZE // 8]
+
+    def forward(dtype):
+        t1 = time.perf_counter()
+        with torch.inference_mode(), recording_kernel_shapes(shapes):
+            out = eng.unet(inp["x"][:, rows].to(dtype), inp["t"], inp["ctx"].to(dtype),
+                           text_embeds=inp["pooled"].to(dtype))
+            if par is not None and par.n_seq > 1:
+                out = distributed.all_gather_seq(out, 1, par.seq_group)
+        torch.cuda.synchronize()
+        rec[f"{str(dtype)[6:]}_forward_s"] = time.perf_counter() - t1
+        outs[f"{str(dtype)[6:]}_forward"] = out.float().cpu()
+
+    forward(torch.bfloat16)
+    all_counts(reset=True)
+    t1 = time.perf_counter()
+    imgs, rec["execution_time_s"], _ = pipe(PROMPTS[:1], num_inference_steps=SD3_TP_STEPS,
+                                            guidance_scale=SD3_GUIDANCE, seed=29)
+    rec["call_s"] = time.perf_counter() - t1
+    rec["launches"] = all_counts()
+    outs["images"] = torch.from_numpy(imgs)
+    eng.unet.float()
+    torch.backends.cudnn.allow_tf32 = False
+    forward(torch.float32)
+    torch.backends.cudnn.allow_tf32 = True
+    del pipe, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mode != "sd3_seq":
+        t0 = time.perf_counter()
+        pipe = sd3_pipeline(image_size=SD3_SIZE, seed=0, device="cuda", use_t5=True,
+                            t5_staged=False, **mesh_kw)
+        all_counts(reset=True)
+        imgs, _, _ = pipe(PROMPTS[:1], num_inference_steps=SD3_T5_STEPS,
+                          guidance_scale=SD3_GUIDANCE, seed=29)
+        rec["t5_launches"] = all_counts()
+        rec["t5_pipeline_s"] = time.perf_counter() - t0
+        outs["t5_images"] = torch.from_numpy(imgs)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["kernel_shapes"] = sorted([kind, list(shape)] for kind, shape in shapes)
+    return rec, outs
+
+
+def tp_census(mode, dtype, steps, per_unet, per_vae):
+    """A rank's launches in a ``steps``-step batch-BATCH SD-1.5 run of
+    ``mode``: the one-process census restated (the attention kernel of the
+    dtype at the local shapes; under seq the split pair for every UNet
+    GroupNorm and the one-launch kernel for the VAE's)."""
+    attn = "attention" if dtype == "bfloat16" else "attention_fp32"
+    seq = TP_MESH[mode].get("mesh_seq", 1) > 1
+    gn = steps * per_unet["group_norm"]
+    want = dict(attention=0, attention_fp32=0, group_norm=per_vae["group_norm"] + (0 if seq else gn),
+                group_norm_partials=gn if seq else 0, group_norm_apply=gn if seq else 0)
+    want[attn] = steps * per_unet["attention"]
+    return want
+
+
+def tp_serve(model, rank):
+    """Phase 17 (e): on rank 0 ``serving.server.serve`` (port 0, max_batch 1)
+    answers one /generate request while rank 1 follows
+    (``serving.batcher.follow``); then both ranks call the pipeline
+    directly with the batch the server made, and rank 0 holds the served
+    PNG to the device round of that call, bit for bit."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.serving.batcher import follow, quantize_uint8
+    from sonicdiffusionbayeslab_torch.serving.server import serve
+
+    rec = {}
+    t0 = time.perf_counter()
+    if rank == 0:
+        ready = threading.Event()
+        th = threading.Thread(target=serve, args=(model, "stable_diffusion_model"), daemon=True,
+                              kwargs=dict(host="127.0.0.1", port=0, max_batch=1,
+                                          max_wait_ms=5.0, pipeline_depth=1, ready_event=ready))
+        th.start()
+        if not ready.wait(timeout=120):
+            raise AssertionError("the server did not start")
+        body = {"prompt": PROMPTS[0], "steps": TP_SHORT_STEPS, "guidance": GUIDANCE,
+                "seed": TP_SERVE_SEED}
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{ready.httpd.server_address[1]}/generate",
+            data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                resp = json.loads(r.read())
+        finally:
+            ready.httpd.shutdown()
+            th.join(timeout=300)
+        served = _decode_png(resp["image_png_base64"])
+        rec["batch_size"] = resp["batch_size"]
+    else:
+        rec["follower_calls"] = follow(model)
+    rec["serve_s"] = time.perf_counter() - t0
+    imgs, _, _ = model([PROMPTS[0]], num_inference_steps=TP_SHORT_STEPS,
+                       guidance_scale=GUIDANCE, negative_prompt=[""],
+                       sample_indices=[2 * TP_SERVE_SEED + 1], seed=0, output_type="device",
+                       time_loop=False)
+    direct = quantize_uint8(imgs).cpu().numpy()[0]
+    if rank == 0:
+        rec["bit_equal"] = bool(np.array_equal(direct, served))
+    return rec
+
+
+def tp_rank_sd15(rank, mode, root, per_unet, per_vae):
+    """A rank of an SD-1.5 mode: for fp32 (TF32 off) and bf16, the pipeline
+    split by the mode, one UNet forward on the fixed inputs (its rows; the
+    seq axis's gathered) and one run with its launches (bf16: STEPS steps,
+    fp32: TP_SHORT_STEPS; the four ranks: bf16 only, TP_SHORT_STEPS); the
+    served request under ``model``."""
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.parallel import distributed
+    from sonicdiffusionbayeslab_torch.parallel import mesh as M
+
+    inp = {k: v.cuda() for k, v in torch.load(root / "tp_inputs.pt").items()}
+    rec, saves, shapes = {}, {}, set()
+    for dtype in ("float32", "bfloat16"):
+        torch.backends.cudnn.allow_tf32 = dtype != "float32"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = StableDiffusionModel(image_size=SIZE, dtype=dtype, seed=0, device="cuda",
+                                     **TP_MESH[mode])
+        init_s = time.perf_counter() - t0
+        unet, par = model.engine.unet, model.engine.par
+        rows = M.latent_sharding(model.mesh, unet.seq_multiple).height.rows(SIZE // 8)
+        held = sum(p.numel() for p in unet.parameters())
+        t0 = time.perf_counter()
+        with torch.inference_mode(), recording_kernel_shapes(shapes):
+            out = unet(inp["x"][:, rows].to(unet.dtype), inp["t"], inp["ctx"].to(unet.dtype))
+            if par.n_seq > 1:
+                out = distributed.all_gather_seq(out, 1, par.seq_group)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        saves[f"{dtype}_forward"] = out.float().cpu()
+        steps = STEPS if dtype == "bfloat16" and mode != "both" else TP_SHORT_STEPS
+        if mode == "both" and dtype == "float32":  # the four ranks' run is bf16 only
+            rec[dtype] = dict(init_s=init_s, forward_s=forward_s, unet_params=held)
+            del model, unet, par
+            continue
+        all_counts(reset=True)
+        t0 = time.perf_counter()
+        imgs, exec_time, _ = model(PROMPTS, num_inference_steps=steps, guidance_scale=GUIDANCE,
+                                   seed=29)
+        call_s = time.perf_counter() - t0
+        counts = all_counts()
+        saves[f"{dtype}_images"] = torch.from_numpy(imgs)
+        rec[dtype] = dict(init_s=init_s, forward_s=forward_s, execution_time_s=exec_time,
+                          call_s=call_s, steps=steps, launches=counts, unet_params=held,
+                          latent_rows=[rows.start or 0, rows.stop or SIZE // 8],
+                          census=tp_census(mode, dtype, steps, per_unet, per_vae),
+                          peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+        if mode == "model" and dtype == "bfloat16":
+            rec["served"] = tp_serve(model, rank)
+        del model, unet, par
+    torch.backends.cudnn.allow_tf32 = True
+    torch.save(saves, root / f"tp_{mode}_rank{rank}.pt")
+    rec["kernel_shapes"] = sorted([kind, list(shape)] for kind, shape in shapes)
+    return rec
+
+
+def tp_rank_sd3(rank, mode, root):
+    """A rank of an SD3 mode: ``sd3_tp_runs`` split by the mode."""
+    rec, outs = sd3_tp_runs(mode, root)
+    torch.save(outs, root / f"tp_{mode}_rank{rank}.pt")
+    return {"bfloat16": rec, "kernel_shapes": rec.pop("kernel_shapes")}
+
+
+def tp_rank(rank, mode, addr, root):
+    """One rank of phase 17, run as its own process (``--tp-rank``): a gloo
+    group of TP_WORLD[mode] ranks on the card, the mode's runs, its record
+    in ``tp_<mode>_rank<r>.json``."""
+    import torch.distributed as dist
+
+    from sonicdiffusionbayeslab_torch.parallel import distributed
+
+    root = Path(root)
+    t_start = time.perf_counter()
+    distributed.initialize(coordinator=addr, num_processes=TP_WORLD[mode], process_id=rank,
+                           backend="gloo", device="cuda")
+    if mode.startswith("sd3"):
+        rec = tp_rank_sd3(rank, mode, root)
+    else:
+        _, per_unet, per_vae = census(2 * BATCH)
+        rec = tp_rank_sd15(rank, mode, root, per_unet, per_vae)
+    rec["wall_s"] = time.perf_counter() - t_start
+    print(f"phase 17 {mode} rank {rank}: {json.dumps(rec)}", flush=True)
+    (root / f"tp_{mode}_rank{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_tp_ranks(root, modes):
+    """Each mode's TP_WORLD[mode] processes of this script (``--tp-rank``),
+    all modes at once, each rank's output in ``tp_<mode>_rank<r>.log``;
+    every rank must exit 0 within TP_TIMEOUT_S, and every process is
+    stopped."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for mode in modes:
+            addr = f"localhost:{_free_port()}"
+            for r in range(TP_WORLD[mode]):
+                logs.append(open(root / f"tp_{mode}_rank{r}.log", "w"))
+                procs.append((mode, r, subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--tp-rank", str(r),
+                     "--tp-mode", mode, "--tp-addr", addr, "--tp-dir", str(root)], env=env,
+                    stdout=logs[-1], stderr=subprocess.STDOUT)))
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        for _, _, p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for mode, r, p in procs:
+        if p.returncode != 0:
+            text = (root / f"tp_{mode}_rank{r}.log").read_text()
+            print(f"--- {mode} rank {r} (exit {p.returncode}), last lines:\n"
+                  + "\n".join(text.splitlines()[-30:]), flush=True)
+            raise AssertionError(f"phase 17 {mode} rank {r} exited {p.returncode}")
+    return {mode: [json.loads((root / f"tp_{mode}_rank{r}.json").read_text())
+                   for r in range(TP_WORLD[mode])] for mode in modes}, wall
+
+
+def tp_compare(root, mode, ranks, card):
+    """Every rank's outputs equal rank 0's; rank 0's held to one process
+    with the gates; each rank's launches equal to its census (SD-1.5);
+    its times printed with the card."""
+    import numpy as np
+
+    sd3 = mode.startswith("sd3")
+    refs = torch.load(root / ("tp_sd3_refs.pt" if sd3 else "tp_refs.pt"))
+    outs = [torch.load(root / f"tp_{mode}_rank{r}.pt") for r in range(TP_WORLD[mode])]
+    for r, o in enumerate(outs[1:], 1):
+        for k, v in o.items():
+            if not torch.equal(v, outs[0][k]):
+                raise AssertionError(f"phase 17 {mode}: rank {r}'s {k} differs from rank 0's")
+    res = {}
+    if sd3:
+        checks = [(f"mmdit_{d}", d, "forward", refs[f"{d}_forward"], outs[0][f"{d}_forward"])
+                  for d in ("float32", "bfloat16")]
+        checks.append(("bfloat16_images", "bfloat16", "images", refs["images"],
+                       outs[0]["images"]))
+        if "t5" in outs[0]:
+            checks += [(f"t5_block_{d}", d, "forward", refs[f"t5_block_{d}"],
+                        outs[0][f"t5_block_{d}"]) for d in ("float32", "bfloat16")]
+            checks.append(("t5_conditioned_images", "bfloat16", "images", refs["t5_images"],
+                           outs[0]["t5_images"]))
+    else:
+        short = mode == "both"
+        checks = []
+        for dtype in ("float32", "bfloat16"):
+            checks.append((f"{dtype}_forward", dtype, "forward", refs[f"{dtype}_forward"],
+                           outs[0][f"{dtype}_forward"]))
+            if short and dtype == "float32":
+                continue  # the four ranks run their short loop in bf16 against it
+            ref = refs["bfloat16_images_short"] if short else refs[f"{dtype}_images"]
+            checks.append((f"{dtype}_images", dtype, "images", ref, outs[0][f"{dtype}_images"]))
+    failed = []
+    for name, dtype, what, want, got in checks:
+        if what == "forward":
+            err = rel_l2(got, want)
+            res[name] = dict(rel_l2=err)
+            if not torch.isfinite(got).all() or err > TP_FORWARD_REL[dtype]:
+                failed.append(f"{name}: relative L2 {err:.3e} from one process > "
+                              f"{TP_FORWARD_REL[dtype]}")
+        else:
+            got, want = got.numpy(), want.numpy()
+            d = np.abs(got.astype(np.float64) - want.astype(np.float64))
+            res[name] = dict(mean_abs=float(d.mean()), max_abs=float(d.max()))
+            if got.shape != want.shape or not np.isfinite(got).all() \
+                    or d.mean() > TP_IMAGE_MEAN[dtype]:
+                failed.append(f"{name}: mean |diff| {d.mean():.3e} from one process > "
+                              f"{TP_IMAGE_MEAN[dtype]} (shape {got.shape})")
+    if sd3 and "t5" in outs[0]:
+        # The whole fp32 encode, against one process's own change of order.
+        err, own = rel_l2(outs[0]["t5"], refs["t5"]), rel_l2(refs["t5_permuted"], refs["t5"])
+        res["t5_encode_float32"] = dict(rel_l2=err, one_process_permuted=own)
+        if not err <= T5_ORDER_FACTOR * own:
+            failed.append(f"t5 encode: relative L2 {err:.3e} from one process > "
+                          f"{T5_ORDER_FACTOR} x {own:.3e}, one process's permuted encode's")
+        # Each split T5 block on the one process's input to it.
+        blocks = ranks[0]["bfloat16"]["t5_blocks_rel_l2"]
+        res["t5_blocks_float32"] = dict(max_rel_l2=max(blocks), rel_l2=blocks)
+        if not max(blocks) <= TP_FORWARD_REL["float32"]:
+            failed.append(f"t5 blocks: an update's relative L2 {max(blocks):.3e} from one "
+                          f"process > {TP_FORWARD_REL['float32']} ({blocks})")
+    for r, rec in enumerate(ranks):
+        for dtype, m in rec.items():
+            if not isinstance(m, dict) or "launches" not in m:
+                continue
+            if "census" in m and m["launches"] != m["census"]:
+                failed.append(f"rank {r} {dtype}: launches {m['launches']}, census {m['census']}")
+            if sd3:  # the MMDiT's joint attentions, the VAE's GroupNorms
+                runs = [("launches", SD3_TP_STEPS)] + (
+                    [("t5_launches", SD3_T5_STEPS)] if "t5_launches" in m else [])
+                for key, steps in runs:
+                    got = m[key]
+                    if (got["attention"] != steps * 24 or got["group_norm"] != 30
+                            or got["group_norm_partials"]):
+                        failed.append(f"rank {r} {key}: {got}, expected {steps * 24} attention, "
+                                      f"30 GroupNorm")
+            secs = {k: round(v, 3) for k, v in m.items() if k.endswith("_s")}
+            print(f"phase 17 {mode} rank {r} {dtype}: seconds {json.dumps(secs)}, peak "
+                  f"{m['peak_gb']:.2f} GiB, launches {m['launches']} ({TP_NOTE}); {card}",
+                  flush=True)
+    if mode == "model":
+        served = ranks[0]["served"]
+        res["served"] = served
+        if not served["bit_equal"] or served["batch_size"] != 1 \
+                or ranks[1]["served"]["follower_calls"] != 1:
+            failed.append(f"(e) served request: {served}, follower {ranks[1]['served']}")
+    print(f"phase 17 {mode} against one process: {json.dumps(res)}", flush=True)
+    if failed:
+        raise AssertionError(f"phase 17 {mode}: " + "; ".join(failed))
+    return res
+
+
+def run_tensor_parallel(report, card):
+    """Phase 17: (a) the split GroupNorm kernels; one-process references
+    and one process's own drift; (b) SD-1.5 at mesh_model=2 and
+    mesh_seq=2, (c) four ranks at mesh_seq=2 x mesh_model=2, (d)
+    SD3-medium at mesh_model=2 (with T5-XXL) and mesh_seq=2, (e) the
+    server on the mesh_model=2 ranks, each against one process; gloo
+    groups of several modes run at once; then the kernels at every shape
+    the split forwards launched, against their plain versions."""
+    out = {}
+    t0 = time.perf_counter()
+    out["split_group_norm"] = check_split_group_norm(module_census(2 * BATCH))
+    out["kernels_s"] = time.perf_counter() - t0
+    print(f"phase 17 (a) took {out['kernels_s']:.1f} s", flush=True)
+    _, per_unet, per_vae = census(2 * BATCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="sdbl_tp_") as tmp:
+        root = Path(tmp)
+        t1 = time.perf_counter()
+        out["references_s"], out["one_process_drift"] = tp_references(root)
+        print(f"phase 17 one-process references: {json.dumps(out['references_s'])}", flush=True)
+        ranks = {}
+        # Two groups of six ranks at once, ~50-60 GB of the card's 80 each.
+        for group in (("model", "seq", "sd3_seq"), ("both", "sd3_model")):
+            got, wall = run_tp_ranks(root, group)
+            ranks.update(got)
+            out[f"{'+'.join(group)}_wall_s"] = wall
+            print(f"phase 17 ranks of {', '.join(group)}: {wall:.1f} s wall; " + "; ".join(
+                f"{m} rank {r} {json.dumps({k: v for k, v in rec.items() if k != 'kernel_shapes'})}"
+                for m in group for r, rec in enumerate(got[m])), flush=True)
+        out["ranks_s"] = time.perf_counter() - t1
+        out["ranks"] = ranks
+        out["against_one_process"], failed = {}, []
+        for m in ranks:  # every mode compared and printed before a failure raises
+            try:
+                out["against_one_process"][m] = tp_compare(root, m, ranks[m], card)
+            except AssertionError as e:
+                failed.append(str(e))
+    t1 = time.perf_counter()
+    out["split_shapes"] = check_split_shapes(ranks)
+    out["split_shapes_s"] = time.perf_counter() - t1
+    apply_row = out["split_group_norm"]["kernels"]["group_norm_apply"]
+    apply_row["max_abs_err"] = max(apply_row["max_abs_err"],
+                                   *(e for k, e in out["split_shapes"]["max_abs_err"].items()
+                                     if k.startswith("group_norm_split")))
+    if failed:
+        raise AssertionError("; ".join(failed))
+    # A rank keeps its share of the model axis's weights: under model the
+    # UNet's parameters a rank holds fall, under seq they stay whole.
+    held = {m: ranks[m][0]["bfloat16"]["unet_params"] for m in ("model", "seq", "both")}
+    print(f"phase 17 UNet parameters a rank holds: {json.dumps(held)}", flush=True)
+    if not held["model"] == held["both"] < 0.8 * held["seq"]:
+        raise AssertionError(f"phase 17: a model rank holds {held} UNet parameters")
+    out["launches"] = {m: [{d: v["launches"] for d, v in rec.items()
+                            if isinstance(v, dict) and "launches" in v} for rec in recs]
+                       for m, recs in ranks.items()}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 17 wall clock: {out['wall_s']:.1f} s (kernels {out['kernels_s']:.1f}, one "
+          f"process {json.dumps(out['references_s'])}, ranks {out['ranks_s']:.1f}, the kernels "
+          f"at the split shapes {out['split_shapes_s']:.1f}; {TP_NOTE}); {card}", flush=True)
+    report["e2e"]["tensor_parallel"] = out
+    return out
+
+
+def phase17_launches(out, kind):
+    """A kernel's launches in phase 17's bf16 SD-1.5 runs: each mode's rank 0."""
+    return {m: recs[0]["bfloat16"]["launches"][kind] for m, recs in out["ranks"].items()}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5689,12 +6640,20 @@ def main() -> None:
     ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp-addr", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
+    # Phase 17's rank processes: this script started by run_tp_ranks.
+    ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-mode", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-addr", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.dp_rank is not None:
+    if args.dp_rank is not None or args.tp_rank is not None:
         if not torch.cuda.is_available():
             print("no CUDA device: this script needs a GPU", file=sys.stderr)
             sys.exit(1)
-        dp_rank(args.dp_rank, args.dp_addr, args.dp_dir)
+        if args.dp_rank is not None:
+            dp_rank(args.dp_rank, args.dp_addr, args.dp_dir)
+        else:
+            tp_rank(args.tp_rank, args.tp_mode, args.tp_addr, args.tp_dir)
         return
 
     phase("1. environment")
@@ -5865,8 +6824,14 @@ def main() -> None:
           "flops_estimate")
     run_multi_device(report, card)
 
-    phase("17. kernels")
-    print(f"phases 1-16 took {time.perf_counter() - _T0:.1f} s; {card}")
+    phase(f"17. tensor and sequence parallel on ranks sharing the card: the split GroupNorm "
+          f"kernels; SD-1.5 {SIZE}x{SIZE} at mesh_model=2, mesh_seq=2 and 2 x 2 (fp32 and "
+          f"bf16), SD3-medium {SD3_SIZE}x{SD3_SIZE} with T5-XXL at mesh_model=2 and mesh_seq=2, "
+          "the server at mesh_model=2, each against one process")
+    run_tensor_parallel(report, card)
+
+    phase("18. kernels")
+    print(f"phases 1-17 took {time.perf_counter() - _T0:.1f} s; {card}")
     fam = report["e2e"]["families"]
     kernels = []
     for kind, meta in KERNELS.items():
@@ -5911,6 +6876,7 @@ def main() -> None:
             "phase15_max_abs_err": max(report["phase15_errs"][kind], default=None),
             "phase15_max_abs_grad_err": max(report["phase15_grad_errs"][kind], default=None),
             "phase16_launches": phase16_launches(report["e2e"]["multi_device"], kind),
+            "phase17_launches": phase17_launches(report["e2e"]["tensor_parallel"], kind),
             **({"phase6_launches": r["phase6_launches"]} if "phase6_launches" in r else {}),
             "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -5922,6 +6888,19 @@ def main() -> None:
                             "the metric towers' attention shapes in float32 (ViT-B/16, BLIP "
                             "ViT-L/16 and its BERT cross-attention, ViT-L/14): per-shape median "
                             "x its launches in one validate batch of phase 9's CLI run"),
+        })
+    tp = report["e2e"]["tensor_parallel"]
+    for kind, meta in SPLIT_GN.items():
+        r = tp["split_group_norm"]["kernels"][kind]
+        kernels.append({
+            **meta, "launches": tp["ranks"]["seq"][0]["bfloat16"]["launches"][kind],
+            "launches_from": "the wrappers' count over phase 17's bf16 mesh_seq=2 SD-1.5 run "
+                             "(20 steps, batch 2) on rank 0, reset just before it",
+            "phase17_launches": phase17_launches(tp, kind),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "totals_over": "the UNet's GroupNorm shapes at a mesh_seq=2 rank's rows in bfloat16: "
+                           "per-shape median x launches at that shape in one run",
         })
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -16,6 +16,12 @@ On N ranks (one process a GPU), with the batches sampled data-parallel:
     torchrun --nproc_per_node N -m sonicdiffusionbayeslab_torch.cli \
         --config configs/smoke.yaml --set model.mesh_data=N
 
+or with the UNet split over the ranks (tensor parallel over ``model``,
+the latent height over ``seq``; the product of the mesh's axes is N):
+
+    torchrun --nproc_per_node 2 -m sonicdiffusionbayeslab_torch.cli \
+        --config configs/smoke.yaml --set model.mesh_model=2
+
 ``run`` starts the process group first (``parallel.initialize``: NCCL on
 CUDA, gloo with ``--device cpu``); every rank runs the sweep, rank 0
 writes the run directory and every rank prints the same metric lines.

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sonicdiffusionbayeslab_torch.models.layers import conv_nhwc
+from sonicdiffusionbayeslab_torch.models.layers import conv_nhwc, seq_conv
 from sonicdiffusionbayeslab_torch.models.unet import (
     UNetConfig,
     build_encoder,
@@ -42,6 +42,8 @@ class ConditioningEmbedding(nn.Module):
     """Control image [B, 8h, 8w, 3] -> [B, h, w, C0]: conv_in -> SiLU ->
     (conv -> SiLU -> stride-2 conv -> SiLU) x 3 -> conv_out (zero init)."""
 
+    par = None  # under seq: the rank's rows of the control image, halo'd convs
+
     def __init__(self, out_channels: int, channels: Tuple[int, ...] = COND_EMBED_CHANNELS):
         super().__init__()
         self.conv_in = nn.Conv2d(3, channels[0], 3, padding=1)
@@ -53,15 +55,20 @@ class ConditioningEmbedding(nn.Module):
         self.conv_out = nn.Conv2d(channels[-1], out_channels, 3, padding=1)
 
     def forward(self, cond: torch.Tensor) -> torch.Tensor:
-        h = F.silu(conv_nhwc(self.conv_in, cond.to(self.conv_in.weight.dtype)))
+        h = F.silu(seq_conv(self.conv_in, cond.to(self.conv_in.weight.dtype), self.par))
         for conv in self.blocks:
-            h = F.silu(conv_nhwc(conv, h))
-        return conv_nhwc(self.conv_out, h)
+            h = F.silu(seq_conv(conv, h, self.par))
+        return seq_conv(self.conv_out, h, self.par)
 
 
 class ControlNet(nn.Module):
     """UNet-encoder copy, conditioning embedding and zero-conv heads;
-    :meth:`zero_heads` zeroes what diffusers zero-initialises."""
+    :meth:`zero_heads` zeroes what diffusers zero-initialises.  Placed on
+    a mesh it splits as the UNet's encoder does; the 1x1 zero convs run
+    whole on the whole (summed) skip states, and under ``seq`` the control
+    image holds the rank's rows, so the residuals are the rank's rows."""
+
+    par = None
 
     def __init__(self, config: UNetConfig):
         super().__init__()
@@ -96,7 +103,7 @@ class ControlNet(nn.Module):
         dt = self.conv_in.weight.dtype
         t_emb = time_embedding(self, cfg, timesteps, text_embeds, time_ids, sample.shape[0])
         ctx = encoder_hidden_states.to(dt)
-        h = conv_nhwc(self.conv_in, sample.to(dt)) + self.controlnet_cond_embedding(cond)
+        h = seq_conv(self.conv_in, sample.to(dt), self.par) + self.controlnet_cond_embedding(cond)
         h, skips = encoder_levels(self, h, t_emb, lambda attn, lvl, x: attn(x, ctx),
                                   len(cfg.block_out_channels) - 1, True)
         h = mid_level(self, h, t_emb, lambda attn, lvl, x: attn(x, ctx))

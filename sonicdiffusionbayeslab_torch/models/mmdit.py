@@ -35,6 +35,17 @@ features map onto it:
 Parameter names are diffusers' ``SD3Transformer2DModel``'s; the fixed
 sincos table (diffusers' ``pos_embed.pos_embed`` buffer) is recomputed,
 as the JAX package does, and kept out of the state dict.
+
+Split execution (ROADMAP A9; ``parallel.mesh.place_module``): under
+``model`` each joint attention keeps the rank's heads of both streams'
+q/k/v (their per-head RMS norms stay local) and both feed-forwards their
+hidden units (gelu-tanh is not gated, so ``net.0.proj`` splits plainly);
+``to_out.0``, ``to_add_out`` and ``ff*.net.2`` sum their partials across
+the axis in fp32, the bias added once.  The AdaLN modulations, the
+embedders and ``proj_out`` run whole.  Under ``seq`` a rank holds the
+image tokens of its patch rows (the sincos table's rows offset by the
+rank), the context stream is whole on every rank, and each joint
+attention gathers the image K and V along the axis in rank order.
 """
 
 from __future__ import annotations
@@ -52,11 +63,14 @@ from sonicdiffusionbayeslab_torch.models.layers import (
     RMSNorm,
     TimestepEmbedMLP,
     _Quantizable,
+    keep_slice_,
+    linear_reduce,
     timestep_embedding,
 )
 from sonicdiffusionbayeslab_torch.ops import quant
 from sonicdiffusionbayeslab_torch.ops.attention import dot_product_attention
 from sonicdiffusionbayeslab_torch.ops.tome import shared_matching
+from sonicdiffusionbayeslab_torch.parallel import distributed
 
 LN_EPS = 1e-6
 
@@ -159,22 +173,41 @@ class _GELUProj(nn.Module):
 
 class GELUTanhFeedForward(_Quantizable):
     """Linear(4x) -> gelu(tanh) -> Linear (diffusers ``FeedForward`` with
-    ``gelu-approximate``: ``net.0.proj``, ``net.2``)."""
+    ``gelu-approximate``: ``net.0.proj``, ``net.2``); under ``model`` the
+    rank's hidden units."""
+
+    split = False
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList([_GELUProj(dim, dim * mult), nn.Identity(),
                                   nn.Linear(dim * mult, dim)])
 
+    def tp_shard_(self, index: int, count: int) -> dict:
+        if self.net[2].weight.shape[1] % count:
+            return {}
+        for attr in ("weight", "bias"):
+            keep_slice_(self.net[0].proj, attr, 0, index, count)
+        keep_slice_(self.net[2], "weight", 1, index, count)
+        self.split = True
+        return {"net.0.proj.weight": 0, "net.0.proj.bias": 0, "net.2.weight": 1}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(self._proj(self.net[0].proj, x), approximate="tanh")
+        if self.split:
+            return linear_reduce(self.net[2], h, self.par)
         return self._proj(self.net[2], h)
 
 
 class JointAttention(_Quantizable):
     """The projections of one joint block (diffusers' ``attn``): q/k/v of
     each stream, ``to_out.0`` for the image stream and ``to_add_out`` for
-    the context (absent in the final, context_pre_only block)."""
+    the context (absent in the final, context_pre_only block).  Under
+    ``model`` the rank's heads; under ``seq`` the image K and V gathered
+    along the axis."""
+
+    split = False
+    _HEADS = ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj")
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, context_pre_only: bool,
                  qk_norm: bool):
@@ -190,6 +223,30 @@ class JointAttention(_Quantizable):
         if qk_norm:
             for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
                 setattr(self, name, RMSNorm(head_dim, eps=1e-6))
+
+    def tp_shard_(self, index: int, count: int) -> dict:
+        if self.num_heads % count:
+            return {}
+        plan = {}
+        for name in self._HEADS:
+            for attr in ("weight", "bias"):
+                keep_slice_(getattr(self, name), attr, 0, index, count)
+                plan[f"{name}.{attr}"] = 0
+        outs = {"to_out.0": self.to_out[0], "to_add_out": getattr(self, "to_add_out", None)}
+        for name, layer in outs.items():
+            if layer is not None:
+                keep_slice_(layer, "weight", 1, index, count)
+                plan[f"{name}.weight"] = 1
+        self.num_heads //= count
+        self.split = True
+        return plan
+
+    def project(self, layer: nn.Module, o: torch.Tensor) -> torch.Tensor:
+        """An output projection (``to_out.0``, ``to_add_out``) of the
+        attention's output: row-parallel under ``model``."""
+        if self.split:
+            return linear_reduce(layer, o, self.par)
+        return self._proj(layer, o)
 
     def forward(self, img: torch.Tensor, ctx: torch.Tensor):
         """(image [B, N, C], context [B, T, C]) -> the attention's outputs
@@ -208,6 +265,10 @@ class JointAttention(_Quantizable):
         if self.qk_norm:
             q_i, k_i = self.norm_q(q_i), self.norm_k(k_i)
             q_c, k_c = self.norm_added_q(q_c), self.norm_added_k(k_c)
+        par = self.par
+        if par is not None and par.n_seq > 1:  # every rank's image keys, in row order
+            kv = distributed.all_gather_seq(torch.cat([k_i, v_i], dim=-1), 1, par.seq_group)
+            k_i, v_i = kv.chunk(2, dim=-1)
         o = dot_product_attention(torch.cat([q_i, q_c], dim=1), torch.cat([k_i, k_c], dim=1),
                                   torch.cat([v_i, v_c], dim=1)).reshape(B, N + T, H * D)
         return o[:, :N], o[:, N:]
@@ -244,17 +305,17 @@ class MMDiTBlock(_Quantizable):
             ctx_n = _modulate(_ln(ctx), c_mod[0], c_mod[1])
         if tome is None:
             o_img, o_ctx = self.attn(img_n, ctx_n)
-            o_img = self._proj(self.attn.to_out[0], o_img)
+            o_img = self.attn.project(self.attn.to_out[0], o_img)
         else:
             merge, unmerge = shared_matching(img, tome, tome_hw, tome_dst, tome_cache)
             o_img, o_ctx = self.attn(merge(img_n), ctx_n)
-            o_img = unmerge(self._proj(self.attn.to_out[0], o_img))
+            o_img = unmerge(self.attn.project(self.attn.to_out[0], o_img))
         img = img + i_mod[2][:, None, :] * o_img
         img_m = _modulate(_ln(img), i_mod[3], i_mod[4])
         img = img + i_mod[5][:, None, :] * self.ff(img_m)
         if self.context_pre_only:
             return img, None
-        ctx = ctx + c_mod[2][:, None, :] * self._proj(self.attn.to_add_out, o_ctx)
+        ctx = ctx + c_mod[2][:, None, :] * self.attn.project(self.attn.to_add_out, o_ctx)
         ctx_m = _modulate(_ln(ctx), c_mod[3], c_mod[4])
         return img, ctx + c_mod[5][:, None, :] * self.ff_context(ctx_m)
 
@@ -274,7 +335,9 @@ class _TimeTextEmbed(nn.Module):
 
 
 class MMDiT(_Quantizable):
-    """The whole transformer: NHWC latents in, fp32 velocity out."""
+    """The whole transformer: NHWC latents in, fp32 velocity out.  Under
+    ``seq`` the sample holds the rank's rows of the latent height, a
+    multiple of ``seq_multiple`` (the patch size) on every rank."""
 
     def __init__(self, config: MMDiTConfig):
         super().__init__()
@@ -291,6 +354,10 @@ class MMDiT(_Quantizable):
     @property
     def dtype(self) -> torch.dtype:
         return self.proj_out.weight.dtype
+
+    @property
+    def seq_multiple(self) -> int:
+        return self.config.patch_size
 
     def _pos(self, h: int, w: int, device, dtype) -> torch.Tensor:
         """The cropped sincos table on the device, made once per (grid,
@@ -348,6 +415,11 @@ class MMDiT(_Quantizable):
         if cache is not None and return_cache:
             raise ValueError("cache and return_cache are exclusive (a step either replays "
                              "the trunk or records it)")
+        par = self.par
+        n_seq = 1 if par is None else par.n_seq
+        if tome is not None and n_seq > 1:
+            raise NotImplementedError("Token Merging with a seq split is not ported "
+                                      "(ROADMAP.md item A9b)")
         if tome is not None and (hp % tome.sy or wp % tome.sx):
             tome = None  # the cells do not tile this patch grid
         if tome is not None and tome.rand and tome_dst is None:
@@ -356,7 +428,10 @@ class MMDiT(_Quantizable):
 
         x = sample.to(dt).reshape(B, hp, p, wp, p, C).permute(0, 1, 3, 2, 4, 5)
         x = self._patch_proj(x.reshape(B, hp * wp, p * p * C))
-        x = x + self._pos(hp, wp, x.device, dt)[None]
+        pos = self._pos(hp * n_seq, wp, x.device, dt)
+        if n_seq > 1:  # the table's rows of this rank's patch rows
+            pos = pos[par.seq_index * hp * wp:(par.seq_index + 1) * hp * wp]
+        x = x + pos[None]
 
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(B)

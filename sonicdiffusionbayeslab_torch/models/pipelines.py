@@ -56,7 +56,13 @@ from sonicdiffusionbayeslab_torch.models.weights import (
     load_torch_state_dict,
     merge_lora,
 )
-from sonicdiffusionbayeslab_torch.parallel.mesh import check_data_only, make_mesh, shard_params
+from sonicdiffusionbayeslab_torch.parallel.mesh import (
+    A9,
+    A9B,
+    axis_size,
+    execution_placements,
+    make_mesh,
+)
 from sonicdiffusionbayeslab_torch.registry import models_registry
 from sonicdiffusionbayeslab_torch.schedulers import DPMSolverScheduler
 from sonicdiffusionbayeslab_torch.schedulers import plans as plan_composers
@@ -121,7 +127,13 @@ class StableDiffusionModel:
     the pipeline): every rank builds the same weights and calls the
     pipeline with the same arguments, samples its rows of the batch and
     returns the whole batch (``engine.sample``'s ``mesh``).  ``mesh_seq``
-    or ``mesh_model`` above 1 raises (ROADMAP.md item A9)."""
+    and ``mesh_model`` above 1 split the UNet (and the ControlNet) over a
+    ``("data", "seq", "model")`` mesh of ``mesh_data * mesh_seq *
+    mesh_model`` ranks (``engine.parallelize``): each rank keeps its share
+    of the heads, hidden units and channels and runs its rows of the
+    latent height, the UNet eagerly; every rank returns the whole batch.
+    ``placements[module]`` records what each rank runs, parameter by
+    parameter (``parallel.mesh.execution_placements``)."""
 
     def __init__(self, pretrained_model: str = "runwayml/stable-diffusion-v1-5",
                  image_size: int = 512, tiny: bool = False, dtype: str = "bfloat16",
@@ -130,7 +142,6 @@ class StableDiffusionModel:
                  mesh_data: int = 0, mesh_seq: int = 1, mesh_model: int = 1):
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype!r}")
-        check_data_only(mesh_seq, mesh_model, type(self).__name__)
         self.lora = lora
         self.pretrained_model = pretrained_model
         self.image_size = int(image_size)
@@ -162,21 +173,32 @@ class StableDiffusionModel:
         self._memo_version = self.engine.weights_version
         self.mesh = None
         self.placements: Dict[str, Dict[str, tuple]] = {}
-        if (int(mesh_data) or 1) > 1:
-            self.mesh = make_mesh(n_data=int(mesh_data), device_type=self.device.type)
+        n_data, n_seq, n_model = int(mesh_data) or 1, int(mesh_seq), int(mesh_model)
+        if n_data * n_seq * n_model > 1:
+            self.mesh = make_mesh(n_data=n_data, n_model=n_model, n_seq=n_seq,
+                                  device_type=self.device.type)
+            if n_seq * n_model > 1:
+                print(f"{type(self).__name__}: mesh data {n_data} x seq {n_seq} x model "
+                      f"{n_model}: the {type(self.engine.unet).__name__} runs split ({A9}) and "
+                      "eagerly (its collectives cross the host, which a CUDA graph cannot "
+                      f"capture; capture under NCCL is {A9B})", flush=True)
             self.place_params(self.engine.MODULES + (("image_proj",) if self.has_ip else ()))
 
     def place_params(self, names: Sequence[str]) -> None:
-        """Place the engine modules ``names`` on the mesh
-        (``parallel.shard_params``; every rank holds its own copy, so no
-        data moves) and keep each weight's placements in
-        ``placements[name]``: replicated along every axis, since only the
-        data axis runs.  The DTensors themselves are dropped, so a module
-        moved later (SD3's staged T5) leaves no copy behind."""
+        """Place the engine modules ``names`` on the mesh and keep in
+        ``placements[name]`` what each rank runs: the split modules
+        (``engine.TP_MODULES``) per their execution plan
+        (``engine.parallelize``) where ``seq`` or ``model`` is above 1,
+        every other weight whole (replicated).  Every rank holds its own
+        copy of the weights, so no data moves."""
+        split = axis_size(self.mesh, "seq") * axis_size(self.mesh, "model") > 1
         for name in names:
-            sd = getattr(self.engine, name).state_dict()
-            self.placements[name] = {k: v.placements
-                                     for k, v in shard_params(sd, self.mesh).items()}
+            plan = None
+            if split and name in self.engine.TP_MODULES:
+                plan = self.engine.parallelize(self.mesh, [name]).get(name)
+            if plan is None:
+                plan = {k: None for k, _ in getattr(self.engine, name).named_parameters()}
+            self.placements[name] = execution_placements(plan, self.mesh)
 
     def _load_ip_adapter(self, path: str) -> None:
         eng = self.engine
@@ -277,6 +299,10 @@ class StableDiffusionModel:
     def fuse_lora(self, scale: float = 1.0):
         """Merge the staged LoRA into the UNet's weights (``lora_merged``
         lists the modules changed) and drop the UNet's CUDA graphs."""
+        par = self.engine.par
+        if self._pending_lora is not None and par is not None and par.n_model > 1:
+            raise NotImplementedError(f"a LoRA on weights split over model is not ported "
+                                      f"({A9B})")
         if self._pending_lora is not None:
             unet = self.engine.unet
             sd, self.lora_merged = merge_lora(unet.state_dict(), self._pending_lora, scale)
@@ -551,7 +577,8 @@ class StableDiffusion3Model(StableDiffusionXLModel):
     a call's encodes and are freed before its denoising loop (``True``,
     "staged"), or stay on the card (``False``, "resident"); "auto" stages
     at full size and keeps the tiny model resident (the JAX package's rule
-    for one device).  Both give the same images.
+    for one device).  Both give the same images.  On a mesh T5 is
+    resident, split over ``model`` with the MMDiT.
 
     ControlNet, IP-Adapter and prompt weighting are refused, as in the JAX
     package."""
@@ -562,7 +589,6 @@ class StableDiffusion3Model(StableDiffusionXLModel):
                  t5_staged: object = "auto", prompt_weighting: bool = False,
                  ip_adapter: str = None, device=None, mesh_data: int = 0, mesh_seq: int = 1,
                  mesh_model: int = 1):
-        check_data_only(mesh_seq, mesh_model, type(self).__name__)
         if prompt_weighting:
             raise NotImplementedError(
                 "prompt weighting is not wired for SD3's padded dual-tower context (weights "
@@ -571,7 +597,9 @@ class StableDiffusion3Model(StableDiffusionXLModel):
             raise NotImplementedError("IP-Adapter is a UNet-family feature")
         self._use_t5 = bool(use_t5)
         self.tiny = bool(tiny)
-        self.t5_staged = self._staged(t5_staged)
+        # On a mesh T5 stays resident (split over model where that is above 1).
+        on_mesh = (int(mesh_data) or 1) * int(mesh_seq) * int(mesh_model) > 1
+        self.t5_staged = self._staged(False if on_mesh else t5_staged)
         self.pretrained_model = pretrained_model
         # Checked before the weights are built: the T5 tokenizer of a real
         # snapshot has no reader here.
@@ -580,7 +608,8 @@ class StableDiffusion3Model(StableDiffusionXLModel):
             self.tokenizer3 = self._t5_tokenizer(tiny)
         self._t5_dev = None  # the staged mode's copy of T5 on the card during encodes
         super().__init__(pretrained_model=pretrained_model, image_size=image_size, tiny=tiny,
-                         dtype=dtype, seed=seed, lora=lora, device=device, mesh_data=mesh_data)
+                         dtype=dtype, seed=seed, lora=lora, device=device, mesh_data=mesh_data,
+                         mesh_seq=mesh_seq, mesh_model=mesh_model)
         if self.t5_staged:
             self.engine.t5.to("cpu")
 

@@ -14,7 +14,11 @@ rows, each step one UNet call (chunked when ``microbatch`` > 1), the CFG
 combine and one ``apply_row`` in fp32.  On a GPU each UNet call variant
 (plain; DeepCache's full and shallow calls; each with its ToMe config) is
 replayed from its own CUDA graph (``utils/cuda_graph.py``), because eager PyTorch's host time per UNet
-forward exceeds its device time; on the CPU it runs eagerly.
+forward exceeds its device time; on the CPU it runs eagerly.  Split over
+a mesh's ``seq`` or ``model`` axis (:meth:`StableDiffusionEngine.
+parallelize`) the UNet runs eagerly on the GPU too: its collectives go
+through the host under gloo, which a CUDA graph cannot capture (capture
+under NCCL is ROADMAP A9b).
 ``execution_time`` is the wall clock of the denoising loop alone, with the
 device synchronised on both sides (the reference's timing contract).
 """
@@ -178,9 +182,15 @@ class StableDiffusionEngine:
     ``image_proj`` and adds the UNet's IP projections.  Every change of
     weights goes through :meth:`weights_changed`, which drops the graphs
     and counts ``weights_version`` up (the pipeline's prompt memo reads
-    it)."""
+    it).
+
+    :meth:`parallelize` places the split modules (``TP_MODULES``: the UNet,
+    the ControlNet) on a mesh with ``seq`` or ``model`` above 1; the VAE,
+    the text towers and the IP-Adapter's projection run whole on every
+    rank."""
 
     MODULES = ("unet", "vae", "text")
+    TP_MODULES = ("unet", "controlnet")
 
     def __init__(
         self,
@@ -201,6 +211,8 @@ class StableDiffusionEngine:
             self._place(m)
         self.controlnet: Optional[ControlNet] = None
         self.image_proj: Optional[ImageProjection] = None
+        self.par: Optional[mesh_lib.ParallelContext] = None  # set by parallelize
+        self._placed: set = set()
         self.weights_version = 0
         self.graphed_unet = GraphedVariants(self.denoise, state=self._graph_state)
 
@@ -303,6 +315,37 @@ class StableDiffusionEngine:
         return self.unet(sample, timesteps, context, cache, tome_dst, text_embeds, time_ids,
                          **static)
 
+    # ----------------------------------------------------------- parallel
+    def parallelize(self, mesh, names: Optional[Sequence[str]] = None) -> dict:
+        """Place the modules ``names`` (default: those of ``TP_MODULES`` the
+        engine has) on ``mesh`` for split execution
+        (``parallel.mesh.place_module``: each rank keeps its share of the
+        ``model`` axis's weights; every module learns its ``seq`` and
+        ``model`` coordinates).  A module already placed is left as it is.
+        Returns {module: its execution plan}."""
+        if self.par is not None and self.par.mesh is not mesh:
+            raise ValueError("the engine's modules are placed on another mesh")
+        self.par = self.par or mesh_lib.ParallelContext.from_mesh(mesh)
+        plans = {}
+        for name in names or self.TP_MODULES:
+            module = getattr(self, name, None)
+            if module is None or name in self._placed:
+                continue
+            plans[name] = mesh_lib.place_module(module, self.par)
+            self._placed.add(name)
+        self.weights_changed()
+        return plans
+
+    def _parallel(self, mesh) -> Optional[mesh_lib.ParallelContext]:
+        """The context the modules run split under on ``mesh``, or None
+        where ``seq`` and ``model`` are 1."""
+        if mesh_lib.axis_size(mesh, "seq") == 1 and mesh_lib.axis_size(mesh, "model") == 1:
+            return None
+        if self.par is None or self.par.mesh is not mesh or "unet" not in self._placed:
+            raise ValueError("a mesh with seq or model above 1 needs the engine's modules placed "
+                             "on it first (engine.parallelize(mesh))")
+        return self.par
+
     # ------------------------------------------------------ encode / decode
     @torch.inference_mode()
     def encode_prompts(self, input_ids: np.ndarray) -> torch.Tensor:
@@ -326,7 +369,7 @@ class StableDiffusionEngine:
 
     # ------------------------------------------------------------- sample
     def _unet_chunks(self, microbatch: int, args, tome_dst=None, added=None, extra=(),
-                     **static):
+                     eager: bool = False, **static):
         """:meth:`denoise` on the model batch as ``microbatch`` sequential
         chunks (or whole).  ``args`` (latents, timesteps, context and
         DeepCache's features or None) and ``added`` (SDXL's pooled
@@ -335,8 +378,9 @@ class StableDiffusionEngine:
         and so do the outputs (one tensor, or DeepCache's pair);
         ``tome_dst`` goes whole to every chunk, and so does ``extra``
         (IP-Adapter's tokens and scale, the control image and scale, each
-        or None), which the sampler passes only unchunked."""
-        unet = self.graphed_unet if self.device.type == "cuda" else self.denoise
+        or None), which the sampler passes only unchunked.  ``eager``: no
+        CUDA graph (a split UNet, whose collectives cross the host)."""
+        unet = self.graphed_unet if self.device.type == "cuda" and not eager else self.denoise
         n = len(args)
         args = (*args, *(added or (None, None, None)))
 
@@ -430,20 +474,37 @@ class StableDiffusionEngine:
         loop, so the loop, the decode and whatever follows queue on the
         device without a wait; ``execution_time`` is then -1.0.
 
-        ``mesh`` (``parallel.make_mesh``) with a data axis above 1: every
-        argument is the global batch's, this rank samples its rows
-        (:meth:`_sample_rows`) and every rank returns the global batch."""
+        ``mesh`` (``parallel.make_mesh``): every argument is the global
+        batch's and every rank returns the global batch.  With a data axis
+        above 1 this rank samples its rows (:meth:`_sample_rows`).  With
+        ``seq`` or ``model`` above 1 the engine's modules must be placed on
+        the mesh first (:meth:`parallelize`); each rank then runs its share
+        of the UNet on its rows of the latent height (split over ``seq`` by
+        ``parallel.mesh.latent_sharding``), the UNet eagerly, and the
+        latents and x0 are gathered along ``seq`` after the loop; every
+        rank decodes the whole batch.  Token Merging under ``seq``, int8
+        under ``model`` and the int8 conv modes under ``seq`` raise (ROADMAP
+        A9b)."""
+        kw = dict(seed=seed, sample_indices=sample_indices, guidance_scale=guidance_scale,
+                  guidance_rescale=guidance_rescale, cache_plan=cache_plan, latent_hw=latent_hw,
+                  collect_x0=collect_x0, x0_samples=x0_samples, decode=decode,
+                  init_latents=init_latents, microbatch=microbatch, step_noise=step_noise,
+                  tome=tome, tome_dst=tome_dst, added_cond=added_cond, blend=blend,
+                  blend_noise=blend_noise, control=control, ip_adapter=ip_adapter,
+                  time_loop=time_loop)
         if mesh is not None and mesh_lib.axis_size(mesh, "data") > 1:
-            return self._sample_rows(mesh, plan, prompt_embeds, negative_embeds, dict(
-                seed=seed, sample_indices=sample_indices, guidance_scale=guidance_scale,
-                guidance_rescale=guidance_rescale, cache_plan=cache_plan, latent_hw=latent_hw,
-                collect_x0=collect_x0, x0_samples=x0_samples, decode=decode,
-                init_latents=init_latents, microbatch=microbatch, step_noise=step_noise,
-                tome=tome, tome_dst=tome_dst, added_cond=added_cond, blend=blend,
-                blend_noise=blend_noise, control=control, ip_adapter=ip_adapter,
-                time_loop=time_loop))
-        mesh_lib.check_data_only(mesh_lib.axis_size(mesh, "seq"),
-                                 mesh_lib.axis_size(mesh, "model"), "engine.sample")
+            return self._sample_rows(mesh, plan, prompt_embeds, negative_embeds, kw)
+        return self._sample_local(self._parallel(mesh), plan, prompt_embeds, negative_embeds,
+                                  **kw)
+
+    def _sample_local(self, par, plan, prompt_embeds, negative_embeds, seed, sample_indices,
+                      guidance_scale, guidance_rescale, cache_plan, latent_hw, collect_x0,
+                      x0_samples, decode, init_latents, microbatch, step_noise, tome, tome_dst,
+                      added_cond, blend, blend_noise, control, ip_adapter,
+                      time_loop) -> SampleOutput:
+        """:meth:`sample` of one batch on this rank; ``par`` (a
+        ``ParallelContext`` or None): the UNet runs split, on this rank's
+        rows of the latent height where ``seq`` is above 1."""
         dev = self.device
         B = int(prompt_embeds.shape[0])
         do_cfg = guidance_scale > 1.0 and negative_embeds is not None
@@ -470,11 +531,23 @@ class StableDiffusionEngine:
         microbatch = int(microbatch or 0)
         x0_count = B if x0_samples is None else max(1, min(int(x0_samples), B))
         tome, dst = self._tome_destinations(plan, tome, tome_dst, cache_plan, latent_hw)
+        rows = slice(None)  # this rank's rows of the latent height
+        seq_group = None
+        if par is not None:
+            mesh_lib.check_supported("engine.sample", par.n_seq, par.n_model, tome=tome,
+                                     quant=self.unet.quant_mode)
+            if control is not None and "controlnet" not in self._placed:
+                raise ValueError("control needs the ControlNet placed on the mesh too "
+                                 "(engine.parallelize(mesh, ['controlnet']))")
+            shard = mesh_lib.latent_sharding(par.mesh, self.unet.seq_multiple).height
+            rows = shard.rows(latent_hw[0])
+            if par.n_seq > 1:
+                seq_group = par.seq_group
         static = {} if tome is None else {"tome": tome}
         added = (*(self._added(added_cond, do_cfg) or (None, None)),
                  self._timestep_cond(guidance_scale, B * (2 if do_cfg else 1)))
         extra = self._conditioning(control, ip_adapter, cache_plan, microbatch, B, latent_hw,
-                                   do_cfg)
+                                   do_cfg, rows)
 
         xs = plan_rows(plan, dev)
         blend_src = None
@@ -492,6 +565,11 @@ class StableDiffusionEngine:
             if blend_noise.shape != latents0.shape or blend_src.shape != latents0.shape:
                 raise ValueError(f"blend source {tuple(blend_src.shape)} and noise "
                                  f"{tuple(blend_noise.shape)} != latents {tuple(latents0.shape)}")
+            blend_mask, blend_src = blend_mask[:, rows], blend_src[:, rows]
+            blend_noise = blend_noise[:, rows]
+        latents0 = latents0[:, rows]
+        if step_noise is not None:
+            step_noise = step_noise[:, :, rows]
         carry = init_carry(plan, latents0)
         cache = None
         x0s = []
@@ -503,27 +581,33 @@ class StableDiffusionEngine:
             lat = carry.latents * r["in_scale"]
             lat_in = (torch.cat([lat, lat]) if do_cfg else lat).to(self.dtype)
             tb = r["timestep"].expand(lat_in.shape[0])
+            eager = par is not None
             if cache_plan is None:
                 noise_pred = self._unet_chunks(microbatch, (lat_in, tb, embeds, None),
                                                dst["full"][i] if dst else None, added, extra,
-                                               **static)
+                                               eager, **static)
             elif cache_plan.full[i]:
                 noise_pred, cache = self._unet_chunks(microbatch, (lat_in, tb, embeds, None),
                                                       dst["full"][i] if dst else None, added,
-                                                      extra, return_cache=True,
+                                                      extra, eager, return_cache=True,
                                                       cache_branch_id=cache_plan.branch, **static)
             else:
                 noise_pred = self._unet_chunks(microbatch, (lat_in, tb, embeds, cache),
                                                dst["shallow"][i] if dst else None, added, extra,
-                                               cache_branch_id=cache_plan.branch, **static)
+                                               eager, cache_branch_id=cache_plan.branch,
+                                               **static)
             noise_pred = noise_pred.float()
             if do_cfg:
                 eps_u, eps_t = noise_pred.chunk(2)
                 eps = eps_u + guidance_scale * (eps_t - eps_u)
                 if guidance_rescale > 0.0:
                     axes = tuple(range(1, eps.dim()))
-                    std_t = eps_t.std(dim=axes, keepdim=True, correction=0)
-                    std_c = eps.std(dim=axes, keepdim=True, correction=0)
+                    whole_t, whole = eps_t, eps  # the standard deviations span every row
+                    if seq_group is not None:
+                        whole_t = distributed.all_gather_seq(eps_t, 1, seq_group)
+                        whole = distributed.all_gather_seq(eps, 1, seq_group)
+                    std_t = whole_t.std(dim=axes, keepdim=True, correction=0)
+                    std_c = whole.std(dim=axes, keepdim=True, correction=0)
                     eps = (guidance_rescale * (eps * std_t / std_c)
                            + (1.0 - guidance_rescale) * eps)
             else:
@@ -531,7 +615,7 @@ class StableDiffusionEngine:
             noise = None
             if plan.needs_noise:
                 noise = (step_noise[i] if step_noise is not None
-                         else per_sample_step_noise(seed, idx, i, lat_shape, device=dev))
+                         else per_sample_step_noise(seed, idx, i, lat_shape, device=dev)[:, rows])
             carry, x0 = apply_row(carry, eps, r, noise)
             if blend_src is not None:
                 target = r["blend_a"] * blend_src + r["blend_s"] * blend_noise
@@ -546,6 +630,9 @@ class StableDiffusionEngine:
             execution_time = -1.0  # not timed: nothing waited for the loop
 
         latents = carry.latents
+        if seq_group is not None:  # the whole height on every rank
+            latents = distributed.all_gather_seq(latents, 1, seq_group)
+            x0s = [distributed.all_gather_seq(x, 1, seq_group) for x in x0s]
         images = self.decode(latents) if decode else None
         x0_images = torch.stack([self.decode(x) for x in x0s]) if collect_x0 else None
         return SampleOutput(images=images, execution_time=execution_time,
@@ -561,7 +648,7 @@ class StableDiffusionEngine:
         negative and positive.  The images, latents and x0 decodes are
         all-gathered along the data axis in rank order; ``execution_time``
         is the slowest rank's loop."""
-        shard = mesh_lib.latent_sharding(mesh)
+        shard = mesh_lib.batch_sharding(mesh)
         B = int(prompt_embeds.shape[0])
         take = shard.take
         idx = np.arange(B) if kw["sample_indices"] is None else np.asarray(kw["sample_indices"])
@@ -583,7 +670,8 @@ class StableDiffusionEngine:
         for key, field in (("control", "image"), ("ip_adapter", "image_embeds")):
             if kw[key] is not None:
                 kw[key] = {**kw[key], field: take(np.asarray(kw[key][field], np.float32))}
-        out = self.sample(plan, take(prompt_embeds), take(negative_embeds), **kw)
+        out = self._sample_local(self._parallel(mesh), plan, take(prompt_embeds),
+                                 take(negative_embeds), **kw)
         group = mesh_lib.axis_group(mesh, "data")
         gather = functools.partial(distributed.all_gather_rows, group=group)
         x0 = None
@@ -595,9 +683,11 @@ class StableDiffusionEngine:
             execution_time=distributed.all_max_scalar(t, group) if t >= 0 else t,
             x0_images=x0, latents=gather(out.latents), nfe=out.nfe)
 
-    def _conditioning(self, control, ip_adapter, cache_plan, microbatch, B, latent_hw, do_cfg):
+    def _conditioning(self, control, ip_adapter, cache_plan, microbatch, B, latent_hw, do_cfg,
+                      rows=slice(None)):
         """(IP tokens, IP scale, control image, control scale) at the model
-        batch on the device, each None where unused."""
+        batch on the device, each None where unused; the control image cut
+        to the pixel rows of the latent ``rows``."""
         dev = self.device
         ip_tokens = ip_scale = hint = control_scale = None
         if control is not None:
@@ -609,6 +699,8 @@ class StableDiffusionEngine:
             want = (B, latent_hw[0] * 8, latent_hw[1] * 8, 3)
             if tuple(hint.shape) != want:
                 raise ValueError(f"control image {tuple(hint.shape)} != {want}")
+            if rows.start is not None:
+                hint = hint[:, 8 * rows.start:8 * rows.stop]
             if do_cfg:
                 hint = torch.cat([hint, hint])
             control_scale = torch.tensor(float(control.get("scale", 1.0)), device=dev)

@@ -36,7 +36,10 @@ from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
 class SD3Engine(StableDiffusionEngine):
     """MMDiT + SD3 VAE + two projected CLIP towers (+ T5 with ``use_t5`` or
     a ``t5_config``) through the base engine.  The MMDiT keeps the name
-    ``unet`` (and ``unet_config``) so the loop drives it unchanged."""
+    ``unet`` (and ``unet_config``) so the loop drives it unchanged.
+    :meth:`parallelize` splits the MMDiT and T5."""
+
+    TP_MODULES = ("unet", "t5")
 
     def __init__(self, mmdit_config: MMDiTConfig = None, vae_config: VAEConfig = None,
                  text_configs: SDXLTextConfigs = None, t5_config: Optional[T5Config] = None,

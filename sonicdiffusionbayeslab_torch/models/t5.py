@@ -17,6 +17,12 @@ carry no 1/sqrt(d) and an additive bias, and the reference sends it to
 XLA's plain fusion.  The tower runs once a prompt batch, outside the
 denoising loop.  The bucket table is the port's own numpy copy of the
 reference's ``relative_position_buckets``.
+
+Under a mesh's ``model`` axis (``parallel.mesh.place_module``) a rank
+keeps its heads of q/k/v (and their columns of the relative-position
+bias table) and its hidden units of ``wi_0``/``wi_1``; ``o`` and ``wo``
+sum their partials across the axis in fp32.  Placed so, the tower stays
+resident on the card, never staged.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sonicdiffusionbayeslab_torch.models.layers import RMSNorm
+from sonicdiffusionbayeslab_torch.models.layers import RMSNorm, keep_slice_, reduce_partial
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +87,9 @@ def relative_position_buckets(q_len: int, k_len: int, *, num_buckets: int = 32,
 
 
 class T5SelfAttention(nn.Module):
+    par = None
+    split = False
+
     def __init__(self, cfg: T5Config, has_bias_table: bool):
         super().__init__()
         inner = cfg.num_heads * cfg.d_kv
@@ -93,6 +102,19 @@ class T5SelfAttention(nn.Module):
             self.relative_attention_bias = nn.Embedding(cfg.relative_attention_num_buckets,
                                                         cfg.num_heads)
 
+    def tp_shard_(self, index: int, count: int) -> dict:
+        if self.num_heads % count:
+            return {}
+        plan = {}
+        for name, dim in (("q", 0), ("k", 0), ("v", 0), ("o", 1),
+                          ("relative_attention_bias", 1)):
+            if hasattr(self, name):
+                keep_slice_(getattr(self, name), "weight", dim, index, count)
+                plan[f"{name}.weight"] = dim
+        self.num_heads //= count
+        self.split = True
+        return plan
+
     def forward(self, x: torch.Tensor, position_bias: torch.Tensor) -> torch.Tensor:
         B, T, _ = x.shape
         H, D = self.num_heads, self.d_kv
@@ -102,6 +124,8 @@ class T5SelfAttention(nn.Module):
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
         probs = torch.softmax(scores + position_bias, dim=-1).to(x.dtype)
         o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, H * D)
+        if self.split:
+            return reduce_partial(F.linear(o, self.o.weight), None, self.par, o.dtype)
         return self.o(o)
 
 
@@ -113,14 +137,28 @@ class T5LayerSelfAttention(nn.Module):
 
 
 class T5DenseGatedGelu(nn.Module):
+    par = None
+    split = False
+
     def __init__(self, cfg: T5Config):
         super().__init__()
         self.wi_0 = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
         self.wi_1 = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
         self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
 
+    def tp_shard_(self, index: int, count: int) -> dict:
+        if self.wo.weight.shape[1] % count:
+            return {}
+        for name, dim in (("wi_0", 0), ("wi_1", 0), ("wo", 1)):
+            keep_slice_(getattr(self, name), "weight", dim, index, count)
+        self.split = True
+        return {"wi_0.weight": 0, "wi_1.weight": 0, "wo.weight": 1}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x))
+        h = F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x)
+        if self.split:
+            return reduce_partial(F.linear(h, self.wo.weight), None, self.par, h.dtype)
+        return self.wo(h)
 
 
 class T5LayerFF(nn.Module):

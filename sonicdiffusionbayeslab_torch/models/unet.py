@@ -26,7 +26,7 @@ from sonicdiffusionbayeslab_torch.models.layers import (
     SpatialTransformer,
     TimestepEmbedMLP,
     Upsample,
-    conv_nhwc,
+    seq_conv,
     timestep_embedding,
 )
 
@@ -235,9 +235,16 @@ class UNet2DCondition(nn.Module):
     with ``ops.quant.set_quant_mode``; None is exact.  The ResnetBlocks'
     and the Downsample/Upsample 3x3 convs quantize under the conv modes
     (50 convs a SD-1.5 forward), the transformers' projections under
-    ``int8`` and ``int8_conv``."""
+    ``int8`` and ``int8_conv``.
+
+    Placed on a mesh (``parallel.mesh.place_module``) it runs split: under
+    ``model`` each layer keeps its share of heads, hidden units and
+    channels (``models/layers.py``), under ``seq`` ``sample`` and the
+    outputs hold the rank's rows of the latent height, which must divide
+    by ``seq_multiple`` on every rank (every level splits alike)."""
 
     quant_mode = None
+    par = None
 
     def __init__(self, config: UNetConfig):
         super().__init__()
@@ -268,6 +275,12 @@ class UNet2DCondition(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.conv_in.weight.dtype
+
+    @property
+    def seq_multiple(self) -> int:
+        """What a rank's share of the latent height must divide by: one row
+        at the deepest level."""
+        return 2 ** (len(self.config.block_out_channels) - 1)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, cache: Optional[torch.Tensor] = None,
@@ -341,7 +354,7 @@ class UNet2DCondition(nn.Module):
             slot += depth
             return attn(h, ctx, tome, dst, tome_cache, **ip)
 
-        h = conv_nhwc(self.conv_in, sample.to(dt))
+        h = seq_conv(self.conv_in, sample.to(dt), self.par)
         # Level b's downsample feeds only the trunk.
         h, skips = encoder_levels(self, h, t_emb, xfmr, n - 1 if deep else branch, deep)
         if control_residuals is not None:
@@ -363,7 +376,7 @@ class UNet2DCondition(nn.Module):
         h = self._up(up[n - 1 - branch:], h, skips, t_emb, xfmr)
 
         h = self.conv_norm_out(h)
-        out = conv_nhwc(self.conv_out, h).float()
+        out = seq_conv(self.conv_out, h, self.par).float()
         return (out, deep_features) if return_cache else out
 
     def cross_attentions(self):

@@ -48,11 +48,31 @@
 // warp access spans several rows and cache lines; the special-function
 // units (the SiLU); and a fixed ~5 us chain of load, merges and barriers
 // that the small calls cannot hide.
+//
+// Split across ranks (ops/groupnorm.py::group_norm_silu_split: the rows of
+// the map split over the mesh's seq axis), the statistics of a group span
+// every rank, so one launch cannot finish the job.  The TPU kernel's grid
+// has a pass axis (pass 0 sums, pass 1 applies); here they are two launches
+// with a collective between them:
+//   * sdbl_groupnorm_partials: gn_cluster_kernel<T, V, kPartials>, the same
+//     plan, loads, Welford and Chan merges, stopped after step 4: block 0
+//     of each cluster writes every group's fp32 (count, mean, M2) of this
+//     rank's rows to stats[B][G][3], and nothing is applied (no row cache);
+//   * the ranks' partials are gathered and merged in rank order by torch
+//     ops on the host side of the wrapper (a [B, G] tensor);
+//   * sdbl_groupnorm_apply: gn_apply_kernel, a grid-stride pass over 16-byte
+//     vectors of x that applies the given (mean, rstd), gamma and beta (and
+//     the SiLU) with the fused kernel's arithmetic; each block first puts
+//     every channel's mean, scale and shift into shared memory.
+// The pair reads x twice and writes y once: its byte bound is 3 * x.nbytes
+// / 3.35 TB/s, against the fused kernel's 2 * x.nbytes.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace cg = cooperative_groups;
 
@@ -150,16 +170,22 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+constexpr int kFused = 0;     // statistics and apply, one launch
+constexpr int kPartials = 1;  // statistics only, written to global memory
+
 // Grid (ranges * K, B), clusters of (K, 1, 1).  A block's threads are
 // `lanes` row lanes (a power of two) by `slots` vectors of a row.  Shared
 // memory: the cached rows [rows_per][slots] of Raw (when cache), then
 // floats: mean and M2 [lanes][CR], gamma and beta [CR], part[gpr][2] (this
-// block's group mean, M2), stat[gpr][2] (the merged mean, rstd).
-template <typename T, int V>
+// block's group mean, M2), stat[gpr][2] (the merged mean, rstd).  MODE
+// kPartials writes (count, mean, M2) of each group to stats[B][G][3] in
+// place of the apply; gamma, beta and y are then unused.
+template <typename T, int V, int MODE>
 __global__ void __launch_bounds__(kMaxThreads, 2)  // <= 64 registers
 gn_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                  const T* __restrict__ beta, T* __restrict__ y, int N, int C, int gs,
-                  int gpr, int rows_per, int lanes, int cache, float eps, int silu) {
+                  const T* __restrict__ beta, T* __restrict__ y, float* __restrict__ stats,
+                  int N, int C, int gs, int gpr, int rows_per, int lanes, int cache, float eps,
+                  int silu) {
   using R = typename Raw<T, V>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -180,9 +206,11 @@ gn_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
   const int64_t base = (static_cast<int64_t>(b) * N + static_cast<int64_t>(rank) * rows_per) * C + c0;
   const int64_t step = static_cast<int64_t>(lanes) * C / V;  // in accesses of V elements
 
-  for (int c = threadIdx.x; c < CR; c += blockDim.x) {  // read while the rows load
-    s_gamma[c] = to_f(gamma[c0 + c]);
-    s_beta[c] = to_f(beta[c0 + c]);
+  if constexpr (MODE == kFused) {
+    for (int c = threadIdx.x; c < CR; c += blockDim.x) {  // read while the rows load
+      s_gamma[c] = to_f(gamma[c0 + c]);
+      s_beta[c] = to_f(beta[c0 + c]);
+    }
   }
 
   // 1. Per-channel Welford over this thread's rows (lane, lane + lanes, ...).
@@ -262,10 +290,23 @@ gn_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
       chan(n, mu, q, nk, pk[2 * g], pk[2 * g + 1]);
       n += nk;
     }
-    stat[2 * g] = mu;
-    stat[2 * g + 1] = rsqrtf(q / n + eps);
+    if constexpr (MODE == kPartials) {
+      if (rank == 0) {
+        float* out = stats + (static_cast<int64_t>(b) * (C / gs) + range * gpr + g) * 3;
+        out[0] = n;
+        out[1] = mu;
+        out[2] = q;
+      }
+    } else {
+      stat[2 * g] = mu;
+      stat[2 * g + 1] = rsqrtf(q / n + eps);
+    }
   }
   if (K > 1) cluster_arrive();  // done reading the peers; wait for them before exiting
+  if constexpr (MODE == kPartials) {
+    if (K > 1) cluster_wait();
+    return;
+  }
   __syncthreads();
 
   // 5. Normalise, affine, SiLU: per-channel constants once, outside the rows.
@@ -306,18 +347,80 @@ gn_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
   if (K > 1) cluster_wait();  // peers may still be reading this block's `part`
 }
 
+// Grid (blocks, B) of kApplyThreads threads; a grid-stride loop over the
+// N * C / V vectors of batch item blockIdx.y.  Shared memory: mean, scale
+// (rstd * gamma) and shift (beta) of each of the C channels, so a vector's
+// constants are C / V apart and never recomputed.
+constexpr int kApplyThreads = 256;
+constexpr int kApplyBlocks = 1056;  // 8 blocks of 256 threads an SM, all batch items together
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kApplyThreads)
+gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ stats,
+                const T* __restrict__ gamma, const T* __restrict__ beta, T* __restrict__ y,
+                int N, int C, int G, int silu) {
+  using R = typename Raw<T, V>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_mu = reinterpret_cast<float*>(smem);
+  float* s_sc = s_mu + C;
+  float* s_sh = s_sc + C;
+  const int b = blockIdx.y, gs = C / G, slots = C / V;
+  const float* st = stats + static_cast<int64_t>(b) * G * 2;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const int g = c / gs;
+    s_mu[c] = st[2 * g];
+    s_sc[c] = st[2 * g + 1] * to_f(gamma[c]);
+    s_sh[c] = to_f(beta[c]);
+  }
+  __syncthreads();
+  const int64_t total = static_cast<int64_t>(N) * slots;
+  const R* p = reinterpret_cast<const R*>(x + static_cast<int64_t>(b) * N * C);
+  R* q = reinterpret_cast<R*>(y + static_cast<int64_t>(b) * N * C);
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
+       e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int c0 = static_cast<int>(e % slots) * V;
+    float f[V];
+    unpack<T, V>(ldg(p + e), f);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float v = fmaf(f[j] - s_mu[c0 + j], s_sc[c0 + j], s_sh[c0 + j]);
+      if (silu) v = silu_f<T>(v);
+      f[j] = v;
+    }
+    q[e] = pack<T, V>(f);
+  }
+}
+
+template <typename T, int V>
+cudaError_t launch_apply(const void* x, const float* stats, const void* gamma, const void* beta,
+                         void* y, int B, int N, int C, int G, int silu, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gn_apply_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return attr;
+  const size_t smem = 3 * sizeof(float) * static_cast<size_t>(C);
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  const int64_t vecs = static_cast<int64_t>(N) * (C / V);
+  const int64_t want = (vecs + kApplyThreads - 1) / kApplyThreads;
+  const int blocks = static_cast<int>(std::max<int64_t>(
+      1, std::min<int64_t>(want, std::max(1, kApplyBlocks / B))));
+  gn_apply_kernel<T, V><<<dim3(blocks, B, 1), kApplyThreads, smem, stream>>>(
+      static_cast<const T*>(x), stats, static_cast<const T*>(gamma),
+      static_cast<const T*>(beta), static_cast<T*>(y), N, C, G, silu);
+  return cudaGetLastError();
+}
+
 size_t smem_bytes(int rows_per, int CR, int lanes, int gpr, int cache, size_t elem) {
   const size_t cached = cache ? (static_cast<size_t>(rows_per) * CR * elem + 15) / 16 * 16 : 0;
   return cached + sizeof(float) * (2 * static_cast<size_t>(lanes) * CR + 2 * CR + 4 * gpr);
 }
 
-template <typename T, int V>
+template <typename T, int V, int MODE = kFused>
 cudaError_t allow_smem() {  // once per process and instantiation
   static const cudaError_t err = [] {
     const cudaError_t e = cudaFuncSetAttribute(
-        gn_cluster_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        gn_cluster_kernel<T, V, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(gn_cluster_kernel<T, V>,
+    return cudaFuncSetAttribute(gn_cluster_kernel<T, V, MODE>,
                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }();
   return err;
@@ -339,20 +442,21 @@ cudaLaunchConfig_t config(int ranges, int B, int K, int threads, size_t smem,
   return cfg;
 }
 
-template <typename T, int V>
-cudaError_t launch(const void* x, const void* gamma, const void* beta, void* y, int B, int N,
-                   int C, int G, int gpr, int K, int threads, int lanes, int cache, float eps,
-                   int silu, cudaStream_t stream) {
-  cudaError_t err = allow_smem<T, V>();
+template <typename T, int V, int MODE = kFused>
+cudaError_t launch(const void* x, const void* gamma, const void* beta, void* y, float* stats,
+                   int B, int N, int C, int G, int gpr, int K, int threads, int lanes, int cache,
+                   float eps, int silu, cudaStream_t stream) {
+  cudaError_t err = allow_smem<T, V, MODE>();
   if (err != cudaSuccess) return err;
   const int gs = C / G, rows_per = (N + K - 1) / K;
   const size_t smem = smem_bytes(rows_per, gpr * gs, lanes, gpr, cache, sizeof(T));
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config(G / gpr, B, K, threads, smem, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, gn_cluster_kernel<T, V>, static_cast<const T*>(x),
+  err = cudaLaunchKernelEx(&cfg, gn_cluster_kernel<T, V, MODE>, static_cast<const T*>(x),
                            static_cast<const T*>(gamma), static_cast<const T*>(beta),
-                           static_cast<T*>(y), N, C, gs, gpr, rows_per, lanes, cache, eps, silu);
+                           static_cast<T*>(y), stats, N, C, gs, gpr, rows_per, lanes, cache,
+                           eps, silu);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -363,7 +467,7 @@ cudaError_t active_clusters(int K, int threads, int smem, int* out) {
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config(1, 1, K, threads, smem, nullptr, &attr);
-  return cudaOccupancyMaxActiveClusters(out, gn_cluster_kernel<T, V>, &cfg);
+  return cudaOccupancyMaxActiveClusters(out, gn_cluster_kernel<T, V, kFused>, &cfg);
 }
 
 bool valid(int B, int N, int C, int G, int vec, int gpr, int K, int threads, int lanes,
@@ -396,14 +500,62 @@ extern "C" int sdbl_groupnorm_fwd(const void* x, const void* gamma, const void* 
   if ((dtype != 0 && dtype != 1) || !valid(B, N, C, G, vec, gpr, K, threads, lanes, elem, x))
     return cudaErrorInvalidValue;
   if (dtype == 0 && vec == 4)
-    return launch<float, 4>(x, gamma, beta, y, B, N, C, G, gpr, K, threads, lanes, cache, eps, silu, st);
+    return launch<float, 4>(x, gamma, beta, y, nullptr, B, N, C, G, gpr, K, threads, lanes,
+                            cache, eps, silu, st);
   if (dtype == 0)
-    return launch<float, 1>(x, gamma, beta, y, B, N, C, G, gpr, K, threads, lanes, cache, eps, silu, st);
+    return launch<float, 1>(x, gamma, beta, y, nullptr, B, N, C, G, gpr, K, threads, lanes,
+                            cache, eps, silu, st);
   if (vec == 8)
-    return launch<__nv_bfloat16, 8>(x, gamma, beta, y, B, N, C, G, gpr, K, threads, lanes, cache,
-                                    eps, silu, st);
-  return launch<__nv_bfloat16, 1>(x, gamma, beta, y, B, N, C, G, gpr, K, threads, lanes, cache,
-                                  eps, silu, st);
+    return launch<__nv_bfloat16, 8>(x, gamma, beta, y, nullptr, B, N, C, G, gpr, K, threads,
+                                    lanes, cache, eps, silu, st);
+  return launch<__nv_bfloat16, 1>(x, gamma, beta, y, nullptr, B, N, C, G, gpr, K, threads, lanes,
+                                  cache, eps, silu, st);
+}
+
+// Pass 0 of a GroupNorm split across ranks: stats[B][G][3] (fp32 count,
+// mean, M2 of each group over x's N rows), with the fused kernel's plan
+// (vec, gpr, K, threads, lanes as for sdbl_groupnorm_fwd) and no row cache.
+extern "C" int sdbl_groupnorm_partials(const void* x, float* stats, int B, int N, int C, int G,
+                                       int vec, int gpr, int K, int threads, int lanes,
+                                       int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t elem = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  if ((dtype != 0 && dtype != 1) || !valid(B, N, C, G, vec, gpr, K, threads, lanes, elem, x))
+    return cudaErrorInvalidValue;
+  if (dtype == 0 && vec == 4)
+    return launch<float, 4, kPartials>(x, nullptr, nullptr, nullptr, stats, B, N, C, G, gpr, K,
+                                       threads, lanes, 0, 0.f, 0, st);
+  if (dtype == 0)
+    return launch<float, 1, kPartials>(x, nullptr, nullptr, nullptr, stats, B, N, C, G, gpr, K,
+                                       threads, lanes, 0, 0.f, 0, st);
+  if (vec == 8)
+    return launch<__nv_bfloat16, 8, kPartials>(x, nullptr, nullptr, nullptr, stats, B, N, C, G,
+                                               gpr, K, threads, lanes, 0, 0.f, 0, st);
+  return launch<__nv_bfloat16, 1, kPartials>(x, nullptr, nullptr, nullptr, stats, B, N, C, G,
+                                             gpr, K, threads, lanes, 0, 0.f, 0, st);
+}
+
+// Pass 1: y = (x - mean) * rstd * gamma + beta (then y * sigmoid(y) when
+// silu) with stats[B][G][2] = (mean, rstd) in fp32; x, y contiguous
+// [B, N, C]; vec 16 bytes' worth of elements (C a multiple, x and y 16-byte
+// aligned) or 1.
+extern "C" int sdbl_groupnorm_apply(const void* x, const float* stats, const void* gamma,
+                                    const void* beta, void* y, int B, int N, int C, int G,
+                                    int vec, int silu, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t elem = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  if ((dtype != 0 && dtype != 1) || B <= 0 || B > 65535 || N <= 0 || C <= 0 || G <= 0 || C % G)
+    return cudaErrorInvalidValue;
+  if (vec != 1 && (vec * elem != 16 || C % vec || reinterpret_cast<uintptr_t>(x) % 16 ||
+                   reinterpret_cast<uintptr_t>(y) % 16))
+    return cudaErrorInvalidValue;
+  if (dtype == 0 && vec == 4)
+    return launch_apply<float, 4>(x, stats, gamma, beta, y, B, N, C, G, silu, st);
+  if (dtype == 0)
+    return launch_apply<float, 1>(x, stats, gamma, beta, y, B, N, C, G, silu, st);
+  if (vec == 8)
+    return launch_apply<__nv_bfloat16, 8>(x, stats, gamma, beta, y, B, N, C, G, silu, st);
+  return launch_apply<__nv_bfloat16, 1>(x, stats, gamma, beta, y, B, N, C, G, silu, st);
 }
 
 // How many clusters of K blocks of `threads` threads and `smem` bytes of

@@ -18,6 +18,20 @@ whose forward is the same kernel or plain version and whose backward is
 autograd through ``reference_group_norm``, the port's copy of the JAX
 package's ``_gn_silu_ref`` (one-pass E[x²] − mean² statistics), as the JAX
 package's ``_gn_bwd`` is ``jax.vjp`` of it.
+
+Split across ranks (a height split over the mesh's ``seq`` axis): the
+TPU kernel's grid has a pass axis, pass 0 accumulating each group's sums
+and pass 1 applying them.  ``group_norm_silu_split`` does the same in two
+hand-written launches with a collective between them:
+``group_norm_partials`` (``gn_cluster_kernel``'s statistics, stopped
+before the apply: per batch item and group the fp32 ``(count, mean,
+M2)`` of this rank's rows), an all-gather of the partials along the axis,
+``merge_group_stats`` (Chan's merge in rank order, a few torch ops on a
+[B, G] tensor, so every rank gets the same bits) and
+``group_norm_apply`` (``gn_apply_kernel``: ``(x - mean) * rstd * gamma +
+beta`` and the SiLU with the given statistics).  Their plain versions
+``plain_group_norm_partials`` and ``plain_group_norm_apply`` run on a CPU
+tensor.  Each wrapper counts its launches (``.launches``).
 """
 
 from __future__ import annotations
@@ -63,6 +77,45 @@ def plain_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     var = ((xg - mean) ** 2).mean(dim=(1, 3), keepdim=True)
     y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
     y = y * weight.float() + bias.float()
+    if silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
+
+
+def plain_group_norm_partials(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """x [B, ..., C] -> [B, G, 3] fp32 ``(count, mean, M2)`` of each group
+    over x's rows (M2: the sum of squared deviations from the mean)."""
+    C = x.shape[-1]
+    xg = x.float().reshape(x.shape[0], -1, groups, C // groups)
+    mean = xg.mean(dim=(1, 3))
+    m2 = ((xg - mean[:, None, :, None]) ** 2).sum(dim=(1, 3))
+    return torch.stack([torch.full_like(mean, xg.shape[1] * xg.shape[3]), mean, m2], dim=-1)
+
+
+def merge_group_stats(parts: torch.Tensor, eps: float) -> torch.Tensor:
+    """[S, B, G, 3] partials of S row slices, in row order -> [B, G, 2] fp32
+    ``(mean, rstd)`` of the whole: Chan's merge of slice k into the first
+    k, in that fixed order, as ``gn_cluster_kernel`` merges its blocks."""
+    n, mean, m2 = parts[0].float().unbind(-1)
+    for part in parts[1:]:
+        nb, mb, qb = part.float().unbind(-1)
+        tot = n + nb
+        d = mb - mean
+        mean = mean + d * (nb / tot)
+        m2 = m2 + (qb + d * d * (n * nb / tot))
+        n = tot
+    return torch.stack([mean, torch.rsqrt(m2 / n + eps)], dim=-1)
+
+
+def plain_group_norm_apply(x: torch.Tensor, stats: torch.Tensor, weight: torch.Tensor,
+                           bias: torch.Tensor, silu: bool) -> torch.Tensor:
+    """x [B, ..., C] normalised with the given [B, G, 2] ``(mean, rstd)``,
+    then the affine and optional SiLU in fp32; output in x's dtype."""
+    B, C = x.shape[0], x.shape[-1]
+    G = stats.shape[1]
+    xg = x.float().reshape(B, -1, G, C // G)
+    mean, rstd = (stats[..., i].float()[:, None, :, None] for i in (0, 1))
+    y = ((xg - mean) * rstd).reshape(x.shape) * weight.float() + bias.float()
     if silu:
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
@@ -306,6 +359,105 @@ def _group_norm_silu(x, weight, bias, groups, eps, silu):
 
 
 group_norm_silu.launches = 0
+
+
+def _check_kernel_inputs(x: torch.Tensor, what: str, *params: torch.Tensor) -> None:
+    """The kernels' device, dtype, shape and stride rules."""
+    C = x.shape[-1]
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, not {x.device}")
+    if x.dtype not in _DTYPES or any(p.dtype != x.dtype for p in params):
+        raise TypeError(f"{what} takes float32 or bfloat16 x, weight and bias of one dtype, "
+                        f"got {[t.dtype for t in (x, *params)]}")
+    if x.dim() < 3:
+        raise ValueError(f"expected [B, ..., C], got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}'s kernel reads contiguous channels-last [B, ..., C] tensors; "
+                         f"got strides {x.stride()} for shape {tuple(x.shape)}")
+    if any(p.shape != (C,) or not p.is_contiguous() or p.device != x.device for p in params):
+        raise ValueError(f"weight and bias must be contiguous [{C}] on {x.device}")
+    if C > MAX_CHANNELS:
+        raise ValueError(f"at most {MAX_CHANNELS} channels, got {C}")
+
+
+def group_norm_partials(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """x [B, ..., C] -> [B, G, 3] fp32 ``(count, mean, M2)`` of each of the
+    ``groups`` groups over x's rows: ``gn_cluster_kernel``'s Welford and
+    Chan merges, stopped before the apply, on a CUDA tensor (laid out by
+    ``card_plan``, without the row cache); ``plain_group_norm_partials``
+    on a CPU one."""
+    C = x.shape[-1]
+    if C % groups:
+        raise ValueError(f"channels {C} not divisible by groups {groups}")
+    _build.add_flops(4 * x.numel())
+    if x.device.type == "cpu":
+        return plain_group_norm_partials(x, groups)
+    _check_kernel_inputs(x, "group_norm_partials")
+    B = x.shape[0]
+    N = x.numel() // (B * C)
+    stats = torch.empty(B, groups, 3, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        p = card_plan(B, N, C, groups, _DTYPES[x.dtype], x.data_ptr() % 16 == 0)
+        err = _build.kernels().sdbl_groupnorm_partials(
+            x.data_ptr(), stats.data_ptr(), B, N, C, groups, p.vec, p.range_groups, p.cluster,
+            p.threads, p.row_lanes, _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "group_norm_partials")
+    _build.count_launch(group_norm_partials)
+    return stats
+
+
+group_norm_partials.launches = 0
+
+
+def group_norm_apply(x: torch.Tensor, stats: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, silu: bool = True) -> torch.Tensor:
+    """x [B, ..., C] with the given [B, G, 2] fp32 ``(mean, rstd)`` ->
+    ``(x - mean) * rstd * weight + bias`` (+ SiLU) in x's dtype:
+    ``gn_apply_kernel`` on a CUDA tensor, ``plain_group_norm_apply`` on a
+    CPU one."""
+    B, C = x.shape[0], x.shape[-1]
+    if stats.dim() != 3 or stats.shape[0] != B or stats.shape[2] != 2 or C % stats.shape[1]:
+        raise ValueError(f"stats {tuple(stats.shape)} is not [{B}, G, 2] with G dividing {C}")
+    _build.add_flops((6 if silu else 2) * x.numel())
+    if x.device.type == "cpu":
+        return plain_group_norm_apply(x, stats, weight, bias, silu)
+    _check_kernel_inputs(x, "group_norm_apply", weight, bias)
+    if (stats.dtype != torch.float32 or stats.device != x.device
+            or not stats.is_contiguous()):
+        raise ValueError("stats must be contiguous float32 on x's device")
+    N = x.numel() // (B * C)
+    y = torch.empty_like(x)
+    vec = 16 // x.element_size()
+    if C % vec or x.data_ptr() % 16 or y.data_ptr() % 16:
+        vec = 1
+    with torch.cuda.device(x.device):
+        err = _build.kernels().sdbl_groupnorm_apply(
+            x.data_ptr(), stats.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            B, N, C, stats.shape[1], vec, int(bool(silu)), _DTYPES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "group_norm_apply")
+    _build.count_launch(group_norm_apply)
+    return y
+
+
+group_norm_apply.launches = 0
+
+
+def group_norm_silu_split(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                          groups: int, eps: float, silu: bool, group) -> torch.Tensor:
+    """GroupNorm(+SiLU) of a map whose rows are split over the ranks of
+    ``group`` (this rank's rows in ``x``): the partials of the local rows,
+    gathered in rank order, merged, applied.  Inference only: training
+    under ``seq`` is ROADMAP A9b."""
+    from sonicdiffusionbayeslab_torch.parallel import distributed
+
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        raise NotImplementedError("GroupNorm's gradient across a seq split is not ported "
+                                  "(ROADMAP.md item A9b)")
+    groups = resolve_groups(x.shape[-1], groups)
+    parts = distributed.all_gather_seq(group_norm_partials(x, groups)[None], 0, group)
+    return group_norm_apply(x, merge_group_stats(parts, eps), weight, bias, silu)
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,6 +13,15 @@ are the identity.  The other helpers are the port's collectives on
 tensors: rows gathered along a group, gradients averaged, one object sent
 from rank 0.  Gloo has no CUDA ``all_gather``, so under gloo a CUDA tensor
 is gathered through the host; NCCL gathers on the device.
+
+The tensor- and sequence-parallel layers (``models/layers.py``) use three
+collectives on one mesh axis's group: :func:`all_reduce_sum_` (the
+row-parallel partial sums over ``model``), :func:`all_gather_seq` (K/V
+and GroupNorm statistics along ``seq``) and :func:`halo_exchange` (the
+neighbouring rows of a height-split map for a 3x3 conv).  Each checks
+that this rank belongs to the group it is given and raises otherwise,
+also without a process group: the layers call them only where an axis
+is above 1.
 """
 
 from __future__ import annotations
@@ -33,6 +42,11 @@ TIMEOUT_S = 600.0
 CONTROL_TIMEOUT_S = 7 * 24 * 3600.0
 
 _control: list = []  # the serving control group, made once
+# One pinned host buffer per dtype, as large as the largest CUDA tensor a
+# gloo collective has sent (gloo serves ranks that share one card, for
+# checks): the copy to the host is then a DMA, where a pageable copy adds
+# a host memcpy to every one of a split forward's ~100 collectives.
+_staging: dict = {}
 
 
 def initialize(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
@@ -142,6 +156,83 @@ def all_gather_rows(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
+
+
+def _members(group, what: str) -> int:
+    """The size of ``group``, after checking that a process group exists and
+    that this rank is one of ``group``'s."""
+    if not is_initialized():
+        raise RuntimeError(f"{what}: no process group (call parallel.initialize first)")
+    if group is None:
+        raise ValueError(f"{what}: no group given")
+    if dist.get_rank(group) < 0:
+        raise ValueError(f"{what}: rank {rank()} is not a member of the group it was given")
+    return dist.get_world_size(group)
+
+
+def _to_comm(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on the collective's device: itself there, a CUDA tensor's copy
+    in this dtype's pinned staging buffer for gloo (the collective is done
+    with it before the next one starts)."""
+    if t.device == dev:
+        return t
+    if t.is_cuda and dev.type == "cpu":
+        buf = _staging.get(t.dtype)
+        if buf is None or buf.numel() < t.numel():
+            buf = _staging[t.dtype] = torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
+        return buf[:t.numel()].view(t.shape).copy_(t)
+    return t.to(dev)
+
+
+def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over the ranks of ``group``, in place, and return it: on
+    the device under NCCL, through the host under gloo.  The backends'
+    ring algorithms reduce each element once and send the result to every
+    rank, so every rank holds the same bits."""
+    _members(group, "all_reduce_sum_")
+    buf = _to_comm(t.detach(), _comm_device(group))
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return t if buf is t else t.copy_(buf)
+
+
+def all_gather_seq(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on all ranks) concatenated along
+    ``dim`` in rank order, on ``x``'s device: the K/V tokens or the
+    GroupNorm partials of a height split in the order of the image's
+    rows."""
+    n = _members(group, "all_gather_seq")
+    src = _to_comm(x.detach().contiguous(), _comm_device(group))
+    parts = [torch.empty(src.shape, dtype=src.dtype, device=src.device) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)
+
+
+def halo_exchange(x: torch.Tensor, rows_above: int, rows_below: int, group,
+                  dim: int = 1) -> torch.Tensor:
+    """``x`` (this rank's rows of a map split along ``dim`` over ``group``
+    in rank order) with the last ``rows_above`` rows of the rank above
+    before it and the first ``rows_below`` rows of the rank below after it;
+    zeros at the image's top and bottom edges, which is the zero padding
+    of one process.  One all-gather of every rank's edge rows."""
+    n = _members(group, "halo_exchange")
+    r = dist.get_rank(group)
+    h = x.shape[dim]
+    if rows_above > h or rows_below > h:
+        raise ValueError(f"halo of {rows_above}/{rows_below} rows > the local height {h}")
+    edges = torch.cat([x.narrow(dim, 0, rows_below), x.narrow(dim, h - rows_above, rows_above)],
+                      dim=dim)
+    parts = all_gather_seq(edges.unsqueeze(0), 0, group)
+    shape = list(x.shape)
+    out = [x]
+    if rows_above:
+        shape[dim] = rows_above
+        out.insert(0, parts[r - 1].narrow(dim, rows_below, rows_above) if r > 0
+                   else x.new_zeros(shape))
+    if rows_below:
+        shape[dim] = rows_below
+        out.append(parts[r + 1].narrow(dim, 0, rows_below) if r < n - 1
+                   else x.new_zeros(shape))
+    return torch.cat(out, dim=dim)
 
 
 def all_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:

@@ -4,17 +4,30 @@ Counterpart of ``sonicdiffusionbayeslab_tpu/parallel/mesh.py``: one mesh
 over the axes ("data", "seq", "model") (a
 ``torch.distributed.device_mesh.DeviceMesh`` of one rank a process).  The
 JAX package annotates arrays and lets GSPMD insert the collectives; here a
-rank holds its own rows and the code around the model calls the
-collectives itself (``parallel/distributed.py``).
+rank holds its own rows and weights, and the layers call the collectives
+themselves (``parallel/distributed.py``).
 
-* ``data``: batch parallel.  :func:`shard_batch` and :func:`shard_latents`
-  give this rank's contiguous rows of a batch, as the JAX package's
-  ``P("data")`` sharding puts them.
-* ``seq`` and ``model``: sequence and tensor parallel.  The placements are
-  ported (:func:`shard_params` follows the JAX package's ``_TP_RULES`` in
-  torch layouts); the execution across ranks is not (ROADMAP.md item A9),
-  and the pipelines, the training loop and the server raise for either
-  axis above 1.
+* ``data``: batch parallel.  :func:`shard_batch` gives this rank's
+  contiguous rows of a batch, as the JAX package's ``P("data")`` sharding
+  puts them.
+* ``seq``: sequence parallel.  :func:`latent_sharding` splits the latent
+  height too (``P("data", "seq")``): rank r of ``seq`` holds rows
+  ``[r * h / n, (r + 1) * h / n)`` of every feature map; the 3x3 convs
+  exchange halo rows, GroupNorm merges its statistics across the axis and
+  self-attention gathers K and V.
+* ``model``: tensor parallel.  :func:`place_module` keeps on each rank its
+  share of the heads and hidden units of the UNet's, ControlNet's,
+  MMDiT's and T5's layers (``models/layers.py``, ``mmdit.py``, ``t5.py``);
+  the row-parallel output projections sum their partials across the axis.
+  :func:`shard_params` places parameters by the JAX package's
+  ``_TP_RULES``; what a rank runs departs from that where a local kernel
+  needs it (:func:`place_module`).
+
+What stays refused names ROADMAP.md item A9b (:data:`A9B`): training with
+``seq`` or ``model`` above 1, Token Merging with ``seq``, int8 with
+``model``, the int8 conv modes with ``seq`` (their activation scale is
+one a sample, over rows that the ranks split), and CUDA-graph capture of
+the collectives (a split model runs eagerly).
 
 Without a process group :func:`make_mesh` of one rank is ``None``: the
 callers' single-device path, as a ``mesh=None`` argument is everywhere.
@@ -31,7 +44,10 @@ import torch
 from sonicdiffusionbayeslab_torch.parallel import distributed
 
 AXES = ("data", "seq", "model")
-A9 = "ROADMAP.md item A9 (tensor and sequence parallel execution across ranks)"
+A9 = ("ROADMAP.md item A9 (tensor and sequence parallel sampling: the UNet, ControlNet, MMDiT "
+      "and T5 over model, the latent height over seq)")
+A9B = ("ROADMAP.md item A9b (training under seq or model, ToMe under seq, int8 under model, "
+       "int8 convs under seq, CUDA-graph capture of the collectives)")
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1, n_seq: int = 1,
@@ -73,27 +89,48 @@ def axis_group(mesh, axis: str):
     return mesh.get_group(axis)
 
 
-def check_data_only(mesh_seq: int = 1, mesh_model: int = 1, what: str = "this entry point"):
-    """Raise NotImplementedError for a ``seq`` or ``model`` axis above 1."""
-    if int(mesh_seq) > 1 or int(mesh_model) > 1:
-        raise NotImplementedError(
-            f"{what}: mesh_seq={mesh_seq}, mesh_model={mesh_model}: sequence and tensor "
-            f"parallel execution is not ported; only the data axis runs ({A9})")
+def check_supported(what: str, mesh_seq: int = 1, mesh_model: int = 1, *, tome=None,
+                    quant: Optional[str] = None, training: bool = False) -> None:
+    """Raise NotImplementedError, naming ROADMAP A9b, for what a ``seq`` or
+    ``model`` axis above 1 does not run yet: training, Token Merging under
+    ``seq``, int8 under ``model`` and the int8 conv modes under ``seq``
+    (``quant``: an ``ops.quant`` mode or None)."""
+    from sonicdiffusionbayeslab_torch.ops.quant import conv_enabled
+
+    seq, model = int(mesh_seq), int(mesh_model)
+    refused = []
+    if training and (seq > 1 or model > 1):
+        refused.append(f"training with mesh_seq={seq}, mesh_model={model}")
+    if tome is not None and seq > 1:
+        refused.append(f"Token Merging with mesh_seq={seq}")
+    if quant and model > 1:
+        refused.append(f"int8 ({quant}) with mesh_model={model}")
+    if conv_enabled(quant) and seq > 1:
+        refused.append(f"int8 convs ({quant}) with mesh_seq={seq}")
+    if refused:
+        raise NotImplementedError(f"{what}: {'; '.join(refused)} is not ported ({A9B})")
 
 
 @dataclasses.dataclass(frozen=True)
 class RowShard:
-    """This rank's contiguous share of a batch along one mesh axis: rows
-    ``[index * B / count, (index + 1) * B / count)``."""
+    """This rank's contiguous share of an axis of ``count`` ranks: rows
+    ``[index * n / count, (index + 1) * n / count)``; ``multiple``: each
+    share must also divide by it (the UNet's downsampling, the MMDiT's
+    patch)."""
 
     index: int
     count: int
+    axis: str = "data"
+    what: str = "batch"
+    multiple: int = 1
 
-    def rows(self, batch: int) -> slice:
-        if batch % self.count:
-            raise ValueError(f"batch {batch} not divisible by data axis {self.count}")
-        n = batch // self.count
-        return slice(self.index * n, (self.index + 1) * n)
+    def rows(self, n: int) -> slice:
+        if n % (self.count * self.multiple):
+            extra = f" x {self.multiple}" if self.multiple > 1 else ""
+            raise ValueError(f"{self.what} {n} not divisible by {self.axis} axis "
+                             f"{self.count}{extra}")
+        k = n // self.count
+        return slice(self.index * k, (self.index + 1) * k)
 
     def take(self, x, dim: int = 0):
         """``x``'s rows (a tensor, numpy array or sequence) along ``dim``."""
@@ -110,11 +147,29 @@ def batch_sharding(mesh) -> RowShard:
     return RowShard(axis_index(mesh, "data"), axis_size(mesh, "data"))
 
 
-def latent_sharding(mesh) -> RowShard:
-    """[B, h, w, C] latents: the batch over the data axis (the JAX package
-    also splits the height over ``seq``: A9)."""
-    check_data_only(axis_size(mesh, "seq"), 1, "latent_sharding")
-    return batch_sharding(mesh)
+@dataclasses.dataclass(frozen=True)
+class LatentShard:
+    """[B, h, w, C] latents: the batch over ``data``, the height over
+    ``seq`` (the JAX package's ``P("data", "seq")``)."""
+
+    batch: RowShard
+    height: RowShard
+
+    def take(self, x):
+        x = self.batch.take(x)
+        return x if self.height.count == 1 else self.height.take(x, 1)
+
+
+def latent_sharding(mesh, multiple: int = 1) -> LatentShard:
+    """This rank's share of [B, h, w, C] latents: rows of the batch over
+    ``data`` and rows ``[r * h / n, (r + 1) * h / n)`` of the height over
+    ``seq``.  ``multiple``: each height share must divide by it as well
+    (``2 ** (levels - 1)`` for a UNet, so that every level it downsamples
+    to splits alike; the patch size for the MMDiT); a height that does not
+    split so raises ValueError."""
+    return LatentShard(batch_sharding(mesh),
+                       RowShard(axis_index(mesh, "seq"), axis_size(mesh, "seq"), "seq",
+                                "latent height", int(multiple)))
 
 
 def shard_batch(mesh, *arrays):
@@ -127,6 +182,72 @@ def shard_batch(mesh, *arrays):
 
 def shard_latents(mesh, latents):
     return latent_sharding(mesh).take(latents)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ParallelContext:
+    """What a placed module needs to run split: the mesh, this rank's
+    coordinates on ``seq`` and ``model`` and the sizes of those axes.  A
+    module gets it once, from :func:`place_module`."""
+
+    mesh: object
+    n_seq: int
+    seq_index: int
+    n_model: int
+    model_index: int
+
+    @classmethod
+    def from_mesh(cls, mesh) -> "ParallelContext":
+        return cls(mesh, axis_size(mesh, "seq"), axis_index(mesh, "seq"),
+                   axis_size(mesh, "model"), axis_index(mesh, "model"))
+
+    @property
+    def seq_group(self):
+        return axis_group(self.mesh, "seq")
+
+    @property
+    def model_group(self):
+        return axis_group(self.mesh, "model")
+
+
+def place_module(module: torch.nn.Module, ctx: ParallelContext) -> Dict[str, Optional[int]]:
+    """Give every submodule of ``module`` the context (``par``) and keep, on
+    this rank, only its share of each tensor-parallel layer's weights:
+    every submodule with a ``tp_shard_`` method (``models/layers.py``,
+    ``mmdit.py``, ``t5.py``) cuts its own along the ``model`` axis.
+    Returns the execution plan, {parameter name: the dim this rank holds
+    a 1/n_model slice of, or None for the whole tensor}.
+
+    It departs from :func:`param_placement` where a local kernel needs it:
+    biases and norm scales of column-parallel layers are cut with their
+    weights; GEGLU's ``[h ; gate]`` projection gives each rank the same
+    rows of both halves; a layer whose heads (or hidden units, or groups)
+    the axis does not divide keeps its whole weights and runs unsplit;
+    the time embedding, the ControlNet's heads and whatever is not placed
+    (the VAE, the CLIP towers) run whole."""
+    plan = {name: None for name, _ in module.named_parameters()}
+    for prefix, m in module.named_modules():
+        m.par = ctx
+        if ctx.n_model > 1 and hasattr(m, "tp_shard_"):
+            for name, dim in m.tp_shard_(ctx.model_index, ctx.n_model).items():
+                plan[f"{prefix}.{name}" if prefix else name] = dim
+    return plan
+
+
+def execution_placements(plan: Dict[str, Optional[int]], mesh) -> Dict[str, tuple]:
+    """{parameter: DTensor placements over the mesh's axes} of what each
+    rank runs: ``Shard(dim)`` on ``model`` where the plan cuts the
+    parameter, ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    model_dim = AXES.index("model")
+    out = {}
+    for name, dim in plan.items():
+        p = [Replicate()] * len(AXES)
+        if dim is not None:
+            p[model_dim] = Shard(dim)
+        out[name] = tuple(p)
+    return out
 
 
 # ------------------------------------------------------------------- TP

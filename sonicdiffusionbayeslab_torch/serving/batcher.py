@@ -22,12 +22,12 @@ shape captures new CUDA graphs.  The batcher therefore:
   most ``pipeline_depth - 1`` batches, which bounds the device memory in
   flight.
 
-A pipeline on a data-parallel mesh (``mesh_data`` N > 1, one process a
-rank) is served from rank 0: for each batch the worker broadcasts the
+A pipeline on a mesh of N > 1 ranks (any of ``mesh_data``, ``mesh_seq``
+and ``mesh_model`` above 1, one process a rank) is served from rank 0: for each batch the worker broadcasts the
 call's arguments on a control group (``parallel.distributed.
 control_group``) and every other rank, in :func:`follow`, makes the same
-call, so the ranks sample their rows together and rank 0 gets the
-gathered images.  When the worker stops it broadcasts a stop, which
+call, so the ranks sample together (their rows, or their share of the
+split UNet) and rank 0 gets the whole batch's images.  When the worker stops it broadcasts a stop, which
 releases the followers.
 
 On the GPU the copy must not wait behind the next batch: the worker records
@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from sonicdiffusionbayeslab_torch.parallel import distributed
-from sonicdiffusionbayeslab_torch.parallel.mesh import axis_size
+from sonicdiffusionbayeslab_torch.parallel.mesh import AXES, axis_size
 
 
 class ServerOverloadedError(RuntimeError):
@@ -129,11 +129,12 @@ class InferenceServer:
             "rejected": 0, "timeouts": 0, "batch_seconds": 0.0,
         }
         self.finisher_wait_s = 0.0
-        # The followers' channel when the pipeline is data-parallel.
+        # The followers' channel when the pipeline is on a mesh.
         self._control = None
-        if axis_size(getattr(pipe, "mesh", None), "data") > 1:
+        mesh = getattr(pipe, "mesh", None)
+        if mesh is not None and any(axis_size(mesh, a) > 1 for a in AXES):
             if distributed.rank() != 0:
-                raise ValueError("rank 0 serves a data-parallel pipeline; the other ranks run "
+                raise ValueError("rank 0 serves a pipeline on a mesh; the other ranks run "
                                  "serving.batcher.follow(pipe)")
             self._control = distributed.control_group()
         self._finisher: Optional[threading.Thread] = None
@@ -421,7 +422,7 @@ class InferenceServer:
 
 
 def follow(pipe) -> int:
-    """A rank other than 0 of a data-parallel server: make each pipeline
+    """A rank other than 0 of a server on a mesh: make each pipeline
     call that rank 0's :class:`InferenceServer` broadcasts (its images,
     gathered to every rank, are rank 0's to return) until the stop;
     returns the number of calls.  A call that raises here raises alike on

@@ -20,9 +20,11 @@ data-parallel over N ranks (one process a GPU):
     torchrun --nproc_per_node N -m sonicdiffusionbayeslab_torch.serving.server \
         --config configs/dpm_solver_config.yaml --mesh_data N
 
-Rank 0 owns the HTTP front end and the batcher; the other ranks follow
-its pipeline calls (``serving/batcher.py::follow``) until it shuts down.
-``--mesh_seq`` and ``--mesh_model`` above 1 raise (ROADMAP.md item A9).
+``--mesh_seq`` and ``--mesh_model`` split the pipeline's UNet (or MMDiT)
+over that many ranks instead (sequence and tensor parallel; the product of
+the three is the number of processes).  Rank 0 owns the HTTP front end
+and the batcher; the other ranks follow its pipeline calls
+(``serving/batcher.py::follow``) until it shuts down.
 """
 
 from __future__ import annotations
@@ -41,7 +43,6 @@ import torch
 from sonicdiffusionbayeslab_torch.data.imageio import encode_png_bytes
 from sonicdiffusionbayeslab_torch.parallel import distributed
 from sonicdiffusionbayeslab_torch.parallel.distributed import initialize
-from sonicdiffusionbayeslab_torch.parallel.mesh import check_data_only
 from sonicdiffusionbayeslab_torch.serving.batcher import GenerateRequest, InferenceServer, follow
 
 
@@ -137,28 +138,29 @@ def serve(pipe, model_name: str, host: str = "127.0.0.1", port: int = 8000,
         httpd.serve_forever()
     finally:
         httpd.server_close()
-        # A data-parallel server waits for its worker, whose stop releases
+        # A server on a mesh waits for its worker, whose stop releases
         # the followers.
         inference.shutdown(wait=distributed.world_size() > 1)
 
 
-def build_pipe(cfg, device=None, mesh_data: int = 0):
+def build_pipe(cfg, device=None, mesh_data: int = 0, mesh_seq: int = 1, mesh_model: int = 1):
     """The pipeline a config serves: the model section (``image_size``
     from the dataset's where unset), the scheduler with its arguments from
     ``experiment_params``, and the acceleration knobs the experiment path
     reads: ``inference.quant``, ``inference.unet_microbatch``,
     ``experiment_params.tome_ratio`` and a scalar
     ``experiment_params.cache_interval`` (with ``cache_branch_id``);
-    ``mesh_data`` > 1 overrides the model section's.  Returns (pipeline,
-    model name)."""
+    ``mesh_data``, ``mesh_seq`` and ``mesh_model`` above 1 override the
+    model section's.  Returns (pipeline, model name)."""
     from sonicdiffusionbayeslab_torch.models.sampler import CachePlan
     from sonicdiffusionbayeslab_torch.ops.quant import check_mode
     from sonicdiffusionbayeslab_torch.registry import models_registry, schedulers_registry
 
     mcfg = dict(cfg.model)
     name = mcfg.pop("model_name")
-    if int(mesh_data) > 1:
-        mcfg["mesh_data"] = int(mesh_data)
+    for key, n in (("mesh_data", mesh_data), ("mesh_seq", mesh_seq), ("mesh_model", mesh_model)):
+        if int(n) > 1:
+            mcfg[key] = int(n)
     mcfg.setdefault("image_size", cfg.dataset.get("image_size", 512))
     ep = dict(cfg.get("experiment_params", {}) or {})
     ci = ep.get("cache_interval")
@@ -212,16 +214,15 @@ def main(argv=None) -> None:
                         help="data-parallel ranks (started by torchrun, one a GPU); 0 or 1: "
                              "one process")
     parser.add_argument("--mesh_seq", type=int, default=1,
-                        help="above 1 is not ported (ROADMAP.md A9)")
+                        help="ranks splitting the latent height (sequence parallel)")
     parser.add_argument("--mesh_model", type=int, default=1,
-                        help="above 1 is not ported (ROADMAP.md A9)")
+                        help="ranks splitting the UNet's heads and channels (tensor parallel)")
     args = parser.parse_args(argv)
-    check_data_only(args.mesh_seq, args.mesh_model, "the server")
-    if args.mesh_data > 1:
+    if max(args.mesh_data, 1) * args.mesh_seq * args.mesh_model > 1:
         initialize(device=args.device)
     load_all_plugins()
     cfg = load_config(args.config)
-    pipe, name = build_pipe(cfg, args.device, args.mesh_data)
+    pipe, name = build_pipe(cfg, args.device, args.mesh_data, args.mesh_seq, args.mesh_model)
     if distributed.rank() != 0:
         follow(pipe)
         return

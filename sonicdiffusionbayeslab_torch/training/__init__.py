@@ -4,8 +4,8 @@ ddpm and flow objectives; EMA; remat), LCM consistency distillation
 optimizers and the config-driven loop.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/training/``, on one device or
-data-parallel over ranks (``mesh_data``; tensor and sequence parallel
-are ROADMAP.md item A9).
+data-parallel over ranks (``mesh_data``; training under the tensor or
+sequence parallel axes is ROADMAP.md item A9b).
 """
 
 from sonicdiffusionbayeslab_torch.training.distillation import LCMDistillConfig, LCMDistiller

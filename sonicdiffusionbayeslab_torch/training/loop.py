@@ -38,7 +38,7 @@ process a GPU):
 of the global batch and encodes its own rows; the trainer draws the
 global batch's timesteps and noise and averages the gradients over the
 ranks, so every rank takes the one-process step.  Rank 0 alone prints and
-saves.  ``mesh_model`` or ``mesh_seq`` above 1 raises (ROADMAP.md A9).
+saves.  ``mesh_model`` or ``mesh_seq`` above 1 raises (ROADMAP.md A9b).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ import torch
 
 from sonicdiffusionbayeslab_torch.parallel import distributed
 from sonicdiffusionbayeslab_torch.parallel.distributed import initialize
-from sonicdiffusionbayeslab_torch.parallel.mesh import batch_sharding, check_data_only, make_mesh
+from sonicdiffusionbayeslab_torch.parallel.mesh import batch_sharding, check_supported, make_mesh
 from sonicdiffusionbayeslab_torch.training.distillation import LCMDistillConfig, LCMDistiller
 from sonicdiffusionbayeslab_torch.training.trainer import DiffusionTrainer, TrainConfig
 from sonicdiffusionbayeslab_torch.utils.device import resolve_device, synchronize
@@ -96,8 +96,8 @@ def run_training(config) -> Dict[str, Any]:
     save_dir = tcfg_raw.pop("save_dir", None)
     seed = int(config.get("experiment", {}).get("seed", 29))
     n_data = int(tcfg_raw.pop("mesh_data", 0)) or 1
-    check_data_only(tcfg_raw.pop("mesh_seq", 1), tcfg_raw.pop("mesh_model", 1) or 1,
-                    "training")
+    check_supported("training", tcfg_raw.pop("mesh_seq", 1), tcfg_raw.pop("mesh_model", 1) or 1,
+                    training=True)
     mode = str(tcfg_raw.pop("mode", "diffusion"))
     prefetch = int(tcfg_raw.pop("prefetch", 2))
     if mode not in ("diffusion", "distill"):

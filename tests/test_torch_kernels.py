@@ -73,6 +73,14 @@ def test_kernel_wrappers_take_plain_path_on_cpu_and_count_nothing():
     x, w, b = randn((1, 4, 4, 32), 7), torch.ones(32), torch.zeros(32)
     assert torch.equal(gn_ops.group_norm_silu(x, w, b), gn_ops.plain_group_norm(x, w, b, 32, 1e-5, True))
     assert [f.launches for f in counters] == before
+    split = (gn_ops.group_norm_partials, gn_ops.group_norm_apply)
+    before = [f.launches for f in split]
+    parts = gn_ops.group_norm_partials(x, 32)
+    assert torch.equal(parts, gn_ops.plain_group_norm_partials(x, 32))
+    stats = gn_ops.merge_group_stats(parts[None], 1e-5)
+    assert torch.equal(gn_ops.group_norm_apply(x, stats, w, b),
+                       gn_ops.plain_group_norm_apply(x, stats, w, b, True))
+    assert [f.launches for f in split] == before
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -705,6 +713,53 @@ def test_group_norm_one_launch_deterministic_and_graph_capturable(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("B,N,C", [(4, 4096, 320), (4, 1024, 640), (4, 256, 2560), (4, 64, 1280),
+                                   (2, 64, 20)])
+def test_group_norm_split_pair_matches_plain(cuda, B, N, C, n, dtype, atol):
+    """The split pair on ``n`` row slices: each slice's partials
+    (``gn_cluster_kernel``'s statistics), merged in order, within 1e-6
+    relative of the same kernel's over all rows and of the plain partials'
+    merge; the apply of the merged statistics to each slice against
+    ``plain_group_norm``; one launch of each a call."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    G = gn_ops.resolve_groups(C, 32)
+    x = (torch.randn(B, N, C, generator=gen, device=cuda) * 3 + 1).to(dtype)
+    w = torch.randn(C, generator=gen, device=cuda).to(dtype)
+    b = torch.randn(C, generator=gen, device=cuda).to(dtype)
+    slices = [s.contiguous() for s in x.chunk(n, dim=1)]
+    whole = gn_ops.merge_group_stats(gn_ops.group_norm_partials(x, G)[None], 1e-5)
+    n0 = (gn_ops.group_norm_partials.launches, gn_ops.group_norm_apply.launches)
+    stats = gn_ops.merge_group_stats(
+        torch.stack([gn_ops.group_norm_partials(s, G) for s in slices]), 1e-5)
+    plain = gn_ops.merge_group_stats(
+        torch.stack([gn_ops.plain_group_norm_partials(s, G) for s in slices]), 1e-5)
+    torch.testing.assert_close(stats, whole, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(stats, plain, rtol=1e-5, atol=1e-6)
+    for silu in (True, False):
+        got = torch.cat([gn_ops.group_norm_apply(s, stats, w, b, silu) for s in slices], dim=1)
+        torch.cuda.synchronize()
+        assert_close(got, gn_ops.plain_group_norm(x, w, b, G, 1e-5, silu), atol, 1e-2)
+    assert (gn_ops.group_norm_partials.launches, gn_ops.group_norm_apply.launches) == (
+        n0[0] + n, n0[1] + 2 * n)
+
+
+@pytest.mark.cuda
+def test_group_norm_split_pair_refuses_bad_inputs(cuda):
+    x = torch.zeros(2, 64, 320, device=cuda)
+    w = torch.ones(320, device=cuda)
+    with pytest.raises(ValueError, match="not divisible by groups"):
+        gn_ops.group_norm_partials(x, 30)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gn_ops.group_norm_apply(x, torch.zeros(2, 32, 2, device=cuda), w.half(), w)
+    with pytest.raises(ValueError, match="stats"):
+        gn_ops.group_norm_apply(x, torch.zeros(2, 32, 3, device=cuda), w, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_ops.group_norm_partials(x.transpose(0, 1), 32)
+
+
+@pytest.mark.cuda
 def test_graphed_unet_matches_eager_and_replays_its_kernels(cuda):
     from sonicdiffusionbayeslab_torch.models.clip_text import CLIPTextConfig
     from sonicdiffusionbayeslab_torch.models.sampler import StableDiffusionEngine
@@ -1152,3 +1207,59 @@ def test_tiny_distill_and_ti_steps_on_card_match_cpu(cuda):
     assert set(out) == {"distill lora", "distill wcond full", "textual inversion"}
     for name, r in out.items():
         assert r["max_grad_rel_err"] <= smoke.TINY_GRAD_REL, name
+
+
+def test_chip_smoke_records_the_shapes_its_census_counts():
+    """chip_smoke.py's ``recording_kernel_shapes`` (phase 17's record of the
+    shapes a split rank launches) sees, in a real CPU forward of the tiny
+    UNet, the same attention and GroupNorm shapes that ``module_census``
+    counts on the meta device, and leaves the forward unchanged."""
+    from sonicdiffusionbayeslab_torch.models.sampler import init_module
+    from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
+
+    smoke = _chip_smoke()
+    cfg = UNetConfig.tiny()
+    unet = UNet2DCondition(cfg).eval()
+    init_module(unet, torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(3)
+    args = (torch.randn(4, 8, 8, 4, generator=g), torch.full((4,), 501.0),
+            torch.randn(4, 77, cfg.cross_attention_dim, generator=g))
+    shapes = set()
+    with torch.inference_mode():
+        want = unet(*args)
+        with smoke.recording_kernel_shapes(shapes):
+            got = unet(*args)
+    assert torch.equal(got, want)
+    assert shapes == set(smoke.module_census(4, tiny=True))
+
+
+def test_chip_smoke_split_emulations_compute_the_same_function():
+    """chip_smoke.py's one-process readings of phase 17 compute the same
+    function in fp32 on the CPU: the tiny UNet with the seq split's convs
+    (row halves with halo rows), GroupNorm (the split pair) and attention
+    (query halves) emulated, and a tiny T5 with its channels permuted, each
+    within 1e-5 (relative L2) of the plain forward; a T5 block's update on
+    its own input is exact."""
+    from sonicdiffusionbayeslab_torch.models.sampler import init_module
+    from sonicdiffusionbayeslab_torch.models.t5 import T5Config, T5Encoder
+    from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
+
+    smoke = _chip_smoke()
+    cfg = UNetConfig.tiny()
+    unet = UNet2DCondition(cfg).eval()
+    init_module(unet, torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(3)
+    inp = dict(x=torch.randn(4, 16, 16, 4, generator=g), t=torch.full((4,), 501.0),
+               ctx=torch.randn(4, 77, cfg.cross_attention_dim, generator=g))
+    drift = smoke.seq_drift_parts(unet, inp)
+    assert set(drift) == {"batch_halves", "conv", "group_norm", "attention", "all"}
+    assert max(drift.values()) <= 1e-5, drift
+    t5 = T5Encoder(T5Config.tiny()).eval()
+    init_module(t5, torch.Generator().manual_seed(5))
+    ids = torch.randint(0, T5Config.tiny().vocab_size, (2, 16), generator=g)
+    with torch.inference_mode():
+        want = t5(ids)
+        states = smoke.t5_block_states(t5, ids)
+        assert states.shape == (T5Config.tiny().num_layers + 1, 2, 16, T5Config.tiny().d_model)
+        assert smoke.t5_block_drift(t5, states) == [0.0] * T5Config.tiny().num_layers
+        assert smoke.rel_l2(smoke.permuted_t5_encode(t5, ids), want) <= 1e-5

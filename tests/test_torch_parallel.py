@@ -403,17 +403,25 @@ def test_pipeline_mesh_data_matches_one_process(sampled, case):
 
 
 def test_pipelines_refuse_seq_and_model_axes_naming_a9():
+    """The seq and model axes run (tests/test_torch_tensor_parallel.py); a
+    pipeline asks the world for its mesh like the data axis does, and what
+    stays refused names ROADMAP A9b: ToMe with seq, int8 with model (or
+    its convs with seq) and training with either."""
     load_all_plugins()
-    for name, kw in (("stable_diffusion_model", {"mesh_model": 2}),
-                     ("stable_diffusion_model", {"mesh_seq": 2}),
-                     ("stable_diffusion_3_model", {"mesh_seq": 4}),
-                     ("stable_diffusion_controlnet_model", {"mesh_model": 2})):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
+    for name, kw, mesh in (("stable_diffusion_model", {"mesh_model": 2}, "1x1x2"),
+                           ("stable_diffusion_model", {"mesh_seq": 2}, "1x2x1"),
+                           ("stable_diffusion_3_model", {"mesh_seq": 4}, "1x4x1"),
+                           ("stable_diffusion_controlnet_model", {"mesh_model": 2}, "1x1x2")):
+        with pytest.raises(ValueError, match=f"mesh {mesh} != 1 processes"):
             models_registry[name](pretrained_model="x", tiny=True, dtype="float32",
                                   device="cpu", **kw)
     with pytest.raises(ValueError, match="mesh 2x1x1 != 1 processes"):
         models_registry["stable_diffusion_model"](pretrained_model="x", tiny=True,
                                                   dtype="float32", device="cpu", mesh_data=2)
+    for kw in (dict(mesh_seq=2, tome=0.5), dict(mesh_model=2, quant="int8"),
+               dict(mesh_seq=2, quant="int8_conv"), dict(mesh_model=2, training=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item A9b"):
+            M.check_supported("engine.sample", **kw)
 
 
 # ------------------------------------------------------------------ CLI

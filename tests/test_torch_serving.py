@@ -560,12 +560,13 @@ def test_serve_main_refuses_a_cache_sweep_and_meshes(tmp_path):
                    experiment_params={"cache_interval": "[2, 3, 5]"})
     with pytest.raises(SystemExit, match="scalar"):
         server_mod.main(["--config", path, "--device", "cpu"])
-    for axis in ("--mesh_seq", "--mesh_model"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
-            server_mod.main(["--config", path, "--device", "cpu", axis, "2"])
-    # Two data-parallel ranks need a process group of two (torchrun's).
+    # Two ranks of any mesh axis need a process group of two (torchrun's);
+    # the seq and model axes run (tests/test_torch_tensor_parallel.py).
     (tmp_path / "plain").mkdir()
     plain = _config(tmp_path / "plain", inference={"batch_size": 4})
+    for axis, mesh in (("--mesh_seq", "1x2x1"), ("--mesh_model", "1x1x2")):
+        with pytest.raises(ValueError, match=f"mesh {mesh} != 1 processes"):
+            server_mod.main(["--config", plain, "--device", "cpu", axis, "2"])
     with pytest.raises(ValueError, match="mesh 2x1x1 != 1 processes"):
         server_mod.main(["--config", plain, "--device", "cpu", "--mesh_data", "2"])
 
