@@ -256,6 +256,7 @@ prints no ``ok`` line:
 from __future__ import annotations
 
 import argparse
+import base64
 import collections
 import gc
 import json
@@ -6629,6 +6630,101 @@ def run_tensor_parallel(report, card):
 def phase17_launches(out, kind):
     """A kernel's launches in phase 17's bf16 SD-1.5 runs: each mode's rank 0."""
     return {m: recs[0]["bfloat16"]["launches"][kind] for m, recs in out["ranks"].items()}
+
+
+# ------------------------------------------- phase 18: the T5 tokenizer.json reader and A9b
+# A T5-shaped tokenizer.json written here (the card's machine has no
+# ``tokenizers``): 32,100 pieces made from T5_TOK_SEED (<pad>, </s>, <unk>,
+# 31,997 pieces, 100 <extra_id_*>), a Precompiled charsmap encoded here,
+# Replace(" {2,}", " "), Metaspace and TemplateProcessing's </s>, in the
+# layout of SD3's tokenizer_3.  T5_TOK_IDS are the ids that the
+# ``tokenizers`` package gives T5_TOK_PROMPTS on that file
+# (tests/test_torch_t5_tokenizer.py derives them there); the port's reader
+# must give the same on the card's machine.
+T5_TOK_SEED, T5_TOK_PIECES, T5_TOK_EXTRA = 18, 32000, 100
+T5_TOK_PROMPTS = [
+    "a photograph of an astronaut riding a horse",
+    "  Ｆｕｌｌ-width  ＡＢＣ  and   runs of   spaces  ",
+    "café créme ﬁne Ångström",
+    "emoji \U0001F600\U0001F3FD and 中文 unknowns </s> in the middle",
+    "",
+]
+T5_TOK_IDS = [
+    [4, 14817, 9113, 1839, 18177, 708, 16817, 10004, 2678, 247, 3, 2414, 3472, 5669, 3467, 4,
+     23863, 3416, 1],
+    [66, 3073, 25, 131, 5880, 9, 10696, 56, 57, 59, 16817, 9, 285, 14329, 708, 3625, 3403, 4396,
+     169, 1],
+    [8, 14267, 139, 6319, 139, 9934, 14, 20306, 56, 2, 29, 4336, 2678, 145, 27, 1],
+    [12, 2237, 16434, 169, 2, 16817, 9, 169, 2, 5406, 4879, 7070, 14329, 169, 1, 20, 29, 28711,
+     269, 21623, 5216, 1],
+    [1],
+]
+
+
+def t5_tokenizer_spec(seed=T5_TOK_SEED):
+    """The phase's tokenizer.json as a dict (see T5_TOK_PROMPTS)."""
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.tokenizer import encode_precompiled_charsmap
+
+    rng = np.random.default_rng(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    chars = (letters + letters.upper() + "0123456789.,-'!?éèàöüçÅ"
+             + "".join(chr(c) for c in range(0x4e00, 0x4e08)))
+    pieces, seen = [], {"<pad>", "</s>", "<unk>"}
+    for c in chars:
+        for p in (c, "▁" + c):
+            seen.add(p)
+            pieces.append(p)
+    pieces.append("▁")
+    seen.add("▁")
+    while len(pieces) < T5_TOK_PIECES - 3:
+        n = int(rng.integers(2, 9))
+        p = "".join(letters[i] for i in rng.integers(0, 26, n))
+        if rng.random() < 0.5:
+            p = "▁" + p
+        if p not in seen:
+            seen.add(p)
+            pieces.append(p)
+    scores = -rng.uniform(2.0, 14.0, len(pieces))
+    vocab = ([["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0]]
+             + [[p, float(s)] for p, s in zip(pieces, scores)]
+             + [[f"<extra_id_{i}>", 0.0] for i in range(T5_TOK_EXTRA - 1, -1, -1)])
+    charsmap = {chr(0xFF01 + i): chr(0x21 + i) for i in range(94)}  # full-width ASCII
+    charsmap.update({"　": " ", "ﬁ": "fi", "é": "é", "Å": "Å",
+                     "​": "", "\x07": ""})
+    added = [{"id": i, "content": vocab[i][0], "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i in [0, 1, 2] + list(range(len(vocab) - T5_TOK_EXTRA, len(vocab)))]
+    meta = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+            "split": True}
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(
+                encode_precompiled_charsmap(charsmap)).decode()},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+        "pre_tokenizer": meta,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "special_tokens": {"</s>": {"id": "</s>", "ids": [1], "tokens": ["</s>"]}}},
+        "decoder": meta,
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab, "byte_fallback": False},
+    }
+
+
+def write_t5_tokenizer(directory):
+    """Write the phase's ``tokenizer.json`` into ``directory``; its path."""
+    path = Path(directory) / "tokenizer.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(t5_tokenizer_spec(), ensure_ascii=False))
+    return path
 
 
 def main() -> None:

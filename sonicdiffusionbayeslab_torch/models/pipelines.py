@@ -570,8 +570,9 @@ class StableDiffusion3Model(StableDiffusionXLModel):
     Conditioning is CLIP-only by default (both towers' penultimate states
     zero-padded to T5's width, both projected pooled embeddings);
     ``use_t5`` adds T5-XXL's states after them on the sequence axis, with
-    ``HashTokenizer`` ids (a snapshot's ``tokenizer_3/tokenizer.json`` has
-    no reader in the port and raises).
+    the ids of a snapshot's ``tokenizer_3/tokenizer.json``
+    (``models/tokenizer.py::T5UnigramTokenizer``; a file it cannot read
+    raises ValueError), else ``HashTokenizer`` ids.
 
     ``t5_staged``: the T5 weights stay in host memory, go to the card for
     a call's encodes and are freed before its denoising loop (``True``,
@@ -601,8 +602,8 @@ class StableDiffusion3Model(StableDiffusionXLModel):
         on_mesh = (int(mesh_data) or 1) * int(mesh_seq) * int(mesh_model) > 1
         self.t5_staged = self._staged(False if on_mesh else t5_staged)
         self.pretrained_model = pretrained_model
-        # Checked before the weights are built: the T5 tokenizer of a real
-        # snapshot has no reader here.
+        # Read before the weights are built: a snapshot's tokenizer.json
+        # that the reader cannot read raises first.
         self.tokenizer3 = None
         if self._use_t5:
             self.tokenizer3 = self._t5_tokenizer(tiny)

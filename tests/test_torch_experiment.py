@@ -201,21 +201,22 @@ def test_cli_without_device_raises_without_gpu(tmp_path, monkeypatch):
         cli.main(["--config", SMOKE, "--set", f"dataset.prompts={PROMPTS}"])
 
 
-# SD3 with T5 on a snapshot whose tokenizer_3 holds a tokenizer.json (the
-# T5 reader is not ported): through the flow scheduler and the flow_euler
-# method, each on an SD3 pipeline.
+# SD3 with T5 on a snapshot whose tokenizer_3 holds a tokenizer.json the
+# reader cannot read ("{}": no model): through the flow scheduler and the
+# flow_euler method, each on an SD3 pipeline, it raises naming what it
+# does not read, never falling back to hash ids.
 _SD3_T5 = {"model.pretrained_model": "sd3", "model.use_t5": True}
 
 
 @pytest.mark.parametrize("overrides,match", [
     ({"inference.quant": "int4"}, "inference.quant"),
     ({"scheduler.scheduler_name": "flow_match_euler_scheduler",
-      "model.model_name": "stable_diffusion_3_model", **_SD3_T5}, "not ported yet"),
+      "model.model_name": "stable_diffusion_3_model", **_SD3_T5}, "model None is not read"),
     # Ported: the experiment passes no control image, which it refuses as JAX's does.
     ({"model.model_name": "stable_diffusion_controlnet_model"}, "requires control_image"),
     ({"experiment.method": "flow_euler",
       "model.model_name": "stable_diffusion_3_model_skip_timesteps", **_SD3_T5},
-     "not ported yet"),
+     "model None is not read"),
 ])
 def test_cli_names_what_is_not_ported(tmp_path, monkeypatch, overrides, match):
     monkeypatch.chdir(tmp_path)

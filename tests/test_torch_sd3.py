@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_close, flax_init, random_params, randn, t
+from torch_parity import assert_close, flax_init, random_params, randn, t, write_t5_tokenizer_json
 from sonicdiffusionbayeslab_torch import schedulers as S
 from sonicdiffusionbayeslab_torch.models import mmdit as TM
 from sonicdiffusionbayeslab_torch.models import t5 as TT
@@ -295,8 +295,17 @@ def test_t5_hash_ids_equal_jax_and_tokenizer_json_refused(tmp_path):
                                       JTok.load_t5_tokenizer(None, vocab, length)(prompts))
     np.testing.assert_array_equal(TTok.load_t5_tokenizer(str(tmp_path))(prompts),
                                   JTok.load_t5_tokenizer(str(tmp_path))(prompts))
+    # A snapshot's tokenizer.json: the port's reader gives the JAX package's
+    # ids (tests/test_torch_t5_tokenizer.py holds it over both layouts); a
+    # file it cannot read raises, never hashes.
+    write_t5_tokenizer_json(tmp_path)
+    for length in (256, 16):
+        got = TTok.load_t5_tokenizer(str(tmp_path), 32128, length)(prompts)
+        assert got[0, 0] != 0 and got.shape == (3, length)
+        np.testing.assert_array_equal(got,
+                                      JTok.load_t5_tokenizer(str(tmp_path), 32128, length)(prompts))
     (tmp_path / "tokenizer.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(ValueError, match="model None is not read"):
         TTok.load_t5_tokenizer(str(tmp_path))
 
 
@@ -637,7 +646,7 @@ def test_pipeline_refusals(tmp_path):
         StableDiffusion3Model(tiny=True, device="cpu", use_t5=True, t5_staged="maybe")
     (tmp_path / "tokenizer_3").mkdir()
     (tmp_path / "tokenizer_3" / "tokenizer.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="is not read"):
         StableDiffusion3Model(pretrained_model=str(tmp_path), tiny=True, device="cpu",
                               use_t5=True)
     pipe = StableDiffusion3ModelTwoSchedulers(tiny=True, dtype="float32", device="cpu")

@@ -179,3 +179,63 @@ def fast_flax_init(monkeypatch) -> None:
         return {"params": random_params(shapes["params"], 0)}
 
     monkeypatch.setattr(nn.Module, "init", init)
+
+
+# A small T5-shaped tokenizer.json, built by the ``tokenizers`` package
+# (what the JAX package's load_t5_tokenizer reads): a Unigram vocab with
+# scores (T5's <pad>, </s>, <unk> first, then pieces and <extra_id_*>), a
+# Precompiled charsmap encoded by the port's writer (tokenizers must accept
+# it), Metaspace and TemplateProcessing's </s>.  ``layout`` "spm" is
+# [Precompiled, Replace(" {2,}", " ")] (SD3's tokenizer_3), "converter"
+# [Precompiled, Strip(right), Replace(" {2,}", "▁")] (transformers 4.57's
+# SpmConverter).
+T5_CHARSMAP = {
+    **{chr(0xFF21 + i): chr(0x41 + i) for i in range(26)},  # full-width A-Z
+    **{chr(0xFF41 + i): chr(0x61 + i) for i in range(26)},  # full-width a-z
+    "ﬁ": "fi", "é": "é", "　": " ", "\x07": "", "ｅ": "E",
+}
+
+
+def t5_vocab(seed: int = 0, n: int = 300):
+    rng = np.random.default_rng(seed)
+    letters = "abcdefghijklmnopqrst"
+    pieces = ["▁"] + [c for c in letters + "éEF"] + ["▁" + c for c in letters + "fé"]
+    seen = set(pieces)
+    while len(pieces) < n:
+        p = "".join(letters[i] for i in rng.integers(0, len(letters), rng.integers(2, 6)))
+        p = ("▁" + p) if rng.random() < 0.5 else p
+        if p not in seen:
+            seen.add(p)
+            pieces.append(p)
+    scores = -rng.uniform(1.0, 12.0, len(pieces))
+    return ([("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0)]
+            + [(p, float(s)) for p, s in zip(pieces, scores)]
+            + [(f"<extra_id_{i}>", 0.0) for i in range(3, -1, -1)])
+
+
+def write_t5_tokenizer_json(directory, layout: str = "spm", scheme: str = "always",
+                            seed: int = 0):
+    """Write ``directory``/tokenizer.json through ``tokenizers``; its path."""
+    from pathlib import Path
+
+    from tokenizers import AddedToken, Regex, Tokenizer, models, normalizers, pre_tokenizers
+    from tokenizers import processors
+
+    from sonicdiffusionbayeslab_torch.models.tokenizer import encode_precompiled_charsmap
+
+    vocab = t5_vocab(seed)
+    tok = Tokenizer(models.Unigram(vocab, unk_id=2, byte_fallback=False))
+    pre = [normalizers.Precompiled(encode_precompiled_charsmap(T5_CHARSMAP))]
+    tok.normalizer = normalizers.Sequence(
+        pre + [normalizers.Replace(Regex(" {2,}"), " ")] if layout == "spm" else
+        pre + [normalizers.Strip(left=False, right=True),
+               normalizers.Replace(Regex(" {2,}"), "▁")])
+    tok.pre_tokenizer = pre_tokenizers.Metaspace(replacement="▁", prepend_scheme=scheme)
+    tok.post_processor = processors.TemplateProcessing(
+        single=["$A", "</s>"], pair=["$A", "</s>", "$B", "</s>"], special_tokens=[("</s>", 1)])
+    tok.add_special_tokens([AddedToken(p, normalized=False) for p, _ in vocab
+                            if p.startswith("<")])
+    path = Path(directory) / "tokenizer.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tok.save(str(path))
+    return path
