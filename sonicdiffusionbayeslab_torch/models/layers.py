@@ -41,7 +41,13 @@ path's blocks).  Conventions:
   edges, the padding of one process), ``GroupNorm`` merges its statistics
   across the axis with the split kernel pair of ``ops/groupnorm.py``, and
   self-attention runs the local queries against K and V gathered along
-  the axis in the image's row order.
+  the axis in the image's row order; Token Merging gathers a block's
+  tokens along the axis and matches over the whole map.  Int8 takes its
+  scales over the whole rows and maps (``ops/quant.py``), as one process.
+  Training under ``model`` runs backward through the split layers: their
+  inputs enter through ``distributed.model_entry`` and their partial sums
+  go through ``distributed.all_reduce_sum``, so every replicated tensor's
+  gradient is whole on every rank.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from sonicdiffusionbayeslab_torch.ops.groupnorm import (
 )
 from sonicdiffusionbayeslab_torch.ops.tome import shared_matching
 from sonicdiffusionbayeslab_torch.parallel import distributed
+from sonicdiffusionbayeslab_torch.parallel.mesh import take_local
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -119,8 +126,8 @@ def reduce_partial(y: torch.Tensor, bias: Optional[torch.Tensor], par,
                    dtype: torch.dtype) -> torch.Tensor:
     """A row-parallel layer's output: this rank's partial ``y`` summed over
     the ``model`` axis in fp32, the bias added once after the sum, cast to
-    ``dtype`` once."""
-    y = distributed.all_reduce_sum_(y.float(), par.model_group)
+    ``dtype`` once (differentiable where a gradient is recorded)."""
+    y = distributed.all_reduce_sum(y.float(), par.model_group)
     if bias is not None:
         y = y + bias.float()
     return y.to(dtype)
@@ -140,7 +147,7 @@ def keep_slice_(layer: nn.Module, attr: str, dim: int, index: int, count: int,
     p = getattr(layer, attr)
     if p is None:
         return
-    keep = torch.cat([c.chunk(count, dim)[index] for c in p.detach().chunk(halves, dim)], dim)
+    keep = take_local(p.detach(), dim, index, count, halves)
     fmt = torch.channels_last if keep.dim() == 4 else torch.contiguous_format
     setattr(layer, attr, nn.Parameter(keep.contiguous(memory_format=fmt),
                                       requires_grad=p.requires_grad))
@@ -166,20 +173,35 @@ class _Quantizable(nn.Module):
             return quant.linear_int8(layer, x)
         return F.linear(x, layer.weight.flatten(1), layer.bias)
 
+    def _proj_reduce(self, layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel projection of this rank's input columns ``x``:
+        the partials summed over ``model``, the bias added once; int8 with
+        the whole rows' scales under the dense modes."""
+        if quant.dense_enabled(self.quant_mode):
+            return quant.linear_int8(layer, x, self.par.model_group)
+        return linear_reduce(layer, x, self.par)
+
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor, padding=((1, 1), (1, 1)),
-              bias: bool = True) -> torch.Tensor:
+              reduce: bool = False) -> torch.Tensor:
         """A 3x3 conv on a channels-last map with ``padding`` zeros
         ((top, bottom), (left, right)); int8 where ``allow_quant``; halo rows
-        in place of the padding where the height is split over ``seq``;
-        without its bias where ``bias`` is False (a row-parallel conv)."""
+        in place of the padding where the height is split over ``seq``.
+        ``reduce``: row-parallel over ``model`` (this rank's input
+        channels; the partials summed, the bias added once).  Int8 takes a
+        sample's activation scale over the ranks that split its rows or
+        channels."""
         par = self.par
-        if par is not None and par.n_seq > 1:
+        seq = par is not None and par.n_seq > 1
+        if seq:
             x, padding = halo_rows(x, padding, conv.stride[0], par)
         if self.allow_quant and quant.conv_enabled(self.quant_mode):
-            if not bias:
-                raise NotImplementedError("int8 convs do not run row-parallel")
-            return quant.conv_int8(conv, x, padding)
-        return conv_padded(conv, x, padding, bias)
+            split = {**({"seq_group": par.seq_group} if seq else {}),
+                     **({"model_group": par.model_group} if reduce else {})}
+            return quant.conv_int8(conv, x, padding, **split)
+        if reduce:
+            return reduce_partial(conv_padded(conv, x, padding, bias=False), conv.bias, par,
+                                  x.dtype)
+        return conv_padded(conv, x, padding)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -263,7 +285,9 @@ class ResnetBlock(_Quantizable):
     with ``time_emb_proj``) ``conv1`` keeps the rank's output channels
     (``tp``), the time projection's output is cut to them, ``norm2`` runs
     their ``G / n_model`` groups and ``conv2`` sums its partials across
-    the axis; ``norm1``, the shortcut and the skip see the whole x."""
+    the axis; ``norm1``, the shortcut and the skip see the whole x.  The
+    split branch's inputs (``norm1``'s output and the time projection's)
+    enter through ``model_entry``, so their gradients sum over the axis."""
 
     tp: Optional[slice] = None
 
@@ -299,18 +323,16 @@ class ResnetBlock(_Quantizable):
                 "conv2.weight": 1}
 
     def forward(self, x: torch.Tensor, t_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self._conv(self.conv1, self.norm1(x))
+        h = self.norm1(x)
+        if self.tp is not None:
+            h = distributed.model_entry(h, self.par.model_group)
+        h = self._conv(self.conv1, h)
         if t_emb is not None:
             temb = self.time_emb_proj(F.silu(t_emb))
             if self.tp is not None:
-                temb = temb[:, self.tp]
+                temb = distributed.model_entry(temb, self.par.model_group)[:, self.tp]
             h = h + temb[:, None, None, :]
-        h = self.norm2(h)
-        if self.tp is None:
-            h = self._conv(self.conv2, h)
-        else:
-            h = reduce_partial(self._conv(self.conv2, h, bias=False), self.conv2.bias, self.par,
-                               h.dtype)
+        h = self._conv(self.conv2, self.norm2(h), reduce=self.tp is not None)
         if self.conv_shortcut is not None:
             x = conv_nhwc(self.conv_shortcut, x)
         return x + h
@@ -367,13 +389,19 @@ class Attention(_Quantizable):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None, ip_context: Optional[torch.Tensor] = None,
-                ip_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                ip_scale: Optional[torch.Tensor] = None, gather: bool = True) -> torch.Tensor:
+        """``gather`` False: a self-attention over tokens that are already
+        the whole map's on every rank (Token Merging under ``seq``)."""
+        par = self.par
+        if self.split:  # the rank's heads: the inputs' gradients sum over model
+            x, context, ip_context = (None if t is None else
+                                      distributed.model_entry(t, par.model_group)
+                                      for t in (x, context, ip_context))
         ctx = x if context is None else context
         B, N, _ = x.shape
         q = self._proj(self.to_q, x).view(B, N, self.num_heads, self.head_dim)
         k, v = self._proj(self.to_k, ctx), self._proj(self.to_v, ctx)
-        par = self.par
-        if context is None and par is not None and par.n_seq > 1:
+        if context is None and gather and par is not None and par.n_seq > 1:
             k, v = distributed.all_gather_seq(torch.cat([k, v], dim=-1), 1,
                                               par.seq_group).chunk(2, dim=-1)
         M = k.shape[1]
@@ -387,7 +415,7 @@ class Attention(_Quantizable):
             o_ip = dot_product_attention(q, k_ip, v_ip)
             o = o + ip_scale.to(o.dtype) * o_ip.reshape(B, N, -1)
         if self.split:
-            return linear_reduce(self.to_out[0], o, par)
+            return self._proj_reduce(self.to_out[0], o)
         return self._proj(self.to_out[0], o)
 
 
@@ -408,6 +436,7 @@ class GEGLUFeedForward(_Quantizable):
     columns of ``net.2``, which sums its partials across the axis."""
 
     split = False
+    tp_halves = {"net.0.proj.weight": 2, "net.0.proj.bias": 2}
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -424,10 +453,10 @@ class GEGLUFeedForward(_Quantizable):
         return {"net.0.proj.weight": 0, "net.0.proj.bias": 0, "net.2.weight": 1}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.net[0](x)
         if self.split:
-            return linear_reduce(self.net[2], h, self.par)
-        return self._proj(self.net[2], h)
+            h = self.net[0](distributed.model_entry(x, self.par.model_group))
+            return self._proj_reduce(self.net[2], h)
+        return self._proj(self.net[2], self.net[0](x))
 
 
 class TransformerBlock(nn.Module):
@@ -439,7 +468,10 @@ class TransformerBlock(nn.Module):
     unmerged.  ``tome_hw`` is the token map's (H, W), ``tome_dst`` its
     destinations (None: each cell's top-left token).  ``tome_cache`` (one
     dict per UNet call) shares one matching per (H, W, batch) among the
-    blocks when ``tome.share``."""
+    blocks when ``tome.share``.  Under ``seq`` the block's tokens are
+    gathered along the axis first (``tome_hw`` is the whole map's): every
+    rank matches, merges and attends over the whole map, as one process
+    does, and keeps its own rows of the unmerged output."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int):
         super().__init__()
@@ -454,8 +486,15 @@ class TransformerBlock(nn.Module):
                 tome_dst: Optional[torch.Tensor] = None,
                 tome_cache: Optional[dict] = None, ip_context: Optional[torch.Tensor] = None,
                 ip_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        par = getattr(self, "par", None)
         if tome is None:
             x = x + self.attn1(self.norm1(x))
+        elif par is not None and par.n_seq > 1:  # match over the whole map, keep own rows
+            n = x.shape[1]
+            whole = distributed.all_gather_seq(x, 1, par.seq_group)
+            merge, unmerge = shared_matching(whole, tome, tome_hw, tome_dst, tome_cache)
+            out = unmerge(self.attn1(merge(self.norm1(whole)), gather=False))
+            x = x + out[:, par.seq_index * n:(par.seq_index + 1) * n]
         else:
             merge, unmerge = shared_matching(x, tome, tome_hw, tome_dst, tome_cache)
             x = x + unmerge(self.attn1(merge(self.norm1(x))))
@@ -490,7 +529,11 @@ class SpatialTransformer(_Quantizable):
                 tome_cache: Optional[dict] = None, ip_context: Optional[torch.Tensor] = None,
                 ip_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, H, W, C = x.shape
-        if tome is not None and (H % tome.sy or W % tome.sx):
+        if self.par is not None and self.par.n_seq > 1:
+            H_all = H * self.par.n_seq  # ToMe's map is the whole height
+        else:
+            H_all = H
+        if tome is not None and (H_all % tome.sy or W % tome.sx):
             tome = None
         h = self.norm(x).reshape(B, H * W, C)
         h = self._proj(self.proj_in, h)
@@ -499,8 +542,8 @@ class SpatialTransformer(_Quantizable):
             if tome is None:
                 h = block(h, context, **ip)
             else:
-                dst = None if tome_dst is None else tome_dst[i, :tome.n_dst(H, W)]
-                h = block(h, context, tome, (H, W), dst, tome_cache, **ip)
+                dst = None if tome_dst is None else tome_dst[i, :tome.n_dst(H_all, W)]
+                h = block(h, context, tome, (H_all, W), dst, tome_cache, **ip)
         h = self._proj(self.proj_out, h)
         return h.reshape(B, H, W, C) + x
 

@@ -64,7 +64,6 @@ from sonicdiffusionbayeslab_torch.models.layers import (
     TimestepEmbedMLP,
     _Quantizable,
     keep_slice_,
-    linear_reduce,
     timestep_embedding,
 )
 from sonicdiffusionbayeslab_torch.ops import quant
@@ -193,9 +192,11 @@ class GELUTanhFeedForward(_Quantizable):
         return {"net.0.proj.weight": 0, "net.0.proj.bias": 0, "net.2.weight": 1}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.split:
+            x = distributed.model_entry(x, self.par.model_group)
         h = F.gelu(self._proj(self.net[0].proj, x), approximate="tanh")
         if self.split:
-            return linear_reduce(self.net[2], h, self.par)
+            return self._proj_reduce(self.net[2], h)
         return self._proj(self.net[2], h)
 
 
@@ -245,13 +246,19 @@ class JointAttention(_Quantizable):
         """An output projection (``to_out.0``, ``to_add_out``) of the
         attention's output: row-parallel under ``model``."""
         if self.split:
-            return linear_reduce(layer, o, self.par)
+            return self._proj_reduce(layer, o)
         return self._proj(layer, o)
 
-    def forward(self, img: torch.Tensor, ctx: torch.Tensor):
+    def forward(self, img: torch.Tensor, ctx: torch.Tensor, gather: bool = True):
         """(image [B, N, C], context [B, T, C]) -> the attention's outputs
         of each stream before their output projections, [B, N, inner] and
-        [B, T, inner]; image tokens first in the joint sequence."""
+        [B, T, inner]; image tokens first in the joint sequence.
+        ``gather`` False: image tokens that are already the whole map's on
+        every rank (Token Merging under ``seq``)."""
+        par = self.par
+        if self.split:  # the rank's heads: the inputs' gradients sum over model
+            img = distributed.model_entry(img, par.model_group)
+            ctx = distributed.model_entry(ctx, par.model_group)
         B, N, _ = img.shape
         T = ctx.shape[1]
         H, D = self.num_heads, self.head_dim
@@ -265,8 +272,7 @@ class JointAttention(_Quantizable):
         if self.qk_norm:
             q_i, k_i = self.norm_q(q_i), self.norm_k(k_i)
             q_c, k_c = self.norm_added_q(q_c), self.norm_added_k(k_c)
-        par = self.par
-        if par is not None and par.n_seq > 1:  # every rank's image keys, in row order
+        if gather and par is not None and par.n_seq > 1:  # every rank's image keys, in row order
             kv = distributed.all_gather_seq(torch.cat([k_i, v_i], dim=-1), 1, par.seq_group)
             k_i, v_i = kv.chunk(2, dim=-1)
         o = dot_product_attention(torch.cat([q_i, q_c], dim=1), torch.cat([k_i, k_c], dim=1),
@@ -303,9 +309,18 @@ class MMDiTBlock(_Quantizable):
             ctx_n = _modulate(_ln(ctx), c_mod[1], c_mod[0])  # (scale, shift)
         else:
             ctx_n = _modulate(_ln(ctx), c_mod[0], c_mod[1])
+        par = self.par
         if tome is None:
             o_img, o_ctx = self.attn(img_n, ctx_n)
             o_img = self.attn.project(self.attn.to_out[0], o_img)
+        elif par is not None and par.n_seq > 1:  # match over the whole map, keep own rows
+            n = img.shape[1]
+            whole = distributed.all_gather_seq(img, 1, par.seq_group)
+            merge, unmerge = shared_matching(whole, tome, tome_hw, tome_dst, tome_cache)
+            o_img, o_ctx = self.attn(merge(_modulate(_ln(whole), i_mod[0], i_mod[1])), ctx_n,
+                                     gather=False)
+            o_img = unmerge(self.attn.project(self.attn.to_out[0], o_img))
+            o_img = o_img[:, par.seq_index * n:(par.seq_index + 1) * n]
         else:
             merge, unmerge = shared_matching(img, tome, tome_hw, tome_dst, tome_cache)
             o_img, o_ctx = self.attn(merge(img_n), ctx_n)
@@ -417,10 +432,7 @@ class MMDiT(_Quantizable):
                              "the trunk or records it)")
         par = self.par
         n_seq = 1 if par is None else par.n_seq
-        if tome is not None and n_seq > 1:
-            raise NotImplementedError("Token Merging with a seq split is not ported "
-                                      "(ROADMAP.md item A9b)")
-        if tome is not None and (hp % tome.sy or wp % tome.sx):
+        if tome is not None and (hp * n_seq % tome.sy or wp % tome.sx):
             tome = None  # the cells do not tile this patch grid
         if tome is not None and tome.rand and tome_dst is None:
             raise ValueError("tome.rand needs tome_dst, each block's destinations "
@@ -445,8 +457,8 @@ class MMDiT(_Quantizable):
         def block(i, x, ctx):
             if tome is None:
                 return self.transformer_blocks[i](x, ctx, c)
-            dst = None if tome_dst is None else tome_dst[i, :tome.n_dst(hp, wp)]
-            return self.transformer_blocks[i](x, ctx, c, tome, (hp, wp), dst, tome_cache)
+            dst = None if tome_dst is None else tome_dst[i, :tome.n_dst(hp * n_seq, wp)]
+            return self.transformer_blocks[i](x, ctx, c, tome, (hp * n_seq, wp), dst, tome_cache)
 
         if cache is not None:
             for i in range(branch):

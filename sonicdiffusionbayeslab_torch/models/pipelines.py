@@ -58,7 +58,7 @@ from sonicdiffusionbayeslab_torch.models.weights import (
 )
 from sonicdiffusionbayeslab_torch.parallel.mesh import (
     A9,
-    A9B,
+    SplitParams,
     axis_size,
     execution_placements,
     make_mesh,
@@ -180,8 +180,7 @@ class StableDiffusionModel:
             if n_seq * n_model > 1:
                 print(f"{type(self).__name__}: mesh data {n_data} x seq {n_seq} x model "
                       f"{n_model}: the {type(self.engine.unet).__name__} runs split ({A9}) and "
-                      "eagerly (its collectives cross the host, which a CUDA graph cannot "
-                      f"capture; capture under NCCL is {A9B})", flush=True)
+                      "eagerly (its collectives are not captured in a CUDA graph)", flush=True)
             self.place_params(self.engine.MODULES + (("image_proj",) if self.has_ip else ()))
 
     def place_params(self, names: Sequence[str]) -> None:
@@ -298,14 +297,18 @@ class StableDiffusionModel:
 
     def fuse_lora(self, scale: float = 1.0):
         """Merge the staged LoRA into the UNet's weights (``lora_merged``
-        lists the modules changed) and drop the UNet's CUDA graphs."""
-        par = self.engine.par
-        if self._pending_lora is not None and par is not None and par.n_model > 1:
-            raise NotImplementedError(f"a LoRA on weights split over model is not ported "
-                                      f"({A9B})")
+        lists the modules changed) and drop the UNet's CUDA graphs.  On
+        weights split over ``model`` the rank's slices are gathered, the
+        LoRA merged into the whole weights and each rank keeps its slices
+        of the result: one process's fused weights, cut to the rank's
+        share."""
         if self._pending_lora is not None:
             unet = self.engine.unet
-            sd, self.lora_merged = merge_lora(unet.state_dict(), self._pending_lora, scale)
+            split = SplitParams.of(unet)
+            sd = unet.state_dict() if split is None else split.whole_state(unet, False)
+            sd, self.lora_merged = merge_lora(sd, self._pending_lora, scale)
+            if split is not None:
+                sd = {k: split.local(k, v) for k, v in sd.items()}
             unet.load_state_dict(sd, strict=True)
             self.engine.weights_changed()
             self._pending_lora = None

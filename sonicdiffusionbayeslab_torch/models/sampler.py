@@ -18,7 +18,7 @@ forward exceeds its device time; on the CPU it runs eagerly.  Split over
 a mesh's ``seq`` or ``model`` axis (:meth:`StableDiffusionEngine.
 parallelize`) the UNet runs eagerly on the GPU too: its collectives go
 through the host under gloo, which a CUDA graph cannot capture (capture
-under NCCL is ROADMAP A9b).
+under NCCL is not done).
 ``execution_time`` is the wall clock of the denoising loop alone, with the
 device synchronised on both sides (the reference's timing contract).
 """
@@ -482,9 +482,10 @@ class StableDiffusionEngine:
         of the UNet on its rows of the latent height (split over ``seq`` by
         ``parallel.mesh.latent_sharding``), the UNet eagerly, and the
         latents and x0 are gathered along ``seq`` after the loop; every
-        rank decodes the whole batch.  Token Merging under ``seq``, int8
-        under ``model`` and the int8 conv modes under ``seq`` raise (ROADMAP
-        A9b)."""
+        rank decodes the whole batch.  Token Merging under ``seq`` matches
+        over the whole token map (each block gathers its tokens), and int8
+        takes its scales over the whole rows and maps (all-max over the
+        axes that split them), as one process."""
         kw = dict(seed=seed, sample_indices=sample_indices, guidance_scale=guidance_scale,
                   guidance_rescale=guidance_rescale, cache_plan=cache_plan, latent_hw=latent_hw,
                   collect_x0=collect_x0, x0_samples=x0_samples, decode=decode,
@@ -534,8 +535,6 @@ class StableDiffusionEngine:
         rows = slice(None)  # this rank's rows of the latent height
         seq_group = None
         if par is not None:
-            mesh_lib.check_supported("engine.sample", par.n_seq, par.n_model, tome=tome,
-                                     quant=self.unet.quant_mode)
             if control is not None and "controlnet" not in self._placed:
                 raise ValueError("control needs the ControlNet placed on the mesh too "
                                  "(engine.parallelize(mesh, ['controlnet']))")

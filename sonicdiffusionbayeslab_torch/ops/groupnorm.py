@@ -447,14 +447,14 @@ def group_norm_silu_split(x: torch.Tensor, weight: torch.Tensor, bias: torch.Ten
                           groups: int, eps: float, silu: bool, group) -> torch.Tensor:
     """GroupNorm(+SiLU) of a map whose rows are split over the ranks of
     ``group`` (this rank's rows in ``x``): the partials of the local rows,
-    gathered in rank order, merged, applied.  Inference only: training
-    under ``seq`` is ROADMAP A9b."""
+    gathered in rank order, merged, applied.  Inference only: the JAX
+    package trains under ``data`` and ``model``, never ``seq``."""
     from sonicdiffusionbayeslab_torch.parallel import distributed
 
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                     or bias.requires_grad):
-        raise NotImplementedError("GroupNorm's gradient across a seq split is not ported "
-                                  "(ROADMAP.md item A9b)")
+        raise NotImplementedError("GroupNorm across a seq split has no gradient: training under "
+                                  "seq is not a JAX package feature")
     groups = resolve_groups(x.shape[-1], groups)
     parts = distributed.all_gather_seq(group_norm_partials(x, groups)[None], 0, group)
     return group_norm_apply(x, merge_group_stats(parts, eps), weight, bias, silu)

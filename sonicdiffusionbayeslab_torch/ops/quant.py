@@ -34,6 +34,17 @@ sum of int8 products is an exact integer (an fp32 one would not be: a
 3x3x1280 sum passes 2^24).  ``int8_matmul.launches`` counts the card's
 GEMMs, ``int8_dense.launches`` and ``int8_conv.launches`` the card calls
 of each.
+
+Split over a mesh (``parallel/mesh.py``) the scales stay the JAX
+package's global ones, which GSPMD reduces across the shards there: a
+row-parallel layer's weight scale per output channel and its input's
+scale per token are all-maxed over ``model`` (a column-parallel slice
+keeps its rows' own scales, whole already), a conv's per-sample
+activation scale over ``seq`` (its rows are split) and over ``model`` as
+well for a row-parallel conv (its channels are), ``x_groups`` and
+``w_groups`` below.  A row-parallel layer's int32 partial sums are summed
+over ``model`` (``sum_group``; exact in int32) before the epilogue, which
+adds the bias once, so every rank holds one process's int8 output.
 """
 
 from __future__ import annotations
@@ -76,12 +87,25 @@ def set_quant_mode(module: nn.Module, mode: Optional[str]) -> nn.Module:
     return module
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _all_max(amax: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """``amax`` maxed over the ranks of each of ``groups`` (the rows or
+    channels the ranks split), in place."""
+    if groups:
+        from sonicdiffusionbayeslab_torch.parallel import distributed
+
+        for g in groups:
+            distributed.all_max_(amax, g)
+    return amax
+
+
+def quantize_rows(x: torch.Tensor, groups: Sequence = ()) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 over the last axis: (q [..., K] int8, scale [..., 1] fp32).
     The divisor 127 is a tensor: CUDA divides by a Python number as a
     multiplication by its reciprocal, which is not the division's rounding
-    (the CPU's and the JAX package's)."""
-    amax = x.abs().amax(dim=-1, keepdim=True).float().clamp_min(1e-12)  # exact in x's dtype
+    (the CPU's and the JAX package's).  ``groups``: process groups over
+    whose ranks the last axis is split; the largest magnitude is theirs."""
+    amax = _all_max(x.abs().amax(dim=-1, keepdim=True).float(), groups)  # exact in x's dtype
+    amax = amax.clamp_min(1e-12)
     scale = amax / amax.new_full((), 127.0)
     return torch.round(x / scale).clamp_(-127, 127).to(torch.int8), scale  # x / scale in fp32
 
@@ -158,16 +182,29 @@ def _conv_accumulate(x_q, w_q, kh, kw, stride, padding) -> torch.Tensor:
     return int8_matmul(cols.reshape(-1, K), w_q).reshape(B, Ho, Wo, -1)
 
 
+def _sum_partials(acc: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel layer's int32 partial sums, summed over ``group``."""
+    if group is None:
+        return acc
+    from sonicdiffusionbayeslab_torch.parallel import distributed
+
+    return distributed.all_reduce_sum_(acc, group)
+
+
 def int8_dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
                out_dtype: Optional[torch.dtype] = None,
-               weight_q: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+               weight_q: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               x_groups: Sequence = (), sum_group=None) -> torch.Tensor:
     """W8A8 ``x [..., K] @ weight [F, K]^T + bias``: per-token activation
     and per-output-channel weight scales.  ``weight_q`` is
-    ``quantize_rows(weight)`` where the caller has it."""
+    ``quantize_rows(weight)`` where the caller has it.  Row-parallel:
+    ``x_groups`` the groups that split K (the tokens' scales are maxed
+    over them), ``sum_group`` the group whose ranks' partial sums add up."""
     K = x.shape[-1]
-    x_q, s_x = quantize_rows(x)
+    x_q, s_x = quantize_rows(x, x_groups)
     w_q, s_w = weight_q if weight_q is not None else quantize_rows(weight)
     acc = int8_matmul(x_q.reshape(-1, K), w_q).reshape(*x.shape[:-1], -1)
+    acc = _sum_partials(acc, sum_group)
     out = acc * s_x * s_w.reshape(-1)  # int32 * fp32: fp32
     if bias is not None:
         out = out + bias.float()
@@ -179,16 +216,20 @@ def int8_dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tenso
 def int8_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
               stride: Sequence[int] = (1, 1), padding=((1, 1), (1, 1)),
               out_dtype: Optional[torch.dtype] = None,
-              weight_q: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+              weight_q: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              x_groups: Sequence = (), sum_group=None) -> torch.Tensor:
     """W8A8 conv of x [B, H, W, C] with an OIHW ``weight`` [O, C, kh, kw]:
     per-sample activation and per-output-channel weight scales; ``padding``
     ((top, bottom), (left, right)) zeros.  ``weight_q`` is
-    ``quantize_rows(conv_weight_rows(weight))`` where the caller has it."""
+    ``quantize_rows(conv_weight_rows(weight))`` where the caller has it.
+    ``x_groups``: the groups that split a sample's rows or channels (its
+    scale is maxed over them); ``sum_group``: a row-parallel conv's."""
     B = x.shape[0]
     O, _, kh, kw = weight.shape
-    x_q, s_x = quantize_rows(x.reshape(B, -1))
+    x_q, s_x = quantize_rows(x.reshape(B, -1), x_groups)
     w_q, s_w = weight_q if weight_q is not None else quantize_rows(conv_weight_rows(weight))
     acc = _conv_accumulate(x_q.reshape(x.shape), w_q, kh, kw, stride, padding)
+    acc = _sum_partials(acc, sum_group)
     out = acc * s_x.reshape(B, 1, 1, 1) * s_w.reshape(1, 1, 1, -1)  # int32 * fp32: fp32
     if bias is not None:
         out = out + bias.float()
@@ -201,31 +242,43 @@ int8_dense.launches = 0
 int8_conv.launches = 0
 
 
-def cached_weight_q(layer: nn.Module, rows) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``quantize_rows(rows(layer.weight))``, kept on ``layer`` until the
-    weight changes (another tensor, or an in-place write): the float master
-    weights are quantized once, as the JAX package's loop hoists them out of
-    its scan.  Nothing is kept from inside a CUDA graph capture, whose
-    memory belongs to the graph."""
+def cached_weight_q(layer: nn.Module, rows, groups: Sequence = ()) -> Tuple[torch.Tensor,
+                                                                           torch.Tensor]:
+    """``quantize_rows(rows(layer.weight), groups)``, kept on ``layer``
+    until the weight changes (another tensor, or an in-place write): the
+    float master weights are quantized once, as the JAX package's loop
+    hoists them out of its scan.  The key is the rank's share (its own
+    slice of a split weight) and the groups its scales span.  Nothing is
+    kept from inside a CUDA graph capture, whose memory belongs to the
+    graph."""
     w = layer.weight
-    key = (w.data_ptr(), w._version, w.dtype, w.device)
+    key = (w.data_ptr(), w._version, w.dtype, w.device, tuple(map(id, groups)))
     hit = layer.__dict__.get("_int8_weight")
     if hit is not None and hit[0] == key:
         return hit[1]
-    q = quantize_rows(rows(w))
+    q = quantize_rows(rows(w), groups)
     if not (w.is_cuda and torch.cuda.is_current_stream_capturing()):
         layer.__dict__["_int8_weight"] = (key, q)
     return q
 
 
-def linear_int8(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """A linear layer (or a 1x1 conv applied to tokens) in W8A8."""
-    wq = cached_weight_q(layer, lambda w: w.flatten(1))
-    return int8_dense(x, layer.weight.flatten(1), layer.bias, weight_q=wq)
+def linear_int8(layer: nn.Module, x: torch.Tensor, model_group=None) -> torch.Tensor:
+    """A linear layer (or a 1x1 conv applied to tokens) in W8A8;
+    ``model_group``: row-parallel over that group (its input columns and
+    weight columns split, the partials summed, the bias added once)."""
+    groups = () if model_group is None else (model_group,)
+    wq = cached_weight_q(layer, lambda w: w.flatten(1), groups)
+    return int8_dense(x, layer.weight.flatten(1), layer.bias, weight_q=wq, x_groups=groups,
+                      sum_group=model_group)
 
 
-def conv_int8(conv: nn.Conv2d, x: torch.Tensor, padding) -> torch.Tensor:
+def conv_int8(conv: nn.Conv2d, x: torch.Tensor, padding, seq_group=None,
+              model_group=None) -> torch.Tensor:
     """An ``nn.Conv2d`` on a channels-last map in W8A8 (``padding`` as
-    :func:`int8_conv`'s)."""
-    wq = cached_weight_q(conv, conv_weight_rows)
-    return int8_conv(x, conv.weight, conv.bias, stride=conv.stride, padding=padding, weight_q=wq)
+    :func:`int8_conv`'s); ``seq_group``: the map's rows split over it;
+    ``model_group``: row-parallel over it (input channels split)."""
+    w_groups = () if model_group is None else (model_group,)
+    x_groups = tuple(g for g in (seq_group, model_group) if g is not None)
+    wq = cached_weight_q(conv, conv_weight_rows, w_groups)
+    return int8_conv(x, conv.weight, conv.bias, stride=conv.stride, padding=padding, weight_q=wq,
+                     x_groups=x_groups, sum_group=model_group)

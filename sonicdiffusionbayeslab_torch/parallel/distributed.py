@@ -14,14 +14,25 @@ tensors: rows gathered along a group, gradients averaged, one object sent
 from rank 0.  Gloo has no CUDA ``all_gather``, so under gloo a CUDA tensor
 is gathered through the host; NCCL gathers on the device.
 
-The tensor- and sequence-parallel layers (``models/layers.py``) use three
-collectives on one mesh axis's group: :func:`all_reduce_sum_` (the
-row-parallel partial sums over ``model``), :func:`all_gather_seq` (K/V
-and GroupNorm statistics along ``seq``) and :func:`halo_exchange` (the
+The tensor- and sequence-parallel layers (``models/layers.py``) use
+these collectives on one mesh axis's group: :func:`all_reduce_sum` (the
+row-parallel partial sums over ``model``), :func:`model_entry` (the
+column-parallel layers' input), :func:`all_max_` (the int8 scales over a
+split row or map), :func:`all_gather_seq` (K/V, GroupNorm statistics and
+Token Merging's tokens along ``seq``) and :func:`halo_exchange` (the
 neighbouring rows of a height-split map for a 3x3 conv).  Each checks
 that this rank belongs to the group it is given and raises otherwise,
 also without a process group: the layers call them only where an axis
 is above 1.
+
+Training over ``model`` runs backward through the split layers:
+:func:`all_reduce_sum` and :func:`model_entry` are autograd Functions
+where grad mode is on and the input requires grad (Megatron's g and f: a
+sum forward and the identity backward, the identity forward and a sum of
+the input's gradient backward), so every replicated tensor's gradient is
+whole and equal on every rank.  The in-place collectives work on the
+tensors' data and would cut a gradient; on a tensor that requires grad
+under grad mode they raise.
 """
 
 from __future__ import annotations
@@ -184,15 +195,84 @@ def _to_comm(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
+def _no_grad_through(t: torch.Tensor, what: str) -> None:
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError(f"{what} works on the data of a tensor that requires grad and would "
+                           "cut its gradient; the differentiable collectives are all_reduce_sum "
+                           "and model_entry (training under seq is not a JAX package feature)")
+
+
+def _all_reduce_(t: torch.Tensor, group, op) -> torch.Tensor:
+    buf = _to_comm(t.detach(), _comm_device(group))
+    dist.all_reduce(buf, op=op, group=group)
+    return t if buf is t else t.copy_(buf)
+
+
 def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over the ranks of ``group``, in place, and return it: on
     the device under NCCL, through the host under gloo.  The backends'
     ring algorithms reduce each element once and send the result to every
-    rank, so every rank holds the same bits."""
+    rank, so every rank holds the same bits.  Raises on a tensor that
+    requires grad under grad mode (:func:`all_reduce_sum` is the
+    differentiable one)."""
     _members(group, "all_reduce_sum_")
-    buf = _to_comm(t.detach(), _comm_device(group))
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-    return t if buf is t else t.copy_(buf)
+    _no_grad_through(t, "all_reduce_sum_")
+    return _all_reduce_(t, group, dist.ReduceOp.SUM)
+
+
+def all_max_(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise largest of the ranks' ``t``, in place (no gradient:
+    the int8 scales)."""
+    _members(group, "all_max_")
+    _no_grad_through(t, "all_max_")
+    return _all_reduce_(t, group, dist.ReduceOp.MAX)
+
+
+class _SumForward(torch.autograd.Function):
+    """Megatron's g: the sum over ``group`` forward, the identity backward
+    (every rank's loss reads the same sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_(x.detach().clone(), group, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """Megatron's f: the identity forward, the sum of the gradient over
+    ``group`` backward (each rank's split layers give part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_(g.detach().clone(), ctx.group, dist.ReduceOp.SUM), None
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group``: a row-parallel layer's
+    partials.  Differentiable where grad mode is on and ``t`` requires grad
+    (the gradient passes through unchanged); else in place on ``t``."""
+    _members(group, "all_reduce_sum")
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _SumForward.apply(t, group)
+    return _all_reduce_(t, group, dist.ReduceOp.SUM)
+
+
+def model_entry(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` entering layers split over ``group``: itself forward; where
+    grad mode is on and ``x`` requires grad, its gradient summed over the
+    group backward."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        _members(group, "model_entry")
+        return _SumBackward.apply(x, group)
+    return x
 
 
 def all_gather_seq(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -201,6 +281,7 @@ def all_gather_seq(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     GroupNorm partials of a height split in the order of the image's
     rows."""
     n = _members(group, "all_gather_seq")
+    _no_grad_through(x, "all_gather_seq")
     src = _to_comm(x.detach().contiguous(), _comm_device(group))
     parts = [torch.empty(src.shape, dtype=src.dtype, device=src.device) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
@@ -215,6 +296,7 @@ def halo_exchange(x: torch.Tensor, rows_above: int, rows_below: int, group,
     zeros at the image's top and bottom edges, which is the zero padding
     of one process.  One all-gather of every rank's edge rows."""
     n = _members(group, "halo_exchange")
+    _no_grad_through(x, "halo_exchange")
     r = dist.get_rank(group)
     h = x.shape[dim]
     if rows_above > h or rows_below > h:
@@ -246,6 +328,22 @@ def all_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
     flat = torch.cat([t.detach().reshape(-1).to(dev, torch.float32) for t in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     flat.div_(n)
+    off = 0
+    for t in tensors:
+        k = t.numel()
+        t.copy_(flat[off:off + k].view(t.shape))
+        off += k
+
+
+def all_sum_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Replace each tensor by its sum over the ranks of ``group``, in
+    place, as one flat fp32 all-reduce (the split weights' and adapters'
+    gradients over ``model``)."""
+    if world_size(group) == 1 or not tensors:
+        return
+    flat = torch.cat([t.detach().reshape(-1).to(_comm_device(group), torch.float32)
+                      for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     off = 0
     for t in tensors:
         k = t.numel()

@@ -23,11 +23,13 @@ themselves (``parallel/distributed.py``).
   ``_TP_RULES``; what a rank runs departs from that where a local kernel
   needs it (:func:`place_module`).
 
-What stays refused names ROADMAP.md item A9b (:data:`A9B`): training with
-``seq`` or ``model`` above 1, Token Merging with ``seq``, int8 with
-``model``, the int8 conv modes with ``seq`` (their activation scale is
-one a sample, over rows that the ranks split), and CUDA-graph capture of
-the collectives (a split model runs eagerly).
+Training runs over ``data`` and ``model`` as the JAX loop does: the
+trainable tensors and the optimizer state are whole on every rank, a
+split layer's forward takes its slice of them (:class:`SplitParams`), and
+the gradients of what the ranks split are summed over ``model``.  What
+stays refused is training with ``seq`` above 1, which the JAX loop has
+no mode for (:func:`check_supported`).  A split model runs eagerly: its
+collectives are not captured in a CUDA graph.
 
 Without a process group :func:`make_mesh` of one rank is ``None``: the
 callers' single-device path, as a ``mesh=None`` argument is everywhere.
@@ -46,8 +48,6 @@ from sonicdiffusionbayeslab_torch.parallel import distributed
 AXES = ("data", "seq", "model")
 A9 = ("ROADMAP.md item A9 (tensor and sequence parallel sampling: the UNet, ControlNet, MMDiT "
       "and T5 over model, the latent height over seq)")
-A9B = ("ROADMAP.md item A9b (training under seq or model, ToMe under seq, int8 under model, "
-       "int8 convs under seq, CUDA-graph capture of the collectives)")
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1, n_seq: int = 1,
@@ -89,26 +89,14 @@ def axis_group(mesh, axis: str):
     return mesh.get_group(axis)
 
 
-def check_supported(what: str, mesh_seq: int = 1, mesh_model: int = 1, *, tome=None,
-                    quant: Optional[str] = None, training: bool = False) -> None:
-    """Raise NotImplementedError, naming ROADMAP A9b, for what a ``seq`` or
-    ``model`` axis above 1 does not run yet: training, Token Merging under
-    ``seq``, int8 under ``model`` and the int8 conv modes under ``seq``
-    (``quant``: an ``ops.quant`` mode or None)."""
-    from sonicdiffusionbayeslab_torch.ops.quant import conv_enabled
-
-    seq, model = int(mesh_seq), int(mesh_model)
-    refused = []
-    if training and (seq > 1 or model > 1):
-        refused.append(f"training with mesh_seq={seq}, mesh_model={model}")
-    if tome is not None and seq > 1:
-        refused.append(f"Token Merging with mesh_seq={seq}")
-    if quant and model > 1:
-        refused.append(f"int8 ({quant}) with mesh_model={model}")
-    if conv_enabled(quant) and seq > 1:
-        refused.append(f"int8 convs ({quant}) with mesh_seq={seq}")
-    if refused:
-        raise NotImplementedError(f"{what}: {'; '.join(refused)} is not ported ({A9B})")
+def check_supported(what: str, mesh_seq: int = 1, *, training: bool = False) -> None:
+    """Raise NotImplementedError for training with a ``seq`` axis above 1:
+    the JAX package's loop reads only ``mesh_data`` and ``mesh_model``, so
+    it has no sequence-parallel training to port."""
+    if training and int(mesh_seq) > 1:
+        raise NotImplementedError(
+            f"{what}: training with mesh_seq={int(mesh_seq)}: the JAX package's training loop "
+            "has no seq axis (it reads mesh_data and mesh_model only)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,6 +198,88 @@ class ParallelContext:
         return axis_group(self.mesh, "model")
 
 
+def take_local(t: torch.Tensor, dim: int, index: int, count: int, halves: int = 1) -> torch.Tensor:
+    """The ``index``-th of ``count`` slices of ``t`` along ``dim``;
+    ``halves`` stacked blocks (GEGLU's ``[h ; gate]``) each cut alike.
+    Differentiable in ``t``."""
+    if halves == 1:
+        return t.chunk(count, dim)[index]
+    return torch.cat([c.chunk(count, dim)[index] for c in t.chunk(halves, dim)], dim)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SplitParams:
+    """A placed module's parameters against its whole ones: ``cuts``
+    {parameter name: (dim, halves)} of those the rank holds a slice of over
+    ``model`` (:func:`place_module`'s ``tp_cuts``), and the rank's share.
+    A trainer keeps whole tensors and feeds the module :meth:`local` slices
+    of them; what the ranks split has its gradient summed over ``model``."""
+
+    cuts: Dict[str, tuple]
+    ctx: ParallelContext
+
+    @classmethod
+    def of(cls, module: Optional[torch.nn.Module]) -> Optional["SplitParams"]:
+        """The module's split, or None where it runs whole."""
+        ctx = getattr(module, "par", None)
+        cuts = getattr(module, "tp_cuts", None)
+        if ctx is None or ctx.n_model == 1 or not cuts:
+            return None
+        return cls(dict(cuts), ctx)
+
+    def local(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        cut = self.cuts.get(name)
+        if cut is None:
+            return whole
+        return take_local(whole, cut[0], self.ctx.model_index, self.ctx.n_model, cut[1])
+
+    def whole(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from every rank's slice (a gather over
+        ``model``; no gradient)."""
+        cut = self.cuts.get(name)
+        if cut is None:
+            return local
+        dim, halves = cut
+        with torch.no_grad():
+            parts = distributed.all_gather_seq(local.detach().unsqueeze(0), 0,
+                                               self.ctx.model_group).unbind(0)
+            blocks = [torch.cat([p.chunk(halves, dim)[h] for p in parts], dim)
+                      for h in range(halves)]
+        return torch.cat(blocks, dim) if halves > 1 else blocks[0]
+
+    def whole_state(self, module: torch.nn.Module, params_only: bool = True) -> Dict[str, torch.Tensor]:
+        """``module``'s parameters (or its state dict), whole."""
+        items = module.named_parameters() if params_only else module.state_dict().items()
+        return {k: self.whole(k, v) for k, v in items}
+
+    def adapter(self, name: str, ab: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A LoRA adapter ``{"a": [in, r], "b": [r, out]}`` of module
+        ``name`` cut to the rank's rows (``b``'s columns) or input columns
+        (``a``'s rows) of the module's split weight."""
+        cut = self.cuts.get(f"{name}.weight")
+        if cut is None:
+            return ab
+        dim, halves = cut
+        i, n = self.ctx.model_index, self.ctx.n_model
+        if dim == 0:
+            return {"a": ab["a"], "b": take_local(ab["b"], 1, i, n, halves)}
+        return {"a": take_local(ab["a"], 0, i, n, halves), "b": ab["b"]}
+
+    def is_split(self, leaf: str) -> bool:
+        """Whether a trainable leaf (a parameter name, or a LoRA adapter's
+        ``<module>/a`` or ``/b``) feeds split layers, so that each rank's
+        gradient of it is a part to be summed over ``model``."""
+        if "/" in leaf:
+            return f"{leaf.rsplit('/', 1)[0]}.weight" in self.cuts
+        return leaf in self.cuts
+
+    def sum_grads_(self, grads: Dict[str, torch.Tensor]) -> None:
+        """Sum, in place over ``model``, the gradients of the leaves that
+        feed split layers; a replicated leaf's gradient is already whole."""
+        distributed.all_sum_([g for k, g in grads.items() if self.is_split(k)],
+                             self.ctx.model_group)
+
+
 def place_module(module: torch.nn.Module, ctx: ParallelContext) -> Dict[str, Optional[int]]:
     """Give every submodule of ``module`` the context (``par``) and keep, on
     this rank, only its share of each tensor-parallel layer's weights:
@@ -224,13 +294,19 @@ def place_module(module: torch.nn.Module, ctx: ParallelContext) -> Dict[str, Opt
     rows of both halves; a layer whose heads (or hidden units, or groups)
     the axis does not divide keeps its whole weights and runs unsplit;
     the time embedding, the ControlNet's heads and whatever is not placed
-    (the VAE, the CLIP towers) run whole."""
+    (the VAE, the CLIP towers) run whole.  The module's ``tp_cuts`` keeps
+    {parameter: (dim, halves)} of what it cut (:class:`SplitParams`)."""
     plan = {name: None for name, _ in module.named_parameters()}
+    cuts = {}
     for prefix, m in module.named_modules():
         m.par = ctx
         if ctx.n_model > 1 and hasattr(m, "tp_shard_"):
+            halves = getattr(m, "tp_halves", {})
             for name, dim in m.tp_shard_(ctx.model_index, ctx.n_model).items():
-                plan[f"{prefix}.{name}" if prefix else name] = dim
+                full = f"{prefix}.{name}" if prefix else name
+                plan[full] = dim
+                cuts[full] = (dim, halves.get(name, 1))
+    module.tp_cuts = cuts
     return plan
 
 

@@ -4,8 +4,9 @@ ddpm and flow objectives; EMA; remat), LCM consistency distillation
 optimizers and the config-driven loop.
 
 Counterpart of ``sonicdiffusionbayeslab_tpu/training/``, on one device or
-data-parallel over ranks (``mesh_data``; training under the tensor or
-sequence parallel axes is ROADMAP.md item A9b).
+over ranks: data-parallel (``mesh_data``) and tensor-parallel
+(``mesh_model``), as the JAX loop reads its mesh; it has no
+sequence-parallel training.
 """
 
 from sonicdiffusionbayeslab_torch.training.distillation import LCMDistillConfig, LCMDistiller

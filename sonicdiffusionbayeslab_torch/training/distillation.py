@@ -31,7 +31,11 @@ trainable tensors, then clip, AdamW and the EMA, all in place.  The draws
 (grid index, noise, w) come from a ``torch.Generator`` or are passed in.
 Data parallel (``mesh``) as ``training/trainer.py``: this rank's rows,
 the global batch's draws, the loss and gradients averaged over the data
-axis.
+axis.  Tensor parallel as there too: on a UNet placed over ``model`` the
+student and its EMA target stay whole, each call takes the rank's slices
+(``_student_params``), and the split leaves' gradients sum over
+``model``; a w-conditioned student's meta module is placed like the
+teacher (build the distiller after ``engine.parallelize``).
 """
 
 from __future__ import annotations
@@ -50,9 +54,11 @@ from sonicdiffusionbayeslab_torch.schedulers.lcm import boundary_scalings
 from sonicdiffusionbayeslab_torch.schedulers.schedule import NoiseSchedule, ScheduleConfig
 from sonicdiffusionbayeslab_torch.training import optim
 from sonicdiffusionbayeslab_torch.training.lora import DEFAULT_TARGETS, apply_lora, init_lora
-from sonicdiffusionbayeslab_torch.parallel.mesh import batch_sharding
+from sonicdiffusionbayeslab_torch.parallel.mesh import SplitParams, batch_sharding, place_module
 from sonicdiffusionbayeslab_torch.training.trainer import (TrainState, _clone_tree, _f32_copy,
-                                                           _own, data_mean_, ema_update, leaves)
+                                                           _own, data_mean_, ema_update, leaves,
+                                                           split_adapters, split_inputs,
+                                                           whole_params)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +122,9 @@ class LCMDistiller:
             with torch.device("meta"):
                 self.student_unet = UNet2DCondition(dataclasses.replace(
                     engine.unet_config, time_cond_proj_dim=config.student_time_cond_proj_dim))
+            par = getattr(engine.unet, "par", None)
+            if par is not None:  # split as the teacher is
+                place_module(self.student_unet, par)
         elif config.w_min is not None or config.w_max is not None:
             raise ValueError("w sampling requires student_time_cond_proj_dim")
         self.target = "lora" if config.lora_rank > 0 else "unet"
@@ -148,10 +157,10 @@ class LCMDistiller:
         cfg, eng = self.config, self.engine
         if trainable is None:
             if cfg.lora_rank > 0:
-                trainable = init_lora(eng.unet, cfg.lora_rank, generator or self.generator,
-                                      cfg.lora_targets)
+                trainable = init_lora(whole_params(eng.unet), cfg.lora_rank,
+                                      generator or self.generator, cfg.lora_targets)
             else:
-                trainable = dict(eng.unet.named_parameters())
+                trainable = whole_params(eng.unet)
                 if self.w_conditioned:
                     trainable["time_embedding.cond_proj.weight"] = torch.zeros(
                         eng.unet_config.block_out_channels[0], cfg.student_time_cond_proj_dim)
@@ -175,12 +184,13 @@ class LCMDistiller:
 
     def _student_params(self, tree):
         """The student's weights in the UNet's dtype for ``functional_call``:
-        the teacher's with the adapters merged (LoRA), or the whole tree."""
+        the teacher's with the adapters merged (LoRA), or the whole tree;
+        on a split UNet the rank's slices."""
+        split = SplitParams.of(self.student_unet)
         if self.config.lora_rank > 0:
-            return apply_lora(dict(self.engine.unet.named_parameters()), tree,
-                              scale=self.config.lora_scale)
-        dt = self.engine.unet.dtype
-        return {k: v.to(dt) for k, v in tree.items()}
+            return apply_lora(dict(self.engine.unet.named_parameters()),
+                              split_adapters(split, tree), scale=self.config.lora_scale)
+        return split_inputs(split, tree, self.engine.unet.dtype)
 
     def draws(self, batch: int, latent_shape, generator: Optional[torch.Generator] = None):
         """(grid index [B], noise, w [B] or None) from ``generator`` (else
@@ -259,10 +269,13 @@ class LCMDistiller:
             f_on = f_consistency(self._student_params(state.trainable), z_t, t, a_t, s_t,
                                  *self._scalings(t))
             loss = (torch.sqrt((f_on - f_tgt) ** 2 + cfg.huber_c ** 2) - cfg.huber_c).mean()
-            grads = torch.autograd.grad(loss, list(flat.values()))
+            grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
         loss = loss.detach()
-        data_mean_(self.mesh, [loss, *grads])
-        return loss, dict(zip(flat, grads))
+        split = SplitParams.of(self.student_unet)
+        if split is not None:
+            split.sum_grads_(grads)
+        data_mean_(self.mesh, [loss, *grads.values()])
+        return loss, grads
 
     def distill_step(self, state: TrainState, latents, context, uncond_context,
                      generator: Optional[torch.Generator] = None, idx=None, noise=None, w=None):
@@ -293,7 +306,9 @@ class LCMDistiller:
         tree = state.ema if use_ema else state.trainable
         unet = self.engine.unet
         if self.config.lora_rank > 0:
-            sd = {k: v.detach() for k, v in unet.state_dict().items()}
+            split = SplitParams.of(unet)
+            sd = unet.state_dict() if split is None else split.whole_state(unet, False)
+            sd = {k: v.detach() for k, v in sd.items()}
             with torch.no_grad():
                 sd.update(apply_lora(sd, tree, scale=self.config.lora_scale))
             return sd

@@ -38,7 +38,18 @@ process a GPU):
 of the global batch and encodes its own rows; the trainer draws the
 global batch's timesteps and noise and averages the gradients over the
 ranks, so every rank takes the one-process step.  Rank 0 alone prints and
-saves.  ``mesh_model`` or ``mesh_seq`` above 1 raises (ROADMAP.md A9b).
+saves.
+
+``training.mesh_model`` M > 1 beside ``mesh_data`` (as the JAX loop reads
+it: only where ``mesh_data`` is set) trains over a ``(data, 1, model)``
+mesh of ``mesh_data * M`` ranks: the UNet (or MMDiT, and a ControlNet)
+split over ``model`` (``engine.parallelize``), the batch over ``data``
+only, the trainable tensors and optimizer state whole on every rank
+(``training/trainer.py``), and rank 0 saves whole tensors, one process's
+files.  ``mesh_seq`` above 1 raises: the JAX loop has no seq axis.
+
+    torchrun --nproc_per_node 2 -m sonicdiffusionbayeslab_torch.training.loop \
+        --config configs/train_lora.yaml --set training.mesh_data=1 --set training.mesh_model=2
 """
 
 from __future__ import annotations
@@ -95,16 +106,19 @@ def run_training(config) -> Dict[str, Any]:
     save_every = int(tcfg_raw.pop("save_every", 0))
     save_dir = tcfg_raw.pop("save_dir", None)
     seed = int(config.get("experiment", {}).get("seed", 29))
-    n_data = int(tcfg_raw.pop("mesh_data", 0)) or 1
-    check_supported("training", tcfg_raw.pop("mesh_seq", 1), tcfg_raw.pop("mesh_model", 1) or 1,
-                    training=True)
+    mesh_data = int(tcfg_raw.pop("mesh_data", 0))
+    n_model = int(tcfg_raw.pop("mesh_model", 1) or 1)
+    n_model = n_model if mesh_data else 1  # the JAX loop's mesh exists only with mesh_data
+    n_data = mesh_data or 1
+    check_supported("training", tcfg_raw.pop("mesh_seq", 1), training=True)
     mode = str(tcfg_raw.pop("mode", "diffusion"))
     prefetch = int(tcfg_raw.pop("prefetch", 2))
     if mode not in ("diffusion", "distill"):
         raise ValueError(f"unknown training mode {mode!r} (diffusion|distill)")
     # Checked before the weights are built: the world must hold the mesh.
-    mesh = (make_mesh(n_data, device_type=resolve_device(config.model.get("device")).type)
-            if n_data > 1 else None)
+    mesh = (make_mesh(n_data, n_model=n_model,
+                      device_type=resolve_device(config.model.get("device")).type)
+            if n_data * n_model > 1 else None)
     shard = batch_sharding(mesh)
     shard.rows(batch_size)  # the global batch must divide over the data axis
     main = distributed.is_main()
@@ -138,6 +152,8 @@ def run_training(config) -> Dict[str, Any]:
         raise ValueError(f"dataset has {len(dataset)} items < batch_size {batch_size}")
 
     local_batch = batch_size // shard.count
+    if n_model > 1:  # each rank keeps its share of the split modules' weights
+        engine.parallelize(mesh)
     if mode == "distill":
         trainer = LCMDistiller(engine, train_config_from_dict(tcfg_raw, LCMDistillConfig),
                                mesh=mesh)
@@ -146,6 +162,8 @@ def run_training(config) -> Dict[str, Any]:
     else:
         trainer = DiffusionTrainer(engine, train_config_from_dict(tcfg_raw), mesh=mesh)
     state = trainer.init_state(generator=_generator(dev, seed, 0))
+    if n_model > 1:  # a ControlNet that init_state built
+        engine.parallelize(mesh)
     step_gen, prep_gen = _generator(dev, seed, 1), _generator(dev, seed, 2)
     vcfg = engine.vae_config
     down = 2 ** (len(vcfg.block_out_channels) - 1)

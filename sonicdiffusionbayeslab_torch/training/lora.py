@@ -36,17 +36,21 @@ MMDIT_TARGETS = (
 Adapters = Dict[str, Dict[str, torch.Tensor]]
 
 
-def lora_targets(module: nn.Module, targets: str = DEFAULT_TARGETS) -> Dict[str, torch.Tensor]:
+def lora_targets(module, targets: str = DEFAULT_TARGETS) -> Dict[str, torch.Tensor]:
     """{module name: weight} of the 2-D (linear) weights whose parameter
-    names match ``targets``; convolutions are left to full fine-tuning."""
+    names match ``targets``; convolutions are left to full fine-tuning.
+    ``module``: an ``nn.Module`` or its {parameter name: tensor} (a split
+    module's whole weights, ``parallel.mesh.SplitParams.whole_state``)."""
     pat = re.compile(targets)
-    return {name[: -len(".weight")]: w for name, w in module.named_parameters()
+    params = module.named_parameters() if isinstance(module, nn.Module) else module.items()
+    return {name[: -len(".weight")]: w for name, w in params
             if pat.match(name) and w.dim() == 2}
 
 
-def init_lora(module: nn.Module, rank: int, generator: Optional[torch.Generator] = None,
+def init_lora(module, rank: int, generator: Optional[torch.Generator] = None,
               targets: str = DEFAULT_TARGETS, dtype: torch.dtype = torch.float32) -> Adapters:
-    """Fresh adapters for every target of ``module``, in sorted name order:
+    """Fresh adapters for every target of ``module`` (as
+    :func:`lora_targets` takes it), in sorted name order:
     ``a`` from ``generator`` (on its device; torch's default CPU generator
     if None) over the module's device, ``b`` zero."""
     matched = lora_targets(module, targets)

@@ -25,6 +25,18 @@ from the same generator and cut to the rank's rows, and the loss and the
 gradients are averaged over the data axis before the clip and the
 optimizer, so every rank takes the step one process takes on the global
 batch.
+
+Tensor parallel (the engine's UNet, ControlNet or MMDiT placed on a mesh
+with a ``model`` axis above 1, ``engine.parallelize``): the trainable
+tensors and the optimizer state stay whole on every rank, as the JAX loop
+replicates its ``TrainState``.  The forward feeds each split layer the
+rank's slice of them (``parallel.mesh.SplitParams``; a LoRA's delta is
+formed for the rank's rows or columns only), the split layers' collectives
+carry the gradient through, and the gradients of what the ranks split (a
+split weight's slices, an adapter on a split layer) are summed over
+``model`` before the data-axis average; a replicated tensor's gradient is
+whole on every rank already.  The optimizer and EMA then run on whole
+tensors, so int8 AdamW's blocks are one process's.
 """
 
 from __future__ import annotations
@@ -39,7 +51,12 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from sonicdiffusionbayeslab_torch.parallel import distributed
-from sonicdiffusionbayeslab_torch.parallel.mesh import axis_group, axis_size, batch_sharding
+from sonicdiffusionbayeslab_torch.parallel.mesh import (
+    SplitParams,
+    axis_group,
+    axis_size,
+    batch_sharding,
+)
 from sonicdiffusionbayeslab_torch.schedulers.schedule import NoiseSchedule, ScheduleConfig
 from sonicdiffusionbayeslab_torch.training import optim
 from sonicdiffusionbayeslab_torch.training.lora import DEFAULT_TARGETS, apply_lora, init_lora
@@ -142,6 +159,28 @@ def ema_update(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
         e.mul_(float(d)).add_(params[k] * one_minus)
 
 
+def whole_params(module) -> Dict[str, torch.Tensor]:
+    """``module``'s parameters, whole where it is split over ``model``."""
+    split = SplitParams.of(module)
+    return dict(module.named_parameters()) if split is None else split.whole_state(module)
+
+
+def split_inputs(split: Optional[SplitParams], tree: Dict[str, torch.Tensor], dtype=None):
+    """The rank's slices of whole ``{name: tensor}`` (itself unsplit), in
+    ``dtype`` where given."""
+    cast = (lambda v: v) if dtype is None else (lambda v: v.to(dtype))  # noqa: E731
+    if split is None:
+        return {k: cast(v) for k, v in tree.items()}
+    return {k: cast(split.local(k, v)) for k, v in tree.items()}
+
+
+def split_adapters(split: Optional[SplitParams], adapters):
+    """LoRA adapters cut to the rank's share of each split layer."""
+    if split is None:
+        return adapters
+    return {name: split.adapter(name, ab) for name, ab in adapters.items()}
+
+
 def _f32_copy(tree, device):
     """An fp32 copy of a {name: tensor} or LoRA {module: {"a", "b"}} tree on
     ``device``, never an alias of the caller's tensors."""
@@ -227,15 +266,15 @@ class DiffusionTrainer:
         cfg = self.config
         eng = self.engine
         if self.target == "lora":
-            trainable = adapters or init_lora(eng.unet, cfg.lora_rank,
+            trainable = adapters or init_lora(whole_params(eng.unet), cfg.lora_rank,
                                               generator or self.generator, cfg.lora_targets)
         elif self.target == "controlnet":
             if controlnet_state is None:
                 net = eng.controlnet if eng.controlnet is not None else eng.init_controlnet(0)
-                controlnet_state = dict(net.named_parameters())
+                controlnet_state = whole_params(net)
             trainable = controlnet_state
         else:
-            trainable = dict(eng.unet.named_parameters())
+            trainable = whole_params(eng.unet)
         trainable = _f32_copy(trainable, eng.device)
         flat = leaves(trainable)
         for t in flat.values():
@@ -311,6 +350,7 @@ class DiffusionTrainer:
         maybe_remat = _remat if cfg.remat else (lambda fn, *a: fn(*a))
         x_in, c_in = noisy.to(dt), context.to(dt)
         flat = leaves(state.trainable)
+        split = SplitParams.of(eng.controlnet if self.target == "controlnet" else eng.unet)
         if self.target == "controlnet":
             if hint is None:
                 raise ValueError("controlnet training needs a hint image batch")
@@ -318,15 +358,14 @@ class DiffusionTrainer:
             scale = torch.tensor(cfg.controlnet_scale, device=dev)
 
             def fwd(tr, x, tt, c, h):
-                residuals = functional_call(
-                    eng.controlnet, {k: v.to(dt) for k, v in tr.items()},
-                    (x, tt, c, h, scale), added, strict=False)
+                residuals = functional_call(eng.controlnet, split_inputs(split, tr, dt),
+                                            (x, tt, c, h, scale), added, strict=False)
                 return eng.unet(x, tt, c, control_residuals=residuals, **added).float()
 
             pred = maybe_remat(fwd, state.trainable, x_in, t, c_in, hint)
         elif self.target == "lora":
-            merged = apply_lora(dict(eng.unet.named_parameters()), state.trainable,
-                                scale=cfg.lora_scale)
+            merged = apply_lora(dict(eng.unet.named_parameters()),
+                                split_adapters(split, state.trainable), scale=cfg.lora_scale)
 
             def fwd(p, x, tt, c):
                 return self._unet_call(eng.unet, p, x, tt, c, added).float()
@@ -334,16 +373,18 @@ class DiffusionTrainer:
             pred = maybe_remat(fwd, merged, x_in, t, c_in)
         else:
             def fwd(tr, x, tt, c):
-                return self._unet_call(eng.unet, {k: v.to(dt) for k, v in tr.items()},
-                                       x, tt, c, added).float()
+                return self._unet_call(eng.unet, split_inputs(split, tr, dt), x, tt, c,
+                                       added).float()
 
             pred = maybe_remat(fwd, state.trainable, x_in, t, c_in)
         per = ((pred - y) ** 2).mean(dim=(1, 2, 3))
         loss = (w * per).mean()
-        grads = torch.autograd.grad(loss, list(flat.values()))
+        grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
         loss = loss.detach()
-        data_mean_(self.mesh, [loss, *grads])
-        return loss, dict(zip(flat, grads))
+        if split is not None:
+            split.sum_grads_(grads)
+        data_mean_(self.mesh, [loss, *grads.values()])
+        return loss, grads
 
     def train_step(self, state: TrainState, latents, context, generator=None, hint=None,
                    added=None, noise=None, timesteps=None, u=None):
@@ -369,10 +410,13 @@ class DiffusionTrainer:
     # ----------------------------------------------------------- export
     def unet_params(self, state: TrainState, use_ema: bool = False) -> Dict[str, torch.Tensor]:
         """The effective UNet state dict for sampling (the EMA shadow's
-        with ``use_ema`` where kept), in the UNet's dtype."""
+        with ``use_ema`` where kept), in the UNet's dtype; whole on a split
+        UNet (gathered over ``model``)."""
         tree = state.ema if (use_ema and state.ema is not None) else state.trainable
         unet = self.engine.unet
-        sd = {k: v.detach() for k, v in unet.state_dict().items()}
+        split = SplitParams.of(unet)
+        sd = unet.state_dict() if split is None else split.whole_state(unet, params_only=False)
+        sd = {k: v.detach() for k, v in sd.items()}
         if self.target == "lora":
             with torch.no_grad():
                 sd.update(apply_lora(sd, tree, scale=self.config.lora_scale))

@@ -404,9 +404,9 @@ def test_pipeline_mesh_data_matches_one_process(sampled, case):
 
 def test_pipelines_refuse_seq_and_model_axes_naming_a9():
     """The seq and model axes run (tests/test_torch_tensor_parallel.py); a
-    pipeline asks the world for its mesh like the data axis does, and what
-    stays refused names ROADMAP A9b: ToMe with seq, int8 with model (or
-    its convs with seq) and training with either."""
+    pipeline asks the world for its mesh like the data axis does; ToMe with
+    seq and int8 with either axis pass the check, and training with seq,
+    which the JAX loop has no mode for, stays refused."""
     load_all_plugins()
     for name, kw, mesh in (("stable_diffusion_model", {"mesh_model": 2}, "1x1x2"),
                            ("stable_diffusion_model", {"mesh_seq": 2}, "1x2x1"),
@@ -418,10 +418,9 @@ def test_pipelines_refuse_seq_and_model_axes_naming_a9():
     with pytest.raises(ValueError, match="mesh 2x1x1 != 1 processes"):
         models_registry["stable_diffusion_model"](pretrained_model="x", tiny=True,
                                                   dtype="float32", device="cpu", mesh_data=2)
-    for kw in (dict(mesh_seq=2, tome=0.5), dict(mesh_model=2, quant="int8"),
-               dict(mesh_seq=2, quant="int8_conv"), dict(mesh_model=2, training=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item A9b"):
-            M.check_supported("engine.sample", **kw)
+    M.check_supported("engine.sample", mesh_seq=2)
+    with pytest.raises(NotImplementedError, match="training loop has no seq axis"):
+        M.check_supported("training", mesh_seq=2, training=True)
 
 
 # ------------------------------------------------------------------ CLI

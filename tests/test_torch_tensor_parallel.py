@@ -10,7 +10,13 @@ module or call within 1e-5 (layers: of the output's largest magnitude;
 images: absolutely); the engine's images are also held within 2e-4 to the
 JAX engine's on its 2 x 2 x 2 ("data", "seq", "model") mesh with the same
 weights, initial latents and plan rows, as ``tests/test_weights_mesh.py``
-holds its own meshes.  What stays refused names ROADMAP A9b.
+holds its own meshes.  Int8 (every mode under ``model``, the conv modes
+under ``seq``) is held to one process's int8 run within that run's own
+drift from the exact one (the rule of ``tests/test_torch_quant.py``, which
+holds that drift to the JAX engine's); Token Merging under ``seq`` within
+1e-5 of one process (UNet and MMDiT) and 2e-4 of the JAX engine (UNet,
+given the JAX UNet's destinations).  What stays refused is training under
+``seq``, which the JAX loop has no mode for.
 """
 
 import json
@@ -22,7 +28,7 @@ import pytest
 import torch
 
 from test_torch_parallel import REPO, _cli_overrides, _tsv, run_ranks
-from torch_parity import randn, t, tiny_engines
+from torch_parity import jax_tome_destinations, randn, t, tiny_engines
 from sonicdiffusionbayeslab_torch import schedulers as S
 from sonicdiffusionbayeslab_torch.ops import groupnorm as GN
 from sonicdiffusionbayeslab_torch.parallel import distributed as D
@@ -147,6 +153,20 @@ def engine_runs(mesh, res, arrays):
                                        guidance_rescale=0.7, latent_hw=(8, 8),
                                        sample_indices=np.arange(10, 14), mesh=mesh).images.numpy()
     return eng, plan, emb, neg
+
+def int8_runs(eng, plan, emb, neg, modes, mesh, arrays):
+    inp = np.load(OUT + "/inputs.npz")
+    for mode in modes:
+        eng.set_quant_mode(mode)
+        arrays["int8:" + mode] = eng.sample(plan, emb, neg, guidance_scale=7.5, latent_hw=(8, 8),
+                                            init_latents=inp["lat0"], mesh=mesh).images.numpy()
+    eng.set_quant_mode(None)
+
+def tome_run(eng, plan, emb, neg, mesh):
+    inp = np.load(OUT + "/inputs.npz")
+    return eng.sample(plan, emb, neg, guidance_scale=7.5, latent_hw=(8, 8),
+                      init_latents=inp["lat0"], tome=0.5, tome_dst=inp["tome_dst"],
+                      mesh=mesh).images.numpy()
 """
 
 _MODEL = _LAYERS + _ENGINE + """
@@ -161,12 +181,7 @@ ctx = M.ParallelContext.from_mesh(mesh)
 res, arrays = {}, {}
 res["layers"] = run_layers(ARGS["layers"], ctx, None)
 eng, plan, emb, neg = engine_runs(mesh, res, arrays)
-eng.set_quant_mode("int8")
-try:
-    eng.sample(plan, emb, neg, latent_hw=(8, 8), mesh=mesh)
-except NotImplementedError as e:
-    res["int8_refused"] = str(e)
-eng.set_quant_mode(None)
+int8_runs(eng, plan, emb, neg, ("int8", "int8_conv", "int8_conv_only"), mesh, arrays)
 for key, (name, extra, args) in ARGS["pipelines"].items():
     p = models_registry[name](**ARGS["pipe_kw"], mesh_model=2, **extra)
     if name.startswith("stable_diffusion_3"):
@@ -215,10 +230,8 @@ if R == 1:
 rows = M.latent_sharding(mesh, 2).height.rows(8)
 res["layers"] = run_layers(ARGS["layers"], ctx, rows)
 eng, plan, emb, neg = engine_runs(mesh, res, arrays)
-try:
-    eng.sample(plan, emb, neg, latent_hw=(8, 8), mesh=mesh, tome=0.5)
-except NotImplementedError as e:
-    res["tome_refused"] = str(e)
+int8_runs(eng, plan, emb, neg, ("int8_conv", "int8_conv_only"), mesh, arrays)
+arrays["tome"] = tome_run(eng, plan, emb, neg, mesh)
 try:
     eng.sample(plan, emb, neg, latent_hw=(6, 8), mesh=mesh)
 except ValueError as e:
@@ -266,6 +279,7 @@ def _seq_pipelines():
         "controlnet": ("stable_diffusion_controlnet_model", {},
                        {"control_image": rng.random((4, 64, 64, 3)).tolist()}),
         "sd3_t5": ("stable_diffusion_3_model", {"use_t5": True}, {}),
+        "sd3_tome": ("stable_diffusion_3_model", {}, {"tome_ratio": 0.5}),
     }
 
 
@@ -286,14 +300,27 @@ def engine_inputs(tmp_path_factory):
     from sonicdiffusionbayeslab_tpu.parallel import make_mesh as jax_make_mesh
     from sonicdiffusionbayeslab_tpu.parallel import shard_params as jax_shard_params
 
+    from sonicdiffusionbayeslab_tpu.ops.tome import TomeConfig as JaxTomeConfig
+    from sonicdiffusionbayeslab_torch.ops.tome import TomeConfig
+
     jeng, params, teng = tiny_engines()
     root = tmp_path_factory.mktemp("tp_inputs")
-    inp = dict(emb=randn((4, 77, 32), 21), neg=randn((4, 77, 32), 22), lat0=randn((4, 8, 8, 4), 23))
+    plan = S.DPMSolverScheduler(solver_order=2).build_plan(3)
+    inp = dict(emb=randn((4, 77, 32), 21), neg=randn((4, 77, 32), 22), lat0=randn((4, 8, 8, 4), 23),
+               tome_dst=jax_tome_destinations(plan.timesteps,
+                                              teng.unet.tome_slots(8, 8, TomeConfig(0.5))))
     np.savez(root / "inputs.npz", **inp)
     sds = {m: mod.state_dict() for m, mod in zip(teng.MODULES, teng.modules())}
-    plan = S.DPMSolverScheduler(solver_order=2).build_plan(3)
     one = teng.sample(plan, t(inp["emb"]), t(inp["neg"]), guidance_scale=7.5, latent_hw=(8, 8),
                       init_latents=inp["lat0"], collect_x0=True, x0_samples=3)
+    base = dict(guidance_scale=7.5, latent_hw=(8, 8), init_latents=inp["lat0"])
+    one_more = {"tome": teng.sample(plan, t(inp["emb"]), t(inp["neg"]), tome=0.5,
+                                    tome_dst=t(inp["tome_dst"]), **base).images.numpy()}
+    for mode in ("int8", "int8_conv", "int8_conv_only"):
+        teng.set_quant_mode(mode)
+        one_more["int8:" + mode] = teng.sample(plan, t(inp["emb"]), t(inp["neg"]),
+                                               **base).images.numpy()
+    teng.set_quant_mode(None)
     lcm = S.LCMScheduler().build_plan(3)
     one_lcm = teng.sample(lcm, t(inp["emb"]), t(inp["neg"]), seed=3, guidance_scale=4.0,
                           guidance_rescale=0.7, latent_hw=(8, 8), sample_indices=np.arange(10, 14))
@@ -303,11 +330,15 @@ def engine_inputs(tmp_path_factory):
         want = jeng.sample(jax_shard_params(params, mesh), jplan, jnp.asarray(inp["emb"]),
                            jnp.asarray(inp["neg"]), jax.random.PRNGKey(0), guidance_scale=7.5,
                            latent_hw=(8, 8), init_latents=jnp.asarray(inp["lat0"]), mesh=mesh)
+    jax_tome = jeng.sample(params, jplan, jnp.asarray(inp["emb"]), jnp.asarray(inp["neg"]),
+                           jax.random.PRNGKey(0), guidance_scale=7.5, latent_hw=(8, 8),
+                           init_latents=jnp.asarray(inp["lat0"]), tome=JaxTomeConfig(0.5))
     return dict(sds=sds, inputs=inp, one={"engine": one.images.numpy(),
                                           "engine_latents": one.latents.numpy(),
                                           "engine_x0": one.x0_images.numpy(),
-                                          "lcm_rescale": one_lcm.images.numpy()},
-                jax_images=np.asarray(want.images), jax_latents=np.asarray(want.latents))
+                                          "lcm_rescale": one_lcm.images.numpy(), **one_more},
+                jax_images=np.asarray(want.images), jax_latents=np.asarray(want.latents),
+                jax_tome=np.asarray(jax_tome.images))
 
 
 def _ranks_run(tmp_path_factory, engine_inputs, name, body, n, args):
@@ -441,15 +472,29 @@ def _engine_close(ranks, engine_inputs):
                 assert np.array_equal(arrays[k], v), k
 
 
+def _int8_close(ranks, engine_inputs, modes):
+    """Each int8 mode's split images: the same on every rank, and nearer one
+    process's int8 run than that run is to the exact one (relative L2)."""
+    one = engine_inputs["one"]
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa: E731
+    for mode in modes:
+        got = ranks[0][0]["int8:" + mode]
+        for arrays, _ in ranks[1:]:
+            assert np.array_equal(arrays["int8:" + mode], got), mode
+        drift = rel(one["int8:" + mode], one["engine"])
+        assert 0.0 < drift and rel(got, one["int8:" + mode]) < drift, mode
+
+
 def test_engine_on_the_model_axis_matches_one_process_and_jax(model_run, engine_inputs):
     """engine.sample at n_model 2 (DPM++ with x0 decodes; LCM's step noise
     with rescaled CFG): every rank the same images, within 1e-5 of one
-    process and 2e-4 of the JAX engine on its 2 x 2 x 2 mesh; int8 with the
-    model axis raises naming A9b."""
+    process and 2e-4 of the JAX engine on its 2 x 2 x 2 mesh; int8, int8_conv
+    and int8_conv_only (the row-parallel layers' scales all-maxed over the
+    axis, their int32 partials summed) within one process's int8 drift."""
     ranks = model_run[1]
     _engine_close(ranks, engine_inputs)
+    _int8_close(ranks, engine_inputs, ("int8", "int8_conv", "int8_conv_only"))
     res = ranks[0][1]
-    assert "A9b" in res["int8_refused"]
     split = res["plans"]["unet"]
     assert "down_blocks.0.attentions.0.transformer_blocks.0.ff.net.0.proj.weight" in split
     assert not any(k.startswith("time_embedding") for k in split)
@@ -457,14 +502,20 @@ def test_engine_on_the_model_axis_matches_one_process_and_jax(model_run, engine_
 
 def test_engine_on_the_seq_axis_matches_one_process_and_jax(seq_run, engine_inputs):
     """engine.sample at n_seq 2 (each rank 4 of the 8 latent rows): the same
-    gates; nothing is cut on the seq axis; ToMe with seq raises naming
-    A9b; a height whose shares do not divide by the UNet's downsampling
-    raises ValueError."""
+    gates; nothing is cut on the seq axis; the int8 conv modes (a sample's
+    scale all-maxed over the axis) within one process's int8 drift; ToMe
+    0.5 (each block's tokens gathered, the match over the whole map) within
+    1e-5 of one process and 2e-4 of the JAX engine with the JAX UNet's
+    destinations; a height whose shares do not divide by the UNet's
+    downsampling raises ValueError."""
     ranks = seq_run[1]
     _engine_close(ranks, engine_inputs)
+    _int8_close(ranks, engine_inputs, ("int8_conv", "int8_conv_only"))
+    for arrays, _ in ranks:
+        np.testing.assert_allclose(arrays["tome"], engine_inputs["one"]["tome"], atol=1e-5)
+        np.testing.assert_allclose(arrays["tome"], engine_inputs["jax_tome"], atol=2e-4)
     res = ranks[0][1]
     assert res["plans"]["unet"] == []
-    assert "A9b" in res["tome_refused"] and "Token Merging" in res["tome_refused"]
     assert "latent height 6 not divisible by seq axis 2 x 2" in res["odd_height"]
 
 
@@ -502,9 +553,11 @@ def test_pipelines_on_the_model_axis_match_one_process(model_run, key):
 def test_pipelines_on_the_seq_axis_match_one_process(seq_run, key):
     """SD-1.5 inpainting (the mask, source and blend noise cut by rows), a
     ControlNet (the control image cut by pixel rows, its conditioning
-    embedding's convs halo'd) and SD3 with T5 (the MMDiT's patch rows, the
-    sincos table's rows offset by the rank, the image K/V gathered) at
-    ``mesh_seq=2``: within 1e-5 of one process."""
+    embedding's convs halo'd), SD3 with T5 (the MMDiT's patch rows, the
+    sincos table's rows offset by the rank, the image K/V gathered) and
+    SD3 with DiT-ToMe 0.5 (each block's image tokens gathered, the match
+    over the whole patch grid) at ``mesh_seq=2``: within 1e-5 of one
+    process."""
     (a0, _), (a1, _) = seq_run[1]
     assert np.array_equal(a0[key], a1[key])
     want = _one_pipeline(*_seq_pipelines()[key])
@@ -562,25 +615,24 @@ def test_served_request_mesh_model_matches_one_process(model_run):
 
 # ---------------------------------------------------------- refusals
 def test_what_stays_refused_names_a9b(tmp_path):
-    """Training with seq or model above 1, Token Merging with seq, int8 with
-    model and the int8 conv modes with seq (a sample's activation scale
-    spans the ranks' rows) raise NotImplementedError naming ROADMAP A9b,
-    the training loop's before it builds anything; ToMe with model and
-    int8 projections with seq pass."""
+    """Only training with seq above 1 stays refused, saying that the JAX
+    loop has no seq axis, the training loop's refusal before it builds
+    anything; sampling under seq and training under model pass the check,
+    and a loop at ``mesh_data: 1, mesh_model: 2`` in one process asks the
+    world for its two-rank mesh (tests/test_torch_split_training.py runs
+    it on two ranks)."""
     from test_torch_train_loop import _config
 
     from sonicdiffusionbayeslab_torch.training.loop import run_training
 
-    for kw in (dict(mesh_seq=2, training=True), dict(mesh_model=2, training=True),
-               dict(mesh_seq=2, tome=object()), dict(mesh_model=2, quant="int8"),
-               dict(mesh_seq=2, quant="int8_conv_only"), dict(mesh_seq=2, quant="int8_conv")):
-        with pytest.raises(NotImplementedError, match="A9b"):
-            M.check_supported("x", **kw)
-    M.check_supported("x", mesh_model=2, tome=object())
-    M.check_supported("x", mesh_seq=2, quant="int8")
-    for key in ("mesh_model", "mesh_seq"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item A9b"):
-            run_training(_config(tmp_path, {key: 2, "batch_size": 2}))
+    with pytest.raises(NotImplementedError, match="has no seq axis"):
+        M.check_supported("x", mesh_seq=2, training=True)
+    M.check_supported("x", mesh_seq=2)
+    M.check_supported("x", mesh_seq=1, training=True)
+    with pytest.raises(NotImplementedError, match="training loop has no seq axis"):
+        run_training(_config(tmp_path, {"mesh_seq": 2, "batch_size": 2}))
+    with pytest.raises(ValueError, match="mesh 1x1x2 != 1 processes"):
+        run_training(_config(tmp_path, {"mesh_data": 1, "mesh_model": 2, "batch_size": 2}))
 
 
 def test_latent_sharding_splits_the_height_or_raises():
