@@ -150,7 +150,7 @@ prints no ``ok`` line:
      attention a forward beside SDPA and the bound); tiny fp32 SD3
      pipelines (exact, trunk-delta, ToMe, T5, two-scheduler, skip) on the
      card against the CPU within 1e-3 and an int8 one below the CPU's
-     drift; through the pipeline at 1024^2, 28-step flow Euler (shift 3),
+     drift; through the pipeline at 1024^2, 14-step flow Euler (shift 3),
      CFG 7, batch 2: a run at 512^2, then exact, trunk-delta (interval 3,
      branch 2), ToMe 0.5 and int8 loops (first runs' launches against the
      census, warm execution_time and peak memory, the exact run traced),
@@ -193,13 +193,13 @@ prints no ``ok`` line:
      gradient at step 0 and every a from step 1; configs/train_lora.yaml
      as shipped through training.loop.run_training (batch 8 at 512^2,
      random bf16 weights; overridden: the dataset, 16 real PNGs under the
-     first 16 names of img2annotations_train.json, num_steps 12, log_every
+     first 16 names of img2annotations_train.json, num_steps 8, log_every
      4, save_dir): finite losses, steps/s, peak memory, the wrappers'
      launches equal to the census (32 attentions and 61 GroupNorms a step,
      22 GroupNorms an encode), lora_peft.npz with every target's tensors,
      fused by merge_lora into a 512^2 sample that differs from the base's,
      and a 2-step run traced against the census; the port's train_bench
-     lora512, full512 and sd3_lora at 12 steps (their JSON lines; launches
+     lora512, full512 and sd3_lora at 8 steps (their JSON lines; launches
      against the census, remat's twice a step); with --profile a trace of
      each of those modes' steps by kernel group, backward and optimizer;
  15. LCM distillation and textual inversion at SD-1.5 width: dk and dv
@@ -236,7 +236,7 @@ prints no ``ok`` line:
      output against plain_group_norm, both timed at a mesh_seq=2 rank's
      shapes; (b) SD-1.5 at 512^2 on two ranks at mesh_model=2 and at
      mesh_seq=2: one fp32 (TF32 off) and one bf16 UNet forward, a 4-step
-     fp32 and a 20-step bf16 run, each against one process, every rank's
+     fp32 and a 4-step bf16 run, each against one process, every rank's
      launches equal to the census restated for the mode; (c) four ranks at
      mesh_seq=2 x mesh_model=2: both forwards and a 4-step bf16 run; (d)
      SD3-medium at 1024^2: at mesh_model=2 T5-XXL's block 0 (bf16, fp32)
@@ -244,13 +244,32 @@ prints no ``ok`` line:
      one fp32 MMDiT forward and a 2-step run against one process; (e)
      serving.server.serve at mesh_model=2 answering one request, its PNG
      bit-equal to a direct call on the same ranks;
- 18. the card line, then one JSON ``kernels`` line (the fp32 attention
+ 18. the T5 tokenizer.json reader, the t5_bench twin and what a mesh ran
+     only in the JAX package, on gloo ranks sharing the card against one
+     process (this script with --tp-rank): a 32,100-piece tokenizer.json
+     written here (no ``tokenizers`` on the card's machine), its ids equal
+     to the pinned ones, SD3-medium with T5-XXL through it for 2 steps,
+     the t5_bench twin staged and resident (SD3-medium + T5-XXL, 1024^2,
+     batch 4, 20 steps; its two JSON lines); at mesh_model=2 one bf16 LoRA
+     step (batch 2) and fp32 LoRA, full-with-remat, ControlNet and
+     LCM-LoRA steps (SD-1.5 512^2, batch 1) and SD3's LoRA step (8 of the
+     MMDiT's 24 blocks, 1024^2), each against one process's gradients,
+     launches a rank equal to one process's; train_lora.yaml through the
+     loop at mesh_data 1, mesh_model 2 against one process's run and
+     files; fuse_lora into split weights, bit-equal to one process's
+     fused weights cut to the rank's share; 10-step bf16 SD-1.5 runs under
+     int8 at mesh_model=2 and int8_conv at mesh_seq=2 (within one process's
+     own int8 drift plus its own bf16 reordering drift) and with ToMe 0.5
+     at mesh_seq=2, and a 2-step SD3 DiT-ToMe run at mesh_seq=2 (mean |diff|
+     <= 5e-2); then the kernels at every shape those runs recorded against
+     their plain versions;
+ 19. the card line, then one JSON ``kernels`` line (the fp32 attention
      kernel's entry is phase 9's metric towers: 108 launches a validate
-     batch; each entry also lists its launches in each phase-7 to phase-17
+     batch; each entry also lists its launches in each phase-7 to phase-18
      run, and its phase-10 and phase-12 sums over one forward and one
      decode; the split GroupNorm pair's entries are phase 17's mesh_seq=2
      run);
- 19. the last line: {"ok": true, "device": {...}}.
+ 20. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -415,7 +434,9 @@ INT8_CONVS = 50
 # SD3_CLI_BATCH, each at its first sweep point: (config, overrides, label,
 # nfe, MMDiT rows a call (the configs' unet_microbatch), x0 captured); and
 # the quality frontier at FRONTIER's prompts, batches and steps.
-SD3_SIZE, SD3_STEPS, SD3_GUIDANCE, SD3_SHIFT = 1024, 28, 7.0, 3.0
+# (SD3_STEPS was 28 until phase 18 came: depth cut, never width, to keep the
+# script inside its time limit.)
+SD3_SIZE, SD3_STEPS, SD3_GUIDANCE, SD3_SHIFT = 1024, 14, 7.0, 3.0
 SD3_CACHE, SD3_TOME, SD3_SMALL, SD3_CLI_BATCH = (3, 2), 0.5, 512, 4
 SD3_CLI_RUNS = [
     ("sd3_config", {_P + "num_inference_steps": [14]}, "steps_14", 14, 8, True),
@@ -4217,7 +4238,7 @@ def run_serving_conditioning(report, card, checked):
 
 
 # --------------------------------------------------------- training (phase 14)
-TRAIN_BATCH, TRAIN_STEPS, TRAIN_LOG, TRAIN_IMAGES, TRAIN_TRACE_STEPS = 8, 12, 4, 16, 2
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LOG, TRAIN_IMAGES, TRAIN_TRACE_STEPS = 8, 8, 4, 16, 2
 TRAIN_BENCH_MODES = ("lora512", "full512", "sd3_lora")  # each at its default batch (8, 8, 2)
 # The SD3 LoRA bench's context: CLIP-L's and bigG's 77 tokens side by side
 # on the sequence axis (the root train_bench.py's T_ctx), so its joint
@@ -5711,9 +5732,9 @@ TP_WORLD = {"model": 2, "seq": 2, "both": 4, "sd3_model": 2, "sd3_seq": 2}
 TP_MESH = {"model": dict(mesh_model=2), "seq": dict(mesh_seq=2),
            "both": dict(mesh_seq=2, mesh_model=2), "sd3_model": dict(mesh_model=2),
            "sd3_seq": dict(mesh_seq=2)}
-# The fp32 runs', the four-rank run's, the served request's and SD3's
-# denoising steps (the phase cuts steps, never widths: a reduce crosses the
-# host, and a rank's 20-step bf16 SD-1.5 loop takes ~26 s under model).
+# The SD-1.5 runs', the served request's and SD3's denoising steps (the
+# phase cuts steps, never widths: a reduce crosses the host, and a rank's
+# 20-step bf16 SD-1.5 loop took 17-29 s under model).
 TP_SHORT_STEPS, SD3_TP_STEPS, SD3_T5_STEPS = 4, 2, 1
 # Against one process: a forward's relative L2 (UNet, MMDiT, T5) and the
 # images' mean |difference| on [0, 1], by dtype.  fp32 runs with TF32 off.
@@ -6102,7 +6123,7 @@ def tp_references(root):
     """The one-process runs the split ones are held to: SD-1.5 (random
     weights from seed 0) one UNet forward at batch 2 * BATCH on fixed
     inputs and images at batch BATCH (seed 29), fp32 (TF32 off,
-    TP_SHORT_STEPS steps) and bf16 (STEPS and TP_SHORT_STEPS steps);
+    TP_SHORT_STEPS steps) and bf16 (TP_SHORT_STEPS steps);
     SD3-medium with T5-XXL (``sd3_tp_runs``).  Inputs and outputs go to
     ``root``.  Returns the seconds each took and one process's own drift
     (``seq_drift_parts``; bf16 against fp32; T5's permuted encode)."""
@@ -6128,11 +6149,7 @@ def tp_references(root):
         if dtype == "bfloat16":
             drift = seq_drift_parts(model.engine.unet, inp)
         refs[f"{dtype}_images"] = torch.from_numpy(model(
-            PROMPTS, num_inference_steps=STEPS if dtype == "bfloat16" else TP_SHORT_STEPS,
-            **kw)[0])
-        if dtype == "bfloat16":
-            refs["bfloat16_images_short"] = torch.from_numpy(
-                model(PROMPTS, num_inference_steps=TP_SHORT_STEPS, **kw)[0])
+            PROMPTS, num_inference_steps=TP_SHORT_STEPS, **kw)[0])
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -6345,9 +6362,9 @@ def tp_serve(model, rank):
 def tp_rank_sd15(rank, mode, root, per_unet, per_vae):
     """A rank of an SD-1.5 mode: for fp32 (TF32 off) and bf16, the pipeline
     split by the mode, one UNet forward on the fixed inputs (its rows; the
-    seq axis's gathered) and one run with its launches (bf16: STEPS steps,
-    fp32: TP_SHORT_STEPS; the four ranks: bf16 only, TP_SHORT_STEPS); the
-    served request under ``model``."""
+    seq axis's gathered) and one TP_SHORT_STEPS-step run with its
+    launches (the four ranks: bf16 only); the served request under
+    ``model``."""
     from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
     from sonicdiffusionbayeslab_torch.parallel import distributed
     from sonicdiffusionbayeslab_torch.parallel import mesh as M
@@ -6374,7 +6391,7 @@ def tp_rank_sd15(rank, mode, root, per_unet, per_vae):
         torch.cuda.synchronize()
         forward_s = time.perf_counter() - t0
         saves[f"{dtype}_forward"] = out.float().cpu()
-        steps = STEPS if dtype == "bfloat16" and mode != "both" else TP_SHORT_STEPS
+        steps = TP_SHORT_STEPS
         if mode == "both" and dtype == "float32":  # the four ranks' run is bf16 only
             rec[dtype] = dict(init_s=init_s, forward_s=forward_s, unet_params=held)
             del model, unet, par
@@ -6419,7 +6436,9 @@ def tp_rank(rank, mode, addr, root):
     t_start = time.perf_counter()
     distributed.initialize(coordinator=addr, num_processes=TP_WORLD[mode], process_id=rank,
                            backend="gloo", device="cuda")
-    if mode.startswith("sd3"):
+    if mode.startswith("a9b"):
+        rec = a9b_rank(rank, mode, root)
+    elif mode.startswith("sd3"):
         rec = tp_rank_sd3(rank, mode, root)
     else:
         _, per_unet, per_vae = census(2 * BATCH)
@@ -6431,11 +6450,11 @@ def tp_rank(rank, mode, addr, root):
     dist.destroy_process_group()
 
 
-def run_tp_ranks(root, modes):
+def run_tp_ranks(root, modes, during=None):
     """Each mode's TP_WORLD[mode] processes of this script (``--tp-rank``),
     all modes at once, each rank's output in ``tp_<mode>_rank<r>.log``;
-    every rank must exit 0 within TP_TIMEOUT_S, and every process is
-    stopped."""
+    ``during()`` runs in this process while they do; every rank must exit
+    0 within TP_TIMEOUT_S, and every process is stopped."""
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
     procs, logs = [], []
     t0 = time.perf_counter()
@@ -6449,6 +6468,8 @@ def run_tp_ranks(root, modes):
                      "--tp-mode", mode, "--tp-addr", addr, "--tp-dir", str(root)], env=env,
                     stdout=logs[-1], stderr=subprocess.STDOUT)))
         deadline = time.monotonic() + TP_TIMEOUT_S
+        if during is not None:
+            during()
         for _, _, p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
     finally:
@@ -6501,7 +6522,7 @@ def tp_compare(root, mode, ranks, card):
                            outs[0][f"{dtype}_forward"]))
             if short and dtype == "float32":
                 continue  # the four ranks run their short loop in bf16 against it
-            ref = refs["bfloat16_images_short"] if short else refs[f"{dtype}_images"]
+            ref = refs[f"{dtype}_images"]
             checks.append((f"{dtype}_images", dtype, "images", ref, outs[0][f"{dtype}_images"]))
     failed = []
     for name, dtype, what, want, got in checks:
@@ -6632,7 +6653,7 @@ def phase17_launches(out, kind):
     return {m: recs[0]["bfloat16"]["launches"][kind] for m, recs in out["ranks"].items()}
 
 
-# ------------------------------------------- phase 18: the T5 tokenizer.json reader and A9b
+# -------------- phase 18: the T5 tokenizer.json reader; training, int8 and ToMe on split ranks
 # A T5-shaped tokenizer.json written here (the card's machine has no
 # ``tokenizers``): 32,100 pieces made from T5_TOK_SEED (<pad>, </s>, <unk>,
 # 31,997 pieces, 100 <extra_id_*>), a Precompiled charsmap encoded here,
@@ -6725,6 +6746,616 @@ def write_t5_tokenizer(directory):
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(t5_tokenizer_spec(), ensure_ascii=False))
     return path
+
+
+# Phase 18's rank groups (gloo, sharing the card like phase 17's): two train
+# groups and "a9b_infer" on the model axis, "a9b_seq" on the seq axis; the
+# train groups' cases.
+A9B_WORLD = {"a9b_train": 2, "a9b_train2": 2, "a9b_infer": 2, "a9b_seq": 2, "a9b_t5": 1}
+TP_WORLD.update(A9B_WORLD)  # their processes start as phase 17's do (tp_rank)
+A9B_MESH = {"a9b_train": dict(mesh_model=2), "a9b_train2": dict(mesh_model=2),
+            "a9b_infer": dict(mesh_model=2), "a9b_seq": dict(mesh_seq=2), "a9b_t5": {}}
+A9B_GROUP_CASES = {"a9b_train": ("lora_bf16", "lora", "full_remat", "distill"),
+                   "a9b_train2": ("controlnet", "sd3_lora")}
+# The fp32 train cases (TF32 off) at batch 1 (SD-1.5 512^2, SD3 1024^2 with
+# SD3_TRAIN_CTX context tokens), the bf16 LoRA step at batch 2, the loop's
+# steps; the SD3 T5 + ToMe run's steps.
+A9B_CASES = ("lora", "full_remat", "controlnet", "distill", "sd3_lora")
+A9B_BF16_BATCH, A9B_LOOP_STEPS, A9B_SD3_STEPS = 2, 2, 2
+# The fp32 SD3 LoRA step's MMDiT depth (SD3-medium's widths, 8 of its 24
+# blocks: depth cut, never width; every block type splits alike).
+A9B_SD3_DEPTH = 8
+# The int8 and ToMe SD-1.5 runs' steps (the phase cuts steps, never widths:
+# a split rank's eager step crosses the host ~140 times).
+A9B_STEPS = 10
+# Against one process: an fp32 gradient's relative L2 a tensor (of its own
+# norm, or of 1% of the case's largest where a tensor's own gradient is
+# noise about zero: a bias before a GroupNorm of one channel a group), the
+# loss; the bf16 LoRA gradients' relative L2 within the larger of 2e-2 and
+# twice one process's own bf16-against-fp32 drift; the images' mean |diff|
+# (int8: within one process's own int8-against-exact drift plus its own
+# bf16 reordering drift, the exact run in chunks of 2 against the whole
+# batch, which every split run carries: PR 17's split exact runs drifted
+# 3.2e-3 from one process's).
+A9B_GRAD_REL, A9B_LOSS_REL, A9B_BF16_FLOOR, A9B_TOME_MEAN = 1e-4, 1e-5, 2e-2, 5e-2
+
+
+def a9b_inputs(root):
+    """The fixed inputs of phase 18's train steps (seeded on the CPU) in
+    ``root``/a9b_inputs.pt."""
+    g = torch.Generator().manual_seed(180)
+    lat = SIZE // 8
+    inp = dict(lat=torch.randn(A9B_BF16_BATCH, lat, lat, 4, generator=g),
+               ctx=torch.randn(A9B_BF16_BATCH, 77, 768, generator=g),
+               uncond=torch.randn(A9B_BF16_BATCH, 77, 768, generator=g),
+               noise=torch.randn(A9B_BF16_BATCH, lat, lat, 4, generator=g),
+               t=torch.tensor([301, 777]), idx=torch.tensor([11, 37]),
+               hint=torch.rand(A9B_BF16_BATCH, SIZE, SIZE, 3, generator=g),
+               sd3_lat=torch.randn(1, SD3_SIZE // 8, SD3_SIZE // 8, 16, generator=g),
+               sd3_noise=torch.randn(1, SD3_SIZE // 8, SD3_SIZE // 8, 16, generator=g),
+               sd3_ctx=torch.randn(1, SD3_TRAIN_CTX, 4096, generator=g),
+               sd3_pooled=torch.randn(1, 2048, generator=g), sd3_u=torch.tensor([0.3]))
+    torch.save(inp, Path(root) / "a9b_inputs.pt")
+
+
+def a9b_engine(family, dtype, mesh=None, controlnet=False):
+    """A full-width engine with random weights from seed 0 (a ControlNet with
+    random heads: ``init_controlnet`` zeroes them), placed on ``mesh``; its
+    text towers and VAE dropped, as a train step on given latents and
+    context reads neither."""
+    import dataclasses
+
+    from sonicdiffusionbayeslab_torch.models.mmdit import MMDiTConfig
+    from sonicdiffusionbayeslab_torch.models.sampler import StableDiffusionEngine
+    from sonicdiffusionbayeslab_torch.models.sd3 import SD3Engine
+
+    if family == "sd3":
+        cfg = dataclasses.replace(MMDiTConfig.sd3_medium(), depth=A9B_SD3_DEPTH)
+        eng = SD3Engine(cfg, dtype=dtype, device="cuda").init_params(0)
+    else:
+        eng = StableDiffusionEngine(dtype=dtype, device="cuda").init_params(0)
+    for name in eng.MODULES:
+        if name != "unet":
+            setattr(eng, name, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if controlnet:
+        g = torch.Generator(device="cuda").manual_seed(181)
+        with torch.no_grad():
+            for conv in eng.init_controlnet(0).heads():
+                conv.weight.normal_(0.0, 0.02, generator=g)
+                conv.bias.normal_(0.0, 0.02, generator=g)
+    if mesh is not None:
+        eng.parallelize(mesh)
+    return eng
+
+
+def a9b_step(case, eng, inp, mesh=None, shapes=None):
+    """(loss, {leaf: gradient on the host}) of one ``value_and_grad`` of
+    ``case`` on ``eng`` (batch 1, or A9B_BF16_BATCH for the bf16 LoRA step)."""
+    from sonicdiffusionbayeslab_torch.training.distillation import LCMDistillConfig, LCMDistiller
+    from sonicdiffusionbayeslab_torch.training.lora import MMDIT_TARGETS
+    from sonicdiffusionbayeslab_torch.training.trainer import DiffusionTrainer, TrainConfig
+
+    n = A9B_BF16_BATCH if case == "lora_bf16" else 1
+    c = {k: v[:n].cuda() for k, v in inp.items()}
+    if case == "distill":
+        tr = LCMDistiller(eng, LCMDistillConfig(lora_rank=64, original_inference_steps=50),
+                          mesh=mesh)
+        st = tr.init_state(generator=torch.Generator(device="cuda").manual_seed(182))
+        args, kw = (st, c["lat"], c["ctx"], c["uncond"]), dict(idx=c["idx"], noise=c["noise"])
+    elif case == "sd3_lora":
+        tr = DiffusionTrainer(eng, TrainConfig(objective="flow", lora_rank=8, remat=True,
+                                               lora_targets=MMDIT_TARGETS), mesh=mesh)
+        st = tr.init_state(generator=torch.Generator(device="cuda").manual_seed(182))
+        args = (st, c["sd3_lat"], c["sd3_ctx"])
+        kw = dict(noise=c["sd3_noise"], u=c["sd3_u"], added={"text_embeds": c["sd3_pooled"]})
+    else:
+        cfg = {"lora": dict(lora_rank=8, snr_gamma=5.0), "lora_bf16": dict(lora_rank=8),
+               "full_remat": dict(remat=True, optimizer="adafactor"),
+               "controlnet": dict(train_target="controlnet")}
+        tr = DiffusionTrainer(eng, TrainConfig(**cfg[case]), mesh=mesh)
+        st = tr.init_state(generator=torch.Generator(device="cuda").manual_seed(182))
+        args, kw = (st, c["lat"], c["ctx"]), dict(noise=c["noise"], timesteps=c["t"])
+        if case == "controlnet":
+            kw["hint"] = c["hint"]
+    if case.startswith("lora") or case in ("distill", "sd3_lora"):  # b random: every a learns
+        with torch.no_grad():
+            g = torch.Generator(device="cuda").manual_seed(183)
+            for ab in st.trainable.values():
+                ab["b"].normal_(0.0, 1e-3, generator=g)
+    if shapes is not None:
+        with recording_kernel_shapes(shapes):
+            loss, grads = tr.value_and_grad(*args, **kw)
+    else:
+        loss, grads = tr.value_and_grad(*args, **kw)
+    out = float(loss), {k: v.detach().float().cpu() for k, v in grads.items()}
+    del tr, st, grads
+    return out
+
+
+def a9b_grad_errs(got, want, rel, loss_rel):
+    """The largest per-tensor relative L2 of ``got``'s gradients against
+    ``want``'s (see A9B_GRAD_REL) and the losses' relative difference;
+    ``ok`` where they are within ``rel`` and ``loss_rel``."""
+    (loss, g), (w_loss, w) = got, want
+    if set(g) != set(w):
+        raise AssertionError("the split step's trainable tensors are not one process's")
+    floor = 1e-2 * max(float(v.norm()) for v in w.values())
+    worst = max(float((g[k] - w[k]).norm()) / max(float(w[k].norm()), floor) for k in w)
+    return dict(loss_rel=abs(loss - w_loss) / abs(w_loss), grad_rel_l2=worst,
+                ok=worst <= rel and abs(loss - w_loss) <= loss_rel * abs(w_loss))
+
+
+def a9b_train_rank(rank, mesh, root, cases, loop=False):
+    """A train group's rank (mesh_model=2): each of ``cases`` (``lora_bf16``:
+    the bf16 LoRA step with its launches and kernel shapes; the others
+    fp32, TF32 off) split; with ``loop``, train_lora.yaml through the loop.
+    Rank 0 then takes each step in one process and holds the split's to
+    it (bf16: within the larger of A9B_BF16_FLOOR and twice one process's
+    own bf16-against-fp32 drift of the same step)."""
+    import torch.distributed as dist
+
+    from sonicdiffusionbayeslab_torch.config import load_config
+    from sonicdiffusionbayeslab_torch.training.loop import run_training
+
+    inp = torch.load(Path(root) / "a9b_inputs.pt")
+    rec, shapes, split = {}, set(), {}
+    t0 = time.perf_counter()
+
+    def engines(one_process):
+        """(family, dtype, its cases) in the order the cases run."""
+        for family, dtype, names in (("sd15", torch.bfloat16, ("lora_bf16",)),
+                                     ("sd15", torch.float32, A9B_CASES[:4]),
+                                     ("sd3", torch.float32, A9B_CASES[4:])):
+            names = [c for c in names if c in cases]
+            if names:
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = (
+                    dtype != torch.float32)
+                torch.cuda.reset_peak_memory_stats()
+                eng = a9b_engine(family, dtype, None if one_process else mesh,
+                                 controlnet="controlnet" in names)
+                yield eng, names
+                if not one_process:
+                    rec[f"{family}_{str(dtype)[6:]}_peak_gb"] = (
+                        torch.cuda.max_memory_allocated() / 2**30)
+                del eng
+                gc.collect()
+                torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+
+    for eng, names in engines(False):
+        for case in names:
+            bf16 = case == "lora_bf16"
+            if bf16:
+                all_counts(reset=True)
+            t1 = time.perf_counter()
+            split[case] = a9b_step(case, eng, inp, mesh, shapes if bf16 else None)
+            torch.cuda.synchronize()
+            rec[f"{case}_step_s"] = time.perf_counter() - t1
+            if bf16:
+                rec["launches"] = all_counts()
+    rec["split_s"] = time.perf_counter() - t0
+    if loop:  # train_lora.yaml at mesh_data 1, mesh_model 2: rank 0 saves the adapters
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        out = run_training(load_config(
+            Path(__file__).resolve().parent / "configs" / "train_lora.yaml",
+            a9b_loop_overrides(root, "split", mesh_model=2)))
+        rec["loop"] = dict(losses=out["losses"], steps_per_sec=out["steps_per_sec"],
+                           wall_s=time.perf_counter() - t1,
+                           peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:  # one process's steps on the same inputs, then the gates
+        t1 = time.perf_counter()
+        against = rec["against_one_process"] = {}
+        for eng, names in engines(True):
+            for case in names:
+                bf16 = case == "lora_bf16"
+                if bf16:
+                    all_counts(reset=True)
+                one = a9b_step(case, eng, inp)
+                if not bf16:
+                    against[case] = a9b_grad_errs(split[case], one, A9B_GRAD_REL, A9B_LOSS_REL)
+                    continue
+                rec["one_process_launches"] = all_counts()
+                eng.unet.float()  # the same weights in fp32: one process's own bf16 drift
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+                drift = a9b_grad_errs(one, a9b_step(case, eng, inp), 1.0, 1.0)["grad_rel_l2"]
+                gate = max(A9B_BF16_FLOOR, 2 * drift)
+                against[case] = {**a9b_grad_errs(split[case], one, gate, gate), "gate": gate,
+                                 "one_process_bf16_vs_fp32": drift}
+        rec["one_process_s"] = time.perf_counter() - t1
+    rec["kernel_shapes"] = sorted([kind, list(shape)] for kind, shape in shapes)
+    return rec
+
+
+def a9b_loop_overrides(root, name, **mesh):
+    root = Path(root)
+    return {"dataset.img_dataset": str(root / "train_images"),
+            "dataset.prompts": str(root / "img2annotations_train_first16.json"),
+            "training.num_steps": A9B_LOOP_STEPS, "training.log_every": 1,
+            "training.save_dir": str(root / f"loop_{name}"),
+            **({"training.mesh_data": 1, **{f"training.{k}": v for k, v in mesh.items()}}
+               if mesh else {})}
+
+
+def a9b_infer_rank(rank, mesh, root):
+    """``a9b_infer`` (mesh_model=2): an A9B_STEPS-step bf16 SD-1.5 run under int8
+    with its launches; then a random rank-64 LoRA fused into the split
+    weights, each rank's slices held bit-equal to one process's fused
+    weights cut to the rank's share (fused here, from the same seed)."""
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.models.weights import load_torch_state_dict, merge_lora
+    from sonicdiffusionbayeslab_torch.parallel.mesh import SplitParams
+
+    rec, saves, shapes = {}, {}, set()
+    model = StableDiffusionModel(image_size=SIZE, seed=0, device="cuda", **A9B_MESH["a9b_infer"])
+    model.engine.set_quant_mode("int8")
+    all_counts(reset=True)
+    int8_counts(reset=True)
+    t0 = time.perf_counter()
+    with recording_kernel_shapes(shapes):
+        imgs, rec["int8_execution_time_s"], _ = model(PROMPTS, num_inference_steps=A9B_STEPS,
+                                                      guidance_scale=GUIDANCE, seed=29)
+    rec["int8_call_s"] = time.perf_counter() - t0
+    rec["int8_launches"] = {**all_counts(), **int8_counts()}
+    saves["int8"] = torch.from_numpy(imgs)
+    model.engine.set_quant_mode(None)
+    lora = Path(root) / "a9b_lora.bin"
+    model.load_lora_weights(str(lora)).fuse_lora()
+    unet = model.engine.unet
+    split = SplitParams.of(unet)
+    whole = StableDiffusionModel(image_size=SIZE, seed=0, device="cuda").engine.unet.state_dict()
+    fused, names = merge_lora(whole, load_torch_state_dict(lora))
+    local = unet.state_dict()
+    bad = [k for k, v in fused.items() if not torch.equal(split.local(k, v), local[k])]
+    rec["fuse"] = dict(modules=len(names), split_tensors=sum(k in split.cuts for k in local),
+                       not_bit_equal=bad[:5])
+    torch.save(saves, Path(root) / f"a9b_infer_rank{rank}.pt")
+    rec["kernel_shapes"] = sorted([kind, list(shape)] for kind, shape in shapes)
+    return rec
+
+
+def a9b_seq_rank(rank, mesh, root):
+    """``a9b_seq`` (mesh_seq=2): A9B_STEPS-step bf16 SD-1.5 runs under
+    int8_conv and with ToMe 0.5; SD3-medium with DiT-ToMe 0.5 for
+    A9B_SD3_STEPS steps; each with its launches."""
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+
+    rec, saves, shapes = {}, {}, set()
+    model = StableDiffusionModel(image_size=SIZE, seed=0, device="cuda", **A9B_MESH["a9b_seq"])
+    for name, kw in (("int8_conv", {}), ("tome", dict(tome_ratio=0.5))):
+        model.engine.set_quant_mode("int8_conv" if name == "int8_conv" else None)
+        all_counts(reset=True)
+        int8_counts(reset=True)
+        t0 = time.perf_counter()
+        with recording_kernel_shapes(shapes):
+            imgs, rec[f"{name}_execution_time_s"], _ = model(
+                PROMPTS, num_inference_steps=A9B_STEPS, guidance_scale=GUIDANCE, seed=29, **kw)
+        rec[f"{name}_call_s"] = time.perf_counter() - t0
+        rec[f"{name}_launches"] = {**all_counts(), **int8_counts()}
+        saves[name] = torch.from_numpy(imgs)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    saves["sd3_tome"], rec["sd3_launches"] = a9b_sd3_tome(shapes, **A9B_MESH["a9b_seq"])
+    rec["sd3_s"] = time.perf_counter() - t0
+    torch.save(saves, Path(root) / f"a9b_seq_rank{rank}.pt")
+    rec["kernel_shapes"] = sorted([kind, list(shape)] for kind, shape in shapes)
+    return rec
+
+
+def a9b_sd3_tome(shapes=None, **mesh):
+    """SD3-medium (CLIP context) with DiT-ToMe 0.5, A9B_SD3_STEPS steps of
+    one prompt: (images, launches)."""
+    import contextlib
+
+    pipe = sd3_pipeline(image_size=SD3_SIZE, seed=0, device="cuda", **mesh)
+    all_counts(reset=True)
+    ctx = recording_kernel_shapes(shapes) if shapes is not None else contextlib.nullcontext()
+    with ctx:
+        imgs, _, _ = pipe(PROMPTS[:1], num_inference_steps=A9B_SD3_STEPS,
+                          guidance_scale=SD3_GUIDANCE, seed=29, tome_ratio=0.5)
+    counts = all_counts()
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.from_numpy(imgs), counts
+
+
+def a9b_sd3_t5_snapshot(root):
+    """SD3-medium with T5-XXL (resident) whose ``tokenizer_3`` is the phase's
+    tokenizer.json, read by the pipeline's own reader from the snapshot
+    directory ``root``/sd3: the ids of T5_TOK_PROMPTS[:2] must be the
+    pinned ones, and A9B_SD3_STEPS steps of them finite images."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    pipe = sd3_pipeline(image_size=SD3_SIZE, seed=0, device="cuda", use_t5=True,
+                        t5_staged=False)
+    pipe.pretrained_model = str(Path(root) / "sd3")
+    pipe.tokenizer3 = pipe._t5_tokenizer(False)
+    prompts = T5_TOK_PROMPTS[:2]
+    ids = pipe.tokenizer3(prompts)
+    for row, want in zip(ids, T5_TOK_IDS[:2]):
+        if list(row[:len(want)]) != want or row[len(want):].any():
+            raise AssertionError(f"phase 18: the SD3 pipeline's T5 ids {list(row[:32])} are not "
+                                 f"the pinned {want}")
+    all_counts(reset=True)
+    imgs, exec_s, _ = pipe(prompts, num_inference_steps=A9B_SD3_STEPS,
+                           guidance_scale=SD3_GUIDANCE, seed=29)
+    counts = all_counts()
+    if imgs.shape != (2, SD3_SIZE, SD3_SIZE, 3) or not np.isfinite(imgs).all():
+        raise AssertionError(f"phase 18: SD3 with T5 through the snapshot gave {imgs.shape} "
+                             "images, or non-finite ones")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(execution_time_s=exec_s, launches=counts, s=time.perf_counter() - t0)
+
+
+def a9b_rank(rank, mode, root):
+    """A rank of a phase 18 group (``tp_rank``'s mode ``a9b_*``)."""
+    from sonicdiffusionbayeslab_torch.parallel import mesh as M
+
+    axes = A9B_MESH[mode]
+    mesh = (M.make_mesh(n_data=1, n_model=axes.get("mesh_model", 1),
+                        n_seq=axes.get("mesh_seq", 1), device_type="cuda") if axes else None)
+    if mode == "a9b_t5":
+        return a9b_t5_bench(root)
+    if mode in A9B_GROUP_CASES:
+        return a9b_train_rank(rank, mesh, root, A9B_GROUP_CASES[mode], loop=mode == "a9b_train")
+    return {"a9b_infer": a9b_infer_rank, "a9b_seq": a9b_seq_rank}[mode](rank, mesh, root)
+
+
+def a9b_assets(root):
+    """What phase 18's processes read: the train steps' inputs, the
+    tokenizer.json (in a snapshot's ``tokenizer_3``), the loop's images and
+    a random rank-64 LoRA."""
+    root = Path(root)
+    a9b_inputs(root)
+    write_t5_tokenizer(root / "sd3" / "tokenizer_3")
+    write_train_images(root)
+    write_random_lora(root / "a9b_lora.bin", rank=64, seed=18)
+
+
+def a9b_references(root):
+    """Phase 18's one-process runs (bf16, random weights from seed 0): SD-1.5
+    A9B_STEPS-step images exact (whole and in chunks of 2), int8 and int8_conv,
+    and with ToMe 0.5; SD3's
+    DiT-ToMe run; train_lora.yaml through the loop (A9B_LOOP_STEPS steps).
+    Runs beside the second wave of ranks."""
+    from sonicdiffusionbayeslab_torch.config import load_config
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.training.loop import run_training
+
+    root = Path(root)
+    refs, rec = {}, {}
+    t0 = time.perf_counter()
+    model = StableDiffusionModel(image_size=SIZE, seed=0, device="cuda")
+    for name, mode, kw in (("exact", None, {}), ("exact_mb2", None, dict(unet_microbatch=2)),
+                           ("int8", "int8", {}), ("int8_conv", "int8_conv", {}),
+                           ("tome", None, dict(tome_ratio=0.5))):
+        model.engine.set_quant_mode(mode)
+        imgs, rec[f"{name}_execution_time_s"], _ = model(PROMPTS, num_inference_steps=A9B_STEPS,
+                                                         guidance_scale=GUIDANCE, seed=29, **kw)
+        refs[name] = torch.from_numpy(imgs)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs["sd3_tome"], rec["sd3_launches"] = a9b_sd3_tome()
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = run_training(load_config(Path(__file__).resolve().parent / "configs" / "train_lora.yaml",
+                                   a9b_loop_overrides(root, "one")))
+    rec["loop"] = dict(losses=out["losses"], steps_per_sec=out["steps_per_sec"],
+                       wall_s=time.perf_counter() - t1,
+                       peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save(refs, root / "a9b_refs.pt")
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
+def a9b_tokenizer(root, out):
+    """Phase 18 (a) in this process: the tokenizer.json the phase wrote,
+    read by the port's reader on this machine (no ``tokenizers`` here),
+    gives the pinned ids."""
+    from sonicdiffusionbayeslab_torch.models.tokenizer import T5UnigramTokenizer, load_t5_tokenizer
+
+    t0 = time.perf_counter()
+    tok = load_t5_tokenizer(str(Path(root) / "sd3" / "tokenizer_3"), 32128, 256)
+    if not isinstance(tok, T5UnigramTokenizer):
+        raise AssertionError("phase 18: the tokenizer.json was not read by the T5 reader")
+    got = [tok.encode(p) for p in T5_TOK_PROMPTS]
+    if got != T5_TOK_IDS:
+        raise AssertionError(f"phase 18: T5 ids {got} != the pinned {T5_TOK_IDS}")
+    out["tokenizer"] = dict(prompts=len(T5_TOK_PROMPTS), pieces=len(tok.scores),
+                            s=time.perf_counter() - t0)
+    print(f"phase 18 (a) T5 tokenizer.json ({len(tok.scores)} pieces) read by the port: "
+          f"{len(got)} prompts' ids equal the pinned ids", flush=True)
+
+
+def a9b_t5_bench(root):
+    """Phase 18 (a) as a process of its own (``a9b_t5``, a fresh CUDA
+    context): the tokenizer (``a9b_tokenizer``), then the t5_bench twin in
+    both modes, then SD3 with T5 through the tokenizer.json; its record."""
+    from sonicdiffusionbayeslab_torch import t5_bench
+
+    out = {}
+    a9b_tokenizer(root, out)
+    for mode in t5_bench.MODES:
+        rec = t5_bench.run_mode(mode)
+        print(json.dumps(rec), flush=True)
+        if not rec["fits"]:
+            raise AssertionError(f"phase 18: t5_bench {mode} did not fit: {rec['error']}")
+        out[f"t5_bench_{mode}"] = rec
+    out["sd3_t5_snapshot"] = a9b_sd3_t5_snapshot(root)
+    print(f"phase 18 (a) SD3 with T5-XXL through the snapshot's tokenizer.json: "
+          f"{json.dumps(out['sd3_t5_snapshot'])}", flush=True)
+    out["kernel_shapes"] = []
+    return out
+
+
+def check_a9b_shapes(ranks):
+    """Phase 18's kernels at every shape its split runs recorded (the bf16
+    LoRA step's forward at H/2 heads and norm2 at C/2, the int8 run's, the
+    ToMe runs' merged attention over the gathered map), bf16 and fp32,
+    against their plain versions with ``compare``'s gates."""
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import plain_group_norm
+
+    shapes = set()
+    for recs in ranks.values():
+        shapes |= {(kind, tuple(shape)) for kind, shape in recs[0]["kernel_shapes"]}
+    if not {"attention", "group_norm", "group_norm_split"} <= {k for k, _ in shapes}:
+        raise AssertionError(f"phase 18 recorded only {sorted({k for k, _ in shapes})} shapes")
+    gen = torch.Generator(device="cuda").manual_seed(184)
+    errs = collections.defaultdict(float)
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "" if dtype == torch.bfloat16 else "_fp32"
+        for kind, shape in sorted(shapes):
+            what = f"phase 18 {kind} {shape} {dtype}"
+            if kind == "group_norm_split":
+                B, N, C, G, eps, silu, n = shape
+                x, w, b = gn_inputs((B, n * N, C), dtype, gen)
+                err = compare("group_norm", dtype, split_pair(x, w, b, G, eps, silu, n)[0],
+                              plain_group_norm(x, w, b, G, eps, silu), what)
+            else:
+                inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
+                kern, plain = run_kernel(kind, shape, inputs)
+                err = compare(kind, dtype, kern(), plain(), what)
+            errs[kind + tag] = max(errs[kind + tag], err)
+        torch.cuda.empty_cache()
+    print(f"phase 18 the kernels at the split runs' {len(shapes)} shapes x bf16/fp32 against "
+          f"their plain versions: max abs err {json.dumps(dict(errs))}", flush=True)
+    return dict(max_abs_err=dict(errs), shapes=len(shapes))
+
+
+def a9b_compare(root, ranks, refs_rec, card):
+    """Phase 18's gates on the ranks' records and images against the
+    references; every failure is collected, printed and raised together."""
+    root = Path(root)
+    refs = torch.load(root / "a9b_refs.pt")
+    mean = lambda a, b: float((a.float() - b.float()).abs().mean())  # noqa: E731
+    out, failed = {}, []
+    tr = ranks["a9b_train"]
+    against = {**tr[0]["against_one_process"], **ranks["a9b_train2"][0]["against_one_process"]}
+    out["train"] = against
+    if set(against) != {c for cs in A9B_GROUP_CASES.values() for c in cs}:
+        failed.append(f"train cases {sorted(against)} compared")
+    failed += [f"{case}: {r}" for case, r in against.items() if not r["ok"]]
+    one_counts = tr[0]["one_process_launches"]
+    for r, rec in enumerate(tr):
+        if rec["launches"] != one_counts:
+            failed.append(f"train rank {r} launches {rec['launches']} != one process's "
+                          f"{one_counts}")
+    loop_one, loop_split = refs_rec["loop"]["losses"], tr[0]["loop"]["losses"]
+    loop_rel = max(abs(a - b) / abs(b) for a, b in zip(loop_split, loop_one))
+    out["loop"] = dict(split=tr[0]["loop"], one=refs_rec["loop"], loss_rel=loop_rel)
+    if len(loop_split) != A9B_LOOP_STEPS or loop_rel > A9B_BF16_FLOOR:
+        failed.append(f"loop losses {loop_split} against {loop_one}")
+    import numpy as np
+
+    got = np.load(root / "loop_split" / "final" / "lora_peft.npz")
+    want = np.load(root / "loop_one" / "final" / "lora_peft.npz")
+    if sorted(got.files) != sorted(want.files) or any(got[k].shape != want[k].shape
+                                                      for k in want.files):
+        failed.append("the split loop's lora_peft.npz is not one process's in keys and shapes")
+    out["loop"]["max_abs_diff"] = max(float(np.abs(got[k] - want[k]).max()) for k in want.files)
+    inf = ranks["a9b_infer"]
+    out["fuse"] = inf[0]["fuse"]
+    if any(rec["fuse"]["not_bit_equal"] for rec in inf) or not inf[0]["fuse"]["split_tensors"]:
+        failed.append(f"fused split weights not bit-equal: {[r['fuse'] for r in inf]}")
+    saves = {m: [torch.load(root / f"{m}_rank{r}.pt") for r in range(A9B_WORLD[m])]
+             for m in ("a9b_infer", "a9b_seq")}
+    runs = {"int8 (mesh_model=2)": ("a9b_infer", "int8", "int8"),
+            "int8_conv (mesh_seq=2)": ("a9b_seq", "int8_conv", "int8_conv"),
+            "tome 0.5 (mesh_seq=2)": ("a9b_seq", "tome", "tome"),
+            "sd3 DiT-ToMe 0.5 (mesh_seq=2)": ("a9b_seq", "sd3_tome", "sd3_tome")}
+    out["images"] = {}
+    for what, (mode, key, ref) in runs.items():
+        got = saves[mode][0][key]
+        if any(not torch.equal(s[key], got) for s in saves[mode][1:]):
+            failed.append(f"{what}: ranks' images differ")
+        d = mean(got, refs[ref])
+        gate = (mean(refs[ref], refs["exact"]) + mean(refs["exact_mb2"], refs["exact"])
+                if key.startswith("int8") else A9B_TOME_MEAN)
+        out["images"][what] = dict(mean_abs=d, gate=gate)
+        if not d <= gate:
+            failed.append(f"{what}: mean |diff| {d:.3e} > {gate:.3e}")
+    print(f"phase 18 against one process ({TP_NOTE}; {card}): {json.dumps(out)}", flush=True)
+    if failed:
+        raise AssertionError("phase 18: " + "; ".join(failed))
+    return out
+
+
+def run_a9b(report, card):
+    """Phase 18: what the JAX package runs under a mesh and PR 17's port
+    refused, and the T5 tokenizer.json reader: one-process references,
+    gloo rank groups in two waves (the card's 80 GB do not hold all of it
+    at once): ``a9b_train`` (model) beside ``a9b_t5`` (the tokenizer.json,
+    the t5_bench twin and SD3 with T5 through the tokenizer.json, one
+    process), then ``a9b_train2``, ``a9b_infer`` (model) and ``a9b_seq``
+    while this process makes the one-process references; the gates; the
+    kernels at the split runs' shapes."""
+    out = {}
+    t0 = time.perf_counter()
+    gc.collect()  # the earlier phases' reference cycles hold memory of the card
+    torch.cuda.empty_cache()
+    print(f"phase 18 starts with {torch.cuda.memory_allocated() / 2**30:.2f} GB allocated in "
+          "this process", flush=True)
+    with tempfile.TemporaryDirectory(prefix="sdbl_a9b_") as tmp:
+        root = Path(tmp)
+        a9b_assets(root)
+        t1 = time.perf_counter()
+        ranks, out["ranks_wall_s"] = {}, {}
+
+        def references():
+            out["references"] = a9b_references(root)
+            print(f"phase 18 one-process references: {json.dumps(out['references'])}",
+                  flush=True)
+
+        for group, during in ((("a9b_train", "a9b_t5"), None),
+                              (("a9b_train2", "a9b_infer", "a9b_seq"), references)):
+            got, out["ranks_wall_s"]["+".join(group)] = run_tp_ranks(root, group, during)
+            ranks.update(got)
+        a9b = ranks.pop("a9b_t5")[0]
+        for mode in ("staged", "resident"):  # the t5_bench twin's lines
+            print(json.dumps(a9b[f"t5_bench_{mode}"]), flush=True)
+        out.update({k: a9b[k] for k in ("tokenizer", "t5_bench_staged", "t5_bench_resident",
+                                        "sd3_t5_snapshot")})
+        refs = out["references"]
+        out["ranks"] = {m: [{k: v for k, v in rec.items() if k != "kernel_shapes"}
+                            for rec in recs] for m, recs in ranks.items()}
+        print(f"phase 18 ranks and (a): {time.perf_counter() - t1:.1f} s wall; "
+              + json.dumps(out["ranks"]), flush=True)
+        out["against_one_process"] = a9b_compare(root, ranks, refs, card)
+    out["kernels"] = check_a9b_shapes(ranks)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 18 wall clock: {out['wall_s']:.1f} s ({TP_NOTE}); {card}", flush=True)
+    report["e2e"]["a9b"] = out
+    return out
+
+
+def phase18_launches(out, kind):
+    """A kernel's launches in phase 18: a train rank's bf16 LoRA step, the
+    int8 run at mesh_model=2, the int8_conv and ToMe runs and SD3's
+    DiT-ToMe run at mesh_seq=2 (rank 0 of each), and the one-process SD3
+    run with T5 through the tokenizer.json."""
+    r = out["ranks"]
+    return {"lora_step_mesh_model2": r["a9b_train"][0]["launches"].get(kind, 0),
+            "int8_mesh_model2": r["a9b_infer"][0]["int8_launches"].get(kind, 0),
+            "int8_conv_mesh_seq2": r["a9b_seq"][0]["int8_conv_launches"].get(kind, 0),
+            "tome_mesh_seq2": r["a9b_seq"][0]["tome_launches"].get(kind, 0),
+            "sd3_tome_mesh_seq2": r["a9b_seq"][0]["sd3_launches"].get(kind, 0),
+            "sd3_t5_snapshot": out["sd3_t5_snapshot"]["launches"].get(kind, 0)}
 
 
 def main() -> None:
@@ -6926,8 +7557,16 @@ def main() -> None:
           "the server at mesh_model=2, each against one process")
     run_tensor_parallel(report, card)
 
-    phase("18. kernels")
-    print(f"phases 1-17 took {time.perf_counter() - _T0:.1f} s; {card}")
+    phase(f"18. the T5 tokenizer.json reader and the t5_bench twin (SD3-medium with T5-XXL at "
+          f"{SD3_SIZE}x{SD3_SIZE}, staged and resident); on gloo ranks sharing the card against "
+          f"one process: training at mesh_model=2 (train_lora.yaml through the loop; LoRA, full "
+          f"with remat, ControlNet, LCM-LoRA and SD3 LoRA steps), fuse_lora on split weights, "
+          f"int8 at mesh_model=2 and int8_conv at mesh_seq=2, ToMe 0.5 at mesh_seq=2 (SD-1.5 "
+          f"{SIZE}x{SIZE}; SD3 with T5 through the tokenizer.json)")
+    run_a9b(report, card)
+
+    phase("19. kernels")
+    print(f"phases 1-18 took {time.perf_counter() - _T0:.1f} s; {card}")
     fam = report["e2e"]["families"]
     kernels = []
     for kind, meta in KERNELS.items():
@@ -6973,6 +7612,10 @@ def main() -> None:
             "phase15_max_abs_grad_err": max(report["phase15_grad_errs"][kind], default=None),
             "phase16_launches": phase16_launches(report["e2e"]["multi_device"], kind),
             "phase17_launches": phase17_launches(report["e2e"]["tensor_parallel"], kind),
+            "phase18_launches": phase18_launches(report["e2e"]["a9b"], kind),
+            "phase18_max_abs_err": {k: v for k, v in
+                                    report["e2e"]["a9b"]["kernels"]["max_abs_err"].items()
+                                    if k.startswith(kind)},
             **({"phase6_launches": r["phase6_launches"]} if "phase6_launches" in r else {}),
             "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -6991,8 +7634,9 @@ def main() -> None:
         kernels.append({
             **meta, "launches": tp["ranks"]["seq"][0]["bfloat16"]["launches"][kind],
             "launches_from": "the wrappers' count over phase 17's bf16 mesh_seq=2 SD-1.5 run "
-                             "(20 steps, batch 2) on rank 0, reset just before it",
+                             f"({TP_SHORT_STEPS} steps, batch 2) on rank 0, reset just before it",
             "phase17_launches": phase17_launches(tp, kind),
+            "phase18_launches": phase18_launches(report["e2e"]["a9b"], kind),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "totals_over": "the UNet's GroupNorm shapes at a mesh_seq=2 rank's rows in bfloat16: "

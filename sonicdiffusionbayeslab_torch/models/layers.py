@@ -529,10 +529,7 @@ class SpatialTransformer(_Quantizable):
                 tome_cache: Optional[dict] = None, ip_context: Optional[torch.Tensor] = None,
                 ip_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, H, W, C = x.shape
-        if self.par is not None and self.par.n_seq > 1:
-            H_all = H * self.par.n_seq  # ToMe's map is the whole height
-        else:
-            H_all = H
+        H_all = H * (1 if self.par is None else self.par.n_seq)  # ToMe's map: the whole height
         if tome is not None and (H_all % tome.sy or W % tome.sx):
             tome = None
         h = self.norm(x).reshape(B, H * W, C)

@@ -41,11 +41,16 @@ Split execution (ROADMAP A9; ``parallel.mesh.place_module``): under
 q/k/v (their per-head RMS norms stay local) and both feed-forwards their
 hidden units (gelu-tanh is not gated, so ``net.0.proj`` splits plainly);
 ``to_out.0``, ``to_add_out`` and ``ff*.net.2`` sum their partials across
-the axis in fp32, the bias added once.  The AdaLN modulations, the
-embedders and ``proj_out`` run whole.  Under ``seq`` a rank holds the
-image tokens of its patch rows (the sincos table's rows offset by the
-rank), the context stream is whole on every rank, and each joint
-attention gathers the image K and V along the axis in rank order.
+the axis in fp32, the bias added once (int8: the whole rows' scales,
+the int32 partials summed).  The AdaLN modulations, the embedders and
+``proj_out`` run whole.  Under ``seq`` a rank holds the image tokens of
+its patch rows (the sincos table's rows offset by the rank), the context
+stream is whole on every rank, and each joint attention gathers the image
+K and V along the axis in rank order; with DiT-ToMe a block gathers its
+image tokens first and matches, merges and attends over the whole patch
+grid, keeping its own rows.  Training under ``model`` runs backward
+through the split streams (``distributed.model_entry`` and
+``all_reduce_sum``).
 """
 
 from __future__ import annotations

@@ -268,8 +268,8 @@ def linear_int8(layer: nn.Module, x: torch.Tensor, model_group=None) -> torch.Te
     weight columns split, the partials summed, the bias added once)."""
     groups = () if model_group is None else (model_group,)
     wq = cached_weight_q(layer, lambda w: w.flatten(1), groups)
-    return int8_dense(x, layer.weight.flatten(1), layer.bias, weight_q=wq, x_groups=groups,
-                      sum_group=model_group)
+    split = {} if model_group is None else dict(x_groups=groups, sum_group=model_group)
+    return int8_dense(x, layer.weight.flatten(1), layer.bias, weight_q=wq, **split)
 
 
 def conv_int8(conv: nn.Conv2d, x: torch.Tensor, padding, seq_group=None,
@@ -280,5 +280,6 @@ def conv_int8(conv: nn.Conv2d, x: torch.Tensor, padding, seq_group=None,
     w_groups = () if model_group is None else (model_group,)
     x_groups = tuple(g for g in (seq_group, model_group) if g is not None)
     wq = cached_weight_q(conv, conv_weight_rows, w_groups)
+    split = {} if not x_groups else dict(x_groups=x_groups, sum_group=model_group)
     return int8_conv(x, conv.weight, conv.bias, stride=conv.stride, padding=padding, weight_q=wq,
-                     x_groups=x_groups, sum_group=model_group)
+                     **split)

@@ -321,29 +321,20 @@ def all_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
     """Replace each tensor by its mean over the ranks of ``group``, in
     place, as one flat fp32 all-reduce (the ranks' shards are the same
     size, so the mean of their means is the global batch's mean)."""
-    n = world_size(group)
-    if n == 1 or not tensors:
-        return
-    dev = _comm_device(group)
-    flat = torch.cat([t.detach().reshape(-1).to(dev, torch.float32) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    flat.div_(n)
-    off = 0
-    for t in tensors:
-        k = t.numel()
-        t.copy_(flat[off:off + k].view(t.shape))
-        off += k
+    all_sum_(tensors, group, divide_by=world_size(group))
 
 
-def all_sum_(tensors: Sequence[torch.Tensor], group=None) -> None:
-    """Replace each tensor by its sum over the ranks of ``group``, in
-    place, as one flat fp32 all-reduce (the split weights' and adapters'
-    gradients over ``model``)."""
+def all_sum_(tensors: Sequence[torch.Tensor], group=None, divide_by: int = 1) -> None:
+    """Replace each tensor by its sum over the ranks of ``group`` (over
+    ``divide_by``), in place, as one flat fp32 all-reduce (the split
+    weights' and adapters' gradients over ``model``)."""
     if world_size(group) == 1 or not tensors:
         return
     flat = torch.cat([t.detach().reshape(-1).to(_comm_device(group), torch.float32)
                       for t in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    if divide_by != 1:
+        flat.div_(divide_by)
     off = 0
     for t in tensors:
         k = t.numel()

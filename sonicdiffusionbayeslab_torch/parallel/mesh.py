@@ -38,6 +38,7 @@ callers' single-device path, as a ``mesh=None`` argument is everywhere.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 from typing import Dict, Optional
 
@@ -189,11 +190,11 @@ class ParallelContext:
         return cls(mesh, axis_size(mesh, "seq"), axis_index(mesh, "seq"),
                    axis_size(mesh, "model"), axis_index(mesh, "model"))
 
-    @property
-    def seq_group(self):
+    @functools.cached_property
+    def seq_group(self):  # looked up once: the split layers ask on every call
         return axis_group(self.mesh, "seq")
 
-    @property
+    @functools.cached_property
     def model_group(self):
         return axis_group(self.mesh, "model")
 

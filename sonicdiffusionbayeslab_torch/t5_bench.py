@@ -23,6 +23,7 @@ at the tiny configs; its numbers are no device measurement.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import time
 
@@ -90,6 +91,7 @@ def run_mode(mode: str, tiny: bool = False, device=None, steps: int = 20,
                 "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else None}
     finally:
         del pipe
+        gc.collect()  # the engine and its graphed UNet hold each other
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     sec_img_loop, sec_img_e2e = min(loop) / batch, min(e2e) / batch
