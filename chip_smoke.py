@@ -6751,10 +6751,10 @@ def write_t5_tokenizer(directory):
 # Phase 18's rank groups (gloo, sharing the card like phase 17's): two train
 # groups and "a9b_infer" on the model axis, "a9b_seq" on the seq axis; the
 # train groups' cases.
-A9B_WORLD = {"a9b_train": 2, "a9b_train2": 2, "a9b_infer": 2, "a9b_seq": 2, "a9b_t5": 1}
+A9B_WORLD = {"a9b_train": 2, "a9b_train2": 2, "a9b_infer": 2, "a9b_seq": 2}
 TP_WORLD.update(A9B_WORLD)  # their processes start as phase 17's do (tp_rank)
 A9B_MESH = {"a9b_train": dict(mesh_model=2), "a9b_train2": dict(mesh_model=2),
-            "a9b_infer": dict(mesh_model=2), "a9b_seq": dict(mesh_seq=2), "a9b_t5": {}}
+            "a9b_infer": dict(mesh_model=2), "a9b_seq": dict(mesh_seq=2)}
 A9B_GROUP_CASES = {"a9b_train": ("lora_bf16", "lora", "full_remat", "distill"),
                    "a9b_train2": ("controlnet", "sd3_lora")}
 # The fp32 train cases (TF32 off) at batch 1 (SD-1.5 512^2, SD3 1024^2 with
@@ -7104,10 +7104,8 @@ def a9b_rank(rank, mode, root):
     from sonicdiffusionbayeslab_torch.parallel import mesh as M
 
     axes = A9B_MESH[mode]
-    mesh = (M.make_mesh(n_data=1, n_model=axes.get("mesh_model", 1),
-                        n_seq=axes.get("mesh_seq", 1), device_type="cuda") if axes else None)
-    if mode == "a9b_t5":
-        return a9b_t5_bench(root)
+    mesh = M.make_mesh(n_data=1, n_model=axes.get("mesh_model", 1),
+                       n_seq=axes.get("mesh_seq", 1), device_type="cuda")
     if mode in A9B_GROUP_CASES:
         return a9b_train_rank(rank, mesh, root, A9B_GROUP_CASES[mode], loop=mode == "a9b_train")
     return {"a9b_infer": a9b_infer_rank, "a9b_seq": a9b_seq_rank}[mode](rank, mesh, root)
@@ -7183,13 +7181,12 @@ def a9b_tokenizer(root, out):
           f"{len(got)} prompts' ids equal the pinned ids", flush=True)
 
 
-def a9b_t5_bench(root):
-    """Phase 18 (a) as a process of its own (``a9b_t5``, a fresh CUDA
-    context): the tokenizer (``a9b_tokenizer``), then the t5_bench twin in
-    both modes, then SD3 with T5 through the tokenizer.json; its record."""
+def a9b_t5_bench(root, out):
+    """Phase 18 (a): the tokenizer (``a9b_tokenizer``), the t5_bench twin in
+    both modes (each JSON line printed), SD3 with T5 through the
+    tokenizer.json (``a9b_sd3_t5_snapshot``)."""
     from sonicdiffusionbayeslab_torch import t5_bench
 
-    out = {}
     a9b_tokenizer(root, out)
     for mode in t5_bench.MODES:
         rec = t5_bench.run_mode(mode)
@@ -7200,8 +7197,6 @@ def a9b_t5_bench(root):
     out["sd3_t5_snapshot"] = a9b_sd3_t5_snapshot(root)
     print(f"phase 18 (a) SD3 with T5-XXL through the snapshot's tokenizer.json: "
           f"{json.dumps(out['sd3_t5_snapshot'])}", flush=True)
-    out["kernel_shapes"] = []
-    return out
 
 
 def check_a9b_shapes(ranks):
@@ -7300,10 +7295,10 @@ def run_a9b(report, card):
     """Phase 18: what the JAX package runs under a mesh and PR 17's port
     refused, and the T5 tokenizer.json reader: one-process references,
     gloo rank groups in two waves (the card's 80 GB do not hold all of it
-    at once): ``a9b_train`` (model) beside ``a9b_t5`` (the tokenizer.json,
-    the t5_bench twin and SD3 with T5 through the tokenizer.json, one
-    process), then ``a9b_train2``, ``a9b_infer`` (model) and ``a9b_seq``
-    while this process makes the one-process references; the gates; the
+    at once): ``a9b_train`` (model) while this process reads the
+    tokenizer.json, runs the t5_bench twin and SD3 with T5 through the
+    tokenizer.json, then ``a9b_train2``, ``a9b_infer`` (model) and
+    ``a9b_seq`` while it makes the one-process references; the gates; the
     kernels at the split runs' shapes."""
     out = {}
     t0 = time.perf_counter()
@@ -7322,15 +7317,10 @@ def run_a9b(report, card):
             print(f"phase 18 one-process references: {json.dumps(out['references'])}",
                   flush=True)
 
-        for group, during in ((("a9b_train", "a9b_t5"), None),
+        for group, during in ((("a9b_train",), lambda: a9b_t5_bench(root, out)),
                               (("a9b_train2", "a9b_infer", "a9b_seq"), references)):
             got, out["ranks_wall_s"]["+".join(group)] = run_tp_ranks(root, group, during)
             ranks.update(got)
-        a9b = ranks.pop("a9b_t5")[0]
-        for mode in ("staged", "resident"):  # the t5_bench twin's lines
-            print(json.dumps(a9b[f"t5_bench_{mode}"]), flush=True)
-        out.update({k: a9b[k] for k in ("tokenizer", "t5_bench_staged", "t5_bench_resident",
-                                        "sd3_t5_snapshot")})
         refs = out["references"]
         out["ranks"] = {m: [{k: v for k, v in rec.items() if k != "kernel_shapes"}
                             for rec in recs] for m, recs in ranks.items()}
