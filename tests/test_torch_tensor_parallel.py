@@ -205,6 +205,16 @@ if R == 0:
     arrays["served"] = served["image"]
 else:
     res["follower_calls"] = follow(pipe)
+# A LoRA fused into the split UNet: each rank's slices of one process's fused weights.
+from sonicdiffusionbayeslab_torch.models.weights import load_torch_state_dict, merge_lora
+whole = StableDiffusionModel(**ARGS["pipe_kw"]).engine.unet.state_dict()
+pipe.load_lora_weights(OUT + "/lora.bin").fuse_lora()
+split = M.SplitParams.of(pipe.engine.unet)
+fused, names = merge_lora(whole, load_torch_state_dict(OUT + "/lora.bin"))
+local = pipe.engine.unet.state_dict()
+res["fuse"] = dict(modules=len(names), cut=sum(f"{m}.weight" in split.cuts for m in names),
+                   bad=[k for k, v in fused.items() if not torch.equal(split.local(k, v), local[k])],
+                   changed=sum(not torch.equal(whole[k], fused[k]) for k in fused))
 np.savez(OUT + f"/rank{R}.npz", **arrays)
 json.dump(res, open(OUT + f"/rank{R}.json", "w"))
 """
@@ -343,6 +353,7 @@ def engine_inputs(tmp_path_factory):
 
 def _ranks_run(tmp_path_factory, engine_inputs, name, body, n, args):
     out = tmp_path_factory.mktemp(name)
+    _write_lora(out / "lora.bin", engine_inputs["sds"])
     np.savez(out / "inputs.npz", **engine_inputs["inputs"])
     torch.save(engine_inputs["sds"], out / "sds.pt")
     for r in range(n):
@@ -350,6 +361,19 @@ def _ranks_run(tmp_path_factory, engine_inputs, name, body, n, args):
     run_ranks(body, out, args, n=n, timeout=300)
     return out, [(dict(np.load(out / f"rank{r}.npz")),
                   json.loads((out / f"rank{r}.json").read_text())) for r in range(n)]
+
+
+def _write_lora(path, sds, rank=4, seed=5):
+    """A random peft-layout LoRA on every attention projection of the tiny UNet."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, w in sds["unet"].items():
+        if k.endswith(".weight") and any(f".{p}.weight" in k for p in ("to_q", "to_k", "to_v")):
+            m = k[: -len(".weight")]
+            sd[f"unet.{m}.lora_A.weight"] = torch.randn(rank, w.shape[1], generator=g)
+            sd[f"unet.{m}.lora_B.weight"] = 0.1 * torch.randn(w.shape[0], rank, generator=g)
+            sd[f"unet.{m}.alpha"] = torch.tensor(float(rank))
+    torch.save(sd, path)
 
 
 @pytest.fixture(scope="module")
@@ -596,6 +620,16 @@ def test_cli_mesh_model_two_ranks_matches_one_process(model_run, tmp_path, monke
         # a value within 1e-5 of a rounding edge: ~2 * 255 * 1e-5 of them
         assert diff.max() <= 1 and (diff > 0).mean() < 1e-2, png.name
     np.testing.assert_allclose(ranks[0][1]["cli"]["clip_score"], one["clip_score"], rtol=1e-4)
+
+
+def test_fuse_lora_on_the_model_axis_is_one_process_cut(model_run):
+    """``fuse_lora`` on a pipeline split at ``mesh_model=2``: every rank's
+    weights are bit-equal to one process's fused weights cut to its share
+    (q/k/v are split, so the merge ran on gathered weights)."""
+    for _, res in model_run[1]:
+        fuse = res["fuse"]
+        assert fuse["modules"] > 0 and fuse["changed"] >= fuse["modules"] and fuse["cut"] > 0
+        assert fuse["bad"] == []
 
 
 def test_served_request_mesh_model_matches_one_process(model_run):
