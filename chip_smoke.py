@@ -6772,12 +6772,24 @@ A9B_STEPS = 10
 # norm, or of 1% of the case's largest where a tensor's own gradient is
 # noise about zero: a bias before a GroupNorm of one channel a group), the
 # loss; the bf16 LoRA gradients' relative L2 within the larger of 2e-2 and
-# twice one process's own bf16-against-fp32 drift; the images' mean |diff|
-# (int8: within one process's own int8-against-exact drift plus its own
-# bf16 reordering drift, the exact run in chunks of 2 against the whole
-# batch, which every split run carries: phase 17's split exact bf16 runs
-# drift ~3e-3 from one process's).
+# twice one process's own bf16-against-fp32 drift, its loss within the
+# larger of 1e-4 (ten times fp32's gate) and twice one process's own
+# bf16-against-fp32 loss difference; the images' mean |diff| (int8: within
+# one process's own int8-against-exact drift plus its own bf16 reordering
+# drift, the exact run in chunks of 2 against the whole batch, which every
+# split run carries: phase 17's split exact bf16 runs drift ~3e-3 from one
+# process's).  A sampled int8 image moves with every rounding the quantizer
+# flips, and with random bf16 weights any change of summation order moves
+# an image as far as int8 does (one step: 2.6e-3 either way), so no
+# distance to one process's images can tell a split that ran int8 from one
+# that ran exact; three more gates do: the int8 layers bit-equal to one
+# process's on one input (a feed-forward over model, a conv over seq: the
+# scales are the whole rows', the int32 sums exact), the int8 launches one
+# process's, and the split's one-step int8 images at least half as far
+# from its own exact ones as one process's are from its exact ones (a
+# split that ran exact gives its exact images' bits).
 A9B_GRAD_REL, A9B_LOSS_REL, A9B_BF16_FLOOR, A9B_TOME_MEAN = 1e-4, 1e-5, 2e-2, 5e-2
+A9B_BF16_LOSS_FLOOR = 1e-4
 
 
 def a9b_inputs(root):
@@ -6964,10 +6976,13 @@ def a9b_train_rank(rank, mesh, root, cases, loop=False):
                 rec["one_process_launches"] = all_counts()
                 eng.unet.float()  # the same weights in fp32: one process's own bf16 drift
                 torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-                drift = a9b_grad_errs(one, a9b_step(case, eng, inp), 1.0, 1.0)["grad_rel_l2"]
-                gate = max(A9B_BF16_FLOOR, 2 * drift)
-                against[case] = {**a9b_grad_errs(split[case], one, gate, gate), "gate": gate,
-                                 "one_process_bf16_vs_fp32": drift}
+                own = a9b_grad_errs(one, a9b_step(case, eng, inp), 1.0, 1.0)
+                gate = max(A9B_BF16_FLOOR, 2 * own["grad_rel_l2"])
+                loss_gate = max(A9B_BF16_LOSS_FLOOR, 2 * own["loss_rel"])
+                against[case] = {**a9b_grad_errs(split[case], one, gate, loss_gate),
+                                 "gate": gate, "loss_gate": loss_gate,
+                                 "one_process_bf16_vs_fp32": own["grad_rel_l2"],
+                                 "one_process_bf16_vs_fp32_loss": own["loss_rel"]}
         rec["one_process_s"] = time.perf_counter() - t1
     rec["kernel_shapes"] = sorted([kind, list(shape)] for kind, shape in shapes)
     return rec
@@ -6985,14 +7000,17 @@ def a9b_loop_overrides(root, name, **mesh):
 
 def a9b_infer_rank(rank, mesh, root):
     """``a9b_infer`` (mesh_model=2): an A9B_STEPS-step bf16 SD-1.5 run under int8
-    with its launches; then a random rank-64 LoRA fused into the split
-    weights, each rank's slices held bit-equal to one process's fused
-    weights cut to the rank's share (fused here, from the same seed)."""
+    with its launches, the int8 feed-forward against one process's
+    (``a9b_int8_ff``) and one-step runs int8 and exact; then a random rank-64 LoRA fused into
+    the split weights, each rank's slices held bit-equal to one process's
+    fused weights cut to the rank's share (fused here, from the same
+    seed)."""
     from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
     from sonicdiffusionbayeslab_torch.models.weights import load_torch_state_dict, merge_lora
     from sonicdiffusionbayeslab_torch.parallel.mesh import SplitParams
 
     rec, saves, shapes = {}, {}, set()
+    whole = StableDiffusionModel(image_size=SIZE, seed=0, device="cuda").engine.unet.state_dict()
     model = StableDiffusionModel(image_size=SIZE, seed=0, device="cuda", **A9B_MESH["a9b_infer"])
     model.engine.set_quant_mode("int8")
     all_counts(reset=True)
@@ -7004,12 +7022,15 @@ def a9b_infer_rank(rank, mesh, root):
     rec["int8_call_s"] = time.perf_counter() - t0
     rec["int8_launches"] = {**all_counts(), **int8_counts()}
     saves["int8"] = torch.from_numpy(imgs)
-    model.engine.set_quant_mode(None)
+    rec["int8_ff"] = a9b_int8_ff(model.engine.unet, whole)
+    for mode in ("int8", None):
+        model.engine.set_quant_mode(mode)
+        saves[f"{mode or 'exact'}_1step"] = torch.from_numpy(model(
+            PROMPTS, num_inference_steps=1, guidance_scale=GUIDANCE, seed=29)[0])
     lora = Path(root) / "a9b_lora.bin"
     model.load_lora_weights(str(lora)).fuse_lora()
     unet = model.engine.unet
     split = SplitParams.of(unet)
-    whole = StableDiffusionModel(image_size=SIZE, seed=0, device="cuda").engine.unet.state_dict()
     fused, names = merge_lora(whole, load_torch_state_dict(lora))
     local = unet.state_dict()
     bad = [k for k, v in fused.items() if not torch.equal(split.local(k, v), local[k])]
@@ -7022,8 +7043,10 @@ def a9b_infer_rank(rank, mesh, root):
 
 def a9b_seq_rank(rank, mesh, root):
     """``a9b_seq`` (mesh_seq=2): A9B_STEPS-step bf16 SD-1.5 runs under
-    int8_conv and with ToMe 0.5; SD3-medium with DiT-ToMe 0.5 for
-    A9B_SD3_STEPS steps; each with its launches."""
+    int8_conv (then the int8 conv against one process's,
+    ``a9b_int8_conv_rows``, and one-step runs int8_conv and exact) and
+    with ToMe 0.5; SD3-medium with
+    DiT-ToMe 0.5 for A9B_SD3_STEPS steps; each with its launches."""
     from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
 
     rec, saves, shapes = {}, {}, set()
@@ -7039,6 +7062,12 @@ def a9b_seq_rank(rank, mesh, root):
         rec[f"{name}_call_s"] = time.perf_counter() - t0
         rec[f"{name}_launches"] = {**all_counts(), **int8_counts()}
         saves[name] = torch.from_numpy(imgs)
+        if name == "int8_conv":
+            rec["int8_conv_rows"] = a9b_int8_conv_rows(model.engine.unet)
+            for mode in ("int8_conv", None):
+                model.engine.set_quant_mode(mode)
+                saves[f"{mode or 'exact'}_1step"] = torch.from_numpy(model(
+                    PROMPTS, num_inference_steps=1, guidance_scale=GUIDANCE, seed=29)[0])
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -7048,6 +7077,50 @@ def a9b_seq_rank(rank, mesh, root):
     torch.save(saves, Path(root) / f"a9b_seq_rank{rank}.pt")
     rec["kernel_shapes"] = sorted([kind, list(shape)] for kind, shape in shapes)
     return rec
+
+
+def a9b_int8_ff(unet, whole):
+    """The first transformer block's feed-forward of the split ``unet``
+    under int8 (its hidden units; ``net.2``'s token scales all-maxed over
+    model, its int32 partials summed) against the same layer whole (from
+    ``whole``, one process's state dict), on one bf16 input."""
+    from sonicdiffusionbayeslab_torch.models.layers import GEGLUFeedForward
+    from sonicdiffusionbayeslab_torch.ops.quant import set_quant_mode
+
+    name = "down_blocks.0.attentions.0.transformer_blocks.0.ff"
+    split = unet.get_submodule(name)
+    dim = split.net[2].weight.shape[0]
+    one = GEGLUFeedForward(dim).to("cuda", torch.bfloat16)
+    one.load_state_dict({k[len(name) + 1:]: v for k, v in whole.items()
+                         if k.startswith(name + ".")})
+    set_quant_mode(one, "int8")
+    g = torch.Generator(device="cuda").manual_seed(185)
+    x = torch.randn(2, (SIZE // 8) ** 2, dim, generator=g, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        got, want = split(x), one(x)
+    return dict(split=split.split, bit_equal=torch.equal(got, want),
+                max_abs=float((got.float() - want.float()).abs().max()))
+
+
+def a9b_int8_conv_rows(unet):
+    """The first resnet's conv1 of the ``seq``-split ``unet`` under
+    int8_conv (halo rows; the sample's scale all-maxed over seq) on this
+    rank's rows of one bf16 map, against the same conv on the whole map
+    (one process's call), cut to those rows."""
+    from sonicdiffusionbayeslab_torch.ops import quant
+
+    res = unet.get_submodule("down_blocks.0.resnets.0")
+    par, lat = res.par, SIZE // 8
+    g = torch.Generator(device="cuda").manual_seed(186)
+    x = torch.randn(2, lat, lat, res.conv1.in_channels, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    h = lat // par.n_seq
+    rows = slice(par.seq_index * h, (par.seq_index + 1) * h)
+    with torch.no_grad():
+        got = res._conv(res.conv1, x[:, rows].contiguous())
+        want = quant.conv_int8(res.conv1, x, ((1, 1), (1, 1)))[:, rows]
+    return dict(mode=res.quant_mode, bit_equal=torch.equal(got, want),
+                max_abs=float((got.float() - want.float()).abs().max()))
 
 
 def a9b_sd3_tome(shapes=None, **mesh):
@@ -7124,10 +7197,11 @@ def a9b_assets(root):
 
 def a9b_references(root):
     """Phase 18's one-process runs (bf16, random weights from seed 0): SD-1.5
-    A9B_STEPS-step images exact (whole and in chunks of 2), int8 and int8_conv,
-    and with ToMe 0.5; SD3's
-    DiT-ToMe run; train_lora.yaml through the loop (A9B_LOOP_STEPS steps).
-    Runs beside the second wave of ranks."""
+    A9B_STEPS-step images exact (whole and in chunks of 2), int8 and
+    int8_conv (with their int8 launches), and with ToMe 0.5; one-step
+    images exact, int8 and int8_conv; SD3's DiT-ToMe run; train_lora.yaml
+    through the loop (A9B_LOOP_STEPS steps).  Runs beside the first wave
+    of ranks."""
     from sonicdiffusionbayeslab_torch.config import load_config
     from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
     from sonicdiffusionbayeslab_torch.training.loop import run_training
@@ -7140,9 +7214,16 @@ def a9b_references(root):
                            ("int8", "int8", {}), ("int8_conv", "int8_conv", {}),
                            ("tome", None, dict(tome_ratio=0.5))):
         model.engine.set_quant_mode(mode)
+        int8_counts(reset=True)
         imgs, rec[f"{name}_execution_time_s"], _ = model(PROMPTS, num_inference_steps=A9B_STEPS,
                                                          guidance_scale=GUIDANCE, seed=29, **kw)
         refs[name] = torch.from_numpy(imgs)
+        if mode is not None:
+            rec[f"{name}_int8_launches"] = int8_counts()
+    for mode in (None, "int8", "int8_conv"):  # after the counted runs: new graphs, new shapes
+        model.engine.set_quant_mode(mode)
+        refs[f"{mode or 'exact'}_1step"] = torch.from_numpy(model(
+            PROMPTS, num_inference_steps=1, guidance_scale=GUIDANCE, seed=29)[0])
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -7271,6 +7352,7 @@ def a9b_compare(root, ranks, refs_rec, card):
         failed.append(f"fused split weights not bit-equal: {[r['fuse'] for r in inf]}")
     saves = {m: [torch.load(root / f"{m}_rank{r}.pt") for r in range(A9B_WORLD[m])]
              for m in ("a9b_infer", "a9b_seq")}
+    failed += a9b_int8_gates(ranks, refs, refs_rec, saves, out, mean)
     runs = {"int8 (mesh_model=2)": ("a9b_infer", "int8", "int8"),
             "int8_conv (mesh_seq=2)": ("a9b_seq", "int8_conv", "int8_conv"),
             "tome 0.5 (mesh_seq=2)": ("a9b_seq", "tome", "tome"),
@@ -7290,6 +7372,49 @@ def a9b_compare(root, ranks, refs_rec, card):
     if failed:
         raise AssertionError("phase 18: " + "; ".join(failed))
     return out
+
+
+def a9b_int8_gates(ranks, refs, refs_rec, saves, out, mean):
+    """The split int8 runs' gates that a split which ran exact would fail
+    (see A9B_GRAD_REL's comment): each rank's int8 layer bit-equal to one
+    process's; its int8 launches one process's (a split rank's UNet runs
+    eagerly, one call a step; one process's graph records a call
+    GraphedCall.WARMUP + 1 times); its one-step int8 images at least half
+    as far from its own exact ones as one process's are from its exact
+    ones (mean |diff|).  Returns the failures; the readings (the distances
+    to one process's one-step images too) go into ``out["int8"]``."""
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    failed, res = [], {}
+    runs = {"int8 (mesh_model=2)": ("a9b_infer", "int8", "int8_ff"),
+            "int8_conv (mesh_seq=2)": ("a9b_seq", "int8_conv", "int8_conv_rows")}
+    for what, (mode, key, layer) in runs.items():
+        want = refs_rec[f"{key}_int8_launches"]
+        layers = [rec[layer] for rec in ranks[mode]]
+        launches = [{k: rec[f"{key}_launches"][k] for k in want} for rec in ranks[mode]]
+        got1 = saves[mode][0][f"{key}_1step"]
+        d_split = mean(got1, saves[mode][0]["exact_1step"])
+        d_one = mean(refs[f"{key}_1step"], refs["exact_1step"])
+        res[what] = dict(layer=layers, launches=launches, one_process_launches=want,
+                         one_step_int8_vs_exact=d_split, one_process_one_step_int8_vs_exact=d_one,
+                         one_step_to_one_process_int8=mean(got1, refs[f"{key}_1step"]),
+                         one_step_to_one_process_exact=mean(got1, refs["exact_1step"]))
+        if not all(r["bit_equal"] for r in layers):
+            failed.append(f"{what}: the int8 layer is not one process's: {layers}")
+        conv = key == "int8_conv"
+        if not want["int8_dense"] or bool(want["int8_conv"]) != conv or any(
+                n[k] * (GraphedCall.WARMUP + 1) != want[k] * A9B_STEPS for n in launches
+                for k in want):
+            failed.append(f"{what}: int8 launches {launches}, one process's {want} (its graph's "
+                          f"{GraphedCall.WARMUP + 1} recordings against {A9B_STEPS} steps)")
+        if any(not torch.equal(s[k], saves[mode][0][k]) for s in saves[mode][1:]
+               for k in (f"{key}_1step", "exact_1step")):
+            failed.append(f"{what}: ranks' one-step images differ")
+        if not d_split >= 0.5 * d_one:
+            failed.append(f"{what}: the split's one-step int8 images are {d_split:.3e} from its "
+                          f"exact ones, one process's {d_one:.3e}")
+    out["int8"] = res
+    return failed
 
 
 def run_a9b(report, card):

@@ -140,13 +140,15 @@ def linear_reduce(layer: nn.Module, x: torch.Tensor, par) -> torch.Tensor:
 
 
 def keep_slice_(layer: nn.Module, attr: str, dim: int, index: int, count: int,
-                halves: int = 1) -> None:
+                halves: int = 1) -> tuple:
     """Replace ``layer.<attr>`` by its ``index``-th of ``count`` slices
     along ``dim``; ``halves`` stacked blocks (GEGLU's ``[h ; gate]``) are
-    each cut alike.  Conv weights stay channels_last."""
+    each cut alike.  Conv weights stay channels_last.  Returns the cut,
+    ``(dim, halves)``, which each ``tp_shard_`` reports to
+    ``parallel.mesh.place_module``."""
     p = getattr(layer, attr)
     if p is None:
-        return
+        return dim, halves
     keep = take_local(p.detach(), dim, index, count, halves)
     fmt = torch.channels_last if keep.dim() == 4 else torch.contiguous_format
     setattr(layer, attr, nn.Parameter(keep.contiguous(memory_format=fmt),
@@ -156,6 +158,7 @@ def keep_slice_(layer: nn.Module, attr: str, dim: int, index: int, count: int,
                         ("in_channels", 1), ("embedding_dim", 1)):
             if hasattr(layer, name):
                 setattr(layer, name, int(keep.shape[d]))
+    return dim, halves
 
 
 class _Quantizable(nn.Module):
@@ -314,13 +317,12 @@ class ResnetBlock(_Quantizable):
                              f"its {G} GroupNorm groups")
         k = C // count
         self.tp = slice(index * k, (index + 1) * k)
-        for layer, attr, dim in ((self.conv1, "weight", 0), (self.conv1, "bias", 0),
-                                 (self.norm2, "weight", 0), (self.norm2, "bias", 0),
-                                 (self.conv2, "weight", 1)):
-            keep_slice_(layer, attr, dim, index, count)
+        cuts = {f"{name}.{attr}": keep_slice_(getattr(self, name), attr, dim, index, count)
+                for name, attr, dim in (("conv1", "weight", 0), ("conv1", "bias", 0),
+                                        ("norm2", "weight", 0), ("norm2", "bias", 0),
+                                        ("conv2", "weight", 1))}
         self.norm2.num_groups = G // count
-        return {"conv1.weight": 0, "conv1.bias": 0, "norm2.weight": 0, "norm2.bias": 0,
-                "conv2.weight": 1}
+        return cuts
 
     def forward(self, x: torch.Tensor, t_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.norm1(x)
@@ -380,12 +382,12 @@ class Attention(_Quantizable):
         if self.num_heads % count:
             return {}  # e.g. SD-2.x's 5-head level at n_model 2: whole weights, unsplit
         names = ["to_q", "to_k", "to_v"] + [n for n in ("to_k_ip", "to_v_ip") if hasattr(self, n)]
-        for n in names:
-            keep_slice_(getattr(self, n), "weight", 0, index, count)
-        keep_slice_(self.to_out[0], "weight", 1, index, count)
+        cuts = {f"{n}.weight": keep_slice_(getattr(self, n), "weight", 0, index, count)
+                for n in names}
+        cuts["to_out.0.weight"] = keep_slice_(self.to_out[0], "weight", 1, index, count)
         self.num_heads //= count
         self.split = True
-        return {**{f"{n}.weight": 0 for n in names}, "to_out.0.weight": 1}
+        return cuts
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None, ip_context: Optional[torch.Tensor] = None,
@@ -436,7 +438,6 @@ class GEGLUFeedForward(_Quantizable):
     columns of ``net.2``, which sums its partials across the axis."""
 
     split = False
-    tp_halves = {"net.0.proj.weight": 2, "net.0.proj.bias": 2}
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -446,17 +447,39 @@ class GEGLUFeedForward(_Quantizable):
     def tp_shard_(self, index: int, count: int) -> dict:
         if self.net[2].weight.shape[1] % count:
             return {}
-        for attr in ("weight", "bias"):
-            keep_slice_(self.net[0].proj, attr, 0, index, count, halves=2)
-        keep_slice_(self.net[2], "weight", 1, index, count)
+        cuts = {f"net.0.proj.{attr}": keep_slice_(self.net[0].proj, attr, 0, index, count,
+                                                  halves=2) for attr in ("weight", "bias")}
+        cuts["net.2.weight"] = keep_slice_(self.net[2], "weight", 1, index, count)
         self.split = True
-        return {"net.0.proj.weight": 0, "net.0.proj.bias": 0, "net.2.weight": 1}
+        return cuts
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.split:
             h = self.net[0](distributed.model_entry(x, self.par.model_group))
             return self._proj_reduce(self.net[2], h)
         return self._proj(self.net[2], self.net[0](x))
+
+
+def tome_attend(attend, x: torch.Tensor, norm, tome, hw, dst: Optional[torch.Tensor],
+                cache: Optional[dict], par=None):
+    """Token Merging around a self-attention: ``x`` (a block's input, the
+    similarity metric) matched on the ``hw`` token map
+    (``ops.tome.shared_matching``), ``norm(x)`` merged, ``attend`` run on
+    the merged tokens, and the first of the pair it returns unmerged; the
+    second passes as it is.  Under ``seq`` (``par.n_seq > 1``) ``x`` is
+    this rank's rows: the map's tokens are gathered along the axis first,
+    every rank matches, merges and attends over the whole map as one
+    process does (``attend`` gathers nothing more), and keeps its own rows
+    of the unmerged output."""
+    seq = par is not None and par.n_seq > 1
+    whole = distributed.all_gather_seq(x, 1, par.seq_group) if seq else x
+    merge, unmerge = shared_matching(whole, tome, hw, dst, cache)
+    out, rest = attend(merge(norm(whole)))
+    out = unmerge(out)
+    if seq:
+        n = x.shape[1]
+        out = out[:, par.seq_index * n:(par.seq_index + 1) * n]
+    return out, rest
 
 
 class TransformerBlock(nn.Module):
@@ -486,18 +509,12 @@ class TransformerBlock(nn.Module):
                 tome_dst: Optional[torch.Tensor] = None,
                 tome_cache: Optional[dict] = None, ip_context: Optional[torch.Tensor] = None,
                 ip_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-        par = getattr(self, "par", None)
         if tome is None:
             x = x + self.attn1(self.norm1(x))
-        elif par is not None and par.n_seq > 1:  # match over the whole map, keep own rows
-            n = x.shape[1]
-            whole = distributed.all_gather_seq(x, 1, par.seq_group)
-            merge, unmerge = shared_matching(whole, tome, tome_hw, tome_dst, tome_cache)
-            out = unmerge(self.attn1(merge(self.norm1(whole)), gather=False))
-            x = x + out[:, par.seq_index * n:(par.seq_index + 1) * n]
         else:
-            merge, unmerge = shared_matching(x, tome, tome_hw, tome_dst, tome_cache)
-            x = x + unmerge(self.attn1(merge(self.norm1(x))))
+            x = x + tome_attend(lambda t: (self.attn1(t, gather=False), None), x, self.norm1,
+                                tome, tome_hw, tome_dst, tome_cache,
+                                getattr(self, "par", None))[0]
         x = x + self.attn2(self.norm2(x), context=context, ip_context=ip_context,
                            ip_scale=ip_scale)
         return x + self.ff(self.norm3(x))

@@ -70,10 +70,10 @@ from sonicdiffusionbayeslab_torch.models.layers import (
     _Quantizable,
     keep_slice_,
     timestep_embedding,
+    tome_attend,
 )
 from sonicdiffusionbayeslab_torch.ops import quant
 from sonicdiffusionbayeslab_torch.ops.attention import dot_product_attention
-from sonicdiffusionbayeslab_torch.ops.tome import shared_matching
 from sonicdiffusionbayeslab_torch.parallel import distributed
 
 LN_EPS = 1e-6
@@ -190,11 +190,11 @@ class GELUTanhFeedForward(_Quantizable):
     def tp_shard_(self, index: int, count: int) -> dict:
         if self.net[2].weight.shape[1] % count:
             return {}
-        for attr in ("weight", "bias"):
-            keep_slice_(self.net[0].proj, attr, 0, index, count)
-        keep_slice_(self.net[2], "weight", 1, index, count)
+        cuts = {f"net.0.proj.{attr}": keep_slice_(self.net[0].proj, attr, 0, index, count)
+                for attr in ("weight", "bias")}
+        cuts["net.2.weight"] = keep_slice_(self.net[2], "weight", 1, index, count)
         self.split = True
-        return {"net.0.proj.weight": 0, "net.0.proj.bias": 0, "net.2.weight": 1}
+        return cuts
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.split:
@@ -233,19 +233,15 @@ class JointAttention(_Quantizable):
     def tp_shard_(self, index: int, count: int) -> dict:
         if self.num_heads % count:
             return {}
-        plan = {}
-        for name in self._HEADS:
-            for attr in ("weight", "bias"):
-                keep_slice_(getattr(self, name), attr, 0, index, count)
-                plan[f"{name}.{attr}"] = 0
+        cuts = {f"{name}.{attr}": keep_slice_(getattr(self, name), attr, 0, index, count)
+                for name in self._HEADS for attr in ("weight", "bias")}
         outs = {"to_out.0": self.to_out[0], "to_add_out": getattr(self, "to_add_out", None)}
         for name, layer in outs.items():
             if layer is not None:
-                keep_slice_(layer, "weight", 1, index, count)
-                plan[f"{name}.weight"] = 1
+                cuts[f"{name}.weight"] = keep_slice_(layer, "weight", 1, index, count)
         self.num_heads //= count
         self.split = True
-        return plan
+        return cuts
 
     def project(self, layer: nn.Module, o: torch.Tensor) -> torch.Tensor:
         """An output projection (``to_out.0``, ``to_add_out``) of the
@@ -309,27 +305,23 @@ class MMDiTBlock(_Quantizable):
                 tome_cache: Optional[dict] = None):
         i_mod = self.norm1(c)
         c_mod = self.norm1_context(c)
-        img_n = _modulate(_ln(img), i_mod[0], i_mod[1])
         if self.context_pre_only:
             ctx_n = _modulate(_ln(ctx), c_mod[1], c_mod[0])  # (scale, shift)
         else:
             ctx_n = _modulate(_ln(ctx), c_mod[0], c_mod[1])
-        par = self.par
+
+        def norm(t):
+            return _modulate(_ln(t), i_mod[0], i_mod[1])
+
+        def attend(t, gather=True):
+            o, o_ctx = self.attn(t, ctx_n, gather=gather)
+            return self.attn.project(self.attn.to_out[0], o), o_ctx
+
         if tome is None:
-            o_img, o_ctx = self.attn(img_n, ctx_n)
-            o_img = self.attn.project(self.attn.to_out[0], o_img)
-        elif par is not None and par.n_seq > 1:  # match over the whole map, keep own rows
-            n = img.shape[1]
-            whole = distributed.all_gather_seq(img, 1, par.seq_group)
-            merge, unmerge = shared_matching(whole, tome, tome_hw, tome_dst, tome_cache)
-            o_img, o_ctx = self.attn(merge(_modulate(_ln(whole), i_mod[0], i_mod[1])), ctx_n,
-                                     gather=False)
-            o_img = unmerge(self.attn.project(self.attn.to_out[0], o_img))
-            o_img = o_img[:, par.seq_index * n:(par.seq_index + 1) * n]
+            o_img, o_ctx = attend(norm(img))
         else:
-            merge, unmerge = shared_matching(img, tome, tome_hw, tome_dst, tome_cache)
-            o_img, o_ctx = self.attn(merge(img_n), ctx_n)
-            o_img = unmerge(self.attn.project(self.attn.to_out[0], o_img))
+            o_img, o_ctx = tome_attend(lambda t: attend(t, gather=False), img, norm, tome,
+                                       tome_hw, tome_dst, tome_cache, self.par)
         img = img + i_mod[2][:, None, :] * o_img
         img_m = _modulate(_ln(img), i_mod[3], i_mod[4])
         img = img + i_mod[5][:, None, :] * self.ff(img_m)

@@ -105,15 +105,12 @@ class T5SelfAttention(nn.Module):
     def tp_shard_(self, index: int, count: int) -> dict:
         if self.num_heads % count:
             return {}
-        plan = {}
-        for name, dim in (("q", 0), ("k", 0), ("v", 0), ("o", 1),
-                          ("relative_attention_bias", 1)):
-            if hasattr(self, name):
-                keep_slice_(getattr(self, name), "weight", dim, index, count)
-                plan[f"{name}.weight"] = dim
+        cuts = {f"{name}.weight": keep_slice_(getattr(self, name), "weight", dim, index, count)
+                for name, dim in (("q", 0), ("k", 0), ("v", 0), ("o", 1),
+                                  ("relative_attention_bias", 1)) if hasattr(self, name)}
         self.num_heads //= count
         self.split = True
-        return plan
+        return cuts
 
     def forward(self, x: torch.Tensor, position_bias: torch.Tensor) -> torch.Tensor:
         B, T, _ = x.shape
@@ -149,10 +146,10 @@ class T5DenseGatedGelu(nn.Module):
     def tp_shard_(self, index: int, count: int) -> dict:
         if self.wo.weight.shape[1] % count:
             return {}
-        for name, dim in (("wi_0", 0), ("wi_1", 0), ("wo", 1)):
-            keep_slice_(getattr(self, name), "weight", dim, index, count)
+        cuts = {f"{name}.weight": keep_slice_(getattr(self, name), "weight", dim, index, count)
+                for name, dim in (("wi_0", 0), ("wi_1", 0), ("wo", 1))}
         self.split = True
-        return {"wi_0.weight": 0, "wi_1.weight": 0, "wo.weight": 1}
+        return cuts
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x)

@@ -248,11 +248,13 @@ def cached_weight_q(layer: nn.Module, rows, groups: Sequence = ()) -> Tuple[torc
     until the weight changes (another tensor, or an in-place write): the
     float master weights are quantized once, as the JAX package's loop
     hoists them out of its scan.  The key is the rank's share (its own
-    slice of a split weight) and the groups its scales span.  Nothing is
+    slice of a split weight, whose storage may begin where the whole
+    weight's did: hence its shape) and the groups its scales span.  Nothing is
     kept from inside a CUDA graph capture, whose memory belongs to the
     graph."""
     w = layer.weight
-    key = (w.data_ptr(), w._version, w.dtype, w.device, tuple(map(id, groups)))
+    key = (w.data_ptr(), tuple(w.shape), w._version, w.dtype, w.device,
+           tuple(map(id, groups)))
     hit = layer.__dict__.get("_int8_weight")
     if hit is not None and hit[0] == key:
         return hit[1]

@@ -184,13 +184,17 @@ def _members(group, what: str) -> int:
 def _to_comm(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
     """``t`` on the collective's device: itself there, a CUDA tensor's copy
     in this dtype's pinned staging buffer for gloo (the collective is done
-    with it before the next one starts)."""
+    with it before the next one starts).  The buffer is a normal tensor
+    even when made under ``torch.inference_mode`` (a sampling call), so
+    that a later call outside it may write it."""
     if t.device == dev:
         return t
     if t.is_cuda and dev.type == "cpu":
         buf = _staging.get(t.dtype)
         if buf is None or buf.numel() < t.numel():
-            buf = _staging[t.dtype] = torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
+            with torch.inference_mode(False):
+                buf = torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
+            _staging[t.dtype] = buf
         return buf[:t.numel()].view(t.shape).copy_(t)
     return t.to(dev)
 

@@ -285,7 +285,8 @@ def place_module(module: torch.nn.Module, ctx: ParallelContext) -> Dict[str, Opt
     """Give every submodule of ``module`` the context (``par``) and keep, on
     this rank, only its share of each tensor-parallel layer's weights:
     every submodule with a ``tp_shard_`` method (``models/layers.py``,
-    ``mmdit.py``, ``t5.py``) cuts its own along the ``model`` axis.
+    ``mmdit.py``, ``t5.py``) cuts its own along the ``model`` axis and
+    returns {parameter: (dim, halves)} of each cut.
     Returns the execution plan, {parameter name: the dim this rank holds
     a 1/n_model slice of, or None for the whole tensor}.
 
@@ -302,11 +303,10 @@ def place_module(module: torch.nn.Module, ctx: ParallelContext) -> Dict[str, Opt
     for prefix, m in module.named_modules():
         m.par = ctx
         if ctx.n_model > 1 and hasattr(m, "tp_shard_"):
-            halves = getattr(m, "tp_halves", {})
-            for name, dim in m.tp_shard_(ctx.model_index, ctx.n_model).items():
+            for name, cut in m.tp_shard_(ctx.model_index, ctx.n_model).items():
                 full = f"{prefix}.{name}" if prefix else name
-                plan[full] = dim
-                cuts[full] = (dim, halves.get(name, 1))
+                plan[full] = cut[0]
+                cuts[full] = cut
     module.tp_cuts = cuts
     return plan
 

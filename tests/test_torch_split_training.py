@@ -10,14 +10,15 @@ of four ranks takes the LoRA step at ``mesh_data: 2, mesh_model: 2``.
 Each case's code (``_CASES``) runs alike here, in one process, and on the
 ranks.  Gates: every trainable tensor's gradient within 1e-5 (the
 distiller's 1e-4, see GRAD_TOL) of one
-process's (of its largest magnitude, or of a thousandth of the case's
+process's (of its largest magnitude, or of a hundredth of the case's
 largest where a tensor's own gradient is fp32 noise about zero, as a
 conv bias before a GroupNorm has), the updated tensors as Adam allows
 (``torch_parity.assert_adam_close``: an entry whose gradient lies within
-fp32 noise of zero may step the other way), losses within 1e-5; the LoRA
-step's gradients within 2e-4 of the JAX trainer's on the same weights,
-adapters and draws; the saved files equal one process's in keys and
-shapes and Adam-close in values.
+fp32 noise of zero may step the other way), losses within 1e-5; every
+case's loss and gradients within 2e-4 of the JAX trainer's (or
+distiller's) loss function on the same weights, trainables, latents and
+draws; the saved files equal one process's in keys and shapes and
+Adam-close in values.
 """
 
 import jax
@@ -28,12 +29,16 @@ import torch
 
 from test_torch_parallel import run_ranks
 from test_torch_train_loop import _config
-from test_torch_training import _jax_lora_loss, jax_draws, np_tree
-from torch_parity import assert_adam_close, randn, step_lrs, tiny_engines
+from test_torch_distillation import _jax_loss as _jax_distill_loss
+from test_torch_training import jax_draws, np_tree
+from torch_parity import (assert_adam_close, randn, step_lrs, tiny_engines, tiny_family_engines,
+                          tiny_sd3_engines)
 from sonicdiffusionbayeslab_torch.config import ConfigNode, validate_config
 from sonicdiffusionbayeslab_torch.models import weights as W
 from sonicdiffusionbayeslab_torch.models.unet import UNetConfig
 from sonicdiffusionbayeslab_torch.training import loop as TLoop
+from sonicdiffusionbayeslab_torch.training.trainer import leaves
+from sonicdiffusionbayeslab_tpu.training import distillation as JD
 from sonicdiffusionbayeslab_tpu.training import lora as JL
 from sonicdiffusionbayeslab_tpu.training import trainer as JT
 
@@ -70,10 +75,7 @@ def engine(family, sds):
     else:
         eng = TS.StableDiffusionEngine(UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny(),
                                        **kw)
-    if family == "sd15":
-        eng.load_state_dicts(sds)
-    else:
-        eng.init_params(0)
+    eng.load_state_dicts(sds[family])
     return eng
 
 def run_case(name, inp, mesh):
@@ -143,44 +145,67 @@ def _rel_close(got, want, tol, what, floor=0.0):
     assert err <= tol * top, f"{what}: max |diff| {err:.3g} > {tol} x {top:.3g}"
 
 
+def _perturbed_b(adapters, seed=4):
+    """JAX adapters with a random b (0 at init), so that every a learns."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda p, v: (0.05 * rng.standard_normal(v.shape)).astype(np.float32)
+        if p[-1].key == "b" else v, np_tree(adapters))
+
+
+def _state_dicts(teng):
+    return {m: mod.state_dict() for m, mod in zip(teng.MODULES, teng.modules())}
+
+
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
-    """The cases' weights, initial trainables and draws; the JAX LoRA
-    step's gradients; one process's step of every case."""
+    """The cases' weights (the JAX engines' random ones), initial
+    trainables (JAX's, b perturbed; a random ControlNet) and draws; one
+    process's step of every case; the JAX trainer's (and distiller's)
+    loss and gradients of every case."""
     jeng, params, teng = tiny_engines()
-    sds = {m: mod.state_dict() for m, mod in zip(teng.MODULES, teng.modules())}
+    xeng, xparams, xteng = tiny_family_engines("sdxl")
+    seng, sparams, steng = tiny_sd3_engines()
     lat, ctx = randn((2, 8, 8, 4), 1), randn((2, 77, 32), 2)
     tsteps, noise = jax_draws(0, lat.shape)
-    fresh = np_tree(JL.init_lora(params["unet"], 4, jax.random.PRNGKey(3)))
-    rng = np.random.default_rng(4)
-    perturbed = jax.tree_util.tree_map_with_path(
-        lambda p, v: (0.05 * rng.standard_normal(v.shape)).astype(np.float32)
-        if p[-1].key == "b" else v, fresh)
-    adapters = W.lora_from_jax(perturbed, UNetConfig.tiny())
+    key = jax.random.PRNGKey(3)
+    lora = _perturbed_b(JL.init_lora(params["unet"], 4, key))
+    xlora = _perturbed_b(JL.init_lora(xparams["unet"], 4, key))
+    slora = _perturbed_b(JL.init_lora(sparams["unet"], 4, key, JL.MMDIT_TARGETS))
+    distill_cfg = dict(lora_rank=4, original_inference_steps=10)
+    jdist = JD.LCMDistiller(jeng, JD.LCMDistillConfig(donate=False, **distill_cfg))
+    dlora = _perturbed_b(jdist.init_state(params, key=key).trainable)
+    cn_sd = _controlnet_state()
+    cn = _jax_tree(cn_sd, W.controlnet_name_map(UNetConfig.tiny()))
     draws = dict(noise=torch.from_numpy(noise), timesteps=torch.from_numpy(tsteps))
     tl, tc = torch.from_numpy(lat), torch.from_numpy(ctx)
-    cn = _controlnet_state()
     gen = torch.Generator().manual_seed(5)
     cases = {
-        "sds": sds,
-        "lora": dict(family="sd15", lat=tl, ctx=tc, adapters=adapters, **draws,
+        "sds": {"sd15": _state_dicts(teng), "sdxl": _state_dicts(xteng),
+                "sd3": _state_dicts(steng)},
+        "lora": dict(family="sd15", lat=tl, ctx=tc, **draws,
+                     adapters=W.lora_from_jax(lora, UNetConfig.tiny()),
                      cfg=dict(lora_rank=4, snr_gamma=5.0, learning_rate=LR["lora"])),
         "full_remat": dict(family="sd15", lat=tl, ctx=tc, **draws,
                            cfg=dict(remat=True, learning_rate=LR["full_remat"])),
-        "controlnet": dict(family="sd15", lat=tl, ctx=tc, controlnet=cn, **draws,
+        "controlnet": dict(family="sd15", lat=tl, ctx=tc, **draws,
+                           controlnet=cn_sd,
                            hint=torch.rand(2, 64, 64, 3, generator=gen),
                            cfg=dict(train_target="controlnet",
                                     learning_rate=LR["controlnet"])),
         "distill": dict(family="sd15", lat=tl, ctx=tc, uncond=torch.from_numpy(randn(
             (2, 77, 32), 6)), idx=torch.tensor([3, 7]), noise=draws["noise"],
-            cfg=dict(lora_rank=4, original_inference_steps=10, learning_rate=LR["distill"])),
+            trainable=W.trainable_from_jax(dlora, UNetConfig.tiny()),
+            cfg=dict(**distill_cfg, learning_rate=LR["distill"])),
         "sdxl_lora": dict(family="sdxl", lat=tl, ctx=torch.from_numpy(randn((2, 77, 32), 7)),
-                          **draws, added={"text_embeds": torch.from_numpy(randn((2, 16), 8)),
-                                          "time_ids": torch.tensor([[16.0, 16, 0, 0, 16, 16]] * 2)},
+                          adapters=W.lora_from_jax(xlora, UNetConfig.tiny_xl()), **draws,
+                          added={"text_embeds": torch.from_numpy(randn((2, 16), 8)),
+                                 "time_ids": torch.tensor([[16.0, 16, 0, 0, 16, 16]] * 2)},
                           cfg=dict(lora_rank=4, learning_rate=LR["sdxl_lora"])),
         "sd3_lora": dict(family="sd3", lat=torch.from_numpy(randn((2, 8, 8, 16), 9)),
                          ctx=torch.from_numpy(randn((2, 7, 40), 10)), noise=torch.from_numpy(
                              randn((2, 8, 8, 16), 11)), u=torch.from_numpy(randn((2,), 12)),
+                         adapters=W.mmdit_lora_from_jax(slora),
                          added={"text_embeds": torch.from_numpy(randn((2, 32), 13))},
                          cfg=dict(objective="flow", lora_rank=4, learning_rate=LR["sd3_lora"],
                                   lora_targets=r".*\.(to_q|to_k|to_v|to_out\.0|add_q_proj|"
@@ -191,15 +216,31 @@ def inputs(tmp_path_factory):
     scope = {}
     exec(_CASES, scope)
     one = {name: scope["run_case"](name, cases, None) for name in CASES}
-    # The JAX trainer's LoRA step on the same weights, adapters and draws.
-    vg = _jax_lora_loss(jeng, params, JT.TrainConfig(lora_rank=4, snr_gamma=5.0),
-                        jnp.asarray(lat), jnp.asarray(ctx), jnp.asarray(tsteps),
-                        jnp.asarray(noise))
-    jloss, jgrads = vg(jax.tree.map(jnp.asarray, perturbed))
-    jax_grads = {f"{m}/{k}": v for m, ab in W.lora_from_jax(np_tree(jgrads),
-                                                             UNetConfig.tiny()).items()
-                 for k, v in ab.items()}
-    return dict(root=root, one=one, jax_loss=float(jloss), jax_grads=jax_grads)
+    # The JAX side of every case on the same weights, trainables, latents and draws.
+    j = lambda a: jnp.asarray(np.asarray(a))  # noqa: E731
+    c = cases["distill"]
+    vg = _jax_distill_loss(jdist, params, j(lat), j(ctx), j(c["uncond"]), j(c["idx"]),
+                           j(noise), jnp.full((2,), jdist.config.guidance_scale))
+    tree = jax.tree.map(jnp.asarray, dlora)
+    dl, dg = vg(tree, tree)
+    jax_side = {"distill": (float(dl), leaves(W.trainable_from_jax(np_tree(dg),
+                                                                   UNetConfig.tiny())))}
+    for name, eng, p, tree, names in (
+            ("lora", jeng, params, lora,
+             lambda g: leaves(W.lora_from_jax(g, UNetConfig.tiny()))),
+            ("full_remat", jeng, params, params["unet"],
+             lambda g: W.invert(g, W.unet_name_map(UNetConfig.tiny()))),
+            ("controlnet", jeng, params, cn,
+             lambda g: W.invert(g, W.controlnet_name_map(UNetConfig.tiny()))),
+            ("sdxl_lora", xeng, xparams, xlora,
+             lambda g: leaves(W.lora_from_jax(g, UNetConfig.tiny_xl()))),
+            ("sd3_lora", seng, sparams, slora, lambda g: leaves(W.mmdit_lora_from_jax(g)))):
+        c = cases[name]
+        jcfg = JT.TrainConfig(**{k: v for k, v in c["cfg"].items() if k != "lora_targets"})
+        loss, grads = _jax_train_loss(eng, p, jcfg, c)(jax.tree.map(jnp.asarray, tree))
+        jax_side[name] = (float(loss), {k: torch.from_numpy(np.asarray(v))
+                                        for k, v in names(np_tree(grads)).items()})
+    return dict(root=root, one=one, jax=jax_side)
 
 
 def _controlnet_state():
@@ -218,6 +259,67 @@ def _controlnet_state():
             if p.abs().max() == 0:
                 p.normal_(0.0, 0.05, generator=gen)
     return {k: v.clone() for k, v in net.state_dict().items()}
+
+
+# W.invert's layout transforms, undone.
+_UNDO = {W._conv: lambda w: np.transpose(w, (2, 3, 1, 0)), W._lin: np.transpose,
+         W._dense_to_conv1x1: lambda w: np.transpose(w[:, :, 0, 0]), W._id: np.asarray}
+
+
+def _jax_tree(sd, name_map):
+    """The JAX tree that ``W.invert(tree, name_map)`` maps to the
+    torch-layout state dict ``sd`` (every entry of ``sd``, bit for bit)."""
+    tree = {}
+    for path, (name, fwd) in name_map.items():
+        if name not in sd:  # the map's entries for modules this network lacks
+            continue
+        *parents, leaf = path.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = _UNDO[fwd](sd[name].numpy())
+    back = W.invert(tree, {k: v for k, v in name_map.items() if v[0] in sd})
+    assert set(back) == set(sd) and all(np.array_equal(back[k], sd[k].numpy()) for k in sd)
+    return tree
+
+
+def _jax_train_loss(jeng, params, cfg, c):
+    """The JAX trainer's loss_fn (``training/trainer.py``: the noised
+    latents and target of ``cfg.objective``, min-SNR weights, the
+    ControlNet's residuals into the frozen UNet, LoRA applied to it) on
+    case ``c``'s latents, context and draws, as a jitted value-and-grad of
+    the trainable tree (adapters, the UNet's tree or the ControlNet's)."""
+    a = lambda x: jnp.asarray(np.asarray(x))  # noqa: E731
+    lat, ctx, noise = a(c["lat"]), a(c["ctx"]), a(c["noise"])
+    B = lat.shape[0]
+    w = jnp.ones((B,), jnp.float32)
+    if cfg.objective == "flow":
+        sigma = jax.nn.sigmoid(cfg.logit_mean + cfg.logit_std * a(c["u"]))
+        s = sigma[:, None, None, None]
+        noisy, y, t = (1.0 - s) * lat + s * noise, noise - lat, sigma * cfg.flow_num_train_timesteps
+    else:
+        ac = jnp.asarray(JT.DiffusionTrainer(jeng, cfg).schedule.alphas_cumprod, jnp.float32)
+        t = a(c["timesteps"])
+        al = ac[t][:, None, None, None]
+        noisy, y = jnp.sqrt(al) * lat + jnp.sqrt(1.0 - al) * noise, noise
+        if cfg.snr_gamma is not None:
+            snr = (ac / (1.0 - ac))[t]
+            w = jnp.minimum(snr, cfg.snr_gamma) / snr
+    added = ({k: a(v) for k, v in c["added"].items()},) if "added" in c else ()
+    frozen, tt = params["unet"], t.astype(jnp.float32)
+    unet = jeng.unet
+
+    def loss(tree):
+        if cfg.train_target == "controlnet":
+            res = jeng.controlnet.apply({"params": tree}, noisy, tt, ctx, a(c["hint"]),
+                                        cfg.controlnet_scale)
+            pred = unet.apply({"params": frozen}, noisy, tt, ctx, control_residuals=res)
+        else:
+            p = JL.apply_lora(frozen, tree, scale=cfg.lora_scale) if cfg.lora_rank else tree
+            pred = unet.apply({"params": p}, noisy, tt, ctx, *added)
+        return jnp.mean(w * jnp.mean((pred.astype(jnp.float32) - y) ** 2, axis=(1, 2, 3)))
+
+    return jax.jit(jax.value_and_grad(loss))
 
 
 def _session(inputs, name, n, n_data, cases, loop):
@@ -282,14 +384,32 @@ def test_step_on_the_model_axis_matches_one_process(model2, inputs, name):
     _step_close(r0[name], inputs["one"][name], name)
 
 
+def _jax_close(got, want, name):
+    """A split step's loss and every trainable tensor's gradient within 2e-4
+    of the JAX side's (of the tensor's largest magnitude, or of a
+    hundredth of the case's largest, as ``_step_close``)."""
+    loss, grads = got[:2]
+    w_loss, w_grads = want
+    np.testing.assert_allclose(loss, w_loss, rtol=2e-4)
+    assert set(grads) == set(w_grads) and len(grads) > 0
+    floor = 1e-2 * max(float(g.abs().max()) for g in w_grads.values())
+    for k, g in grads.items():
+        _rel_close(g, w_grads[k].numpy(), 2e-4, f"{name} gradient {k}", floor)
+
+
 def test_lora_step_on_the_model_axis_matches_jax(model2, inputs):
     """The split LoRA step's loss and every adapter's gradient within 2e-4
     of the JAX trainer's on the same weights, adapters and draws."""
-    loss, grads = model2[0]["lora"][:2]
-    np.testing.assert_allclose(loss, inputs["jax_loss"], rtol=2e-4)
-    assert set(grads) == set(inputs["jax_grads"])
-    for k, g in grads.items():
-        _rel_close(g, inputs["jax_grads"][k].numpy(), 2e-4, f"lora gradient {k}")
+    _jax_close(model2[0]["lora"], inputs["jax"]["lora"], "lora")
+
+
+@pytest.mark.parametrize("name", [c for c in CASES if c != "lora"])
+def test_step_on_the_model_axis_matches_jax(model2, inputs, name):
+    """Full fine-tuning, ControlNet, LCM-LoRA distillation, SDXL's LoRA and
+    SD3's flow LoRA at ``mesh_model=2``: the loss and every trainable
+    tensor's gradient within 2e-4 of the JAX trainer's (the distiller's)
+    loss function on the same weights, trainables, latents and draws."""
+    _jax_close(model2[0][name], inputs["jax"][name], name)
 
 
 def test_data_and_model_four_ranks_match_one_process(data2_model2, inputs):

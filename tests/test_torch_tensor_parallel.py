@@ -43,10 +43,15 @@ PIPE_KW = dict(pretrained_model="x", tiny=True, image_size=64, dtype="float32", 
 CLI_FP32 = {"model.dtype": "float32"}
 
 # The layers each group checks against the same module unsplit.
+# The int8 cases (a row-parallel layer's scales all-maxed over model, its
+# int32 partials summed; a conv's sample scale all-maxed over seq) hold
+# the split to one process as the exact ones: their sums are exact.
 MODEL_LAYERS = ("attention_self", "attention_cross_ip", "attention_5_heads_unsplit", "geglu",
-                "resnet_32_to_64", "resnet_64", "mmdit_block", "t5_block")
+                "resnet_32_to_64", "resnet_64", "mmdit_block", "t5_block", "attention_self_int8",
+                "geglu_int8", "resnet_64_int8_conv")
 SEQ_LAYERS = ("conv_in", "resnet_32_to_64", "downsample", "upsample", "group_norm",
-              "spatial_transformer", "spatial_transformer_int8", "mmdit_block")
+              "spatial_transformer", "spatial_transformer_int8", "mmdit_block",
+              "downsample_int8_conv", "resnet_32_to_64_int8_conv")
 
 _LAYERS = """
 from sonicdiffusionbayeslab_torch.models import layers as L
@@ -70,6 +75,7 @@ def layer_cases():
     cross.add_ip()
     st = L.SpatialTransformer(32, 2, 16, 24)
     st8 = set_quant_mode(L.SpatialTransformer(32, 2, 16, 24), "int8")
+    q = set_quant_mode
     return {
         "attention_self": (L.Attention(32, 2, 16), (tokens,), {}, None),
         "attention_cross_ip": (cross, (tokens, ctx), dict(ip_context=rnd((2, 4, 24), 5),
@@ -88,6 +94,14 @@ def layer_cases():
                                          rnd((2, 32), 12)), {}, 1),
         "t5_block": (T5Block(T5Config.tiny(), True), (rnd((2, 6, 40), 13),
                                                        rnd((1, 2, 6, 6), 14)), {}, None),
+        "attention_self_int8": (q(L.Attention(32, 2, 16), "int8"), (tokens,), {}, None),
+        "geglu_int8": (q(L.GEGLUFeedForward(32), "int8"), (tokens,), {}, None),
+        "resnet_64_int8_conv": (q(L.ResnetBlock(64, 64, 128), "int8_conv"),
+                                (rnd((2, 8, 8, 64), 7), temb), {}, 1),
+        "downsample_int8_conv": (q(L.Downsample(32, allow_quant=True), "int8_conv"), (x4,), {},
+                                 1),
+        "resnet_32_to_64_int8_conv": (q(L.ResnetBlock(32, 64, 128), "int8_conv"), (x4, temb),
+                                      {}, 1),
     }
 
 def run_layers(names, ctx, rows):
@@ -418,7 +432,7 @@ def test_layers_on_the_model_axis_match_one_process(model_run, name):
     elif name == "attention_cross_ip":
         assert split == ["to_k.weight", "to_k_ip.weight", "to_out.0.weight", "to_q.weight",
                          "to_v.weight", "to_v_ip.weight"]
-    elif name == "geglu":
+    elif name.startswith("geglu"):
         assert split == ["net.0.proj.bias", "net.0.proj.weight", "net.2.weight"]
     elif name.startswith("resnet"):
         assert split == ["conv1.bias", "conv1.weight", "conv2.weight", "norm2.bias",
@@ -497,8 +511,14 @@ def _engine_close(ranks, engine_inputs):
 
 
 def _int8_close(ranks, engine_inputs, modes):
-    """Each int8 mode's split images: the same on every rank, and nearer one
-    process's int8 run than that run is to the exact one (relative L2)."""
+    """Each int8 mode's split images: the same on every rank, nearer one
+    process's int8 run than that run is to the exact one, and nearer it
+    than the exact run (relative L2; a split that ran exact would sit
+    ~1e-6 from the exact run).  Not closer: a sampled image moves with
+    every rounding the quantizer flips, and one process's own int8 run
+    moves ~1e-2 for initial latents moved 1e-7, so the split's other
+    order of fp32 sums elsewhere moves it as much; the split layers
+    themselves are held to 1e-5 (the ``*_int8*`` layer cases)."""
     one = engine_inputs["one"]
     rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa: E731
     for mode in modes:
@@ -506,7 +526,9 @@ def _int8_close(ranks, engine_inputs, modes):
         for arrays, _ in ranks[1:]:
             assert np.array_equal(arrays["int8:" + mode], got), mode
         drift = rel(one["int8:" + mode], one["engine"])
-        assert 0.0 < drift and rel(got, one["int8:" + mode]) < drift, mode
+        to_int8, to_exact = rel(got, one["int8:" + mode]), rel(got, one["engine"])
+        assert 0.0 < drift and to_int8 < drift and to_int8 < to_exact, (mode, to_int8, drift,
+                                                                       to_exact)
 
 
 def test_engine_on_the_model_axis_matches_one_process_and_jax(model_run, engine_inputs):

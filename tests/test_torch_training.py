@@ -28,8 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (assert_adam_close, assert_close, random_params, randn, step_lrs, t,
-                          tiny_engines)
+from torch_parity import (assert_adam_close, assert_close, randn, step_lrs, t, tiny_engines,
+                          tiny_sd3_engines)
 from sonicdiffusionbayeslab_torch.config import load_config
 from sonicdiffusionbayeslab_torch.models import mmdit as TM
 from sonicdiffusionbayeslab_torch.models import weights as W
@@ -265,20 +265,7 @@ def test_full_finetune_three_steps_match_jax(batch):
 
 @pytest.fixture(scope="module")
 def sd3():
-    from sonicdiffusionbayeslab_torch.models.sampler import SDXLTextConfigs
-    from sonicdiffusionbayeslab_torch.models.sd3 import SD3Engine
-    from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
-    from sonicdiffusionbayeslab_tpu.models import sampler as JSam
-    from sonicdiffusionbayeslab_tpu.models.sd3 import SD3Engine as JaxSD3Engine
-    from sonicdiffusionbayeslab_tpu.models.vae import VAEConfig as JaxVAEConfig
-
-    jeng = JaxSD3Engine(JM.MMDiTConfig.tiny(), JaxVAEConfig.tiny16(), JSam.SDXLTextConfigs.tiny(),
-                        dtype=jnp.float32, param_dtype=jnp.float32)
-    params = random_params(jax.eval_shape(lambda: jeng.init_params(seed=0, latent_hw=8)), 0)
-    teng = SD3Engine(TM.MMDiTConfig.tiny(), VAEConfig.tiny16(), SDXLTextConfigs.tiny(),
-                     dtype=torch.float32, device="cpu")
-    teng.load_state_dicts(W.state_dicts_from_jax(params))
-    return jeng, params, teng
+    return tiny_sd3_engines.__wrapped__()
 
 
 def test_sd3_flow_lora_covers_both_streams_and_matches_jax(sd3):

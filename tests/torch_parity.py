@@ -101,6 +101,29 @@ def tiny_family_engines(family: str):
     return jeng, params, teng
 
 
+@functools.lru_cache(maxsize=None)
+def tiny_sd3_engines():
+    """(JAX tiny SD3 engine, its random numpy params, the port's tiny SD3
+    engine on the CPU loaded with the same weights), all fp32."""
+    from sonicdiffusionbayeslab_torch.models import mmdit as TM
+    from sonicdiffusionbayeslab_torch.models.sampler import SDXLTextConfigs
+    from sonicdiffusionbayeslab_torch.models.sd3 import SD3Engine
+    from sonicdiffusionbayeslab_torch.models.vae import VAEConfig
+    from sonicdiffusionbayeslab_torch.models.weights import state_dicts_from_jax
+    from sonicdiffusionbayeslab_tpu.models import mmdit as JM
+    from sonicdiffusionbayeslab_tpu.models import sampler as JSam
+    from sonicdiffusionbayeslab_tpu.models.sd3 import SD3Engine as JaxSD3Engine
+    from sonicdiffusionbayeslab_tpu.models.vae import VAEConfig as JaxVAEConfig
+
+    jeng = JaxSD3Engine(JM.MMDiTConfig.tiny(), JaxVAEConfig.tiny16(), JSam.SDXLTextConfigs.tiny(),
+                        dtype=jnp.float32, param_dtype=jnp.float32)
+    params = random_params(jax.eval_shape(lambda: jeng.init_params(seed=0, latent_hw=8)), 0)
+    teng = SD3Engine(TM.MMDiTConfig.tiny(), VAEConfig.tiny16(), SDXLTextConfigs.tiny(),
+                     dtype=torch.float32, device="cpu")
+    teng.load_state_dicts(state_dicts_from_jax(params))
+    return jeng, params, teng
+
+
 def load_block(torch_module, flax_params, fill) -> torch.nn.Module:
     """Load one block's Flax params into its torch twin (strict), with the
     entries ``fill(MapEntries, "b", "b")`` writes for it."""
