@@ -386,13 +386,16 @@ def test_step_on_the_model_axis_matches_one_process(model2, inputs, name):
 
 def _jax_close(got, want, name):
     """A split step's loss and every trainable tensor's gradient within 2e-4
-    of the JAX side's (of the tensor's largest magnitude, or of a
-    hundredth of the case's largest, as ``_step_close``)."""
+    of the JAX side's, of the tensor's largest magnitude (full fine-tuning
+    and the ControlNet: or of a hundredth of the case's largest, as
+    ``_step_close``, for their conv biases before a GroupNorm of one
+    channel a group, whose gradients are fp32 noise about zero)."""
     loss, grads = got[:2]
     w_loss, w_grads = want
     np.testing.assert_allclose(loss, w_loss, rtol=2e-4)
     assert set(grads) == set(w_grads) and len(grads) > 0
-    floor = 1e-2 * max(float(g.abs().max()) for g in w_grads.values())
+    floor = (1e-2 * max(float(g.abs().max()) for g in w_grads.values())
+             if name in ("full_remat", "controlnet") else 0.0)
     for k, g in grads.items():
         _rel_close(g, w_grads[k].numpy(), 2e-4, f"{name} gradient {k}", floor)
 
