@@ -71,8 +71,8 @@ prints no ``ok`` line:
      graphs keep reserved, and one full and one shallow UNet call's device
      time;
   8. the remaining samplers and Token Merging at SD-1.5 full width (bf16
-     512x512, random weights): configs unipc_config (20 steps, bh2,
-     corrector, order 2), tome_config (ratios 0.25 and 0.5 at 20 steps: two
+     512x512, random weights): configs unipc_config (10 steps, bh2,
+     corrector, order 2), tome_config (ratios 0.25 and 0.5 at 10 steps: two
      sweep points, two graph variants) and deep_cache_config with
      tome_ratio 0.5 (interval 5, branch 0) through the CLI at batch 4, each
      traced, checked as in phase 7 against the census at the merged
@@ -88,7 +88,7 @@ prints no ``ok`` line:
   9. the reference's quality metrics: configs/ddim_config.yaml as shipped
      (clip_score on ViT-B/16, fid at feature 64 on FID-Inception,
      image_reward on BLIP) plus aesthetic_score (ViT-L/14 and the in-repo
-     LAION head) through the CLI at SD-1.5 full width (bf16 512x512, 20 DDIM
+     LAION head) through the CLI at SD-1.5 full width (bf16 512x512, 10 DDIM
      steps, batch 8), overriding only the image directory and its count, the
      batch, the checkpoints' paths and the sweep's length: a directory of 8
      real images (640x480 and 480x640 PNGs under the annotation file's .jpg
@@ -112,11 +112,11 @@ prints no ``ok`` line:
      SD-2.1 (v-prediction) and SDXL (added conditioning) pipelines,
      graphed, on the card against the CPU; configs/sd21_config.yaml and
      configs/sdxl_config.yaml as shipped through the CLI at 768^2 and
-     1024^2, batch 8 (the first sweep point of 10 DPM++ steps, one batch,
+     1024^2, batch 8 (the first sweep point at 4 DPM++ steps, one batch,
      phase 9's real images and checkpoints: clip_score, fid at 64,
      image_reward), each traced: table, PNGs, one capture, peak memory,
      launches against the census by the wrappers and by the trace; and
-     each family's 20-step DPM++ loop at batch 2, CFG 7.5 (engine level,
+     each family's 10-step DPM++ loop at batch 2, CFG 7.5 (engine level,
      median of 3, peak memory, a torch.profiler breakdown a step);
  11. img2img, inpainting and int8: the GroupNorm kernel against its plain
      version and timed at the VAE encoders' shapes (SD-1.5 at 512^2, batch
@@ -133,7 +133,7 @@ prints no ``ok`` line:
      generate.py --init_image --mask_image; engine loops at batch 2 of
      exact DPM++, int8_conv_only and the turbo stack (ToMe 0.5 +
      int8_conv_only), the exact loop bit-equal after them; then
-     configs/turbo_config.yaml as shipped through the CLI (batch 8, phase
+     configs/turbo_config.yaml as shipped but for 10 steps through the CLI (batch 8, phase
      9's real images and checkpoints), traced: table, PNGs, one capture,
      launches against the census, 50 int8 GEMMs a UNet forward by the
      wrappers and by kernel name in the trace, no int8 dense call; and an
@@ -150,17 +150,19 @@ prints no ``ok`` line:
      attention a forward beside SDPA and the bound); tiny fp32 SD3
      pipelines (exact, trunk-delta, ToMe, T5, two-scheduler, skip) on the
      card against the CPU within 1e-3 and an int8 one below the CPU's
-     drift; through the pipeline at 1024^2, 14-step flow Euler (shift 3),
+     drift; through the pipeline at 1024^2, 8-step flow Euler (shift 3),
      CFG 7, batch 2: a run at 512^2, then exact, trunk-delta (interval 3,
      branch 2), ToMe 0.5 and int8 loops (first runs' launches against the
      census, warm execution_time and peak memory, the exact run traced),
      and use_t5 staged and resident, bit-equal; random SD3 and SD-1.5
      snapshots written, configs/sd3_config.yaml, sd3_skip_steps_config.yaml
      and sd3_two_schedulers_config.yaml as shipped through the CLI on the
-     SD3 snapshot (first sweep point, batch 4, phase 9's real images and
-     checkpoints; the first traced): table, PNGs, one capture, launches;
+     SD3 snapshot (first sweep point, cut to 6 and 12 steps in the first
+     two, batch 4, phase 9's real images and checkpoints; the first
+     traced): table, PNGs, one capture, launches;
      quality_frontier's main on both snapshots (16 rows); and the exact
-     run again after them, bit-equal;
+     run again after them, bit-equal; after its census the rank processes
+     of phases 16-18 start, import and wait for their go files;
  13. serving and the conditioning families at SD-1.5 width (random bf16
      weights, 512^2, 20-step DPM++, CFG 7.5): the census of the ControlNet
      call (its encoder copy before the UNet) and of the UNet with
@@ -250,26 +252,41 @@ prints no ``ok`` line:
      written here (no ``tokenizers`` on the card's machine), its ids equal
      to the pinned ones, SD3-medium with T5-XXL through it for 2 steps,
      the t5_bench twin staged and resident (SD3-medium + T5-XXL, 1024^2,
-     batch 4, 20 steps; its two JSON lines); at mesh_model=2 one bf16 LoRA
+     batch 4, 8 steps; its two JSON lines); at mesh_model=2 one bf16 LoRA
      step (batch 2) and fp32 LoRA, full-with-remat, ControlNet and
      LCM-LoRA steps (SD-1.5 512^2, batch 1) and SD3's LoRA step (8 of the
      MMDiT's 24 blocks, 1024^2), each against one process's gradients,
      launches a rank equal to one process's; train_lora.yaml through the
      loop at mesh_data 1, mesh_model 2 against one process's run and
      files; fuse_lora into split weights, bit-equal to one process's
-     fused weights cut to the rank's share; 10-step bf16 SD-1.5 runs under
+     fused weights cut to the rank's share; 4-step bf16 SD-1.5 runs under
      int8 at mesh_model=2 and int8_conv at mesh_seq=2 (within one process's
      own int8 drift plus its own bf16 reordering drift) and with ToMe 0.5
      at mesh_seq=2, and a 2-step SD3 DiT-ToMe run at mesh_seq=2 (mean |diff|
      <= 5e-2); then the kernels at every shape those runs recorded against
      their plain versions;
- 19. the card line, then one JSON ``kernels`` line (the fp32 attention
+ 19. on phase 5's SD-1.5 weights (kept in host memory since phase 5): the
+     CFG shared prefix (SDBL_CFG_PREFIX=1, the NaN sanitizer on), graphed:
+     its census on the meta device (32 attention and 61 GroupNorm launches
+     a forward, the first self-attention and three GroupNorms at B rows),
+     each kernel against its plain version (bf16 and fp32) and timed at the
+     shapes it adds, the capturing run's wrapper launches and a warm run's
+     trace against the census, its images against the plain run's (mean
+     |diff| <= 5e-2), an fp32 forward (TF32 off) against the plain one
+     (relative L2 <= 1e-5), the loops in turns; a fused-q/k/v copy of the
+     UNet from those weights: its fp32 forward (TF32 off) against the
+     separate one's (relative L2 <= 1e-5), one eager forward traced beside the
+     separate one's (the cuBLAS GEMMs drop by the projections fused), a
+     20-step run (wrappers, images within 5e-2), the bf16 attention kernel
+     on fused strided q/k/v views at every main-path shape; the sanitizer
+     raising on the tiny fp32 dpmsolver + final_sigmas_type="zero" run;
+ 20. the card line, then one JSON ``kernels`` line (the fp32 attention
      kernel's entry is phase 9's metric towers: 108 launches a validate
-     batch; each entry also lists its launches in each phase-7 to phase-18
+     batch; each entry also lists its launches in each phase-7 to phase-19
      run, and its phase-10 and phase-12 sums over one forward and one
      decode; the split GroupNorm pair's entries are phase 17's mesh_seq=2
      run);
- 20. the last line: {"ok": true, "device": {...}}.
+ 21. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -381,22 +398,26 @@ METHOD_RUNS = [
 # Phase 8 through the CLI: (config, its points, [(label, ToMe ratio or None)]
 # of the sweep, UNet evaluations a point, CFG factor, x0 captured,
 # DeepCache full steps or None).
-TOME_RATIOS = (0.25, 0.5)
+# (SAMPLER_STEPS was 20 until phase 19 came: steps cut, never widths, to keep
+# the script inside its time limit.)
+TOME_RATIOS, SAMPLER_STEPS = (0.25, 0.5), 10
 SAMPLER_RUNS = [
-    ("unipc_config", {_P + "num_inference_steps": [STEPS]}, [("steps_20", None)], 20, 2, True,
-     None),
-    ("tome_config", {_P + "tome_ratio": list(TOME_RATIOS), _P + "num_inference_steps": [STEPS]},
-     [(f"ratio_{r}_steps_20", r) for r in TOME_RATIOS], 20, 2, True, None),
+    ("unipc_config", {_P + "num_inference_steps": [SAMPLER_STEPS]},
+     [(f"steps_{SAMPLER_STEPS}", None)], SAMPLER_STEPS, 2, True, None),
+    ("tome_config", {_P + "tome_ratio": list(TOME_RATIOS),
+                     _P + "num_inference_steps": [SAMPLER_STEPS]},
+     [(f"ratio_{r}_steps_{SAMPLER_STEPS}", r) for r in TOME_RATIOS], SAMPLER_STEPS, 2, True, None),
     ("deep_cache_config", {_P + "cache_interval": [5], _P + "cache_branch_id": 0,
-                           _P + "num_inference_steps": [STEPS], _P + "tome_ratio": 0.5},
-     [("interval_5_steps_20", 0.5)], 20, 2, False, 4),
+                           _P + "num_inference_steps": [SAMPLER_STEPS], _P + "tome_ratio": 0.5},
+     [(f"interval_5_steps_{SAMPLER_STEPS}", 0.5)], SAMPLER_STEPS, 2, False, SAMPLER_STEPS // 5),
 ]
 
 # Phase 9: the reference's quality metrics through configs/ddim_config.yaml
 # as shipped (clip_score, image_reward, fid at feature 64) plus
 # aesthetic_score, with a real-image directory: SD-1.5 512^2, one sweep
 # point of 20 DDIM steps, batch METRIC_BATCH.
-METRIC_BATCH = 8
+# (METRIC_STEPS was STEPS, 20, until phase 19 came: steps cut, never widths.)
+METRIC_BATCH, METRIC_STEPS = 8, 10
 # Card against CPU (fp32, TF32 off, two images), |card - cpu| <= atol + rtol
 # * |cpu|: unit-norm CLIP embeddings through 24 layers and Inception
 # features through 94 convolutions summed in another order (cuDNN and the
@@ -408,11 +429,13 @@ METRIC_TOL = {"clip_l14_embedding": (1e-4, 0.0), "inception_2048": (1e-4, 1e-4),
 # full width, batch FAMILY_BATCH (UNet batch 16 with CFG), the first sweep
 # point of each and one batch of the prompt file; then their engines'
 # ENGINE_STEPS-step DPM++ loops at batch BATCH, CFG GUIDANCE.
-FAMILY_BATCH, ENGINE_STEPS = 8, 20
+# (The CLI runs' steps were 10 and ENGINE_STEPS 20 until phase 19 came:
+# steps cut, never widths, to keep the script inside its time limit.)
+FAMILY_BATCH, ENGINE_STEPS = 8, 10
 FAMILIES = {
-    "sd21": dict(config="sd21_config", size=768, steps=10, pipeline="stable_diffusion_model",
+    "sd21": dict(config="sd21_config", size=768, steps=4, pipeline="stable_diffusion_model",
                  kw={"variant": "sd21"}, prediction_type="v_prediction"),
-    "sdxl": dict(config="sdxl_config", size=1024, steps=10, pipeline="stable_diffusion_xl_model",
+    "sdxl": dict(config="sdxl_config", size=1024, steps=4, pipeline="stable_diffusion_xl_model",
                  kw={}, prediction_type="epsilon"),
 }
 # Phase 11: img2img and inpainting at SD-1.5 width (STEPS-step DPM++ at
@@ -421,7 +444,8 @@ FAMILIES = {
 # configs/turbo_config.yaml as shipped through the CLI (ToMe TURBO_TOME and
 # int8_conv_only, batch TURBO_BATCH).
 STRENGTH, IMG2IMG_ROWS, ENC_XL_SIZE = 0.8, 16, 1024
-TURBO_BATCH, TURBO_TOME, TURBO_QUANT = 8, 0.5, "int8_conv_only"
+# (TURBO_STEPS: the config's 20 until phase 19 came; steps cut, never widths.)
+TURBO_BATCH, TURBO_TOME, TURBO_QUANT, TURBO_STEPS = 8, 0.5, "int8_conv_only", 10
 # The int8 3x3 convs of one SD-1.5 UNet forward: 22 ResnetBlocks x 2, 3
 # Downsample and 3 Upsample.
 INT8_CONVS = 50
@@ -434,14 +458,16 @@ INT8_CONVS = 50
 # SD3_CLI_BATCH, each at its first sweep point: (config, overrides, label,
 # nfe, MMDiT rows a call (the configs' unet_microbatch), x0 captured); and
 # the quality frontier at FRONTIER's prompts, batches and steps.
-# (SD3_STEPS was 28 until phase 18 came: depth cut, never width, to keep the
-# script inside its time limit.)
-SD3_SIZE, SD3_STEPS, SD3_GUIDANCE, SD3_SHIFT = 1024, 14, 7.0, 3.0
+# (SD3_STEPS was 28 until phase 18 came, and 14 until the script first
+# passed its time limit on a slow host: depth cut, never width.)
+SD3_SIZE, SD3_STEPS, SD3_GUIDANCE, SD3_SHIFT = 1024, 8, 7.0, 3.0
 SD3_CACHE, SD3_TOME, SD3_SMALL, SD3_CLI_BATCH = (3, 2), 0.5, 512, 4
+# (sd3_config ran 14 steps and sd3_skip_steps_config 20 until phase 19 came:
+# steps cut, never widths.)
 SD3_CLI_RUNS = [
-    ("sd3_config", {_P + "num_inference_steps": [14]}, "steps_14", 14, 8, True),
-    ("sd3_skip_steps_config", {_P + "num_inference_steps": [20], _P + "skip_steps": [[5, 10]]},
-     "steps_20_skip_5-10", 18, 2, True),
+    ("sd3_config", {_P + "num_inference_steps": [6]}, "steps_6", 6, 8, True),
+    ("sd3_skip_steps_config", {_P + "num_inference_steps": [12], _P + "skip_steps": [[5, 10]]},
+     "steps_12_skip_5-10", 10, 2, True),
     ("sd3_two_schedulers_config", {_P + "num_inference_steps_first": [20],
                                    _P + "num_inference_steps_second": [20],
                                    _P + "num_step_switch": [5]},
@@ -452,12 +478,15 @@ FRONTIER = dict(prompts=2, batch=2, sd3_batch=2, steps=4)
 # requests), serve_bench's hero mode (batch SERVE_BENCH_BATCH), and the
 # ControlNet and IP-Adapter loops (IP_TOKENS image tokens) at batch BATCH.
 SERVE_BATCH, SERVE_REQUESTS, SERVE_BENCH_BATCH, IP_TOKENS = 8, 24, 32, 4
+# cuda_ms captures a call that takes this long (ms, its second call) alone.
+LONG_CALL_MS = 2.0
 # The plain versions' fp32 intermediates a call, at most: a larger call
 # runs them over slices of the batch (the same function).
 PLAIN_BYTES = 8e9
 
 
 _T0 = time.perf_counter()
+_IMPORTED_AT = time.time()  # a rank process's start-up ends here
 
 
 def phase(name):
@@ -482,11 +511,22 @@ def cuda_ms(fn, reps=20) -> float:
     """Device milliseconds of one ``fn()``: ``reps`` calls captured in one
     CUDA graph, replayed between two CUDA events, median of 5 replays over
     ``reps``.  The graph takes the host's launch cost out, so a small
-    kernel's time is its device time; inputs stay in L2 where they fit."""
+    kernel's time is its device time; inputs stay in L2 where they fit.
+    A call that takes LONG_CALL_MS or more (a plain version at a large
+    shape) is captured alone: a graph's launch is ~10 us, under 1% of it,
+    and the script's time goes elsewhere."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capture, as graphs need
-        for _ in range(3):
+        fn()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        if a.elapsed_time(b) >= LONG_CALL_MS:
+            reps = 1
+        else:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
@@ -599,7 +639,7 @@ def family_configs(family="sd15", tiny=False):
 
 def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, tome=None,
                   family="sd15", enc_batch=None, enc_size=None, quant=None, ip=False,
-                  control=False):
+                  control=False, prefix=False):
     """{(kind, shape): launches} of one UNet call at ``unet_batch`` rows
     (DeepCache's shallow call at branch 0 with ``shallow``, else the plain
     or full call; with Token Merging at ratio ``tome``, whose merged
@@ -612,7 +652,9 @@ def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, to
     pipelines' 8x8 latents) run on the meta device with the kernel entry
     points replaced by shape recorders.  ``ip``: the UNet call with
     IP-Adapter's 4 image tokens (a decoupled cross-attention beside each
-    cross-attention); ``control``: the ControlNet's call before it."""
+    cross-attention); ``control``: the ControlNet's call before it;
+    ``prefix``: the CFG shared prefix's call (``unet_batch`` is the
+    CFG-doubled batch: the sample has half its rows)."""
     from sonicdiffusionbayeslab_torch.models import layers
     from sonicdiffusionbayeslab_torch.models.controlnet import ControlNet
     from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition
@@ -674,6 +716,9 @@ def module_census(unet_batch=None, vae_batch=None, tiny=False, shallow=False, to
                 if shallow:
                     unet(*args, torch.empty((b,) + unet.cache_shape(lat, lat, 0)), dst, *added,
                          cache_branch_id=0, **kw)
+                elif prefix:
+                    unet(args[0][:b // 2], args[1][:b // 2], args[2], None, dst,
+                         cfg_shared_prefix=True, **kw)
                 else:
                     unet(*args, None, dst, *added, **kw)
             if vae_batch or enc_batch:
@@ -854,7 +899,8 @@ def check_kernels(shapes, fp32_shapes, report):
 def timing_row(kind, shape, dtype, path, launches, gen):
     """One kernel's timing row at ``shape``: the kernel, its plain version
     and the library call (``cuda_ms``: graphs of 20 calls, or of 5 where
-    the bound passes 1 ms), beside the bound; printed."""
+    the bound passes 1 ms, or of one where a call takes LONG_CALL_MS),
+    beside the bound; printed."""
     inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
     kern, plain = run_kernel(kind, shape, inputs)
     b_ms, b_by = bound(kind, shape, dtype)
@@ -946,13 +992,30 @@ class TraceLost(AssertionError):
     """A trace that recorded none of its leading or none of its trailing pads."""
 
 
+def device_event_names(prof, device_type=None):
+    """The names of a finished torch.profiler trace's device events (or
+    its events on ``device_type``), in the order ``prof.events()`` gives
+    them (by start, the longer first), read from the raw Kineto events it
+    builds that list from: ``events()`` makes a Python object a CPU op or
+    kernel and a tree of them, seconds for a traced CLI run, and only the
+    kernels' names are needed."""
+    from torch.autograd import DeviceType
+
+    device_type = DeviceType.CUDA if device_type is None else device_type
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == device_type
+           and not getattr(e, "is_hidden_event", lambda: False)()]
+    evs.sort(key=lambda e: (e.start_ns(), -e.end_ns()))
+    return [e.name() for e in evs]
+
+
 def traced_launches(run, symbols=None):
     """``run()``'s result and the executions on the card of each kernel of
     ours (every key of SYMBOLS), by symbol, from a torch.profiler (CUPTI)
     trace of it: graph replays included, set-up excluded.  ``symbols``
-    ({key: name substring}) adds the executions of kernels whose names
-    hold each substring under each key."""
-    from torch.autograd import DeviceType
+    ({key: name substring, or a predicate of the name}) adds the
+    executions of kernels whose names hold each substring (or pass the
+    predicate) under each key."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -972,10 +1035,10 @@ def traced_launches(run, symbols=None):
         time.sleep(0.1)
         _pads()
         torch.cuda.synchronize()
-    seen = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    seen = device_event_names(prof)
     counts = {kind: sum(sym in n for n in seen) for kind, sym in SYMBOLS.items()}
     for key, sym in (symbols or {}).items():
-        counts[key] = sum(sym in n for n in seen)
+        counts[key] = sum(sym(n) if callable(sym) else sym in n for n in seen)
     is_pad = ["spin_kernel" in n for n in seen]
     lead = next((i for i, p in enumerate(is_pad) if not p), len(seen))
     trail = next((i for i, p in enumerate(reversed(is_pad)) if not p), 0)
@@ -1168,6 +1231,7 @@ def run_main_path(report, per_unet, per_vae, tiny_census, card, profile):
     report["e2e"]["unet_forward"] = eager_vs_graphed_unet(model, per_unet)
     if profile:
         report["profile"] = profile_loop(model)
+    return model
 
 
 def eager_vs_graphed_unet(model, per_unet, reps=5):
@@ -1881,7 +1945,7 @@ def run_samplers(report, card, per_vae, profile):
     report["e2e"]["sampler_pipeline"] = sampler_pipeline_runs(card, per_vae, profile)
     report["e2e"]["samplers_cli"] = run_methods(card, SAMPLER_RUNS, trace_all=True)
     # The bf16 kernel at ToMe's merged 64x64 self-attention (UNet batch 8,
-    # the CLI runs'), with its launches in one 20-step tome_config point.
+    # the CLI runs'), with its launches in one SAMPLER_STEPS-step tome_config point.
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for ratio in TOME_RATIOS:
@@ -1889,7 +1953,7 @@ def run_samplers(report, card, per_vae, profile):
         n = 4096 - int(4096 * ratio)
         shape = (2 * METHOD_BATCH, n, n, 8, 40)
         rows.append(timing_row("attention", shape, torch.bfloat16, f"tome_{ratio}",
-                               STEPS * calls[("attention", shape)], gen))
+                               SAMPLER_STEPS * calls[("attention", shape)], gen))
     report["tome_timings"] = rows
 
 
@@ -2164,7 +2228,7 @@ def run_metrics(report, card, metric_counts, tmp):
 
     repo = Path(__file__).resolve().parent
     config = str(repo / "configs" / "ddim_config.yaml")
-    nfe, label = STEPS, f"steps_{STEPS}"
+    nfe, label = METRIC_STEPS, f"steps_{METRIC_STEPS}"
     per_unet = _kinds(module_census(2 * METRIC_BATCH))
     per_vae = _kinds(module_census(vae_batch=METRIC_BATCH))
     W = GraphedCall.WARMUP
@@ -2967,7 +3031,7 @@ def run_turbo_cli(census, assets, card):
 
     repo = Path(__file__).resolve().parent
     config = str(repo / "configs" / "turbo_config.yaml")
-    nfe = int(load_config(config).experiment_params.num_inference_steps)
+    nfe = TURBO_STEPS
     per_unet, per_vae = _kinds(census["turbo_unet"]), _kinds(census["turbo_vae"])
     W = GraphedCall.WARMUP
     fp32 = sum(metric_census(TURBO_BATCH, aesthetic=False).values())
@@ -2980,7 +3044,7 @@ def run_turbo_cli(census, assets, card):
         "dataset.img_dataset": str(assets["img_dir"]), "dataset.max_count": TURBO_BATCH,
         "quality_metrics.image_reward.checkpoint": str(assets["ckpts"]["image_reward"]),
         "quality_metrics.fid.inception_checkpoint": str(assets["ckpts"]["inception"]),
-        "logger.run_id": "turbo",
+        "experiment_params.num_inference_steps": nfe, "logger.run_id": "turbo",
         "dataset.prompts": str(repo / "data" / "dataset" / "img2annotations_test.json")}
     work = Path(assets["root"]) / "turbo"
     work.mkdir()
@@ -3727,6 +3791,10 @@ def run_sd3(report, card, assets, profile):
     if joint != [1101, 2125, 3149, 4173, 4429]:
         raise AssertionError(f"joint sequence lengths {joint}")
     out = {"census": per}
+    # The rest of the phase keeps the card busy and the host mostly idle:
+    # the rank processes of phases 16-18 import now, then wait.
+    prestart_ranks([("--dp-rank", None, r) for r in range(DP_RANKS)]
+                   + [("--tp-rank", m, r) for m, n in TP_WORLD.items() for r in range(n)])
     out["checked_shapes"] = check_sd3_kernels(census, report)
     out["timings"], out["kernel_totals"] = time_sd3_kernels(census, card)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5320,6 +5388,90 @@ def _free_port():
         return s.getsockname()[1]
 
 
+# The rank processes of phases 16-18 start in phase 12 (prestart_ranks)
+# and wait for a go file: their imports, ~8 s a process on the card's
+# machine, overlap the single-process phases instead of each rank group's
+# start.  A waiting rank whose main process has gone, or that got no go
+# file in RANK_WAIT_S, exits.
+_WAITING = {}  # (flag, mode or None, rank) -> (process, its log, its go file)
+_WAIT_DIR = []
+RANK_WAIT_S = 3000
+
+
+def _rank_argv(flag, mode, rank):
+    """This script as a rank: ``flag`` --dp-rank or --tp-rank."""
+    argv = [sys.executable, str(Path(__file__).resolve()), flag, str(rank)]
+    return argv + (["--tp-mode", mode] if mode else []) + [
+        "--spawned", repr(time.time()), "--parent", str(os.getpid())]
+
+
+def _rank_env():
+    return dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+
+
+def prestart_ranks(specs):
+    """Starts a rank process for each (flag, mode, rank) of ``specs``, each
+    waiting for its go file (``start_rank``); every one still waiting when
+    this script exits is stopped."""
+    import atexit
+
+    if not _WAIT_DIR:
+        _WAIT_DIR.append(Path(tempfile.mkdtemp(prefix="sdbl_ranks_")))
+        atexit.register(_stop_waiting)
+    for flag, mode, r in specs:
+        tag = f"{flag[2:4]}_{mode or 'dp'}_{r}"
+        log, go = _WAIT_DIR[0] / f"{tag}.log", _WAIT_DIR[0] / f"{tag}.go"
+        with open(log, "w") as f:
+            p = subprocess.Popen(_rank_argv(flag, mode, r) + ["--go-file", str(go)],
+                                 env=_rank_env(), stdout=f, stderr=subprocess.STDOUT)
+        _WAITING[(flag, mode, r)] = (p, log, go)
+
+
+def _stop_waiting():
+    for p, _, _ in _WAITING.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    _WAITING.clear()
+    for d in _WAIT_DIR:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def start_rank(flag, mode, rank, addr, root, log):
+    """A rank process told to start its group's work (the group's address
+    and directory): the one ``prestart_ranks`` left waiting, its go file
+    written, else a new one logging to ``log``.  (process, its log)."""
+    go = dict(addr=addr, dir=str(root), at=time.time())
+    if (flag, mode, rank) in _WAITING:
+        p, log, path = _WAITING.pop((flag, mode, rank))
+        tmp = path.with_suffix(".tmp")
+        tmp.write_text(json.dumps(go))
+        tmp.rename(path)  # whole, or not there
+        return p, log
+    with open(log, "w") as f:
+        p = subprocess.Popen(_rank_argv(flag, mode, rank) + ["--go", json.dumps(go)],
+                             env=_rank_env(), stdout=f, stderr=subprocess.STDOUT)
+    return p, log
+
+
+def wait_for_go(path, spawned, parent):
+    """A waiting rank: imports what the ranks run, then waits for ``path``
+    and returns what it holds (exits once ``parent`` is no longer its
+    parent)."""
+    import sonicdiffusionbayeslab_torch.config  # noqa: F401
+    import sonicdiffusionbayeslab_torch.models.pipelines  # noqa: F401
+    import sonicdiffusionbayeslab_torch.parallel.distributed  # noqa: F401
+    import sonicdiffusionbayeslab_torch.parallel.mesh  # noqa: F401
+    import sonicdiffusionbayeslab_torch.training.loop  # noqa: F401
+
+    path = Path(path)
+    while not path.exists():
+        if os.getppid() != parent or time.time() - spawned > RANK_WAIT_S:
+            sys.exit(3)
+        time.sleep(0.1)
+    return json.loads(path.read_text())
+
+
 def dp_train(root, img_dir, ann, mesh_data=0):
     """configs/train_lora.yaml through ``run_training`` for DP_TRAIN_STEPS
     steps (the dataset and save_dir overridden; ``training.mesh_data``
@@ -5477,16 +5629,13 @@ def run_dp_ranks(root):
     each rank's output in ``rank<r>.log``; every rank must exit 0 within
     DP_TIMEOUT_S, and every process is stopped."""
     addr = f"localhost:{_free_port()}"
-    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
     procs, logs = [], []
     t0 = time.perf_counter()
     try:
         for r in range(DP_RANKS):
-            logs.append(open(root / f"rank{r}.log", "w"))
-            procs.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(r),
-                 "--dp-addr", addr, "--dp-dir", str(root)], env=env, stdout=logs[-1],
-                stderr=subprocess.STDOUT))
+            p, log = start_rank("--dp-rank", None, r, addr, root, root / f"rank{r}.log")
+            procs.append(p)
+            logs.append(log)
         deadline = time.monotonic() + DP_TIMEOUT_S
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -5495,11 +5644,9 @@ def run_dp_ranks(root):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        for f in logs:
-            f.close()
     wall = time.perf_counter() - t0
     for r, p in enumerate(procs):
-        text = (root / f"rank{r}.log").read_text()
+        text = logs[r].read_text()
         print(f"--- rank {r} (exit {p.returncode}), last lines:\n" + "\n".join(
             text.splitlines()[-12:]), flush=True)
         if p.returncode != 0:
@@ -6424,7 +6571,7 @@ def tp_rank_sd3(rank, mode, root):
     return {"bfloat16": rec, "kernel_shapes": rec.pop("kernel_shapes")}
 
 
-def tp_rank(rank, mode, addr, root):
+def tp_rank(rank, mode, addr, root, spawned, go_at):
     """One rank of phase 17, run as its own process (``--tp-rank``): a gloo
     group of TP_WORLD[mode] ranks on the card, the mode's runs, its record
     in ``tp_<mode>_rank<r>.json``."""
@@ -6434,6 +6581,7 @@ def tp_rank(rank, mode, addr, root):
 
     root = Path(root)
     t_start = time.perf_counter()
+    startup = dict(imports=_IMPORTED_AT - spawned, to_work=time.time() - go_at)
     distributed.initialize(coordinator=addr, num_processes=TP_WORLD[mode], process_id=rank,
                            backend="gloo", device="cuda")
     if mode.startswith("a9b"):
@@ -6444,6 +6592,7 @@ def tp_rank(rank, mode, addr, root):
         _, per_unet, per_vae = census(2 * BATCH)
         rec = tp_rank_sd15(rank, mode, root, per_unet, per_vae)
     rec["wall_s"] = time.perf_counter() - t_start
+    rec["startup_s"], rec["done_at"] = startup, time.time()
     print(f"phase 17 {mode} rank {rank}: {json.dumps(rec)}", flush=True)
     (root / f"tp_{mode}_rank{rank}.json").write_text(json.dumps(rec))
     dist.barrier()
@@ -6455,18 +6604,15 @@ def run_tp_ranks(root, modes, during=None):
     all modes at once, each rank's output in ``tp_<mode>_rank<r>.log``;
     ``during()`` runs in this process while they do; every rank must exit
     0 within TP_TIMEOUT_S, and every process is stopped."""
-    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
-    procs, logs = [], []
+    procs, logs = [], {}
     t0 = time.perf_counter()
     try:
         for mode in modes:
             addr = f"localhost:{_free_port()}"
             for r in range(TP_WORLD[mode]):
-                logs.append(open(root / f"tp_{mode}_rank{r}.log", "w"))
-                procs.append((mode, r, subprocess.Popen(
-                    [sys.executable, str(Path(__file__).resolve()), "--tp-rank", str(r),
-                     "--tp-mode", mode, "--tp-addr", addr, "--tp-dir", str(root)], env=env,
-                    stdout=logs[-1], stderr=subprocess.STDOUT)))
+                p, logs[mode, r] = start_rank("--tp-rank", mode, r, addr, root,
+                                              root / f"tp_{mode}_rank{r}.log")
+                procs.append((mode, r, p))
         deadline = time.monotonic() + TP_TIMEOUT_S
         if during is not None:
             during()
@@ -6477,17 +6623,23 @@ def run_tp_ranks(root, modes, during=None):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        for f in logs:
-            f.close()
     wall = time.perf_counter() - t0
+    exited = time.time()
     for mode, r, p in procs:
         if p.returncode != 0:
-            text = (root / f"tp_{mode}_rank{r}.log").read_text()
+            text = logs[mode, r].read_text()
             print(f"--- {mode} rank {r} (exit {p.returncode}), last lines:\n"
                   + "\n".join(text.splitlines()[-30:]), flush=True)
             raise AssertionError(f"phase 17 {mode} rank {r} exited {p.returncode}")
-    return {mode: [json.loads((root / f"tp_{mode}_rank{r}.json").read_text())
-                   for r in range(TP_WORLD[mode])] for mode in modes}, wall
+    out = {mode: [json.loads((root / f"tp_{mode}_rank{r}.json").read_text())
+                  for r in range(TP_WORLD[mode])] for mode in modes}
+    lag = exited - max(rec["done_at"] for recs in out.values() for rec in recs)
+    print(f"ranks of {', '.join(modes)}: {wall:.1f} s wall; from spawn to the end of the "
+          "imports, from the go to the work, and the work, s: " + json.dumps(
+              {m: [[round(rec["startup_s"][k], 1) for k in ("imports", "to_work")]
+                   + [round(rec["wall_s"], 1)] for rec in recs] for m, recs in out.items()})
+          + f"; the last record written {lag:.1f} s before every rank had exited", flush=True)
+    return out, wall
 
 
 def tp_compare(root, mode, ranks, card):
@@ -6766,8 +6918,11 @@ A9B_BF16_BATCH, A9B_LOOP_STEPS, A9B_SD3_STEPS = 2, 2, 2
 # blocks: depth cut, never width; every block type splits alike).
 A9B_SD3_DEPTH = 8
 # The int8 and ToMe SD-1.5 runs' steps (the phase cuts steps, never widths:
-# a split rank's eager step crosses the host ~140 times).
-A9B_STEPS = 10
+# a split rank's eager step crosses the host ~140 times); the t5_bench
+# twin's steps (t5_bench's default is 20).  (A9B_STEPS was 10 and the twin
+# ran 20 steps until the script first passed its time limit on a slow
+# host: steps cut, never widths.)
+A9B_STEPS, A9B_T5_BENCH_STEPS = 4, 8
 # Against one process: an fp32 gradient's relative L2 a tensor (of its own
 # norm, or of 1% of the case's largest where a tensor's own gradient is
 # noise about zero: a bias before a GroupNorm of one channel a group), the
@@ -7270,7 +7425,7 @@ def a9b_t5_bench(root, out):
 
     a9b_tokenizer(root, out)
     for mode in t5_bench.MODES:
-        rec = t5_bench.run_mode(mode)
+        rec = t5_bench.run_mode(mode, steps=A9B_T5_BENCH_STEPS)
         print(json.dumps(rec), flush=True)
         if not rec["fits"]:
             raise AssertionError(f"phase 18: t5_bench {mode} did not fit: {rec['error']}")
@@ -7475,29 +7630,308 @@ def phase18_launches(out, kind):
             "sd3_t5_snapshot": out["sd3_t5_snapshot"]["launches"].get(kind, 0)}
 
 
+# ------------------------------------------------- phase 19: prefix, fused
+# Phase 19's gates: the prefix's and the fused UNet's bf16 images against
+# the plain run's (mean |diff|, the split runs' bf16 gate of phase 17), the
+# prefix's fp32 forward (TF32 off) against the plain one (relative L2).
+P19_IMAGE_MEAN, P19_FP32_REL = 5e-2, 1e-5
+
+
+def park(model, device):
+    """The pipeline's engine modules moved to ``device`` (phase 5's weights
+    wait in host memory through phases 6-18), its graphs dropped."""
+    eng = model.engine
+    eng.weights_changed()
+    for m in eng.modules():
+        m.to(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def is_gemm(name):
+    """A cuBLAS or cuBLASLt GEMM kernel (trace_analysis' matmul group), not
+    a split-K GEMM's reduction kernel: one a matmul."""
+    from sonicdiffusionbayeslab_torch.utils.trace_analysis import kernel_group
+
+    return kernel_group(name) == "matmuls (cuBLAS)" and "reduce" not in name.lower()
+
+
+def fused_unet(unet):
+    """A fused copy of ``unet`` (``to_qkv``, ``to_kv``) on the card, from its
+    weights through ``weights.fuse_projections``."""
+    from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition
+    from sonicdiffusionbayeslab_torch.models.weights import fuse_projections
+
+    with torch.device("meta"):
+        fused = UNet2DCondition(unet.config, fused_qkv=True)
+    fused = fused.to(unet.dtype).to_empty(device="cuda").requires_grad_(False).eval()
+    fused = fused.to(memory_format=torch.channels_last)
+    fused.load_state_dict(fuse_projections(unet.state_dict(), fused), strict=True)
+    return fused
+
+
+def fused_view_checks(census, report):
+    """The bf16 attention kernel on q, k and v as the strided views a fused
+    projection gives it (``to_qkv``'s [B, N, 3 H D], or ``to_q`` and
+    ``to_kv``'s [B, M, 2 H D]) at every attention shape of the main path,
+    against its plain version on the same views."""
+    from sonicdiffusionbayeslab_torch.ops.attention import plain_attention
+    from sonicdiffusionbayeslab_torch.ops.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    errs = {}
+    for kind, shape in sorted(k for k in census if k[0] == "attention"):
+        B, N, M, H, D = shape
+        mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+        if N == M:  # a self-attention: one [B, N, 3 H D] output, its q section scaled in place
+            qkv = mk(B, N, 3 * H * D)
+            qkv[..., :H * D] *= 3
+            q, k, v = (t.view(B, N, H, D) for t in qkv.split(H * D, dim=-1))
+        else:  # a cross: to_q's own output, to_kv's [B, M, 2 H D]
+            q = mk(B, N, H, D) * 3
+            k, v = (t.view(B, M, H, D) for t in mk(B, M, 2 * H * D).split(H * D, dim=-1))
+        row = 3 * H * D if N == M else 2 * H * D
+        if (q.stride(1) != (row if N == M else H * D) or k.stride(1) != row
+                or v.stride(1) != row):
+            raise AssertionError(f"attention {shape}: q/k/v strides {q.stride()}, {k.stride()}, "
+                                 f"{v.stride()} are not a fused projection's views")
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        errs[str(shape)] = compare("attention", torch.bfloat16, got, plain_attention(q, k, v),
+                                   f"attention {shape} on fused views")
+        report["phase19_errs"]["attention"].append(errs[str(shape)])
+    print(f"phase 19 (b) bf16 attention on fused strided q/k/v views: max abs err {errs}")
+    return errs
+
+
+def run_prefix_fused(report, card, model, per_unet, per_vae, main_counts):
+    """Phase 19 on the main path's pipeline (phase 5's weights): (a) the CFG
+    shared prefix (``SDBL_CFG_PREFIX=1``, the sanitizer on), graphed: its
+    census on the meta device, its kernels at the shapes it adds, the
+    wrappers' launches over the capturing run and a trace's over a warm
+    one, the images against the plain run's, the fp32 forward against the
+    plain one, the loops in turns; (b) a fused copy of the UNet: its fp32
+    forward against the separate one's, a 20-step run, the attention kernel
+    on fused strided views, the cuBLAS GEMMs of one eager forward each way; (c) the sanitizer on the tiny fp32 NaN plan."""
+    import copy
+
+    import numpy as np
+
+    from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+    from sonicdiffusionbayeslab_torch.schedulers import DPMSolverScheduler
+    from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedCall
+
+    t_phase = time.perf_counter()
+    out = {}
+    eng = model.engine
+    kw = dict(num_inference_steps=STEPS, guidance_scale=GUIDANCE, seed=29)
+    # (a) The prefix's census: the same launches a forward, some at B rows.
+    pcensus = module_census(2 * BATCH, prefix=True)
+    per_prefix = _kinds(pcensus)
+    new_shapes = sorted(set(pcensus) - set(main_counts))
+    b_rows = {str(k): n for k, n in pcensus.items() if k[1][0] == BATCH}
+    print(f"phase 19 (a) prefix census a UNet forward: {dict(per_prefix)}, at {BATCH} rows "
+          f"{b_rows}; shapes no earlier phase runs: {new_shapes}")
+    if {k: per_prefix[k] for k in MAIN} != {k: per_unet[k] for k in MAIN} or not b_rows:
+        raise AssertionError(f"the prefix's census {dict(per_prefix)} is not the plain "
+                             f"forward's {dict(per_unet)} with some calls at {BATCH} rows")
+    errs = {}
+    gen = torch.Generator(device="cuda").manual_seed(190)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for dtype in (torch.bfloat16, torch.float32):  # fp32: the forward below launches them
+        for kind, shape in new_shapes:
+            inputs = (attn_inputs if kind == "attention" else gn_inputs)(shape, dtype, gen)
+            kern, plain = run_kernel(kind, shape, inputs)
+            got = kern()
+            torch.cuda.synchronize()
+            what = f"{kind} {str(dtype)[6:]} {shape}"
+            errs[what] = compare(kind, dtype, got, plain(), f"{what} (prefix)")
+            report["phase19_errs"][report_key(kind, dtype)].append(errs[what])
+    torch.backends.cudnn.allow_tf32 = True  # bf16 runs: TF32 is not used anyway
+    print(f"phase 19 (a) kernels at the prefix's shapes against their plain versions: {errs}")
+    timings = [timing_row(kind, shape, torch.bfloat16, "prefix", STEPS * pcensus[(kind, shape)],
+                          gen) for kind, shape in new_shapes]
+    os.environ["SDBL_CHECK_NANS"] = "1"  # the sanitizer on every run of (a) and (b)
+    try:
+        wrapper_counts(reset=True)
+        model(PROMPTS, **kw)  # the plain variant's capture (park dropped the graphs)
+        plain_cap = bf16_only(wrapper_counts(), "phase 19 plain capture")
+        os.environ["SDBL_CFG_PREFIX"] = "1"
+        wrapper_counts(reset=True)
+        model(PROMPTS, **kw)
+        counts = bf16_only(wrapper_counts(), "phase 19 prefix capture")
+        want = {k: (GraphedCall.WARMUP + 1) * per_prefix[k] + per_vae[k] for k in MAIN}
+        if counts != want or plain_cap != want:
+            raise AssertionError(f"phase 19 capturing runs' wrappers: prefix {counts}, plain "
+                                 f"{plain_cap}, expected {want}")
+        times = {"plain": [], "prefix": []}
+        images = {}
+        for name in ("plain", "prefix", "prefix", "plain"):  # in turns
+            if name == "plain":
+                os.environ.pop("SDBL_CFG_PREFIX", None)
+            else:
+                os.environ["SDBL_CFG_PREFIX"] = "1"
+            imgs, t_loop, _ = model(PROMPTS, **kw)
+            check_images(imgs)
+            times[name].append(t_loop)
+            images[name] = imgs
+        os.environ["SDBL_CFG_PREFIX"] = "1"
+        wrapper_counts(reset=True)
+        want = {k: STEPS * per_prefix[k] + per_vae[k] for k in MAIN}
+        (imgs_traced, _, _), traced, _ = traced_exact(
+            lambda: model(PROMPTS, **kw), want, "the prefix run",
+            same=lambda o: np.array_equal(o[0], images["prefix"]), reset=retrace_reset())
+        traced = bf16_only(traced, "the prefix run (trace)")
+        if traced != want or not np.array_equal(imgs_traced, images["prefix"]):
+            raise AssertionError(f"the prefix run: traced {traced}, expected {want}; or other "
+                                 "images on a second identical run")
+        captures = dict(eng.graphed_unet.captures)
+    finally:
+        os.environ.pop("SDBL_CFG_PREFIX", None)
+    mean = float(np.abs(images["prefix"] - images["plain"]).mean())
+    # The fp32 forward, TF32 off: the prefix against the plain call.
+    torch.backends.cudnn.allow_tf32 = False
+    u32 = copy.deepcopy(eng.unet).float()
+    g = torch.Generator(device="cuda").manual_seed(191)
+    lat = torch.randn(BATCH, SIZE // 8, SIZE // 8, 4, generator=g, device="cuda")
+    ctx = torch.randn(2 * BATCH, 77, 768, generator=g, device="cuda")
+    tb = torch.full((BATCH,), 601.0, device="cuda")
+    with torch.inference_mode():
+        fp_prefix = u32(lat, tb, ctx, cfg_shared_prefix=True)
+        fp_plain = u32(torch.cat([lat, lat]), torch.cat([tb, tb]), ctx)
+    rel = rel_l2(fp_prefix, fp_plain)
+    del fp_prefix
+    torch.backends.cudnn.allow_tf32 = True
+    out["prefix"] = dict(
+        census=dict(per_prefix), b_rows=b_rows, kernel_errs=errs, timings=timings,
+        capture_wrappers=counts,
+        traced=traced, images_mean_abs_diff=mean, fp32_rel_l2=rel, loop_s=times, captures={
+            str(k): v for k, v in captures.items()})
+    print(f"phase 19 (a) prefix: capturing run's wrappers {counts}, traced {traced}; images {mean:.3e} mean |diff| from plain (gate {P19_IMAGE_MEAN}); "
+          f"fp32 forward {rel:.3e} relative L2 (gate {P19_FP32_REL}); loops in turns {times} s; "
+          f"graph captures {captures}; {card}", flush=True)
+    if not mean <= P19_IMAGE_MEAN or not rel <= P19_FP32_REL:
+        raise AssertionError("the prefix changed the images or the fp32 forward")
+
+    # (b) The fused copy of the main path's UNet.  First its fp32 forward,
+    # TF32 off, against the separate one's at (a)'s inputs.
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = fused_unet(u32)
+    with torch.inference_mode():
+        frel = rel_l2(f32(torch.cat([lat, lat]), torch.cat([tb, tb]), ctx), fp_plain)
+    del u32, f32, fp_plain
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"phase 19 (b) fused UNet's fp32 forward: {frel:.3e} relative L2 from the separate "
+          f"one's (gate {P19_FP32_REL})", flush=True)
+    if not frel <= P19_FP32_REL:
+        raise AssertionError("the fused UNet changed the fp32 forward")
+    separate = eng.unet
+    fused = fused_unet(separate)
+    removed = sum(2 if hasattr(m, "to_qkv") else 1 for m in fused.modules()
+                  if getattr(m, "fused_qkv", False) and hasattr(m, "to_out"))
+    emb = eng.encode_prompts(model.tokenizer(PROMPTS))
+    embeds = torch.cat([eng.encode_prompts(model.tokenizer([""] * BATCH)), emb])
+    lat = torch.randn(2 * BATCH, SIZE // 8, SIZE // 8, 4, generator=g, device="cuda").to(eng.dtype)
+    tb = torch.full((2 * BATCH,), 499.0, device="cuda")
+    gemms = {}
+    with torch.inference_mode():
+        for name, unet in (("separate", separate), ("fused", fused)):
+            unet(lat, tb, embeds)
+            wrapper_counts(reset=True)
+            _, c, _ = traced_exact(lambda: unet(lat, tb, embeds), {k: per_unet[k] for k in MAIN},
+                                   f"an eager {name} UNet forward", reset=retrace_reset(),
+                                   symbols={"gemm": is_gemm})
+            gemms[name] = c["gemm"]
+    print(f"phase 19 (b) cuBLAS GEMM kernels of one eager UNet forward at batch {2 * BATCH}: "
+          f"{gemms}; the fusion removes {removed} projections", flush=True)
+    if gemms["separate"] - gemms["fused"] != removed:
+        raise AssertionError(f"the fused forward's GEMMs {gemms} do not drop by {removed}")
+    eng.unet = fused
+    eng.weights_changed()
+    try:
+        wrapper_counts(reset=True)
+        model(PROMPTS, **kw)
+        fcounts = bf16_only(wrapper_counts(), "phase 19 fused capture")
+        want = {k: (GraphedCall.WARMUP + 1) * per_unet[k] + per_vae[k] for k in MAIN}
+        if fcounts != want:
+            raise AssertionError(f"the fused run's wrappers {fcounts}, expected {want}")
+        fimgs, f_loop, _ = model(PROMPTS, **kw)
+        check_images(fimgs)
+    finally:
+        eng.unet = separate
+        eng.weights_changed()
+    fmean = float(np.abs(fimgs - images["plain"]).mean())
+    view_errs = fused_view_checks(main_counts, report)
+    out["fused"] = dict(capture_wrappers=fcounts, gemms_a_forward=gemms, removed=removed,
+                        fp32_rel_l2=frel, images_mean_abs_diff=fmean, loop_s=f_loop, view_errs=view_errs)
+    print(f"phase 19 (b) fused UNet: capturing run's wrappers {fcounts}; images {fmean:.3e} "
+          f"mean |diff| from plain (gate {P19_IMAGE_MEAN}); loop {f_loop:.4f} s; {card}",
+          flush=True)
+    if not fmean <= P19_IMAGE_MEAN:
+        raise AssertionError("the fused UNet changed the images")
+    del fused
+
+    # (c) The sanitizer on the NaN plan (ROADMAP.md section C), tiny fp32.
+    tiny_pipe = StableDiffusionModel(tiny=True, dtype="float32", seed=0, device="cuda")
+    tiny, ids = tiny_pipe.engine, tiny_pipe.tokenizer(PROMPTS)
+    nan_plan = DPMSolverScheduler(algorithm_type="dpmsolver",
+                                  final_sigmas_type="zero").build_plan(STEPS)
+    try:
+        tiny.sample(nan_plan, tiny.encode_prompts(ids), tiny.encode_prompts(ids),
+                    latent_hw=(8, 8), check_nans=True)
+    except FloatingPointError as e:
+        out["sanitizer"] = str(e)
+    else:
+        raise AssertionError("the sanitizer let the NaN plan's latents through")
+    finally:
+        os.environ.pop("SDBL_CHECK_NANS", None)
+    print(f"phase 19 (c) sanitizer: the finite runs passed; the NaN plan raised "
+          f"FloatingPointError: {out['sanitizer']}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 19 took {out['wall_s']:.1f} s", flush=True)
+    report["e2e"]["phase19"] = out
+
+
+def phase19_launches(out, kind):
+    """A kernel's launches in phase 19: the prefix's traced run and its
+    capturing run's wrappers, the fused UNet's capturing run's wrappers."""
+    if kind not in MAIN:
+        return {}
+    return {"prefix_traced_run": out["prefix"]["traced"][kind],
+            "prefix_capture_wrappers": out["prefix"]["capture_wrappers"][kind],
+            "fused_capture_wrappers": out["fused"]["capture_wrappers"][kind]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile the denoising loop with torch.profiler")
     ap.add_argument("--json", default=None, help="write the full report to this path")
-    # Phase 16's rank processes: this script started by run_dp_ranks.
+    ap.add_argument("--phase19-only", action="store_true",
+                    help="phases 1, 2 and 19 alone, on a model of its own (a rehearsal; prints "
+                         "no ok line)")
+    # The rank processes of phases 16-18: this script started by start_rank
+    # (phase 16's run_dp_ranks, run_tp_ranks), or by prestart_ranks to wait
+    # for its go file; the go: the group's address and directory.
     ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--dp-addr", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
-    # Phase 17's rank processes: this script started by run_tp_ranks.
     ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-mode", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--tp-addr", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--spawned", type=float, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parent", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--go", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--go-file", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.dp_rank is not None or args.tp_rank is not None:
         if not torch.cuda.is_available():
             print("no CUDA device: this script needs a GPU", file=sys.stderr)
             sys.exit(1)
+        go = (wait_for_go(args.go_file, args.spawned, args.parent) if args.go_file
+              else json.loads(args.go))
         if args.dp_rank is not None:
-            dp_rank(args.dp_rank, args.dp_addr, args.dp_dir)
+            dp_rank(args.dp_rank, go["addr"], go["dir"])
         else:
-            tp_rank(args.tp_rank, args.tp_mode, args.tp_addr, args.tp_dir)
+            tp_rank(args.tp_rank, args.tp_mode, go["addr"], go["dir"], args.spawned, go["at"])
         return
 
     phase("1. environment")
@@ -7513,12 +7947,20 @@ def main() -> None:
     print(card)
 
     phase("2. kernel build")
+    from concurrent.futures import ThreadPoolExecutor
+
     from sonicdiffusionbayeslab_torch.ops import _build
 
-    t0 = time.perf_counter()
-    _build.kernels()
-    print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    report_sass = sass_counts(_build)
+    def build():
+        t0 = time.perf_counter()
+        _build.kernels()
+        print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+        return sass_counts(_build)
+
+    # nvcc and cuobjdump run while this thread takes the census on the meta
+    # device, which needs no kernel.
+    builder = ThreadPoolExecutor(1)
+    built = builder.submit(build)
 
     # The whole-batch run's UNet sees the CFG-doubled batch; the
     # unet_microbatch=2 run sees chunks of BATCH rows.
@@ -7576,6 +8018,8 @@ def main() -> None:
     if sum(metric_counts.values()) != 12 + 2 * (24 + 12) + 24:
         raise AssertionError(f"the metric towers' census gives {dict(metric_counts)}, not 108 "
                              "kernel launches")
+    report_sass = built.result()
+    builder.shutdown()
     print_gn_plans(shapes)
     report = {k: {"launches": None, "wrapper_launches": None, "launches_from": None,
                   "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
@@ -7589,7 +8033,17 @@ def main() -> None:
     report["phase14_grad_errs"] = collections.defaultdict(list)
     report["phase15_errs"] = collections.defaultdict(list)
     report["phase15_grad_errs"] = collections.defaultdict(list)
+    report["phase19_errs"] = collections.defaultdict(list)
     report["e2e"] = {}
+    if args.phase19_only:
+        from sonicdiffusionbayeslab_torch.models.pipelines import StableDiffusionModel
+
+        phase("19 alone")
+        run_prefix_fused(report, card, StableDiffusionModel(image_size=SIZE, dtype="bfloat16",
+                                                            seed=0, device="cuda"),
+                         per_unet, per_vae, run_counts)
+        print(json.dumps({k: phase19_launches(report["e2e"]["phase19"], k) for k in MAIN}))
+        return
 
     phase("3. kernels against their plain versions, at the shapes of the main path and the CLI "
           "runs (and the tiny fp32 pipeline's and the CLIP towers')")
@@ -7607,7 +8061,8 @@ def main() -> None:
 
     phase(f"5. main path: SD-1.5 {SIZE}x{SIZE}, {STEPS}-step DPM-Solver++ (order 2), "
           f"CFG {GUIDANCE}, batch {BATCH}")
-    run_main_path(report, per_unet, per_vae, tiny_census, card, args.profile)
+    main_model = run_main_path(report, per_unet, per_vae, tiny_census, card, args.profile)
+    park(main_model, "cpu")  # its weights wait in host memory for phase 19
 
     phase(f"6. experiment CLI: configs/smoke.yaml at SD-1.5 {SIZE}x{SIZE}, {STEPS} steps, "
           f"batch {CLI_BATCH}, CLIP score on ViT-B/16")
@@ -7682,8 +8137,14 @@ def main() -> None:
           f"{SIZE}x{SIZE}; SD3 with T5 through the tokenizer.json)")
     run_a9b(report, card)
 
-    phase("19. kernels")
-    print(f"phases 1-18 took {time.perf_counter() - _T0:.1f} s; {card}")
+    phase(f"19. the CFG shared prefix (graphed), a fused-q/k/v copy of the main path's UNet and "
+          f"the NaN sanitizer, on phase 5's SD-1.5 weights at {SIZE}x{SIZE}, batch {BATCH}")
+    park(main_model, "cuda")
+    run_prefix_fused(report, card, main_model, per_unet, per_vae, run_counts)
+    del main_model
+
+    phase("20. kernels")
+    print(f"phases 1-19 took {time.perf_counter() - _T0:.1f} s; {card}")
     fam = report["e2e"]["families"]
     kernels = []
     for kind, meta in KERNELS.items():
@@ -7733,6 +8194,8 @@ def main() -> None:
             "phase18_max_abs_err": {k: v for k, v in
                                     report["e2e"]["a9b"]["kernels"]["max_abs_err"].items()
                                     if k.startswith(kind)},
+            "phase19_launches": phase19_launches(report["e2e"]["phase19"], kind),
+            "phase19_max_abs_err": max(report["phase19_errs"][kind], default=None),
             **({"phase6_launches": r["phase6_launches"]} if "phase6_launches" in r else {}),
             "max_abs_err": max(report["errs"][kind]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -33,6 +33,7 @@ import torch
 from sonicdiffusionbayeslab_torch.metrics.frechet import StreamingMoments, frechet_distance
 from sonicdiffusionbayeslab_torch.parallel.distributed import all_sum_array, all_sum_scalar
 from sonicdiffusionbayeslab_torch.registry import metrics_registry
+from sonicdiffusionbayeslab_torch.utils import env
 from sonicdiffusionbayeslab_torch.utils.device import full_fp32
 
 _log = logging.getLogger(__name__)
@@ -194,9 +195,9 @@ class RewardModel(Metric):
     s_gen >= s_real, and ``compute`` is the mean.
 
     The scorer is ImageReward-v1.0 (BLIP) whenever a checkpoint is found:
-    ``checkpoint=``, else ``data/models/ImageReward.pt`` under the working
-    directory (the port reads no environment variable, so the JAX
-    package's ``SDBL_IMAGE_REWARD_CKPT`` is not consulted).  ``tiny`` with
+    ``checkpoint=``, else ``SDBL_IMAGE_REWARD_CKPT``, else
+    ``data/models/ImageReward.pt`` under the working directory, as in the
+    JAX package.  ``tiny`` with
     a checkpoint loads a tiny BLIP.  Without one the metric falls back to
     CLIP text-image similarity, and warns unless ``tiny``: win rates under
     the fallback are not comparable to the reference's.
@@ -213,8 +214,9 @@ class RewardModel(Metric):
     ):
         self.model_name = model_name
         if scorer is None:
-            if checkpoint is None and not tiny and Path(DEFAULT_IMAGE_REWARD).exists():
-                checkpoint = DEFAULT_IMAGE_REWARD
+            if checkpoint is None and not tiny:
+                default = DEFAULT_IMAGE_REWARD if Path(DEFAULT_IMAGE_REWARD).exists() else None
+                checkpoint = env.image_reward_checkpoint() or default
             if checkpoint is not None:
                 from sonicdiffusionbayeslab_torch.metrics.image_reward_model import (
                     ImageRewardScorer,
@@ -225,7 +227,8 @@ class RewardModel(Metric):
             else:
                 if not tiny:
                     _log.warning(
-                        "image_reward: no ImageReward checkpoint found (checkpoint= or %s) - "
+                        "image_reward: no ImageReward checkpoint found (checkpoint=, "
+                        "$SDBL_IMAGE_REWARD_CKPT or %s) - "
                         "falling back to CLIP text-image similarity. Win rates are NOT "
                         "comparable to the reference's BLIP-based ImageReward-v1.0.",
                         DEFAULT_IMAGE_REWARD)

@@ -66,15 +66,17 @@ class ControlNet(nn.Module):
     :meth:`zero_heads` zeroes what diffusers zero-initialises.  Placed on
     a mesh it splits as the UNet's encoder does; the 1x1 zero convs run
     whole on the whole (summed) skip states, and under ``seq`` the control
-    image holds the rank's rows, so the residuals are the rank's rows."""
+    image holds the rank's rows, so the residuals are the rank's rows.
+    ``fused_qkv``: the encoder copy's fused q/k/v projections."""
 
     par = None
 
-    def __init__(self, config: UNetConfig):
+    def __init__(self, config: UNetConfig, fused_qkv: bool = False):
         super().__init__()
         # No guidance embedding: the JAX package's ControlNet has no cond_proj.
         cfg = self.config = dataclasses.replace(config, time_cond_proj_dim=None)
-        skip_ch = build_encoder(self, cfg)
+        self.fused_qkv = bool(fused_qkv)
+        skip_ch = build_encoder(self, cfg, self.fused_qkv)
         self.controlnet_cond_embedding = ConditioningEmbedding(cfg.block_out_channels[0])
         self.controlnet_down_blocks = nn.ModuleList([nn.Conv2d(c, c, 1) for c in skip_ch])
         mid = cfg.block_out_channels[-1]

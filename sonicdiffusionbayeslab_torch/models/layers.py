@@ -344,6 +344,13 @@ class Attention(_Quantizable):
     """Multi-head attention over [B, N, C] with an optional cross context;
     bias-free q/k/v projections, biased output projection.
 
+    ``fused_qkv`` (the JAX package's ``SDBL_FUSED_QKV=1`` tree, diffusers'
+    ``fuse_qkv_projections`` names): a self-attention (no ``context_dim``)
+    projects through one ``to_qkv`` [3 * inner, query_dim], a
+    cross-attention through ``to_q`` and one ``to_kv`` [2 * inner,
+    context_dim]; q, k and v are views of the one output, which the
+    attention kernels read through their strides without a copy.
+
     IP-Adapter (``add_ip``): the decoupled ``to_k_ip``/``to_v_ip``
     projections of the image-prompt tokens; given ``ip_context`` [B, P, Dc]
     a second attention over them shares the queries, and its output times
@@ -351,43 +358,68 @@ class Attention(_Quantizable):
     is added before ``to_out``.
 
     Under ``model`` (``tp_shard_``, where the axis divides the heads) the
-    rank keeps ``num_heads / n_model`` heads of every q/k/v projection and
-    ``to_out`` sums its partials across the axis.  Under ``seq`` a
-    self-attention runs the rank's queries against K and V gathered along
-    the axis in rank order (the image's row order); a cross-attention's
-    context is whole on every rank."""
+    rank keeps ``num_heads / n_model`` heads of every q/k/v projection (of
+    each of q, k and v in a fused one) and ``to_out`` sums its partials
+    across the axis.  Under ``seq`` a self-attention runs the rank's
+    queries against K and V gathered along the axis in rank order (the
+    image's row order); a cross-attention's context is whole on every
+    rank."""
 
     split = False
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, fused_qkv: bool = False):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.fused_qkv = bool(fused_qkv)
+        if not self.fused_qkv:
+            self.to_q = nn.Linear(query_dim, inner, bias=False)
+            self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
+            self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
+        elif context_dim is None:
+            self.to_qkv = nn.Linear(query_dim, 3 * inner, bias=False)
+        else:
+            self.to_q = nn.Linear(query_dim, inner, bias=False)
+            self.to_kv = nn.Linear(context_dim, 2 * inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
     def add_ip(self) -> None:
         """Add the IP-Adapter projections (from the cross context's width),
         in the module's dtype and device; their weights are to be loaded."""
-        w = self.to_k.weight
+        w = (self.to_kv if self.fused_qkv else self.to_k).weight
+        out = w.shape[0] // (2 if self.fused_qkv else 1)
         for name in ("to_k_ip", "to_v_ip"):
             if not hasattr(self, name):
-                setattr(self, name, nn.Linear(w.shape[1], w.shape[0], bias=False,
-                                              device=w.device, dtype=w.dtype).requires_grad_(False))
+                setattr(self, name, nn.Linear(w.shape[1], out, bias=False, device=w.device,
+                                              dtype=w.dtype).requires_grad_(False))
 
     def tp_shard_(self, index: int, count: int) -> dict:
         if self.num_heads % count:
             return {}  # e.g. SD-2.x's 5-head level at n_model 2: whole weights, unsplit
-        names = ["to_q", "to_k", "to_v"] + [n for n in ("to_k_ip", "to_v_ip") if hasattr(self, n)]
-        cuts = {f"{n}.weight": keep_slice_(getattr(self, n), "weight", 0, index, count)
-                for n in names}
+        # (projection, sections stacked in its rows): a fused one is cut a
+        # section at a time, so the rank keeps its heads of q, of k and of v.
+        sections = {"to_qkv": 3, "to_kv": 2}
+        names = [(n, sections.get(n, 1)) for n in ("to_q", "to_k", "to_v", "to_qkv", "to_kv",
+                                                   "to_k_ip", "to_v_ip") if hasattr(self, n)]
+        cuts = {f"{n}.weight": keep_slice_(getattr(self, n), "weight", 0, index, count, halves)
+                for n, halves in names}
         cuts["to_out.0.weight"] = keep_slice_(self.to_out[0], "weight", 1, index, count)
         self.num_heads //= count
         self.split = True
         return cuts
+
+    def _qkv(self, x: torch.Tensor, context: Optional[torch.Tensor]):
+        """q [B, N, I], k and v [B, M, I]: views of one output where the
+        projections are fused."""
+        inner = self.num_heads * self.head_dim
+        if not self.fused_qkv:
+            ctx = x if context is None else context
+            return (self._proj(self.to_q, x), self._proj(self.to_k, ctx),
+                    self._proj(self.to_v, ctx))
+        if context is None:
+            return self._proj(self.to_qkv, x).split(inner, dim=-1)
+        return (self._proj(self.to_q, x), *self._proj(self.to_kv, context).split(inner, dim=-1))
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None, ip_context: Optional[torch.Tensor] = None,
@@ -399,10 +431,9 @@ class Attention(_Quantizable):
             x, context, ip_context = (None if t is None else
                                       distributed.model_entry(t, par.model_group)
                                       for t in (x, context, ip_context))
-        ctx = x if context is None else context
         B, N, _ = x.shape
-        q = self._proj(self.to_q, x).view(B, N, self.num_heads, self.head_dim)
-        k, v = self._proj(self.to_k, ctx), self._proj(self.to_v, ctx)
+        q, k, v = self._qkv(x, context)
+        q = q.view(B, N, self.num_heads, self.head_dim)
         if context is None and gather and par is not None and par.n_seq > 1:
             k, v = distributed.all_gather_seq(torch.cat([k, v], dim=-1), 1,
                                               par.seq_group).chunk(2, dim=-1)
@@ -494,27 +525,38 @@ class TransformerBlock(nn.Module):
     blocks when ``tome.share``.  Under ``seq`` the block's tokens are
     gathered along the axis first (``tome_hw`` is the whole map's): every
     rank matches, merges and attends over the whole map, as one process
-    does, and keeps its own rows of the unmerged output."""
+    does, and keeps its own rows of the unmerged output.
 
-    def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int):
+    ``cfg_tile`` (the CFG shared prefix): ``x`` is the single latent copy
+    [B, N, C] and ``context`` the CFG-doubled [2B, T, C]; the block runs
+    its self-attention at B and tiles x to 2B right before the
+    cross-attention, where the two halves first differ.  A matching built
+    at B serves the 2B blocks after it (``ops.tome.shared_matching``).
+    ``fused_qkv``: both attentions' fused projections."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int,
+                 fused_qkv: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, num_heads, head_dim)
+        self.attn1 = Attention(dim, num_heads, head_dim, fused_qkv=fused_qkv)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = Attention(dim, num_heads, head_dim, context_dim=context_dim)
+        self.attn2 = Attention(dim, num_heads, head_dim, context_dim=context_dim,
+                               fused_qkv=fused_qkv)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = GEGLUFeedForward(dim)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, tome=None, tome_hw=None,
                 tome_dst: Optional[torch.Tensor] = None,
                 tome_cache: Optional[dict] = None, ip_context: Optional[torch.Tensor] = None,
-                ip_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                ip_scale: Optional[torch.Tensor] = None, cfg_tile: bool = False) -> torch.Tensor:
         if tome is None:
             x = x + self.attn1(self.norm1(x))
         else:
             x = x + tome_attend(lambda t: (self.attn1(t, gather=False), None), x, self.norm1,
                                 tome, tome_hw, tome_dst, tome_cache,
                                 getattr(self, "par", None))[0]
+        if cfg_tile:
+            x = torch.cat([x, x])
         x = x + self.attn2(self.norm2(x), context=context, ip_context=ip_context,
                            ip_scale=ip_scale)
         return x + self.ff(self.norm3(x))
@@ -528,23 +570,28 @@ class SpatialTransformer(_Quantizable):
     ``tome``/``tome_dst``/``tome_cache``: Token Merging in each block
     (``TransformerBlock``); ``tome_dst`` holds one row of destinations per
     block.  A map that the cells do not tile (H % sy or W % sx) runs
-    without it."""
+    without it.  ``cfg_tile`` (the CFG shared prefix's tile point): ``x``
+    is the single latent copy [B, ...] and ``context`` [2B, ...]; block 0
+    tiles to 2B before its cross-attention, and so does the residual
+    (``TransformerBlock``).  ``fused_qkv``: the blocks' fused q/k/v
+    projections."""
 
     def __init__(self, channels: int, num_heads: int, head_dim: int, context_dim: int,
-                 depth: int = 1, linear: bool = False):
+                 depth: int = 1, linear: bool = False, fused_qkv: bool = False):
         super().__init__()
         proj = (lambda: nn.Linear(channels, channels)) if linear else (
             lambda: nn.Conv2d(channels, channels, 1))
         self.norm = GroupNorm(channels, eps=1e-6)  # diffusers Transformer2DModel eps
         self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList(
-            [TransformerBlock(channels, num_heads, head_dim, context_dim) for _ in range(depth)])
+            [TransformerBlock(channels, num_heads, head_dim, context_dim, fused_qkv)
+             for _ in range(depth)])
         self.proj_out = proj()
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, tome=None,
                 tome_dst: Optional[torch.Tensor] = None,
                 tome_cache: Optional[dict] = None, ip_context: Optional[torch.Tensor] = None,
-                ip_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                ip_scale: Optional[torch.Tensor] = None, cfg_tile: bool = False) -> torch.Tensor:
         B, H, W, C = x.shape
         H_all = H * (1 if self.par is None else self.par.n_seq)  # ToMe's map: the whole height
         if tome is not None and (H_all % tome.sy or W % tome.sx):
@@ -553,13 +600,16 @@ class SpatialTransformer(_Quantizable):
         h = self._proj(self.proj_in, h)
         ip = dict(ip_context=ip_context, ip_scale=ip_scale)
         for i, block in enumerate(self.transformer_blocks):
+            tile = cfg_tile and i == 0
             if tome is None:
-                h = block(h, context, **ip)
+                h = block(h, context, **ip, cfg_tile=tile)
             else:
                 dst = None if tome_dst is None else tome_dst[i, :tome.n_dst(H_all, W)]
-                h = block(h, context, tome, (H_all, W), dst, tome_cache, **ip)
+                h = block(h, context, tome, (H_all, W), dst, tome_cache, **ip, cfg_tile=tile)
+        if cfg_tile:
+            x = torch.cat([x, x])
         h = self._proj(self.proj_out, h)
-        return h.reshape(B, H, W, C) + x
+        return h.reshape(x.shape) + x
 
 
 class Level(nn.Module):
@@ -616,10 +666,12 @@ class Upsample(_Quantizable):
 
 class AttnBlock2D(Attention):
     """Single-head spatial self-attention of the VAE mid block (diffusers
-    names: ``group_norm``, ``to_q``/``to_k``/``to_v``, ``to_out.0``)."""
+    names: ``group_norm``, ``to_q``/``to_k``/``to_v``, ``to_out.0``; with
+    ``fused_qkv`` one ``to_qkv``, as the JAX VAE's attention fuses).  Its
+    D = 512 head takes the plain path either way."""
 
-    def __init__(self, channels: int, num_heads: int = 1):
-        super().__init__(channels, num_heads, channels // num_heads)
+    def __init__(self, channels: int, num_heads: int = 1, fused_qkv: bool = False):
+        super().__init__(channels, num_heads, channels // num_heads, fused_qkv=fused_qkv)
         self.group_norm = GroupNorm(channels, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

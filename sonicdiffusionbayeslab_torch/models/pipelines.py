@@ -283,6 +283,24 @@ class StableDiffusionModel:
             raise TypeError(f"{type(self).__name__} takes no plan arguments, got {sorted(plan_kw)}")
         return self.scheduler.build_plan(num_inference_steps)
 
+    @classmethod
+    def from_pretrained(cls, pretrained_model: str, **kw):
+        """``cls(pretrained_model, **kw)``: the reference's construction, as
+        the JAX package's parity shim."""
+        return cls(pretrained_model=pretrained_model, **kw)
+
+    def to(self, device):
+        """The reference sweeps' device juggling (``model.to("cpu")``):
+        ``self`` for the pipeline's own device; any other device raises,
+        so the port never moves to another device without being asked
+        at construction (``device=``)."""
+        want = torch.device(device)
+        have = self.device
+        if want.type != have.type or (want.index is not None and want.index != have.index):
+            raise ValueError(f"the pipeline runs on {have}; it does not move to {want} (build "
+                             "it with device= instead)")
+        return self
+
     def load_lora_weights(self, path: str):
         """Stage a LoRA state dict (kohya or peft layout) from a local file,
         or from ``pytorch_lora_weights.bin`` / ``.safetensors`` in a local

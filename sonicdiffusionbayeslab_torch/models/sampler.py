@@ -5,9 +5,10 @@ Counterpart of ``sonicdiffusionbayeslab_tpu/models/sampler.py::
 StableDiffusionEngine`` with DeepCache (``CachePlan``), Token Merging,
 noise-injecting plans, rescaled CFG, img2img's image encode and
 inpainting's per-step blend, the UNet's int8 modes, ControlNet and
-IP-Adapter, a w-conditioned (full LCM) UNet's guidance embedding, and of
-its ``SDXLEngine`` (two text towers and the UNet's text_time
-conditioning).
+IP-Adapter, a w-conditioned (full LCM) UNet's guidance embedding, the CFG
+shared prefix, the NaN sanitizer and the ``SDBL_*`` defaults
+(``utils/env.py``), and of its ``SDXLEngine`` (two text towers and the
+UNet's text_time conditioning).
 The JAX engine scans a jitted
 body over the plan's rows; here the loop is plain Python over the same
 rows, each step one UNet call (chunked when ``microbatch`` > 1), the CFG
@@ -46,11 +47,13 @@ from sonicdiffusionbayeslab_torch.models.layers import GroupNorm, RMSNorm
 from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition, UNetConfig
 from sonicdiffusionbayeslab_torch.models.vae import AutoencoderKL, VAEConfig
 from sonicdiffusionbayeslab_torch.ops import quant
+from sonicdiffusionbayeslab_torch.ops.attention import plain_selected, resolve_attention_backend
 from sonicdiffusionbayeslab_torch.ops.tome import TomeConfig
 from sonicdiffusionbayeslab_torch.parallel import distributed
 from sonicdiffusionbayeslab_torch.parallel import mesh as mesh_lib
 from sonicdiffusionbayeslab_torch.schedulers.plan import SamplePlan
 from sonicdiffusionbayeslab_torch.schedulers.runtime import apply_row, init_carry, plan_rows, row
+from sonicdiffusionbayeslab_torch.utils import env
 from sonicdiffusionbayeslab_torch.utils.cuda_graph import GraphedVariants
 from sonicdiffusionbayeslab_torch.utils.device import resolve_device, synchronize
 from sonicdiffusionbayeslab_torch.utils.rng import (
@@ -187,7 +190,14 @@ class StableDiffusionEngine:
     :meth:`parallelize` places the split modules (``TP_MODULES``: the UNet,
     the ControlNet) on a mesh with ``seq`` or ``model`` above 1; the VAE,
     the text towers and the IP-Adapter's projection run whole on every
-    rank."""
+    rank.
+
+    ``fused_qkv`` (None: ``SDBL_FUSED_QKV``) builds the UNet's, the
+    ControlNet's and the VAE's attentions with fused q/k/v projections.
+    The UNet's first int8 mode is ``ops.quant.get_quant_mode()``
+    (``SDBL_QUANT``), and the attention backend is resolved
+    (``SDBL_ATTENTION``) when the engine is built and at each
+    :meth:`sample`."""
 
     MODULES = ("unet", "vae", "text")
     TP_MODULES = ("unet", "controlnet")
@@ -199,16 +209,20 @@ class StableDiffusionEngine:
         text_config: CLIPTextConfig = None,
         dtype: torch.dtype = torch.bfloat16,
         device=None,
+        fused_qkv: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         self.dtype = dtype
         self.unet_config = unet_config or UNetConfig.sd15()
         self.vae_config = vae_config or VAEConfig.sd15()
         self.text_config = text_config or CLIPTextConfig.sd15()
+        self.fused_qkv = env.fused_qkv(fused_qkv)
         with torch.device(self.device):
             self._build_modules()
         for m in self.modules():
             self._place(m)
+        quant.set_quant_mode(self.unet, quant.get_quant_mode())
+        resolve_attention_backend()
         self.controlnet: Optional[ControlNet] = None
         self.image_proj: Optional[ImageProjection] = None
         self.par: Optional[mesh_lib.ParallelContext] = None  # set by parallelize
@@ -229,7 +243,8 @@ class StableDiffusionEngine:
 
     def _graph_state(self):
         mode = self.unet.quant_mode
-        return (("quant", mode),) if mode else ()
+        return (*((("quant", mode),) if mode else ()),
+                *((("attention", "xla"),) if plain_selected() else ()))
 
     def set_quant_mode(self, mode: Optional[str]) -> "StableDiffusionEngine":
         """The UNet's int8 mode (``ops.quant.MODES``; None is exact)."""
@@ -237,8 +252,8 @@ class StableDiffusionEngine:
         return self
 
     def _build_modules(self) -> None:
-        self.unet = UNet2DCondition(self.unet_config)
-        self.vae = AutoencoderKL(self.vae_config)
+        self.unet = UNet2DCondition(self.unet_config, fused_qkv=self.fused_qkv)
+        self.vae = AutoencoderKL(self.vae_config, fused_qkv=self.fused_qkv)
         self.text = CLIPTextModel(self.text_config)
 
     def modules(self) -> Tuple[nn.Module, ...]:
@@ -275,7 +290,7 @@ class StableDiffusionEngine:
         """Build ``controlnet`` (the UNet's config) with a random encoder
         copy and zero heads: an exact no-op until trained or loaded."""
         with torch.device(self.device):
-            net = ControlNet(self.unet_config)
+            net = ControlNet(self.unet_config, fused_qkv=self.fused_qkv)
         init_module(net, self._generator(seed, 0xC0))
         self.controlnet = self._place(net.zero_heads())
         self.weights_changed()
@@ -430,6 +445,8 @@ class StableDiffusionEngine:
         ip_adapter: Optional[dict] = None,
         time_loop: bool = True,
         mesh=None,
+        cfg_prefix: Optional[bool] = None,
+        check_nans: Optional[bool] = None,
     ) -> SampleOutput:
         """One batch: CFG-doubled UNet calls over the plan's rows, then the
         decode.  Sample ``i``'s initial latents depend only on (seed, i)
@@ -485,24 +502,43 @@ class StableDiffusionEngine:
         rank decodes the whole batch.  Token Merging under ``seq`` matches
         over the whole token map (each block gathers its tokens), and int8
         takes its scales over the whole rows and maps (all-max over the
-        axes that split them), as one process."""
+        axes that split them), as one process.
+
+        ``cfg_prefix`` (None: ``SDBL_CFG_PREFIX``): the CFG shared prefix.
+        The UNet takes the single latent copy and runs its prefix (up to
+        the first cross-attention) once, at B rows, and its own CUDA graph.
+        The same math as the plain call, so it silently does not engage
+        where it cannot: without CFG, with DeepCache, ControlNet,
+        IP-Adapter, SDXL's ``added_cond``, a w-conditioned UNet or
+        ``microbatch`` > 1 (the JAX engine's rule; any mesh takes it).
+        ``check_nans`` (None: ``SDBL_CHECK_NANS``): after the timed loop,
+        raise ``FloatingPointError`` where the final latents hold a
+        non-finite value.  ``tome`` and ``microbatch`` left None take
+        ``SDBL_TOME_RATIO`` and ``SDBL_UNET_MICROBATCH``."""
+        resolve_attention_backend()
+        tome, microbatch = env.tome_ratio(tome), env.unet_microbatch(microbatch)
         kw = dict(seed=seed, sample_indices=sample_indices, guidance_scale=guidance_scale,
                   guidance_rescale=guidance_rescale, cache_plan=cache_plan, latent_hw=latent_hw,
                   collect_x0=collect_x0, x0_samples=x0_samples, decode=decode,
                   init_latents=init_latents, microbatch=microbatch, step_noise=step_noise,
                   tome=tome, tome_dst=tome_dst, added_cond=added_cond, blend=blend,
                   blend_noise=blend_noise, control=control, ip_adapter=ip_adapter,
-                  time_loop=time_loop)
+                  time_loop=time_loop, cfg_prefix=env.cfg_prefix(cfg_prefix))
         if mesh is not None and mesh_lib.axis_size(mesh, "data") > 1:
-            return self._sample_rows(mesh, plan, prompt_embeds, negative_embeds, kw)
-        return self._sample_local(self._parallel(mesh), plan, prompt_embeds, negative_embeds,
-                                  **kw)
+            out = self._sample_rows(mesh, plan, prompt_embeds, negative_embeds, kw)
+        else:
+            out = self._sample_local(self._parallel(mesh), plan, prompt_embeds, negative_embeds,
+                                     **kw)
+        if env.check_nans(check_nans) and not bool(torch.isfinite(out.latents).all()):
+            raise FloatingPointError(f"non-finite latents after plan {plan.name!r} "
+                                     f"(guidance={guidance_scale}, steps={plan.num_steps})")
+        return out
 
     def _sample_local(self, par, plan, prompt_embeds, negative_embeds, seed, sample_indices,
                       guidance_scale, guidance_rescale, cache_plan, latent_hw, collect_x0,
                       x0_samples, decode, init_latents, microbatch, step_noise, tome, tome_dst,
                       added_cond, blend, blend_noise, control, ip_adapter,
-                      time_loop) -> SampleOutput:
+                      time_loop, cfg_prefix) -> SampleOutput:
         """:meth:`sample` of one batch on this rank; ``par`` (a
         ``ParallelContext`` or None): the UNet runs split, on this rank's
         rows of the latent height where ``seq`` is above 1."""
@@ -547,6 +583,11 @@ class StableDiffusionEngine:
                  self._timestep_cond(guidance_scale, B * (2 if do_cfg else 1)))
         extra = self._conditioning(control, ip_adapter, cache_plan, microbatch, B, latent_hw,
                                    do_cfg, rows)
+        prefix = (cfg_prefix and do_cfg and cache_plan is None and control is None
+                  and ip_adapter is None and added_cond is None and added[2] is None
+                  and microbatch <= 1)
+        if prefix:
+            static["cfg_shared_prefix"] = True
 
         xs = plan_rows(plan, dev)
         blend_src = None
@@ -578,7 +619,8 @@ class StableDiffusionEngine:
         for i in range(plan.num_steps):
             r = row(xs, i)
             lat = carry.latents * r["in_scale"]
-            lat_in = (torch.cat([lat, lat]) if do_cfg else lat).to(self.dtype)
+            # The shared prefix takes the single copy and tiles it itself.
+            lat_in = (torch.cat([lat, lat]) if do_cfg and not prefix else lat).to(self.dtype)
             tb = r["timestep"].expand(lat_in.shape[0])
             eager = par is not None
             if cache_plan is None:
@@ -780,11 +822,11 @@ class SDXLEngine(StableDiffusionEngine):
 
     def __init__(self, unet_config: UNetConfig = None, vae_config: VAEConfig = None,
                  text_configs: SDXLTextConfigs = None, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 device=None, fused_qkv: Optional[bool] = None):
         tc = text_configs or SDXLTextConfigs.sdxl()
         self.text2_config = tc.text2
         super().__init__(unet_config or UNetConfig.sdxl(), vae_config or VAEConfig.sdxl(),
-                         tc.text1, dtype=dtype, device=device)
+                         tc.text1, dtype=dtype, device=device, fused_qkv=fused_qkv)
 
     def _build_modules(self) -> None:
         super()._build_modules()

@@ -37,13 +37,16 @@ class SD3Engine(StableDiffusionEngine):
     """MMDiT + SD3 VAE + two projected CLIP towers (+ T5 with ``use_t5`` or
     a ``t5_config``) through the base engine.  The MMDiT keeps the name
     ``unet`` (and ``unet_config``) so the loop drives it unchanged.
-    :meth:`parallelize` splits the MMDiT and T5."""
+    :meth:`parallelize` splits the MMDiT and T5.  ``fused_qkv`` fuses the
+    VAE's mid attentions only (the MMDiT's joint attention has its own
+    projections, as in the JAX package)."""
 
     TP_MODULES = ("unet", "t5")
 
     def __init__(self, mmdit_config: MMDiTConfig = None, vae_config: VAEConfig = None,
                  text_configs: SDXLTextConfigs = None, t5_config: Optional[T5Config] = None,
-                 use_t5: bool = False, dtype: torch.dtype = torch.bfloat16, device=None):
+                 use_t5: bool = False, dtype: torch.dtype = torch.bfloat16, device=None,
+                 fused_qkv: Optional[bool] = None):
         tc = text_configs or SDXLTextConfigs.sdxl()
         self.text2_config = tc.text2
         mmdit_config = mmdit_config or MMDiTConfig.sd3_medium()
@@ -55,11 +58,11 @@ class SD3Engine(StableDiffusionEngine):
                                  f"joint_attention_dim {mmdit_config.joint_attention_dim}")
         self.MODULES = ("unet", "vae", "text", "text2") + (("t5",) if self.t5_config else ())
         super().__init__(mmdit_config, vae_config or VAEConfig.sd3(), tc.text1, dtype=dtype,
-                         device=device)
+                         device=device, fused_qkv=fused_qkv)
 
     def _build_modules(self) -> None:
         self.unet = MMDiT(self.unet_config)
-        self.vae = AutoencoderKL(self.vae_config)
+        self.vae = AutoencoderKL(self.vae_config, fused_qkv=self.fused_qkv)
         self.text = CLIPTextModelWithProjection(self.text_config)
         self.text2 = CLIPTextModelWithProjection(self.text2_config)
         self.t5 = T5Encoder(self.t5_config) if self.t5_config else None

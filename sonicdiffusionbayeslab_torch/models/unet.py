@@ -4,8 +4,9 @@ Counterpart of ``sonicdiffusionbayeslab_tpu/models/unet.py`` on the
 text-to-image path with its DeepCache split, Token Merging, SDXL's
 text_time added conditioning, a full LCM model's guidance embedding
 (``time_cond_proj_dim``, ``timestep_cond``), the int8 W8A8 modes,
-ControlNet's residuals and IP-Adapter's decoupled cross-attentions (no CFG
-shared prefix).
+ControlNet's residuals, IP-Adapter's decoupled cross-attentions, the CFG
+shared prefix (``cfg_shared_prefix``) and fused q/k/v projections
+(``fused_qkv``, the JAX package's ``SDBL_FUSED_QKV=1`` tree).
 Parameter names follow diffusers' ``UNet2DConditionModel``; activations
 are [B, H, W, C] at the module's boundary, as in the JAX package.
 """
@@ -129,17 +130,26 @@ class UNetConfig:
                    projection_class_embeddings_input_dim=16 + 6 * 8)  # pooled 16 + ids
 
 
-def _transformer(cfg: UNetConfig, lvl: int) -> SpatialTransformer:
+def _transformer(cfg: UNetConfig, lvl: int, fused_qkv: bool = False) -> SpatialTransformer:
     ch, heads = cfg.block_out_channels[lvl], cfg.heads_at(lvl)
     return SpatialTransformer(ch, heads, ch // heads, cfg.cross_attention_dim,
-                              depth=cfg.depth_at(lvl), linear=cfg.linear_projection)
+                              depth=cfg.depth_at(lvl), linear=cfg.linear_projection,
+                              fused_qkv=fused_qkv)
 
 
-def build_encoder(module: nn.Module, cfg: UNetConfig):
+def tiled(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` repeated to ``like``'s batch where that is twice x's, else x:
+    the CFG shared prefix's B-row time embedding and skip states where a
+    2B activation meets them (the JAX UNet's ``temb_for``/``skip_for``)."""
+    return torch.cat([x, x]) if like.shape[0] == 2 * x.shape[0] else x
+
+
+def build_encoder(module: nn.Module, cfg: UNetConfig, fused_qkv: bool = False):
     """The encoder half of the UNet on ``module``, under diffusers' names:
     ``conv_in``, ``time_embedding`` (and SDXL's ``add_embedding``),
     ``down_blocks`` and ``mid_block``; the UNet and the ControlNet's copy
-    share it.  Returns the channels of each skip state, in order."""
+    share it.  ``fused_qkv``: the transformers' fused projections.
+    Returns the channels of each skip state, in order."""
     chans = cfg.block_out_channels
     n, temb = len(chans), chans[0] * 4
     module.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
@@ -154,7 +164,7 @@ def build_encoder(module: nn.Module, cfg: UNetConfig):
             res.append(ResnetBlock(cur, ch, temb))
             cur = ch
             if cfg.cross_attention[lvl]:
-                att.append(_transformer(cfg, lvl))
+                att.append(_transformer(cfg, lvl, fused_qkv))
             skip_ch.append(ch)
         samp = [Downsample(ch, allow_quant=True)] if lvl < n - 1 else []
         if samp:
@@ -163,7 +173,7 @@ def build_encoder(module: nn.Module, cfg: UNetConfig):
     module.down_blocks = nn.ModuleList(down)
     mid = chans[-1]
     module.mid_block = Level([ResnetBlock(cur, mid, temb), ResnetBlock(mid, mid, temb)],
-                             [_transformer(cfg, n - 1)])
+                             [_transformer(cfg, n - 1, fused_qkv)])
     return skip_ch
 
 
@@ -212,7 +222,7 @@ def encoder_levels(module: nn.Module, h: torch.Tensor, t_emb: torch.Tensor, xfmr
     for lvl, level in enumerate(module.down_blocks[:last + 1]):
         attns = getattr(level, "attentions", None)
         for j, res in enumerate(level.resnets):
-            h = res(h, t_emb)
+            h = res(h, tiled(t_emb, h))
             if attns is not None:
                 h = xfmr(attns[j], lvl, h)
             skips.append(h)
@@ -225,9 +235,9 @@ def encoder_levels(module: nn.Module, h: torch.Tensor, t_emb: torch.Tensor, xfmr
 
 def mid_level(module: nn.Module, h: torch.Tensor, t_emb: torch.Tensor, xfmr) -> torch.Tensor:
     n = len(module.down_blocks)
-    h = module.mid_block.resnets[0](h, t_emb)
+    h = module.mid_block.resnets[0](h, tiled(t_emb, h))
     h = xfmr(module.mid_block.attentions[0], n - 1, h)
-    return module.mid_block.resnets[1](h, t_emb)
+    return module.mid_block.resnets[1](h, tiled(t_emb, h))
 
 
 class UNet2DCondition(nn.Module):
@@ -241,19 +251,23 @@ class UNet2DCondition(nn.Module):
     ``model`` each layer keeps its share of heads, hidden units and
     channels (``models/layers.py``), under ``seq`` ``sample`` and the
     outputs hold the rank's rows of the latent height, which must divide
-    by ``seq_multiple`` on every rank (every level splits alike)."""
+    by ``seq_multiple`` on every rank (every level splits alike).
+
+    ``fused_qkv``: every attention's q/k/v projections fused (``to_qkv`` in
+    the self-attentions, ``to_q`` and ``to_kv`` in the crosses)."""
 
     quant_mode = None
     par = None
 
-    def __init__(self, config: UNetConfig):
+    def __init__(self, config: UNetConfig, fused_qkv: bool = False):
         super().__init__()
         cfg = self.config = config
+        self.fused_qkv = bool(fused_qkv)
         chans = cfg.block_out_channels
         n = len(chans)
         temb = chans[0] * 4
 
-        skip_ch = build_encoder(self, cfg)
+        skip_ch = build_encoder(self, cfg, self.fused_qkv)
         cur = chans[-1]
 
         up = []  # diffusers up_blocks[k] is level n - 1 - k
@@ -264,7 +278,7 @@ class UNet2DCondition(nn.Module):
                 res.append(ResnetBlock(cur + skip_ch.pop(), ch, temb))
                 cur = ch
                 if cfg.cross_attention[lvl]:
-                    att.append(_transformer(cfg, lvl))
+                    att.append(_transformer(cfg, lvl, self.fused_qkv))
             samp = [Upsample(ch, allow_quant=True)] if lvl > 0 else []
             up.append(Level(res, att, samp, "upsamplers"))
         self.up_blocks = nn.ModuleList(up)
@@ -290,7 +304,7 @@ class UNet2DCondition(nn.Module):
                 ip_context: Optional[torch.Tensor] = None,
                 ip_scale: Optional[torch.Tensor] = None, return_cache: bool = False,
                 cache_branch_id: int = 0, tome=None, control_residuals=None,
-                timestep_cond: Optional[torch.Tensor] = None):
+                timestep_cond: Optional[torch.Tensor] = None, cfg_shared_prefix: bool = False):
         """sample [B, h, w, C_in], timesteps [B] or scalar, context [B, T, D]
         -> [B, h, w, C_out] fp32.
 
@@ -326,7 +340,18 @@ class UNet2DCondition(nn.Module):
         (:meth:`tome_slots`); ``tome_dst`` [slots, D] holds slot k's
         destinations in row k (the first ``n_dst`` entries of its map).
         ``tome.rand`` needs it; without ``rand`` each cell's top-left token
-        is its destination."""
+        is its destination.
+
+        CFG shared prefix (``cfg_shared_prefix``): ``sample`` and
+        ``timesteps`` are the single latent copy [B] and the context the
+        CFG-doubled [negative | positive] [2B].  The two halves agree until
+        the first cross-attention (the same latents and timestep), so
+        ``conv_in``, the leading resnets and the first transformer's
+        self-attention run once at B and the activations tile to 2B there;
+        the output is [2B, ...].  The same math as the plain call.  It
+        composes with Token Merging and the split layers only (no SDXL
+        conditioning, IP-Adapter, DeepCache, ControlNet or
+        ``timestep_cond``), as in the JAX package."""
         dt = self.dtype
         cfg = self.config
         n = len(cfg.block_out_channels)
@@ -342,17 +367,28 @@ class UNet2DCondition(nn.Module):
         t_emb = time_embedding(self, cfg, timesteps, text_embeds, time_ids, sample.shape[0],
                                timestep_cond)
         ctx = encoder_hidden_states.to(dt)
+        if cfg_shared_prefix:
+            if (text_embeds is not None or time_ids is not None or ip_context is not None
+                    or cache is not None or return_cache or control_residuals is not None
+                    or timestep_cond is not None):
+                raise ValueError("cfg_shared_prefix composes with the plain UNet path only (no "
+                                 "SDXL added_cond / IP-Adapter / DeepCache / ControlNet / "
+                                 "timestep_cond)")
+            if ctx.shape[0] != 2 * sample.shape[0]:
+                raise ValueError(f"cfg_shared_prefix expects context batch {ctx.shape[0]} == 2 x "
+                                 f"sample batch {sample.shape[0]}")
         ip = {} if ip_context is None else dict(ip_context=ip_context.to(dt), ip_scale=ip_scale)
-        slot, tome_cache = 0, {}
+        slot, tome_cache, pending = 0, {}, bool(cfg_shared_prefix)
 
         def xfmr(attn, lvl, h):
-            nonlocal slot
+            nonlocal slot, pending
+            tile, pending = pending, False  # only the first transformer tiles
             if tome is None or (1 << lvl) > tome.max_downsample:
-                return attn(h, ctx, **ip)
+                return attn(h, ctx, **ip, cfg_tile=tile)
             depth = len(attn.transformer_blocks)
             dst = None if tome_dst is None else tome_dst[slot:slot + depth]
             slot += depth
-            return attn(h, ctx, tome, dst, tome_cache, **ip)
+            return attn(h, ctx, tome, dst, tome_cache, **ip, cfg_tile=tile)
 
         h = seq_conv(self.conv_in, sample.to(dt), self.par)
         # Level b's downsample feeds only the trunk.
@@ -397,7 +433,8 @@ class UNet2DCondition(nn.Module):
         for lvl, level in levels:
             attns = getattr(level, "attentions", None)
             for j, res in enumerate(level.resnets):
-                h = res(torch.cat([h, skips.pop()], dim=-1), t_emb)
+                h = torch.cat([h, tiled(skips.pop(), h)], dim=-1)
+                h = res(h, tiled(t_emb, h))
                 if attns is not None:
                     h = xfmr(attns[j], lvl, h)
             for samp in getattr(level, "upsamplers", ()):

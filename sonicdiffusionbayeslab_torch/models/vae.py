@@ -79,11 +79,12 @@ class VAEConfig:
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: VAEConfig):
+    def __init__(self, cfg: VAEConfig, fused_qkv: bool = False):
         super().__init__()
         top = cfg.block_out_channels[-1]
         self.conv_in = nn.Conv2d(cfg.latent_channels, top, 3, padding=1)
-        self.mid_block = Level([_resnet(top, top), _resnet(top, top)], [AttnBlock2D(top)])
+        self.mid_block = Level([_resnet(top, top), _resnet(top, top)],
+                               [AttnBlock2D(top, fused_qkv=fused_qkv)])
         ups, cur = [], top
         chans = list(reversed(cfg.block_out_channels))
         for i, ch in enumerate(chans):
@@ -116,7 +117,7 @@ class Encoder(nn.Module):
     (each but the last ends in a stride-2 conv padded at the bottom and
     right only), the mid block with its attention, GN+SiLU, conv_out."""
 
-    def __init__(self, cfg: VAEConfig):
+    def __init__(self, cfg: VAEConfig, fused_qkv: bool = False):
         super().__init__()
         chans = cfg.block_out_channels
         self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
@@ -129,7 +130,8 @@ class Encoder(nn.Module):
             samp = [Downsample(ch, asymmetric_pad=True)] if i < len(chans) - 1 else []
             downs.append(Level(res, (), samp, "downsamplers"))
         self.down_blocks = nn.ModuleList(downs)
-        self.mid_block = Level([_resnet(cur, cur), _resnet(cur, cur)], [AttnBlock2D(cur)])
+        self.mid_block = Level([_resnet(cur, cur), _resnet(cur, cur)],
+                               [AttnBlock2D(cur, fused_qkv=fused_qkv)])
         self.conv_norm_out = GroupNorm(cur, eps=EPS, silu=True)
         self.conv_out = nn.Conv2d(cur, 2 * cfg.latent_channels, 3, padding=1)
 
@@ -151,13 +153,15 @@ class AutoencoderKL(nn.Module):
 
     A state dict without the encoder's keys (a decoder-only checkpoint)
     loads for decoding and leaves ``has_encoder`` False, and then
-    :meth:`encode` raises."""
+    :meth:`encode` raises.  ``fused_qkv``: the mid attentions' fused
+    ``to_qkv``, as the JAX package's VAE under ``SDBL_FUSED_QKV=1``."""
 
-    def __init__(self, config: VAEConfig):
+    def __init__(self, config: VAEConfig, fused_qkv: bool = False):
         super().__init__()
         self.config = config
-        self.decoder = Decoder(config)
-        self.encoder = Encoder(config)
+        self.fused_qkv = bool(fused_qkv)
+        self.decoder = Decoder(config, self.fused_qkv)
+        self.encoder = Encoder(config, self.fused_qkv)
         self.post_quant_conv = (nn.Conv2d(config.latent_channels, config.latent_channels, 1)
                                 if config.use_quant_conv else None)
         self.quant_conv = (nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)

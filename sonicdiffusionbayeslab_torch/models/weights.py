@@ -16,7 +16,11 @@ diffusers snapshot or transformers CLIP checkpoint loads by name
 (``load_sd_checkpoint``, ``load_sdxl_checkpoint``, ``load_sd3_checkpoint``,
 ``load_clip_checkpoint``, ``load_controlnet_checkpoint``; ``write_snapshot``
 writes one), strictly, after dropping by name the few keys
-the port's modules do not have.  ``lora_from_jax`` and
+the port's modules do not have.  Fused q/k/v projections (``to_qkv``,
+``to_kv``; the JAX package's ``SDBL_FUSED_QKV=1`` trees) have map entries
+of their own, take a checkpoint's separate projections concatenated
+(``fuse_projections``) and a LoRA of a separate one in their rows
+(``merge_lora``).  ``lora_from_jax`` and
 ``mmdit_lora_from_jax`` carry a JAX LoRA adapter tree across.
 """
 
@@ -80,8 +84,11 @@ class MapEntries(dict):
         self.conv(f"{dst}/conv_shortcut", f"{src}.conv_shortcut")
 
     def attention(self, dst, src):
-        # to_k_ip/to_v_ip: IP-Adapter's projections, in a tree that has them.
-        for p in ("to_q", "to_k", "to_v", "to_k_ip", "to_v_ip"):
+        # to_k_ip/to_v_ip: IP-Adapter's projections, in a tree that has them;
+        # to_qkv/to_kv: the fused projections (the JAX package's
+        # SDBL_FUSED_QKV=1 tree), [in, k * inner] kernels whose columns are
+        # q | k | v, as rows of the port's fused weights.
+        for p in ("to_q", "to_k", "to_v", "to_k_ip", "to_v_ip", "to_qkv", "to_kv"):
             self.dense(f"{dst}/{p}", f"{src}.{p}", bias=False)
         self.dense(f"{dst}/to_out", f"{src}.to_out.0")
 
@@ -591,13 +598,58 @@ def load_clip_checkpoint(snapshot_dir: str | Path, model: nn.Module) -> nn.Modul
     return model
 
 
+# A fused projection's sources in diffusers' separate layout, in the order
+# of its rows.
+FUSED_SOURCES = {"to_qkv": ("to_q", "to_k", "to_v"), "to_kv": ("to_k", "to_v")}
+
+
+def _fused_parts(name: str):
+    """(module prefix with its dot, fused projection) of a fused weight's
+    name, else (None, None)."""
+    mod, _, proj = name.removesuffix(".weight").rpartition(".")
+    if not name.endswith(".weight") or proj not in FUSED_SOURCES:
+        return None, None
+    return (f"{mod}." if mod else ""), proj
+
+
+def fuse_projections(sd: Dict[str, torch.Tensor], module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``sd`` (diffusers' separate ``to_q``/``to_k``/``to_v`` weights) for a
+    ``module`` built with ``fused_qkv``: each of the module's ``to_qkv``
+    and ``to_kv`` weights that ``sd`` lacks is its sources concatenated on
+    the output rows (q, then k, then v), the sources dropped.  A state dict
+    already fused, or a module that is not, passes unchanged."""
+    out = dict(sd)
+    for name in module.state_dict():
+        mod, proj = _fused_parts(name)
+        if proj is None or name in out:
+            continue
+        srcs = [f"{mod}{p}.weight" for p in FUSED_SOURCES[proj]]
+        if all(k in out for k in srcs):
+            out[name] = torch.cat([out.pop(k) for k in srcs], dim=0)
+    return out
+
+
+def _refuse_fused_vae(engine, module: nn.Module, d: Path) -> None:
+    """Raise KeyError at a fused VAE (what is loaded so far stays loaded)."""
+    if module is engine.vae and getattr(module, "fused_qkv", False):
+        engine.weights_changed()
+        raise KeyError(f"{d}: a VAE with fused q/k/v projections (fused_qkv, SDBL_FUSED_QKV=1) "
+                       "loads no diffusers checkpoint: the VAE name map has no fused entry, as "
+                       "in the JAX package")
+
+
 def load_sd_checkpoint(snapshot_dir: str | Path, engine) -> None:
     """A diffusers-layout SD snapshot dir (``unet/``, ``vae/``,
     ``text_encoder/``; an SDXL snapshot also ``text_encoder_2/``, a
     ``CLIPTextModelWithProjection``) into ``engine``'s modules.  The text
     encoders' ``position_ids`` buffers are dropped by name; a VAE without
     its encoder's keys loads for decoding only (``AutoencoderKL.
-    has_encoder``); any other extra or missing key raises."""
+    has_encoder``); any other extra or missing key raises.  A fused UNet
+    (``fused_qkv``) takes the checkpoint's projections concatenated
+    (:func:`fuse_projections`).  A fused VAE takes none: the VAE name map
+    has no fused entry, as in the JAX package, whose conversion of such a
+    snapshot fails at the VAE after the UNet's; here the UNet is loaded
+    and then KeyError raised."""
     snapshot_dir = Path(snapshot_dir)
     names = ("diffusion_pytorch_model.bin", "pytorch_model.bin",
              "diffusion_pytorch_model.safetensors", "model.safetensors")
@@ -607,8 +659,10 @@ def load_sd_checkpoint(snapshot_dir: str | Path, engine) -> None:
     if hasattr(engine, "text2"):
         parts.append(("text_encoder_2", engine.text2, lambda k: k in _CLIP_EXTRA))
     for sub, module, drop in parts:
+        _refuse_fused_vae(engine, module, snapshot_dir / sub)
         path = _find_checkpoint(snapshot_dir / sub, names)
-        _load_strict(module, load_torch_state_dict(path), drop, str(path))
+        sd = load_torch_state_dict(path)
+        _load_strict(module, fuse_projections(sd, module), drop, str(path))
     engine.weights_changed()
 
 
@@ -654,6 +708,7 @@ def load_sd3_checkpoint(snapshot_dir: str | Path, engine) -> None:
         parts.append(("text_encoder_3", engine.t5, _SD3_EXTRA["text_encoder_3"]))
     for sub, module, extra in parts:
         d = snapshot_dir / sub
+        _refuse_fused_vae(engine, module, d)
         _load_strict(module, _load_dir(d), lambda k, extra=extra: k in extra, str(d))
     engine.weights_changed()
 
@@ -676,8 +731,9 @@ def load_controlnet_checkpoint(snapshot_dir: str | Path, engine) -> None:
     """A diffusers ControlNet snapshot dir (``diffusion_pytorch_model.bin``
     or ``.safetensors``) into the engine's ``controlnet``, strictly."""
     d = Path(snapshot_dir)
-    _load_strict(engine.controlnet, load_torch_state_dict(_find_checkpoint(d, _CHECKPOINT_NAMES)),
-                 lambda k: False, str(d))
+    sd = load_torch_state_dict(_find_checkpoint(d, _CHECKPOINT_NAMES))
+    _load_strict(engine.controlnet, fuse_projections(sd, engine.controlnet), lambda k: False,
+                 str(d))
     engine.weights_changed()
 
 
@@ -704,10 +760,18 @@ def merge_lora(unet_sd: Dict[str, torch.Tensor], lora_sd: Dict[str, torch.Tensor
     ``[r, in, kh, kw]`` down and ``[out, r, 1, 1]`` up likewise), summed in
     fp32 and cast back to the weight's dtype.  Kohya turns the module
     name's dots into underscores; the names are recovered by matching
-    against the state dict's own.  Returns the merged state dict and the
-    merged modules' names; raises when nothing matched."""
-    demangle = {k[: -len(".weight")].replace(".", "_"): k[: -len(".weight")]
-                for k in unet_sd if k.endswith(".weight")}
+    against the state dict's own.  In a fused UNet (``to_qkv``, ``to_kv``)
+    a LoRA of ``to_q``, ``to_k`` or ``to_v`` adds to its rows of the fused
+    weight (the JAX package adds to its columns of the fused kernel).
+    Returns the merged state dict and the merged modules' names; raises
+    when nothing matched."""
+    fused = {}  # a fused weight's source module -> (its name, row section, sections)
+    for k in unet_sd:
+        mod, proj = _fused_parts(k)
+        for slot, src in enumerate(FUSED_SOURCES.get(proj, ())):
+            fused[f"{mod}{src}"] = (k, slot, len(FUSED_SOURCES[proj]))
+    bases = [k[: -len(".weight")] for k in unet_sd if k.endswith(".weight")] + list(fused)
+    demangle = {b.replace(".", "_"): b for b in bases}
     pairs: Dict[str, dict] = {}
     for k, v in lora_sd.items():
         if k.startswith("lora_unet_"):
@@ -733,7 +797,7 @@ def merge_lora(unet_sd: Dict[str, torch.Tensor], lora_sd: Dict[str, torch.Tensor
     applied = []
     for base, p in pairs.items():
         name = f"{base}.weight"
-        if "down" not in p or "up" not in p or name not in unet_sd:
+        if "down" not in p or "up" not in p or (name not in unet_sd and base not in fused):
             continue
         down, up = p["down"], p["up"]
         rank = down.shape[0]
@@ -742,8 +806,15 @@ def merge_lora(unet_sd: Dict[str, torch.Tensor], lora_sd: Dict[str, torch.Tensor
         else:
             delta = up @ down
         delta = delta * (p.get("alpha", float(rank)) / rank) * scale
-        w = unet_sd[name]
-        merged[name] = (w.float() + delta.reshape(w.shape).to(w.device)).to(w.dtype)
+        if name not in unet_sd:  # a source of a fused weight: its row section
+            name, slot, sections = fused[base]
+            w = merged[name].to(torch.float32, copy=True)
+            rows = w.shape[0] // sections
+            w[slot * rows:(slot + 1) * rows] += delta.to(w.device)
+            merged[name] = w.to(unet_sd[name].dtype)
+        else:
+            w = unet_sd[name]
+            merged[name] = (w.float() + delta.reshape(w.shape).to(w.device)).to(w.dtype)
         applied.append(base)
     if not applied:
         raise KeyError("no LoRA tensors matched the UNet's parameter names")

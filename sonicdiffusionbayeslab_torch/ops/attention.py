@@ -14,13 +14,64 @@ reference sends them to XLA.
 
 With grad mode on and an input that requires grad, ``flash_attention``
 itself goes through its autograd Function (``FlashAttentionFn``).
+
+The backend selector takes the JAX package's names
+(``set_attention_backend``: None, ``xla``, ``pallas``, ``tiered``; else
+``SDBL_ATTENTION``) and refuses any other, from either source.  ``xla``
+sends every call to ``plain_attention``; ``pallas``, ``tiered`` and None
+(the default) keep the static rule above: there is one kernel for each
+dtype, so the TPU's tiers have no counterpart, and the selector keeps one
+bit.  The backend is resolved at the entry points (an engine's
+construction and ``sample``, and ``set_attention_backend`` itself), never
+inside a forward.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from sonicdiffusionbayeslab_torch.ops.flash_attention import MAX_HEAD_DIM, flash_attention
+from sonicdiffusionbayeslab_torch.utils import env
+
+BACKENDS = (None, "xla", "pallas", "tiered")
+_BACKEND = None  # set_attention_backend's choice; None defers to SDBL_ATTENTION
+_PLAIN = False  # whether calls take plain_attention, as resolved at the last entry point
+
+
+def _checked(name: Optional[str], what: str) -> Optional[str]:
+    if name not in BACKENDS:
+        raise ValueError(f"unknown {what} {name!r}")
+    return name
+
+
+def set_attention_backend(name: Optional[str]) -> None:
+    """'xla' | 'pallas' | 'tiered' | None (the variable, else the kernels)."""
+    global _BACKEND
+    _BACKEND = _checked(name, "attention backend")
+    resolve_attention_backend()
+
+
+def get_attention_backend() -> Optional[str]:
+    """The explicit backend, else ``SDBL_ATTENTION``, else None; an unknown
+    name in the variable raises, as it does in ``set_attention_backend``."""
+    if _BACKEND is not None:
+        return _BACKEND
+    return _checked(env.attention_backend(), "SDBL_ATTENTION")
+
+
+def resolve_attention_backend() -> bool:
+    """Read :func:`get_attention_backend` into what the calls take (an
+    entry point's step); returns whether that is the plain path."""
+    global _PLAIN
+    _PLAIN = get_attention_backend() == "xla"
+    return _PLAIN
+
+
+def plain_selected() -> bool:
+    """Whether the backend resolved at the last entry point is ``xla``."""
+    return _PLAIN
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -44,6 +95,6 @@ def uses_kernel(q: torch.Tensor, mask=None) -> bool:
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: torch.Tensor | None = None) -> torch.Tensor:
     """Heads-separate attention: q [B, N, H, D], k/v [B, M, H, D] -> [B, N, H, D]."""
-    if uses_kernel(q, mask):
+    if not _PLAIN and uses_kernel(q, mask):
         return flash_attention(q, k, v)
     return plain_attention(q, k, v, mask)

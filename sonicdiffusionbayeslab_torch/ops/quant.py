@@ -15,7 +15,9 @@ part of the exact runs.  The modes are the JAX package's:
 The JAX package keeps the mode in a process global; here it is state of a
 model: :func:`set_quant_mode` writes ``quant_mode`` on a module and on
 every submodule that has one (the UNet's, ``models/layers.py``), and the
-VAE's convs never quantize.  No environment variable is read.
+VAE's convs never quantize.  An engine takes its UNet's first mode from
+:func:`get_quant_mode` when it is built: ``SDBL_QUANT``, read through
+``utils/env.py``.
 
 Scheme (the standard dynamic W8A8 recipe, the JAX package's bits):
 symmetric int8 with scale ``max(amax, 1e-12) / 127`` and round half to
@@ -55,6 +57,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sonicdiffusionbayeslab_torch.utils import env
+
 MODES = (None, "int8", "int8_conv", "int8_conv_only")
 # torch._int_mm on CUDA: more than 16 rows, K and N multiples of 8.
 _MIN_ROWS = 17
@@ -75,6 +79,23 @@ def dense_enabled(mode: Optional[str]) -> bool:
 def conv_enabled(mode: Optional[str]) -> bool:
     """The UNet's 3x3 convs run int8 ('int8_conv' and 'int8_conv_only')."""
     return mode in ("int8_conv", "int8_conv_only")
+
+
+def get_quant_mode() -> Optional[str]:
+    """The process default, which a new engine's UNet starts in:
+    ``SDBL_QUANT`` (the JAX package's ``get_quant_mode`` falls back to it
+    too; its error words where the value is unknown)."""
+    return env.quant_mode()
+
+
+def dense_quant_enabled() -> bool:
+    """The default mode quantizes the projections ('int8', 'int8_conv')."""
+    return dense_enabled(get_quant_mode())
+
+
+def conv_quant_enabled() -> bool:
+    """The default mode quantizes the 3x3 convs ('int8_conv', 'int8_conv_only')."""
+    return conv_enabled(get_quant_mode())
 
 
 def set_quant_mode(module: nn.Module, mode: Optional[str]) -> nn.Module:

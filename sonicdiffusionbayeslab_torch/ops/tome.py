@@ -211,3 +211,9 @@ def shared_matching(x: torch.Tensor, cfg: TomeConfig, hw, dst_idx: Optional[torc
     if share:
         cache[(hw[0], hw[1], x.shape[0])] = mu
     return mu
+
+
+def merge_wavg(merge: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """``merge(x)``: the paper's ``merge_wavg`` kept for API parity (the
+    mean weighting lives in the merge itself), as the JAX package's."""
+    return merge(x)

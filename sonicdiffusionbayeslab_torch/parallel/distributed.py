@@ -45,6 +45,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from sonicdiffusionbayeslab_torch.utils import env
+
 # A collective that waits longer than this fails the rank that waits, so a
 # rank that raised ends the run rather than hanging the others.
 TIMEOUT_S = 600.0
@@ -73,11 +75,13 @@ def initialize(coordinator: Optional[str] = None, num_processes: Optional[int] =
     the backend, NCCL on CUDA and gloo on the CPU, and on CUDA the rank's
     GPU (``LOCAL_RANK``, else the rank modulo the GPUs); ``backend``
     overrides the choice (gloo for ranks that share one GPU, which NCCL
-    refuses).  A group already started is kept (True)."""
+    refuses).  A group already started is kept (True).  ``coordinator``
+    left None takes ``SDBL_COORDINATOR``, as in the JAX package."""
     from sonicdiffusionbayeslab_torch.utils.device import resolve_device
 
     if dist.is_available() and dist.is_initialized():
         return True
+    coordinator = env.coordinator(coordinator)
     given = (coordinator, num_processes, process_id)
     if any(a is not None for a in given):
         if any(a is None for a in given):

@@ -16,8 +16,9 @@ int8_conv_only; turbo (int8_conv_only + ToMe 0.5); DeepCache interval 2, 3
 and 5; max-stack (turbo + DeepCache 3).  SD3 modes (with ``--sd3``; flow
 Euler, shift 3, CFG 7): exact; trunk-delta interval 2 and 3 (branch 2); ToMe
 0.25 and 0.5; int8; max-stack (ToMe 0.5 + trunk-delta 3).  The snapshot
-paths come from the flags only (no environment variable is read); a path
-that does not exist gives the pipeline's random weights.  Each mode's int8
+paths come from the flags, else ``SDBL_SD15_SNAPSHOT``, ``SDBL_CLIP_SNAPSHOT``
+and ``SDBL_SD3_SNAPSHOT`` (as in the JAX package); a path that does not
+exist gives the pipeline's random weights.  Each mode's int8
 setting is the model's (``engine.set_quant_mode``) and is reset after its
 row, so it never reaches the next one.  Output: ``<out>.tsv`` and
 ``<out>.jsonl`` with the reference's columns.
@@ -31,6 +32,8 @@ import json
 import sys
 from pathlib import Path
 from typing import List, Optional, Sequence
+
+from sonicdiffusionbayeslab_torch.utils import env
 
 
 @dataclasses.dataclass
@@ -156,11 +159,13 @@ def add_deltas(rows: List[dict]) -> List[dict]:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--sd15", default=None, help="local diffusers SD-1.5 snapshot dir")
-    ap.add_argument("--clip", default=None,
+    ap.add_argument("--sd15", default=env.snapshot("sd15"),
+                    help="local diffusers SD-1.5 snapshot dir")
+    ap.add_argument("--clip", default=env.snapshot("clip"),
                     help="local clip-vit-base-patch16 snapshot (CLIP scoring; omit to measure "
                          "speed only)")
-    ap.add_argument("--sd3", default=None, help="local SD3-medium snapshot dir (adds the SD3 rows)")
+    ap.add_argument("--sd3", default=env.snapshot("sd3"),
+                    help="local SD3-medium snapshot dir (adds the SD3 rows)")
     ap.add_argument("--prompts", type=int, default=100,
                     help="COCO test captions per mode (reference protocol: 1000)")
     ap.add_argument("--batch", type=int, default=8)
@@ -176,7 +181,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     if not args.sd15:
-        ap.error("--sd15 is required: the frontier runs on a local snapshot")
+        ap.error("--sd15 (or SDBL_SD15_SNAPSHOT) is required: the frontier runs on a local "
+                 "snapshot")
 
     prompts = coco_prompts(args.prompts)
     clip_metric = None

@@ -70,6 +70,12 @@ class _PlanBuilder:
         self.schedule = NoiseSchedule.create(base)
         self.config = base
 
+    @classmethod
+    def from_config(cls, schedule_config, **kwargs):
+        """The reference's ``from_config(pipe.scheduler.config, **kw)``
+        construction, as the JAX package's parity shim."""
+        return cls(schedule_config=schedule_config, **kwargs)
+
     def timesteps(self, num_steps: int) -> np.ndarray:
         return space_timesteps(
             num_steps, self.config.num_train_timesteps, self.config.timestep_spacing,

@@ -121,7 +121,8 @@ class LCMDistiller:
             # (functional_call), so it holds none of its own.
             with torch.device("meta"):
                 self.student_unet = UNet2DCondition(dataclasses.replace(
-                    engine.unet_config, time_cond_proj_dim=config.student_time_cond_proj_dim))
+                    engine.unet_config, time_cond_proj_dim=config.student_time_cond_proj_dim),
+                    fused_qkv=engine.unet.fused_qkv)
             par = getattr(engine.unet, "par", None)
             if par is not None:  # split as the teacher is
                 place_module(self.student_unet, par)

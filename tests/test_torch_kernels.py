@@ -1209,6 +1209,25 @@ def test_tiny_distill_and_ti_steps_on_card_match_cpu(cuda):
         assert r["max_grad_rel_err"] <= smoke.TINY_GRAD_REL, name
 
 
+def test_chip_smoke_reads_a_trace_as_profiler_events_lists_it():
+    """chip_smoke.py's ``device_event_names`` (the kernels its traced runs
+    count, read from the raw Kineto events) lists a trace's events on a
+    device by name in the order ``prof.events()`` gives them; shown on the
+    CPU's events of a CPU trace, less the bookkeeping ops events() drops."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
+    from torch.profiler import ProfilerActivity, profile
+
+    smoke = _chip_smoke()
+    x = torch.randn(8, 8)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(20):
+            x = torch.nn.functional.softmax(x @ x.T, dim=-1) + 1.0
+    got = [n for n in smoke.device_event_names(prof, DeviceType.CPU) if not _filter_name(n)]
+    want = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    assert len(want) >= 80 and got == want
+
+
 def test_chip_smoke_records_the_shapes_its_census_counts():
     """chip_smoke.py's ``recording_kernel_shapes`` (phase 17's record of the
     shapes a split rank launches) sees, in a real CPU forward of the tiny

@@ -48,6 +48,12 @@ R = D.rank()
 OUT = sys.argv[4]
 ARGS = json.load(open(OUT + "/args.json"))
 """
+# Every rank leaves together and closes its group before the interpreter
+# exits, so that no gloo thread is still reading from a rank that is gone.
+_TAIL = """
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+"""
 
 
 def _free_port() -> int:
@@ -64,7 +70,7 @@ def run_ranks(body: str, out: Path, args=None, n: int = RANKS, timeout: float = 
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     env.pop("WORLD_SIZE", None)
     addr = f"localhost:{_free_port()}"
-    procs = [subprocess.Popen([sys.executable, "-c", _HEAD + body, addr, str(n), str(r),
+    procs = [subprocess.Popen([sys.executable, "-c", _HEAD + body + _TAIL, addr, str(n), str(r),
                                str(out)], cwd=out, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(n)]
     try:
@@ -262,6 +268,9 @@ out = eng.sample(plan, emb, neg, guidance_scale=7.5, latent_hw=(8, 8),
 arrays.update(engine=out.images.numpy(), engine_latents=out.latents.numpy(),
               engine_x0=out.x0_images.numpy())
 res["engine_time"] = out.execution_time
+arrays["cfg_prefix"] = eng.sample(plan, emb, neg, guidance_scale=7.5, latent_hw=(8, 8),
+                                  init_latents=inp["lat0"], mesh=mesh,
+                                  cfg_prefix=True).images.numpy()
 lcm = S.LCMScheduler().build_plan(4)
 arrays["lcm"] = eng.sample(lcm, emb, None, seed=3, guidance_scale=1.0, latent_hw=(8, 8),
                            sample_indices=np.arange(10, 18), mesh=mesh).images.numpy()
@@ -334,6 +343,9 @@ def test_engine_data_parallel_is_bit_equal_to_each_ranks_rows(sampled):
     for k in ("engine", "engine_latents", "engine_x0", "lcm"):
         assert np.array_equal(a0[k], a1[k]), k
     assert r0["engine_time"] == r1["engine_time"] > 0
+    # The CFG shared prefix on each rank's rows: the same math.
+    assert np.array_equal(a0["cfg_prefix"], a1["cfg_prefix"])
+    np.testing.assert_allclose(a0["cfg_prefix"], a0["engine"], atol=1e-5)
     assert a0["engine_x0"].shape == (3, 5, 16, 16, 3)
     lcm = S.LCMScheduler().build_plan(4)
     for r in range(RANKS):

@@ -135,7 +135,8 @@ def test_port_imports_no_jax():
         "models.ip_adapter", "models.prompt_weighting", "training", "training.lora",
         "training.optim", "training.opt8bit", "training.trainer", "training.loop",
         "train_bench", "t5_bench", "training.distillation", "training.textual_inversion", "parallel",
-        "parallel.distributed", "parallel.mesh", "utils.profiling", "utils.trace_analysis")
+        "parallel.distributed", "parallel.mesh", "utils.profiling", "utils.trace_analysis",
+        "utils.env", "utils.images")
     } <= set(mods)
 
 

@@ -46,12 +46,17 @@ CLI_FP32 = {"model.dtype": "float32"}
 # The int8 cases (a row-parallel layer's scales all-maxed over model, its
 # int32 partials summed; a conv's sample scale all-maxed over seq) hold
 # the split to one process as the exact ones: their sums are exact.
+# The fused cases: to_qkv and to_kv cut a section at a time (each rank its
+# heads of q, of k and of v), with and without int8; under seq the fused
+# self-attention's K/V gathered, and the CFG shared prefix's tile.
 MODEL_LAYERS = ("attention_self", "attention_cross_ip", "attention_5_heads_unsplit", "geglu",
                 "resnet_32_to_64", "resnet_64", "mmdit_block", "t5_block", "attention_self_int8",
-                "geglu_int8", "resnet_64_int8_conv")
+                "geglu_int8", "resnet_64_int8_conv", "attention_self_fused",
+                "attention_cross_fused_ip", "attention_self_fused_int8")
 SEQ_LAYERS = ("conv_in", "resnet_32_to_64", "downsample", "upsample", "group_norm",
               "spatial_transformer", "spatial_transformer_int8", "mmdit_block",
-              "downsample_int8_conv", "resnet_32_to_64_int8_conv")
+              "downsample_int8_conv", "resnet_32_to_64_int8_conv", "spatial_transformer_fused",
+              "spatial_transformer_cfg_tile")
 
 _LAYERS = """
 from sonicdiffusionbayeslab_torch.models import layers as L
@@ -73,6 +78,8 @@ def layer_cases():
     mm = MMDiTConfig(depth=1, num_heads=2, head_dim=16, joint_attention_dim=32)
     cross = L.Attention(32, 2, 16, context_dim=24)
     cross.add_ip()
+    cross_f = L.Attention(32, 2, 16, context_dim=24, fused_qkv=True)
+    cross_f.add_ip()
     st = L.SpatialTransformer(32, 2, 16, 24)
     st8 = set_quant_mode(L.SpatialTransformer(32, 2, 16, 24), "int8")
     q = set_quant_mode
@@ -102,6 +109,17 @@ def layer_cases():
                                  1),
         "resnet_32_to_64_int8_conv": (q(L.ResnetBlock(32, 64, 128), "int8_conv"), (x4, temb),
                                       {}, 1),
+        "attention_self_fused": (L.Attention(32, 2, 16, fused_qkv=True), (tokens,), {}, None),
+        "attention_cross_fused_ip": (cross_f, (tokens, ctx), dict(ip_context=rnd((2, 4, 24), 5),
+                                                                  ip_scale=torch.tensor(0.7)),
+                                     None),
+        "attention_self_fused_int8": (q(L.Attention(32, 2, 16, fused_qkv=True), "int8"),
+                                      (tokens,), {}, None),
+        "spatial_transformer_fused": (L.SpatialTransformer(32, 2, 16, 24, fused_qkv=True),
+                                      (x4, ctx), {}, 1),
+        "spatial_transformer_cfg_tile": (L.SpatialTransformer(32, 2, 16, 24),
+                                         (x4, torch.cat([ctx, ctx.flip(0)])),
+                                         dict(cfg_tile=True), 1),
     }
 
 def run_layers(names, ctx, rows):
@@ -166,6 +184,9 @@ def engine_runs(mesh, res, arrays):
     arrays["lcm_rescale"] = eng.sample(lcm, emb, neg, seed=3, guidance_scale=4.0,
                                        guidance_rescale=0.7, latent_hw=(8, 8),
                                        sample_indices=np.arange(10, 14), mesh=mesh).images.numpy()
+    arrays["cfg_prefix"] = eng.sample(plan, emb, neg, guidance_scale=7.5, latent_hw=(8, 8),
+                                      init_latents=inp["lat0"], mesh=mesh,
+                                      cfg_prefix=True).images.numpy()
     return eng, plan, emb, neg
 
 def int8_runs(eng, plan, emb, neg, modes, mesh, arrays):
@@ -196,6 +217,18 @@ res, arrays = {}, {}
 res["layers"] = run_layers(ARGS["layers"], ctx, None)
 eng, plan, emb, neg = engine_runs(mesh, res, arrays)
 int8_runs(eng, plan, emb, neg, ("int8", "int8_conv", "int8_conv_only"), mesh, arrays)
+# The fused UNet (to_qkv, to_kv) from the same weights, split a section at a time.
+from sonicdiffusionbayeslab_torch.models.weights import fuse_projections
+fused = StableDiffusionEngine(UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny(),
+                              dtype=torch.float32, device="cpu", fused_qkv=True)
+fused.load_state_dicts({k: fuse_projections(v, getattr(fused, k))
+                        for k, v in torch.load(OUT + "/sds.pt").items()})
+res["fused_plan"] = sorted(k for k, d in fused.parallelize(mesh)["unet"].items()
+                           if d is not None and k.endswith(("to_qkv.weight", "to_kv.weight")))
+arrays["fused"] = fused.sample(plan, emb, neg, guidance_scale=7.5, latent_hw=(8, 8),
+                               init_latents=np.load(OUT + "/inputs.npz")["lat0"],
+                               mesh=mesh).images.numpy()
+del fused
 for key, (name, extra, args) in ARGS["pipelines"].items():
     p = models_registry[name](**ARGS["pipe_kw"], mesh_model=2, **extra)
     if name.startswith("stable_diffusion_3"):
@@ -503,10 +536,12 @@ def _engine_close(ranks, engine_inputs):
         jl = engine_inputs["jax_latents"]
         np.testing.assert_allclose(arrays["engine_latents"], jl,
                                    atol=2e-4 * float(np.abs(jl).max()))
+    for arrays, _ in ranks:  # the CFG shared prefix: the same math
+        np.testing.assert_allclose(arrays["cfg_prefix"], one["engine"], atol=1e-5)
     first = ranks[0][0]
     for arrays, _ in ranks[1:]:
         for k, v in first.items():
-            if k.startswith("engine") or k == "lcm_rescale":
+            if k.startswith("engine") or k in ("lcm_rescale", "cfg_prefix"):
                 assert np.array_equal(arrays[k], v), k
 
 
@@ -569,6 +604,20 @@ def test_engine_on_the_model_axis_matches_one_process_and_jax(model_run, engine_
     split = res["plans"]["unet"]
     assert "down_blocks.0.attentions.0.transformer_blocks.0.ff.net.0.proj.weight" in split
     assert not any(k.startswith("time_embedding") for k in split)
+
+
+def test_fused_engine_on_the_model_axis_matches_one_process(model_run, engine_inputs):
+    """A UNet built with fused q/k/v projections (``to_qkv``, ``to_kv``; the
+    weights concatenated by ``weights.fuse_projections``) at n_model 2:
+    every fused weight cut a section at a time, the images the same on
+    every rank and within 1e-5 of one process's separate projections."""
+    ranks = model_run[1]
+    for arrays, res in ranks:
+        np.testing.assert_allclose(arrays["fused"], engine_inputs["one"]["engine"], atol=1e-5)
+        assert np.array_equal(arrays["fused"], ranks[0][0]["fused"])
+    cut = ranks[0][1]["fused_plan"]
+    assert "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_qkv.weight" in cut
+    assert "down_blocks.0.attentions.0.transformer_blocks.0.attn2.to_kv.weight" in cut
 
 
 def test_engine_on_the_seq_axis_matches_one_process_and_jax(seq_run, engine_inputs):
