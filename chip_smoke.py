@@ -234,9 +234,10 @@ prints no ``ok`` line:
      script with --tp-rank; every time is contention, not scaling): (a)
      the split GroupNorm pair (group_norm_partials, group_norm_apply) at
      every GroupNorm shape of the SD-1.5 UNet at batch 4 in 2 and 4 row
-     slices, bf16 and fp32, the merged statistics against all rows', the
-     output against plain_group_norm, both timed at a mesh_seq=2 rank's
-     shapes; (b) SD-1.5 at 512^2 on two ranks at mesh_model=2 and at
+     slices, bf16 and fp32, the statistics the apply kernel merged against
+     all rows' and merge_group_stats', the output against
+     plain_group_norm, two launches on one input bit-equal, both timed at
+     a mesh_seq=2 rank's shapes; (b) SD-1.5 at 512^2 on two ranks at mesh_model=2 and at
      mesh_seq=2: one fp32 (TF32 off) and one bf16 UNet forward, a 4-step
      fp32 and a 4-step bf16 run, each against one process, every rank's
      launches equal to the census restated for the mode; (c) four ranks at
@@ -5944,29 +5945,41 @@ def split_gn_bound(kind, B, N, C, G, silu, dtype):
 
 def split_pair(x, w, b, G, eps, silu, n):
     """The split GroupNorm pair in one process as ``n`` seq ranks run it on
-    ``x``'s rows cut in ``n`` slices: each slice's partials, merged in row
-    order, applied to each slice; (output, merged statistics)."""
-    from sonicdiffusionbayeslab_torch.ops.groupnorm import (group_norm_apply, group_norm_partials,
-                                                            merge_group_stats)
+    ``x``'s rows cut in ``n`` slices: each slice's partials, gathered in
+    row order, merged and applied to each slice by the apply kernel;
+    (output, the statistics the kernel merged, the gathered partials).
+    Raises unless every slice's apply merged the same bits, as every rank
+    must."""
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import group_norm_apply, group_norm_partials
 
     slices = [s.contiguous() for s in x.chunk(n, dim=1)]
-    stats = merge_group_stats(torch.stack([group_norm_partials(s, G) for s in slices]), eps)
-    return torch.cat([group_norm_apply(s, stats, w, b, silu) for s in slices], dim=1), stats
+    parts = torch.stack([group_norm_partials(s, G) for s in slices])
+    ys, stats = zip(*(group_norm_apply(s, parts, w, b, eps, silu, return_stats=True)
+                      for s in slices))
+    if not all(torch.equal(st, stats[0]) for st in stats[1:]):
+        raise AssertionError(f"split GroupNorm {tuple(x.shape)} in {n} slices: the slices' "
+                             "applies merged different statistics")
+    return torch.cat(ys, dim=1), stats[0], parts
 
 
 def check_split_group_norm(unet_calls):
     """Phase 17 (a): the split GroupNorm pair at every GroupNorm shape of the
     SD-1.5 UNet at batch 2 * BATCH, its rows cut in 2 and 4 slices (one
-    process), bf16 and fp32: the partials of the slices merged in order
-    within GN_STATS_REL (relative) of the same kernel's over all rows,
-    within the plain partials' merge; the apply of the merged statistics
-    to every slice against ``plain_group_norm`` with the GroupNorm gates.
-    Then each kernel timed at a rank's shape of n_seq 2 (bf16), beside its
-    plain version, ``torch.var_mean`` (the partials' library call) and the
-    bound; totals are per-shape medians x the launches at that shape in
-    one rank's seq-split batch-2 run."""
-    from sonicdiffusionbayeslab_torch.ops.groupnorm import (group_norm_apply, group_norm_partials,
-                                                            merge_group_stats, plain_group_norm,
+    process), bf16 and fp32: the statistics the apply kernel merged from
+    the slices' partials within GN_STATS_REL (relative) of the same
+    kernels' over all rows and of ``merge_group_stats`` of the same
+    partials, and within the plain partials' merge; the output against
+    ``plain_group_norm`` with the GroupNorm gates; each kernel launched
+    twice on one input at a rank's shape, bit-equal.  Then each kernel
+    timed at a rank's shape of n_seq 2 (bf16; the apply on the two ranks'
+    gathered partials), beside its plain version, ``torch.var_mean`` (the
+    partials' library call) and the bound, with its launch plan; totals
+    are per-shape medians x the launches at that shape in one rank's
+    seq-split batch-2 run."""
+    from sonicdiffusionbayeslab_torch.ops.groupnorm import (apply_plan, card_partials_plan,
+                                                            group_norm_apply,
+                                                            group_norm_partials, merge_group_stats,
+                                                            plain_group_norm,
                                                             plain_group_norm_apply,
                                                             plain_group_norm_partials)
 
@@ -5974,22 +5987,32 @@ def check_split_group_norm(unet_calls):
     shapes = sorted(s for k, s in unet_calls if k == "group_norm")
     out = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                    bound_by=collections.Counter(), launches_a_forward=0) for k in SPLIT_GN}
-    stats_rel = 0.0
+    stats_rel = merge_rel = 0.0
+    merge_bit_equal, repeats = True, 0
     timings = []
     for dtype in (torch.bfloat16, torch.float32):
         for shape in shapes:
             B, N, C, G, eps, silu = shape
             x, w, b = gn_inputs(shape, dtype, gen)
-            whole = merge_group_stats(group_norm_partials(x, G)[None], eps)
+            whole = group_norm_apply(x, group_norm_partials(x, G)[None], w, b, eps, silu,
+                                     return_stats=True)[1]
             want = plain_group_norm(x, w, b, G, eps, silu)
             for n in TP_SPLITS:
                 slices = [s.contiguous() for s in x.chunk(n, dim=1)]
-                y, stats = split_pair(x, w, b, G, eps, silu, n)
+                y, stats, parts = split_pair(x, w, b, G, eps, silu, n)
                 rel = ((stats - whole).abs() / whole.abs()).max().item()
                 stats_rel = max(stats_rel, rel)
                 if rel > GN_STATS_REL:
                     raise AssertionError(f"split GroupNorm {shape} in {n} slices, {dtype}: merged "
                                          f"statistics {rel:.3e} from all rows' (relative)")
+                torch_merge = merge_group_stats(parts, eps)
+                merge_bit_equal &= torch.equal(stats, torch_merge)
+                rel = ((stats - torch_merge).abs() / torch_merge.abs()).max().item()
+                merge_rel = max(merge_rel, rel)
+                if rel > GN_STATS_REL:
+                    raise AssertionError(f"split GroupNorm {shape} in {n} slices, {dtype}: the "
+                                         f"kernel's merge {rel:.3e} from merge_group_stats' "
+                                         "(relative)")
                 plain = merge_group_stats(torch.stack([plain_group_norm_partials(s, G)
                                                        for s in slices]), eps)
                 p_err = (stats - plain).abs().max().item()
@@ -5999,17 +6022,36 @@ def check_split_group_norm(unet_calls):
                     out["group_norm_partials"]["max_abs_err"], p_err)
                 out["group_norm_apply"]["max_abs_err"] = max(out["group_norm_apply"]["max_abs_err"],
                                                              a_err)
+            xs = x[:, :N // 2].contiguous()
+            parts2 = torch.stack([group_norm_partials(s.contiguous(), G)
+                                  for s in x.chunk(2, dim=1)])
+            twice = [(group_norm_partials(xs, G), group_norm_apply(xs, parts2, w, b, eps, silu))
+                     for _ in range(2)]
+            if not all(torch.equal(u, v) for u, v in zip(*twice)):
+                raise AssertionError(f"split GroupNorm {shape}, {dtype}: two launches on one "
+                                     "input differ")
+            repeats += 1
             if dtype != torch.bfloat16:
                 continue
-            xs = x[:, :N // 2].contiguous()
             launches = unet_calls[("group_norm", shape)]
+            pp = card_partials_plan(B, N // 2, C, G, 1, True)  # 1: bfloat16
+            ap = apply_plan(B, N // 2, C, xs.element_size())
+            plans = {
+                "group_norm_partials": (f"ranges of {pp.channels} channels x {pp.ranges}, "
+                                        f"split {pp.split}, {pp.ctas} CTAs of {pp.threads} "
+                                        f"threads ({pp.row_lanes} lanes), {pp.smem} B"),
+                "group_norm_apply": (f"{ap.tiles} tiles of {ap.tile_rows} rows x {B}, "
+                                     f"{ap.ctas} CTAs of {ap.threads} threads "
+                                     f"({ap.row_lanes} lanes)"),
+            }
             calls = {
                 "group_norm_partials": (lambda: group_norm_partials(xs, G),
                                         lambda: plain_group_norm_partials(xs, G),
                                         lambda: torch.var_mean(xs.view(B, -1, G, C // G),
                                                                dim=(1, 3))),
-                "group_norm_apply": (lambda: group_norm_apply(xs, whole, w, b, silu),
-                                     lambda: plain_group_norm_apply(xs, whole, w, b, silu), None),
+                "group_norm_apply": (lambda: group_norm_apply(xs, parts2, w, b, eps, silu),
+                                     lambda: plain_group_norm_apply(xs, parts2, w, b, eps, silu),
+                                     None),
             }
             for kind, (kern, plain_fn, lib) in calls.items():
                 ms, plain_ms = cuda_ms(kern), cuda_ms(plain_fn)
@@ -6025,21 +6067,24 @@ def check_split_group_norm(unet_calls):
                 r["launches_a_forward"] += launches
                 timings.append(dict(kernel=kind, shape=[B, N // 2, C, G], launches=launches,
                                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                                    bound_by=by))
+                                    bound_by=by, plan=plans[kind]))
                 print(f"phase 17 (a) {kind} bf16 {B},{N // 2},{C} (G {G}) x{launches} a forward: "
                       f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, library "
                       f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}, bound "
-                      f"{b_ms * 1e3:.1f} us ({by})", flush=True)
+                      f"{b_ms * 1e3:.1f} us ({by}); {plans[kind]}", flush=True)
     for r in out.values():
         r["bound_by"] = max(r["bound_by"], key=r["bound_by"].get)
     out["group_norm_apply"]["library_ms"] = None  # no one call applies given statistics
     print(f"phase 17 (a) split GroupNorm: merged statistics within {stats_rel:.3e} (relative) "
-          f"of all rows' over {len(shapes)} shapes x {TP_SPLITS} slices x bf16/fp32; max abs err "
+          f"of all rows' over {len(shapes)} shapes x {TP_SPLITS} slices x bf16/fp32; the "
+          f"kernel's merge within {merge_rel:.3e} of merge_group_stats' (bit-equal: "
+          f"{merge_bit_equal}); two launches bit-equal at {repeats} rank shapes; max abs err "
           f"partials {out['group_norm_partials']['max_abs_err']:.3e}, apply "
           f"{out['group_norm_apply']['max_abs_err']:.3e}; totals over one rank's run: "
           + json.dumps({k: {f: r[f] for f in ('ms', 'plain_ms', 'bound_ms', 'library_ms')}
                         for k, r in out.items()}), flush=True)
-    return dict(kernels=out, stats_rel=stats_rel, timings=timings)
+    return dict(kernels=out, stats_rel=stats_rel, merge_rel=merge_rel,
+                merge_bit_equal=merge_bit_equal, bit_equal_repeats=repeats, timings=timings)
 
 
 def rel_l2(got, want):

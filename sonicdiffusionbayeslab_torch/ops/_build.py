@@ -94,12 +94,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sdbl_flash_attention_sm90.restype = i
     lib.sdbl_groupnorm_fwd.argtypes = [p, p, p, p] + [i] * 10 + [f, i, i, p]
     lib.sdbl_groupnorm_fwd.restype = i
-    lib.sdbl_groupnorm_partials.argtypes = [p, p] + [i] * 9 + [i, p]
+    lib.sdbl_groupnorm_partials.argtypes = [p, p, p, p] + [i] * 10 + [p]
     lib.sdbl_groupnorm_partials.restype = i
-    lib.sdbl_groupnorm_apply.argtypes = [p, p, p, p, p] + [i] * 7 + [p]
+    lib.sdbl_groupnorm_apply.argtypes = [p, p, p, p, p, p] + [i] * 9 + [f, i, i, p]
     lib.sdbl_groupnorm_apply.restype = i
     lib.sdbl_groupnorm_active_clusters.argtypes = [i] * 5 + [ctypes.POINTER(i)]
     lib.sdbl_groupnorm_active_clusters.restype = i
+    lib.sdbl_groupnorm_partials_active_blocks.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+    lib.sdbl_groupnorm_partials_active_blocks.restype = i
 
 
 def kernels() -> ctypes.CDLL:

@@ -22,16 +22,34 @@ package's ``_gn_bwd`` is ``jax.vjp`` of it.
 Split across ranks (a height split over the mesh's ``seq`` axis): the
 TPU kernel's grid has a pass axis, pass 0 accumulating each group's sums
 and pass 1 applying them.  ``group_norm_silu_split`` does the same in two
-hand-written launches with a collective between them:
-``group_norm_partials`` (``gn_cluster_kernel``'s statistics, stopped
-before the apply: per batch item and group the fp32 ``(count, mean,
-M2)`` of this rank's rows), an all-gather of the partials along the axis,
-``merge_group_stats`` (Chan's merge in rank order, a few torch ops on a
-[B, G] tensor, so every rank gets the same bits) and
-``group_norm_apply`` (``gn_apply_kernel``: ``(x - mean) * rstd * gamma +
-beta`` and the SiLU with the given statistics).  Their plain versions
-``plain_group_norm_partials`` and ``plain_group_norm_apply`` run on a CPU
-tensor.  Each wrapper counts its launches (``.launches``).
+hand-written kernels with an all-gather of the partials between them and
+no other op:
+
+* ``group_norm_partials`` (``gn_partials_kernel``): per batch item and
+  group the fp32 ``(count, mean, M2)`` of this rank's rows.  It reads x
+  once, so its bound is x's bytes; at a rank's 0.3-16 MB the fixed chain
+  of load latency and barriers costs more.  Its own plan
+  (``partials_plan``: residency asked of this kernel, one wave) cuts
+  channel ranges of at least ``MIN_RANGE_BYTES`` of a row and splits a
+  range's rows over several blocks where it holds more than
+  ``MAX_BLOCK_BYTES``; a thread
+  keeps ``ROW_LOADS`` loads in flight and shifted sums in registers, one
+  shared-memory stage adds a block's lanes, and the last block of a range
+  to arrive adds the blocks' sums from a small workspace in block order
+  and folds channels into groups (no clusters: on the card their barrier
+  cost more than the bytes).
+* ``group_norm_apply`` (``gn_apply_kernel``): takes the gathered ``[S, B,
+  G, 3]`` partials, merges them in its prologue in rank order with
+  ``merge_group_stats``'s formula (so every rank gets the same bits), and
+  applies ``(x - mean) * rstd * gamma + beta`` and the SiLU.  It reads x
+  and writes y: twice the partials' bound.  ``apply_plan`` sizes its
+  tiles of rows to one wave; a thread keeps its channels' constants in
+  registers and ``ROW_LOADS`` loads in flight.  On request it returns the
+  merged ``[B, G, 2]`` ``(mean, rstd)`` as well.
+
+Their plain versions ``plain_group_norm_partials`` and
+``plain_group_norm_apply`` (which merges with ``merge_group_stats``) run
+on a CPU tensor.  Each wrapper counts its launches (``.launches``).
 """
 
 from __future__ import annotations
@@ -57,6 +75,13 @@ MIN_ROW_BYTES = 64     # a channel range spans at least 64 bytes of a row where 
 SECTOR_BYTES = 32      # ...and never less than one DRAM sector where it must go narrower
 CACHE_BYTES = 96 * 1024  # a block keeps its rows in shared memory up to this size
 MAX_SMEM = 232448      # 227 KB
+MIN_RANGE_BYTES = 128  # the split pair's partials: a channel range reads whole 128-byte lines
+ROW_LOADS = 4          # rows a thread of the split pair has in flight (kLoads in groupnorm.cu)
+MAX_SPLIT = 32         # blocks the partials may split a slab's rows over...
+MAX_BLOCK_BYTES = 128 * 1024   # ...where one block would read more than this,
+SPLIT_BLOCK_BYTES = 64 * 1024   # ...into blocks that read at most this (measured)
+PARTIAL_LANES = 32     # row lanes a partials block has at most (measured)
+APPLY_CTAS = 512       # blocks the apply aims for, ~4 an SM (measured best at a seq rank's shapes)
 # A range of one lane's channels keeps mean, M2, gamma and beta in shared
 # memory, 16 bytes a channel: one group of 8192 channels fits 227 KB.
 MAX_CHANNELS = 8192
@@ -107,11 +132,13 @@ def merge_group_stats(parts: torch.Tensor, eps: float) -> torch.Tensor:
     return torch.stack([mean, torch.rsqrt(m2 / n + eps)], dim=-1)
 
 
-def plain_group_norm_apply(x: torch.Tensor, stats: torch.Tensor, weight: torch.Tensor,
-                           bias: torch.Tensor, silu: bool) -> torch.Tensor:
-    """x [B, ..., C] normalised with the given [B, G, 2] ``(mean, rstd)``,
-    then the affine and optional SiLU in fp32; output in x's dtype."""
+def plain_group_norm_apply(x: torch.Tensor, parts: torch.Tensor, weight: torch.Tensor,
+                           bias: torch.Tensor, eps: float, silu: bool) -> torch.Tensor:
+    """x [B, ..., C] normalised with the statistics ``merge_group_stats``
+    merges from the [S, B, G, 3] partials, then the affine and optional
+    SiLU in fp32; output in x's dtype."""
     B, C = x.shape[0], x.shape[-1]
+    stats = merge_group_stats(parts, eps)
     G = stats.shape[1]
     xg = x.float().reshape(B, -1, G, C // G)
     mean, rstd = (stats[..., i].float()[:, None, :, None] for i in (0, 1))
@@ -149,7 +176,7 @@ SM_COUNT = 132
 SM_THREADS = 2048
 SM_REGS = 65536
 SM_SMEM = 233472       # 228 KB an SM, of which each block also takes 1 KB
-REGS_PER_THREAD = 64   # the kernel's __launch_bounds__(512, 2)
+REGS_PER_THREAD = 64   # the kernels' __launch_bounds__(512, 2)
 # Share of the card's block slots that clusters of each size fill
 # (cudaOccupancyMaxActiveClusters on an H100 SXM: a cluster must fit one GPC).
 CLUSTER_PACKING = {1: 1.0, 2: 1.0, 4: 0.93, 8: 0.9, 16: 0.8}
@@ -171,6 +198,18 @@ def card_active_clusters(dtype: int, vec: int, cluster: int, threads: int, smem:
     _build.check(_build.kernels().sdbl_groupnorm_active_clusters(dtype, vec, cluster, threads,
                                                                  smem, ctypes.byref(out)),
                  "cudaOccupancyMaxActiveClusters")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def card_active_blocks(dtype: int, vec: int, threads: int, smem: int) -> int:
+    """The card's own answer (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    times its SMs) for ``gn_partials_kernel``'s instantiation of ``dtype``
+    and ``vec``."""
+    out = ctypes.c_int(0)
+    _build.check(_build.kernels().sdbl_groupnorm_partials_active_blocks(
+        dtype, vec, threads, smem, ctypes.byref(out)),
+        "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
     return out.value
 
 
@@ -209,6 +248,15 @@ def _layout(B: int, N: int, C: int, G: int, elem: int, vec: int, range_groups: i
                 ctas=B * ranges * cluster)
 
 
+def _vector(C: int, G: int, elem: int, aligned: bool) -> int:
+    """16 bytes' worth of elements where C and whole groups allow it and x
+    is 16-byte aligned, else 1."""
+    vec = 16 // elem
+    if not aligned or C % vec or G % (vec // math.gcd(C // G, vec)):
+        return 1
+    return vec
+
+
 def plan(B: int, N: int, C: int, G: int, elem: int, aligned: bool = True,
          active_clusters=model_active_clusters) -> Plan:
     """The launch plan for x ``[B, N, C]`` with ``G`` groups and elements of
@@ -231,9 +279,7 @@ def plan(B: int, N: int, C: int, G: int, elem: int, aligned: bool = True,
     if C % G:
         raise ValueError(f"channels {C} not divisible by groups {G}")
     gs = C // G
-    vec = 16 // elem
-    if not aligned or C % vec or G % (vec // math.gcd(gs, vec)):
-        vec = 1
+    vec = _vector(C, G, elem, aligned)
     g0 = vec // math.gcd(gs, vec)
     widths = [k for k in range(g0, G + 1, g0) if G % k == 0]
     wide = [k for k in widths if k * gs * elem >= MIN_ROW_BYTES]
@@ -263,6 +309,134 @@ def plan(B: int, N: int, C: int, G: int, elem: int, aligned: bool = True,
         raise ValueError(f"no GroupNorm plan fits {MAX_SMEM} bytes of shared memory for "
                          f"C={C}, G={G}")
     return best or fallback
+
+
+def partials_smem(row_lanes: int, channels: int) -> int:
+    """``gn_partials_kernel``'s dynamic shared memory: each item's two sums
+    a channel ([lanes][channels] twice) and the block's ([2][channels])."""
+    return 4 * (2 * row_lanes * channels + 2 * channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class PartialsPlan:
+    """How ``gn_partials_kernel`` cuts one call.  The grid holds ``B *
+    ranges * split`` blocks: a batch item's range of ``range_groups``
+    whole groups (``channels`` channels) is a slab, whose rows its
+    ``split`` blocks share, ``rows`` a block.  A block's ``threads`` are
+    ``row_lanes`` lanes of rows by ``channels / vec`` vector slots."""
+    vec: int
+    range_groups: int
+    channels: int
+    ranges: int
+    split: int
+    rows: int
+    threads: int
+    row_lanes: int
+    smem: int
+    ctas: int
+
+
+def model_active_blocks(vec: int, threads: int, smem: int) -> int:
+    """How many blocks of ``threads`` threads and ``smem`` bytes of shared
+    memory the card holds at once, modelled from threads, registers and
+    shared memory an SM."""
+    return model_active_clusters(vec, 1, threads, smem)
+
+
+def _partials_layout(B: int, N: int, C: int, G: int, vec: int, range_groups: int,
+                     split: int) -> PartialsPlan:
+    channels = range_groups * (C // G)
+    slots = channels // vec
+    rows = -(-N // split)
+    lanes = max(min(-(-rows // ROW_LOADS), 8), min(-(-rows // (2 * ROW_LOADS)), PARTIAL_LANES))
+    lanes = max(1, min(lanes, MAX_THREADS // slots))
+    threads = -(-min(MAX_THREADS, lanes * slots) // 32) * 32
+    ranges = G // range_groups
+    return PartialsPlan(vec=vec, range_groups=range_groups, channels=channels, ranges=ranges,
+                        split=split, rows=rows, threads=threads, row_lanes=lanes,
+                        smem=partials_smem(lanes, channels), ctas=B * ranges * split)
+
+
+def partials_plan(B: int, N: int, C: int, G: int, elem: int, aligned: bool = True,
+                  active_blocks=model_active_blocks) -> PartialsPlan:
+    """``gn_partials_kernel``'s launch plan for x ``[B, N, C]`` in ``G``
+    groups.
+
+    A channel range holds whole groups, a multiple of the vector, and at
+    least ``MIN_RANGE_BYTES`` of a row where C has that many (the
+    narrowest such range; else the widest).  A slab (a batch item's range)
+    of more than ``MAX_BLOCK_BYTES`` has its rows split over the fewest
+    blocks (2, 4, ..., ``MAX_SPLIT``) that leave each at most
+    ``SPLIT_BLOCK_BYTES``; a smaller slab is one block.  On the card a
+    split (a merge through device memory) cost more than a block reading
+    up to 128 KB, while a split slab gained from finer blocks.  A
+    block has a row lane for each two rounds of ``ROW_LOADS`` rows (one
+    round where that leaves fewer than 8 lanes), at most
+    ``PARTIAL_LANES`` lanes and ``MAX_THREADS`` threads.  The split backs
+    off where the grid would not fit one wave (``active_blocks(vec,
+    threads, smem)`` of this kernel)."""
+    if C % G:
+        raise ValueError(f"channels {C} not divisible by groups {G}")
+    gs = C // G
+    vec = _vector(C, G, elem, aligned)
+    g0 = vec // math.gcd(gs, vec)
+    widths = [k for k in range(g0, G + 1, g0) if G % k == 0]
+    k = next((k for k in widths if k * gs * elem >= MIN_RANGE_BYTES), widths[-1])
+    split, limit = 1, MAX_BLOCK_BYTES
+    while (split < MAX_SPLIT and -(-N // split) * k * gs * elem > limit
+           and split * -(-N // (2 * split)) < N):  # every block keeps a row
+        split, limit = 2 * split, SPLIT_BLOCK_BYTES
+    p = _partials_layout(B, N, C, G, vec, k, split)
+    while p.split > 1 and p.ctas > active_blocks(vec, p.threads, p.smem):
+        p = _partials_layout(B, N, C, G, vec, k, p.split // 2)
+    if p.smem > MAX_SMEM:
+        raise ValueError(f"no split GroupNorm plan fits {MAX_SMEM} bytes of shared memory for "
+                         f"C={C}, G={G}")
+    return p
+
+
+@dataclasses.dataclass(frozen=True)
+class ApplyPlan:
+    """``gn_apply_kernel``'s grid: ``tiles`` tiles of ``tile_rows`` rows a
+    batch item, a block a tile, of ``threads`` threads as ``row_lanes``
+    lanes of rows by ``C / vec`` vector slots (a thread takes several
+    (lane, slot) items where there are more than threads)."""
+    vec: int
+    threads: int
+    row_lanes: int
+    tile_rows: int
+    tiles: int
+    ctas: int
+
+
+def apply_wave(threads: int) -> int:
+    """Blocks of ``threads`` threads (no shared memory) the card holds at
+    once, modelled from threads and registers an SM."""
+    return SM_COUNT * min(SM_THREADS // threads, SM_REGS // (threads * REGS_PER_THREAD), 32)
+
+
+def apply_plan(B: int, N: int, C: int, elem: int, aligned: bool = True) -> ApplyPlan:
+    """``gn_apply_kernel``'s grid for x ``[B, N, C]``: 16-byte vectors where
+    C and the alignment of x and y allow; the fewest row lanes that give a
+    block two warps of slots; then rows a lane doubled from 1 up to
+    ``2 * ROW_LOADS`` while the grid has more than ``APPLY_CTAS`` blocks,
+    and raised further only where it would not fit one wave
+    (``apply_wave``)."""
+    vec = 16 // elem
+    if not aligned or C % vec:
+        vec = 1
+    slots = C // vec
+    lanes = max(1, min(-(-64 // slots), N))
+    threads = -(-min(MAX_THREADS, lanes * slots) // 32) * 32
+    per_lane = 1
+    while per_lane < 2 * ROW_LOADS and B * -(-N // (lanes * per_lane)) > APPLY_CTAS:
+        per_lane *= 2
+    while per_lane * lanes < N and B * -(-N // (lanes * per_lane)) > apply_wave(threads):
+        per_lane += 1
+    tile_rows = lanes * per_lane
+    tiles = -(-N // tile_rows)
+    return ApplyPlan(vec=vec, threads=threads, row_lanes=lanes, tile_rows=tile_rows, tiles=tiles,
+                     ctas=B * tiles)
 
 
 def reference_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -382,10 +556,9 @@ def _check_kernel_inputs(x: torch.Tensor, what: str, *params: torch.Tensor) -> N
 
 def group_norm_partials(x: torch.Tensor, groups: int) -> torch.Tensor:
     """x [B, ..., C] -> [B, G, 3] fp32 ``(count, mean, M2)`` of each of the
-    ``groups`` groups over x's rows: ``gn_cluster_kernel``'s Welford and
-    Chan merges, stopped before the apply, on a CUDA tensor (laid out by
-    ``card_plan``, without the row cache); ``plain_group_norm_partials``
-    on a CPU one."""
+    ``groups`` groups over x's rows: ``gn_partials_kernel`` on a CUDA
+    tensor (laid out by ``card_partials_plan``),
+    ``plain_group_norm_partials`` on a CPU one."""
     C = x.shape[-1]
     if C % groups:
         raise ValueError(f"channels {C} not divisible by groups {groups}")
@@ -397,47 +570,75 @@ def group_norm_partials(x: torch.Tensor, groups: int) -> torch.Tensor:
     N = x.numel() // (B * C)
     stats = torch.empty(B, groups, 3, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        p = card_plan(B, N, C, groups, _DTYPES[x.dtype], x.data_ptr() % 16 == 0)
+        p = card_partials_plan(B, N, C, groups, _DTYPES[x.dtype], x.data_ptr() % 16 == 0)
+        stream = torch.cuda.current_stream().cuda_stream
+        work = arrivals = None
+        if p.split > 1:
+            work = torch.empty(2 * p.split * B * C, dtype=torch.float32, device=x.device)
+            arrivals = _arrivals(x.device, stream, B * p.ranges)
         err = _build.kernels().sdbl_groupnorm_partials(
-            x.data_ptr(), stats.data_ptr(), B, N, C, groups, p.vec, p.range_groups, p.cluster,
-            p.threads, p.row_lanes, _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), stats.data_ptr(), None if work is None else work.data_ptr(),
+            None if arrivals is None else arrivals.data_ptr(), B, N, C, groups, p.vec,
+            p.range_groups, p.split, p.threads, p.row_lanes, _DTYPES[x.dtype], stream)
     _build.check(err, "group_norm_partials")
     _build.count_launch(group_norm_partials)
     return stats
 
 
 group_norm_partials.launches = 0
+# Per device and stream, the partials kernel's arrival counters: zeroed
+# once, and every launch leaves them at 0 (its last block of a slab resets
+# its counter), so eager calls and graph replays share them.
+_ARRIVALS: dict = {}
 
 
-def group_norm_apply(x: torch.Tensor, stats: torch.Tensor, weight: torch.Tensor,
-                     bias: torch.Tensor, silu: bool = True) -> torch.Tensor:
-    """x [B, ..., C] with the given [B, G, 2] fp32 ``(mean, rstd)`` ->
-    ``(x - mean) * rstd * weight + bias`` (+ SiLU) in x's dtype:
-    ``gn_apply_kernel`` on a CUDA tensor, ``plain_group_norm_apply`` on a
-    CPU one."""
+def _arrivals(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for the partials kernel on
+    ``stream``."""
+    key = (device.index, stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _ARRIVALS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf
+
+
+def group_norm_apply(x: torch.Tensor, parts: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float, silu: bool = True, *,
+                     return_stats: bool = False):
+    """x [B, ..., C] normalised with the statistics merged from the [S, B,
+    G, 3] fp32 partials ``(count, mean, M2)`` of S row slices (in row
+    order, as ``merge_group_stats`` merges them) -> ``(x - mean) * rstd *
+    weight + bias`` (+ SiLU) in x's dtype: ``gn_apply_kernel`` on a CUDA
+    tensor, ``plain_group_norm_apply`` on a CPU one.  With
+    ``return_stats``, ``(y, [B, G, 2] fp32 (mean, rstd))``: on a CUDA
+    tensor the statistics the kernel merged."""
     B, C = x.shape[0], x.shape[-1]
-    if stats.dim() != 3 or stats.shape[0] != B or stats.shape[2] != 2 or C % stats.shape[1]:
-        raise ValueError(f"stats {tuple(stats.shape)} is not [{B}, G, 2] with G dividing {C}")
+    if (parts.dim() != 4 or parts.shape[0] < 1 or parts.shape[1] != B or parts.shape[3] != 3
+            or C % parts.shape[2]):
+        raise ValueError(f"parts {tuple(parts.shape)} is not [S, {B}, G, 3] with G dividing {C}")
+    G = parts.shape[2]
     _build.add_flops((6 if silu else 2) * x.numel())
     if x.device.type == "cpu":
-        return plain_group_norm_apply(x, stats, weight, bias, silu)
+        y = plain_group_norm_apply(x, parts, weight, bias, eps, silu)
+        return (y, merge_group_stats(parts, eps)) if return_stats else y
     _check_kernel_inputs(x, "group_norm_apply", weight, bias)
-    if (stats.dtype != torch.float32 or stats.device != x.device
-            or not stats.is_contiguous()):
-        raise ValueError("stats must be contiguous float32 on x's device")
+    if (parts.dtype != torch.float32 or parts.device != x.device
+            or not parts.is_contiguous()):
+        raise ValueError("parts must be contiguous float32 on x's device")
     N = x.numel() // (B * C)
     y = torch.empty_like(x)
-    vec = 16 // x.element_size()
-    if C % vec or x.data_ptr() % 16 or y.data_ptr() % 16:
-        vec = 1
+    stats = (torch.empty(B, G, 2, dtype=torch.float32, device=x.device) if return_stats
+             else None)
+    p = apply_plan(B, N, C, x.element_size(), x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         err = _build.kernels().sdbl_groupnorm_apply(
-            x.data_ptr(), stats.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            B, N, C, stats.shape[1], vec, int(bool(silu)), _DTYPES[x.dtype],
+            x.data_ptr(), parts.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            None if stats is None else stats.data_ptr(), parts.shape[0], B, N, C, G, p.vec,
+            p.threads, p.row_lanes, p.tile_rows, float(eps), int(bool(silu)), _DTYPES[x.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "group_norm_apply")
     _build.count_launch(group_norm_apply)
-    return y
+    return (y, stats) if return_stats else y
 
 
 group_norm_apply.launches = 0
@@ -447,8 +648,9 @@ def group_norm_silu_split(x: torch.Tensor, weight: torch.Tensor, bias: torch.Ten
                           groups: int, eps: float, silu: bool, group) -> torch.Tensor:
     """GroupNorm(+SiLU) of a map whose rows are split over the ranks of
     ``group`` (this rank's rows in ``x``): the partials of the local rows,
-    gathered in rank order, merged, applied.  Inference only: the JAX
-    package trains under ``data`` and ``model``, never ``seq``."""
+    gathered in rank order, merged and applied by one kernel.  Inference
+    only: the JAX package trains under ``data`` and ``model``, never
+    ``seq``."""
     from sonicdiffusionbayeslab_torch.parallel import distributed
 
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
@@ -457,12 +659,21 @@ def group_norm_silu_split(x: torch.Tensor, weight: torch.Tensor, bias: torch.Ten
                                   "seq is not a JAX package feature")
     groups = resolve_groups(x.shape[-1], groups)
     parts = distributed.all_gather_seq(group_norm_partials(x, groups)[None], 0, group)
-    return group_norm_apply(x, merge_group_stats(parts, eps), weight, bias, silu)
+    return group_norm_apply(x, parts, weight, bias, eps, silu)
 
 
 @functools.lru_cache(maxsize=None)
 def card_plan(B: int, N: int, C: int, G: int, dtype: int, aligned: bool) -> Plan:
-    """``plan`` with the card's own occupancy answers; ``dtype`` 0 float32,
-    1 bfloat16."""
+    """``plan`` with the card's own occupancy answers for the fused kernel;
+    ``dtype`` 0 float32, 1 bfloat16."""
     return plan(B, N, C, G, 4 if dtype == 0 else 2, aligned,
                 functools.partial(card_active_clusters, dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def card_partials_plan(B: int, N: int, C: int, G: int, dtype: int,
+                       aligned: bool) -> PartialsPlan:
+    """``partials_plan`` with the card's own occupancy answers for the
+    partials kernel; ``dtype`` 0 float32, 1 bfloat16."""
+    return partials_plan(B, N, C, G, 4 if dtype == 0 else 2, aligned,
+                         functools.partial(card_active_blocks, dtype))

@@ -41,6 +41,9 @@ PEAK_FLOPS = float(989e12)
 # (torch._int_mm on the H100: cutlass_80_tensorop_i16832gemm_s8_..._tn_align16).
 SYMBOLS = {"attention": "flash_fwd_sm90_kernel", "group_norm": "gn_cluster_kernel",
            "attention_fp32": "flash_fwd_tf32x3_kernel"}
+# The split GroupNorm pair of a seq-split map (group_norm_silu_split).
+SPLIT_SYMBOLS = {"group_norm_partials": "gn_partials_kernel",
+                 "group_norm_apply": "gn_apply_kernel"}
 INT8_GEMM_SYMBOL = "gemm_s8"
 
 
@@ -77,6 +80,8 @@ def kernel_group(name: str, tome: bool = False) -> str:
         return "flash_attention (ours)"
     if SYMBOLS["group_norm"] in name:
         return "group_norm_silu (ours)"
+    if any(sym in name for sym in SPLIT_SYMBOLS.values()):
+        return "group_norm split (ours)"
     if INT8_GEMM_SYMBOL in low or "imma" in low:
         return "int8 GEMMs (cuBLASLt)"
     if any(w in low for w in ("fprop", "dgrad", "wgrad", "conv")):

@@ -42,16 +42,33 @@ def cuda():
     return torch.device("cuda")
 
 
+# CUPTI can drop the first kernels launched as a trace starts, more of them
+# late in a long process (chip_smoke.py's traces lose 1-33 of 64, once all):
+# TRACE_PADS spin kernels in bursts of 32, 4 ms apart, go first, and a
+# trace that recorded none of them is taken again, up to 3 times.
+TRACE_PADS = 256
+
+
 def traced_kernel_counts(run, symbols):
     """Executions on the card of the kernels whose names hold each symbol,
     during ``run()``, from a torch.profiler trace (graph replays included)."""
+    import time
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(TRACE_PADS):
+                torch.cuda._sleep(1000)
+                if (i + 1) % 32 == 0:
+                    torch.cuda.synchronize()
+                    time.sleep(0.004)
+            run()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if any("spin_kernel" in n for n in names):
+            break
     return [sum(sym in n for n in names) for sym in symbols]
 
 
@@ -77,9 +94,9 @@ def test_kernel_wrappers_take_plain_path_on_cpu_and_count_nothing():
     before = [f.launches for f in split]
     parts = gn_ops.group_norm_partials(x, 32)
     assert torch.equal(parts, gn_ops.plain_group_norm_partials(x, 32))
-    stats = gn_ops.merge_group_stats(parts[None], 1e-5)
-    assert torch.equal(gn_ops.group_norm_apply(x, stats, w, b),
-                       gn_ops.plain_group_norm_apply(x, stats, w, b, True))
+    y, stats = gn_ops.group_norm_apply(x, parts[None], w, b, 1e-5, return_stats=True)
+    assert torch.equal(y, gn_ops.plain_group_norm_apply(x, parts[None], w, b, 1e-5, True))
+    assert torch.equal(stats, gn_ops.merge_group_stats(parts[None], 1e-5))
     assert [f.launches for f in split] == before
 
 
@@ -712,16 +729,24 @@ def test_group_norm_one_launch_deterministic_and_graph_capturable(cuda, shape):
     assert torch.equal(captured, first)  # the graphed launch gives the eager bits
 
 
+# The SD-1.5 UNet's GroupNorm maps at batch 4 whose rows a seq rank splits
+# (N / 2 a rank at mesh_seq=2: 2048, 512, 128 and 32 rows), and a narrow
+# odd one.
+SPLIT_GN_MAPS = [(4, 4096, 320), (4, 4096, 640), (4, 4096, 960), (4, 1024, 320), (4, 1024, 640),
+                 (4, 1024, 960), (4, 1024, 1280), (4, 1024, 1920), (4, 256, 640), (4, 256, 1280),
+                 (4, 256, 1920), (4, 256, 2560), (4, 64, 1280), (4, 64, 2560), (2, 64, 20)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("n", [2, 4])
-@pytest.mark.parametrize("B,N,C", [(4, 4096, 320), (4, 1024, 640), (4, 256, 2560), (4, 64, 1280),
-                                   (2, 64, 20)])
+@pytest.mark.parametrize("B,N,C", SPLIT_GN_MAPS)
 def test_group_norm_split_pair_matches_plain(cuda, B, N, C, n, dtype, atol):
     """The split pair on ``n`` row slices: each slice's partials
-    (``gn_cluster_kernel``'s statistics), merged in order, within 1e-6
-    relative of the same kernel's over all rows and of the plain partials'
-    merge; the apply of the merged statistics to each slice against
+    (``gn_partials_kernel``), gathered in order, merged by every slice's
+    apply to the same bits, within 1e-6 relative of the same kernels' over
+    all rows and of ``merge_group_stats`` of the same partials, and within
+    the plain partials' merge; the apply of each slice against
     ``plain_group_norm``; one launch of each a call."""
     gen = torch.Generator(device=cuda).manual_seed(6)
     G = gn_ops.resolve_groups(C, 32)
@@ -729,20 +754,68 @@ def test_group_norm_split_pair_matches_plain(cuda, B, N, C, n, dtype, atol):
     w = torch.randn(C, generator=gen, device=cuda).to(dtype)
     b = torch.randn(C, generator=gen, device=cuda).to(dtype)
     slices = [s.contiguous() for s in x.chunk(n, dim=1)]
-    whole = gn_ops.merge_group_stats(gn_ops.group_norm_partials(x, G)[None], 1e-5)
+    whole = gn_ops.group_norm_apply(x, gn_ops.group_norm_partials(x, G)[None], w, b, 1e-5,
+                                    return_stats=True)[1]
     n0 = (gn_ops.group_norm_partials.launches, gn_ops.group_norm_apply.launches)
-    stats = gn_ops.merge_group_stats(
-        torch.stack([gn_ops.group_norm_partials(s, G) for s in slices]), 1e-5)
+    parts = torch.stack([gn_ops.group_norm_partials(s, G) for s in slices])
     plain = gn_ops.merge_group_stats(
         torch.stack([gn_ops.plain_group_norm_partials(s, G) for s in slices]), 1e-5)
-    torch.testing.assert_close(stats, whole, rtol=1e-6, atol=0.0)
-    torch.testing.assert_close(stats, plain, rtol=1e-5, atol=1e-6)
     for silu in (True, False):
-        got = torch.cat([gn_ops.group_norm_apply(s, stats, w, b, silu) for s in slices], dim=1)
+        outs = [gn_ops.group_norm_apply(s, parts, w, b, 1e-5, silu, return_stats=True)
+                for s in slices]
+        stats = outs[0][1]
+        assert all(torch.equal(o[1], stats) for o in outs)  # every rank merges the same bits
+        torch.testing.assert_close(stats, whole, rtol=1e-6, atol=0.0)
+        torch.testing.assert_close(stats, gn_ops.merge_group_stats(parts, 1e-5), rtol=1e-6,
+                                   atol=0.0)
+        torch.testing.assert_close(stats, plain, rtol=1e-5, atol=1e-6)
+        got = torch.cat([o[0] for o in outs], dim=1)
         torch.cuda.synchronize()
         assert_close(got, gn_ops.plain_group_norm(x, w, b, G, 1e-5, silu), atol, 1e-2)
     assert (gn_ops.group_norm_partials.launches, gn_ops.group_norm_apply.launches) == (
         n0[0] + n, n0[1] + 2 * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C", [(4, 4096, 320), (4, 1024, 1920), (4, 64, 2560),
+                                   (4, 4096, 160)])
+def test_group_norm_split_pair_deterministic_and_graph_replayable(cuda, B, N, C):
+    """Two ranks' pair (both slices' partials, gathered; the first slice's
+    apply) launches one kernel a call by a trace, gives the same bits on
+    every call, and gives them again from a CUDA graph replayed three
+    times: no state carries from one launch to the next."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    G = 32 if C % 32 == 0 and C >= 320 else 16
+    x = (torch.randn(B, N, C, generator=gen, device=cuda) * 3 + 1).to(torch.bfloat16)
+    w = torch.randn(C, generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn(C, generator=gen, device=cuda).to(torch.bfloat16)
+    slices = [s.contiguous() for s in x.chunk(2, dim=1)]
+
+    def call():
+        parts = torch.stack([gn_ops.group_norm_partials(s, G) for s in slices])
+        return (parts, *gn_ops.group_norm_apply(slices[0], parts, w, b, 1e-5, True,
+                                                return_stats=True))
+
+    first = call()
+    out = []
+    traced = traced_kernel_counts(lambda: out.append(call()),
+                                  ("gn_partials_kernel", "gn_apply_kernel", "gn_cluster_kernel"))
+    assert traced == [2, 1, 0]
+    assert all(torch.equal(u, v) for u, v in zip(out[0], first))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(3):
+        for t_ in captured:
+            t_.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(captured, first))
 
 
 @pytest.mark.cuda
@@ -752,9 +825,11 @@ def test_group_norm_split_pair_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError, match="not divisible by groups"):
         gn_ops.group_norm_partials(x, 30)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        gn_ops.group_norm_apply(x, torch.zeros(2, 32, 2, device=cuda), w.half(), w)
-    with pytest.raises(ValueError, match="stats"):
-        gn_ops.group_norm_apply(x, torch.zeros(2, 32, 3, device=cuda), w, w)
+        gn_ops.group_norm_apply(x, torch.zeros(1, 2, 32, 3, device=cuda), w.half(), w, 1e-5)
+    with pytest.raises(ValueError, match="parts"):
+        gn_ops.group_norm_apply(x, torch.zeros(2, 32, 3, device=cuda), w, w, 1e-5)
+    with pytest.raises(ValueError, match="parts must be contiguous float32"):
+        gn_ops.group_norm_apply(x, torch.zeros(1, 2, 32, 3, device=cuda).double(), w, w, 1e-5)
     with pytest.raises(ValueError, match="contiguous"):
         gn_ops.group_norm_partials(x.transpose(0, 1), 32)
 

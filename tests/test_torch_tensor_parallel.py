@@ -508,8 +508,9 @@ def test_collectives_raise_without_a_process_group():
 
 def test_split_group_norm_plain_pair_matches_group_norm():
     """The split pair's plain versions: partials of 2 and 4 row slices,
-    merged in order, then applied, give ``plain_group_norm`` within 1e-5;
-    the merged statistics within 1e-6 relative of one slice's."""
+    gathered in order, merged and applied, give ``plain_group_norm``
+    within 1e-5; the merged statistics within 1e-6 relative of one
+    slice's."""
     x = torch.from_numpy(randn((2, 16, 8, 64), 31, 3.0) + 1.5)
     w, b = torch.from_numpy(randn((64,), 32)), torch.from_numpy(randn((64,), 33))
     want = GN.plain_group_norm(x, w, b, 16, 1e-5, True)
@@ -518,7 +519,7 @@ def test_split_group_norm_plain_pair_matches_group_norm():
         parts = torch.stack([GN.plain_group_norm_partials(s, 16) for s in x.chunk(n, dim=1)])
         stats = GN.merge_group_stats(parts, 1e-5)
         torch.testing.assert_close(stats, whole, rtol=1e-6, atol=0.0)
-        got = torch.cat([GN.plain_group_norm_apply(s, stats, w, b, True)
+        got = torch.cat([GN.plain_group_norm_apply(s, parts, w, b, 1e-5, True)
                          for s in x.chunk(n, dim=1)], dim=1)
         torch.testing.assert_close(got, want, rtol=0.0, atol=1e-5)
 
