@@ -1,0 +1,16 @@
+"""Share of the profiled window (the harness's step spans) in which no
+operation ran on the device."""
+
+LAYER = "device"
+UNIT = "%"
+SOURCE = "device_trace"
+MOVES = "train_images_per_s"
+BETTER = "lower"
+WORKLOADS = ["sd15-lora-b8"]
+
+
+def read(record):
+    trace = record.trace
+    if trace is None or trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s() / trace.window_s)
