@@ -66,6 +66,7 @@ from sonicdiffusionbayeslab_torch.parallel.mesh import (
 from sonicdiffusionbayeslab_torch.registry import models_registry
 from sonicdiffusionbayeslab_torch.schedulers import DPMSolverScheduler
 from sonicdiffusionbayeslab_torch.schedulers import plans as plan_composers
+from sonicdiffusionbayeslab_torch.utils import profiling
 from sonicdiffusionbayeslab_torch.utils.rng import (
     ENCODE_NOISE_TAG,
     INIT_NOISE_TAG,
@@ -400,10 +401,12 @@ class StableDiffusionModel:
             plan = self.build_plan(num_inference_steps, **plan_kw)
         self.num_timesteps = plan.nfe
 
-        embeds = self._encode(prompt)
-        neg = None
-        if guidance_scale > 1.0:
-            neg = self._encode(list(negative_prompt) if negative_prompt else [""] * len(prompt))
+        with profiling.span("pipeline.encode"):
+            embeds = self._encode(prompt)
+            neg = None
+            if guidance_scale > 1.0:
+                neg = self._encode(list(negative_prompt) if negative_prompt
+                                   else [""] * len(prompt))
         ip_arg = None
         if ip_image_embeds is not None:
             if not self.has_ip:

@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from sonicdiffusionbayeslab_torch.ops import _build
+from sonicdiffusionbayeslab_torch.utils import profiling
 
 MAX_HEAD_DIM = 160
 SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
@@ -230,4 +231,5 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        return attention_vjp(*ctx.saved_tensors, do)
+        with profiling.span("attention.backward"):
+            return attention_vjp(*ctx.saved_tensors, do)

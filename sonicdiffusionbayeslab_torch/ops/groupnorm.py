@@ -62,6 +62,7 @@ import math
 import torch
 
 from sonicdiffusionbayeslab_torch.ops import _build
+from sonicdiffusionbayeslab_torch.utils import profiling
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Plan constants (NVIDIA H100 SXM: 132 SMs, 227 KB of shared memory a block).
@@ -471,7 +472,7 @@ class GroupNormSiLUFn(torch.autograd.Function):
         inputs = [t.detach().requires_grad_(need)
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
         wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
+        with torch.enable_grad(), profiling.span("group_norm.backward"):
             y = reference_group_norm(*inputs, *ctx.config)
             grads = iter(torch.autograd.grad(y, wanted, dy))
         return (*(next(grads) if t.requires_grad else None for t in inputs), None, None, None)

@@ -46,7 +46,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from sonicdiffusionbayeslab_torch.models.sampler import guidance_scale_embedding
 from sonicdiffusionbayeslab_torch.models.unet import UNet2DCondition
@@ -59,6 +58,7 @@ from sonicdiffusionbayeslab_torch.training.trainer import (TrainState, _clone_tr
                                                            _own, data_mean_, ema_update, leaves,
                                                            split_adapters, split_inputs,
                                                            whole_params)
+from sonicdiffusionbayeslab_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,7 +238,7 @@ class LCMDistiller:
         a_t, s_t = self._alpha_sigma(t)
         z_t = a_t * latents + s_t * noise
 
-        with torch.no_grad(), record_function("distill_step.teacher"):
+        with torch.no_grad(), profiling.span("distill_step.teacher"):
             eps2 = eng.unet(torch.cat([z_t, z_t]).to(dt), torch.cat([t, t]).float(),
                             torch.cat([uncond, context]).to(dt)).float()
         eps_u, eps_c = eps2.chunk(2)
@@ -261,12 +261,12 @@ class LCMDistiller:
 
         # The target (EMA student) for every row, replaced by x0_t at the
         # clean boundary, as the JAX step's where: a fixed launch count.
-        with torch.no_grad(), record_function("distill_step.target"):
+        with torch.no_grad(), profiling.span("distill_step.target"):
             f_tgt = torch.where((s < 0)[:, None, None, None], x0_t,
                                 f_consistency(self._student_params(state.ema), z_s, s0, a_s, s_s,
                                               *self._scalings(s0)))
         flat = leaves(state.trainable)
-        with record_function("distill_step.loss_and_grad"):
+        with profiling.span("distill_step.loss_and_grad"):
             f_on = f_consistency(self._student_params(state.trainable), z_t, t, a_t, s_t,
                                  *self._scalings(t))
             loss = (torch.sqrt((f_on - f_tgt) ** 2 + cfg.huber_c ** 2) - cfg.huber_c).mean()
@@ -289,7 +289,7 @@ class LCMDistiller:
         loss, grads = self.value_and_grad(state, latents, context, uncond_context, generator,
                                           idx, noise, w)
         flat = leaves(state.trainable)
-        with torch.no_grad(), record_function("distill_step.optimizer"):
+        with torch.no_grad(), profiling.span("distill_step.optimizer"):
             gnorm = optim.global_norm(grads)
             updates, opt_state = self.tx.update(grads, state.opt_state, flat)
             optim.apply_updates(flat, updates)

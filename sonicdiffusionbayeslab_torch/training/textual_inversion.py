@@ -20,12 +20,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from sonicdiffusionbayeslab_torch.schedulers.schedule import NoiseSchedule, ScheduleConfig
 from sonicdiffusionbayeslab_torch.training import optim
 from sonicdiffusionbayeslab_torch.training.trainer import (TrainConfig, TrainState, _own,
                                                            ema_update)
+from sonicdiffusionbayeslab_torch.utils import profiling
 
 # The token table's name in the text tower's state dict.
 TOKEN_TABLE = "text_model.embeddings.token_embedding.weight"
@@ -128,11 +128,11 @@ class TextualInversionTrainer:
         0-dim tensors on the device (grad_norm before clipping); the rows
         (and their EMA) are updated in place.  Profiler spans
         ``ti_step.loss_and_grad`` and ``ti_step.optimizer``."""
-        with record_function("ti_step.loss_and_grad"):
+        with profiling.span("ti_step.loss_and_grad"):
             loss, grad = self.value_and_grad(state, latents, input_ids, generator, timesteps,
                                              noise)
         flat = {"rows": state.trainable}
-        with torch.no_grad(), record_function("ti_step.optimizer"):
+        with torch.no_grad(), profiling.span("ti_step.optimizer"):
             grads = {"rows": grad}
             gnorm = optim.global_norm(grads)
             updates, opt_state = self.tx.update(grads, state.opt_state, flat)

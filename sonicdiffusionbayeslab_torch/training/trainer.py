@@ -47,7 +47,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.func import functional_call
-from torch.profiler import record_function
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from sonicdiffusionbayeslab_torch.parallel import distributed
@@ -60,6 +59,7 @@ from sonicdiffusionbayeslab_torch.parallel.mesh import (
 from sonicdiffusionbayeslab_torch.schedulers.schedule import NoiseSchedule, ScheduleConfig
 from sonicdiffusionbayeslab_torch.training import optim
 from sonicdiffusionbayeslab_torch.training.lora import DEFAULT_TARGETS, apply_lora, init_lora
+from sonicdiffusionbayeslab_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,43 +347,45 @@ class DiffusionTrainer:
             else:
                 w = torch.ones(B, device=dev)
 
-        maybe_remat = _remat if cfg.remat else (lambda fn, *a: fn(*a))
-        x_in, c_in = noisy.to(dt), context.to(dt)
-        flat = leaves(state.trainable)
-        split = SplitParams.of(eng.controlnet if self.target == "controlnet" else eng.unet)
-        if self.target == "controlnet":
-            if hint is None:
-                raise ValueError("controlnet training needs a hint image batch")
-            hint = _own(torch.as_tensor(hint)).to(dev)
-            scale = torch.tensor(cfg.controlnet_scale, device=dev)
+        with profiling.span("train_step.forward"):
+            maybe_remat = _remat if cfg.remat else (lambda fn, *a: fn(*a))
+            x_in, c_in = noisy.to(dt), context.to(dt)
+            flat = leaves(state.trainable)
+            split = SplitParams.of(eng.controlnet if self.target == "controlnet" else eng.unet)
+            if self.target == "controlnet":
+                if hint is None:
+                    raise ValueError("controlnet training needs a hint image batch")
+                hint = _own(torch.as_tensor(hint)).to(dev)
+                scale = torch.tensor(cfg.controlnet_scale, device=dev)
 
-            def fwd(tr, x, tt, c, h):
-                residuals = functional_call(eng.controlnet, split_inputs(split, tr, dt),
-                                            (x, tt, c, h, scale), added, strict=False)
-                return eng.unet(x, tt, c, control_residuals=residuals, **added).float()
+                def fwd(tr, x, tt, c, h):
+                    residuals = functional_call(eng.controlnet, split_inputs(split, tr, dt),
+                                                (x, tt, c, h, scale), added, strict=False)
+                    return eng.unet(x, tt, c, control_residuals=residuals, **added).float()
 
-            pred = maybe_remat(fwd, state.trainable, x_in, t, c_in, hint)
-        elif self.target == "lora":
-            merged = apply_lora(dict(eng.unet.named_parameters()),
-                                split_adapters(split, state.trainable), scale=cfg.lora_scale)
+                pred = maybe_remat(fwd, state.trainable, x_in, t, c_in, hint)
+            elif self.target == "lora":
+                merged = apply_lora(dict(eng.unet.named_parameters()),
+                                    split_adapters(split, state.trainable), scale=cfg.lora_scale)
 
-            def fwd(p, x, tt, c):
-                return self._unet_call(eng.unet, p, x, tt, c, added).float()
+                def fwd(p, x, tt, c):
+                    return self._unet_call(eng.unet, p, x, tt, c, added).float()
 
-            pred = maybe_remat(fwd, merged, x_in, t, c_in)
-        else:
-            def fwd(tr, x, tt, c):
-                return self._unet_call(eng.unet, split_inputs(split, tr, dt), x, tt, c,
-                                       added).float()
+                pred = maybe_remat(fwd, merged, x_in, t, c_in)
+            else:
+                def fwd(tr, x, tt, c):
+                    return self._unet_call(eng.unet, split_inputs(split, tr, dt), x, tt, c,
+                                           added).float()
 
-            pred = maybe_remat(fwd, state.trainable, x_in, t, c_in)
-        per = ((pred - y) ** 2).mean(dim=(1, 2, 3))
-        loss = (w * per).mean()
-        grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
-        loss = loss.detach()
-        if split is not None:
-            split.sum_grads_(grads)
-        data_mean_(self.mesh, [loss, *grads.values()])
+                pred = maybe_remat(fwd, state.trainable, x_in, t, c_in)
+            per = ((pred - y) ** 2).mean(dim=(1, 2, 3))
+            loss = (w * per).mean()
+        with profiling.span("train_step.backward"):
+            grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+            loss = loss.detach()
+            if split is not None:
+                split.sum_grads_(grads)
+            data_mean_(self.mesh, [loss, *grads.values()])
         return loss, grads
 
     def train_step(self, state: TrainState, latents, context, generator=None, hint=None,
@@ -392,12 +394,14 @@ class DiffusionTrainer:
         0-dim tensors on the device (grad_norm before clipping).  The
         state's tensors are updated in place.  Profiler spans:
         ``train_step.loss_and_grad`` and ``train_step.optimizer`` (the
-        norm, the clipped update and EMA)."""
-        with record_function("train_step.loss_and_grad"):
+        norm, the clipped update and EMA); inside the first,
+        ``train_step.forward`` (the LoRA merge or the split inputs, the
+        forward, the loss) and ``train_step.backward``."""
+        with profiling.span("train_step.loss_and_grad"):
             loss, grads = self.value_and_grad(state, latents, context, generator, hint, added,
                                               noise, timesteps, u)
         flat = leaves(state.trainable)
-        with torch.no_grad(), record_function("train_step.optimizer"):
+        with torch.no_grad(), profiling.span("train_step.optimizer"):
             gnorm = optim.global_norm(grads)
             updates, opt_state = self.tx.update(grads, state.opt_state, flat)
             optim.apply_updates(flat, updates)

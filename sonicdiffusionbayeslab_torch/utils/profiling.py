@@ -10,7 +10,9 @@ Counterpart of ``sonicdiffusionbayeslab_tpu/utils/profiling.py``:
   Chrome trace (``*.pt.trace.json``) into a directory, which
   ``utils/trace_analysis.py`` reads;
 * :func:`flops_estimate`: the floating-point operations of one call, from
-  ``torch.utils.flop_counter.FlopCounterMode`` plus the port's kernels.
+  ``torch.utils.flop_counter.FlopCounterMode`` plus the port's kernels;
+* :func:`span`: a named ``record_function`` span where a profiler runs, and
+  nothing at all where none does.
 
 The JAX package's ``flops_estimate`` is XLA's cost analysis of the
 compiled function, which also counts elementwise work (activations,
@@ -90,6 +92,21 @@ def trace(log_dir: str | Path = "outputs/profile"):
             torch.cuda.synchronize()
     name = f"{socket.gethostname()}_{os.getpid()}.{int(time.time() * 1e3)}.pt.trace.json"
     prof.export_chrome_trace(str(log_dir / name))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("pipeline.encode"): ...``: a ``record_function`` span (a Kineto
+    host event on the device trace's clock, kept in the profiler's memory
+    until it ends) while ``torch.profiler`` runs; otherwise one shared null
+    context, so a span costs one flag read and enters no torch op.  The flag
+    is process-wide: a thread that the profiler does not follow (one started
+    before it, unless it profiles all threads) records nothing either way."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.autograd.profiler.record_function(name)
 
 
 def flops_estimate(fn, *args) -> dict:
